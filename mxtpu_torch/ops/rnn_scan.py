@@ -1,0 +1,207 @@
+"""LSTM and GRU time loops: CUDA kernels and their plain versions.
+
+Counterpart of ``mxtpu/ops/pallas_rnn.py``. :func:`lstm_scan` and
+:func:`gru_scan` take the same arguments and return the same outputs as
+the JAX functions of that name. On a CUDA tensor they launch the
+hand-written kernels of ``csrc/rnn_scan.cu`` (built by ``_build.py``) or
+raise; on a CPU tensor they run the plain PyTorch versions
+:func:`lstm_scan_reference` / :func:`gru_scan_reference`, which mirror
+``_scan_reference`` / ``_gru_scan_reference`` of the JAX package: carry
+and gate math in f32, outputs cast back to the inputs' dtypes. On a
+``meta`` tensor (shape inference) they return empty outputs of the
+right shapes.
+
+``LAUNCHES`` counts kernel launches per kernel; :func:`reset_launches`
+zeroes it. Only a launch bumps it.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["lstm_scan", "gru_scan", "lstm_scan_reference",
+           "gru_scan_reference", "LAUNCHES", "reset_launches"]
+
+LAUNCHES = {"lstm_scan": 0, "gru_scan": 0}
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def lstm_scan_reference(x_proj, h0, c0, wh_t):
+    """x_proj (T, N, 4H) gates [i, f, g, o], h0/c0 (N, H), wh_t (H, 4H).
+    Returns ys (T, N, H) in x_proj's dtype, hT/cT in h0/c0's dtypes."""
+    H = h0.shape[-1]
+    wh32 = wh_t.float()
+    h, c = h0.float(), c0.float()
+    ys = []
+    for t in range(x_proj.shape[0]):
+        gates = x_proj[t].float() + h @ wh32
+        i = torch.sigmoid(gates[:, 0 * H:1 * H])
+        f = torch.sigmoid(gates[:, 1 * H:2 * H])
+        g = torch.tanh(gates[:, 2 * H:3 * H])
+        o = torch.sigmoid(gates[:, 3 * H:4 * H])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h.to(x_proj.dtype))
+    ys = torch.stack(ys) if ys else x_proj.new_empty((0,) + tuple(h0.shape))
+    return ys, h.to(h0.dtype), c.to(c0.dtype)
+
+
+def gru_scan_reference(x_proj, h0, whrz_t, whn_t, bhn):
+    """x_proj (T, N, 3H) gates [r, z, n] with the r/z recurrent bias
+    folded in, h0 (N, H), whrz_t (H, 2H), whn_t (H, H), bhn (H,).
+    Returns ys (T, N, H) in x_proj's dtype and hT in h0's dtype."""
+    H = h0.shape[-1]
+    whrz32, whn32, bhn32 = whrz_t.float(), whn_t.float(), bhn.float()
+    h = h0.float()
+    ys = []
+    for t in range(x_proj.shape[0]):
+        xp = x_proj[t].float()
+        rz = torch.sigmoid(xp[:, :2 * H] + h @ whrz32)
+        r, z = rz[:, :H], rz[:, H:]
+        n = torch.tanh(xp[:, 2 * H:] + r * (h @ whn32 + bhn32))
+        h = (1 - z) * n + z * h
+        ys.append(h.to(x_proj.dtype))
+    ys = torch.stack(ys) if ys else x_proj.new_empty((0,) + tuple(h0.shape))
+    return ys, h.to(h0.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, tensors, shapes, dtypes, device):
+    for (arg, t), shape, dtype in zip(tensors, shapes, dtypes):
+        if t.device != device:
+            raise ValueError("%s: %s is on %s, x_proj on %s"
+                             % (name, arg, t.device, device))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError("%s: %s has shape %s, want %s"
+                             % (name, arg, tuple(t.shape), tuple(shape)))
+        if t.dtype != dtype:
+            raise TypeError("%s: %s is %s, want %s"
+                            % (name, arg, t.dtype, dtype))
+        if not t.is_contiguous():
+            raise ValueError("%s: %s must be contiguous" % (name, arg))
+
+
+def _check_dtypes(name, x_dtype, s_dtype):
+    for d in (x_dtype, s_dtype):
+        if d not in _KERNEL_DTYPES:
+            raise TypeError("%s: the CUDA kernel takes float32 or bfloat16, "
+                            "got %s" % (name, d))
+
+
+def _check_sizes(name, T, N, H):
+    if T < 1 or N < 1 or H < 1:
+        raise ValueError("%s: empty problem T=%d N=%d H=%d" % (name, T, N, H))
+    if 6 * H * 4 > 227 * 1024:
+        raise ValueError("%s: H=%d exceeds the kernel's shared memory"
+                         % (name, H))
+
+
+def _raise_on(name, err):
+    if err != 0:
+        raise RuntimeError("%s: CUDA kernel launch failed with cudaError %d"
+                           % (name, err))
+
+
+def _lstm_cuda(x_proj, h0, c0, wh_t):
+    from .._build import load
+    T, N, G = x_proj.shape
+    H = h0.shape[-1]
+    dev = x_proj.device
+    _check_sizes("lstm_scan", T, N, H)
+    if G != 4 * H:
+        raise ValueError("lstm_scan: x_proj has %d gate columns, want 4H=%d"
+                         % (G, 4 * H))
+    xd, sd = x_proj.dtype, h0.dtype
+    _check_dtypes("lstm_scan", xd, sd)
+    _check("lstm_scan", [("x_proj", x_proj), ("wh_t", wh_t), ("h0", h0),
+                         ("c0", c0)],
+           [(T, N, G), (H, G), (N, H), (N, H)], [xd, xd, sd, sd], dev)
+    ys = torch.empty((T, N, H), dtype=xd, device=dev)
+    hT = torch.empty((N, H), dtype=sd, device=dev)
+    cT = torch.empty((N, H), dtype=sd, device=dev)
+    lib = load("rnn_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mx_lstm_scan(
+            x_proj.data_ptr(), wh_t.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
+            T, N, H, int(xd == torch.bfloat16), int(sd == torch.bfloat16),
+            stream)
+    _raise_on("lstm_scan", err)
+    LAUNCHES["lstm_scan"] += 1
+    return ys, hT, cT
+
+
+def _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn):
+    from .._build import load
+    T, N, G = x_proj.shape
+    H = h0.shape[-1]
+    dev = x_proj.device
+    _check_sizes("gru_scan", T, N, H)
+    if G != 3 * H:
+        raise ValueError("gru_scan: x_proj has %d gate columns, want 3H=%d"
+                         % (G, 3 * H))
+    xd, sd = x_proj.dtype, h0.dtype
+    _check_dtypes("gru_scan", xd, sd)
+    _check("gru_scan", [("x_proj", x_proj), ("whrz_t", whrz_t),
+                        ("whn_t", whn_t), ("bhn", bhn), ("h0", h0)],
+           [(T, N, G), (H, 2 * H), (H, H), (H,), (N, H)],
+           [xd, xd, xd, xd, sd], dev)
+    ys = torch.empty((T, N, H), dtype=xd, device=dev)
+    hT = torch.empty((N, H), dtype=sd, device=dev)
+    lib = load("rnn_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mx_gru_scan(
+            x_proj.data_ptr(), whrz_t.data_ptr(), whn_t.data_ptr(),
+            bhn.data_ptr(), h0.data_ptr(), ys.data_ptr(), hT.data_ptr(),
+            T, N, H, int(xd == torch.bfloat16), int(sd == torch.bfloat16),
+            stream)
+    _raise_on("gru_scan", err)
+    LAUNCHES["gru_scan"] += 1
+    return ys, hT
+
+
+def lstm_scan(x_proj, h0, c0, wh_t):
+    """Fused LSTM over time (``mxtpu.ops.pallas_rnn.lstm_scan``).
+    x_proj: (T, N, 4H) pre-projected inputs with biases, h0/c0: (N, H),
+    wh_t: (H, 4H) transposed recurrent weights, gate order [i, f, g, o].
+    Returns (ys (T, N, H), hT, cT)."""
+    kind = x_proj.device.type
+    if kind == "cuda":
+        return _lstm_cuda(x_proj, h0, c0, wh_t)
+    if kind == "cpu":
+        return lstm_scan_reference(x_proj, h0, c0, wh_t)
+    if kind == "meta":
+        T, N, _ = x_proj.shape
+        return (x_proj.new_empty((T, N, h0.shape[-1])), torch.empty_like(h0),
+                torch.empty_like(c0))
+    raise ValueError("lstm_scan: no path for device %s" % x_proj.device)
+
+
+def gru_scan(x_proj, h0, whrz_t, whn_t, bhn):
+    """Fused GRU over time (``mxtpu.ops.pallas_rnn.gru_scan``).
+    x_proj: (T, N, 3H) pre-projected inputs (x @ Wx + bi, with the r/z
+    recurrent bias folded in), gate order [r, z, n]; h0: (N, H);
+    whrz_t: (H, 2H); whn_t: (H, H); bhn: (H,). Returns (ys, hT)."""
+    kind = x_proj.device.type
+    if kind == "cuda":
+        return _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn)
+    if kind == "cpu":
+        return gru_scan_reference(x_proj, h0, whrz_t, whn_t, bhn)
+    if kind == "meta":
+        T, N, _ = x_proj.shape
+        return x_proj.new_empty((T, N, h0.shape[-1])), torch.empty_like(h0)
+    raise ValueError("gru_scan: no path for device %s" % x_proj.device)

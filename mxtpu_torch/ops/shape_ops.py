@@ -1,0 +1,94 @@
+"""Shape ops of the PyTorch port.
+
+Counterpart of the part of ``mxtpu/ops/shape_ops.py`` that the fused
+RNN cell's ``unroll`` and the serving graphs emit: reshape (with MXNet's
+special codes), swapaxes, expand_dims, stack, split and the nullary
+``_zeros`` creator.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import canonical_dtype
+from .registry import register
+
+
+@register("reshape", aliases=("Reshape",))
+def reshape(data, shape=None, reverse=False):
+    """MXNet reshape incl. special codes 0 (keep), -1 (infer), -2 (copy
+    rest), -3 (merge two), -4 (split). Same rules as mxtpu's reshape."""
+    if shape is None:
+        return data
+    ishape = list(data.shape)
+    if reverse:
+        ishape = ishape[::-1]
+        shape = tuple(shape)[::-1]
+    out = []
+    i = 0
+    shape = list(shape)
+    j = 0
+    while j < len(shape):
+        s = shape[j]
+        if s == 0:
+            out.append(ishape[i])
+            i += 1
+        elif s == -1:
+            out.append(-1)
+            i += 1
+        elif s == -2:
+            out.extend(ishape[i:])
+            i = len(ishape)
+        elif s == -3:
+            out.append(ishape[i] * ishape[i + 1])
+            i += 2
+        elif s == -4:
+            a, b = shape[j + 1], shape[j + 2]
+            if a == -1:
+                a = ishape[i] // b
+            if b == -1:
+                b = ishape[i] // a
+            out.extend([a, b])
+            i += 1
+            j += 2
+        else:
+            out.append(s)
+            if i < len(ishape):
+                i += 1
+        j += 1
+    if reverse:
+        out = out[::-1]
+    return torch.reshape(data, tuple(out))
+
+
+@register("swapaxes", aliases=("SwapAxis",))
+def swapaxes(data, dim1=0, dim2=0):
+    return torch.transpose(data, dim1, dim2).contiguous()
+
+
+@register("expand_dims")
+def expand_dims(data, axis=0):
+    return torch.unsqueeze(data, axis)
+
+
+@register("stack")
+def stack(*args, axis=0):
+    return torch.stack(args, dim=axis)
+
+
+@register("split", aliases=("SliceChannel",), num_outputs=None)
+def split(data, num_outputs=2, axis=1, squeeze_axis=False):
+    size = data.shape[axis]
+    if size % num_outputs:
+        raise ValueError("split: axis %d of size %d does not divide into %d"
+                         % (axis, size, num_outputs))
+    outs = torch.split(data, size // num_outputs, dim=axis)
+    if squeeze_axis:
+        outs = [torch.squeeze(o, dim=axis) for o in outs]
+    return tuple(outs)
+
+
+@register("_zeros", needs_device=True)
+def _zeros_op(shape=(), dtype="float32", _device=None):
+    """Nullary zeros creator (symbolic begin_state)."""
+    return torch.zeros(tuple(shape), dtype=canonical_dtype(dtype),
+                       device=_device)

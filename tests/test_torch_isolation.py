@@ -1,0 +1,67 @@
+"""mxtpu_torch stands alone: no module of the package (nor chip_smoke.py)
+imports JAX or mxtpu, and the package imports and runs with JAX made
+unimportable."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "mxtpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module):
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "mxtpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_mxtpu_import(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, "%s imports %s" % (path.relative_to(ROOT), bad)
+
+
+def test_scan_catches_forbidden_imports():
+    for m in ("jax", "jax.numpy", "mxtpu", "mxtpu.ops.registry"):
+        assert _forbidden(m)
+    for m in ("mxtpu_torch", "mxtpu_torch.ops", "torch", "numpy"):
+        assert not _forbidden(m)
+
+
+def test_imports_and_runs_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxtpu'] = None\n"
+        "import numpy as np, torch\n"
+        "before = set(sys.modules)\n"
+        "import mxtpu_torch as mt\n"
+        "from mxtpu_torch.ops.rnn_scan import lstm_scan\n"
+        "rng = np.random.RandomState(0)\n"
+        "xp, h0, c0 = (torch.from_numpy(rng.standard_normal(s)"
+        ".astype(np.float32)) for s in [(3, 2, 16), (2, 4), (2, 4)])\n"
+        "wh = torch.from_numpy(rng.standard_normal((4, 16))"
+        ".astype(np.float32))\n"
+        "ys, hT, cT = lstm_scan(xp, h0, c0, wh)\n"
+        "assert ys.shape == (3, 2, 4) and torch.isfinite(ys).all()\n"
+        "assert not [m for m in set(sys.modules) - before\n"
+        "            if m.split('.')[0] in ('jax', 'jaxlib', 'mxtpu')]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
