@@ -1,9 +1,10 @@
 """mxtpu_torch — the PyTorch/CUDA port of mxtpu for NVIDIA Hopper.
 
 The same public names as ``mxtpu`` (``mx.nd``, ``mx.sym``, ``mx.rnn``,
-``mx.serving``, contexts, checkpoints), computed with PyTorch: plain
-tensor code in torch, and every kernel that ``mxtpu`` wrote in Pallas
-for the TPU hand-written in CUDA C++ for ``sm_90a`` under ``csrc/``,
+``mx.serving``, ``mx.parallel``, contexts, checkpoints), computed with
+PyTorch: plain tensor code in torch, and every kernel that ``mxtpu``
+wrote in Pallas for the TPU hand-written in CUDA C++ for ``sm_90a``
+under ``csrc/``,
 built at first use (:mod:`mxtpu_torch._build`). Entry points run on
 ``gpu(0)`` (``cuda:0``) unless the caller passes ``ctx=cpu()``.
 The port imports neither JAX nor ``mxtpu``.
@@ -24,8 +25,10 @@ from . import model
 from . import module
 from . import module as mod
 from . import serving
+from . import parallel
 from .ndarray import NDArray
 
 __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "ops", "ndarray", "nd", "symbol",
-           "sym", "rnn", "model", "module", "mod", "serving", "NDArray"]
+           "sym", "rnn", "model", "module", "mod", "serving", "parallel",
+           "NDArray"]

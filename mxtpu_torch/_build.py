@@ -23,7 +23,8 @@ from .base import MXTPUError
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "load"]
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = {"rnn_scan": _PKG / "csrc" / "rnn_scan.cu"}
+SOURCES = {"rnn_scan": _PKG / "csrc" / "rnn_scan.cu",
+           "flash_attention": _PKG / "csrc" / "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,11 @@ _SIGNATURES = {
     "rnn_scan": {
         "mx_lstm_scan": (_P,) * 7 + (_I,) * 5 + (_P,),
         "mx_gru_scan": (_P,) * 7 + (_I,) * 5 + (_P,),
+    },
+    "flash_attention": {
+        "mx_flash_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
+        "mx_flash_bwd_dq": (_P,) * 8 + (_I,) * 6 + (_P,),
+        "mx_flash_bwd_dkv": (_P,) * 9 + (_I,) * 6 + (_P,),
     },
 }
 

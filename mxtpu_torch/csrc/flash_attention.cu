@@ -1,0 +1,462 @@
+// Flash attention, forward and backward, for Hopper (sm_90a), plain C
+// interface.
+//
+// Replaces the three Pallas TPU kernels of mxtpu/ops/pallas_attention.py:
+//   mx_flash_fwd      <- fwd_kernel      (pallas_attention.py:101, call :142)
+//   mx_flash_bwd_dq   <- bwd_dq_kernel   (pallas_attention.py:173, call :236)
+//   mx_flash_bwd_dkv  <- bwd_dkv_kernel  (pallas_attention.py:199, call :255)
+// They compute the same functions, not the same blocks.  The TPU kernels
+// walk a grid whose innermost axis runs in order, carrying the running
+// max, denominator and accumulators in VMEM scratch from one grid step to
+// the next.  Blocks on the card run in no order, so here a loop inside the
+// block takes the place of that axis:
+//   - fwd and dQ: one block per (b*h, 64-row Q tile), looping over K/V
+//     tiles up to the causal limit of its last row;
+//   - dK/dV: one block per (b*h, 64-row K tile), looping over Q tiles from
+//     the first row that can see it.
+// This is the flash-attention-2 split the TPU code uses: every output row
+// has one owner, so there are no atomics and the results are
+// deterministic.
+//
+// Inside a block, each row (a Q row, or a K row in dK/dV) belongs to a
+// group of G = D/16 consecutive lanes; lane g of the group holds dims
+// 4*(g + G*c) + e (c < 4, e < 4) of the row's vectors in registers, so the
+// group's lanes read neighbouring float4s of a shared-memory row and the
+// rest of the warp reads the same addresses (a broadcast).  A dot product
+// is 16 FMAs per lane and a shuffle reduction over the group.  The tile
+// being streamed (K/V, or Q/dO) sits in shared memory as f32; bf16 inputs
+// are converted once on the way in (__bfloat162float).  All arithmetic is
+// f32 on the CUDA cores: m, l, the accumulators, lse and delta.
+//
+// Masks follow the Pallas kernels: key j is live for query i iff j <
+// kv_len and, when causal, q_off + i >= k_off + j (global positions, from
+// the 4-float device vector offs = [q_off, k_off, kv_len, scale], read on
+// the card: no host sync).  Masked scores are -1e30 before the running max
+// and p is zeroed under the mask, so corr = exp(m_prev - m_new) is 1 while
+// both are -1e30, and a row with no live key ends with O = 0 and lse =
+// -1e30.  Rows and keys past T are masked here, so the caller needs no
+// padding copies.
+//
+// What bounds it on this card: the products.  Per live (query, key) pair
+// the forward does 4*D flops, dQ 6*D and dK/dV 8*D, all as f32 FMAs on the
+// CUDA cores, whose peak (67 TFLOP/s) is 1/15 of the bf16 tensor-core rate
+// the bound is stated against for bf16 inputs; each FMA also needs a
+// shared-memory operand, which a float4 broadcast spreads over four.  The
+// inputs are read once per tile pair from L2.  Moving the products to
+// wgmma with the tiles brought in by TMA is later work: this version is
+// the simple, right one.
+//
+// The wrapper (mxtpu_torch/ops/flash_attention.py) checks devices, dtypes,
+// shapes and contiguity, allocates every output and passes PyTorch's
+// current stream; each entry returns cudaGetLastError() after its launch.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+constexpr float kNeg = -1e30f;  // _NEG of the Pallas kernels
+constexpr int kRows = 64;       // rows a block owns (Q rows, or K rows)
+constexpr int kDT = 16;         // dims of a row one lane holds
+constexpr int kNC = kDT / 4;    // float4 chunks of them
+constexpr int kCH = 8;          // keys (queries) scored per step of the loop
+
+__device__ __forceinline__ float load(const float* p, long i) { return p[i]; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store(float* p, long i, float v) { p[i] = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, long i, float v) {
+  p[i] = __float2bfloat16(v);  // round to nearest even, as torch casts
+}
+
+// dim of chunk c, element e, for lane g of a group of G
+template <int G>
+__device__ __forceinline__ int dim_of(int g, int c) { return 4 * (g + G * c); }
+
+// sum over the G lanes of a group (consecutive lanes of one warp)
+template <int G>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// a row's slice in registers, from global memory (zeros past the end)
+template <int G, typename T>
+__device__ __forceinline__ void load_row(float (&r)[kNC][4], const T* base, long row,
+                                         bool valid, int D, int g) {
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      r[c][e] = valid ? load(base, row * D + dim_of<G>(g, c) + e) : 0.0f;
+}
+
+template <int G, typename T>
+__device__ __forceinline__ void store_row(T* base, long row, const float (&r)[kNC][4],
+                                          float div, int D, int g) {
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) store(base, row * D + dim_of<G>(g, c) + e, r[c][e] / div);
+}
+
+// partial dot product of a register slice with row j of a shared tile
+template <int G>
+__device__ __forceinline__ float dot_smem(const float (&r)[kNC][4], const float* tile,
+                                          int j, int D, int g) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kNC; ++c) {
+    const float4 t = *reinterpret_cast<const float4*>(tile + j * D + dim_of<G>(g, c));
+    acc = fmaf(r[c][0], t.x, acc);
+    acc = fmaf(r[c][1], t.y, acc);
+    acc = fmaf(r[c][2], t.z, acc);
+    acc = fmaf(r[c][3], t.w, acc);
+  }
+  return acc;
+}
+
+// acc += w * row j of a shared tile
+template <int G>
+__device__ __forceinline__ void axpy_smem(float (&acc)[kNC][4], float w, const float* tile,
+                                          int j, int D, int g) {
+#pragma unroll
+  for (int c = 0; c < kNC; ++c) {
+    const float4 t = *reinterpret_cast<const float4*>(tile + j * D + dim_of<G>(g, c));
+    acc[c][0] = fmaf(w, t.x, acc[c][0]);
+    acc[c][1] = fmaf(w, t.y, acc[c][1]);
+    acc[c][2] = fmaf(w, t.z, acc[c][2]);
+    acc[c][3] = fmaf(w, t.w, acc[c][3]);
+  }
+}
+
+// rows [row0, row0 + n) of a (T, D) matrix into a shared (n, D) f32 tile,
+// zeros past T; all threads of the block take part
+template <typename T>
+__device__ __forceinline__ void load_tile(float* tile, const T* base, int row0, int n, int T_,
+                                          int D) {
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
+    const int r = row0 + i / D;
+    tile[i] = r < T_ ? load(base, (long)row0 * D + i) : 0.0f;
+  }
+}
+
+struct Offs {
+  int q_off, k_off, kv_len;
+  float scale;
+};
+
+__device__ __forceinline__ Offs read_offs(const float* offs, int Tk) {
+  Offs o;
+  o.q_off = (int)offs[0];
+  o.k_off = (int)offs[1];
+  o.kv_len = min((int)offs[2], Tk);
+  o.scale = offs[3];
+  return o;
+}
+
+// Number of keys a Q tile must visit: up to the causal limit of its last
+// row (block-uniform, so every lane runs the same loop and the shuffles
+// see whole warps).
+__device__ __forceinline__ int key_end(const Offs& o, int q0, int causal) {
+  if (!causal) return o.kv_len;
+  const int last = o.q_off + q0 + kRows - 1 - o.k_off + 1;  // keys j < last
+  return max(0, min(o.kv_len, last));
+}
+
+// ---------------------------------------------------------------------------
+// forward: O and lse for one (b*h, Q tile)
+// ---------------------------------------------------------------------------
+template <int D, typename T>
+__global__ void __launch_bounds__(kRows * (D / kDT))
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const float* __restrict__ offs, T* __restrict__ o, float* __restrict__ lse,
+                 int Tq, int Tk, int n_tiles, int causal) {
+  constexpr int G = D / kDT;
+  constexpr int BK = (4096 / D) < 64 ? (4096 / D) : 64;
+  __shared__ __align__(16) float ks[BK * D];
+  __shared__ __align__(16) float vs[BK * D];
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x % n_tiles) * kRows;
+  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const int qi = q0 + r;
+  const Offs of = read_offs(offs, Tk);
+  const T* qb = q + (long)bh * Tq * D;
+  const T* kb = k + (long)bh * Tk * D;
+  const T* vb = v + (long)bh * Tk * D;
+
+  float qr[kNC][4], acc[kNC][4];
+  load_row<G>(qr, qb, qi, qi < Tq, D, g);
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+  float m = kNeg, l = 0.0f;
+  const int q_glob = of.q_off + qi;
+  const int kend = key_end(of, q0, causal);
+
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    __syncthreads();
+    load_tile(ks, kb, k0, BK, Tk, D);
+    load_tile(vs, vb, k0, BK, Tk, D);
+    __syncthreads();
+    const int nk = min(BK, kend - k0);
+    for (int j0 = 0; j0 < nk; j0 += kCH) {
+      float s[kCH];
+      bool live[kCH];
+      float m_new = m;
+#pragma unroll
+      for (int jj = 0; jj < kCH; ++jj) {
+        const int j = k0 + j0 + jj;
+        const float d = group_sum<G>(dot_smem<G>(qr, ks, j0 + jj, D, g));
+        live[jj] = j < of.kv_len && (!causal || q_glob >= of.k_off + j);
+        s[jj] = live[jj] ? d * of.scale : kNeg;
+        m_new = fmaxf(m_new, s[jj]);
+      }
+      const float corr = expf(m - m_new);
+      float psum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][e] *= corr;
+#pragma unroll
+      for (int jj = 0; jj < kCH; ++jj) {
+        const float p = live[jj] ? expf(s[jj] - m_new) : 0.0f;
+        psum += p;
+        axpy_smem<G>(acc, p, vs, j0 + jj, D, g);
+      }
+      l = l * corr + psum;
+      m = m_new;
+    }
+  }
+  if (qi < Tq) {
+    const float l_safe = l == 0.0f ? 1.0f : l;
+    store_row<G>(o + (long)bh * Tq * D, qi, acc, l_safe, D, g);
+    if (g == 0) lse[(long)bh * Tq + qi] = l == 0.0f ? kNeg : m + logf(l_safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, dQ for one (b*h, Q tile):
+//   dQ = sum_k ds K,  ds = p (dO.V^T - delta) scale,  p = exp(s scale - lse)
+// ---------------------------------------------------------------------------
+template <int D, typename T>
+__global__ void __launch_bounds__(kRows * (D / kDT))
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const float* __restrict__ offs,
+                    T* __restrict__ dq, int Tq, int Tk, int n_tiles, int causal) {
+  constexpr int G = D / kDT;
+  constexpr int BK = (4096 / D) < 64 ? (4096 / D) : 64;
+  __shared__ __align__(16) float ks[BK * D];
+  __shared__ __align__(16) float vs[BK * D];
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x % n_tiles) * kRows;
+  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const int qi = q0 + r;
+  const bool valid = qi < Tq;
+  const Offs of = read_offs(offs, Tk);
+  const T* kb = k + (long)bh * Tk * D;
+  const T* vb = v + (long)bh * Tk * D;
+
+  float qr[kNC][4], dor[kNC][4], acc[kNC][4];
+  load_row<G>(qr, q + (long)bh * Tq * D, qi, valid, D, g);
+  load_row<G>(dor, dout + (long)bh * Tq * D, qi, valid, D, g);
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+  const float lse_i = valid ? lse[(long)bh * Tq + qi] : 0.0f;
+  const float delta_i = valid ? delta[(long)bh * Tq + qi] : 0.0f;
+  const int q_glob = of.q_off + qi;
+  const int kend = key_end(of, q0, causal);
+
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    __syncthreads();
+    load_tile(ks, kb, k0, BK, Tk, D);
+    load_tile(vs, vb, k0, BK, Tk, D);
+    __syncthreads();
+    const int nk = min(BK, kend - k0);
+    for (int j0 = 0; j0 < nk; j0 += kCH) {
+#pragma unroll
+      for (int jj = 0; jj < kCH; ++jj) {
+        const int j = k0 + j0 + jj;
+        const float s = group_sum<G>(dot_smem<G>(qr, ks, j0 + jj, D, g));
+        const float dp = group_sum<G>(dot_smem<G>(dor, vs, j0 + jj, D, g));
+        const bool live = j < of.kv_len && (!causal || q_glob >= of.k_off + j);
+        const float p = live ? expf(s * of.scale - lse_i) : 0.0f;
+        axpy_smem<G>(acc, p * (dp - delta_i) * of.scale, ks, j0 + jj, D, g);
+      }
+    }
+  }
+  if (valid) store_row<G>(dq + (long)bh * Tq * D, qi, acc, 1.0f, D, g);
+}
+
+// ---------------------------------------------------------------------------
+// backward, dK and dV for one (b*h, K tile):
+//   dV = sum_q p^T dO,  dK = sum_q ds^T Q
+// ---------------------------------------------------------------------------
+template <int D, typename T>
+__global__ void __launch_bounds__(kRows * (D / kDT))
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const float* __restrict__ offs,
+                     T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int n_tiles,
+                     int causal) {
+  constexpr int G = D / kDT;
+  constexpr int BQ = (4096 / D) < 64 ? (4096 / D) : 64;
+  __shared__ __align__(16) float qs[BQ * D];
+  __shared__ __align__(16) float dos[BQ * D];
+  __shared__ float lses[BQ];
+  __shared__ float deltas[BQ];
+  const int bh = blockIdx.x / n_tiles;
+  const int k0 = (blockIdx.x % n_tiles) * kRows;
+  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const int kj = k0 + r;
+  const Offs of = read_offs(offs, Tk);
+  const bool valid = kj < Tk;
+  const bool key_live = kj < of.kv_len;
+  const T* qb = q + (long)bh * Tq * D;
+  const T* db = dout + (long)bh * Tq * D;
+  const float* lb = lse + (long)bh * Tq;
+  const float* eb = delta + (long)bh * Tq;
+
+  float kr[kNC][4], vr[kNC][4], dka[kNC][4], dva[kNC][4];
+  load_row<G>(kr, k + (long)bh * Tk * D, kj, valid, D, g);
+  load_row<G>(vr, v + (long)bh * Tk * D, kj, valid, D, g);
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.0f;
+  const int k_glob = of.k_off + kj;
+  // first query row that can see the tile's first key (block-uniform)
+  const int qstart = causal ? max(0, min(Tq, of.k_off + k0 - of.q_off)) : 0;
+  const int qstart_tile = qstart - qstart % BQ;
+
+  for (int i0 = qstart_tile; i0 < Tq; i0 += BQ) {
+    __syncthreads();
+    load_tile(qs, qb, i0, BQ, Tq, D);
+    load_tile(dos, db, i0, BQ, Tq, D);
+    for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
+      lses[i] = i0 + i < Tq ? lb[i0 + i] : 0.0f;
+      deltas[i] = i0 + i < Tq ? eb[i0 + i] : 0.0f;
+    }
+    __syncthreads();
+    const int nq = min(BQ, Tq - i0);
+    for (int ii0 = 0; ii0 < nq; ii0 += kCH) {
+#pragma unroll
+      for (int ii = 0; ii < kCH; ++ii) {
+        const int i = i0 + ii0 + ii;
+        const float s = group_sum<G>(dot_smem<G>(kr, qs, ii0 + ii, D, g));
+        const float dp = group_sum<G>(dot_smem<G>(vr, dos, ii0 + ii, D, g));
+        const bool live = key_live && i < Tq && (!causal || of.q_off + i >= k_glob);
+        const float p = live ? expf(s * of.scale - lses[ii0 + ii]) : 0.0f;
+        axpy_smem<G>(dva, p, dos, ii0 + ii, D, g);
+        axpy_smem<G>(dka, p * (dp - deltas[ii0 + ii]) * of.scale, qs, ii0 + ii, D, g);
+      }
+    }
+  }
+  if (valid) {
+    store_row<G>(dk + (long)bh * Tk * D, kj, dka, 1.0f, D, g);
+    store_row<G>(dv + (long)bh * Tk * D, kj, dva, 1.0f, D, g);
+  }
+}
+
+constexpr int threads_for(int D) { return kRows * (D / kDT); }
+int tiles(int T) { return (T + kRows - 1) / kRows; }
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v, const float* offs, void* o,
+               float* lse, int BH, int Tq, int Tk, int causal, cudaStream_t s) {
+  const int nt = tiles(Tq);
+  flash_fwd_kernel<D, T><<<BH * nt, threads_for(D), 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, offs, (T*)o, lse, Tq, Tk, nt, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, const float* offs, void* dq, int BH, int Tq, int Tk,
+              int causal, cudaStream_t s) {
+  const int nt = tiles(Tq);
+  flash_bwd_dq_kernel<D, T><<<BH * nt, threads_for(D), 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, offs, (T*)dq, Tq, Tk,
+      nt, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, const float* offs, void* dk, void* dv, int BH, int Tq,
+               int Tk, int causal, cudaStream_t s) {
+  const int nt = tiles(Tk);
+  flash_bwd_dkv_kernel<D, T><<<BH * nt, threads_for(D), 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, offs, (T*)dk, (T*)dv,
+      Tq, Tk, nt, causal);
+  return (int)cudaGetLastError();
+}
+
+// one switch over (dtype, head dim) for each entry
+#define MX_DISPATCH(BF16, D, CALL)                                  \
+  do {                                                              \
+    typedef __nv_bfloat16 bf;                                       \
+    if (BF16) {                                                     \
+      switch (D) {                                                  \
+        case 16: return CALL(bf, 16);                               \
+        case 32: return CALL(bf, 32);                               \
+        case 64: return CALL(bf, 64);                               \
+        case 128: return CALL(bf, 128);                             \
+      }                                                             \
+    } else {                                                        \
+      switch (D) {                                                  \
+        case 16: return CALL(float, 16);                            \
+        case 32: return CALL(float, 32);                            \
+        case 64: return CALL(float, 64);                            \
+        case 128: return CALL(float, 128);                          \
+      }                                                             \
+    }                                                               \
+    return (int)cudaErrorInvalidValue;                              \
+  } while (0)
+
+}  // namespace
+
+extern "C" {
+
+// q (BH, Tq, D), k/v (BH, Tk, D), all bf16 if bf16 else f32; offs 4 f32 on
+// the card; writes o (BH, Tq, D) in the inputs' type and lse (BH, Tq) f32.
+int mx_flash_fwd(const void* q, const void* k, const void* v, const void* offs, void* o,
+                 void* lse, int BH, int Tq, int Tk, int D, int causal, int bf16,
+                 void* stream) {
+#define MX_FWD(T, DD)                                                                  \
+  launch_fwd<T, DD>(q, k, v, (const float*)offs, o, (float*)lse, BH, Tq, Tk, causal, \
+                    (cudaStream_t)stream)
+  MX_DISPATCH(bf16, D, MX_FWD);
+#undef MX_FWD
+}
+
+// as mx_flash_fwd plus dout (BH, Tq, D) in the inputs' type and lse/delta
+// (BH, Tq) f32; writes dq (BH, Tq, D) in the inputs' type.
+int mx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, const void* offs, void* dq, int BH,
+                    int Tq, int Tk, int D, int causal, int bf16, void* stream) {
+#define MX_DQ(T, DD)                                                                     \
+  launch_dq<T, DD>(q, k, v, dout, (const float*)lse, (const float*)delta,              \
+                   (const float*)offs, dq, BH, Tq, Tk, causal, (cudaStream_t)stream)
+  MX_DISPATCH(bf16, D, MX_DQ);
+#undef MX_DQ
+}
+
+// as mx_flash_bwd_dq; writes dk and dv (BH, Tk, D) in the inputs' type.
+int mx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, const void* offs, void* dk, void* dv,
+                     int BH, int Tq, int Tk, int D, int causal, int bf16, void* stream) {
+#define MX_DKV(T, DD)                                                                    \
+  launch_dkv<T, DD>(q, k, v, dout, (const float*)lse, (const float*)delta,             \
+                    (const float*)offs, dk, dv, BH, Tq, Tk, causal, (cudaStream_t)stream)
+  MX_DISPATCH(bf16, D, MX_DKV);
+#undef MX_DKV
+}
+
+}  // extern "C"

@@ -1,0 +1,353 @@
+"""The port's flash attention (mxtpu_torch/ops/flash_attention.py) against
+mxtpu's Pallas kernels (interpret mode on the CPU, as
+tests/test_pallas_attention.py runs them) and its XLA reference, on the
+same seeded inputs: every case of that file, values and gradients.
+
+On the CPU the wrappers run their plain PyTorch versions; the CUDA
+kernels are held against those same plain versions on the card by
+chip_smoke.py.
+
+Tolerances: float32 2e-5 on values and 3e-5 on gradients, as the JAX
+file holds its kernels to its reference (sums in another order). bf16 is
+compared in the working type: both sides compute in f32 from the same
+bf16 inputs and round each output once, so a last-bit f32 difference can
+flip one bf16 rounding, at most 2^-7 of the value.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from mxtpu.ops import pallas_attention as jfa
+from mxtpu_torch.ops import flash_attention as fa
+
+F32_TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=3e-5, rtol=3e-5)
+BF16_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -7)
+BLOCKS = dict(block_q=64, block_k=64)
+
+
+def _arrays(shapes, seed, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal(s).astype(dtype) for s in shapes]
+
+
+def _jax(arrays, dtype=jnp.float32):
+    return [jnp.asarray(a).astype(dtype) for a in arrays]
+
+
+def _torch(arrays, dtype=torch.float32, grad=False):
+    return [torch.from_numpy(a).to(dtype).requires_grad_(grad)
+            for a in arrays]
+
+
+def _np32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _close(got, want, tol):
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(_np32(got), _np32(want), **tol)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,causal,seed", [
+    ((2, 3, 128, 64), False, 0),       # test_forward_matches_reference
+    ((1, 2, 128, 32), True, 7),        # test_forward_causal
+    ((1, 2, 256, 32), True, 3),        # test_forward_multi_block
+], ids=["non_causal", "causal", "multi_block"])
+def test_forward_matches_mxtpu(shape, causal, seed):
+    a = _arrays([shape] * 3, seed)
+    want = jfa.flash_attention(*_jax(a), causal=causal, **BLOCKS)
+    ref = jfa.flash_attention_reference(*_jax(a), causal=causal)
+    got = fa.flash_attention(*_torch(a), causal=causal, **BLOCKS)
+    _close(got, want, F32_TOL)
+    _close(got, ref, F32_TOL)
+    _close(fa.flash_attention_reference(*_torch(a), causal=causal), ref,
+           F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_unpadded_lengths(causal):
+    # T not a multiple of the block: mxtpu pads and masks, the port masks
+    a = _arrays([(1, 2, 100, 32), (1, 2, 72, 32), (1, 2, 72, 32)], 1)
+    want = jfa.flash_attention(*_jax(a), causal=causal, **BLOCKS)
+    got = fa.flash_attention(*_torch(a), causal=causal, **BLOCKS)
+    _close(got, want, F32_TOL)
+    _close(got, jfa.flash_attention_reference(*_jax(a), causal=causal),
+           F32_TOL)
+
+
+@pytest.mark.parametrize("q_offset,k_offset", [(64, 0), (0, 32), (0, 64)],
+                         ids=["visible", "partly_masked", "fully_masked"])
+def test_sequence_shard_offsets(q_offset, k_offset):
+    a = _arrays([(1, 1, 64, 32)] * 3, 11)
+    kw = dict(causal=True, q_offset=q_offset, k_offset=k_offset, **BLOCKS)
+    o_want, lse_want = jfa.flash_attention_with_lse(*_jax(a), **kw)
+    o, lse = fa.flash_attention_with_lse(*_torch(a), **kw)
+    _close(o, o_want, F32_TOL)
+    _close(lse, lse_want, F32_TOL)
+    assert torch.isfinite(o).all()
+    if k_offset == 64:
+        # fully-masked rows: O = 0 and lse = -1e30, as the kernel gives
+        # (the reference would give the mean of v)
+        assert float(o.abs().max()) == 0.0
+        assert bool((lse == fa._NEG).all())
+    else:
+        # rows that see at least one key match the reference
+        seen = slice(max(0, k_offset - q_offset), None)
+        ref = jfa.flash_attention_reference(
+            *_jax(a), causal=True, q_offset=q_offset, k_offset=k_offset)
+        _close(o[:, :, seen], ref[:, :, seen], F32_TOL)
+
+
+@pytest.mark.parametrize("k_offset", [0, 64])
+def test_offset_gradients_match_mxtpu(k_offset):
+    """Shard offsets through the backward, fully-masked rows included:
+    no NaN, and the interpreter's gradients."""
+    a = _arrays([(1, 1, 64, 32)] * 3, 13)
+    kw = dict(causal=True, q_offset=64 - k_offset, k_offset=k_offset,
+              **BLOCKS)
+    want = jax.grad(lambda q, k, v: jnp.sum(jnp.sin(
+        jfa.flash_attention(q, k, v, **kw))), argnums=(0, 1, 2))(*_jax(a))
+    t = _torch(a, grad=True)
+    torch.sin(fa.flash_attention(*t, **kw)).sum().backward()
+    for x, w in zip(t, want):
+        assert torch.isfinite(x.grad).all()
+        _close(x.grad, w, GRAD_TOL)
+
+
+def test_tensor_offsets():
+    # offsets as 0-d tensors (traced values in JAX) read on the device
+    a = _arrays([(1, 1, 64, 32)] * 3, 5)
+    want = jax.jit(lambda qo: jfa.flash_attention(
+        *_jax(a), causal=True, q_offset=qo, k_offset=0, **BLOCKS))(
+            jnp.int32(64))
+    got = fa.flash_attention(*_torch(a), causal=True,
+                             q_offset=torch.tensor(64), k_offset=0, **BLOCKS)
+    _close(got, want, F32_TOL)
+    _close(got, jfa.flash_attention_reference(*_jax(a), causal=True,
+                                              q_offset=64), F32_TOL)
+
+
+def test_bf16_inputs():
+    a = _arrays([(1, 2, 128, 64)] * 3, 0)
+    want = jfa.flash_attention(*_jax(a, jnp.bfloat16), **BLOCKS)
+    got = fa.flash_attention(*_torch(a, torch.bfloat16), **BLOCKS)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, BF16_TOL)
+    # and against the f32 reference, as the JAX file checks
+    ref = jfa.flash_attention_reference(*_jax(a, jnp.bfloat16))
+    np.testing.assert_allclose(_np32(got), _np32(ref), atol=3e-2, rtol=3e-2)
+
+
+def test_bf16_gradients_keep_dtypes():
+    a = _arrays([(1, 1, 64, 32)] * 3, 3)
+    want = jax.grad(lambda q, k, v: jnp.sum(jfa.flash_attention(
+        q, k, v, causal=True, **BLOCKS).astype(jnp.float32) ** 2),
+        argnums=(0, 1, 2))(*_jax(a, jnp.bfloat16))
+    t = _torch(a, torch.bfloat16, grad=True)
+    o, lse = fa.flash_attention_with_lse(*t, causal=True, **BLOCKS)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    (o.float() ** 2).sum().backward()
+    for x, w in zip(t, want):
+        assert x.grad.dtype == torch.bfloat16
+        _close(x.grad, w, BF16_TOL)
+
+
+def test_with_lse_matches_logsumexp():
+    a = _arrays([(1, 2, 128, 32)] * 3, 61)
+    o, lse = fa.flash_attention_with_lse(*_torch(a), **BLOCKS)
+    q, k = _jax(a)[:2]
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k) / q.shape[-1] ** 0.5
+    _close(lse, jax.scipy.special.logsumexp(s, axis=-1), F32_TOL)
+    _o, lse_want = jfa.flash_attention_with_lse(*_jax(a), **BLOCKS)
+    _close(lse, lse_want, F32_TOL)
+
+
+def test_lse_merge_rule():
+    # attention over [K1; K2] == lse-merge of attention over K1 and K2
+    q, k, v = _torch(_arrays([(1, 1, 64, 32), (1, 1, 128, 32),
+                              (1, 1, 128, 32)], 71))
+    o1, l1 = fa.flash_attention_with_lse(q, k[:, :, :64], v[:, :, :64])
+    o2, l2 = fa.flash_attention_with_lse(q, k[:, :, 64:], v[:, :, 64:])
+    lm = torch.logaddexp(l1, l2)
+    om = (o1 * torch.exp(l1 - lm)[..., None]
+          + o2 * torch.exp(l2 - lm)[..., None])
+    full = jfa.flash_attention_reference(*_jax([q.numpy(), k.numpy(),
+                                                v.numpy()]))
+    _close(om, full, F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# gradients
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_gradients_match_mxtpu(causal):
+    a = _arrays([(1, 2, 128, 32)] * 3, 21)
+
+    def loss_jax(fn):
+        return jax.grad(lambda q, k, v: jnp.sum(jnp.sin(fn(q, k, v))),
+                        argnums=(0, 1, 2))(*_jax(a))
+    g_flash = loss_jax(lambda *x: jfa.flash_attention(*x, causal=causal,
+                                                      **BLOCKS))
+    g_ref = loss_jax(lambda *x: jfa.flash_attention_reference(
+        *x, causal=causal))
+    t = _torch(a, grad=True)
+    torch.sin(fa.flash_attention(*t, causal=causal, **BLOCKS)).sum() \
+        .backward()
+    for x, w, r in zip(t, g_flash, g_ref):
+        _close(x.grad, w, GRAD_TOL)
+        _close(x.grad, r, GRAD_TOL)
+
+
+def test_gradients_unpadded():
+    a = _arrays([(1, 1, 96, 32), (1, 1, 80, 32), (1, 1, 80, 32)], 31)
+    want = jax.grad(lambda q, k, v: jnp.sum(jfa.flash_attention(
+        q, k, v, causal=True, **BLOCKS) ** 2), argnums=(0, 1, 2))(*_jax(a))
+    t = _torch(a, grad=True)
+    (fa.flash_attention(*t, causal=True, **BLOCKS) ** 2).sum().backward()
+    for x, w in zip(t, want):
+        _close(x.grad, w, GRAD_TOL)
+
+
+def test_with_lse_gradients():
+    # dlse enters the backward through delta
+    a = _arrays([(1, 1, 64, 16)] * 3, 81)
+
+    def loss_jax(q, k, v):
+        o, lse = jfa.flash_attention_with_lse(q, k, v, **BLOCKS)
+        return jnp.sum(o ** 2) + jnp.sum(jnp.sin(lse))
+    want = jax.grad(loss_jax, argnums=(0, 1, 2))(*_jax(a))
+    t = _torch(a, grad=True)
+    o, lse = fa.flash_attention_with_lse(*t, **BLOCKS)
+    ((o ** 2).sum() + torch.sin(lse).sum()).backward()
+    for x, w in zip(t, want):
+        _close(x.grad, w, GRAD_TOL)
+
+
+def test_lse_alone_is_differentiable():
+    # only lse used: the o cotangent is zero and dlse carries everything
+    q, k, v = _torch(_arrays([(1, 1, 64, 16)] * 3, 83), grad=True)
+    _o, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    lse.sum().backward()
+    want = jax.grad(lambda q, k, v: jnp.sum(jfa.flash_attention_with_lse(
+        q, k, v, causal=True, **BLOCKS)[1]), argnums=(0, 1))(
+            *_jax([q.detach().numpy(), k.detach().numpy(),
+                   v.detach().numpy()]))
+    _close(q.grad, want[0], GRAD_TOL)
+    _close(k.grad, want[1], GRAD_TOL)
+    assert float(v.grad.abs().max()) == 0.0
+
+
+def test_tensor_scale():
+    a = _arrays([(1, 1, 64, 32)] * 3, 91)
+    want = jax.jit(lambda s: jfa.flash_attention(*_jax(a), scale=s,
+                                                 **BLOCKS))(jnp.float32(0.1))
+    got = fa.flash_attention(*_torch(a), scale=torch.tensor(0.1), **BLOCKS)
+    _close(got, want, F32_TOL)
+    _close(got, jfa.flash_attention_reference(*_jax(a), scale=0.1), F32_TOL)
+
+
+def test_tensor_scale_gradient():
+    # a learnable attention temperature must receive a real gradient
+    a = _arrays([(1, 1, 64, 16)] * 3, 101)
+    q, k, v = _jax(a)
+    g_flash = jax.grad(lambda s: jnp.sum(jfa.flash_attention(
+        q, k, v, scale=s, **BLOCKS) ** 2))(jnp.float32(0.2))
+    g_ref = jax.grad(lambda s: jnp.sum(jfa.flash_attention_reference(
+        q, k, v, scale=s) ** 2))(jnp.float32(0.2))
+    s = torch.tensor(0.2, requires_grad=True)
+    (fa.flash_attention(*_torch(a), scale=s, **BLOCKS) ** 2).sum().backward()
+    assert float(s.grad.abs()) > 0
+    np.testing.assert_allclose(float(s.grad), float(g_flash), rtol=1e-4)
+    np.testing.assert_allclose(float(s.grad), float(g_ref), rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions of the three kernels, the counters and the checks
+# ---------------------------------------------------------------------------
+
+def test_plain_kernels_match_mxtpu_kernels():
+    """flash_fwd_plain / flash_bwd_dq_plain / flash_bwd_dkv_plain against
+    the Pallas kernels themselves (interpreted), on the flattened layout
+    with a nonzero dlse and a shard offset."""
+    fwd, bwd = jfa._kernels()
+    q, k, v, do = _arrays([(2, 64, 32), (2, 64, 32), (2, 64, 32),
+                           (2, 64, 32)], 111)
+    dlse = _arrays([(2, 64)], 112)[0]
+    offs = np.array([32, 16, 64, 1 / np.sqrt(32)], np.float32)
+    jq, jk, jv, jdo = _jax([q, k, v, do])
+    o_want, lse_want = fwd(jq, jk, jv, jnp.asarray(offs), True, 64, 64)
+    dq_want, dk_want, dv_want = bwd(
+        jq, jk, jv, o_want, lse_want, jdo, jnp.asarray(dlse)[..., None],
+        jnp.asarray(offs), True, 64, 64)
+    tq, tk, tv, tdo = _torch([q, k, v, do])
+    toffs = torch.from_numpy(offs)
+    o, lse = fa.flash_fwd_plain(tq, tk, tv, toffs, True)
+    _close(o, o_want, F32_TOL)
+    _close(lse, lse_want[..., 0], F32_TOL)
+    delta = (tdo * o).sum(-1) - torch.from_numpy(dlse)
+    _close(fa.flash_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, toffs, True),
+           dq_want, GRAD_TOL)
+    dk, dv = fa.flash_bwd_dkv_plain(tq, tk, tv, tdo, lse, delta, toffs, True)
+    _close(dk, dk_want, GRAD_TOL)
+    _close(dv, dv_want, GRAD_TOL)
+
+
+def test_cpu_path_counts_no_launch():
+    fa.reset_launches()
+    q, k, v = _torch(_arrays([(1, 1, 16, 16)] * 3, 0), grad=True)
+    fa.flash_attention(q, k, v, causal=True).sum().backward()
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0}
+
+
+def test_meta_tensors_give_output_shapes():
+    meta = torch.device("meta")
+    q = torch.empty(2, 3, 10, 16, device=meta)
+    k = torch.empty(2, 3, 7, 16, device=meta)
+    o, lse = fa.flash_attention_with_lse(q, k, k, causal=True)
+    assert o.shape == (2, 3, 10, 16) and lse.shape == (2, 3, 10)
+    assert lse.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "contiguity", "device"])
+def test_kernel_argument_checks_raise(bad):
+    """The checks the CUDA wrapper runs before a launch refuse what the
+    kernel does not take."""
+    k = torch.zeros(2, 8, 16)
+    dev = torch.device("cpu")
+    if bad == "shape":
+        k, want = torch.zeros(2, 9, 16), ValueError
+    elif bad == "dtype":
+        k, want = torch.zeros(2, 8, 16, dtype=torch.float64), TypeError
+    elif bad == "contiguity":
+        k, want = torch.zeros(2, 16, 8).transpose(1, 2), ValueError
+    else:
+        dev, want = torch.device("meta"), ValueError
+    with pytest.raises(want):
+        fa._check("flash_fwd", [("k", k)], [(2, 8, 16)], [torch.float32],
+                  dev)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.float16, 32, TypeError), (torch.float32, 48, ValueError),
+    (torch.float32, 256, ValueError)])
+def test_unsupported_kernel_problem_raises(dtype, d, want):
+    q = torch.zeros(1, 8, d, dtype=dtype)
+    with pytest.raises(want):
+        fa._check_problem("flash_fwd", q, q)
+
+
+def test_unknown_device_raises():
+    with pytest.raises(ValueError):
+        fa.flash_fwd(*[torch.empty(1, 8, 16, device="meta")] * 3,
+                     torch.empty(4, device="meta"), True)

@@ -58,6 +58,16 @@ def test_imports_and_runs_without_jax():
         ".astype(np.float32))\n"
         "ys, hT, cT = lstm_scan(xp, h0, c0, wh)\n"
         "assert ys.shape == (3, 2, 4) and torch.isfinite(ys).all()\n"
+        "import mxtpu_torch.parallel\n"
+        "from mxtpu_torch.ops.flash_attention import flash_attention\n"
+        "q = torch.from_numpy(rng.standard_normal((1, 2, 8, 16))"
+        ".astype(np.float32)).requires_grad_()\n"
+        "o = flash_attention(q, q, q, causal=True)\n"
+        "o.sum().backward()\n"
+        "assert o.shape == (1, 2, 8, 16) and torch.isfinite(q.grad).all()\n"
+        "a = mxtpu_torch.parallel.local_attention(q, q, q, causal=True,"
+        " impl='flash')\n"
+        "assert torch.allclose(a, o)\n"
         "assert not [m for m in set(sys.modules) - before\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'mxtpu')]\n"
         "print('ok')\n")
