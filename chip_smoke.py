@@ -32,13 +32,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel once per step, and match its first 3 steps run on the CPU (the
    plain path) in loss and parameters;
 7. the op entry: mt.nd.flash_attention on the card launches the kernel;
-8. timings: each kernel, its plain version and the PyTorch library call
-   computing the same function (cuDNN RNNs; scaled_dot_product_attention),
-   beside the least time the card could take; the serving slice's
-   requests/s and tokens scored/s at bucket 32; the training slice's ms
-   per step, tokens/s and where a step's device time goes;
-9. one JSON line naming every kernel with its launches and error;
-10. the last line: {"ok": true, "device": {...}}.
+8. mx.rtc (mxtpu_torch.rtc, NVRTC): the six launch cases of the JAX
+   package's rtc tests rewritten in CUDA C (axpy, fill_rows on
+   blockIdx.x, dbl with its output first, rows on blockIdx.y, a scalar
+   multiply over three alphas, rep with an int n) against their plain
+   versions; one compile across new scalar values and shapes; a float64
+   output behind float * comes back converted; half through
+   cuda_fp16.h and 64 KB of dynamic shared memory work; a syntax error
+   raises with NVRTC's log; a cpu() context raises;
+9. the custom-op slice: the MLP of example/numpy-ops/custom_softmax.py
+   at its own widths (784 -> 128 relu -> 10, batch 128, 2048 samples
+   made as the example makes them, momentum SGD lr 0.1 / 0.9, 4 epochs =
+   64 steps, f32), whose softmax-with-loss head is a CustomOp launching
+   two CUDA C kernels compiled by mx.rtc (cs_softmax_fwd,
+   cs_softmax_bwd). Each is held against its plain version at (128, 10)
+   and at the LSTM LM's output rows (1024 x 10,000); the MLP trains 64
+   steps on cuda:0 through symbol.eval_graph under mxtpu_torch.autograd
+   (first 3 steps against the CPU's plain route, one launch of each
+   kernel a step, train accuracy > 0.9) and is served by
+   InferenceEngine on cuda:0 (buckets 1-128) against the same weights
+   served on the CPU;
+10. timings: each kernel, its plain version and the PyTorch library call
+   computing the same function (cuDNN RNNs; scaled_dot_product_attention;
+   torch.softmax), beside the least time the card could take; the
+   serving slice's requests/s and tokens scored/s at bucket 32; the
+   training slices' ms per step and where a step's device time goes;
+   NVRTC's compile time and the host cost of one rtc launch; the
+   custom-op model's requests/s at bucket 128;
+11. one JSON line naming every kernel with its launches and error;
+12. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -156,6 +178,16 @@ def device_time(fn, calls, per=1):
     top = ", ".join("%s %.4f" % (e.key[:48], e.self_device_time_total / n
                                  / 1e3) for e in events[:8])
     return busy, "%.0f kernel launches; %s" % (launches, top)
+
+
+def device_ms(fn, calls=20):
+    """The card's busy ms per call of ``fn`` (the profiler's kernel time,
+    summed over every kernel the call launches); fails if the profiler
+    saw none."""
+    busy, top = device_time(fn, calls)
+    if busy <= 0:
+        fail("the profiler recorded no kernel time (%s)" % top)
+    return busy
 
 
 def max_err(got, want):
@@ -519,6 +551,499 @@ def sdpa_calls(a, B, H):
     return fwd, fwd_bwd
 
 
+# ---------------------------------------------------------------------------
+# mx.rtc: the launch protocol, as the six launch cases of the JAX package's
+# tests (tests/test_legacy_api.py) rewritten in CUDA C. dbl and rep are
+# C++ kernels (launched under their lowered names), the rest extern "C".
+# ---------------------------------------------------------------------------
+
+RTC_SOURCE = r'''
+extern "C" __global__ void axpy(const float *x, const float *y, float alpha,
+                                float *out, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) out[i] = alpha * x[i] + y[i];
+}
+
+extern "C" __global__ void fill_rows(float *out, int cols) {
+    // one program per grid point, as Pallas: blockIdx.x is program_id(0)
+    for (int j = 0; j < cols; ++j) out[blockIdx.x * cols + j] = blockIdx.x;
+}
+
+__global__ void dbl(float *out, const float *x, int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i] * 2.0f;
+}
+
+extern "C" __global__ void rows(float *out) {
+    out[blockIdx.y] = blockIdx.y;       // grid (1, 3, 1): program_id(1)
+}
+
+extern "C" __global__ void scale(const float *x, float alpha, float *o,
+                                 int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) o[i] = x[i] * alpha;
+}
+
+__global__ void rep(const float *x, int n, float *o, int size) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= size) return;
+    float acc = x[i];
+    for (int k = 1; k < n; ++k) acc += x[i];   // n is a run-time argument
+    o[i] = acc;
+}
+'''
+RTC_SIGNATURES = {
+    "axpy": "const float *x, const float *y, float alpha, float *out, int n",
+    "fill_rows": "float *out, int cols",
+    "dbl": "float *out, const float *x, int n",
+    "rows": "float *out",
+    "scale": "const float *x, float alpha, float *o, int n",
+    "rep": "const float *x, int n, float *o, int size",
+}
+# half through the toolkit's cuda_fp16.h, and dynamic shared memory
+# above 48 KB (which needs cuFuncSetAttribute before the launch)
+RTC_EXTRA_SOURCE = r'''
+#include <cuda_fp16.h>
+extern "C" __global__ void hscale(const __half *x, __half a, __half *o,
+                                  int n) {
+    int i = threadIdx.x;
+    if (i < n) o[i] = __hmul(x[i], a);
+}
+
+extern "C" __global__ void smem_reverse(const float *x, float *o, int n) {
+    extern __shared__ float buf[];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = x[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) o[i] = buf[n - 1 - i];
+}
+'''
+RTC_SMEM_FLOATS = 16384                 # 64 KB of dynamic shared memory
+# the protocol cases compute small exact values; the card may contract
+# alpha * x + y into one FMA, so allow a last-bit difference
+RTC_TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+def rtc_axpy_plain(x, y, alpha):
+    return alpha * x + y
+
+
+def rtc_fill_rows_plain(rows, cols, device):
+    import torch
+    return torch.arange(rows, dtype=torch.float32,
+                        device=device)[:, None].expand(rows, cols).clone()
+
+
+def rtc_dbl_plain(x):
+    return x * 2.0
+
+
+def rtc_rows_plain(n, device):
+    import torch
+    return torch.arange(n, dtype=torch.float32, device=device)[None]
+
+
+def rtc_scale_plain(x, alpha):
+    return x * alpha
+
+
+def rtc_rep_plain(x, n):
+    acc = x.clone()
+    for _ in range(n - 1):
+        acc = acc + x
+    return acc
+
+
+def rtc_phase(mt):
+    """The six launch cases on cuda:0 against their plain versions; one
+    compile across new scalars and shapes; a float64 output behind
+    ``float *`` comes back converted; a syntax error raises with NVRTC's
+    log; a cpu() context raises. Returns the module."""
+    import torch
+    ctx, dev = mt.gpu(0), torch.device("cuda", 0)
+    mod = mt.rtc.CudaModule(RTC_SOURCE)
+    k = {n: mod.get_kernel(n, s) for n, s in RTC_SIGNATURES.items()}
+    nd = mt.nd
+
+    def held(name, got, want):
+        torch.cuda.synchronize()
+        if tuple(got.shape) != tuple(want.shape) or \
+                not torch.allclose(got.float(), want.float(), **RTC_TOL):
+            fail("rtc %s: %s differs from the plain version %s"
+                 % (name, got.cpu().numpy(), want.cpu().numpy()))
+
+    x = nd.array(np.arange(8, dtype=np.float32).reshape(2, 4), ctx=ctx)
+    y, out = nd.ones((2, 4), ctx=ctx), nd.zeros((2, 4), ctx=ctx)
+    k["axpy"].launch((x, y, 3.0, out, 8), ctx, (1, 1, 1), (8, 1, 1))
+    held("axpy", out.data, rtc_axpy_plain(x.data, y.data, 3.0))
+    out = nd.zeros((3, 4), ctx=ctx)
+    k["fill_rows"].launch((out, 4), ctx, (3, 1, 1))
+    held("fill_rows", out.data, rtc_fill_rows_plain(3, 4, dev))
+    x, out = nd.array(np.arange(4, dtype=np.float32), ctx=ctx), \
+        nd.zeros((4,), ctx=ctx)
+    k["dbl"].launch((out, x, 4), ctx, (1, 1, 1), (32, 1, 1))
+    held("dbl", out.data, rtc_dbl_plain(x.data))
+    out = nd.zeros((1, 3), ctx=ctx)
+    k["rows"].launch((out,), ctx, (1, 3, 1))
+    held("rows", out.data, rtc_rows_plain(3, dev))
+    x = nd.ones((4,), ctx=ctx)
+    for alpha in (1.0, 2.0, 3.0):
+        o = nd.zeros((4,), ctx=ctx)
+        k["scale"].launch((x, alpha, o, 4), ctx, (1, 1, 1), (4, 1, 1))
+        held("scale alpha=%g" % alpha, o.data, rtc_scale_plain(x.data, alpha))
+    o = nd.zeros((4,), ctx=ctx)
+    for n in (3, 5):
+        k["rep"].launch((x, n, o, 4), ctx, (1, 1, 1), (4, 1, 1))
+        held("rep n=%d" % n, o.data, rtc_rep_plain(x.data, n))
+    # a new shape and new scalar values compile nothing
+    big = nd.array(np.arange(1000, dtype=np.float32), ctx=ctx)
+    o = nd.zeros((1000,), ctx=ctx)
+    k["scale"].launch((big, 0.5, o, 1000), ctx, (4, 1, 1), (256, 1, 1))
+    held("scale n=1000", o.data, rtc_scale_plain(big.data, 0.5))
+    if mod.compiles != 1:
+        fail("the rtc module compiled %d times, want once" % mod.compiles)
+    # a float64 output behind float *out: converted in and back out
+    x64 = nd.array(np.arange(4, dtype=np.float32), ctx=ctx)
+    out64 = nd.zeros((4,), ctx=ctx, dtype="float64")
+    k["dbl"].launch((out64, x64, 4), ctx, (1, 1, 1), (4, 1, 1))
+    held("dbl into float64", out64.data, rtc_dbl_plain(x64.data).double())
+    if out64.dtype != torch.float64:
+        fail("a float64 output came back as %s" % out64.dtype)
+    # half scalars and arrays through the toolkit's cuda_fp16.h; 64 KB
+    # of dynamic shared memory
+    extra = mt.rtc.CudaModule(RTC_EXTRA_SOURCE)
+    xh = nd.array(np.linspace(-2, 2, 8), ctx=ctx, dtype="float16")
+    oh = nd.zeros((8,), ctx=ctx, dtype="float16")
+    extra.get_kernel("hscale", "const half *x, half a, half *o, int n") \
+        .launch((xh, 1.5, oh, 8), ctx, (1, 1, 1), (8, 1, 1))
+    held("hscale (half)", oh.data, xh.data * 1.5)
+    n = RTC_SMEM_FLOATS
+    xs = nd.array(np.arange(n, dtype=np.float32), ctx=ctx)
+    os_ = nd.zeros((n,), ctx=ctx)
+    extra.get_kernel("smem_reverse", "const float *x, float *o, int n") \
+        .launch((xs, os_, n), ctx, (1, 1, 1), (256, 1, 1), shared_mem=4 * n)
+    held("smem_reverse (64 KB shared)", os_.data, xs.data.flip(0))
+    # a compile error carries NVRTC's log
+    broken = mt.rtc.CudaModule('extern "C" __global__ void broken(float *o)'
+                               ' { o[0] = ; }')
+    try:
+        broken.get_kernel("broken", "float *o").launch(
+            (nd.zeros((1,), ctx=ctx),), ctx)
+        fail("a source with a syntax error launched")
+    except mt.MXTPUError as e:
+        if "error" not in str(e) or "broken" not in str(e):
+            fail("the compile error does not carry NVRTC's log: %s" % e)
+        log_line = [ln for ln in str(e).splitlines() if "error" in ln][0]
+    # CUDA C runs only on a gpu context
+    try:
+        k["dbl"].launch((nd.zeros((4,), ctx=mt.cpu()),
+                         nd.zeros((4,), ctx=mt.cpu()), 4), mt.cpu())
+        fail("a launch on cpu() ran")
+    except mt.MXTPUError:
+        pass
+    print("rtc: six launch cases match their plain versions (tolerance %s); "
+          "%d compile (%.1f ms) across alphas 1-3, n 3 and 5 and a new "
+          "shape; float64 output converted; half through cuda_fp16.h; "
+          "64 KB of dynamic shared memory; "
+          "compile error raises (%s); "
+          "cpu() raises" % (RTC_TOL, mod.compiles, mod.compile_ms,
+                            log_line.strip()[:80]))
+    return mod
+
+
+# ---------------------------------------------------------------------------
+# the custom-op slice: the MLP of example/numpy-ops/custom_softmax.py at its
+# own widths, its softmax-with-loss head a CustomOp whose kernels are
+# CUDA C compiled by mx.rtc on the card (cs_*), and plain torch on the CPU
+# ---------------------------------------------------------------------------
+
+CS_IN, CS_HIDDEN, CS_CLASSES, CS_SAMPLES, CS_BATCH = 784, 128, 10, 2048, 128
+CS_EPOCHS, CS_LR, CS_MOMENTUM = 4, 0.1, 0.9
+CS_STEPS = CS_EPOCHS * CS_SAMPLES // CS_BATCH
+CS_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+CS_REQUEST_ROWS = (1, 7, 32, 128, 100, 3)
+# the LSTM LM's output, (32 x 32 tokens, vocab 10,000), as rows: the shape
+# where the head kernels move enough bytes for memory to bound them
+CS_BIG = (1024, VOCAB)
+
+# The head's kernels (replace mxtpu/rtc.py's PallasKernel.launch, which
+# runs a user's kernel body compiled at run time). cs_softmax_fwd: one
+# block per row; each thread keeps an online (max, sum of exp) over its
+# strided columns, merged across the warp with shuffles and across warps
+# in shared memory, then writes exp(x - max) / sum: x is read twice and y
+# written once, and memory bounds it at large rows. cs_softmax_bwd:
+# dx = y - onehot(label), one thread per element (need_top_grad=False).
+CS_SOURCE = r'''
+#define CS_NEG_INF __int_as_float(0xff800000)
+
+__device__ __forceinline__ void cs_merge(float &m, float &s, float m2,
+                                         float s2) {
+    float mm = fmaxf(m, m2);
+    if (mm == CS_NEG_INF) return;            // both partials empty
+    s = s * expf(m - mm) + s2 * expf(m2 - mm);
+    m = mm;
+}
+
+extern "C" __global__ void cs_softmax_fwd(const float *__restrict__ x,
+                                          float *__restrict__ y, int cols) {
+    __shared__ float wm[32], ws[32];
+    const float *xr = x + (long long)blockIdx.x * cols;
+    float *yr = y + (long long)blockIdx.x * cols;
+    float m = CS_NEG_INF, s = 0.f;
+    for (int j = threadIdx.x; j < cols; j += blockDim.x) {
+        float v = xr[j];
+        if (v > m) { s = s * expf(m - v) + 1.f; m = v; }
+        else s += expf(v - m);
+    }
+    for (int o = 16; o > 0; o >>= 1)
+        cs_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o),
+                 __shfl_xor_sync(0xffffffffu, s, o));
+    int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (lane == 0) { wm[warp] = m; ws[warp] = s; }
+    __syncthreads();
+    if (warp == 0) {
+        int nw = blockDim.x >> 5;
+        m = lane < nw ? wm[lane] : CS_NEG_INF;
+        s = lane < nw ? ws[lane] : 0.f;
+        for (int o = 16; o > 0; o >>= 1)
+            cs_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o),
+                     __shfl_xor_sync(0xffffffffu, s, o));
+        if (lane == 0) { wm[0] = m; ws[0] = s; }
+    }
+    __syncthreads();
+    m = wm[0];
+    float inv = 1.f / ws[0];
+    for (int j = threadIdx.x; j < cols; j += blockDim.x)
+        yr[j] = expf(xr[j] - m) * inv;
+}
+
+extern "C" __global__ void cs_softmax_bwd(const float *__restrict__ y,
+                                          const float *__restrict__ label,
+                                          float *__restrict__ dx, int rows,
+                                          int cols) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= rows * cols) return;
+    int r = i / cols, c = i - r * cols;
+    dx[i] = y[i] - (c == (int)label[r] ? 1.f : 0.f);
+}
+'''
+CS_SIGNATURES = {
+    "cs_softmax_fwd": "const float *x, float *y, int cols",
+    "cs_softmax_bwd": "const float *y, const float *label, float *dx, "
+                      "int rows, int cols",
+}
+# Head kernels vs plain on the card (f32): the same exp, max and sum in
+# another order (and y = e * (1/sum) against e / sum): a few ulps of
+# values <= 1.
+CS_KERNEL_TOL = dict(atol=1e-6, rtol=0)
+# The MLP's first steps, card vs CPU: f32 GEMMs (TF32 off) and sums in
+# another order; SGD moves each weight by lr/128 times its gradient.
+CS_TOL = dict(atol=1e-5, rtol=1e-5)
+CS_SERVE_TOL = dict(atol=1e-6, rtol=1e-3)
+
+_CS = {}
+
+
+def cs_module():
+    """The head's rtc module (compiled at its first launch)."""
+    if not _CS:
+        import mxtpu_torch as mt
+        _CS["module"] = mt.rtc.CudaModule(CS_SOURCE)
+        _CS["kernels"] = {n: _CS["module"].get_kernel(n, s)
+                          for n, s in CS_SIGNATURES.items()}
+    return _CS["module"]
+
+
+def cs_kernels():
+    """The head's two rtc kernels by name."""
+    cs_module()
+    return _CS["kernels"]
+
+
+def cs_softmax_fwd(x, y):
+    """Launch cs_softmax_fwd: y <- softmax(x) by rows; x, y (rows, cols)
+    float32 NDArrays on a gpu context."""
+    rows, cols = x.shape
+    block = min(256, 32 * ((cols + 31) // 32))
+    cs_kernels()["cs_softmax_fwd"].launch((x, y, cols), x.context,
+                                          (rows, 1, 1), (block, 1, 1))
+
+
+def cs_softmax_bwd(y, label, dx):
+    """Launch cs_softmax_bwd: dx <- y - onehot(label)."""
+    rows, cols = y.shape
+    cs_kernels()["cs_softmax_bwd"].launch(
+        (y, label, dx, rows, cols), y.context,
+        ((rows * cols + 255) // 256, 1, 1), (256, 1, 1))
+
+
+def cs_softmax_fwd_plain(x):
+    e = (x - x.amax(1, keepdim=True)).exp()
+    return e / e.sum(1, keepdim=True)
+
+
+def cs_softmax_bwd_plain(y, label):
+    import torch
+    dx = y.clone()
+    dx[torch.arange(y.shape[0], device=y.device), label.long()] -= 1.0
+    return dx
+
+
+def cs_register(mt):
+    """Register the head as custom op type "softmax" of mt.operator, as
+    the example registers its numpy op with mxtpu: the rtc kernels on a
+    gpu context, their plain versions on the CPU."""
+
+    class Softmax(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0]
+            if x.context.device_type == "gpu":
+                y = mt.nd.empty(x.shape, ctx=x.context)
+                cs_softmax_fwd(x, y)
+            else:
+                y = cs_softmax_fwd_plain(x.data)
+            self.assign(out_data[0], req[0], y)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y, label = out_data[0], in_data[1]
+            if y.context.device_type == "gpu":
+                dx = mt.nd.empty(y.shape, ctx=y.context)
+                cs_softmax_bwd(y, label, dx)
+            else:
+                dx = cs_softmax_bwd_plain(y.data, label.data)
+            self.assign(in_grad[0], req[0], dx)
+
+    @mt.operator.register("softmax")
+    class SoftmaxProp(mt.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def infer_type(self, in_type):
+            return in_type, [in_type[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def cs_symbol(pkg):
+    """The example's net, in either package."""
+    data = pkg.sym.var("data")
+    net = pkg.sym.FullyConnected(data, name="fc1", num_hidden=CS_HIDDEN)
+    net = pkg.sym.Activation(net, name="relu1", act_type="relu")
+    net = pkg.sym.FullyConnected(net, name="fc2", num_hidden=CS_CLASSES)
+    return pkg.sym.Custom(net, pkg.sym.var("softmax_label"), name="softmax",
+                          op_type="softmax")
+
+
+def cs_data():
+    """The example's 2048 samples: RandomState(0), prototypes + 0.25
+    noise; (x float32 (2048, 784), y float32 (2048,))."""
+    r = np.random.RandomState(0)
+    y = r.randint(0, CS_CLASSES, CS_SAMPLES)
+    protos = r.uniform(0, 1, (CS_CLASSES, CS_IN)).astype(np.float32)
+    x = (protos[y] + 0.25 * r.randn(CS_SAMPLES, CS_IN)).astype(np.float32)
+    return x, y.astype(np.float32)
+
+
+def cs_init_params(seed):
+    """mxtpu Module's default init (Uniform(0.01) weights, zero biases),
+    drawn from ``seed`` with numpy."""
+    rng = np.random.RandomState(seed)
+    shapes = {"fc1_weight": (CS_HIDDEN, CS_IN), "fc1_bias": (CS_HIDDEN,),
+              "fc2_weight": (CS_CLASSES, CS_HIDDEN),
+              "fc2_bias": (CS_CLASSES,)}
+    return {k: (rng.uniform(-0.01, 0.01, s) if k.endswith("weight")
+                else np.zeros(s)).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def cs_batches(seed):
+    """Index arrays of the 64 batches: each epoch a permutation from
+    ``seed``, cut into 16 batches of 128 (NDArrayIter's shuffle)."""
+    rng = np.random.RandomState(seed)
+    return [perm[i:i + CS_BATCH]
+            for perm in (rng.permutation(CS_SAMPLES)
+                         for _ in range(CS_EPOCHS))
+            for i in range(0, CS_SAMPLES, CS_BATCH)]
+
+
+def cs_step(mt, sym, params, moms, x, y):
+    """One training step on NDArrays: the graph's forward through
+    symbol.eval_graph(training=True) under autograd.record(), backward
+    into the params' grads, then momentum SGD as mxtpu's SGD does it
+    (Module.fit's rescale_grad = 1/batch). Returns the head's output."""
+    import torch
+    with mt.autograd.record():
+        feed = {k: p.data for k, p in params.items()}
+        feed.update(data=x.data, softmax_label=y.data)
+        outs, _ = mt.sym.eval_graph(sym._outputs, feed, training=True)
+        out = mt.nd.NDArray(outs[0], x.context)
+    mt.autograd.backward([out])
+    with torch.no_grad():
+        for k, p in params.items():
+            g = p.grad.data * (1.0 / x.shape[0])
+            moms[k].mul_(CS_MOMENTUM).sub_(CS_LR * g)
+            p.data.add_(moms[k])
+    return out
+
+
+def cs_train(mt, params0, xs, ys, batches):
+    """Momentum SGD from ``params0`` (numpy) over ``batches`` of the
+    samples ``xs``, ``ys`` (NDArrays on the training context). Returns
+    (params as NDArrays, per-step losses as a tensor)."""
+    import torch
+    ctx = xs.context
+    sym = cs_symbol(mt)
+    params = {k: mt.nd.array(v, ctx=ctx) for k, v in params0.items()}
+    for p in params.values():
+        p.attach_grad()
+    moms = {k: torch.zeros_like(p.data) for k, p in params.items()}
+    losses = []
+    for idx in batches:
+        sel = torch.from_numpy(idx).to(xs.data.device)
+        x = mt.nd.NDArray(xs.data[sel], ctx)
+        y = mt.nd.NDArray(ys.data[sel], ctx)
+        out = cs_step(mt, sym, params, moms, x, y)
+        with torch.no_grad():
+            p = out.data.gather(1, y.data.long()[:, None])
+            losses.append(-p.clamp_min(1e-30).log().mean())
+    return params, torch.stack(losses)
+
+
+def cs_accuracy(mt, params, xs, y_all):
+    """Train accuracy of ``params`` over the samples ``xs`` (an NDArray)
+    against the labels ``y_all`` (numpy); forward only."""
+    import torch
+    sym = cs_symbol(mt)
+    feed = {k: p.data.detach() for k, p in params.items()}
+    feed.update(data=xs.data, softmax_label=torch.zeros(
+        xs.shape[0], device=xs.data.device))
+    with torch.no_grad():
+        out, _ = mt.sym.eval_graph(sym._outputs, feed)
+    pred = out[0].argmax(1).cpu().numpy()
+    return float((pred == y_all).mean())
+
+
+def cs_bound(name, rows, cols):
+    """Least time (ms): each input read once and each output written once
+    at the HBM rate (the arithmetic, a few flops an element, is far
+    below the f32 rate)."""
+    elems = rows * cols
+    nbytes = 2 * elems * 4 if name == "cs_softmax_fwd" \
+        else (2 * elems + rows) * 4
+    flops = 5 * elems if name == "cs_softmax_fwd" else elems
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -677,7 +1202,124 @@ def main():
           "|out - reference| %.3g" % (out.context,
                                        max_err([out.data], [want])))
 
-    # 8. timings at the main paths' shapes
+    # 8. mx.rtc: the launch protocol on cuda:0
+    gpu = mt.gpu(0)
+    rtc_mod = rtc_phase(mt)
+
+    # 9. the custom-op slice: the head's kernels against their plain
+    # versions, at the slice's shape and at the LM's output rows
+    cs_register(mt)
+    ck = cs_kernels()
+    cs_errs, cs_in = {}, {}
+    for shape in ((CS_BATCH, CS_CLASSES), CS_BIG):
+        xg = mt.nd.array(rng.standard_normal(shape).astype(np.float32) * 3,
+                         ctx=gpu)
+        yg = mt.nd.empty(shape, ctx=gpu)
+        label = mt.nd.array(rng.randint(0, shape[1], shape[0]).astype(
+            np.float32), ctx=gpu)
+        dx = mt.nd.empty(shape, ctx=gpu)
+        cs_softmax_fwd(xg, yg)
+        cs_softmax_bwd(yg, label, dx)
+        torch.cuda.synchronize()
+        got = {"cs_softmax_fwd": yg.data, "cs_softmax_bwd": dx.data}
+        want = {"cs_softmax_fwd": cs_softmax_fwd_plain(xg.data),
+                "cs_softmax_bwd": cs_softmax_bwd_plain(yg.data, label.data)}
+        for name in CS_SIGNATURES:
+            check_close("%s %s" % (name, shape), [got[name]], [want[name]],
+                        CS_KERNEL_TOL)
+            if shape == (CS_BATCH, CS_CLASSES):
+                cs_errs[name] = max_err([got[name]], [want[name]])
+        cs_in[shape] = (xg, yg, label, dx)
+        print("check %s at %s: max err %s (tolerance %s)"
+              % (list(CS_SIGNATURES), shape,
+                 ["%.3g" % max_err([got[n]], [want[n]])
+                  for n in CS_SIGNATURES], CS_KERNEL_TOL))
+
+    # the MLP trained 64 steps on cuda:0, its first 3 steps against the
+    # CPU's plain route
+    x_all, y_all = cs_data()
+    cs_p0 = cs_init_params(args.seed)
+    cs_b = cs_batches(args.seed)
+    xs_cpu, ys_cpu = mt.nd.array(x_all, ctx=mt.cpu()), \
+        mt.nd.array(y_all, ctx=mt.cpu())
+    xs, ys = xs_cpu.as_in_context(gpu), ys_cpu.as_in_context(gpu)
+    cpu_params, cpu_cs_losses = cs_train(mt, cs_p0, xs_cpu, ys_cpu,
+                                         cs_b[:3])
+    gpu_params3, gpu_cs_losses3 = cs_train(mt, cs_p0, xs, ys, cs_b[:3])
+    names = sorted(cs_p0)
+    check_close("MLP losses of steps 1-3, card vs CPU",
+                [gpu_cs_losses3.cpu()], [cpu_cs_losses], CS_TOL)
+    check_close("MLP params after 3 steps, card vs CPU",
+                [gpu_params3[k].data.detach().cpu() for k in names],
+                [cpu_params[k].data.detach() for k in names], CS_TOL)
+    cs_err3 = max(max_err([gpu_cs_losses3.cpu()], [cpu_cs_losses]),
+                  max_err([gpu_params3[k].data.detach().cpu()
+                           for k in names],
+                          [cpu_params[k].data.detach() for k in names]))
+    print("slice custom-op: steps 1-3 on the card vs the CPU (plain route): "
+          "losses %s vs %s, max |card - cpu| over losses and params %.3g"
+          % (["%.6f" % v for v in gpu_cs_losses3.tolist()],
+             ["%.6f" % v for v in cpu_cs_losses.tolist()], cs_err3))
+    for kern in ck.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs_params, cs_losses = cs_train(mt, cs_p0, xs, ys, cs_b)
+    torch.cuda.synchronize()
+    cs_train_s = time.perf_counter() - t0
+    cs_launches = {n: kern.launches for n, kern in ck.items()}
+    for name, n in cs_launches.items():
+        if n != CS_STEPS:
+            fail("%s launched %d times in %d training steps, want one a "
+                 "step" % (name, n, CS_STEPS))
+    cs_acc = cs_accuracy(mt, cs_params, xs, y_all)
+    cs_losses = cs_losses.cpu().numpy()
+    if not np.isfinite(cs_losses).all() or cs_acc <= 0.9:
+        fail("the custom-softmax MLP did not learn: train accuracy %.4f "
+             "(limit 0.9), final loss %.4f" % (cs_acc, cs_losses[-1]))
+    print("slice custom-op train: %d steps on %s in %.3f s, loss %s -> "
+          "final %.3g, train accuracy %.4f (limit 0.9), launches %s"
+          % (CS_STEPS, xs.context, cs_train_s, ", ".join(
+              "%d: %.4f" % (i, cs_losses[i]) for i in range(0, CS_STEPS, 16)),
+             cs_losses[-1], cs_acc, cs_launches))
+
+    # served on cuda:0 with buckets 1-128, against the same weights on
+    # the CPU
+    cs_sym = cs_symbol(mt)
+    trained = {k: p.detach() for k, p in cs_params.items()}
+    cs_kw = dict(data_shapes={"data": (CS_IN,)}, buckets=CS_BUCKETS)
+    cs_engine = mt.serving.InferenceEngine(cs_sym, trained, {}, ctx=gpu,
+                                           **cs_kw)
+    cs_cpu_engine = mt.serving.InferenceEngine(
+        cs_sym, {k: p.asnumpy() for k, p in trained.items()}, {},
+        ctx=mt.cpu(), **cs_kw)
+    req_rng = np.random.RandomState(args.seed + 4)
+    cs_requests = [x_all[req_rng.randint(0, CS_SAMPLES, r)]
+                   for r in CS_REQUEST_ROWS]
+    ck["cs_softmax_fwd"].launches = 0
+    cs_answers = [cs_engine.predict([r])[0] for r in cs_requests]
+    served_launches = ck["cs_softmax_fwd"].launches
+    if served_launches != len(cs_requests):
+        fail("cs_softmax_fwd launched %d times for %d requests"
+             % (served_launches, len(cs_requests)))
+    worst = 0.0
+    for req, got in zip(cs_requests, cs_answers):
+        want = cs_cpu_engine.predict([req])[0]
+        if got.shape != (req.shape[0], CS_CLASSES) or \
+                not np.isfinite(got).all() or \
+                not np.allclose(got.sum(1), 1.0, atol=1e-5):
+            fail("served answer has shape %s or is not a distribution"
+                 % (got.shape,))
+        if not np.allclose(got, want, **CS_SERVE_TOL):
+            fail("custom-op MLP on the card differs from the CPU by %g"
+                 % float(np.abs(got - want).max()))
+        worst = max(worst, float(np.abs(got - want).max()))
+    print("slice custom-op serve: %d requests (rows %s) on %s, max |card - "
+          "cpu| = %.3g (tolerance %s), cs_softmax_fwd launched %d times"
+          % (len(cs_requests), list(CS_REQUEST_ROWS), cs_engine.device,
+             worst, CS_SERVE_TOL, served_launches))
+
+    # 10. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -791,9 +1433,99 @@ def main():
                             per=len(few))
     print("slice train step on the card: %.3f ms busy of %.3f ms per step; "
           "per step: %s" % (busy, step_ms, top))
+
+    # the custom-op slice: the head's kernels at the slice's shape (the
+    # JSON line) and at the LM's output rows, beside their plain versions,
+    # torch.softmax for the forward, and the bound; the backward
+    # (y - onehot(label)) has no one-call PyTorch equivalent
+    for label, shape in (("slice", (CS_BATCH, CS_CLASSES)),
+                         ("LM rows", CS_BIG)):
+        xg, yg, lab, dx = cs_in[shape]
+        calls = {
+            "cs_softmax_fwd": (lambda: cs_softmax_fwd(xg, yg),
+                               lambda: cs_softmax_fwd_plain(xg.data),
+                               lambda: torch.softmax(xg.data, 1)),
+            "cs_softmax_bwd": (lambda: cs_softmax_bwd(yg, lab, dx),
+                               lambda: cs_softmax_bwd_plain(yg.data,
+                                                            lab.data),
+                               None)}
+        for name, (kernel, plain, library) in calls.items():
+            # back-to-back launches at (128, 10) measure the host's launch
+            # rate, not the card, so the card's own time comes from the
+            # profiler (kernel time per call); the event-timed wall time
+            # per call is printed beside it
+            wall = {"kernel": cuda_ms(kernel), "plain": cuda_ms(plain),
+                    "library": cuda_ms(library) if library else None}
+            ms = device_ms(kernel)
+            plain_ms = device_ms(plain)
+            lib_ms = device_ms(library) if library else None
+            ms2 = device_ms(kernel)
+            bound_ms, bound_by = cs_bound(name, *shape)
+            print("time %s %s %dx%d f32 (card time per call, profiler): "
+                  "kernel %.5f ms (again %.5f), plain %.5f ms, library %s, "
+                  "bound %.3g ms (%s), %.1f%% of bound; wall per call, "
+                  "events over 50 back-to-back calls: kernel %.4f ms, plain "
+                  "%.4f ms%s | %s"
+                  % (name, label, shape[0], shape[1], ms, ms2, plain_ms,
+                     "torch.softmax %.5f ms" % lib_ms if lib_ms is not None
+                     else "none (no one-call torch equivalent of y - "
+                     "onehot(label))", bound_ms, bound_by,
+                     100 * bound_ms / ms, wall["kernel"], wall["plain"],
+                     ", torch.softmax %.4f ms" % wall["library"]
+                     if library else "", card))
+            if label == "slice":
+                kernels.append({
+                    "name": name, "route": "cuda-nvrtc",
+                    "source": "chip_smoke.py",
+                    "replaces": "mxtpu/rtc.py:174",
+                    "launches": cs_launches[name],
+                    "max_abs_err": cs_errs[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms})
+    print("NVRTC compile (first launch of each module): protocol cases "
+          "%.1f ms, custom-softmax head %.1f ms" % (rtc_mod.compile_ms,
+                                                    cs_module().compile_ms))
+    # host cost of one launch (signature checks, packing, cuLaunchKernel)
+    # beside one eager torch op, host clock over many enqueues
+    xg, yg, lab, dx = cs_in[(CS_BATCH, CS_CLASSES)]
+    host = {}
+    for what, fn in (("rtc launch", lambda: cs_softmax_fwd(xg, yg)),
+                     ("torch.softmax", lambda: torch.softmax(xg.data, 1))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        host[what] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    print("host us per call: rtc launch of cs_softmax_fwd %.2f us, eager "
+          "torch.softmax %.2f us" % (host["rtc launch"],
+                                     host["torch.softmax"]))
+    cs_step_ms = cs_train_s / CS_STEPS * 1e3
+    print("slice custom-op train: %.3f ms per step over %d steps (batch %d) "
+          "| %s" % (cs_step_ms, CS_STEPS, CS_BATCH, card))
+    few = cs_b[:8]
+    busy, top = device_time(lambda: cs_train(mt, cs_p0, xs, ys, few), 1,
+                            per=len(few))
+    print("slice custom-op train step on the card: %.3f ms busy of %.3f ms "
+          "per step (idle %.0f%%); per step: %s"
+          % (busy, cs_step_ms, 100 * (1 - busy / cs_step_ms), top))
+    req = x_all[:CS_BUCKETS[-1]]
+    for _ in range(3):
+        cs_engine.predict([req])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        cs_engine.predict([req])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print("slice custom-op bucket %d: %.2f requests/s (%.3f ms per request, "
+          "numpy in and out) | %s" % (CS_BUCKETS[-1], reps / dt,
+                                      dt / reps * 1e3, card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 9.-10. the result lines
+    # 11.-12. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """mxtpu_torch — the PyTorch/CUDA port of mxtpu for NVIDIA Hopper.
 
 The same public names as ``mxtpu`` (``mx.nd``, ``mx.sym``, ``mx.rnn``,
-``mx.serving``, ``mx.parallel``, contexts, checkpoints), computed with
-PyTorch: plain tensor code in torch, and every kernel that ``mxtpu``
-wrote in Pallas for the TPU hand-written in CUDA C++ for ``sm_90a``
-under ``csrc/``,
-built at first use (:mod:`mxtpu_torch._build`). Entry points run on
+``mx.serving``, ``mx.parallel``, ``mx.autograd``, ``mx.engine``,
+``mx.operator`` custom ops, ``mx.rtc``, contexts, checkpoints),
+computed with PyTorch: plain tensor code in torch, and every kernel that
+``mxtpu`` wrote in Pallas for the TPU hand-written in CUDA C++ for
+``sm_90a`` under ``csrc/``, built at first use
+(:mod:`mxtpu_torch._build`); a user's own kernels are CUDA C compiled at
+run time by ``mx.rtc.CudaModule`` (NVRTC). Entry points run on
 ``gpu(0)`` (``cuda:0``) unless the caller passes ``ctx=cpu()``.
 The port imports neither JAX nor ``mxtpu``.
 """
@@ -16,6 +18,8 @@ __version__ = "0.1.0"
 from .base import MXNetError, MXTPUError
 from .context import Context, cpu, gpu, current_context, num_gpus
 from . import ops
+from . import engine
+from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import symbol
@@ -26,9 +30,11 @@ from . import module
 from . import module as mod
 from . import serving
 from . import parallel
+from . import operator
+from . import rtc
 from .ndarray import NDArray
 
 __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "ops", "ndarray", "nd", "symbol",
            "sym", "rnn", "model", "module", "mod", "serving", "parallel",
-           "NDArray"]
+           "engine", "autograd", "operator", "rtc", "NDArray"]

@@ -6,6 +6,8 @@ attention in :mod:`.flash_attention`.
 from .registry import OpDef, register, get_op, next_generator, rng_scope
 
 from . import shape_ops      # noqa: F401
+from . import elemwise       # noqa: F401
+from . import reduce         # noqa: F401
 from . import nn             # noqa: F401
 from . import rnn            # noqa: F401
 

@@ -1,7 +1,8 @@
 """Neural-network ops of the PyTorch port.
 
 Counterpart of the serving-path ops of ``mxtpu/ops/nn.py``:
-FullyConnected, softmax, Embedding and the forward of SoftmaxOutput.
+FullyConnected, Activation, softmax, Embedding and the forward of
+SoftmaxOutput.
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
 here they are plain PyTorch: ``torch.matmul`` and ``index_select``.
 """
@@ -20,6 +21,21 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     if bias is not None and not no_bias:
         out = out + bias
     return out
+
+
+@register("Activation", aliases=("activation",))
+def activation(data, act_type="relu"):
+    if act_type == "relu":
+        return torch.relu(data)
+    if act_type == "sigmoid":
+        return torch.sigmoid(data)
+    if act_type == "tanh":
+        return torch.tanh(data)
+    if act_type == "softrelu":
+        return torch.logaddexp(data, torch.zeros_like(data))
+    if act_type == "softsign":
+        return data / (1 + torch.abs(data))
+    raise ValueError("unknown act_type %r" % act_type)
 
 
 @register("softmax")

@@ -1,9 +1,9 @@
 """Shape ops of the PyTorch port.
 
 Counterpart of the part of ``mxtpu/ops/shape_ops.py`` that the fused
-RNN cell's ``unroll`` and the serving graphs emit: reshape (with MXNet's
-special codes), swapaxes, expand_dims, stack, split and the nullary
-``_zeros`` creator.
+RNN cell's ``unroll``, the serving graphs and ``nd.concatenate`` emit:
+reshape (with MXNet's special codes), swapaxes, expand_dims, concat,
+stack, split and the nullary ``_zeros`` creator.
 """
 from __future__ import annotations
 
@@ -68,6 +68,11 @@ def swapaxes(data, dim1=0, dim2=0):
 @register("expand_dims")
 def expand_dims(data, axis=0):
     return torch.unsqueeze(data, axis)
+
+
+@register("concat", aliases=("Concat",))
+def concat(*args, dim=1):
+    return torch.cat(args, dim=dim)
 
 
 @register("stack")

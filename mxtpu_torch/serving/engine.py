@@ -18,6 +18,11 @@ in per-version stores: :meth:`InferenceEngine.swap_weights` installs a
 new version with the same names and shapes, and a request's version is
 resolved once, so one batch is answered by one version.
 
+A graph whose head is a ``Custom`` op (a classifier with a custom
+softmax-with-loss head, say) serves as any other: the prop's shape hint
+names the label argument's shape, which is fed as zeros, and the op runs
+on the engine's device, where it may launch ``mx.rtc`` kernels.
+
 Generation, sharded serving, canaries and program export wait for a
 later slice.
 """

@@ -71,6 +71,45 @@ class Symbol:
     def __len__(self):
         return len(self._outputs)
 
+    # -- arithmetic: broadcast ops between symbols, the _*_scalar ops with
+    # a number (the reference's and mxtpu's JSON op names) ----------------
+    def _binop(self, opname, scalar_op, other, reverse=False):
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _apply_op(get_op(opname), None, [a, b], {})
+        return _apply_op(get_op(scalar_op), None, [self],
+                         {"scalar": float(other)})
+
+    def __add__(self, o):
+        return self._binop("broadcast_add", "_plus_scalar", o)
+
+    def __radd__(self, o):
+        return self._binop("broadcast_add", "_plus_scalar", o, True)
+
+    def __sub__(self, o):
+        return self._binop("broadcast_sub", "_minus_scalar", o)
+
+    def __rsub__(self, o):
+        return self._binop("broadcast_sub", "_rminus_scalar", o, True)
+
+    def __mul__(self, o):
+        return self._binop("broadcast_mul", "_mul_scalar", o)
+
+    def __rmul__(self, o):
+        return self._binop("broadcast_mul", "_mul_scalar", o, True)
+
+    def __truediv__(self, o):
+        return self._binop("broadcast_div", "_div_scalar", o)
+
+    def __rtruediv__(self, o):
+        return self._binop("broadcast_div", "_rdiv_scalar", o, True)
+
+    def __pow__(self, o):
+        return self._binop("broadcast_power", "_power_scalar", o)
+
+    def __neg__(self):
+        return _apply_op(get_op("negative"), None, [self], {})
+
     def __iter__(self):
         for i in range(len(self._outputs)):
             yield self[i]
@@ -275,6 +314,8 @@ def _create_symbol(op, *args, **kwargs):
 
 
 def _apply_op(op, name, inputs, params, attrs=None, input_names=()):
+    if name is None:
+        name = _name_mgr.current().get(None, op.name.lower())
     in_refs = []
     for s in inputs:
         if not isinstance(s, Symbol):
@@ -294,6 +335,9 @@ def _node_num_outputs(op, params):
     if op.name == "RNN":
         return 1 if not params.get("state_outputs") else \
             (3 if params.get("mode", "lstm") == "lstm" else 2)
+    if op.name == "Custom":
+        from ..operator import custom_num_outputs
+        return custom_num_outputs(params)
     return op.num_outputs if isinstance(op.num_outputs, int) else 1
 
 
@@ -489,6 +533,19 @@ def _label_hint(params, in_shapes, input_names):
     if params.get("multi_output"):
         return {"label": (data[0],) + tuple(data[2:])}
     return {"label": (data[0],)}
+
+
+@shape_hint("Custom")
+def _custom_hint(params, in_shapes, input_names):
+    """The shapes the prop's ``infer_shape`` gives the inputs not yet
+    known (a label such as ``softmax_label``), from those known."""
+    from ..operator import custom_arg_shapes
+    known = [in_shapes.get(n) for n in input_names]
+    if known[0] is None:
+        return {}
+    return {n: s for n, k, s in zip(input_names, known,
+                                    custom_arg_shapes(params, known))
+            if k is None and s is not None}
 
 
 @shape_hint("RNN")

@@ -68,6 +68,28 @@ def test_imports_and_runs_without_jax():
         "a = mxtpu_torch.parallel.local_attention(q, q, q, causal=True,"
         " impl='flash')\n"
         "assert torch.allclose(a, o)\n"
+        "from mxtpu_torch import rtc, operator, autograd, engine\n"
+        "mod = rtc.CudaModule('extern \"C\" __global__ void k(float *o) {}')\n"
+        "assert mod.exports == ['k'] and mod.compiles == 0\n"
+        "class Sq(operator.CustomOp):\n"
+        "    def forward(self, is_train, req, in_data, out_data, aux):\n"
+        "        self.assign(out_data[0], req[0], in_data[0] * in_data[0])\n"
+        "    def backward(self, req, out_grad, in_data, out_data, in_grad,"
+        " aux):\n"
+        "        self.assign(in_grad[0], req[0],"
+        " 2 * in_data[0] * out_grad[0])\n"
+        "@operator.register('iso_sq')\n"
+        "class SqProp(operator.CustomOpProp):\n"
+        "    def create_operator(self, ctx, shapes, dtypes):\n"
+        "        return Sq()\n"
+        "x = mt.nd.array([1.0, -3.0], ctx=mt.cpu())\n"
+        "x.attach_grad()\n"
+        "with autograd.record():\n"
+        "    y = mt.nd.Custom(x, op_type='iso_sq')\n"
+        "y.backward()\n"
+        "engine.waitall()\n"
+        "assert y.asnumpy().tolist() == [1.0, 9.0]\n"
+        "assert x.grad.asnumpy().tolist() == [2.0, -6.0]\n"
         "assert not [m for m in set(sys.modules) - before\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'mxtpu')]\n"
         "print('ok')\n")

@@ -1,0 +1,337 @@
+"""The port's NDArray surface, autograd and engine controls, against
+mxtpu on the same inputs; cases drawn from tests/test_ndarray.py and
+tests/test_autograd.py.
+
+Each case is one function of the package (``pkg`` is mxtpu or
+mxtpu_torch) that returns numpy values; both packages run it, the port
+inside ``with cpu():``, and the values, dtypes included, must agree.
+Tolerance: exact for what both compute the same way, 1e-6 for float32
+arithmetic that may round in another order (reductions, exp, log).
+"""
+import numpy as np
+import pytest
+
+import mxtpu as mx
+import mxtpu_torch as mt
+
+TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def both(case):
+    with mt.cpu():
+        got = case(mt)
+    want = case(mx)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype, (g.dtype, w.dtype)
+        assert g.shape == w.shape, (g.shape, w.shape)
+        np.testing.assert_allclose(g, w, **TOL)
+    return got
+
+
+def test_creation():
+    def case(pkg):
+        nd = pkg.nd
+        return [nd.array([[1, 2], [3, 4]]).asnumpy(),
+                nd.zeros((3, 4)).asnumpy(),
+                nd.ones((2,), dtype="int32").asnumpy(),
+                nd.full((2, 2), 7.0).asnumpy(),
+                nd.arange(0, 10, 2).asnumpy(),
+                nd.arange(2, repeat=2).asnumpy(),
+                nd.arange(0, 5, dtype="int32").asnumpy(),
+                nd.array(np.arange(3, dtype=np.int64)).asnumpy(),
+                nd.array(np.ones(2, np.float64)).asnumpy(),
+                nd.concatenate([nd.ones((2, 3)), nd.zeros((2, 3))],
+                               axis=1).asnumpy(),
+                np.asarray(nd.empty((2, 3)).shape)]
+    both(case)
+    with mt.cpu():
+        a = mt.nd.ones((2, 3))
+        assert a.context == mt.cpu() and a.ndim == 2 and a.size == 6
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_arithmetic(dtype):
+    def case(pkg):
+        nd = pkg.nd
+        a = nd.array(np.array([[1, 2], [3, 4]]), dtype=dtype)
+        b = nd.array(np.array([[10, 20], [30, 40]]), dtype=dtype)
+        out = [a + b, b - a, a * 2, 2 * a, a * 1.5, 1 / a, a / 2, a ** 2,
+               2 ** a, -a, a % 3, 7 % a, 10 - a, abs(-a), a + 0.5]
+        a += b
+        out.append(a)
+        c = nd.array(np.array([1.0, 4.0]))
+        c *= 3
+        c -= 1
+        c /= 2
+        out.append(c)
+        return [o.asnumpy() for o in out]
+    both(case)
+
+
+def test_comparison_returns_numeric():
+    def case(pkg):
+        a = pkg.nd.array([1.0, 2.0, 3.0])
+        b = pkg.nd.array([2.0, 2.0, 2.0])
+        i = pkg.nd.array(np.array([1, 2, 3], np.int32))
+        return [(a == b).asnumpy(), (a != b).asnumpy(), (a > b).asnumpy(),
+                (a >= b).asnumpy(), (a < 2).asnumpy(), (a <= 2).asnumpy(),
+                (i == 2).asnumpy(), (2 < a).asnumpy()]
+    both(case)
+
+
+def test_indexing_copies_like_mxtpu():
+    def case(pkg):
+        a = pkg.nd.array(np.arange(12).reshape(3, 4).astype("f"))
+        row = a[1]
+        part = a[1:3]
+        col = a[:, 2]
+        a[0] = 99.0
+        a[1:3] = 0.0
+        a[2, 1:3] = pkg.nd.array([5.0, 6.0])
+        taken = a[pkg.nd.array([0, 2])]
+        b = a.copy()
+        b[0, 0] = -1.0
+        return [row.asnumpy(), part.asnumpy(), col.asnumpy(), a.asnumpy(),
+                taken.asnumpy(), b.asnumpy()]
+    both(case)
+
+
+def test_reshape_and_methods():
+    def case(pkg):
+        a = pkg.nd.array(np.arange(24).astype("f"))
+        b = a.reshape(2, 3, 4)
+        return [np.asarray(b.shape), np.asarray(b.reshape((-1,)).shape),
+                np.asarray(b.reshape(0, -1).shape),
+                np.asarray(b.reshape(shape=(4, -1)).shape),
+                np.asarray(a.sum().asscalar()), b.sum(axis=1).asnumpy(),
+                b.exp().asnumpy()]
+    both(case)
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "max", "min"])
+def test_reductions(op):
+    def case(pkg):
+        nd = pkg.nd
+        a = nd.array(np.random.RandomState(0).randn(2, 3, 4).astype("f"))
+        i = nd.array(np.arange(24).reshape(2, 3, 4).astype(np.int32))
+        f = getattr(nd, op)
+        return [f(a).asnumpy(), f(a, axis=1).asnumpy(),
+                f(a, axis=(0, 2), keepdims=True).asnumpy(),
+                f(a, axis=1, exclude=True).asnumpy(),
+                f(a, axis=-1).asnumpy(), f(i, axis=2).asnumpy()]
+    both(case)
+
+
+def test_argmax_and_unary():
+    def case(pkg):
+        nd = pkg.nd
+        a = nd.array(np.random.RandomState(1).rand(3, 5).astype("f") + 0.1)
+        i = nd.array(np.array([1, 4, 9], np.int32))
+        return [nd.argmax(a, axis=1).asnumpy(),
+                nd.argmax(a, axis=0, keepdims=True).asnumpy(),
+                nd.exp(a).asnumpy(), nd.log(a).asnumpy(),
+                nd.sqrt(a).asnumpy(), nd.square(a).asnumpy(),
+                nd.negative(a).asnumpy(), nd.abs(-a).asnumpy(),
+                nd.sqrt(i).asnumpy(), nd.square(i).asnumpy(),
+                nd.relu(a - 0.5).asnumpy(), nd.sigmoid(a).asnumpy(),
+                nd.tanh(a).asnumpy()]
+    both(case)
+
+
+def test_broadcast_and_scalar_ops_by_name():
+    def case(pkg):
+        nd = pkg.nd
+        a = nd.array(np.array([[1.0, -2.0, 3.0]]))
+        b = nd.array(np.array([[2.0], [-1.0]]))
+        out = [nd.broadcast_add(a, b), nd.broadcast_sub(a, b),
+               nd.broadcast_mul(a, b), nd.broadcast_div(a, b),
+               nd.broadcast_maximum(a, b), nd.broadcast_minimum(a, b),
+               nd.broadcast_power(nd.abs(a), b), nd.broadcast_mod(a, b),
+               nd.broadcast_greater(a, b), nd.broadcast_lesser_equal(a, b),
+               nd.broadcast_not_equal(a, b)]
+        for name in ("_plus_scalar", "_minus_scalar", "_rminus_scalar",
+                     "_mul_scalar", "_div_scalar", "_rdiv_scalar",
+                     "_mod_scalar", "_rmod_scalar", "_maximum_scalar",
+                     "_minimum_scalar", "_greater_scalar",
+                     "_lesser_equal_scalar", "_equal_scalar"):
+            out.append(getattr(nd, name)(a, scalar=2.0))
+        out.append(nd._power_scalar(nd.abs(a), scalar=2.0))
+        out.append(nd._rpower_scalar(a, scalar=2.0))
+        return [o.asnumpy() for o in out]
+    both(case)
+
+
+@pytest.mark.parametrize("act", ["relu", "sigmoid", "tanh", "softrelu",
+                                 "softsign"])
+def test_activation(act):
+    def case(pkg):
+        x = pkg.nd.array(np.linspace(-4, 4, 9).astype("f"))
+        return [pkg.nd.Activation(x, act_type=act).asnumpy()]
+    both(case)
+
+
+def test_copies_and_contexts():
+    def case(pkg):
+        a = pkg.nd.array([1.0, 2.0])
+        b = a.as_in_context(pkg.cpu(0))
+        c = pkg.nd.zeros((2,), dtype="int32")
+        a.copyto(c)                       # c takes a's value and dtype
+        d = a.copyto(pkg.cpu(0))
+        e = a.astype("int32")
+        a[0] = 5.0                        # no other array sees it
+        return [b.asnumpy(), c.asnumpy(), d.asnumpy(), e.asnumpy(),
+                a.asnumpy(), np.asarray(a.asscalar() if a.size == 1 else 0)]
+    both(case)
+    with mt.cpu():
+        a = mt.nd.array([3.5])
+        assert a.as_in_context(mt.cpu()) is a
+        a.wait_to_read()
+        assert a.asscalar() == pytest.approx(3.5)
+        mt.nd.waitall()
+
+
+def test_simple_grad():
+    def case(pkg):
+        x = pkg.nd.array([1.0, 2.0, 3.0])
+        x.attach_grad()
+        with pkg.autograd.record():
+            y = (x * x).sum()
+        y.backward()
+        return [x.grad.asnumpy(), y.asnumpy()]
+    both(case)
+
+
+def test_chain_and_broadcast():
+    xv = np.random.RandomState(2).randn(3, 4).astype("f")
+    wv = np.random.RandomState(3).randn(5, 4).astype("f")
+
+    def case(pkg):
+        x, w = pkg.nd.array(xv), pkg.nd.array(wv)
+        x.attach_grad()
+        w.attach_grad()
+        with pkg.autograd.record():
+            y = pkg.nd.FullyConnected(data=x, weight=w, num_hidden=5,
+                                      no_bias=True)
+            z = pkg.nd.relu(y).sum()
+        z.backward()
+        return [w.grad.asnumpy(), x.grad.asnumpy()]
+    both(case)
+
+
+@pytest.mark.parametrize("req", ["write", "add", "null"])
+def test_grad_req(req):
+    def case(pkg):
+        x = pkg.nd.array([1.0, 2.0])
+        x.attach_grad(grad_req=req)
+        for _ in range(3):
+            with pkg.autograd.record():
+                y = (x * x).sum()
+            y.backward()
+        return [x.grad.asnumpy()]
+    both(case)
+
+
+def test_not_recording_outside_scope_and_detach():
+    def case(pkg):
+        x = pkg.nd.array([1.0])
+        x.attach_grad()
+        y = x * 2                  # not recorded
+        with pkg.autograd.record():
+            z = x * 3
+            w = (x * 3).detach() * 2
+        z.backward()
+        g1 = x.grad.asnumpy().copy()
+        w.backward()              # nothing recorded reaches x
+        return [y.asnumpy(), g1, x.grad.asnumpy()]
+    both(case)
+
+
+def test_autograd_grad_function_and_head_grads():
+    def case(pkg):
+        ag = pkg.autograd
+        x = pkg.nd.array([1.0, 2.0])
+        with ag.record():
+            y = (x * x * x).sum()
+        g = ag.grad(y, x)
+        v = pkg.nd.array([1.0, 2.0])
+        v.attach_grad()
+        with ag.record():
+            u = v * 2
+            t = u * 3
+        t.backward(pkg.nd.array([1.0, 10.0]), retain_graph=True)
+        first = v.grad.asnumpy().copy()
+        ag.backward([t], head_grads=[pkg.nd.array([1.0, 1.0])])
+        return [g.asnumpy(), first, v.grad.asnumpy()]
+    both(case)
+
+
+def test_inplace_update_of_a_variable():
+    def case(pkg):
+        w = pkg.nd.array([1.0, -1.0])
+        w.attach_grad()
+        for _ in range(2):
+            with pkg.autograd.record():
+                loss = (w * w).sum()
+            loss.backward()
+            w -= 0.25 * w.grad           # SGD outside record()
+        return [w.asnumpy(), w.grad.asnumpy()]
+    both(case)
+
+
+def test_scopes_and_flags():
+    def case(pkg):
+        ag = pkg.autograd
+        seen = [ag.is_training(), ag.is_recording()]
+        with ag.record():
+            seen += [ag.is_training(), ag.is_recording()]
+            with ag.pause():
+                seen += [ag.is_training(), ag.is_recording()]
+        with ag.record(train_mode=False):
+            seen += [ag.is_training(), ag.is_recording()]
+        with ag.train_mode():
+            seen += [ag.is_training(), ag.is_recording()]
+            with ag.predict_mode():
+                seen.append(ag.is_training())
+        seen += [ag.set_training(True), ag.set_training(False),
+                 ag.set_recording(True), ag.set_recording(False)]
+        return [np.asarray(seen)]
+    both(case)
+
+
+def test_mark_variables():
+    def case(pkg):
+        x = pkg.nd.array([1.0, 2.0])
+        gx = pkg.nd.zeros((2,))
+        pkg.autograd.mark_variables([x], [gx], "add")
+        for _ in range(2):
+            with pkg.autograd.record():
+                y = (x * 4).sum()
+            y.backward()
+        return [gx.asnumpy(), x.grad.asnumpy()]
+    both(case)
+
+
+def test_engine_controls():
+    def case(pkg):
+        eng = pkg.engine
+        before = eng.engine_type()
+        try:
+            eng.set_engine_type("NaiveEngine")
+            sync = eng.is_synchronous()
+            typ = eng.engine_type()
+            x = pkg.nd.array([1.0, 2.0]) * 3     # ops wait when synchronous
+            prev = eng.set_bulk_size(7)
+            with eng.bulk(3):
+                inner = eng.set_bulk_size(3)
+            after = eng.set_bulk_size(prev)
+            eng.waitall()
+        finally:
+            eng.set_engine_type(before)
+        return [np.asarray([sync, typ == "NaiveEngine", inner == 3,
+                            after == 7, eng.is_synchronous()]),
+                x.asnumpy()]
+    both(case)
+    with pytest.raises(ValueError):
+        mt.engine.set_engine_type("FancyEngine")
