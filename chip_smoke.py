@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (B=8, H=4, T=256, D=16, f32, causal), at the JAX package's own check
    shape (B=1, H=8, T=8192, D in {64, 128}, bf16, causal), on shard
    offsets that leave rows fully masked, and on lengths that are not a
-   multiple of the tile;
+   multiple of the tile (the last two in f32 and bf16); bf16 runs the
+   forward and dQ on the wgmma/TMA kernels (flash_fwd_sm90,
+   flash_bwd_dq_sm90), and each call must launch the kernel its dtype
+   routes to and no other;
 4. serving: a bucketed LSTM language model at the published widths of
    example/rnn/lstm_bucketing.py (vocab 10,000, embed 200, hidden 200,
    2 layers, 32 tokens), with weights drawn from --seed, checkpointed and
@@ -32,7 +35,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel once per step, and match its first 3 steps run on the CPU (the
    plain path) in loss and parameters;
 7. the op entry: mt.nd.flash_attention on the card launches the kernel;
-8. mx.rtc (mxtpu_torch.rtc, NVRTC): the six launch cases of the JAX
+8. the bf16 long-context path: mt.nd.flash_attention on bf16 NDArrays of
+   (1, 8, 8192, 64) on gpu(0) launches flash_fwd_sm90 alone, and
+   mxtpu_torch.parallel.local_attention(impl="auto", causal=True) forward
+   and backward under autograd on bf16 (1, 8, 8192, 128) launches
+   flash_fwd_sm90, flash_bwd_dq_sm90 and flash_bwd_dkv once each; every
+   output against the plain versions, the sm90 kernels within their
+   derived allowance (SM90_*);
+9. mx.rtc (mxtpu_torch.rtc, NVRTC): the six launch cases of the JAX
    package's rtc tests rewritten in CUDA C (axpy, fill_rows on
    blockIdx.x, dbl with its output first, rows on blockIdx.y, a scalar
    multiply over three alphas, rep with an int n) against their plain
@@ -40,7 +50,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    output behind float * comes back converted; half through
    cuda_fp16.h and 64 KB of dynamic shared memory work; a syntax error
    raises with NVRTC's log; a cpu() context raises;
-9. the custom-op slice: the MLP of example/numpy-ops/custom_softmax.py
+10. the custom-op slice: the MLP of example/numpy-ops/custom_softmax.py
    at its own widths (784 -> 128 relu -> 10, batch 128, 2048 samples
    made as the example makes them, momentum SGD lr 0.1 / 0.9, 4 epochs =
    64 steps, f32), whose softmax-with-loss head is a CustomOp launching
@@ -52,15 +62,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel a step, train accuracy > 0.9) and is served by
    InferenceEngine on cuda:0 (buckets 1-128) against the same weights
    served on the CPU;
-10. timings: each kernel, its plain version and the PyTorch library call
+11. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take; the
    serving slice's requests/s and tokens scored/s at bucket 32; the
    training slices' ms per step and where a step's device time goes;
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128;
-11. one JSON line naming every kernel with its launches and error;
-12. the last line: {"ok": true, "device": {...}}.
+12. one JSON line naming every kernel with its launches and error;
+13. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -119,6 +129,28 @@ LM_PARAMS = {"emb": (LM_VOCAB, LM_DIM), "pos": (LM_SEQ, LM_DIM),
 # ulp, at most 2^-7 of the value; lse is f32 either way.
 FLASH_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 FLASH_BF16_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -7)
+# The bf16 forward and dQ kernels (csrc/flash_attention_sm90.cu) against
+# the same f32 plain versions. The kernels round P (dS) to bf16 before
+# P.V (dS.K), as the TPU's one-pass bf16 dot does; the plain versions keep
+# them f32. Rounding to nearest moves each p or ds by at most u = 2^-8 of
+# itself (bf16 keeps 8 significant bits), so, from the plain version's own
+# P and dS (sm90_allowance):
+#   |O_id - O'_id|    <= u (P |V|)_id / l_i             (p >= 0, elementwise)
+#   ||dQ_i - dQ'_i||  <= u || (|dS| |K|)_i ||            (a row's 2-norm)
+# dS.K cancels (each row of dS sums to about 0), so dQ is held per row in
+# norm: next to a near-zero element of dQ the rounding of the terms that
+# cancelled into it still shows. On top of that, both sides round their
+# f32 result to bf16 once, and a last-bit difference can flip that
+# rounding: 2^-7 of the value (SM90_OUT_RTOL, as FLASH_BF16_TOL); the f32
+# sums run in another order, at most 1e-5 an element at these magnitudes
+# (SM90_SUM_ATOL, FLASH_F32_TOL's atol). lse is f32 on both sides: l sums
+# up to Tk positive terms in another order, Tk 2^-24 of itself at most
+# (4.9e-4 at 8,192 keys), and exp2 with log2 e folded into the scale moves
+# an exponent by 2^-24 of |s scale log2 e| (below 2e-6 here).
+SM90_U = 2.0 ** -8
+SM90_OUT_RTOL = 2.0 ** -7
+SM90_SUM_ATOL = 1e-5
+SM90_LSE_TOL = dict(atol=5e-4, rtol=0.0)
 # The LM's first steps, card (kernels) vs CPU (plain versions): f32 sums
 # in another order inside attention and the products around it. Adam
 # moves each weight by about lr a step whatever the gradient's size, so
@@ -513,23 +545,96 @@ def flash_bound(name, BH, Tq, Tk, D, itemsize):
 def check_flash(fa, rng, dev, B, H, Tq, Tk, D, dtype, tol, q_off=0,
                 k_off=0):
     """Each flash kernel against its plain version on one input; returns
-    {kernel: max abs error}."""
+    ({kernel: max abs error}, inputs). Each call must launch exactly the
+    kernel its (dtype, D) routes to: for bf16 the forward and dQ go to the
+    sm90 kernels (errors keyed flash_fwd_sm90 / flash_bwd_dq_sm90), held
+    to the derived SM90_* allowance and also printed against their
+    rounding model (flash_*_bf16p_plain); f32, and dK/dV, are held to
+    ``tol``."""
     import torch
     a = flash_inputs(rng, B, H, Tq, Tk, D, dtype, dev, q_off, k_off)
     label = "B=%d H=%d Tq=%d Tk=%d D=%d %s q_off=%d k_off=%d" % (
         B, H, Tq, Tk, D, dtype, q_off, k_off)
-    errs = {}
+    bf16 = dtype == torch.bfloat16
+    allowance = sm90_allowance(fa, a) if bf16 else None
+    bw = (a["q"], a["k"], a["v"], a["do"], a["lse"], a["delta"], a["offs"],
+          True)
+    model = {"flash_fwd_sm90": lambda: fa.flash_fwd_bf16p_plain(
+                 a["q"], a["k"], a["v"], a["offs"], True),
+             "flash_bwd_dq_sm90": lambda: (fa.flash_bwd_dq_bf16p_plain(*bw),)}
+    errs, notes = {}, []
     for name, (kernel, plain) in flash_calls(fa, a).items():
+        route = name + "_sm90" if bf16 and name != "flash_bwd_dkv" else name
+        fa.reset_launches()
         got = kernel()
         torch.cuda.synchronize()
+        launched = {k: n for k, n in fa.LAUNCHES.items() if n}
+        if launched != {route: 1}:
+            fail("%s %s launched %s, want one launch of %s"
+                 % (name, label, launched, route))
         want = plain()
         if not all(bool(torch.isfinite(g.float()).all()) for g in got):
-            fail("%s %s: non-finite output" % (name, label))
-        check_close("%s %s" % (name, label), got, want, tol)
-        errs[name] = max_err(got, want)
-    print("check flash %s: max err %s (tolerance %s)"
-          % (label, {k: "%.3g" % e for k, e in errs.items()}, tol))
+            fail("%s %s: non-finite output" % (route, label))
+        if route in model:
+            excess = sm90_excess(route, got, want, allowance)
+            if excess > 1.0:
+                fail("%s %s differs from the plain version by %.3g of its "
+                     "derived allowance (max abs %g)"
+                     % (route, label, excess, max_err(got, want)))
+            lse = ", lse %.3g" % max_err(got[1:], want[1:]) \
+                if route == "flash_fwd_sm90" else ""
+            notes.append("%s %.2f of allowance, %.3g from its rounding "
+                         "model%s" % (route, excess,
+                                      max_err(got, model[route]()), lse))
+        else:
+            check_close("%s %s" % (name, label), got, want, tol)
+        errs[route] = max_err(got, want)
+    print("check flash %s: max err %s (tolerance %s%s)%s"
+          % (label, {k: "%.3g" % e for k, e in errs.items()}, tol,
+             "; sm90 kernels: SM90_* allowance" if bf16 else "",
+             "; " + "; ".join(notes) if notes else ""))
     return errs, a
+
+
+def sm90_allowance(fa, a, causal=True):
+    """The derived allowance of the bf16 kernels on the inputs of
+    flash_inputs (see SM90_U): (O elementwise (BH, Tq, D), dQ by row
+    (BH, Tq)), from the plain versions' own P and dS."""
+    import torch
+    q, k, v, offs = a["q"], a["k"], a["v"], a["offs"]
+    mask = fa._mask(offs, q.shape[1], k.shape[1], causal, q.device)
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * offs[3]
+    s = torch.where(mask, s, fa._NEG)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    del s
+    l = p.sum(-1, keepdim=True)
+    o_slack = SM90_U * torch.matmul(p, v.float().abs()) / torch.where(
+        l == 0.0, 1.0, l)
+    del p
+    _p, ds = fa._probs_and_ds(q, k, v, a["do"], a["lse"], a["delta"], offs,
+                              causal)
+    del _p
+    dq_slack = SM90_U * torch.matmul(ds.abs(), k.float().abs()).norm(dim=-1)
+    return o_slack, dq_slack
+
+
+def sm90_excess(route, got, want, allowance):
+    """The largest share of its allowance that a bf16 kernel's output
+    uses against the plain version's (above 1 fails): ``got``/``want``
+    are (o, lse) for flash_fwd_sm90, (dq,) for flash_bwd_dq_sm90."""
+    import torch
+    o_slack, dq_slack = allowance
+    if route == "flash_fwd_sm90":
+        (o, lse), (o_p, lse_p) = got, want
+        if not torch.allclose(lse, lse_p, **SM90_LSE_TOL):
+            fail("flash_fwd_sm90 lse differs from the plain version by %g "
+                 "(%s)" % (float((lse - lse_p).abs().max()), SM90_LSE_TOL))
+        allow = o_slack + SM90_OUT_RTOL * o_p.float().abs() + SM90_SUM_ATOL
+        return float(((o.float() - o_p.float()).abs() / allow).max())
+    dq, dq_p = got[0].float(), want[0].float()
+    allow = (dq_slack + SM90_OUT_RTOL * dq_p.norm(dim=-1)
+             + SM90_SUM_ATOL * dq_p.shape[-1] ** 0.5)
+    return float(((dq - dq_p).norm(dim=-1) / allow).max())
 
 
 def sdpa_calls(a, B, H):
@@ -549,6 +654,110 @@ def sdpa_calls(a, B, H):
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return torch.autograd.grad(out, (q, k, v), do)
     return fwd, fwd_bwd
+
+
+LONG_T, LONG_H = 8192, 8
+
+
+def bf16_long_context(mt, fa, rng, dev):
+    """Phase 8 (see main); returns the sm90 kernels' launches on it and
+    the local_attention forward+backward call, for timing."""
+    import torch
+    from mxtpu_torch.parallel import local_attention
+
+    def bf16(D):
+        return torch.from_numpy(rng.standard_normal(
+            (1, LONG_H, LONG_T, D)).astype(np.float32)).to(dev).to(
+                torch.bfloat16)
+
+    def held(what, o, q, k, v, do=None, grads=None):
+        """o (and grads of q, k, v under cotangent do) against the plain
+        versions on the flattened inputs; returns the sm90 errors."""
+        flat = [x.reshape(LONG_H, LONG_T, -1) for x in (q, k, v)]
+        offs = torch.tensor([0.0, 0.0, LONG_T, 1.0 / np.sqrt(q.shape[-1])],
+                            dtype=torch.float32, device=dev)
+        o_p, lse_p = fa.flash_fwd_plain(*flat, offs, True)
+        o = o.reshape(o_p.shape)
+        # (without a backward, O stands in for the cotangent: only the dQ
+        # allowance reads it)
+        a = dict(q=flat[0], k=flat[1], v=flat[2], offs=offs, lse=lse_p,
+                 do=o_p if do is None else do.reshape(o_p.shape))
+        # the backward's delta, from the kernel's own O as autograd's
+        a["delta"] = (a["do"].float() * o.float()).sum(-1)
+        allowance = sm90_allowance(fa, a)
+        excess = {"flash_fwd_sm90": sm90_excess(
+            "flash_fwd_sm90", (o, lse_p), (o_p, lse_p), allowance)}
+        errs = {"flash_fwd_sm90": max_err([o], [o_p])}
+        if grads is not None:
+            bw = (*flat, a["do"], lse_p, a["delta"], offs, True)
+            dq_p = fa.flash_bwd_dq_plain(*bw)
+            dq = grads[0].reshape(dq_p.shape)
+            excess["flash_bwd_dq_sm90"] = sm90_excess(
+                "flash_bwd_dq_sm90", (dq,), (dq_p,), allowance)
+            errs["flash_bwd_dq_sm90"] = max_err([dq], [dq_p])
+            dk_p, dv_p = fa.flash_bwd_dkv_plain(*bw)
+            check_close("%s dK/dV" % what,
+                        [g.reshape(w.shape) for g, w in
+                         zip(grads[1:], (dk_p, dv_p))],
+                        [dk_p, dv_p], FLASH_BF16_TOL)
+            errs["flash_bwd_dkv"] = max_err(
+                [g.reshape(w.shape) for g, w in zip(grads[1:],
+                                                    (dk_p, dv_p))],
+                [dk_p, dv_p])
+        for name, x in excess.items():
+            if x > 1.0:
+                fail("%s: %s uses %.3g of its derived allowance"
+                     % (what, name, x))
+        return errs, excess
+
+    # the op entry, on NDArrays on gpu(0)
+    q, k, v = (mt.nd.array(bf16(64), ctx=mt.gpu(0)) for _ in range(3))
+    fa.reset_launches()
+    out = mt.nd.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    op_launches = dict(fa.LAUNCHES)
+    want = {n: int(n == "flash_fwd_sm90") for n in fa.LAUNCHES}
+    if op_launches != want or out.dtype != torch.bfloat16:
+        fail("nd.flash_attention on bf16 launched %s (want %s), gave %s"
+             % (op_launches, want, out.dtype))
+    errs, excess = held("nd.flash_attention", out.data, q.data, k.data,
+                        v.data)
+    print("bf16 op entry: nd.flash_attention (1, %d, %d, 64) on %s: "
+          "launches %s; max |out - plain| %s, share of allowance %s"
+          % (LONG_H, LONG_T, out.context, op_launches,
+             {n: "%.3g" % e for n, e in errs.items()},
+             {n: "%.2f" % e for n, e in excess.items()}))
+
+    # local_attention under autograd, forward and backward
+    q, k, v = (bf16(128).requires_grad_() for _ in range(3))
+    do = bf16(128)
+    fa.reset_launches()
+    o = local_attention(q, k, v, causal=True, impl="auto")
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    la_launches = dict(fa.LAUNCHES)
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 1,
+            "flash_fwd_sm90": 1, "flash_bwd_dq_sm90": 1}
+    if la_launches != want:
+        fail("local_attention bf16 forward+backward launched %s, want %s"
+             % (la_launches, want))
+    if not all(g.dtype == torch.bfloat16 and bool(torch.isfinite(
+            g.float()).all()) for g in (o, *grads)):
+        fail("local_attention bf16: outputs not finite bf16")
+    errs, excess = held("local_attention", o.detach(), q.detach(),
+                        k.detach(), v.detach(), do, grads)
+    print("bf16 long context: local_attention (1, %d, %d, 128) causal on "
+          "%s, forward and backward: launches %s; max |x - plain| %s, "
+          "share of allowance %s"
+          % (LONG_H, LONG_T, dev, la_launches,
+             {n: "%.3g" % e for n, e in errs.items()},
+             {n: "%.2f" % e for n, e in excess.items()}))
+
+    def fwd_bwd():
+        out = local_attention(q, k, v, causal=True, impl="auto")
+        return torch.autograd.grad(out, (q, k, v), do)
+    return {n: op_launches[n] + la_launches[n]
+            for n in ("flash_fwd_sm90", "flash_bwd_dq_sm90")}, fwd_bwd
 
 
 # ---------------------------------------------------------------------------
@@ -1111,20 +1320,31 @@ def main():
     flash_errs, slice_in = check_flash(fa, rng, dev, *slice_shape,
                                        torch.float32, FLASH_F32_TOL)
     errs.update(flash_errs)
-    long_in = {}
-    for D in (64, 128):
-        _e, long_in[D] = check_flash(fa, rng, dev, 1, 8, 8192, 8192, D,
-                                     torch.bfloat16, FLASH_BF16_TOL)
+    # (bf16 runs the forward and dQ on the sm90 kernels; their errors are
+    # the largest over every bf16 case)
+    sm90_errs = {"flash_fwd_sm90": 0.0, "flash_bwd_dq_sm90": 0.0}
+
+    def check_bf16(*shape, **offsets):
+        e, a = check_flash(fa, rng, dev, *shape, torch.bfloat16,
+                           FLASH_BF16_TOL, **offsets)
+        for name in sm90_errs:
+            sm90_errs[name] = max(sm90_errs[name], e[name])
+        return a
+    long_in = {D: check_bf16(1, 8, 8192, 8192, D) for D in (64, 128)}
     _e, masked = check_flash(fa, rng, dev, 1, 2, 128, 128, 32,
                              torch.float32, FLASH_F32_TOL, q_off=0, k_off=64)
-    o, lse = fa.flash_fwd(masked["q"], masked["k"], masked["v"],
-                          masked["offs"], True)
-    if o[:, :64].abs().max() != 0 or not bool((lse[:, :64] == -1e30).all()):
-        fail("fully-masked rows must give O = 0 and lse = -1e30")
+    masked_bf16 = check_bf16(1, 2, 128, 128, 32, q_off=0, k_off=64)
+    for m in (masked, masked_bf16):
+        o, lse = fa.flash_fwd(m["q"], m["k"], m["v"], m["offs"], True)
+        if o[:, :64].abs().max() != 0 or \
+                not bool((lse[:, :64] == -1e30).all()):
+            fail("fully-masked rows must give O = 0 and lse = -1e30 (%s)"
+                 % o.dtype)
     check_flash(fa, rng, dev, 1, 2, 128, 200, 64, torch.float32,
                 FLASH_F32_TOL, q_off=150, k_off=20)
     check_flash(fa, rng, dev, 2, 3, 100, 72, 32, torch.float32,
                 FLASH_F32_TOL)
+    check_bf16(2, 3, 100, 72, 32)
 
     # 4.-5. serving: the LSTM LM, then its GRU variant
     workdir = os.path.join(_build.build_dir(), "smoke")
@@ -1202,11 +1422,18 @@ def main():
           "|out - reference| %.3g" % (out.context,
                                        max_err([out.data], [want])))
 
-    # 8. mx.rtc: the launch protocol on cuda:0
+    # 8. the bf16 long-context path through the public entries: the op on
+    # (1, 8, 8192, 64) NDArrays launches the sm90 forward alone, and
+    # local_attention(impl="auto") forward and backward on (1, 8, 8192,
+    # 128) launches the sm90 forward and dQ and the CUDA-core dK/dV once
+    # each; every output against the plain versions
+    bf16_path, long_fwd_bwd = bf16_long_context(mt, fa, rng, dev)
+
+    # 9. mx.rtc: the launch protocol on cuda:0
     gpu = mt.gpu(0)
     rtc_mod = rtc_phase(mt)
 
-    # 9. the custom-op slice: the head's kernels against their plain
+    # 10. the custom-op slice: the head's kernels against their plain
     # versions, at the slice's shape and at the LM's output rows
     cs_register(mt)
     ck = cs_kernels()
@@ -1319,7 +1546,7 @@ def main():
           % (len(cs_requests), list(CS_REQUEST_ROWS), cs_engine.device,
              worst, CS_SERVE_TOL, served_launches))
 
-    # 10. timings at the main paths' shapes
+    # 11. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -1349,9 +1576,11 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms})
 
-    # flash kernels: the training slice's shape (the JSON line) and the
-    # JAX package's 8k check shape; SDPA's backward is timed as
-    # forward+backward less forward and stands for dQ and dK/dV together
+    # flash kernels: the training slice's shape (f32; the JSON line) and
+    # the JAX package's 8k check shape (bf16: the forward and dQ are the
+    # sm90 kernels, in the JSON line at D=128); SDPA's backward is timed
+    # as forward+backward less forward and stands for dQ and dK/dV
+    # together
     replaces = {"flash_fwd": "mxtpu/ops/pallas_attention.py:142",
                 "flash_bwd_dq": "mxtpu/ops/pallas_attention.py:236",
                 "flash_bwd_dkv": "mxtpu/ops/pallas_attention.py:255"}
@@ -1365,6 +1594,8 @@ def main():
         lib_fwd = cuda_ms(sdpa_fwd, iters=iters)
         lib_bwd = cuda_ms(sdpa_fwd_bwd, iters=iters) - lib_fwd
         for name, (kernel, plain) in flash_calls(fa, a).items():
+            route = name + "_sm90" if a["q"].dtype == torch.bfloat16 and \
+                name != "flash_bwd_dkv" else name
             ms = cuda_ms(kernel, iters=iters)
             plain_ms = cuda_ms(plain, iters=max(3, iters // 5))
             ms2 = cuda_ms(kernel, iters=iters)
@@ -1373,7 +1604,7 @@ def main():
             print("time %s %s B=%d H=%d T=%d D=%d %s causal: kernel %.4f ms "
                   "(again %.4f), plain %.4f ms, SDPA %s %.4f ms, bound "
                   "%.5f ms (%s), %.1f%% of bound | %s"
-                  % (name, label, B, H, T, D, a["q"].dtype, ms, ms2,
+                  % (route, label, B, H, T, D, a["q"].dtype, ms, ms2,
                      plain_ms, "fwd" if name == "flash_fwd" else
                      "bwd (dQ+dK/dV)", lib_ms, bound_ms, bound_by,
                      100 * bound_ms / ms, card))
@@ -1386,6 +1617,24 @@ def main():
                     "max_abs_err": errs[name], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib_ms})
+            elif label == "8k d128" and route != name:
+                kernels.append({
+                    "name": route, "route": "cuda",
+                    "source": "mxtpu_torch/csrc/flash_attention_sm90.cu",
+                    "replaces": replaces[name],
+                    "launches": bf16_path[route],
+                    "max_abs_err": sm90_errs[route], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms})
+
+    # the bf16 long-context path end to end: local_attention forward and
+    # backward at (1, 8, 8192, 128), and where its card time goes
+    long_ms = cuda_ms(long_fwd_bwd, iters=5, warmup=2)
+    busy, top = device_time(long_fwd_bwd, 3)
+    print("bf16 long context: local_attention (1, %d, %d, 128) causal "
+          "forward+backward %.3f ms (events over 5 calls), card busy %.3f "
+          "ms a call; per call: %s | %s"
+          % (LONG_H, LONG_T, long_ms, busy, top, card))
 
     # the serving slice's throughput at bucket 32, host clock around whole
     # requests
@@ -1525,7 +1774,7 @@ def main():
                                       dt / reps * 1e3, card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 11.-12. the result lines
+    # 12.-13. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

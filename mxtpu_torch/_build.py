@@ -4,8 +4,10 @@ Each source under ``mxtpu_torch/csrc/`` compiles with ``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The
 build happens at first use (or through :func:`build_all`), from the
 sources in the checkout, into ``build/mxtpu_torch/`` at the repository
-root; each library's file name carries a hash of its source and flags,
-so an edited source rebuilds and an unchanged one loads as it is. All
+root; each library's file name carries a hash of its source, of every
+header under ``csrc/`` and under any ``-I`` directory the flags name,
+and of the flags, so an edited source or header rebuilds and an
+unchanged one loads as it is. All
 sources compile in parallel, one ``nvcc`` each. A failed build raises.
 """
 from __future__ import annotations
@@ -20,11 +22,15 @@ from pathlib import Path
 
 from .base import MXTPUError
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "load"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "load",
+           "library_path"]
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = {"rnn_scan": _PKG / "csrc" / "rnn_scan.cu",
-           "flash_attention": _PKG / "csrc" / "flash_attention.cu"}
+CSRC = _PKG / "csrc"
+SOURCES = {"rnn_scan": CSRC / "rnn_scan.cu",
+           "flash_attention": CSRC / "flash_attention.cu",
+           "flash_attention_sm90": CSRC / "flash_attention_sm90.cu"}
+_HEADER_SUFFIXES = (".h", ".cuh", ".hpp", ".inl")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +46,10 @@ _SIGNATURES = {
         "mx_flash_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
         "mx_flash_bwd_dq": (_P,) * 8 + (_I,) * 6 + (_P,),
         "mx_flash_bwd_dkv": (_P,) * 9 + (_I,) * 6 + (_P,),
+    },
+    "flash_attention_sm90": {
+        "mx_flash_fwd_sm90": (_P,) * 6 + (_I,) * 5 + (_P,),
+        "mx_flash_bwd_dq_sm90": (_P,) * 8 + (_I,) * 5 + (_P,),
     },
 }
 
@@ -62,9 +72,28 @@ def _nvcc():
                      "the port's CUDA kernels build from source")
 
 
+def _header_dirs():
+    """``csrc/`` and every directory the flags name with ``-I``."""
+    dirs = [CSRC]
+    for i, flag in enumerate(NVCC_FLAGS):
+        if flag == "-I" and i + 1 < len(NVCC_FLAGS):
+            dirs.append(Path(NVCC_FLAGS[i + 1]))
+        elif flag.startswith("-I") and len(flag) > 2:
+            dirs.append(Path(flag[2:]))
+    return dirs
+
+
 def library_path(name):
-    src = SOURCES[name].read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """The library of source ``name``: its file name hashes the source,
+    every header a source may include (see :func:`_header_dirs`) and the
+    flags."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for d in _header_dirs():
+        for h in sorted(p for p in Path(d).rglob("*")
+                        if p.suffix in _HEADER_SUFFIXES and p.is_file()):
+            digest.update(str(h.relative_to(d)).encode() + b"\0")
+            digest.update(h.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / ("%s-%s.so" % (name, digest.hexdigest()[:16]))
 
 

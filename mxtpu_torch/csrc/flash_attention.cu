@@ -37,14 +37,20 @@
 // -1e30.  Rows and keys past T are masked here, so the caller needs no
 // padding copies.
 //
+// Which inputs reach this file: float32 for all three kernels, and
+// bfloat16 for dK/dV only.  The bf16 forward and dQ run on the tensor
+// cores (wgmma, tiles brought in by TMA) in flash_attention_sm90.cu; the
+// wrapper picks the kernel from (dtype, head dim), and mx_flash_fwd /
+// mx_flash_bwd_dq refuse bf16 (cudaErrorInvalidValue).
+//
 // What bounds it on this card: the products.  Per live (query, key) pair
 // the forward does 4*D flops, dQ 6*D and dK/dV 8*D, all as f32 FMAs on the
 // CUDA cores, whose peak (67 TFLOP/s) is 1/15 of the bf16 tensor-core rate
 // the bound is stated against for bf16 inputs; each FMA also needs a
 // shared-memory operand, which a float4 broadcast spreads over four.  The
-// inputs are read once per tile pair from L2.  Moving the products to
-// wgmma with the tiles brought in by TMA is later work: this version is
-// the simple, right one.
+// inputs are read once per tile pair from L2.  f32 cannot go through the
+// bf16 tensor cores at the f32 plain version's 1e-5, and bf16 dK/dV on
+// wgmma (it needs P^T and dS^T through shared memory) is later work.
 //
 // The wrapper (mxtpu_torch/ops/flash_attention.py) checks devices, dtypes,
 // shapes and contiguity, allocates every output and passes PyTorch's
@@ -398,24 +404,31 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
-// one switch over (dtype, head dim) for each entry
+// one switch over the head dim for one element type
+#define MX_DISPATCH_D(T, D, CALL)                                   \
+  switch (D) {                                                      \
+    case 16: return CALL(T, 16);                                    \
+    case 32: return CALL(T, 32);                                    \
+    case 64: return CALL(T, 64);                                    \
+    case 128: return CALL(T, 128);                                  \
+  }
+
+// (dtype, head dim) for dK/dV; f32 only for the forward and dQ, whose
+// bf16 kernels are in flash_attention_sm90.cu
 #define MX_DISPATCH(BF16, D, CALL)                                  \
   do {                                                              \
     typedef __nv_bfloat16 bf;                                       \
     if (BF16) {                                                     \
-      switch (D) {                                                  \
-        case 16: return CALL(bf, 16);                               \
-        case 32: return CALL(bf, 32);                               \
-        case 64: return CALL(bf, 64);                               \
-        case 128: return CALL(bf, 128);                             \
-      }                                                             \
+      MX_DISPATCH_D(bf, D, CALL)                                    \
     } else {                                                        \
-      switch (D) {                                                  \
-        case 16: return CALL(float, 16);                            \
-        case 32: return CALL(float, 32);                            \
-        case 64: return CALL(float, 64);                            \
-        case 128: return CALL(float, 128);                          \
-      }                                                             \
+      MX_DISPATCH_D(float, D, CALL)                                 \
+    }                                                               \
+    return (int)cudaErrorInvalidValue;                              \
+  } while (0)
+#define MX_DISPATCH_F32(BF16, D, CALL)                              \
+  do {                                                              \
+    if (!(BF16)) {                                                  \
+      MX_DISPATCH_D(float, D, CALL)                                 \
     }                                                               \
     return (int)cudaErrorInvalidValue;                              \
   } while (0)
@@ -424,31 +437,32 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 extern "C" {
 
-// q (BH, Tq, D), k/v (BH, Tk, D), all bf16 if bf16 else f32; offs 4 f32 on
-// the card; writes o (BH, Tq, D) in the inputs' type and lse (BH, Tq) f32.
+// q (BH, Tq, D), k/v (BH, Tk, D), f32 (bf16 is refused: see above); offs
+// 4 f32 on the card; writes o (BH, Tq, D) f32 and lse (BH, Tq) f32.
 int mx_flash_fwd(const void* q, const void* k, const void* v, const void* offs, void* o,
                  void* lse, int BH, int Tq, int Tk, int D, int causal, int bf16,
                  void* stream) {
 #define MX_FWD(T, DD)                                                                  \
   launch_fwd<T, DD>(q, k, v, (const float*)offs, o, (float*)lse, BH, Tq, Tk, causal, \
                     (cudaStream_t)stream)
-  MX_DISPATCH(bf16, D, MX_FWD);
+  MX_DISPATCH_F32(bf16, D, MX_FWD);
 #undef MX_FWD
 }
 
-// as mx_flash_fwd plus dout (BH, Tq, D) in the inputs' type and lse/delta
-// (BH, Tq) f32; writes dq (BH, Tq, D) in the inputs' type.
+// as mx_flash_fwd plus dout (BH, Tq, D) f32 and lse/delta (BH, Tq) f32;
+// writes dq (BH, Tq, D) f32.
 int mx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, const void* offs, void* dq, int BH,
                     int Tq, int Tk, int D, int causal, int bf16, void* stream) {
 #define MX_DQ(T, DD)                                                                     \
   launch_dq<T, DD>(q, k, v, dout, (const float*)lse, (const float*)delta,              \
                    (const float*)offs, dq, BH, Tq, Tk, causal, (cudaStream_t)stream)
-  MX_DISPATCH(bf16, D, MX_DQ);
+  MX_DISPATCH_F32(bf16, D, MX_DQ);
 #undef MX_DQ
 }
 
-// as mx_flash_bwd_dq; writes dk and dv (BH, Tk, D) in the inputs' type.
+// as mx_flash_bwd_dq, all bf16 if bf16 else f32 (lse, delta and offs
+// f32); writes dk and dv (BH, Tk, D) in the inputs' type.
 int mx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, const void* offs, void* dk, void* dv,
                      int BH, int Tq, int Tk, int D, int causal, int bf16, void* stream) {

@@ -10,9 +10,22 @@ its backward folds the lse cotangent into ``delta = rowsum(dO*O) - dlse``
 (plain torch, as the JAX package computes it outside its kernels) and
 runs the dQ and dK/dV kernels.
 
-On a CUDA tensor each of the three launches its hand-written kernel of
-``csrc/flash_attention.cu`` (built by ``_build.py``) or raises; on a CPU
-tensor it runs its plain PyTorch version (:func:`flash_fwd_plain`,
+On a CUDA tensor each of the three launches a hand-written kernel
+(built by ``_build.py``) or raises; the wrapper picks the kernel from
+(dtype, head dim) before the launch:
+
+- bfloat16, head dim 16, 32, 64 or 128: the forward and dQ run on
+  tensor cores (wgmma, tiles brought in by TMA),
+  ``csrc/flash_attention_sm90.cu``; dK/dV runs on the CUDA cores,
+  ``csrc/flash_attention.cu``;
+- float32, head dim 16, 32, 64 or 128: all three run on the CUDA cores,
+  ``csrc/flash_attention.cu``.
+
+Any other dtype or head dim raises before a launch. The bf16 kernels
+round P and dS to bf16 before P.V and dS.K, as the TPU's one-pass bf16
+dot does; :func:`flash_fwd_bf16p_plain` and :func:`flash_bwd_dq_bf16p_plain`
+model that rounding (tests and ``chip_smoke.py`` use them; no path does).
+On a CPU tensor each runs its plain PyTorch version (:func:`flash_fwd_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`), which computes
 what the Pallas kernel computes: the same masks, a fully-masked row gives
 O = 0 and lse = ``_NEG``, outputs in the inputs' dtypes and lse in f32.
@@ -24,8 +37,10 @@ to a tile multiple; ``block_q``/``block_k`` stay in the signatures for
 the JAX package's callers and do not change the result (the CUDA kernels
 tile by 64 rows whatever they ask).
 
-``LAUNCHES`` counts kernel launches per kernel; :func:`reset_launches`
-zeroes it. Only a launch bumps it.
+``LAUNCHES`` counts kernel launches per kernel (``flash_fwd`` and
+``flash_bwd_dq`` for the CUDA-core kernels, ``flash_fwd_sm90`` and
+``flash_bwd_dq_sm90`` for the bf16 ones); :func:`reset_launches` zeroes
+it. Only a launch bumps it.
 """
 from __future__ import annotations
 
@@ -35,13 +50,15 @@ import torch
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_fwd_plain",
-           "flash_bwd_dq_plain", "flash_bwd_dkv_plain", "LAUNCHES",
+           "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
+           "flash_fwd_bf16p_plain", "flash_bwd_dq_bf16p_plain", "LAUNCHES",
            "reset_launches"]
 
 _NEG = -1e30  # large-negative instead of finfo.min: exp() underflows to 0
               # without inf - inf = nan hazards in the running-max rescale
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_sm90": 0, "flash_bwd_dq_sm90": 0}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -69,9 +86,7 @@ def _mask(offs, tq, tk, causal, device):
     return mask
 
 
-def flash_fwd_plain(q, k, v, offs, causal):
-    """What ``fwd_kernel`` computes: (o (BH, Tq, D) in q's dtype,
-    lse (BH, Tq) f32)."""
+def _fwd_plain(q, k, v, offs, causal, p_bf16):
     mask = _mask(offs, q.shape[1], k.shape[1], causal, q.device)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * offs[3]
     s = torch.where(mask, s, _NEG)
@@ -79,9 +94,16 @@ def flash_fwd_plain(q, k, v, offs, causal):
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    o = torch.matmul(p, v.float()) / l_safe
+    pv = p.to(torch.bfloat16).float() if p_bf16 else p
+    o = torch.matmul(pv, v.float()) / l_safe
     lse = torch.where(l == 0.0, _NEG, m + torch.log(l_safe))[..., 0]
     return o.to(q.dtype), lse
+
+
+def flash_fwd_plain(q, k, v, offs, causal):
+    """What ``fwd_kernel`` computes: (o (BH, Tq, D) in q's dtype,
+    lse (BH, Tq) f32)."""
+    return _fwd_plain(q, k, v, offs, causal, False)
 
 
 def _probs_and_ds(q, k, v, dout, lse, delta, offs, causal):
@@ -96,6 +118,20 @@ def flash_bwd_dq_plain(q, k, v, dout, lse, delta, offs, causal):
     """What ``bwd_dq_kernel`` computes: dQ in q's dtype."""
     _, ds = _probs_and_ds(q, k, v, dout, lse, delta, offs, causal)
     return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_fwd_bf16p_plain(q, k, v, offs, causal):
+    """:func:`flash_fwd_plain` with P rounded to bf16 before P.V (the sum
+    l stays f32), as the bf16 kernels and the TPU's one-pass dot compute
+    it. A model of the rounding for tests and ``chip_smoke.py``."""
+    return _fwd_plain(q, k, v, offs, causal, True)
+
+
+def flash_bwd_dq_bf16p_plain(q, k, v, dout, lse, delta, offs, causal):
+    """:func:`flash_bwd_dq_plain` with dS rounded to bf16 before dS.K, as
+    the bf16 kernel computes it; for tests and ``chip_smoke.py``."""
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, offs, causal)
+    return torch.matmul(ds.to(torch.bfloat16).float(), k.float()).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, offs, causal):
@@ -140,10 +176,32 @@ def _check_problem(name, q, k):
     return bh, tq, tk, d
 
 
+_ERR_NO_ENCODER, _ERR_ENCODE = 10000, 10001   # csrc/flash_attention_sm90.cu
+
+
 def _raise_on(name, err):
+    if err == _ERR_NO_ENCODER:
+        raise RuntimeError("%s: libcuda has no cuTensorMapEncodeTiled"
+                           % name)
+    if err >= _ERR_ENCODE:
+        raise RuntimeError("%s: cuTensorMapEncodeTiled failed with CUresult "
+                           "%d" % (name, err - _ERR_ENCODE))
     if err != 0:
         raise RuntimeError("%s: CUDA kernel launch failed with cudaError %d"
                            % (name, err))
+
+
+def _sm90(name, tensors):
+    """True when the bf16 kernels of ``csrc/flash_attention_sm90.cu`` take
+    the problem: bf16 inputs (every head dim the wrapper accepts). Their
+    tensor maps need 16-byte aligned bases."""
+    if tensors[0].dtype != torch.bfloat16:
+        return False
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("%s: the bf16 kernel needs 16-byte aligned "
+                             "tensors" % name)
+    return True
 
 
 def _stream(dev):
@@ -159,6 +217,16 @@ def _fwd_cuda(q, k, v, offs, causal):
            [dt, dt, dt, torch.float32], dev)
     o = torch.empty((bh, tq, d), dtype=dt, device=dev)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=dev)
+    if _sm90("flash_fwd", (q, k, v)):
+        lib = load("flash_attention_sm90")
+        with torch.cuda.device(dev):
+            err = lib.mx_flash_fwd_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), bh, tq, tk, d, int(causal),
+                _stream(dev))
+        _raise_on("flash_fwd_sm90", err)
+        LAUNCHES["flash_fwd_sm90"] += 1
+        return o, lse
     lib = load("flash_attention")
     with torch.cuda.device(dev):
         err = lib.mx_flash_fwd(
@@ -187,6 +255,16 @@ def _bwd_dq_cuda(q, k, v, dout, lse, delta, offs, causal):
     bh, tq, tk, d = _bwd_args("flash_bwd_dq", q, k, v, dout, lse, delta, offs)
     dev = q.device
     dq = torch.empty_like(q)
+    if _sm90("flash_bwd_dq", (q, k, v, dout)):
+        lib = load("flash_attention_sm90")
+        with torch.cuda.device(dev):
+            err = lib.mx_flash_bwd_dq_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), offs.data_ptr(),
+                dq.data_ptr(), bh, tq, tk, d, int(causal), _stream(dev))
+        _raise_on("flash_bwd_dq_sm90", err)
+        LAUNCHES["flash_bwd_dq_sm90"] += 1
+        return dq
     lib = load("flash_attention")
     with torch.cuda.device(dev):
         err = lib.mx_flash_bwd_dq(
@@ -329,8 +407,9 @@ def flash_attention(q, k, v, causal=False, scale=None, q_offset=0,
     ``scale`` (default 1/sqrt(D)) may be a tensor, whose gradient flows.
     Differentiable: the backward recomputes the probabilities from the
     saved lse, flash-attention-2 style. On a CUDA tensor it runs the
-    kernels of ``csrc/flash_attention.cu`` (head dims 16, 32, 64, 128;
-    float32 or bfloat16); on a CPU tensor their plain versions."""
+    kernels (head dims 16, 32, 64, 128; float32 or bfloat16; the module
+    docstring says which kernel takes which); on a CPU tensor their plain
+    versions."""
     return flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
                                     q_offset=q_offset, k_offset=k_offset,
                                     block_q=block_q, block_k=block_k)[0]

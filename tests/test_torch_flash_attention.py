@@ -11,8 +11,14 @@ Tolerances: float32 2e-5 on values and 3e-5 on gradients, as the JAX
 file holds its kernels to its reference (sums in another order). bf16 is
 compared in the working type: both sides compute in f32 from the same
 bf16 inputs and round each output once, so a last-bit f32 difference can
-flip one bf16 rounding, at most 2^-7 of the value.
+flip one bf16 rounding, at most 2^-7 of the value. The bf16 forward and
+dQ kernels on the card also round P and dS to bf16 before their products;
+their model (flash_*_bf16p_plain) is held here to the allowance that
+chip_smoke.py derives for them (SM90_*) and then holds them to.
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -307,7 +313,8 @@ def test_cpu_path_counts_no_launch():
     q, k, v = _torch(_arrays([(1, 1, 16, 16)] * 3, 0), grad=True)
     fa.flash_attention(q, k, v, causal=True).sum().backward()
     assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                           "flash_bwd_dkv": 0}
+                           "flash_bwd_dkv": 0, "flash_fwd_sm90": 0,
+                           "flash_bwd_dq_sm90": 0}
 
 
 def test_meta_tensors_give_output_shapes():
@@ -351,3 +358,107 @@ def test_unknown_device_raises():
     with pytest.raises(ValueError):
         fa.flash_fwd(*[torch.empty(1, 8, 16, device="meta")] * 3,
                      torch.empty(4, device="meta"), True)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels: their route, and the rounding of P and dS
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  str(ROOT / "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bf16_rounding_within_sm90_allowance(smoke):
+    """P and dS rounded to bf16 before their products (what the bf16
+    kernels compute) against mxtpu's Pallas kernels at bf16 (interpreted:
+    f32 P and dS, as the CPU runs an f32 dot) and against the f32 plain
+    versions, at T=256, D=64, causal, with shard offsets that leave rows
+    0-31 fully masked: within the allowance chip_smoke.py holds the
+    kernels to."""
+    bh, t, d = 2, 256, 64
+    q, k, v, do = _arrays([(bh, t, d)] * 4, 121)
+    dlse = _arrays([(bh, t)], 122)[0]
+    offs = np.array([32, 64, t, 1 / np.sqrt(d)], np.float32)
+    fwd, bwd = jfa._kernels()
+    jq, jk, jv, jdo = _jax([q, k, v, do], jnp.bfloat16)
+    o_j, lse_j = fwd(jq, jk, jv, jnp.asarray(offs), True, 64, 64)
+    dq_j, _dk, _dv = bwd(jq, jk, jv, o_j, lse_j, jdo,
+                         jnp.asarray(dlse)[..., None], jnp.asarray(offs),
+                         True, 64, 64)
+    tq, tk, tv, tdo = _torch([q, k, v, do], torch.bfloat16)
+    toffs = torch.from_numpy(offs)
+    o_jax, lse_jax, dq_jax = (torch.from_numpy(np.array(_np32(x)))
+                              for x in (o_j, lse_j[..., 0], dq_j))
+    o_jax, dq_jax = o_jax.to(torch.bfloat16), dq_jax.to(torch.bfloat16)
+    # the backward from the JAX forward's own O and lse, as the kernels
+    # get them from theirs
+    delta = (tdo.float() * o_jax.float()).sum(-1) - torch.from_numpy(dlse)
+    bw = (tq, tk, tv, tdo, lse_jax, delta, toffs, True)
+    o_m, lse_m = fa.flash_fwd_bf16p_plain(tq, tk, tv, toffs, True)
+    dq_m = fa.flash_bwd_dq_bf16p_plain(*bw)
+    o_p, lse_p = fa.flash_fwd_plain(tq, tk, tv, toffs, True)
+    dq_p = fa.flash_bwd_dq_plain(*bw)
+    allowance = smoke.sm90_allowance(fa, dict(q=tq, k=tk, v=tv, offs=toffs,
+                                              do=tdo, lse=lse_jax,
+                                              delta=delta))
+    for o_ref, lse_ref, dq_ref in ((o_jax, lse_jax, dq_jax),
+                                   (o_p, lse_p, dq_p)):
+        _close(lse_m, lse_ref, smoke.SM90_LSE_TOL)
+        assert smoke.sm90_excess("flash_fwd_sm90", (o_m, lse_m),
+                                 (o_ref, lse_ref), allowance) <= 1.0
+        assert smoke.sm90_excess("flash_bwd_dq_sm90", (dq_m,), (dq_ref,),
+                                 allowance) <= 1.0
+    # the rounding is real, and fully-masked rows stay exact
+    assert bool((o_m != o_p).any()) and bool((dq_m != dq_p).any())
+    assert float(o_m[:, :32].float().abs().max()) == 0.0
+    assert bool((lse_m[:, :32] == fa._NEG).all())
+    assert float(dq_m[:, :32].float().abs().max()) == 0.0
+
+
+def test_sm90_allowance_catches_a_dropped_key(smoke):
+    """The allowance is tight enough to see a wrong mask: dropping one
+    live key from the keys a row sees leaves the allowance."""
+    q, k, v = _torch(_arrays([(1, 128, 64)] * 3, 123), torch.bfloat16)
+    offs = torch.tensor([0.0, 0.0, 128.0, 0.125])
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, offs, True)
+    short = torch.tensor([0.0, 0.0, 127.0, 0.125])   # key 127 dropped
+    o_bad, _ = fa.flash_fwd_bf16p_plain(q, k, v, short, True)
+    a = dict(q=q, k=k, v=v, offs=offs, do=q, lse=lse_p,
+             delta=torch.zeros(1, 128))
+    assert smoke.sm90_excess("flash_fwd_sm90", (o_bad, lse_p),
+                             (o_p, lse_p), smoke.sm90_allowance(fa, a)) > 1.0
+
+
+@pytest.mark.parametrize("dtype,sm90", [(torch.bfloat16, True),
+                                        (torch.float32, False)])
+def test_kernel_route_follows_dtype(dtype, sm90):
+    """bf16 goes to the wgmma/TMA kernels at every head dim the wrapper
+    takes; f32 stays on the CUDA-core kernels."""
+    for d in fa._KERNEL_HEAD_DIMS:
+        q = torch.zeros(2, 64, d, dtype=dtype)
+        assert fa._sm90("flash_fwd", (q, q, q)) is sm90
+
+
+def test_sm90_route_refuses_misaligned_tensors():
+    # a tensor map needs a 16-byte aligned base
+    q = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError):
+        fa._sm90("flash_fwd", (q, q, q))
+
+
+@pytest.mark.parametrize("err,words", [
+    (10000, "cuTensorMapEncodeTiled"), (10001 + 1, "CUresult 1"),
+    (700, "cudaError 700")])
+def test_launch_errors_raise(err, words):
+    with pytest.raises(RuntimeError, match=words):
+        fa._raise_on("flash_fwd_sm90", err)
+    fa._raise_on("flash_fwd_sm90", 0)
