@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: its name, and name and power limit from nvidia-smi;
 2. build the hand-written kernels from mxtpu_torch/csrc with nvcc, one
-   process per source, all at once;
+   process per source, all at once, and print ptxas's registers and
+   spills (the bf16 dK/dV kernel's by head dim on a line of its own);
 3. hold each kernel against its plain PyTorch version on the card: the
    LSTM/GRU time loops at the serving slice's shapes (T=32, H=200,
    N in {1, 32}; float32 and bfloat16), and the three flash-attention
@@ -15,10 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (B=8, H=4, T=256, D=16, f32, causal), at the JAX package's own check
    shape (B=1, H=8, T=8192, D in {64, 128}, bf16, causal), on shard
    offsets that leave rows fully masked, and on lengths that are not a
-   multiple of the tile (the last two in f32 and bf16); bf16 runs the
-   forward and dQ on the wgmma/TMA kernels (flash_fwd_sm90,
-   flash_bwd_dq_sm90), and each call must launch the kernel its dtype
-   routes to and no other;
+   multiple of the tile (the last two in f32 at D=16 and 32 and in bf16);
+   bf16 runs all three on the wgmma/TMA kernels (flash_fwd_sm90,
+   flash_bwd_dq_sm90, flash_bwd_dkv_sm90), held to the allowance derived
+   for their rounding of P and dS (SM90_*), and each call must launch the
+   kernel its dtype routes to and no other;
 4. serving: a bucketed LSTM language model at the published widths of
    example/rnn/lstm_bucketing.py (vocab 10,000, embed 200, hidden 200,
    2 layers, 32 tokens), with weights drawn from --seed, checkpointed and
@@ -39,9 +41,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (1, 8, 8192, 64) on gpu(0) launches flash_fwd_sm90 alone, and
    mxtpu_torch.parallel.local_attention(impl="auto", causal=True) forward
    and backward under autograd on bf16 (1, 8, 8192, 128) launches
-   flash_fwd_sm90, flash_bwd_dq_sm90 and flash_bwd_dkv once each; every
-   output against the plain versions, the sm90 kernels within their
-   derived allowance (SM90_*);
+   flash_fwd_sm90, flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 once each
+   and no f32 kernel; every output against the plain versions, within
+   the derived allowance (SM90_*);
 9. mx.rtc (mxtpu_torch.rtc, NVRTC): the six launch cases of the JAX
    package's rtc tests rewritten in CUDA C (axpy, fill_rows on
    blockIdx.x, dbl with its output first, rows on blockIdx.y, a scalar
@@ -64,7 +66,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    served on the CPU;
 11. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
-   torch.softmax), beside the least time the card could take; the
+   torch.softmax), beside the least time the card could take (CUDA
+   events; where a launch is shorter than its host cost, events around
+   calls enqueued behind a sleep kernel: the flash kernels at the
+   training slice's shape and the head kernels); the
    serving slice's requests/s and tokens scored/s at bucket 32; the
    training slices' ms per step and where a step's device time goes;
    NVRTC's compile time and the host cost of one rtc launch; the
@@ -80,6 +85,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -129,24 +135,27 @@ LM_PARAMS = {"emb": (LM_VOCAB, LM_DIM), "pos": (LM_SEQ, LM_DIM),
 # ulp, at most 2^-7 of the value; lse is f32 either way.
 FLASH_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 FLASH_BF16_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -7)
-# The bf16 forward and dQ kernels (csrc/flash_attention_sm90.cu) against
-# the same f32 plain versions. The kernels round P (dS) to bf16 before
-# P.V (dS.K), as the TPU's one-pass bf16 dot does; the plain versions keep
-# them f32. Rounding to nearest moves each p or ds by at most u = 2^-8 of
-# itself (bf16 keeps 8 significant bits), so, from the plain version's own
-# P and dS (sm90_allowance):
+# The bf16 kernels (csrc/flash_attention_sm90.cu) against the same f32
+# plain versions. The kernels round P (dS) to bf16 before P.V, P^T.dO
+# (dS.K, dS^T.Q), as the TPU's one-pass bf16 dot does; the plain versions
+# keep them f32. Rounding to nearest moves each p or ds by at most u =
+# 2^-8 of itself (bf16 keeps 8 significant bits), so, from the plain
+# version's own P and dS (sm90_allowance):
 #   |O_id - O'_id|    <= u (P |V|)_id / l_i             (p >= 0, elementwise)
 #   ||dQ_i - dQ'_i||  <= u || (|dS| |K|)_i ||            (a row's 2-norm)
-# dS.K cancels (each row of dS sums to about 0), so dQ is held per row in
-# norm: next to a near-zero element of dQ the rounding of the terms that
-# cancelled into it still shows. On top of that, both sides round their
-# f32 result to bf16 once, and a last-bit difference can flip that
-# rounding: 2^-7 of the value (SM90_OUT_RTOL, as FLASH_BF16_TOL); the f32
-# sums run in another order, at most 1e-5 an element at these magnitudes
-# (SM90_SUM_ATOL, FLASH_F32_TOL's atol). lse is f32 on both sides: l sums
-# up to Tk positive terms in another order, Tk 2^-24 of itself at most
-# (4.9e-4 at 8,192 keys), and exp2 with log2 e folded into the scale moves
-# an exponent by 2^-24 of |s scale log2 e| (below 2e-6 here).
+#   |dV_jd - dV'_jd|  <= u (P^T |dO|)_jd                 (p >= 0, elementwise)
+#   ||dK_j - dK'_j||  <= u || (|dS|^T |Q|)_j ||          (a key row's 2-norm)
+# dS.K and dS^T.Q cancel (ds is signed, and each row of dS sums to about
+# 0), so dQ and dK are held per row in norm: next to a near-zero element
+# the rounding of the terms that cancelled into it still shows. On top of
+# that, both sides round their f32 result to bf16 once, and a last-bit
+# difference can flip that rounding: 2^-7 of the value (SM90_OUT_RTOL, as
+# FLASH_BF16_TOL); the f32 sums run in another order, at most 1e-5 an
+# element at these magnitudes (SM90_SUM_ATOL, FLASH_F32_TOL's atol). lse
+# is f32 on both sides: l sums up to Tk positive terms in another order,
+# Tk 2^-24 of itself at most (4.9e-4 at 8,192 keys), and exp2 with log2 e
+# folded into the scale moves an exponent by 2^-24 of |s scale log2 e|
+# (below 2e-6 here).
 SM90_U = 2.0 ** -8
 SM90_OUT_RTOL = 2.0 ** -7
 SM90_SUM_ATOL = 1e-5
@@ -190,10 +199,40 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def held_ms(fn, iters=50, warmup=5):
+    """Device ms per call of ``fn`` where one call takes the card less time
+    than the host takes to enqueue it: CUDA events around ``iters`` calls
+    enqueued while a sleep kernel holds the stream, so the card runs them
+    back to back whatever the host's launch cost. The start event must
+    still be pending once the last call is enqueued; the sleep grows until
+    it is."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22                        # about 2 ms at 1.98 GHz
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    fail("a sleep of %d cycles did not outlast enqueueing %d calls"
+         % (cycles // 4, iters))
+
+
 def device_time(fn, calls, per=1):
-    """Device busy ms, kernel launches and the top kernels (ms) per unit
-    of work, from torch.profiler over ``calls`` calls of ``fn`` that do
-    ``per`` units each."""
+    """Device busy ms (None where the profiler recorded no kernel time),
+    kernel launches and the top kernels (ms) per unit of work, from
+    torch.profiler over ``calls`` calls of ``fn`` that do ``per`` units
+    each. For the breakdowns only: no check depends on it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -203,6 +242,8 @@ def device_time(fn, calls, per=1):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None, "not measured (the profiler recorded no kernel time)"
     events.sort(key=lambda e: -e.self_device_time_total)
     n = calls * per
     busy = sum(e.self_device_time_total for e in events) / n / 1e3
@@ -212,14 +253,37 @@ def device_time(fn, calls, per=1):
     return busy, "%.0f kernel launches; %s" % (launches, top)
 
 
-def device_ms(fn, calls=20):
-    """The card's busy ms per call of ``fn`` (the profiler's kernel time,
-    summed over every kernel the call launches); fails if the profiler
-    saw none."""
-    busy, top = device_time(fn, calls)
-    if busy <= 0:
-        fail("the profiler recorded no kernel time (%s)" % top)
-    return busy
+def prof_ms(fn, calls):
+    """The profiler's kernel ms per call of ``fn``, as text."""
+    busy, _top = device_time(fn, calls)
+    return "not measured" if busy is None else "%.4f ms" % busy
+
+
+def busy_of(busy, wall_ms):
+    """A breakdown's card busy ms beside ``wall_ms``, or why it is
+    missing."""
+    if busy is None:
+        return "card busy not measured"
+    return "card busy %.3f ms of %.3f ms (idle %.0f%%)" % (
+        busy, wall_ms, 100 * (1 - busy / wall_ms))
+
+
+def ptxas_report(log):
+    """{entry: (registers, spill store bytes, spill load bytes)} from
+    nvcc's -Xptxas -v output."""
+    report, entry, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            report[entry] = (int(m.group(1)),) + spills
+    return report
 
 
 def max_err(got, want):
@@ -546,11 +610,10 @@ def check_flash(fa, rng, dev, B, H, Tq, Tk, D, dtype, tol, q_off=0,
                 k_off=0):
     """Each flash kernel against its plain version on one input; returns
     ({kernel: max abs error}, inputs). Each call must launch exactly the
-    kernel its (dtype, D) routes to: for bf16 the forward and dQ go to the
-    sm90 kernels (errors keyed flash_fwd_sm90 / flash_bwd_dq_sm90), held
+    kernel its dtype routes to: bf16 goes to the sm90 kernels (errors
+    keyed flash_fwd_sm90 / flash_bwd_dq_sm90 / flash_bwd_dkv_sm90), held
     to the derived SM90_* allowance and also printed against their
-    rounding model (flash_*_bf16p_plain); f32, and dK/dV, are held to
-    ``tol``."""
+    rounding model (flash_*_bf16p_plain); f32 is held to ``tol``."""
     import torch
     a = flash_inputs(rng, B, H, Tq, Tk, D, dtype, dev, q_off, k_off)
     label = "B=%d H=%d Tq=%d Tk=%d D=%d %s q_off=%d k_off=%d" % (
@@ -561,10 +624,11 @@ def check_flash(fa, rng, dev, B, H, Tq, Tk, D, dtype, tol, q_off=0,
           True)
     model = {"flash_fwd_sm90": lambda: fa.flash_fwd_bf16p_plain(
                  a["q"], a["k"], a["v"], a["offs"], True),
-             "flash_bwd_dq_sm90": lambda: (fa.flash_bwd_dq_bf16p_plain(*bw),)}
+             "flash_bwd_dq_sm90": lambda: (fa.flash_bwd_dq_bf16p_plain(*bw),),
+             "flash_bwd_dkv_sm90": lambda: fa.flash_bwd_dkv_bf16p_plain(*bw)}
     errs, notes = {}, []
     for name, (kernel, plain) in flash_calls(fa, a).items():
-        route = name + "_sm90" if bf16 and name != "flash_bwd_dkv" else name
+        route = name + "_sm90" if bf16 else name
         fa.reset_launches()
         got = kernel()
         torch.cuda.synchronize()
@@ -599,7 +663,8 @@ def check_flash(fa, rng, dev, B, H, Tq, Tk, D, dtype, tol, q_off=0,
 def sm90_allowance(fa, a, causal=True):
     """The derived allowance of the bf16 kernels on the inputs of
     flash_inputs (see SM90_U): (O elementwise (BH, Tq, D), dQ by row
-    (BH, Tq)), from the plain versions' own P and dS."""
+    (BH, Tq), dK by key row (BH, Tk), dV elementwise (BH, Tk, D)), from
+    the plain versions' own P and dS."""
     import torch
     q, k, v, offs = a["q"], a["k"], a["v"], a["offs"]
     mask = fa._mask(offs, q.shape[1], k.shape[1], causal, q.device)
@@ -611,30 +676,46 @@ def sm90_allowance(fa, a, causal=True):
     o_slack = SM90_U * torch.matmul(p, v.float().abs()) / torch.where(
         l == 0.0, 1.0, l)
     del p
-    _p, ds = fa._probs_and_ds(q, k, v, a["do"], a["lse"], a["delta"], offs,
-                              causal)
-    del _p
-    dq_slack = SM90_U * torch.matmul(ds.abs(), k.float().abs()).norm(dim=-1)
-    return o_slack, dq_slack
+    p, ds = fa._probs_and_ds(q, k, v, a["do"], a["lse"], a["delta"], offs,
+                             causal)
+    dv_slack = SM90_U * torch.matmul(p.transpose(1, 2), a["do"].float().abs())
+    del p
+    ds = ds.abs()
+    dq_slack = SM90_U * torch.matmul(ds, k.float().abs()).norm(dim=-1)
+    dk_slack = SM90_U * torch.matmul(ds.transpose(1, 2),
+                                     q.float().abs()).norm(dim=-1)
+    return o_slack, dq_slack, dk_slack, dv_slack
 
 
 def sm90_excess(route, got, want, allowance):
     """The largest share of its allowance that a bf16 kernel's output
     uses against the plain version's (above 1 fails): ``got``/``want``
-    are (o, lse) for flash_fwd_sm90, (dq,) for flash_bwd_dq_sm90."""
+    are (o, lse) for flash_fwd_sm90, (dq,) for flash_bwd_dq_sm90, (dk, dv)
+    for flash_bwd_dkv_sm90."""
     import torch
-    o_slack, dq_slack = allowance
+    o_slack, dq_slack, dk_slack, dv_slack = allowance
+
+    def by_row(x, x_p, slack):
+        x, x_p = x.float(), x_p.float()
+        allow = (slack + SM90_OUT_RTOL * x_p.norm(dim=-1)
+                 + SM90_SUM_ATOL * x_p.shape[-1] ** 0.5)
+        return float(((x - x_p).norm(dim=-1) / allow).max())
+
+    def by_element(x, x_p, slack):
+        x, x_p = x.float(), x_p.float()
+        allow = slack + SM90_OUT_RTOL * x_p.abs() + SM90_SUM_ATOL
+        return float(((x - x_p).abs() / allow).max())
+
     if route == "flash_fwd_sm90":
         (o, lse), (o_p, lse_p) = got, want
         if not torch.allclose(lse, lse_p, **SM90_LSE_TOL):
             fail("flash_fwd_sm90 lse differs from the plain version by %g "
                  "(%s)" % (float((lse - lse_p).abs().max()), SM90_LSE_TOL))
-        allow = o_slack + SM90_OUT_RTOL * o_p.float().abs() + SM90_SUM_ATOL
-        return float(((o.float() - o_p.float()).abs() / allow).max())
-    dq, dq_p = got[0].float(), want[0].float()
-    allow = (dq_slack + SM90_OUT_RTOL * dq_p.norm(dim=-1)
-             + SM90_SUM_ATOL * dq_p.shape[-1] ** 0.5)
-    return float(((dq - dq_p).norm(dim=-1) / allow).max())
+        return by_element(o, o_p, o_slack)
+    if route == "flash_bwd_dq_sm90":
+        return by_row(got[0], want[0], dq_slack)
+    (dk, dv), (dk_p, dv_p) = got, want
+    return max(by_row(dk, dk_p, dk_slack), by_element(dv, dv_p, dv_slack))
 
 
 def sdpa_calls(a, B, H):
@@ -695,15 +776,11 @@ def bf16_long_context(mt, fa, rng, dev):
             excess["flash_bwd_dq_sm90"] = sm90_excess(
                 "flash_bwd_dq_sm90", (dq,), (dq_p,), allowance)
             errs["flash_bwd_dq_sm90"] = max_err([dq], [dq_p])
-            dk_p, dv_p = fa.flash_bwd_dkv_plain(*bw)
-            check_close("%s dK/dV" % what,
-                        [g.reshape(w.shape) for g, w in
-                         zip(grads[1:], (dk_p, dv_p))],
-                        [dk_p, dv_p], FLASH_BF16_TOL)
-            errs["flash_bwd_dkv"] = max_err(
-                [g.reshape(w.shape) for g, w in zip(grads[1:],
-                                                    (dk_p, dv_p))],
-                [dk_p, dv_p])
+            dkv_p = fa.flash_bwd_dkv_plain(*bw)
+            dkv = tuple(g.reshape(w.shape) for g, w in zip(grads[1:], dkv_p))
+            excess["flash_bwd_dkv_sm90"] = sm90_excess(
+                "flash_bwd_dkv_sm90", dkv, dkv_p, allowance)
+            errs["flash_bwd_dkv_sm90"] = max_err(dkv, dkv_p)
         for name, x in excess.items():
             if x > 1.0:
                 fail("%s: %s uses %.3g of its derived allowance"
@@ -736,8 +813,9 @@ def bf16_long_context(mt, fa, rng, dev):
     grads = torch.autograd.grad(o, (q, k, v), do)
     torch.cuda.synchronize()
     la_launches = dict(fa.LAUNCHES)
-    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 1,
-            "flash_fwd_sm90": 1, "flash_bwd_dq_sm90": 1}
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_sm90": 1, "flash_bwd_dq_sm90": 1,
+            "flash_bwd_dkv_sm90": 1}
     if la_launches != want:
         fail("local_attention bf16 forward+backward launched %s, want %s"
              % (la_launches, want))
@@ -757,7 +835,8 @@ def bf16_long_context(mt, fa, rng, dev):
         out = local_attention(q, k, v, causal=True, impl="auto")
         return torch.autograd.grad(out, (q, k, v), do)
     return {n: op_launches[n] + la_launches[n]
-            for n in ("flash_fwd_sm90", "flash_bwd_dq_sm90")}, fwd_bwd
+            for n in ("flash_fwd_sm90", "flash_bwd_dq_sm90",
+                      "flash_bwd_dkv_sm90")}, fwd_bwd
 
 
 # ---------------------------------------------------------------------------
@@ -1290,6 +1369,15 @@ def main():
             if "entry function" in line or "registers" in line or \
                     "spill stores" in line:
                 print("  ptxas %s: %s" % (name, line.strip()))
+    # the bf16 dK/dV kernel holds the most registers: its cost by head dim
+    dkv = sorted((int(re.search(r"ILi(\d+)E", e).group(1)), r)
+                 for e, r in ptxas_report(_build.build_log.get(
+                     "flash_attention_sm90", "")).items()
+                 if "dkv_sm90_kernel" in e)
+    print("ptxas dkv_sm90_kernel (registers, spill store / load bytes) by "
+          "head dim: %s" % ("; ".join(
+              "D=%d %d, %d / %d" % ((d,) + r) for d, r in dkv)
+              or "not built in this process (library found built)"))
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(args.seed)
@@ -1320,9 +1408,10 @@ def main():
     flash_errs, slice_in = check_flash(fa, rng, dev, *slice_shape,
                                        torch.float32, FLASH_F32_TOL)
     errs.update(flash_errs)
-    # (bf16 runs the forward and dQ on the sm90 kernels; their errors are
-    # the largest over every bf16 case)
-    sm90_errs = {"flash_fwd_sm90": 0.0, "flash_bwd_dq_sm90": 0.0}
+    # (bf16 runs on the sm90 kernels; their errors are the largest over
+    # every bf16 case)
+    sm90_errs = {"flash_fwd_sm90": 0.0, "flash_bwd_dq_sm90": 0.0,
+                 "flash_bwd_dkv_sm90": 0.0}
 
     def check_bf16(*shape, **offsets):
         e, a = check_flash(fa, rng, dev, *shape, torch.bfloat16,
@@ -1331,19 +1420,28 @@ def main():
             sm90_errs[name] = max(sm90_errs[name], e[name])
         return a
     long_in = {D: check_bf16(1, 8, 8192, 8192, D) for D in (64, 128)}
-    _e, masked = check_flash(fa, rng, dev, 1, 2, 128, 128, 32,
-                             torch.float32, FLASH_F32_TOL, q_off=0, k_off=64)
-    masked_bf16 = check_bf16(1, 2, 128, 128, 32, q_off=0, k_off=64)
-    for m in (masked, masked_bf16):
+    masked = [check_flash(fa, rng, dev, 1, 2, 128, 128, D, torch.float32,
+                          FLASH_F32_TOL, q_off=0, k_off=64)[1]
+              for D in (16, 32)]
+    masked.append(check_bf16(1, 2, 128, 128, 32, q_off=0, k_off=64))
+    for m in masked:
         o, lse = fa.flash_fwd(m["q"], m["k"], m["v"], m["offs"], True)
         if o[:, :64].abs().max() != 0 or \
                 not bool((lse[:, :64] == -1e30).all()):
-            fail("fully-masked rows must give O = 0 and lse = -1e30 (%s)"
-                 % o.dtype)
-    check_flash(fa, rng, dev, 1, 2, 128, 200, 64, torch.float32,
-                FLASH_F32_TOL, q_off=150, k_off=20)
-    check_flash(fa, rng, dev, 2, 3, 100, 72, 32, torch.float32,
-                FLASH_F32_TOL)
+            fail("fully-masked rows must give O = 0 and lse = -1e30 (%s, "
+                 "D=%d)" % (o.dtype, o.shape[-1]))
+        bw = (m["q"], m["k"], m["v"], m["do"], m["lse"], m["delta"],
+              m["offs"], True)
+        dk, dv = fa.flash_bwd_dkv(*bw)
+        if dk[:, 64:].abs().max() != 0 or dv[:, 64:].abs().max() != 0:
+            fail("keys no query sees must get dK = dV = 0 (%s, D=%d)"
+                 % (dk.dtype, dk.shape[-1]))
+    for D in (16, 32, 64):
+        check_flash(fa, rng, dev, 1, 2, 128, 200, D, torch.float32,
+                    FLASH_F32_TOL, q_off=150, k_off=20)
+    for D in (16, 32):
+        check_flash(fa, rng, dev, 2, 3, 100, 72, D, torch.float32,
+                    FLASH_F32_TOL)
     check_bf16(2, 3, 100, 72, 32)
 
     # 4.-5. serving: the LSTM LM, then its GRU variant
@@ -1425,8 +1523,8 @@ def main():
     # 8. the bf16 long-context path through the public entries: the op on
     # (1, 8, 8192, 64) NDArrays launches the sm90 forward alone, and
     # local_attention(impl="auto") forward and backward on (1, 8, 8192,
-    # 128) launches the sm90 forward and dQ and the CUDA-core dK/dV once
-    # each; every output against the plain versions
+    # 128) launches the sm90 forward, dQ and dK/dV once each; every output
+    # against the plain versions
     bf16_path, long_fwd_bwd = bf16_long_context(mt, fa, rng, dev)
 
     # 9. mx.rtc: the launch protocol on cuda:0
@@ -1577,10 +1675,9 @@ def main():
             "library_ms": lib_ms})
 
     # flash kernels: the training slice's shape (f32; the JSON line) and
-    # the JAX package's 8k check shape (bf16: the forward and dQ are the
-    # sm90 kernels, in the JSON line at D=128); SDPA's backward is timed
-    # as forward+backward less forward and stands for dQ and dK/dV
-    # together
+    # the JAX package's 8k check shape (bf16: the sm90 kernels, in the JSON
+    # line at D=128); SDPA's backward is timed as forward+backward less
+    # forward and stands for dQ and dK/dV together
     replaces = {"flash_fwd": "mxtpu/ops/pallas_attention.py:142",
                 "flash_bwd_dq": "mxtpu/ops/pallas_attention.py:236",
                 "flash_bwd_dkv": "mxtpu/ops/pallas_attention.py:255"}
@@ -1591,23 +1688,36 @@ def main():
             ("8k d128", long_in[128], (1, 8, 8192, 128), 10)):
         itemsize = a["q"].element_size()
         sdpa_fwd, sdpa_fwd_bwd = sdpa_calls(a, B, H)
-        lib_fwd = cuda_ms(sdpa_fwd, iters=iters)
-        lib_bwd = cuda_ms(sdpa_fwd_bwd, iters=iters) - lib_fwd
+        # at the slice's shape a launch takes less card time than the host
+        # takes to enqueue it, so back-to-back events would time the host:
+        # there the calls are enqueued behind a sleep kernel (held_ms; the
+        # plain back-to-back events are printed beside it)
+        small = label == "slice"
+
+        def timed(fn, n):
+            return held_ms(fn, iters=n) if small else cuda_ms(fn, iters=n)
+        lib_fwd = timed(sdpa_fwd, iters)
+        lib_bwd = timed(sdpa_fwd_bwd, iters) - lib_fwd
         for name, (kernel, plain) in flash_calls(fa, a).items():
-            route = name + "_sm90" if a["q"].dtype == torch.bfloat16 and \
-                name != "flash_bwd_dkv" else name
-            ms = cuda_ms(kernel, iters=iters)
-            plain_ms = cuda_ms(plain, iters=max(3, iters // 5))
-            ms2 = cuda_ms(kernel, iters=iters)
+            route = name + "_sm90" if a["q"].dtype == torch.bfloat16 \
+                else name
+            ms = timed(kernel, iters)
+            plain_ms = timed(plain, max(3, iters // 5))
+            ms2 = timed(kernel, iters)
             lib_ms = lib_fwd if name == "flash_fwd" else lib_bwd
             bound_ms, bound_by = flash_bound(name, B * H, T, T, D, itemsize)
-            print("time %s %s B=%d H=%d T=%d D=%d %s causal: kernel %.4f ms "
-                  "(again %.4f), plain %.4f ms, SDPA %s %.4f ms, bound "
-                  "%.5f ms (%s), %.1f%% of bound | %s"
-                  % (route, label, B, H, T, D, a["q"].dtype, ms, ms2,
-                     plain_ms, "fwd" if name == "flash_fwd" else
-                     "bwd (dQ+dK/dV)", lib_ms, bound_ms, bound_by,
-                     100 * bound_ms / ms, card))
+            print("time %s %s B=%d H=%d T=%d D=%d %s causal (%s): kernel "
+                  "%.4f ms (again %.4f), plain %.4f ms, SDPA %s %.4f ms, "
+                  "bound %.5f ms (%s), %.1f%% of bound%s | %s"
+                  % (route, label, B, H, T, D, a["q"].dtype,
+                     "card time per call, events behind a sleep" if small else
+                     "events", ms, ms2, plain_ms,
+                     "fwd" if name == "flash_fwd" else "bwd (dQ+dK/dV)",
+                     lib_ms, bound_ms, bound_by, 100 * bound_ms / ms,
+                     "; wall per call, events over %d back-to-back calls: "
+                     "kernel %.4f ms; profiler's kernel time %s"
+                     % (iters, cuda_ms(kernel, iters=iters),
+                        prof_ms(kernel, iters)) if small else "", card))
             if label == "slice":
                 kernels.append({
                     "name": name, "route": "cuda",
@@ -1632,9 +1742,9 @@ def main():
     long_ms = cuda_ms(long_fwd_bwd, iters=5, warmup=2)
     busy, top = device_time(long_fwd_bwd, 3)
     print("bf16 long context: local_attention (1, %d, %d, 128) causal "
-          "forward+backward %.3f ms (events over 5 calls), card busy %.3f "
-          "ms a call; per call: %s | %s"
-          % (LONG_H, LONG_T, long_ms, busy, top, card))
+          "forward+backward %.3f ms (events over 5 calls), %s a call "
+          "(profiler); per call: %s | %s"
+          % (LONG_H, LONG_T, long_ms, busy_of(busy, long_ms), top, card))
 
     # the serving slice's throughput at bucket 32, host clock around whole
     # requests
@@ -1665,9 +1775,9 @@ def main():
           "| %s" % (N, forward_ms, out.numel() * 4 / 1e6, copy_ms,
                     LAYERS * kernels[0]["ms"], card))
     busy, top = device_time(lambda: program(data, params, aux), 5)
-    print("slice lstm bucket %d forward on the card: %.3f ms busy of %.3f "
-          "ms; top kernels (ms per forward): %s"
-          % (N, busy, forward_ms, top))
+    print("slice lstm bucket %d forward on the card (profiler): %s; top "
+          "kernels (ms per forward): %s"
+          % (N, busy_of(busy, forward_ms), top))
 
     # the training slice: ms per step and tokens/s (host clock around
     # whole steps ending in a synchronize), and where a step's device
@@ -1680,8 +1790,8 @@ def main():
     few = gpu_batches[:10]
     busy, top = device_time(lambda: lm_train(params0, few, dev), 1,
                             per=len(few))
-    print("slice train step on the card: %.3f ms busy of %.3f ms per step; "
-          "per step: %s" % (busy, step_ms, top))
+    print("slice train step on the card (profiler): %s per step; per "
+          "step: %s" % (busy_of(busy, step_ms), top))
 
     # the custom-op slice: the head's kernels at the slice's shape (the
     # JSON line) and at the LM's output rows, beside their plain versions,
@@ -1700,28 +1810,29 @@ def main():
                                None)}
         for name, (kernel, plain, library) in calls.items():
             # back-to-back launches at (128, 10) measure the host's launch
-            # rate, not the card, so the card's own time comes from the
-            # profiler (kernel time per call); the event-timed wall time
-            # per call is printed beside it
+            # rate, not the card, so the card's own time comes from calls
+            # enqueued behind a sleep kernel (held_ms); the event-timed
+            # wall time per call is printed beside it
             wall = {"kernel": cuda_ms(kernel), "plain": cuda_ms(plain),
                     "library": cuda_ms(library) if library else None}
-            ms = device_ms(kernel)
-            plain_ms = device_ms(plain)
-            lib_ms = device_ms(library) if library else None
-            ms2 = device_ms(kernel)
+            ms = held_ms(kernel)
+            plain_ms = held_ms(plain)
+            lib_ms = held_ms(library) if library else None
+            ms2 = held_ms(kernel)
             bound_ms, bound_by = cs_bound(name, *shape)
-            print("time %s %s %dx%d f32 (card time per call, profiler): "
+            print("time %s %s %dx%d f32 (card time per call, events behind "
+                  "a sleep): "
                   "kernel %.5f ms (again %.5f), plain %.5f ms, library %s, "
                   "bound %.3g ms (%s), %.1f%% of bound; wall per call, "
                   "events over 50 back-to-back calls: kernel %.4f ms, plain "
-                  "%.4f ms%s | %s"
+                  "%.4f ms%s; profiler's kernel time %s | %s"
                   % (name, label, shape[0], shape[1], ms, ms2, plain_ms,
                      "torch.softmax %.5f ms" % lib_ms if lib_ms is not None
                      else "none (no one-call torch equivalent of y - "
                      "onehot(label))", bound_ms, bound_by,
                      100 * bound_ms / ms, wall["kernel"], wall["plain"],
                      ", torch.softmax %.4f ms" % wall["library"]
-                     if library else "", card))
+                     if library else "", prof_ms(kernel, 20), card))
             if label == "slice":
                 kernels.append({
                     "name": name, "route": "cuda-nvrtc",
@@ -1757,9 +1868,8 @@ def main():
     few = cs_b[:8]
     busy, top = device_time(lambda: cs_train(mt, cs_p0, xs, ys, few), 1,
                             per=len(few))
-    print("slice custom-op train step on the card: %.3f ms busy of %.3f ms "
-          "per step (idle %.0f%%); per step: %s"
-          % (busy, cs_step_ms, 100 * (1 - busy / cs_step_ms), top))
+    print("slice custom-op train step on the card (profiler): %s per step; "
+          "per step: %s" % (busy_of(busy, cs_step_ms), top))
     req = x_all[:CS_BUCKETS[-1]]
     for _ in range(3):
         cs_engine.predict([req])

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "flash_attention_sm90": {
         "mx_flash_fwd_sm90": (_P,) * 6 + (_I,) * 5 + (_P,),
         "mx_flash_bwd_dq_sm90": (_P,) * 8 + (_I,) * 5 + (_P,),
+        "mx_flash_bwd_dkv_sm90": (_P,) * 9 + (_I,) * 5 + (_P,),
     },
 }
 

@@ -1,7 +1,8 @@
-// Flash attention, forward and backward, for Hopper (sm_90a), plain C
-// interface.
+// Flash attention, forward and backward, in float32 on the CUDA cores
+// (sm_90a), plain C interface.
 //
-// Replaces the three Pallas TPU kernels of mxtpu/ops/pallas_attention.py:
+// Replaces, for float32 inputs, the three Pallas TPU kernels of
+// mxtpu/ops/pallas_attention.py:
 //   mx_flash_fwd      <- fwd_kernel      (pallas_attention.py:101, call :142)
 //   mx_flash_bwd_dq   <- bwd_dq_kernel   (pallas_attention.py:173, call :236)
 //   mx_flash_bwd_dkv  <- bwd_dkv_kernel  (pallas_attention.py:199, call :255)
@@ -10,8 +11,8 @@
 // max, denominator and accumulators in VMEM scratch from one grid step to
 // the next.  Blocks on the card run in no order, so here a loop inside the
 // block takes the place of that axis:
-//   - fwd and dQ: one block per (b*h, 64-row Q tile), looping over K/V
-//     tiles up to the causal limit of its last row;
+//   - fwd and dQ: one block per (b*h, Q tile), looping over K/V tiles up
+//     to the causal limit of its last row;
 //   - dK/dV: one block per (b*h, 64-row K tile), looping over Q tiles from
 //     the first row that can see it.
 // This is the flash-attention-2 split the TPU code uses: every output row
@@ -24,9 +25,20 @@
 // group's lanes read neighbouring float4s of a shared-memory row and the
 // rest of the warp reads the same addresses (a broadcast).  A dot product
 // is 16 FMAs per lane and a shuffle reduction over the group.  The tile
-// being streamed (K/V, or Q/dO) sits in shared memory as f32; bf16 inputs
-// are converted once on the way in (__bfloat162float).  All arithmetic is
-// f32 on the CUDA cores: m, l, the accumulators, lse and delta.
+// being streamed (K/V, or Q/dO) sits in shared memory.  All arithmetic is
+// f32: m, l, the accumulators, lse and delta.
+//
+// The forward at D = 16 and 32 (G = 1 or 2) would leave a row fewer than
+// four lanes, and one lane would walk all of its row's keys in series (at
+// the training slice's shape, two warps on an SM).  There a row gets S =
+// 4/G groups instead, and group s scores keys j = s (mod S) of each shared
+// tile with its own running max, sum and accumulator; at the end the S
+// partial results merge with shuffles in a fixed order (m* = max m_s, l =
+// sum l_s e^(m_s - m*), acc likewise), so the result is still
+// deterministic.  A Q tile there is 32 rows, so a block is 128 threads
+// and a grid has twice the blocks.  Shared rows are padded by 8 floats so
+// that the S groups' float4 reads fall in different banks.  At D = 64 and
+// 128, S = 1 and the kernel is the plain one-group-per-row loop.
 //
 // Masks follow the Pallas kernels: key j is live for query i iff j <
 // kv_len and, when causal, q_off + i >= k_off + j (global positions, from
@@ -37,27 +49,24 @@
 // -1e30.  Rows and keys past T are masked here, so the caller needs no
 // padding copies.
 //
-// Which inputs reach this file: float32 for all three kernels, and
-// bfloat16 for dK/dV only.  The bf16 forward and dQ run on the tensor
-// cores (wgmma, tiles brought in by TMA) in flash_attention_sm90.cu; the
-// wrapper picks the kernel from (dtype, head dim), and mx_flash_fwd /
-// mx_flash_bwd_dq refuse bf16 (cudaErrorInvalidValue).
+// Which inputs reach this file: float32 only.  bfloat16 runs on the
+// tensor cores (wgmma, tiles brought in by TMA) in
+// flash_attention_sm90.cu; the wrapper picks the kernel from the dtype,
+// and every entry here refuses bf16 (cudaErrorInvalidValue).  float32
+// does not go through the tensor cores: TF32 would not hold the f32 plain
+// version's 1e-5.
 //
 // What bounds it on this card: the products.  Per live (query, key) pair
 // the forward does 4*D flops, dQ 6*D and dK/dV 8*D, all as f32 FMAs on the
-// CUDA cores, whose peak (67 TFLOP/s) is 1/15 of the bf16 tensor-core rate
-// the bound is stated against for bf16 inputs; each FMA also needs a
-// shared-memory operand, which a float4 broadcast spreads over four.  The
-// inputs are read once per tile pair from L2.  f32 cannot go through the
-// bf16 tensor cores at the f32 plain version's 1e-5, and bf16 dK/dV on
-// wgmma (it needs P^T and dS^T through shared memory) is later work.
+// CUDA cores (67 TFLOP/s); each FMA also needs a shared-memory operand,
+// which a float4 broadcast spreads over four.  The inputs are read once
+// per tile pair from L2.
 //
 // The wrapper (mxtpu_torch/ops/flash_attention.py) checks devices, dtypes,
 // shapes and contiguity, allocates every output and passes PyTorch's
 // current stream; each entry returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 namespace {
 
@@ -65,16 +74,26 @@ constexpr float kNeg = -1e30f;  // _NEG of the Pallas kernels
 constexpr int kRows = 64;       // rows a block owns (Q rows, or K rows)
 constexpr int kDT = 16;         // dims of a row one lane holds
 constexpr int kNC = kDT / 4;    // float4 chunks of them
-constexpr int kCH = 8;          // keys (queries) scored per step of the loop
+constexpr int kCH = 8;          // keys (queries) a lane scores per step of the loop
 
-__device__ __forceinline__ float load(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
+// keys (queries) of a shared tile: 4096 f32 at most, 64 at most
+__host__ __device__ constexpr int tile_rows(int D) {
+  return (4096 / D) < 64 ? (4096 / D) : 64;
 }
-__device__ __forceinline__ void store(float* p, long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, long i, float v) {
-  p[i] = __float2bfloat16(v);  // round to nearest even, as torch casts
-}
+
+// threads of a dQ or dK/dV block: G = D/16 lanes for each of its 64 rows
+__host__ __device__ constexpr int threads_for(int D) { return kRows * (D / kDT); }
+
+// the forward's shape at head dim D (see the header)
+template <int D>
+struct Fwd {
+  static constexpr int G = D / kDT;                 // lanes holding a row's dims
+  static constexpr int S = G < 4 ? 4 / G : 1;       // groups splitting a row's keys
+  static constexpr int kRowsQ = S > 1 ? 32 : kRows;  // Q rows of a block
+  static constexpr int kThreads = kRowsQ * G * S;
+  static constexpr int BK = tile_rows(D);           // keys of a shared tile
+  static constexpr int kLd = D + (S > 1 ? 8 : 0);    // floats between shared rows
+};
 
 // dim of chunk c, element e, for lane g of a group of G
 template <int G>
@@ -89,33 +108,33 @@ __device__ __forceinline__ float group_sum(float x) {
 }
 
 // a row's slice in registers, from global memory (zeros past the end)
-template <int G, typename T>
-__device__ __forceinline__ void load_row(float (&r)[kNC][4], const T* base, long row,
+template <int G>
+__device__ __forceinline__ void load_row(float (&r)[kNC][4], const float* base, long row,
                                          bool valid, int D, int g) {
 #pragma unroll
   for (int c = 0; c < kNC; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      r[c][e] = valid ? load(base, row * D + dim_of<G>(g, c) + e) : 0.0f;
+    for (int e = 0; e < 4; ++e) r[c][e] = valid ? base[row * D + dim_of<G>(g, c) + e] : 0.0f;
 }
 
-template <int G, typename T>
-__device__ __forceinline__ void store_row(T* base, long row, const float (&r)[kNC][4],
+template <int G>
+__device__ __forceinline__ void store_row(float* base, long row, const float (&r)[kNC][4],
                                           float div, int D, int g) {
 #pragma unroll
   for (int c = 0; c < kNC; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) store(base, row * D + dim_of<G>(g, c) + e, r[c][e] / div);
+    for (int e = 0; e < 4; ++e) base[row * D + dim_of<G>(g, c) + e] = r[c][e] / div;
 }
 
 // partial dot product of a register slice with row j of a shared tile
+// whose rows are ld floats apart
 template <int G>
 __device__ __forceinline__ float dot_smem(const float (&r)[kNC][4], const float* tile,
-                                          int j, int D, int g) {
+                                          int j, int ld, int g) {
   float acc = 0.0f;
 #pragma unroll
   for (int c = 0; c < kNC; ++c) {
-    const float4 t = *reinterpret_cast<const float4*>(tile + j * D + dim_of<G>(g, c));
+    const float4 t = *reinterpret_cast<const float4*>(tile + j * ld + dim_of<G>(g, c));
     acc = fmaf(r[c][0], t.x, acc);
     acc = fmaf(r[c][1], t.y, acc);
     acc = fmaf(r[c][2], t.z, acc);
@@ -127,10 +146,10 @@ __device__ __forceinline__ float dot_smem(const float (&r)[kNC][4], const float*
 // acc += w * row j of a shared tile
 template <int G>
 __device__ __forceinline__ void axpy_smem(float (&acc)[kNC][4], float w, const float* tile,
-                                          int j, int D, int g) {
+                                          int j, int ld, int g) {
 #pragma unroll
   for (int c = 0; c < kNC; ++c) {
-    const float4 t = *reinterpret_cast<const float4*>(tile + j * D + dim_of<G>(g, c));
+    const float4 t = *reinterpret_cast<const float4*>(tile + j * ld + dim_of<G>(g, c));
     acc[c][0] = fmaf(w, t.x, acc[c][0]);
     acc[c][1] = fmaf(w, t.y, acc[c][1]);
     acc[c][2] = fmaf(w, t.z, acc[c][2]);
@@ -138,14 +157,30 @@ __device__ __forceinline__ void axpy_smem(float (&acc)[kNC][4], float w, const f
   }
 }
 
-// rows [row0, row0 + n) of a (T, D) matrix into a shared (n, D) f32 tile,
-// zeros past T; all threads of the block take part
-template <typename T>
-__device__ __forceinline__ void load_tile(float* tile, const T* base, int row0, int n, int T_,
-                                          int D) {
-  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
-    const int r = row0 + i / D;
-    tile[i] = r < T_ ? load(base, (long)row0 * D + i) : 0.0f;
+// rows [row0, row0 + N) of two (T, D) matrices a and b into shared (N,
+// LD) tiles, zeros past T.  All THREADS threads of the block take part,
+// and each issues every one of its loads before its first store, so a
+// pair of tiles costs one trip to L2, not one per element.
+template <int N, int D, int LD, int THREADS>
+__device__ __forceinline__ void load_tiles(float* ta, const float* a, float* tb, const float* b,
+                                           int row0, int T) {
+  constexpr int kPer = (N * D + THREADS - 1) / THREADS;
+  float ra[kPer], rb[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x + u * THREADS, r = i / D;
+    const bool ok = i < N * D && row0 + r < T;
+    const long at = (long)(row0 + r) * D + i % D;
+    ra[u] = ok ? a[at] : 0.0f;
+    rb[u] = ok ? b[at] : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = threadIdx.x + u * THREADS;
+    if (i < N * D) {
+      ta[(i / D) * LD + i % D] = ra[u];
+      tb[(i / D) * LD + i % D] = rb[u];
+    }
   }
 }
 
@@ -163,35 +198,36 @@ __device__ __forceinline__ Offs read_offs(const float* offs, int Tk) {
   return o;
 }
 
-// Number of keys a Q tile must visit: up to the causal limit of its last
-// row (block-uniform, so every lane runs the same loop and the shuffles
-// see whole warps).
-__device__ __forceinline__ int key_end(const Offs& o, int q0, int causal) {
+// Number of keys a tile of `rows` Q rows from q0 must visit: up to the
+// causal limit of its last row (block-uniform, so every lane runs the
+// same loop and the shuffles see whole warps).
+__device__ __forceinline__ int key_end(const Offs& o, int q0, int rows, int causal) {
   if (!causal) return o.kv_len;
-  const int last = o.q_off + q0 + kRows - 1 - o.k_off + 1;  // keys j < last
+  const int last = o.q_off + q0 + rows - 1 - o.k_off + 1;  // keys j < last
   return max(0, min(o.kv_len, last));
 }
 
 // ---------------------------------------------------------------------------
 // forward: O and lse for one (b*h, Q tile)
 // ---------------------------------------------------------------------------
-template <int D, typename T>
-__global__ void __launch_bounds__(kRows * (D / kDT))
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ offs, T* __restrict__ o, float* __restrict__ lse,
-                 int Tq, int Tk, int n_tiles, int causal) {
-  constexpr int G = D / kDT;
-  constexpr int BK = (4096 / D) < 64 ? (4096 / D) : 64;
-  __shared__ __align__(16) float ks[BK * D];
-  __shared__ __align__(16) float vs[BK * D];
-  const int bh = blockIdx.x / n_tiles;
-  const int q0 = (blockIdx.x % n_tiles) * kRows;
-  const int r = threadIdx.x / G, g = threadIdx.x % G;
+template <int D>
+__global__ void __launch_bounds__(Fwd<D>::kThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ offs,
+                 float* __restrict__ o, float* __restrict__ lse, int BH, int Tq, int Tk,
+                 int n_tiles, int causal) {
+  using F = Fwd<D>;
+  constexpr int G = F::G, S = F::S, R = F::kRowsQ, BK = F::BK, LD = F::kLd;
+  __shared__ __align__(16) float ks[BK * LD];
+  __shared__ __align__(16) float vs[BK * LD];
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_tiles - 1 - blockIdx.x / BH) * R;  // heaviest tiles first
+  const int r = threadIdx.x / (G * S), s = (threadIdx.x / G) % S, g = threadIdx.x % G;
   const int qi = q0 + r;
   const Offs of = read_offs(offs, Tk);
-  const T* qb = q + (long)bh * Tq * D;
-  const T* kb = k + (long)bh * Tk * D;
-  const T* vb = v + (long)bh * Tk * D;
+  const float* qb = q + (long)bh * Tq * D;
+  const float* kb = k + (long)bh * Tk * D;
+  const float* vb = v + (long)bh * Tk * D;
 
   float qr[kNC][4], acc[kNC][4];
   load_row<G>(qr, qb, qi, qi < Tq, D, g);
@@ -199,27 +235,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int c = 0; c < kNC; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
-  float m = kNeg, l = 0.0f;
+  float m = kNeg, l = 0.0f;  // over the keys of this lane's group only
   const int q_glob = of.q_off + qi;
-  const int kend = key_end(of, q0, causal);
+  const int kend = key_end(of, q0, R, causal);
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tile(ks, kb, k0, BK, Tk, D);
-    load_tile(vs, vb, k0, BK, Tk, D);
+    load_tiles<BK, D, LD, F::kThreads>(ks, kb, vs, vb, k0, Tk);
     __syncthreads();
     const int nk = min(BK, kend - k0);
-    for (int j0 = 0; j0 < nk; j0 += kCH) {
-      float s[kCH];
+    // group s takes keys j0 + s + S*jj of the tile (BK is a multiple of
+    // kCH*S, so they stay inside it)
+    for (int j0 = 0; j0 < nk; j0 += kCH * S) {
+      float sc[kCH];
       bool live[kCH];
       float m_new = m;
 #pragma unroll
       for (int jj = 0; jj < kCH; ++jj) {
-        const int j = k0 + j0 + jj;
-        const float d = group_sum<G>(dot_smem<G>(qr, ks, j0 + jj, D, g));
+        const int jt = j0 + s + S * jj;
+        const int j = k0 + jt;
+        const float d = group_sum<G>(dot_smem<G>(qr, ks, jt, LD, g));
         live[jj] = j < of.kv_len && (!causal || q_glob >= of.k_off + j);
-        s[jj] = live[jj] ? d * of.scale : kNeg;
-        m_new = fmaxf(m_new, s[jj]);
+        sc[jj] = live[jj] ? d * of.scale : kNeg;
+        m_new = fmaxf(m_new, sc[jj]);
       }
       const float corr = expf(m - m_new);
       float psum = 0.0f;
@@ -229,15 +267,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int e = 0; e < 4; ++e) acc[c][e] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kCH; ++jj) {
-        const float p = live[jj] ? expf(s[jj] - m_new) : 0.0f;
+        const float p = live[jj] ? expf(sc[jj] - m_new) : 0.0f;
         psum += p;
-        axpy_smem<G>(acc, p, vs, j0 + jj, D, g);
+        axpy_smem<G>(acc, p, vs, j0 + s + S * jj, LD, g);
       }
       l = l * corr + psum;
       m = m_new;
     }
   }
-  if (qi < Tq) {
+  if constexpr (S > 1) {
+    // merge the S groups of the row: lanes G, 2G, ... apart
+    float mm = m;
+#pragma unroll
+    for (int off = G; off < G * S; off <<= 1) mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
+    const float w = expf(m - mm);  // 0 for a group that saw no live key, 1 if none did
+    l *= w;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] *= w;
+#pragma unroll
+    for (int off = G; off < G * S; off <<= 1) {
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+#pragma unroll
+      for (int c = 0; c < kNC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][e] += __shfl_xor_sync(0xffffffffu, acc[c][e], off);
+    }
+    m = mm;
+  }
+  if (qi < Tq && s == 0) {
     const float l_safe = l == 0.0f ? 1.0f : l;
     store_row<G>(o + (long)bh * Tq * D, qi, acc, l_safe, D, g);
     if (g == 0) lse[(long)bh * Tq + qi] = l == 0.0f ? kNeg : m + logf(l_safe);
@@ -248,14 +307,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // backward, dQ for one (b*h, Q tile):
 //   dQ = sum_k ds K,  ds = p (dO.V^T - delta) scale,  p = exp(s scale - lse)
 // ---------------------------------------------------------------------------
-template <int D, typename T>
-__global__ void __launch_bounds__(kRows * (D / kDT))
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const float* __restrict__ offs,
-                    T* __restrict__ dq, int Tq, int Tk, int n_tiles, int causal) {
+template <int D>
+__global__ void __launch_bounds__(threads_for(D))
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const float* __restrict__ offs, float* __restrict__ dq, int Tq, int Tk,
+                    int n_tiles, int causal) {
   constexpr int G = D / kDT;
-  constexpr int BK = (4096 / D) < 64 ? (4096 / D) : 64;
+  constexpr int BK = tile_rows(D);
   __shared__ __align__(16) float ks[BK * D];
   __shared__ __align__(16) float vs[BK * D];
   const int bh = blockIdx.x / n_tiles;
@@ -264,8 +324,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int qi = q0 + r;
   const bool valid = qi < Tq;
   const Offs of = read_offs(offs, Tk);
-  const T* kb = k + (long)bh * Tk * D;
-  const T* vb = v + (long)bh * Tk * D;
+  const float* kb = k + (long)bh * Tk * D;
+  const float* vb = v + (long)bh * Tk * D;
 
   float qr[kNC][4], dor[kNC][4], acc[kNC][4];
   load_row<G>(qr, q + (long)bh * Tq * D, qi, valid, D, g);
@@ -277,12 +337,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float lse_i = valid ? lse[(long)bh * Tq + qi] : 0.0f;
   const float delta_i = valid ? delta[(long)bh * Tq + qi] : 0.0f;
   const int q_glob = of.q_off + qi;
-  const int kend = key_end(of, q0, causal);
+  const int kend = key_end(of, q0, kRows, causal);
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tile(ks, kb, k0, BK, Tk, D);
-    load_tile(vs, vb, k0, BK, Tk, D);
+    load_tiles<BK, D, D, threads_for(D)>(ks, kb, vs, vb, k0, Tk);
     __syncthreads();
     const int nk = min(BK, kend - k0);
     for (int j0 = 0; j0 < nk; j0 += kCH) {
@@ -304,15 +363,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // backward, dK and dV for one (b*h, K tile):
 //   dV = sum_q p^T dO,  dK = sum_q ds^T Q
 // ---------------------------------------------------------------------------
-template <int D, typename T>
-__global__ void __launch_bounds__(kRows * (D / kDT))
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, const float* __restrict__ offs,
-                     T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int n_tiles,
-                     int causal) {
+template <int D>
+__global__ void __launch_bounds__(threads_for(D))
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ offs, float* __restrict__ dk,
+                     float* __restrict__ dv, int Tq, int Tk, int n_tiles, int causal) {
   constexpr int G = D / kDT;
-  constexpr int BQ = (4096 / D) < 64 ? (4096 / D) : 64;
+  constexpr int BQ = tile_rows(D);
   __shared__ __align__(16) float qs[BQ * D];
   __shared__ __align__(16) float dos[BQ * D];
   __shared__ float lses[BQ];
@@ -324,8 +383,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const Offs of = read_offs(offs, Tk);
   const bool valid = kj < Tk;
   const bool key_live = kj < of.kv_len;
-  const T* qb = q + (long)bh * Tq * D;
-  const T* db = dout + (long)bh * Tq * D;
+  const float* qb = q + (long)bh * Tq * D;
+  const float* db = dout + (long)bh * Tq * D;
   const float* lb = lse + (long)bh * Tq;
   const float* eb = delta + (long)bh * Tq;
 
@@ -343,8 +402,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   for (int i0 = qstart_tile; i0 < Tq; i0 += BQ) {
     __syncthreads();
-    load_tile(qs, qb, i0, BQ, Tq, D);
-    load_tile(dos, db, i0, BQ, Tq, D);
+    load_tiles<BQ, D, D, threads_for(D)>(qs, qb, dos, db, i0, Tq);
     for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
       lses[i] = i0 + i < Tq ? lb[i0 + i] : 0.0f;
       deltas[i] = i0 + i < Tq ? eb[i0 + i] : 0.0f;
@@ -370,67 +428,53 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-constexpr int threads_for(int D) { return kRows * (D / kDT); }
-int tiles(int T) { return (T + kRows - 1) / kRows; }
+int tiles(int T, int rows) { return (T + rows - 1) / rows; }
 
-template <typename T, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const float* offs, void* o,
                float* lse, int BH, int Tq, int Tk, int causal, cudaStream_t s) {
-  const int nt = tiles(Tq);
-  flash_fwd_kernel<D, T><<<BH * nt, threads_for(D), 0, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, offs, (T*)o, lse, Tq, Tk, nt, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-              const float* delta, const float* offs, void* dq, int BH, int Tq, int Tk,
-              int causal, cudaStream_t s) {
-  const int nt = tiles(Tq);
-  flash_bwd_dq_kernel<D, T><<<BH * nt, threads_for(D), 0, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, offs, (T*)dq, Tq, Tk,
+  const int nt = tiles(Tq, Fwd<D>::kRowsQ);
+  flash_fwd_kernel<D><<<BH * nt, Fwd<D>::kThreads, 0, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, offs, (float*)o, lse, BH, Tq, Tk,
       nt, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               const float* delta, const float* offs, void* dk, void* dv, int BH, int Tq,
-               int Tk, int causal, cudaStream_t s) {
-  const int nt = tiles(Tk);
-  flash_bwd_dkv_kernel<D, T><<<BH * nt, threads_for(D), 0, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, offs, (T*)dk, (T*)dv,
-      Tq, Tk, nt, causal);
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, const float* offs, void* dq, int BH, int Tq, int Tk,
+              int causal, cudaStream_t s) {
+  const int nt = tiles(Tq, kRows);
+  flash_bwd_dq_kernel<D><<<BH * nt, threads_for(D), 0, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta, offs,
+      (float*)dq, Tq, Tk, nt, causal);
   return (int)cudaGetLastError();
 }
 
-// one switch over the head dim for one element type
-#define MX_DISPATCH_D(T, D, CALL)                                   \
-  switch (D) {                                                      \
-    case 16: return CALL(T, 16);                                    \
-    case 32: return CALL(T, 32);                                    \
-    case 64: return CALL(T, 64);                                    \
-    case 128: return CALL(T, 128);                                  \
-  }
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, const float* offs, void* dk, void* dv, int BH, int Tq,
+               int Tk, int causal, cudaStream_t s) {
+  const int nt = tiles(Tk, kRows);
+  flash_bwd_dkv_kernel<D><<<BH * nt, threads_for(D), 0, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta, offs,
+      (float*)dk, (float*)dv, Tq, Tk, nt, causal);
+  return (int)cudaGetLastError();
+}
 
-// (dtype, head dim) for dK/dV; f32 only for the forward and dQ, whose
-// bf16 kernels are in flash_attention_sm90.cu
-#define MX_DISPATCH(BF16, D, CALL)                                  \
-  do {                                                              \
-    typedef __nv_bfloat16 bf;                                       \
-    if (BF16) {                                                     \
-      MX_DISPATCH_D(bf, D, CALL)                                    \
-    } else {                                                        \
-      MX_DISPATCH_D(float, D, CALL)                                 \
-    }                                                               \
-    return (int)cudaErrorInvalidValue;                              \
-  } while (0)
-#define MX_DISPATCH_F32(BF16, D, CALL)                              \
-  do {                                                              \
-    if (!(BF16)) {                                                  \
-      MX_DISPATCH_D(float, D, CALL)                                 \
-    }                                                               \
-    return (int)cudaErrorInvalidValue;                              \
+// one switch over the head dim, float32 only: bf16 (BF16 != 0) runs in
+// flash_attention_sm90.cu and is refused here
+#define MX_DISPATCH_F32(BF16, D, CALL)  \
+  do {                                  \
+    if (!(BF16)) {                      \
+      switch (D) {                      \
+        case 16: return CALL(16);       \
+        case 32: return CALL(32);       \
+        case 64: return CALL(64);       \
+        case 128: return CALL(128);     \
+      }                                 \
+    }                                   \
+    return (int)cudaErrorInvalidValue;  \
   } while (0)
 
 }  // namespace
@@ -442,9 +486,8 @@ extern "C" {
 int mx_flash_fwd(const void* q, const void* k, const void* v, const void* offs, void* o,
                  void* lse, int BH, int Tq, int Tk, int D, int causal, int bf16,
                  void* stream) {
-#define MX_FWD(T, DD)                                                                  \
-  launch_fwd<T, DD>(q, k, v, (const float*)offs, o, (float*)lse, BH, Tq, Tk, causal, \
-                    (cudaStream_t)stream)
+#define MX_FWD(DD) \
+  launch_fwd<DD>(q, k, v, (const float*)offs, o, (float*)lse, BH, Tq, Tk, causal, (cudaStream_t)stream)
   MX_DISPATCH_F32(bf16, D, MX_FWD);
 #undef MX_FWD
 }
@@ -454,22 +497,21 @@ int mx_flash_fwd(const void* q, const void* k, const void* v, const void* offs, 
 int mx_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, const void* offs, void* dq, int BH,
                     int Tq, int Tk, int D, int causal, int bf16, void* stream) {
-#define MX_DQ(T, DD)                                                                     \
-  launch_dq<T, DD>(q, k, v, dout, (const float*)lse, (const float*)delta,              \
-                   (const float*)offs, dq, BH, Tq, Tk, causal, (cudaStream_t)stream)
+#define MX_DQ(DD)                                                                           \
+  launch_dq<DD>(q, k, v, dout, (const float*)lse, (const float*)delta, (const float*)offs, \
+                dq, BH, Tq, Tk, causal, (cudaStream_t)stream)
   MX_DISPATCH_F32(bf16, D, MX_DQ);
 #undef MX_DQ
 }
 
-// as mx_flash_bwd_dq, all bf16 if bf16 else f32 (lse, delta and offs
-// f32); writes dk and dv (BH, Tk, D) in the inputs' type.
+// as mx_flash_bwd_dq; writes dk and dv (BH, Tk, D) f32.
 int mx_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, const void* offs, void* dk, void* dv,
                      int BH, int Tq, int Tk, int D, int causal, int bf16, void* stream) {
-#define MX_DKV(T, DD)                                                                    \
-  launch_dkv<T, DD>(q, k, v, dout, (const float*)lse, (const float*)delta,             \
-                    (const float*)offs, dk, dv, BH, Tq, Tk, causal, (cudaStream_t)stream)
-  MX_DISPATCH(bf16, D, MX_DKV);
+#define MX_DKV(DD)                                                                           \
+  launch_dkv<DD>(q, k, v, dout, (const float*)lse, (const float*)delta, (const float*)offs, \
+                 dk, dv, BH, Tq, Tk, causal, (cudaStream_t)stream)
+  MX_DISPATCH_F32(bf16, D, MX_DKV);
 #undef MX_DKV
 }
 

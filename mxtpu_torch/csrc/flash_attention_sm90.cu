@@ -1,31 +1,40 @@
-// Flash attention for bf16 on Hopper tensor cores (sm_90a): the forward
-// and the dQ kernel, plain C interface.
+// Flash attention for bf16 on Hopper tensor cores (sm_90a): the forward,
+// dQ and dK/dV kernels, plain C interface.
 //
-// Replaces, for bfloat16 inputs, two Pallas TPU kernels of
+// Replaces, for bfloat16 inputs, the three Pallas TPU kernels of
 // mxtpu/ops/pallas_attention.py:
-//   mx_flash_fwd_sm90     <- fwd_kernel     (pallas_attention.py:101, call :142)
-//   mx_flash_bwd_dq_sm90  <- bwd_dq_kernel  (pallas_attention.py:173, call :236)
-// float32 inputs, and dK/dV in either type, stay on the CUDA-core kernels
-// of flash_attention.cu.  Both kernels here compute exactly what
-// flash_fwd_plain / flash_bwd_dq_plain compute (ops/flash_attention.py),
-// under the same contract: layout (BH, T, D); offs = [q_off, k_off,
-// kv_len, scale] read on the card; key j is live for query i iff j <
-// kv_len and, when causal, q_off + i >= k_off + j; a row with no live key
-// gives O = 0 and lse = -1e30; O and dQ in bf16, lse f32; rows and keys
-// past T are masked here, with no padding copies.
+//   mx_flash_fwd_sm90      <- fwd_kernel      (pallas_attention.py:101, call :142)
+//   mx_flash_bwd_dq_sm90   <- bwd_dq_kernel   (pallas_attention.py:173, call :236)
+//   mx_flash_bwd_dkv_sm90  <- bwd_dkv_kernel  (pallas_attention.py:199, call :255)
+// float32 inputs stay on the CUDA-core kernels of flash_attention.cu.  The
+// kernels here compute exactly what flash_fwd_plain / flash_bwd_dq_plain /
+// flash_bwd_dkv_plain compute (ops/flash_attention.py), under the same
+// contract: layout (BH, T, D); offs = [q_off, k_off, kv_len, scale] read
+// on the card; key j is live for query i iff j < kv_len and, when causal,
+// q_off + i >= k_off + j; a row with no live key gives O = 0 and lse =
+// -1e30 and adds nothing to dK or dV; O, dQ, dK and dV in bf16, lse f32;
+// rows and keys past T are masked here, with no padding copies; keys past
+// kv_len get dK = dV = 0.
 //
 // What bounds them on this card: the products.  Per live (query, key)
-// pair the forward does 4*D flops (S = Q.K^T, O += P.V) and dQ 6*D (S,
-// dP = dO.V^T, dQ += dS.K); at 8k tokens that is about 70 times the
-// bytes the kernels must move at the bf16 tensor-core rate.  So every
-// product runs on wgmma (bf16 x bf16 -> f32), and the tiles reach shared
-// memory by TMA so that no thread spends instructions on the copy.
+// pair the forward does 4*D flops (S = Q.K^T, O += P.V), dQ 6*D (S,
+// dP = dO.V^T, dQ += dS.K) and dK/dV 8*D (S^T, dP^T, dV += P^T.dO,
+// dK += dS^T.Q); at 8k tokens that is about 70 times the bytes the
+// kernels must move at the bf16 tensor-core rate.  So every product runs
+// on wgmma (bf16 x bf16 -> f32), and the tiles reach shared memory by TMA
+// so that no thread spends instructions on the copy.
 //
-// The design, per block of one warpgroup (128 threads) owning 64 Q rows:
-//   - Q (and dO for dQ) is loaded once by TMA; K and V tiles of 64 keys
-//     stream through a ring of two stages, each guarded by an mbarrier.
-//     Thread 0 refills a stage as soon as the warpgroup has finished with
-//     it, so the next tile's copy is in flight while this one is computed.
+// The design, per block of one warpgroup (128 threads):
+//   - forward and dQ own 64 Q rows: Q (and dO for dQ) is loaded once by
+//     TMA; K and V tiles of 64 keys stream through a ring of two stages,
+//     each guarded by an mbarrier.  dK/dV owns 64 keys the other way
+//     round: K and V are loaded once, and tiles of 64 Q rows and their dO
+//     rows stream through the ring, with the tile's lse and delta (each
+//     thread loads one of the 128 values for the next tile while this one
+//     is computed, and stores it to a two-deep shared copy before the
+//     block's barrier).  Thread 0 refills a stage as soon as the
+//     warpgroup has finished with it, so the next tile's copy is in flight
+//     while this one is computed.
 //   - The tensor maps are 3-D, (D, T, BH), so rows past T of one head read
 //     as zeros and never as the next head's rows.  A row of a tile is
 //     min(D, 64) bf16 in shared memory, swizzled to match the wgmma
@@ -35,35 +44,53 @@
 //     K-major.  P (and dS) is rounded to bf16 in registers, where the
 //     accumulator's fragment is already the layout of wgmma's register A
 //     operand, and O += P.V (dQ += dS.K) reads V (K) from shared memory
-//     through the transpose bit (MN-major B).
+//     through the transpose bit (MN-major B).  dK/dV computes the
+//     transposed scores directly, S^T = K.Q^T and dP^T = V.dO^T, so P^T
+//     and dS^T land in the same register layout and dV += P^T.dO and
+//     dK += dS^T.Q read dO and Q MN-major: no product needs a transpose
+//     through shared memory.  Its lse and delta are per column (query):
+//     each thread reads the 16 queries it holds from the shared copy.
 //   - The online softmax runs on the accumulator fragment: each thread
 //     holds two rows, and a row's max is reduced over the quad of lanes
 //     that hold it; the row sum stays per lane until the end.  exp2f with
 //     log2 e folded into the scale.  P is masked explicitly, not left to
-//     exp: a fully-masked row has s = m = -1e30, and exp(s - m) would be 1.
-//   - Whole K tiles above the causal diagonal (or past kv_len) are never
-//     loaded: each block reads its loop bounds from offs.  The element mask
-//     runs only on tiles that straddle the diagonal or kv_len.
-//   - Blocks are launched heaviest first (the last Q tiles see the most
-//     keys under a causal mask), so the tail of the grid is short.
+//     exp: a fully-masked row has s = m = -1e30, and exp(s - m) would be 1
+//     (in dQ and dK/dV, lse = -1e30 and exp(s - lse) would overflow to
+//     inf, and inf * 0 is NaN).
+//   - Whole tiles on the far side of the causal diagonal (or past kv_len)
+//     are never loaded: each block reads its loop bounds from offs.  The
+//     element mask runs only on tiles that straddle the diagonal, kv_len
+//     or (dK/dV) the last Q row.
+//   - Blocks are launched heaviest first, so the tail of the grid is
+//     short: under a causal mask the last Q tiles see the most keys (fwd,
+//     dQ) and the first key tiles the most queries (dK/dV).
 // Not done here (later work): a producer warp with setmaxnreg, two
-// warpgroups sharing a K/V tile, softmax overlapped with the next tile's
+// warpgroups sharing a tile, softmax overlapped with the next tile's
 // products, persistent blocks, fp8.
 //
 // Precision.  The TPU kernels widen their tiles to f32 and call
 // dot_general at default precision, which on a TPU is one bf16 pass: the
-// TPU rounds P and dS to bf16 before P.V and dS.K.  These kernels do the
-// same, so they depart from the f32 plain versions (not from what the TPU
-// ran) by that rounding: at most 2^-8 of each p or ds.  The allowance
-// derived from it is in chip_smoke.py (SM90_*), and
-// flash_fwd_bf16p_plain / flash_bwd_dq_bf16p_plain are the plain model
-// of this rounding.  S, dP, m, l, lse and every accumulator are f32.
+// TPU rounds P and dS to bf16 before P.V, dS.K, P^T.dO and dS^T.Q.  These
+// kernels do the same, so they depart from the f32 plain versions (not
+// from what the TPU ran) by that rounding: at most 2^-8 of each p or ds.
+// The allowance derived from it is in chip_smoke.py (SM90_*), and
+// flash_fwd_bf16p_plain / flash_bwd_dq_bf16p_plain /
+// flash_bwd_dkv_bf16p_plain are the plain model of this rounding.  S, dP,
+// m, l, lse, delta and every accumulator are f32.
+//
+// Registers.  dK/dV at D=128 holds two 64 x 128 f32 accumulators (64 + 64
+// registers a thread) beside the 64 x 64 S^T and dP^T (32 + 32) and the
+// packed bf16 P^T and dS^T (16 + 16).  Issuing both SS products, then
+// packing, then both RS products keeps no more than the accumulators and
+// two 64 x 64 tiles live at once (192 registers): the build's ptxas
+// report (chip_smoke.py prints it) gives 230 registers and no spills, so
+// a Q tile of 64 rows needs no narrower step.
 //
 // The wrapper (mxtpu_torch/ops/flash_attention.py) checks devices, dtypes,
-// shapes and contiguity, allocates every output and passes PyTorch's
-// current stream.  Each entry encodes its tensor maps, launches, and
-// returns cudaGetLastError(), or kErrNoEncoder / kErrEncode + CUresult if
-// a tensor map could not be made.
+// shapes, contiguity and 16-byte alignment, allocates every output and
+// passes PyTorch's current stream.  Each entry encodes its tensor maps,
+// launches, and returns cudaGetLastError(), or kErrNoEncoder / kErrEncode
+// + CUresult if a tensor map could not be made.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached at run time
 #include <cuda_runtime.h>
@@ -75,8 +102,8 @@ namespace {
 constexpr float kNeg = -1e30f;  // _NEG of the Pallas kernels
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kRows = 64;      // Q rows of a block, keys of a K/V tile
-constexpr int kStages = 2;     // K/V tiles in the ring
+constexpr int kRows = 64;      // rows of every tile: Q rows, or keys
+constexpr int kStages = 2;     // tiles in the ring: K/V, or Q/dO for dK/dV
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kErrNoEncoder = 10000;
 constexpr int kErrEncode = 10001;
@@ -332,6 +359,21 @@ __device__ __forceinline__ uint32_t live_bits(const Offs& o, int row0, int col0,
   return bits;
 }
 
+// as live_bits for a 64 x 64 S^T tile (rows are keys, columns queries),
+// whose queries past Tq are dead too: key0 / q0c are this thread's first
+// key and query; full: every pair of the tile is live
+__device__ __forceinline__ uint32_t live_bits_t(const Offs& o, int key0, int q0c, int Tq,
+                                                bool full, int causal) {
+  if (full) return 0xffffffffu;
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < kRows / 2; ++i) {
+    const int qi = q0c + 8 * (i / 4) + (i % 2);
+    bits |= (uint32_t)(qi < Tq && pair_live(o, qi, key0 + 8 * ((i / 2) % 2), causal)) << i;
+  }
+  return bits;
+}
+
 // the dynamic shared memory, aligned to the 1024 B a swizzle pattern spans
 __device__ __forceinline__ uint32_t smem_base(const uint8_t* raw) {
   return (smem_u32(raw) + 1023u) & ~1023u;
@@ -581,6 +623,155 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 }
 
 // ---------------------------------------------------------------------------
+// backward, dK and dV for one (b*h, 64-key tile), from the transposed
+// scores:
+//   S^T = K.Q^T,  p^T = exp(S^T scale - lse),  dP^T = V.dO^T,
+//   ds^T = p^T (dP^T - delta) scale,  dV = sum_q p^T dO,  dK = sum_q ds^T Q
+// The fragment's rows are keys and its columns queries, so lse and delta
+// are per column.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ offs, __nv_bfloat16* __restrict__ dk,
+                __nv_bfloat16* __restrict__ dv, int BH, int Tq, int Tk, int causal) {
+  using L = Tile<D>;
+  __shared__ __align__(8) uint64_t bars[1 + kStages];
+  // lse * log2 e and delta of a Q tile's rows, two deep: [tile parity][which][row]
+  __shared__ __align__(16) float rows[2][2][kRows];
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sk = smem_base(smem_raw);
+  const uint32_t sv = sk + L::kBytes;
+  const uint32_t sqd = sv + L::kBytes;  // stage s: Q at sqd + 2s tiles, dO after it
+  const uint32_t kvbar = smem_u32(&bars[0]);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x % BH;
+  const int k0 = (blockIdx.x / BH) * kRows;  // heaviest (first) key tiles first
+  const Offs of = read_offs(offs, Tk);
+  // Q tiles from the first that can see key k0 to the last; none when
+  // every key of the tile is past kv_len
+  const int qstart = causal ? max(0, min(Tq, of.k_off + k0 - of.q_off)) : 0;
+  const int t0 = qstart / kRows;
+  const int n_qt = k0 < of.kv_len ? (Tq + kRows - 1) / kRows - t0 : 0;
+  const float* lse_b = lse + (long)bh * Tq;
+  const float* delta_b = delta + (long)bh * Tq;
+  // this thread's one value of Q tile t's rows: lse * log2 e (tid < 64) or
+  // delta, 0 past Tq
+  auto row_value = [&](int t) {
+    const int i = (t0 + t) * kRows + tid % kRows;
+    if (i >= Tq) return 0.0f;
+    return tid < kRows ? lse_b[i] * kLog2e : delta_b[i];
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s <= kStages; ++s) mbar_init(smem_u32(&bars[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (n_qt > 0) {
+      mbar_expect_tx(kvbar, 2 * L::kBytes);
+      tma_tile<D>(sk, &tk, kvbar, k0, bh);
+      tma_tile<D>(sv, &tv, kvbar, k0, bh);
+      for (int s = 0; s < kStages && s < n_qt; ++s) {
+        const uint32_t bar = smem_u32(&bars[1 + s]);
+        mbar_expect_tx(bar, 2 * L::kBytes);
+        tma_tile<D>(sqd + 2 * s * L::kBytes, &tq, bar, (t0 + s) * kRows, bh);
+        tma_tile<D>(sqd + (2 * s + 1) * L::kBytes, &tdo, bar, (t0 + s) * kRows, bh);
+      }
+    }
+  }
+  if (n_qt > 0) rows[0][tid / kRows][tid % kRows] = row_value(0);
+  __syncthreads();
+
+  const int r0 = 16 * warp + lane / 4;  // keys r0 and r0 + 8 of the tile
+  const int c0 = 2 * (lane % 4);        // queries c0, c0 + 1 of each 8-query chunk
+  const float sl2 = of.scale * kLog2e;
+  float dka[D / 2], dva[D / 2], st[kRows / 2], dpt[kRows / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kRows / 2; ++i) st[i] = dpt[i] = 0.0f;
+  if (n_qt > 0) mbar_wait(kvbar, 0);
+
+  for (int t = 0; t < n_qt; ++t) {
+    const int s = t % kStages;
+    const uint32_t sq = sqd + 2 * s * L::kBytes, sdo = sq + L::kBytes;
+    const int q0 = (t0 + t) * kRows;
+    // the next tile's lse / delta, loaded now and stored at the end
+    const float next = t + 1 < n_qt ? row_value(t + 1) : 0.0f;
+    mbar_wait(smem_u32(&bars[1 + s]), (t / kStages) & 1);
+
+    // S^T = K.Q^T and dP^T = V.dO^T
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(st, desc_k<D>(sk, kk), desc_k<D>(sq, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dpt, desc_k<D>(sv, kk), desc_k<D>(sdo, kk), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const bool full = q0 + kRows <= Tq && tile_full(of, q0, k0, causal);
+    const uint32_t live = live_bits_t(of, k0 + r0, q0 + c0, Tq, full, causal);
+    const float* lse2 = rows[t & 1][0];
+    const float* dl = rows[t & 1][1];
+    uint32_t pa[kRows / 16][4], da[kRows / 16][4];
+#pragma unroll
+    for (int i = 0; i < kRows / 2; i += 2) {
+      const int col = 8 * (i / 4) + c0;  // the pair's first query in the tile
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + col);
+      const float p0 = (live >> i) & 1u ? exp2f(st[i] * sl2 - l2.x) : 0.0f;
+      const float p1 = (live >> (i + 1)) & 1u ? exp2f(st[i + 1] * sl2 - l2.y) : 0.0f;
+      pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+      da[i / 8][(i % 8) / 2] =
+          pack_bf16(p0 * (dpt[i] - d2.x) * of.scale, p1 * (dpt[i + 1] - d2.y) * of.scale);
+    }
+
+    // dV += P^T.dO and dK += dS^T.Q, dO and Q read MN-major
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) wgmma_rs<D>(dva, pa[kk], desc_mn<D>(sdo, kk));
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) wgmma_rs<D>(dka, da[kk], desc_mn<D>(sq, kk));
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dva);
+    fence_regs(dka);
+
+    // the other parity was last read in tile t - 1, before the previous
+    // barrier; this barrier publishes it for tile t + 1
+    rows[(t + 1) & 1][tid / kRows][tid % kRows] = next;
+    // the stage is free: refill it with tile t + kStages
+    __syncthreads();
+    if (tid == 0 && t + kStages < n_qt) {
+      const uint32_t bar = smem_u32(&bars[1 + s]);
+      mbar_expect_tx(bar, 2 * L::kBytes);
+      tma_tile<D>(sq, &tq, bar, (t0 + t + kStages) * kRows, bh);
+      tma_tile<D>(sdo, &tdo, bar, (t0 + t + kStages) * kRows, bh);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + r0 + 8 * h;
+    if (key >= Tk) continue;
+    __nv_bfloat16* krow = dk + ((long)bh * Tk + key) * D;
+    __nv_bfloat16* vrow = dv + ((long)bh * Tk + key) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * c + c0) =
+          __floats2bfloat162_rn(dka[4 * c + 2 * h], dka[4 * c + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * c + c0) =
+          __floats2bfloat162_rn(dva[4 * c + 2 * h], dva[4 * c + 2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -666,6 +857,25 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+               const float* delta, const float* offs, void* dk, void* dv, int BH, int Tq, int Tk,
+               int causal, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  int e;
+  if ((e = encode(&mq, q, BH, Tq, D)) || (e = encode(&mk, k, BH, Tk, D)) ||
+      (e = encode(&mv, v, BH, Tk, D)) || (e = encode(&mdo, dout, BH, Tq, D)))
+    return e;
+  const int smem = Tile<D>::kBytes * (2 + 2 * kStages) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(dkv_sm90_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dkv_sm90_kernel<D><<<BH * tiles(Tk), kThreads, smem, s>>>(
+      mq, mk, mv, mdo, lse, delta, offs, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, BH, Tq, Tk,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 #define MX_SM90_DISPATCH(D, CALL)     \
   do {                                \
     switch (D) {                      \
@@ -701,6 +911,17 @@ int mx_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void
                 BH, Tq, Tk, causal, (cudaStream_t)stream)
   MX_SM90_DISPATCH(D, MX_DQ);
 #undef MX_DQ
+}
+
+// as mx_flash_bwd_dq_sm90; writes dk and dv (BH, Tk, D) bf16.
+int mx_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, const void* offs, void* dk,
+                          void* dv, int BH, int Tq, int Tk, int D, int causal, void* stream) {
+#define MX_DKV(DD)                                                                              \
+  launch_dkv<DD>(q, k, v, dout, (const float*)lse, (const float*)delta, (const float*)offs, dk, \
+                 dv, BH, Tq, Tk, causal, (cudaStream_t)stream)
+  MX_SM90_DISPATCH(D, MX_DKV);
+#undef MX_DKV
 }
 
 }  // extern "C"

@@ -12,18 +12,18 @@ runs the dQ and dK/dV kernels.
 
 On a CUDA tensor each of the three launches a hand-written kernel
 (built by ``_build.py``) or raises; the wrapper picks the kernel from
-(dtype, head dim) before the launch:
+the dtype before the launch:
 
-- bfloat16, head dim 16, 32, 64 or 128: the forward and dQ run on
-  tensor cores (wgmma, tiles brought in by TMA),
-  ``csrc/flash_attention_sm90.cu``; dK/dV runs on the CUDA cores,
-  ``csrc/flash_attention.cu``;
+- bfloat16, head dim 16, 32, 64 or 128: all three run on tensor cores
+  (wgmma, tiles brought in by TMA), ``csrc/flash_attention_sm90.cu``;
 - float32, head dim 16, 32, 64 or 128: all three run on the CUDA cores,
-  ``csrc/flash_attention.cu``.
+  ``csrc/flash_attention.cu`` (f32 does not go through the tensor cores:
+  TF32 would not hold the plain versions' 1e-5).
 
 Any other dtype or head dim raises before a launch. The bf16 kernels
-round P and dS to bf16 before P.V and dS.K, as the TPU's one-pass bf16
-dot does; :func:`flash_fwd_bf16p_plain` and :func:`flash_bwd_dq_bf16p_plain`
+round P and dS to bf16 before P.V, dS.K, P^T.dO and dS^T.Q, as the TPU's
+one-pass bf16 dot does; :func:`flash_fwd_bf16p_plain`,
+:func:`flash_bwd_dq_bf16p_plain` and :func:`flash_bwd_dkv_bf16p_plain`
 model that rounding (tests and ``chip_smoke.py`` use them; no path does).
 On a CPU tensor each runs its plain PyTorch version (:func:`flash_fwd_plain`,
 :func:`flash_bwd_dq_plain`, :func:`flash_bwd_dkv_plain`), which computes
@@ -35,12 +35,13 @@ of the right shapes.
 The kernels mask rows and keys past T themselves, so nothing is padded
 to a tile multiple; ``block_q``/``block_k`` stay in the signatures for
 the JAX package's callers and do not change the result (the CUDA kernels
-tile by 64 rows whatever they ask).
+pick their own tiles, 32 or 64 rows, whatever they ask).
 
-``LAUNCHES`` counts kernel launches per kernel (``flash_fwd`` and
-``flash_bwd_dq`` for the CUDA-core kernels, ``flash_fwd_sm90`` and
-``flash_bwd_dq_sm90`` for the bf16 ones); :func:`reset_launches` zeroes
-it. Only a launch bumps it.
+``LAUNCHES`` counts kernel launches per kernel (``flash_fwd``,
+``flash_bwd_dq`` and ``flash_bwd_dkv`` for the f32 kernels,
+``flash_fwd_sm90``, ``flash_bwd_dq_sm90`` and ``flash_bwd_dkv_sm90`` for
+the bf16 ones); :func:`reset_launches` zeroes it. Only a launch bumps
+it.
 """
 from __future__ import annotations
 
@@ -51,14 +52,15 @@ import torch
 __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_reference", "flash_fwd_plain",
            "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
-           "flash_fwd_bf16p_plain", "flash_bwd_dq_bf16p_plain", "LAUNCHES",
-           "reset_launches"]
+           "flash_fwd_bf16p_plain", "flash_bwd_dq_bf16p_plain",
+           "flash_bwd_dkv_bf16p_plain", "LAUNCHES", "reset_launches"]
 
 _NEG = -1e30  # large-negative instead of finfo.min: exp() underflows to 0
               # without inf - inf = nan hazards in the running-max rescale
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "flash_fwd_sm90": 0, "flash_bwd_dq_sm90": 0}
+            "flash_fwd_sm90": 0, "flash_bwd_dq_sm90": 0,
+            "flash_bwd_dkv_sm90": 0}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -134,12 +136,25 @@ def flash_bwd_dq_bf16p_plain(q, k, v, dout, lse, delta, offs, causal):
     return torch.matmul(ds.to(torch.bfloat16).float(), k.float()).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, offs, causal):
-    """What ``bwd_dkv_kernel`` computes: (dK, dV) in k's and v's dtypes."""
+def _dkv_plain(q, k, v, dout, lse, delta, offs, causal, bf16):
     p, ds = _probs_and_ds(q, k, v, dout, lse, delta, offs, causal)
+    if bf16:
+        p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
     dk = torch.matmul(ds.transpose(1, 2), q.float())
     dv = torch.matmul(p.transpose(1, 2), dout.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, offs, causal):
+    """What ``bwd_dkv_kernel`` computes: (dK, dV) in k's and v's dtypes."""
+    return _dkv_plain(q, k, v, dout, lse, delta, offs, causal, False)
+
+
+def flash_bwd_dkv_bf16p_plain(q, k, v, dout, lse, delta, offs, causal):
+    """:func:`flash_bwd_dkv_plain` with P^T and dS^T rounded to bf16
+    before P^T.dO and dS^T.Q, as the bf16 kernel computes them; for tests
+    and ``chip_smoke.py``."""
+    return _dkv_plain(q, k, v, dout, lse, delta, offs, causal, True)
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +208,9 @@ def _raise_on(name, err):
 
 def _sm90(name, tensors):
     """True when the bf16 kernels of ``csrc/flash_attention_sm90.cu`` take
-    the problem: bf16 inputs (every head dim the wrapper accepts). Their
-    tensor maps need 16-byte aligned bases."""
+    the problem: bf16 inputs (every head dim the wrapper accepts); f32
+    goes to ``csrc/flash_attention.cu``. Their tensor maps need 16-byte
+    aligned bases."""
     if tensors[0].dtype != torch.bfloat16:
         return False
     for t in tensors:
@@ -283,6 +299,17 @@ def _bwd_dkv_cuda(q, k, v, dout, lse, delta, offs, causal):
                               offs)
     dev = q.device
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if _sm90("flash_bwd_dkv", (q, k, v, dout)):
+        lib = load("flash_attention_sm90")
+        with torch.cuda.device(dev):
+            err = lib.mx_flash_bwd_dkv_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), offs.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), bh, tq, tk, d, int(causal),
+                _stream(dev))
+        _raise_on("flash_bwd_dkv_sm90", err)
+        LAUNCHES["flash_bwd_dkv_sm90"] += 1
+        return dk, dv
     lib = load("flash_attention")
     with torch.cuda.device(dev):
         err = lib.mx_flash_bwd_dkv(

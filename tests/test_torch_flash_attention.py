@@ -11,10 +11,10 @@ Tolerances: float32 2e-5 on values and 3e-5 on gradients, as the JAX
 file holds its kernels to its reference (sums in another order). bf16 is
 compared in the working type: both sides compute in f32 from the same
 bf16 inputs and round each output once, so a last-bit f32 difference can
-flip one bf16 rounding, at most 2^-7 of the value. The bf16 forward and
-dQ kernels on the card also round P and dS to bf16 before their products;
-their model (flash_*_bf16p_plain) is held here to the allowance that
-chip_smoke.py derives for them (SM90_*) and then holds them to.
+flip one bf16 rounding, at most 2^-7 of the value. The bf16 kernels on
+the card (forward, dQ, dK/dV) also round P and dS to bf16 before their
+products; their model (flash_*_bf16p_plain) is held here to the allowance
+that chip_smoke.py derives for them (SM90_*) and then holds them to.
 """
 import importlib.util
 import pathlib
@@ -314,7 +314,7 @@ def test_cpu_path_counts_no_launch():
     fa.flash_attention(q, k, v, causal=True).sum().backward()
     assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
                            "flash_bwd_dkv": 0, "flash_fwd_sm90": 0,
-                           "flash_bwd_dq_sm90": 0}
+                           "flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0}
 
 
 def test_meta_tensors_give_output_shapes():
@@ -381,8 +381,8 @@ def test_bf16_rounding_within_sm90_allowance(smoke):
     kernels compute) against mxtpu's Pallas kernels at bf16 (interpreted:
     f32 P and dS, as the CPU runs an f32 dot) and against the f32 plain
     versions, at T=256, D=64, causal, with shard offsets that leave rows
-    0-31 fully masked: within the allowance chip_smoke.py holds the
-    kernels to."""
+    0-31 fully masked and keys 224-255 seen by no query: within the
+    allowance chip_smoke.py holds the kernels to."""
     bh, t, d = 2, 256, 64
     q, k, v, do = _arrays([(bh, t, d)] * 4, 121)
     dlse = _arrays([(bh, t)], 122)[0]
@@ -390,75 +390,188 @@ def test_bf16_rounding_within_sm90_allowance(smoke):
     fwd, bwd = jfa._kernels()
     jq, jk, jv, jdo = _jax([q, k, v, do], jnp.bfloat16)
     o_j, lse_j = fwd(jq, jk, jv, jnp.asarray(offs), True, 64, 64)
-    dq_j, _dk, _dv = bwd(jq, jk, jv, o_j, lse_j, jdo,
-                         jnp.asarray(dlse)[..., None], jnp.asarray(offs),
-                         True, 64, 64)
+    dq_j, dk_j, dv_j = bwd(jq, jk, jv, o_j, lse_j, jdo,
+                           jnp.asarray(dlse)[..., None], jnp.asarray(offs),
+                           True, 64, 64)
     tq, tk, tv, tdo = _torch([q, k, v, do], torch.bfloat16)
     toffs = torch.from_numpy(offs)
-    o_jax, lse_jax, dq_jax = (torch.from_numpy(np.array(_np32(x)))
-                              for x in (o_j, lse_j[..., 0], dq_j))
-    o_jax, dq_jax = o_jax.to(torch.bfloat16), dq_jax.to(torch.bfloat16)
+    o_jax, lse_jax, dq_jax, dk_jax, dv_jax = (
+        torch.from_numpy(np.array(_np32(x)))
+        for x in (o_j, lse_j[..., 0], dq_j, dk_j, dv_j))
+    o_jax, dq_jax, dk_jax, dv_jax = (
+        x.to(torch.bfloat16) for x in (o_jax, dq_jax, dk_jax, dv_jax))
     # the backward from the JAX forward's own O and lse, as the kernels
     # get them from theirs
     delta = (tdo.float() * o_jax.float()).sum(-1) - torch.from_numpy(dlse)
     bw = (tq, tk, tv, tdo, lse_jax, delta, toffs, True)
     o_m, lse_m = fa.flash_fwd_bf16p_plain(tq, tk, tv, toffs, True)
     dq_m = fa.flash_bwd_dq_bf16p_plain(*bw)
+    dkv_m = fa.flash_bwd_dkv_bf16p_plain(*bw)
     o_p, lse_p = fa.flash_fwd_plain(tq, tk, tv, toffs, True)
     dq_p = fa.flash_bwd_dq_plain(*bw)
+    dkv_p = fa.flash_bwd_dkv_plain(*bw)
     allowance = smoke.sm90_allowance(fa, dict(q=tq, k=tk, v=tv, offs=toffs,
                                               do=tdo, lse=lse_jax,
                                               delta=delta))
-    for o_ref, lse_ref, dq_ref in ((o_jax, lse_jax, dq_jax),
-                                   (o_p, lse_p, dq_p)):
+    for o_ref, lse_ref, dq_ref, dkv_ref in (
+            (o_jax, lse_jax, dq_jax, (dk_jax, dv_jax)),
+            (o_p, lse_p, dq_p, dkv_p)):
         _close(lse_m, lse_ref, smoke.SM90_LSE_TOL)
         assert smoke.sm90_excess("flash_fwd_sm90", (o_m, lse_m),
                                  (o_ref, lse_ref), allowance) <= 1.0
         assert smoke.sm90_excess("flash_bwd_dq_sm90", (dq_m,), (dq_ref,),
                                  allowance) <= 1.0
-    # the rounding is real, and fully-masked rows stay exact
+        assert smoke.sm90_excess("flash_bwd_dkv_sm90", dkv_m, dkv_ref,
+                                 allowance) <= 1.0
+    # the rounding is real, and fully-masked rows and unseen keys stay
+    # exact
     assert bool((o_m != o_p).any()) and bool((dq_m != dq_p).any())
+    assert all(bool((m != p).any()) for m, p in zip(dkv_m, dkv_p))
     assert float(o_m[:, :32].float().abs().max()) == 0.0
     assert bool((lse_m[:, :32] == fa._NEG).all())
     assert float(dq_m[:, :32].float().abs().max()) == 0.0
+    for x in dkv_m:
+        assert float(x[:, 224:].float().abs().max()) == 0.0
+        assert float(x[:, :224].float().abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("tq,tk,d,q_offset,k_offset", [
+    (100, 72, 32, 0, 0),       # ragged: neither length a tile multiple
+    (128, 128, 16, 0, 64),     # rows 0-63 fully masked, keys 64+ unseen
+    (96, 192, 128, 64, 0),     # a shard; keys 160+ past its last row
+], ids=["ragged", "fully_masked_d16", "shard_d128"])
+def test_bf16_dkv_rounding_within_sm90_allowance(smoke, tq, tk, d, q_offset,
+                                                 k_offset):
+    """The bf16 dK/dV rounding model against the gradients of mxtpu's
+    flash attention at bf16 (its Pallas kernels, interpreted, behind its
+    custom_vjp, which pads ragged lengths) and against the f32 plain
+    version, within the allowance; unseen keys get exactly 0."""
+    q, do = _arrays([(1, 2, tq, d)] * 2, 131)
+    k, v = _arrays([(1, 2, tk, d)] * 2, 132)
+    kw = dict(causal=True, q_offset=q_offset, k_offset=k_offset, **BLOCKS)
+    jq, jk, jv, jdo = _jax([q, k, v, do], jnp.bfloat16)
+    o_j, lse_j = jfa.flash_attention_with_lse(jq, jk, jv, **kw)
+    _o, vjp = jax.vjp(lambda *x: jfa.flash_attention(*x, **kw), jq, jk, jv)
+    _dq, dk_j, dv_j = vjp(jdo)
+
+    def flat(x, dtype=torch.bfloat16):
+        x = torch.from_numpy(np.array(_np32(x)))
+        return x.reshape(2, *x.shape[2:]).to(dtype)
+    tq_, tk_, tv_, tdo_ = (flat(x) for x in (q, k, v, do))
+    o_jax, dk_jax, dv_jax = flat(o_j), flat(dk_j), flat(dv_j)
+    lse_jax = flat(lse_j, torch.float32)
+    offs = torch.tensor([q_offset, k_offset, tk, 1 / np.sqrt(d)],
+                        dtype=torch.float32)
+    delta = (tdo_.float() * o_jax.float()).sum(-1)
+    bw = (tq_, tk_, tv_, tdo_, lse_jax, delta, offs, True)
+    dkv_m = fa.flash_bwd_dkv_bf16p_plain(*bw)
+    dkv_p = fa.flash_bwd_dkv_plain(*bw)
+    allowance = smoke.sm90_allowance(fa, dict(q=tq_, k=tk_, v=tv_,
+                                              offs=offs, do=tdo_,
+                                              lse=lse_jax, delta=delta))
+    for ref in ((dk_jax, dv_jax), dkv_p):
+        assert smoke.sm90_excess("flash_bwd_dkv_sm90", dkv_m, ref,
+                                 allowance) <= 1.0
+    for x in dkv_m:
+        assert x.dtype == torch.bfloat16 and torch.isfinite(x.float()).all()
+    # keys that no query sees: k_offset + j > q_offset + tq - 1
+    unseen = max(0, q_offset + tq - k_offset)
+    for x in (*dkv_m, dk_jax, dv_jax):
+        tail = x[:, unseen:].float()
+        assert tail.numel() == 0 or float(tail.abs().max()) == 0.0
 
 
 def test_sm90_allowance_catches_a_dropped_key(smoke):
     """The allowance is tight enough to see a wrong mask: dropping one
-    live key from the keys a row sees leaves the allowance."""
+    live key from the keys a row sees leaves the allowance, for O and for
+    dK/dV."""
     q, k, v = _torch(_arrays([(1, 128, 64)] * 3, 123), torch.bfloat16)
     offs = torch.tensor([0.0, 0.0, 128.0, 0.125])
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, offs, True)
     short = torch.tensor([0.0, 0.0, 127.0, 0.125])   # key 127 dropped
     o_bad, _ = fa.flash_fwd_bf16p_plain(q, k, v, short, True)
-    a = dict(q=q, k=k, v=v, offs=offs, do=q, lse=lse_p,
-             delta=torch.zeros(1, 128))
+    delta = torch.zeros(1, 128)
+    a = dict(q=q, k=k, v=v, offs=offs, do=q, lse=lse_p, delta=delta)
+    allowance = smoke.sm90_allowance(fa, a)
     assert smoke.sm90_excess("flash_fwd_sm90", (o_bad, lse_p),
-                             (o_p, lse_p), smoke.sm90_allowance(fa, a)) > 1.0
+                             (o_p, lse_p), allowance) > 1.0
+    dkv_p = fa.flash_bwd_dkv_plain(q, k, v, q, lse_p, delta, offs, True)
+    dkv_bad = fa.flash_bwd_dkv_bf16p_plain(q, k, v, q, lse_p, delta, short,
+                                           True)
+    assert smoke.sm90_excess("flash_bwd_dkv_sm90", dkv_bad, dkv_p,
+                             allowance) > 1.0
+    # and the rounding alone stays within it
+    dkv_m = fa.flash_bwd_dkv_bf16p_plain(q, k, v, q, lse_p, delta, offs,
+                                         True)
+    assert smoke.sm90_excess("flash_bwd_dkv_sm90", dkv_m, dkv_p,
+                             allowance) <= 1.0
 
 
 @pytest.mark.parametrize("dtype,sm90", [(torch.bfloat16, True),
                                         (torch.float32, False)])
 def test_kernel_route_follows_dtype(dtype, sm90):
-    """bf16 goes to the wgmma/TMA kernels at every head dim the wrapper
-    takes; f32 stays on the CUDA-core kernels."""
+    """bf16 goes to the wgmma/TMA kernels (forward, dQ and dK/dV) at
+    every head dim the wrapper takes; f32 stays on the CUDA-core
+    kernels."""
     for d in fa._KERNEL_HEAD_DIMS:
         q = torch.zeros(2, 64, d, dtype=dtype)
-        assert fa._sm90("flash_fwd", (q, q, q)) is sm90
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert fa._sm90(name, (q, q, q, q)) is sm90
 
 
 def test_sm90_route_refuses_misaligned_tensors():
     # a tensor map needs a 16-byte aligned base
     q = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 64)
     assert q.is_contiguous() and q.data_ptr() % 16
-    with pytest.raises(ValueError):
-        fa._sm90("flash_fwd", (q, q, q))
+    ok = torch.zeros(1, 64, 64, dtype=torch.bfloat16)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        with pytest.raises(ValueError, match=name):
+            fa._sm90(name, (q, q, q, q))
+        with pytest.raises(ValueError, match=name):
+            fa._sm90(name, (ok, ok, ok, q))
 
 
 @pytest.mark.parametrize("err,words", [
     (10000, "cuTensorMapEncodeTiled"), (10001 + 1, "CUresult 1"),
     (700, "cudaError 700")])
 def test_launch_errors_raise(err, words):
-    with pytest.raises(RuntimeError, match=words):
-        fa._raise_on("flash_fwd_sm90", err)
-    fa._raise_on("flash_fwd_sm90", 0)
+    for name in ("flash_fwd_sm90", "flash_bwd_dq_sm90",
+                 "flash_bwd_dkv_sm90"):
+        with pytest.raises(RuntimeError, match=name + ".*" + words):
+            fa._raise_on(name, err)
+        fa._raise_on(name, 0)
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("q_offset,k_offset", [(0, 0), (0, 64), (32, 16)],
+                         ids=["causal", "fully_masked", "shard"])
+def test_key_split_merge_matches_plain(groups, q_offset, k_offset):
+    """The merge the f32 forward uses at D = 16 and 32, where S groups of
+    lanes score keys j = s (mod S) with their own running max, sum and
+    accumulator: m* = max m_s, l = sum l_s e^(m_s - m*), acc likewise.
+    Written out in torch, it gives the plain forward, fully-masked rows
+    (O = 0, lse = -1e30) included."""
+    q, k, v = _torch(_arrays([(2, 96, 16)] * 3, 141))
+    offs = torch.tensor([q_offset, k_offset, 96.0, 0.25])
+    mask = fa._mask(offs, 96, 96, True, q.device)
+    s = torch.where(mask, torch.matmul(q, k.transpose(1, 2)) * 0.25, fa._NEG)
+    parts = []
+    for g in range(groups):
+        sg, mg = s[..., g::groups], mask[:, g::groups]
+        m = sg.amax(-1, keepdim=True)
+        p = torch.where(mg, torch.exp(sg - m), 0.0)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.matmul(p, v[:, g::groups])))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.exp(m - m_all) for m, _, _ in parts]
+    l = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+    acc = sum(wi * ai for wi, (_, _, ai) in zip(w, parts))
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = acc / l_safe
+    lse = torch.where(l == 0.0, fa._NEG, m_all + torch.log(l_safe))[..., 0]
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, offs, True)
+    _close(o, o_p, F32_TOL)
+    _close(lse, lse_p, F32_TOL)
+    if k_offset == 64:
+        assert float(o[:, :64].abs().max()) == 0.0
+        assert bool((lse[:, :64] == fa._NEG).all())
