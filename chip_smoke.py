@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card: its name, and name and power limit from nvidia-smi;
 2. build the hand-written kernels from mxtpu_torch/csrc with nvcc, one
    process per source, all at once, and print ptxas's registers and
-   spills (the bf16 dK/dV kernel's by head dim on a line of its own);
+   spills (the bf16 dK/dV kernel's by head dim, and the f32 flash
+   kernels' at head dim 128, on lines of their own);
 3. hold each kernel against its plain PyTorch version on the card: the
    LSTM/GRU time loops at the serving slice's shapes (T=32, H=200,
    N in {1, 32}; float32 and bfloat16), and the three flash-attention
@@ -16,11 +17,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    (B=8, H=4, T=256, D=16, f32, causal), at the JAX package's own check
    shape (B=1, H=8, T=8192, D in {64, 128}, bf16, causal), on shard
    offsets that leave rows fully masked, and on lengths that are not a
-   multiple of the tile (the last two in f32 at D=16 and 32 and in bf16);
-   bf16 runs all three on the wgmma/TMA kernels (flash_fwd_sm90,
-   flash_bwd_dq_sm90, flash_bwd_dkv_sm90), held to the allowance derived
-   for their rounding of P and dS (SM90_*), and each call must launch the
-   kernel its dtype routes to and no other;
+   multiple of the tile (the last two in f32 at D=16, 32 and 128 and in
+   bf16 at D=16 and 32); bf16 runs all three on the wgmma/TMA kernels
+   (flash_fwd_sm90, flash_bwd_dq_sm90, flash_bwd_dkv_sm90), held to the
+   allowance derived for their rounding of P and dS (SM90_*), and each
+   call must launch the kernel its dtype routes to and no other; then
+   the LSTM/GRU gradients under autograd (f32 and bf16, N in {1, 32})
+   against the CPU's plain autograd, one kernel launch a forward and
+   none a backward;
 4. serving: a bucketed LSTM language model at the published widths of
    example/rnn/lstm_bucketing.py (vocab 10,000, embed 200, hidden 200,
    2 layers, 32 tokens), with weights drawn from --seed, checkpointed and
@@ -37,6 +41,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel once per step, and match its first 3 steps run on the CPU (the
    plain path) in loss and parameters;
 7. the op entry: mt.nd.flash_attention on the card launches the kernel;
+   local_attention(impl="auto") takes the dense path on a problem the
+   kernels refuse (head dim 80, float16) and flash on one they take
+   (bf16, head dim 64), forward and backward against the CPU; and
+   nd.SoftmaxOutput's backward (softmax - onehot, with grad_scale,
+   normalization, use_ignore, smooth_alpha, multi_output and out_grad)
+   on gpu(0) against the CPU;
 8. the bf16 long-context path: mt.nd.flash_attention on bf16 NDArrays of
    (1, 8, 8192, 64) on gpu(0) launches flash_fwd_sm90 alone, and
    mxtpu_torch.parallel.local_attention(impl="auto", causal=True) forward
@@ -58,7 +68,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    64 steps, f32), whose softmax-with-loss head is a CustomOp launching
    two CUDA C kernels compiled by mx.rtc (cs_softmax_fwd,
    cs_softmax_bwd). Each is held against its plain version at (128, 10)
-   and at the LSTM LM's output rows (1024 x 10,000); the MLP trains 64
+   and at the LSTM LM's output rows (1024 x 10,000), and the forward also
+   at the widths and alignments of its three paths; the MLP trains 64
    steps on cuda:0 through symbol.eval_graph under mxtpu_torch.autograd
    (first 3 steps against the CPU's plain route, one launch of each
    kernel a step, train accuracy > 0.9) and is served by
@@ -71,6 +82,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    calls enqueued behind a sleep kernel: the flash kernels at the
    training slice's shape and the head kernels); the
    serving slice's requests/s and tokens scored/s at bucket 32; the
+   LSTM/GRU forward + backward under autograd beside cuDNN's; the
    training slices' ms per step and where a step's device time goes;
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128;
@@ -108,6 +120,16 @@ GRU_REQUEST_ROWS = (4, 32, 9)
 # magnitude. Allow four ulps.
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=4 * 2.0 ** -8, rtol=4 * 2.0 ** -8)
+# Gradients of lstm_scan/gru_scan, card vs CPU: both recompute the plain
+# loop (the card's backward) and differentiate it; float32 differs in
+# summation order only, as F32_TOL allows for the forward. bfloat16: each
+# gradient is summed in f32 and rounded to bf16 once, where a last-bit
+# difference can flip that rounding by one ulp: BF16_TOL.
+RNN_GRAD_F32_TOL = F32_TOL
+RNN_GRAD_BF16_TOL = BF16_TOL
+# SoftmaxOutput's output and gradient, card vs CPU: f32 softmax over 10
+# classes, the same arithmetic in another order (a few ulps of values <= 1).
+SOFTMAX_OUTPUT_TOL = dict(atol=1e-6, rtol=0)
 # The served LM, card vs CPU, float32 softmax outputs (each <= 1): the
 # matmuls (TF32 off) and the recurrence differ in summation order only.
 SERVE_TOL = dict(atol=1e-6, rtol=1e-3)
@@ -369,6 +391,211 @@ def cudnn_gru(xp, h0, whrz_t, whn_t, bhn):
             ys, hT = m(xp, h0)
         return ys, hT[0]
     return call
+
+
+def cudnn_train(kind, a, cots):
+    """torch.nn.LSTM / GRU (cuDNN) set up as cudnn_lstm / cudnn_gru, as one
+    call of forward and backward: the gradients of x_proj, the state and
+    the recurrent weights under the cotangents ``cots`` of (ys, hT). The
+    identity input weights take no gradient of their own, though cuDNN
+    computes one for its weight blob."""
+    import torch
+    xp, h0 = a[0], a[1]
+    G, H = xp.shape[-1], h0.shape[-1]
+    m = (torch.nn.LSTM if kind == "lstm" else torch.nn.GRU)(G, H).to(
+        xp.device)
+    with torch.no_grad():
+        m.weight_ih_l0.copy_(torch.eye(G, device=xp.device))
+        m.bias_ih_l0.zero_()
+        if kind == "lstm":
+            m.weight_hh_l0.copy_(a[3].t())
+            m.bias_hh_l0.zero_()
+        else:
+            m.weight_hh_l0.copy_(torch.cat([a[2].t(), a[3].t()], 0))
+            m.bias_hh_l0.copy_(torch.cat([a[4].new_zeros(2 * H), a[4]]))
+    for p in (m.weight_ih_l0, m.bias_ih_l0):
+        p.requires_grad_(False)
+    xp = xp.detach().requires_grad_()
+    state = [t.detach()[None].requires_grad_() for t in a[1:3 if kind ==
+                                                           "lstm" else 2]]
+    wanted = [xp, *state, m.weight_hh_l0, m.bias_hh_l0]
+
+    def call():
+        if kind == "lstm":
+            ys, (hT, _cT) = m(xp, tuple(state))
+        else:
+            ys, hT = m(xp, state[0])
+        return torch.autograd.grad((ys, hT), wanted, (cots[0], cots[1][None]))
+    return call
+
+
+def rnn_grad_phase(rnn_scan, rng, dev):
+    """lstm_scan and gru_scan gradients on the card (f32 and bf16, N = 1
+    and 32, T=32, H=200) against the CPU's plain autograd, every input's;
+    the cotangents reach ys and hT, so LSTM's cT goes unused. Each forward
+    launches its kernel once, under the autograd Function, and the
+    backward (a recompute through the plain loop) launches none."""
+    import torch
+    for N in (1, 32):
+        for dtype, tol in ((torch.float32, RNN_GRAD_F32_TOL),
+                           (torch.bfloat16, RNN_GRAD_BF16_TOL)):
+            for name, make in (("lstm_scan", lstm_args),
+                               ("gru_scan", gru_args)):
+                fn = getattr(rnn_scan, name)
+                a = make(rng, N, dtype, dev)
+                card = [t.requires_grad_() for t in a]
+                cpu = [t.detach().cpu().requires_grad_() for t in a]
+                rnn_scan.reset_launches()
+                outs = fn(*card)
+                fwd = dict(rnn_scan.LAUNCHES)
+                cots = [torch.from_numpy(rng.standard_normal(tuple(
+                    o.shape)).astype(np.float32)).to(dev).to(o.dtype)
+                    for o in outs[:2]]
+                got = torch.autograd.grad(outs[:2], card, cots)
+                torch.cuda.synchronize()
+                label = "%s gradients N=%d %s" % (name, N, dtype)
+                if fwd[name] != 1 or sum(fwd.values()) != 1 or \
+                        rnn_scan.LAUNCHES != fwd or outs[0].grad_fn is None:
+                    fail("%s: forward launched %s, forward and backward %s "
+                         "(want one launch of %s, none in the backward, "
+                         "outputs in the graph)"
+                         % (label, fwd, dict(rnn_scan.LAUNCHES), name))
+                want = torch.autograd.grad(fn(*cpu)[:2], cpu,
+                                           [c.cpu() for c in cots])
+                got = [g.cpu() for g in got]
+                check_close(label + ", card vs CPU", got, list(want), tol)
+                print("check %s: every input's gradient within %s of the "
+                      "CPU's plain autograd (max err %.3g); launches forward "
+                      "%d, backward 0" % (label, tol, max_err(got, want),
+                                          fwd[name]))
+
+
+def rnn_train_times(rnn_scan, rng, dev, card):
+    """One lstm_scan / gru_scan forward + backward at the served LM's
+    shape (T=32, N=32, H=200, f32) beside cuDNN's: wall ms per call
+    (events over back-to-back calls; the recompute is host-bound) and the
+    backward as forward + backward less forward."""
+    import torch
+    N = BUCKETS[-1]
+    for name, kind, make, library in (
+            ("lstm_scan", "lstm", lstm_args, cudnn_lstm),
+            ("gru_scan", "gru", gru_args, cudnn_gru)):
+        fn = getattr(rnn_scan, name)
+        a = [t.requires_grad_() for t in make(rng, N, torch.float32, dev)]
+        outs = fn(*a)
+        cots = [torch.randn_like(o) for o in outs[:2]]
+
+        def ours():
+            return torch.autograd.grad(fn(*a)[:2], a, cots)
+        theirs = cudnn_train(kind, [t.detach() for t in a], cots)
+        fwd_ms = cuda_ms(lambda: fn(*[t.detach() for t in a]), iters=20)
+        both_ms = cuda_ms(ours, iters=10, warmup=2)
+        lib_fwd = cuda_ms(library(*[t.detach() for t in a]), iters=20)
+        lib_both = cuda_ms(theirs, iters=10, warmup=2)
+        print("time %s forward+backward T=%d N=%d H=%d f32 (events, wall per "
+              "call): kernel forward + recompute backward %.4f ms, backward "
+              "%.4f ms; cuDNN forward+backward %.4f ms, backward %.4f ms | %s"
+              % (name, SEQ, N, HIDDEN, both_ms, both_ms - fwd_ms, lib_both,
+                 lib_both - lib_fwd, card))
+
+
+def softmax_output_phase(mt):
+    """nd.SoftmaxOutput forward and backward under autograd on gpu(0)
+    against the CPU, on the options of mxtpu's backward."""
+    import torch
+    rng = np.random.RandomState(5)
+    cases = [dict(), dict(grad_scale=2.0, normalization="batch"),
+             dict(use_ignore=True, ignore_label=3.0, normalization="valid",
+                  smooth_alpha=0.1),
+             dict(multi_output=True, normalization="valid"),
+             dict(out_grad=True)]
+    worst = 0.0
+    for kw in cases:
+        shape = (CS_BATCH, CS_CLASSES, 6) if kw.get("multi_output") \
+            else (CS_BATCH, CS_CLASSES)
+        x = (rng.standard_normal(shape) * 3).astype(np.float32)
+        lab = rng.randint(0, CS_CLASSES, (shape[0],) + shape[2:]).astype(
+            np.float32)
+        head = rng.standard_normal(shape).astype(np.float32)
+        res = []
+        for ctx in (mt.gpu(0), mt.cpu()):
+            a = mt.nd.array(x, ctx=ctx)
+            a.attach_grad()
+            with mt.autograd.record():
+                y = mt.nd.SoftmaxOutput(a, mt.nd.array(lab, ctx=ctx), **kw)
+            y.backward(mt.nd.array(head, ctx=ctx))
+            res.append([y.data.detach().cpu(), a.grad.data.cpu()])
+        check_close("SoftmaxOutput %s, card vs CPU" % kw, res[0], res[1],
+                    SOFTMAX_OUTPUT_TOL)
+        if not float(res[0][1].abs().max()) > 0:
+            fail("SoftmaxOutput %s gave a zero gradient on the card" % kw)
+        worst = max(worst, max_err(res[0], res[1]))
+    print("check nd.SoftmaxOutput backward on gpu(0), %d option sets "
+          "(grad_scale, normalization batch/valid, use_ignore, smooth_alpha, "
+          "multi_output, out_grad; a head gradient given each time): max "
+          "|card - cpu| %.3g (tolerance %s)"
+          % (len(cases), worst, SOFTMAX_OUTPUT_TOL))
+
+
+def attention_route_phase(fa, rng, dev):
+    """local_attention(impl="auto") on the card at T=128 runs the flash
+    kernels, as mxtpu runs its Pallas kernels on the TPU, also where the
+    wrapper fits the problem to them: head dim 80 zero-padded to 128,
+    float16 on the f32 kernels, a bf16 tensor off a 16-byte boundary
+    copied. Launches, and forward and backward against the dense path on
+    the CPU."""
+    import torch
+    from mxtpu_torch.parallel import local_attention
+    f32 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    sm90 = tuple(n + "_sm90" for n in f32)
+    # 16 bits: each output rounded once, and in bf16 P and dS before their
+    # products, 2^-8 of values below 4; float16 rounds each output once
+    tols = {torch.float32: FLASH_F32_TOL,
+            torch.bfloat16: dict(atol=2.0 ** -6, rtol=2.0 ** -6),
+            torch.float16: dict(atol=2.0 ** -9, rtol=2.0 ** -9)}
+    for D, dtype, misaligned, kernels in ((80, torch.float32, False, f32),
+                                          (64, torch.float16, False, f32),
+                                          (64, torch.bfloat16, False, sm90),
+                                          (80, torch.bfloat16, True, sm90)):
+        arrays = [rng.standard_normal((1, 2, 128, D)).astype(np.float32)
+                  for _ in range(4)]
+        card = []
+        for x in arrays[:3]:
+            t = torch.from_numpy(x).to(dev).to(dtype)
+            if misaligned:
+                t = torch.zeros(t.numel() + 1, dtype=dtype, device=dev)[
+                    1:].view(t.shape).copy_(t)
+                if not t.data_ptr() % 16:
+                    fail("local_attention: the misaligned case is aligned")
+            card.append(t.requires_grad_())
+        fa.reset_launches()
+        o = local_attention(*card, causal=True, impl="auto")
+        do = torch.from_numpy(arrays[3]).to(dev).to(dtype)
+        grads = torch.autograd.grad(o, card, do)
+        torch.cuda.synchronize()
+        want_launches = {n: int(n in kernels) for n in fa.LAUNCHES}
+        if dict(fa.LAUNCHES) != want_launches:
+            fail("local_attention auto D=%d %s%s launched %s, want %s"
+                 % (D, dtype, " misaligned" if misaligned else "",
+                    dict(fa.LAUNCHES), want_launches))
+        # the CPU's dense path in f32 on the same (rounded) inputs
+        cpu = [t.detach().float().cpu().requires_grad_() for t in card]
+        o_p = local_attention(*cpu, causal=True, impl="xla")
+        g_p = torch.autograd.grad(o_p, cpu, do.float().cpu())
+        got = [g.detach().float().cpu() for g in (o, *grads)]
+        want = [w.detach() for w in (o_p, *g_p)]
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                fail("local_attention auto D=%d %s: shape %s, want %s"
+                     % (D, dtype, tuple(g.shape), tuple(w.shape)))
+        err = max_err(got, want)
+        check_close("local_attention auto D=%d %s" % (D, dtype), got, want,
+                    tols[dtype])
+        print("route local_attention(impl=\"auto\") (1, 2, 128, %d) %s%s: "
+              "flash, launches %s, forward and backward max |card - cpu "
+              "dense| %.3g (tolerance %s)"
+              % (D, dtype, " off a 16-byte boundary" if misaligned else "",
+                 {n: fa.LAUNCHES[n] for n in kernels}, err, tols[dtype]))
 
 
 def bound(kind, N, itemsize=4):
@@ -905,6 +1132,9 @@ extern "C" __global__ void smem_reverse(const float *x, float *o, int n) {
 }
 '''
 RTC_SMEM_FLOATS = 16384                 # 64 KB of dynamic shared memory
+# a kernel that does nothing: the card's cost of a launch, timed beside
+# the head's kernels
+EMPTY_SOURCE = 'extern "C" __global__ void empty(float *o) {}'
 # the protocol cases compute small exact values; the card may contract
 # alpha * x + y into one FMA, so allow a last-bit difference
 RTC_TOL = dict(atol=1e-6, rtol=1e-6)
@@ -1053,14 +1283,30 @@ CS_REQUEST_ROWS = (1, 7, 32, 128, 100, 3)
 CS_BIG = (1024, VOCAB)
 
 # The head's kernels (replace mxtpu/rtc.py's PallasKernel.launch, which
-# runs a user's kernel body compiled at run time). cs_softmax_fwd: one
-# block per row; each thread keeps an online (max, sum of exp) over its
-# strided columns, merged across the warp with shuffles and across warps
-# in shared memory, then writes exp(x - max) / sum: x is read twice and y
-# written once, and memory bounds it at large rows. cs_softmax_bwd:
-# dx = y - onehot(label), one thread per element (need_top_grad=False).
-CS_SOURCE = r'''
+# runs a user's kernel body compiled at run time). Memory bounds both: a
+# few flops an element against 8 bytes moved.
+# cs_softmax_fwd reads x once and writes y once, by the row's width
+# (cols, uniform over the grid):
+#   - cols <= 32: a group of G lanes a row (G the power of 2 >= cols), 32/G
+#     rows a warp, blockDim/G rows a block: max and sum by shuffles
+#     within the group, y = e / sum;
+#   - 32 < cols <= 4 * CS_VEC * blockDim (32,768 columns at 1,024
+#     threads): one block a row, held in registers, CS_VEC float4s a
+#     thread (scalars before the first 16-byte boundary and after the
+#     last), every load in flight before the first use; each thread's
+#     (max, sum of exp) pair is merged by shuffles and one exchange in
+#     shared memory, then y = exp(x - m_thread) * exp(m_thread - m) / sum,
+#     stored as float4 where y's row has x's alignment;
+#   - wider rows: an online (max, sum) pass and a second read of x to
+#     write y, as the kernel this one replaced did for every width.
+# cs_softmax_bwd: dx = y - onehot(label), one thread per element
+# (need_top_grad=False).
+# the float4s a thread of cs_softmax_fwd's held path holds: the source's
+# CS_VEC and its launch geometry (cs_softmax_fwd_dims)
+CS_VEC = 8
+CS_SOURCE = "#define CS_VEC %d\n" % CS_VEC + r"""
 #define CS_NEG_INF __int_as_float(0xff800000)
+#define CS_FULL 0xffffffffu
 
 __device__ __forceinline__ void cs_merge(float &m, float &s, float m2,
                                          float s2) {
@@ -1070,37 +1316,135 @@ __device__ __forceinline__ void cs_merge(float &m, float &s, float m2,
     m = mm;
 }
 
-extern "C" __global__ void cs_softmax_fwd(const float *__restrict__ x,
-                                          float *__restrict__ y, int cols) {
+// (max, sum of exp) over a block: shuffles within each warp, one
+// exchange through shared memory, then every warp merges the warps'
+// partials itself, so no second barrier is needed
+__device__ __forceinline__ void cs_merge_block(float &m, float &s) {
     __shared__ float wm[32], ws[32];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int nw = (blockDim.x + 31) >> 5;
+    for (int o = 16; o > 0; o >>= 1)
+        cs_merge(m, s, __shfl_xor_sync(CS_FULL, m, o),
+                 __shfl_xor_sync(CS_FULL, s, o));
+    if (lane == 0) { wm[warp] = m; ws[warp] = s; }
+    __syncthreads();
+    m = lane < nw ? wm[lane] : CS_NEG_INF;
+    s = lane < nw ? ws[lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1)
+        cs_merge(m, s, __shfl_xor_sync(CS_FULL, m, o),
+                 __shfl_xor_sync(CS_FULL, s, o));
+}
+
+// rows of <= G columns (G a power of 2), a group of G lanes a row: the
+// shuffle widths are compile-time constants, so both reductions unroll
+template <int G>
+__device__ __forceinline__ void cs_narrow(const float *__restrict__ x,
+                                          float *__restrict__ y, int rows,
+                                          int cols) {
+    const int r = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+    const int j = threadIdx.x & (G - 1);
+    const bool live = r < rows && j < cols;
+    const long long at = (long long)r * cols + j;
+    const float v = live ? x[at] : CS_NEG_INF;
+    float m = v;
+#pragma unroll
+    for (int o = G / 2; o > 0; o /= 2)
+        m = fmaxf(m, __shfl_xor_sync(CS_FULL, m, o));
+    const float e = live ? expf(v - m) : 0.f;
+    float s = e;
+#pragma unroll
+    for (int o = G / 2; o > 0; o /= 2) s += __shfl_xor_sync(CS_FULL, s, o);
+    if (live) y[at] = e / s;
+}
+
+extern "C" __global__ void __launch_bounds__(1024)
+cs_softmax_fwd(const float *__restrict__ x, float *__restrict__ y, int rows,
+               int cols) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    if (cols <= 32) {
+        if (cols <= 2) {
+            if (cols <= 1) cs_narrow<1>(x, y, rows, cols);
+            else cs_narrow<2>(x, y, rows, cols);
+        } else if (cols <= 8) {
+            if (cols <= 4) cs_narrow<4>(x, y, rows, cols);
+            else cs_narrow<8>(x, y, rows, cols);
+        } else {
+            if (cols <= 16) cs_narrow<16>(x, y, rows, cols);
+            else cs_narrow<32>(x, y, rows, cols);
+        }
+        return;
+    }
     const float *xr = x + (long long)blockIdx.x * cols;
     float *yr = y + (long long)blockIdx.x * cols;
+    if (cols <= 4 * CS_VEC * nt) {
+        const int head = (int)((16 - ((unsigned long long)xr & 15)) & 15) >> 2;
+        const int n4 = (cols - head) >> 2, tail = cols - head - 4 * n4;
+        const float4 *x4 = reinterpret_cast<const float4 *>(xr + head);
+        float4 v[CS_VEC];
+#pragma unroll
+        for (int k = 0; k < CS_VEC; ++k) {
+            const int i = tid + k * nt;
+            v[k] = i < n4 ? x4[i] : make_float4(CS_NEG_INF, CS_NEG_INF,
+                                                CS_NEG_INF, CS_NEG_INF);
+        }
+        float hv = tid < head ? xr[tid] : CS_NEG_INF;
+        float tv = tid < tail ? xr[head + 4 * n4 + tid] : CS_NEG_INF;
+        float m = fmaxf(hv, tv);
+#pragma unroll
+        for (int k = 0; k < CS_VEC; ++k)
+            m = fmaxf(m, fmaxf(fmaxf(v[k].x, v[k].y), fmaxf(v[k].z, v[k].w)));
+        // held values become exp(x - m_thread); a thread with no finite
+        // value keeps m = -inf and holds zeros
+        const float base = m == CS_NEG_INF ? 0.f : m;
+        hv = expf(hv - base);
+        tv = expf(tv - base);
+        float s = hv + tv;
+#pragma unroll
+        for (int k = 0; k < CS_VEC; ++k) {
+            v[k].x = expf(v[k].x - base);
+            v[k].y = expf(v[k].y - base);
+            v[k].z = expf(v[k].z - base);
+            v[k].w = expf(v[k].w - base);
+            s += (v[k].x + v[k].y) + (v[k].z + v[k].w);
+        }
+        const float mine = m;
+        cs_merge_block(m, s);
+        const float c = expf(mine - m) * (1.f / s);
+        float *yb = yr + head;
+        if (((unsigned long long)yb & 15) == 0) {
+            float4 *y4 = reinterpret_cast<float4 *>(yb);
+#pragma unroll
+            for (int k = 0; k < CS_VEC; ++k) {
+                const int i = tid + k * nt;
+                if (i < n4)
+                    y4[i] = make_float4(v[k].x * c, v[k].y * c, v[k].z * c,
+                                        v[k].w * c);
+            }
+        } else {                             // y's row sits off x's alignment
+#pragma unroll
+            for (int k = 0; k < CS_VEC; ++k) {
+                const int i = tid + k * nt;
+                if (i < n4) {
+                    yb[4 * i] = v[k].x * c;
+                    yb[4 * i + 1] = v[k].y * c;
+                    yb[4 * i + 2] = v[k].z * c;
+                    yb[4 * i + 3] = v[k].w * c;
+                }
+            }
+        }
+        if (tid < head) yr[tid] = hv * c;
+        if (tid < tail) yb[4 * n4 + tid] = tv * c;
+        return;
+    }
     float m = CS_NEG_INF, s = 0.f;
-    for (int j = threadIdx.x; j < cols; j += blockDim.x) {
-        float v = xr[j];
+    for (int j = tid; j < cols; j += nt) {
+        const float v = xr[j];
         if (v > m) { s = s * expf(m - v) + 1.f; m = v; }
         else s += expf(v - m);
     }
-    for (int o = 16; o > 0; o >>= 1)
-        cs_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o),
-                 __shfl_xor_sync(0xffffffffu, s, o));
-    int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (lane == 0) { wm[warp] = m; ws[warp] = s; }
-    __syncthreads();
-    if (warp == 0) {
-        int nw = blockDim.x >> 5;
-        m = lane < nw ? wm[lane] : CS_NEG_INF;
-        s = lane < nw ? ws[lane] : 0.f;
-        for (int o = 16; o > 0; o >>= 1)
-            cs_merge(m, s, __shfl_xor_sync(0xffffffffu, m, o),
-                     __shfl_xor_sync(0xffffffffu, s, o));
-        if (lane == 0) { wm[0] = m; ws[0] = s; }
-    }
-    __syncthreads();
-    m = wm[0];
-    float inv = 1.f / ws[0];
-    for (int j = threadIdx.x; j < cols; j += blockDim.x)
-        yr[j] = expf(xr[j] - m) * inv;
+    cs_merge_block(m, s);
+    const float inv = 1.f / s;
+    for (int j = tid; j < cols; j += nt) yr[j] = expf(xr[j] - m) * inv;
 }
 
 extern "C" __global__ void cs_softmax_bwd(const float *__restrict__ y,
@@ -1112,12 +1456,16 @@ extern "C" __global__ void cs_softmax_bwd(const float *__restrict__ y,
     int r = i / cols, c = i - r * cols;
     dx[i] = y[i] - (c == (int)label[r] ? 1.f : 0.f);
 }
-'''
+"""
 CS_SIGNATURES = {
-    "cs_softmax_fwd": "const float *x, float *y, int cols",
+    "cs_softmax_fwd": "const float *x, float *y, int rows, int cols",
     "cs_softmax_bwd": "const float *y, const float *label, float *dx, "
                       "int rows, int cols",
 }
+# the block of cs_softmax_fwd's narrow path
+CS_NARROW_BLOCK = 128
+# interleaved (kernel, torch.softmax) timings of the head kernels
+CS_PAIRS = 7
 # Head kernels vs plain on the card (f32): the same exp, max and sum in
 # another order (and y = e * (1/sum) against e / sum): a few ulps of
 # values <= 1.
@@ -1146,13 +1494,24 @@ def cs_kernels():
     return _CS["kernels"]
 
 
+def cs_softmax_fwd_dims(rows, cols):
+    """(grid, block) of cs_softmax_fwd, by the kernel's three paths: rows of
+    <= 32 columns a lane group each, CS_NARROW_BLOCK threads a block; else
+    a block a row with enough threads that CS_VEC float4s each hold it
+    (1,024 threads past 32,768 columns, where the two-pass loop runs)."""
+    if cols <= 32:
+        per_block = CS_NARROW_BLOCK >> (cols - 1).bit_length()
+        return -(-rows // per_block), CS_NARROW_BLOCK
+    return rows, min(1024, 32 * -(-cols // (4 * CS_VEC * 32)))
+
+
 def cs_softmax_fwd(x, y):
     """Launch cs_softmax_fwd: y <- softmax(x) by rows; x, y (rows, cols)
     float32 NDArrays on a gpu context."""
     rows, cols = x.shape
-    block = min(256, 32 * ((cols + 31) // 32))
-    cs_kernels()["cs_softmax_fwd"].launch((x, y, cols), x.context,
-                                          (rows, 1, 1), (block, 1, 1))
+    grid, block = cs_softmax_fwd_dims(rows, cols)
+    cs_kernels()["cs_softmax_fwd"].launch((x, y, rows, cols), x.context,
+                                          (grid, 1, 1), (block, 1, 1))
 
 
 def cs_softmax_bwd(y, label, dx):
@@ -1161,6 +1520,24 @@ def cs_softmax_bwd(y, label, dx):
     cs_kernels()["cs_softmax_bwd"].launch(
         (y, label, dx, rows, cols), y.context,
         ((rows * cols + 255) // 256, 1, 1), (256, 1, 1))
+
+
+def cu_func_attrs(function):
+    """(registers, local memory bytes) a thread of a CUfunction, from
+    libcuda's cuFuncGetAttribute: local memory above 0 means spills."""
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuFuncGetAttribute.argtypes = (ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p)
+    out = []
+    for attr in (4, 3):     # CU_FUNC_ATTRIBUTE_NUM_REGS, _LOCAL_SIZE_BYTES
+        v = ctypes.c_int()
+        res = lib.cuFuncGetAttribute(ctypes.byref(v), attr, function)
+        if res != 0:
+            fail("cuFuncGetAttribute(%d) failed with CUresult %d"
+                 % (attr, res))
+        out.append(v.value)
+    return tuple(out)
 
 
 def cs_softmax_fwd_plain(x):
@@ -1378,6 +1755,17 @@ def main():
           "head dim: %s" % ("; ".join(
               "D=%d %d, %d / %d" % ((d,) + r) for d, r in dkv)
               or "not built in this process (library found built)"))
+    # the f32 kernels at D=128, where their tile loader spills
+    f32 = sorted((re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernel",
+                            e).group(1), r)
+                 for e, r in ptxas_report(_build.build_log.get(
+                     "flash_attention", "")).items()
+                 if "ILi128E" in e)
+    print("ptxas f32 flash kernels at D=128 (registers, spill store / load "
+          "bytes): %s" % ("; ".join("%s %d, %d / %d" % ((n,) + r)
+                                    for n, r in f32)
+                          or "not built in this process (library found "
+                          "built)"))
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(args.seed)
@@ -1422,8 +1810,9 @@ def main():
     long_in = {D: check_bf16(1, 8, 8192, 8192, D) for D in (64, 128)}
     masked = [check_flash(fa, rng, dev, 1, 2, 128, 128, D, torch.float32,
                           FLASH_F32_TOL, q_off=0, k_off=64)[1]
-              for D in (16, 32)]
-    masked.append(check_bf16(1, 2, 128, 128, 32, q_off=0, k_off=64))
+              for D in (16, 32, 128)]
+    masked += [check_bf16(1, 2, 128, 128, D, q_off=0, k_off=64)
+               for D in (16, 32)]
     for m in masked:
         o, lse = fa.flash_fwd(m["q"], m["k"], m["v"], m["offs"], True)
         if o[:, :64].abs().max() != 0 or \
@@ -1436,13 +1825,17 @@ def main():
         if dk[:, 64:].abs().max() != 0 or dv[:, 64:].abs().max() != 0:
             fail("keys no query sees must get dK = dV = 0 (%s, D=%d)"
                  % (dk.dtype, dk.shape[-1]))
-    for D in (16, 32, 64):
+    for D in (16, 32, 64, 128):
         check_flash(fa, rng, dev, 1, 2, 128, 200, D, torch.float32,
                     FLASH_F32_TOL, q_off=150, k_off=20)
-    for D in (16, 32):
+    for D in (16, 32, 128):
         check_flash(fa, rng, dev, 2, 3, 100, 72, D, torch.float32,
                     FLASH_F32_TOL)
-    check_bf16(2, 3, 100, 72, 32)
+    for D in (16, 32):
+        check_bf16(2, 3, 100, 72, D)
+    # the RNN kernels under autograd: gradients against the CPU, one
+    # launch a forward, none a backward
+    rnn_grad_phase(rnn_scan, rng, dev)
 
     # 4.-5. serving: the LSTM LM, then its GRU variant
     workdir = os.path.join(_build.build_dir(), "smoke")
@@ -1520,6 +1913,11 @@ def main():
           "|out - reference| %.3g" % (out.context,
                                        max_err([out.data], [want])))
 
+    # local_attention(impl="auto") routes by what the kernels take; the
+    # SoftmaxOutput head's backward on the card
+    attention_route_phase(fa, rng, dev)
+    softmax_output_phase(mt)
+
     # 8. the bf16 long-context path through the public entries: the op on
     # (1, 8, 8192, 64) NDArrays launches the sm90 forward alone, and
     # local_attention(impl="auto") forward and backward on (1, 8, 8192,
@@ -1559,6 +1957,28 @@ def main():
               % (list(CS_SIGNATURES), shape,
                  ["%.3g" % max_err([got[n]], [want[n]])
                   for n in CS_SIGNATURES], CS_KERNEL_TOL))
+    # the forward's other widths and alignments: one lane a row, a full
+    # warp a row, the held path at a warp and with rows off the 16-byte
+    # boundary (x's view offset by one float, so y's rows sit off x's
+    # alignment), and the two-pass loop past 32,768 columns
+    for shape, offset in (((33, 1), 0), ((9, 32), 0), ((5, 33), 0),
+                          ((37, 1001), 0), ((37, 1001), 1),
+                          ((3, 40000), 0)):
+        flat = torch.from_numpy(rng.standard_normal(
+            shape[0] * shape[1] + offset).astype(np.float32) * 3).to(dev)
+        xg = mt.nd.NDArray(flat[offset:].view(shape), gpu)
+        yg = mt.nd.empty(shape, ctx=gpu)
+        cs_softmax_fwd(xg, yg)
+        torch.cuda.synchronize()
+        want = cs_softmax_fwd_plain(xg.data)
+        check_close("cs_softmax_fwd %s, x offset %d floats" % (shape, offset),
+                    [yg.data], [want], CS_KERNEL_TOL)
+        print("check cs_softmax_fwd %s, x offset %d floats (grid, block) %s: "
+              "max err %.3g" % (shape, offset, cs_softmax_fwd_dims(*shape),
+                                max_err([yg.data], [want])))
+    print("cs_softmax_fwd on the card: %d registers, %d bytes of local "
+          "memory a thread (CS_VEC %d)" % (cu_func_attrs(
+              cs_module()._function("cs_softmax_fwd", 0)) + (CS_VEC,)))
 
     # the MLP trained 64 steps on cuda:0, its first 3 steps against the
     # CPU's plain route
@@ -1673,6 +2093,9 @@ def main():
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms})
+
+    # the time loops under autograd: forward + backward beside cuDNN's
+    rnn_train_times(rnn_scan, rng, dev, card)
 
     # flash kernels: the training slice's shape (f32; the JSON line) and
     # the JAX package's 8k check shape (bf16: the sm90 kernels, in the JSON
@@ -1812,36 +2235,56 @@ def main():
             # back-to-back launches at (128, 10) measure the host's launch
             # rate, not the card, so the card's own time comes from calls
             # enqueued behind a sleep kernel (held_ms); the event-timed
-            # wall time per call is printed beside it
+            # wall time per call is printed beside it. The kernel and
+            # torch.softmax are timed in CS_PAIRS interleaved pairs, and
+            # each reports its median
             wall = {"kernel": cuda_ms(kernel), "plain": cuda_ms(plain),
                     "library": cuda_ms(library) if library else None}
-            ms = held_ms(kernel)
             plain_ms = held_ms(plain)
-            lib_ms = held_ms(library) if library else None
-            ms2 = held_ms(kernel)
+            pairs = [(held_ms(kernel), held_ms(library) if library else None)
+                     for _ in range(CS_PAIRS)]
+            ms = float(np.median([p[0] for p in pairs]))
+            lib_ms = (float(np.median([p[1] for p in pairs])) if library
+                      else None)
             bound_ms, bound_by = cs_bound(name, *shape)
             print("time %s %s %dx%d f32 (card time per call, events behind "
-                  "a sleep): "
-                  "kernel %.5f ms (again %.5f), plain %.5f ms, library %s, "
-                  "bound %.3g ms (%s), %.1f%% of bound; wall per call, "
-                  "events over 50 back-to-back calls: kernel %.4f ms, plain "
-                  "%.4f ms%s; profiler's kernel time %s | %s"
-                  % (name, label, shape[0], shape[1], ms, ms2, plain_ms,
+                  "a sleep; median of %d): kernel %.5f ms, plain %.5f ms, "
+                  "library %s, bound %.3g ms (%s), %.1f%% of bound; wall per "
+                  "call, events over 50 back-to-back calls: kernel %.4f ms, "
+                  "plain %.4f ms%s; profiler's kernel time %s | %s"
+                  % (name, label, shape[0], shape[1], CS_PAIRS, ms, plain_ms,
                      "torch.softmax %.5f ms" % lib_ms if lib_ms is not None
                      else "none (no one-call torch equivalent of y - "
                      "onehot(label))", bound_ms, bound_by,
                      100 * bound_ms / ms, wall["kernel"], wall["plain"],
                      ", torch.softmax %.4f ms" % wall["library"]
                      if library else "", prof_ms(kernel, 20), card))
+            if library:
+                print("time %s %s %dx%d pairs (kernel ms, torch.softmax ms), "
+                      "in order: %s; kernel faster in %d of %d, medians' "
+                      "ratio %.3f"
+                      % (name, label, shape[0], shape[1],
+                         " ".join("(%.5f, %.5f)" % p for p in pairs),
+                         sum(k < t for k, t in pairs), CS_PAIRS,
+                         ms / lib_ms))
             if label == "slice":
                 kernels.append({
-                    "name": name, "route": "cuda-nvrtc",
+                    "name": name, "route": "cuda",
                     "source": "chip_smoke.py",
                     "replaces": "mxtpu/rtc.py:174",
                     "launches": cs_launches[name],
                     "max_abs_err": cs_errs[name], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib_ms})
+    # the floor under the slice's times: an empty rtc kernel on the same
+    # grid as cs_softmax_fwd at (128, 10), held the same way
+    empty = mt.rtc.CudaModule(EMPTY_SOURCE).get_kernel("empty", "float *o")
+    xg, yg, _lab, _dx = cs_in[(CS_BATCH, CS_CLASSES)]
+    grid, block = cs_softmax_fwd_dims(CS_BATCH, CS_CLASSES)
+    print("time an empty rtc kernel, grid %d x %d threads (card time per "
+          "call, events behind a sleep): %.5f ms | %s"
+          % (grid, block, held_ms(lambda: empty.launch(
+              (yg,), gpu, (grid, 1, 1), (block, 1, 1))), card))
     print("NVRTC compile (first launch of each module): protocol cases "
           "%.1f ms, custom-softmax head %.1f ms" % (rtc_mod.compile_ms,
                                                     cs_module().compile_ms))

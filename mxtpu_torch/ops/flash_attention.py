@@ -20,7 +20,15 @@ the dtype before the launch:
   ``csrc/flash_attention.cu`` (f32 does not go through the tensor cores:
   TF32 would not hold the plain versions' 1e-5).
 
-Any other dtype or head dim raises before a launch. The bf16 kernels
+:func:`flash_attention` fits the other problems that ``mxtpu``'s
+Pallas kernels take to these kernels before the launch (:func:`_fit`): a
+head dim below 128 is zero-padded to the next of 16, 32, 64 or 128 (the
+scale stays that of the true head dim, and O and the gradients are
+sliced back), float16 runs the float32 kernels on widened copies (the
+Pallas kernels compute in f32 too, and O is rounded back to float16),
+and a tensor whose base is off a 16-byte boundary is copied into fresh
+storage. A head dim above 128, or any other dtype, raises before a
+launch: a known difference from ``mxtpu``. The bf16 kernels
 round P and dS to bf16 before P.V, dS.K, P^T.dO and dS^T.Q, as the TPU's
 one-pass bf16 dot does; :func:`flash_fwd_bf16p_plain`,
 :func:`flash_bwd_dq_bf16p_plain` and :func:`flash_bwd_dkv_bf16p_plain`
@@ -176,19 +184,30 @@ def _check(name, tensors, shapes, dtypes, device):
             raise ValueError("%s: %s must be contiguous" % (name, arg))
 
 
-def _check_problem(name, q, k):
-    bh, tq, d = q.shape
-    tk = k.shape[1]
+def _check_problem(name, q, k, v):
+    """Raise where the kernels do not take attention over q (BH, Tq, D),
+    k and v (BH, Tk, D): they take float32 or bfloat16 alike, head dim 16,
+    32, 64 or 128, nothing empty. :func:`flash_attention_with_lse` fits
+    other head dims up to 128 and float16 to that first (:func:`_fit`)."""
+    d = q.shape[-1]
     if q.dtype not in _KERNEL_DTYPES:
-        raise TypeError("%s: the CUDA kernel takes float32 or bfloat16, got %s"
-                        % (name, q.dtype))
+        raise TypeError("%s: the CUDA kernel takes float32 or bfloat16, got "
+                        "%s" % (name, q.dtype))
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("%s: k and v must have q's dtype %s, got %s and %s"
+                        % (name, q.dtype, k.dtype, v.dtype))
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError("%s: the CUDA kernel takes head dims %s, got %d"
                          % (name, _KERNEL_HEAD_DIMS, d))
-    if bh < 1 or tq < 1 or tk < 1:
-        raise ValueError("%s: empty problem BH=%d Tq=%d Tk=%d"
-                         % (name, bh, tq, tk))
-    return bh, tq, tk, d
+    if k.shape[-1] != d or v.shape != k.shape:
+        raise ValueError("%s: k and v must share q's head dim and each "
+                         "other's shape, got q %s, k %s, v %s"
+                         % (name, tuple(q.shape), tuple(k.shape),
+                            tuple(v.shape)))
+    if q.numel() == 0 or k.numel() == 0:
+        raise ValueError("%s: empty problem: q %s, k %s"
+                         % (name, tuple(q.shape), tuple(k.shape)))
+    return q.shape[0], q.shape[1], k.shape[1], d
 
 
 _ERR_NO_ENCODER, _ERR_ENCODE = 10000, 10001   # csrc/flash_attention_sm90.cu
@@ -226,7 +245,7 @@ def _stream(dev):
 
 def _fwd_cuda(q, k, v, offs, causal):
     from .._build import load
-    bh, tq, tk, d = _check_problem("flash_fwd", q, k)
+    bh, tq, tk, d = _check_problem("flash_fwd", q, k, v)
     dev, dt = q.device, q.dtype
     _check("flash_fwd", [("q", q), ("k", k), ("v", v), ("offs", offs)],
            [(bh, tq, d), (bh, tk, d), (bh, tk, d), (4,)],
@@ -255,7 +274,7 @@ def _fwd_cuda(q, k, v, offs, causal):
 
 
 def _bwd_args(name, q, k, v, dout, lse, delta, offs):
-    bh, tq, tk, d = _check_problem(name, q, k)
+    bh, tq, tk, d = _check_problem(name, q, k, v)
     dt = q.dtype
     _check(name, [("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
                   ("delta", delta), ("offs", offs)],
@@ -402,9 +421,20 @@ def _prep(q, tk, scale, q_offset, k_offset):
     return q, _offs(q_offset, k_offset, tk, float(scale), q.device)
 
 
-def _flatten(x):
+def _fit(x):
+    """x [B, H, T, D] as the kernels take it: float16 widened to float32,
+    the head dim zero-padded to the next of ``_KERNEL_HEAD_DIMS`` (one
+    above 128 stays, for the wrappers to refuse), flattened to
+    (BH, T, D'), its base 16-byte aligned (the bf16 kernels' tensor maps
+    need that; a contiguous view can sit off it)."""
     b, h, t, d = x.shape
-    return x.contiguous().reshape(b * h, t, d)
+    if x.dtype == torch.float16:
+        x = x.float()
+    dk = next((n for n in _KERNEL_HEAD_DIMS if n >= d), d)
+    if dk != d:
+        x = torch.nn.functional.pad(x, (0, dk - d))
+    x = x.contiguous().reshape(b * h, t, dk)
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def flash_attention_with_lse(q, k, v, causal=False, scale=None, q_offset=0,
@@ -419,9 +449,10 @@ def flash_attention_with_lse(q, k, v, causal=False, scale=None, q_offset=0,
                                                 dtype=torch.float32)
     q, offs = _prep(q, k.shape[2], scale, q_offset, k_offset)
     b, h, tq, d = q.shape
-    o, lse = _FlashWithLse.apply(_flatten(q), _flatten(k), _flatten(v), offs,
+    o, lse = _FlashWithLse.apply(_fit(q), _fit(k), _fit(v), offs,
                                  bool(causal))
-    return o.reshape(b, h, tq, d), lse.reshape(b, h, tq)
+    return (o[..., :d].to(q.dtype).reshape(b, h, tq, d),
+            lse.reshape(b, h, tq))
 
 
 def flash_attention(q, k, v, causal=False, scale=None, q_offset=0,
@@ -434,9 +465,10 @@ def flash_attention(q, k, v, causal=False, scale=None, q_offset=0,
     ``scale`` (default 1/sqrt(D)) may be a tensor, whose gradient flows.
     Differentiable: the backward recomputes the probabilities from the
     saved lse, flash-attention-2 style. On a CUDA tensor it runs the
-    kernels (head dims 16, 32, 64, 128; float32 or bfloat16; the module
-    docstring says which kernel takes which); on a CPU tensor their plain
-    versions."""
+    kernels (float32, bfloat16 or float16, head dims up to 128; the module
+    docstring says which kernel takes which, and how a head dim or dtype
+    they lack is fitted to them); on a CPU tensor their plain versions,
+    fitted alike."""
     return flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
                                     q_offset=q_offset, k_offset=k_offset,
                                     block_q=block_q, block_k=block_k)[0]

@@ -11,6 +11,19 @@ and gate math in f32, outputs cast back to the inputs' dtypes. On a
 ``meta`` tensor (shape inference) they return empty outputs of the
 right shapes.
 
+Gradients. On the CPU autograd differentiates the plain loop. On the
+card, when grad mode is on and an input requires grad, the kernel runs
+under :class:`_LstmScan` / :class:`_GruScan`, the counterparts of the JAX
+``custom_vjp``s (``_vjp_fwd``/``_vjp_bwd``, ``_gru_vjp_fwd``/
+``_gru_vjp_bwd``): the forward launches the kernel and saves its inputs,
+the backward recomputes through the plain version on the same device and
+differentiates that. The plain loop on the card is the reference's own
+backward, which recomputes through ``lax.scan`` and has no Pallas kernel;
+it does not stand in for the forward kernel, and it matches the kernel's
+precision (f32 carry and gates, outputs cast back), so bf16 gradients
+belong to the forward that ran. Without grad (serving runs under
+``torch.inference_mode``) the wrappers launch the kernel directly.
+
 ``LAUNCHES`` counts kernel launches per kernel; :func:`reset_launches`
 zeroes it. Only a launch bumps it.
 """
@@ -174,14 +187,81 @@ def _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn):
     return ys, hT
 
 
+def _recompute_vjp(reference, inputs, cots):
+    """Gradients of ``reference`` at ``inputs`` under the cotangents
+    ``cots`` (None: that output is unused, as zeros), recomputed on the
+    inputs' device; each in its input's dtype."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        outs = reference(*leaves)
+    used = [(o, c.to(o.dtype)) for o, c in zip(outs, cots) if c is not None]
+    if not used:
+        return (None,) * len(inputs)
+    grads = torch.autograd.grad([o for o, _ in used], leaves,
+                                [c for _, c in used])
+    return tuple(g.to(t.dtype) for t, g in zip(inputs, grads))
+
+
+class _LstmScan(torch.autograd.Function):
+    """The LSTM kernel with the JAX package's backward (``_vjp_fwd`` /
+    ``_vjp_bwd``): recompute through :func:`lstm_scan_reference`."""
+
+    @staticmethod
+    def forward(ctx, x_proj, h0, c0, wh_t):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x_proj, h0, c0, wh_t)
+        return _lstm_cuda(x_proj, h0, c0, wh_t)
+
+    @staticmethod
+    def backward(ctx, dys, dhT, dcT):
+        return _recompute_vjp(lstm_scan_reference, ctx.saved_tensors,
+                              (dys, dhT, dcT))
+
+
+class _GruScan(torch.autograd.Function):
+    """The GRU kernel with the JAX package's backward (``_gru_vjp_fwd`` /
+    ``_gru_vjp_bwd``): recompute through :func:`gru_scan_reference`."""
+
+    @staticmethod
+    def forward(ctx, x_proj, h0, whrz_t, whn_t, bhn):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x_proj, h0, whrz_t, whn_t, bhn)
+        return _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn)
+
+    @staticmethod
+    def backward(ctx, dys, dhT):
+        return _recompute_vjp(gru_scan_reference, ctx.saved_tensors,
+                              (dys, dhT))
+
+
+def _wants_grad(args):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in args)
+
+
+def _lstm_on_card(x_proj, h0, c0, wh_t):
+    """lstm_scan's CUDA branch: the kernel, under :class:`_LstmScan`
+    when autograd will ask for gradients."""
+    if _wants_grad((x_proj, h0, c0, wh_t)):
+        return _LstmScan.apply(x_proj, h0, c0, wh_t)
+    return _lstm_cuda(x_proj, h0, c0, wh_t)
+
+
+def _gru_on_card(x_proj, h0, whrz_t, whn_t, bhn):
+    """gru_scan's CUDA branch: the kernel, under :class:`_GruScan` when
+    autograd will ask for gradients."""
+    if _wants_grad((x_proj, h0, whrz_t, whn_t, bhn)):
+        return _GruScan.apply(x_proj, h0, whrz_t, whn_t, bhn)
+    return _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn)
+
+
 def lstm_scan(x_proj, h0, c0, wh_t):
     """Fused LSTM over time (``mxtpu.ops.pallas_rnn.lstm_scan``).
     x_proj: (T, N, 4H) pre-projected inputs with biases, h0/c0: (N, H),
     wh_t: (H, 4H) transposed recurrent weights, gate order [i, f, g, o].
-    Returns (ys (T, N, H), hT, cT)."""
+    Returns (ys (T, N, H), hT, cT); differentiable in every input."""
     kind = x_proj.device.type
     if kind == "cuda":
-        return _lstm_cuda(x_proj, h0, c0, wh_t)
+        return _lstm_on_card(x_proj, h0, c0, wh_t)
     if kind == "cpu":
         return lstm_scan_reference(x_proj, h0, c0, wh_t)
     if kind == "meta":
@@ -195,10 +275,11 @@ def gru_scan(x_proj, h0, whrz_t, whn_t, bhn):
     """Fused GRU over time (``mxtpu.ops.pallas_rnn.gru_scan``).
     x_proj: (T, N, 3H) pre-projected inputs (x @ Wx + bi, with the r/z
     recurrent bias folded in), gate order [r, z, n]; h0: (N, H);
-    whrz_t: (H, 2H); whn_t: (H, H); bhn: (H,). Returns (ys, hT)."""
+    whrz_t: (H, 2H); whn_t: (H, H); bhn: (H,). Returns (ys, hT);
+    differentiable in every input."""
     kind = x_proj.device.type
     if kind == "cuda":
-        return _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn)
+        return _gru_on_card(x_proj, h0, whrz_t, whn_t, bhn)
     if kind == "cpu":
         return gru_scan_reference(x_proj, h0, whrz_t, whn_t, bhn)
     if kind == "meta":

@@ -6,7 +6,11 @@
 (:mod:`mxtpu_torch.ops.flash_attention`), ``"xla"`` the plain
 einsum+softmax path, and ``"auto"`` picks flash for CUDA tensors whose
 sequences are long enough to tile (Tq, Tk >= 128) and carry no ALiBi
-bias, as the JAX package picks it on the TPU. ``alibi=True`` subtracts
+bias, as the JAX package picks it on the TPU. The flash path takes
+float32, bfloat16 and float16 at every head dim up to 128 (the kernel
+wrapper fits them to the kernels); on the card a head dim above 128 or
+another dtype raises there, where ``mxtpu`` computes (a known
+difference). ``alibi=True`` subtracts
 the per-head distance bias, which the kernels do not carry, so it forces
 the dense path.
 

@@ -16,6 +16,7 @@ the card (forward, dQ, dK/dV) also round P and dS to bf16 before their
 products; their model (flash_*_bf16p_plain) is held here to the allowance
 that chip_smoke.py derives for them (SM90_*) and then holds them to.
 """
+import importlib
 import importlib.util
 import pathlib
 
@@ -351,7 +352,7 @@ def test_kernel_argument_checks_raise(bad):
 def test_unsupported_kernel_problem_raises(dtype, d, want):
     q = torch.zeros(1, 8, d, dtype=dtype)
     with pytest.raises(want):
-        fa._check_problem("flash_fwd", q, q)
+        fa._check_problem("flash_fwd", q, q, q)
 
 
 def test_unknown_device_raises():
@@ -575,3 +576,102 @@ def test_key_split_merge_matches_plain(groups, q_offset, k_offset):
     if k_offset == 64:
         assert float(o[:, :64].abs().max()) == 0.0
         assert bool((lse[:, :64] == fa._NEG).all())
+
+
+# ---------------------------------------------------------------------------
+# problems the kernels lack, fitted to them by the wrapper: other head
+# dims up to 128 (zero-padded), float16 (widened to f32), bases off a
+# 16-byte boundary (copied); beyond that the wrappers raise
+# ---------------------------------------------------------------------------
+
+def _qkv(shape, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dtype) for _ in range(4)]
+
+
+def _misaligned(x):
+    """x's values in a contiguous view whose base is 2 bytes off a 16-byte
+    boundary."""
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype)[1:]
+    assert flat.data_ptr() % 16
+    return flat.view(x.shape).copy_(x)
+
+
+# one rounding of each output in the working type, against f32 sums in
+# another order: 2^-8 of the value in bf16, 2^-11 in float16, with room
+# for the gradients' larger values
+_FIT_TOL = {torch.float32: GRAD_TOL,
+            torch.bfloat16: dict(atol=2.0 ** -6, rtol=2.0 ** -6),
+            torch.float16: dict(atol=2.0 ** -9, rtol=2.0 ** -9)}
+
+
+@pytest.mark.parametrize("d,dtype,misaligned,kernel_d,kernel_dtype", [
+    (80, torch.float32, False, 128, torch.float32),
+    (96, torch.float32, False, 128, torch.float32),
+    (8, torch.float32, False, 16, torch.float32),
+    (48, torch.bfloat16, False, 64, torch.bfloat16),
+    (64, torch.float16, False, 64, torch.float32),
+    (80, torch.float16, False, 128, torch.float32),
+    (64, torch.bfloat16, True, 64, torch.bfloat16),
+    (16, torch.bfloat16, False, 16, torch.bfloat16),
+    (128, torch.float32, False, 128, torch.float32),
+], ids=["d80", "d96", "d8", "bf16_d48", "float16", "float16_d80",
+        "bf16_misaligned", "bf16_d16", "f32_d128"])
+def test_flash_fits_problems_the_kernels_lack(monkeypatch, d, dtype,
+                                              misaligned, kernel_d,
+                                              kernel_dtype):
+    """local_attention(impl="flash") (what "auto" picks on the card for
+    T >= 128 without ALiBi) hands the kernel wrappers a problem they take
+    and gives mxtpu's Pallas kernels' values and gradients."""
+    seen = []
+
+    def spy(fn):
+        def call(q, k, v, *rest):
+            fa._check_problem(fn.__name__, q, k, v)
+            seen.append((fn.__name__, q.shape[-1], q.dtype,
+                         max(t.data_ptr() % 16 for t in (q, k, v) + rest[:1])))
+            return fn(q, k, v, *rest)
+        return call
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        monkeypatch.setattr(fa, name, spy(getattr(fa, name)))
+    tra = importlib.import_module("mxtpu_torch.parallel.ring_attention")
+    q, k, v, do = _qkv((1, 2, 128, d), dtype)
+    if misaligned:
+        q, k = _misaligned(q), _misaligned(k)
+    args = [t.requires_grad_() for t in (q, k, v)]
+    o = tra.local_attention(*args, causal=True, impl="flash")
+    grads = torch.autograd.grad(o, args, do)
+    assert seen == [(n, kernel_d, kernel_dtype, 0) for n in
+                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+    for got, x in zip((o,) + grads, (q, q, k, v)):
+        assert got.dtype == dtype and got.shape == x.shape
+
+    jq, jk, jv, jdo = (jnp.asarray(t.detach().float().numpy())
+                       for t in (q, k, v, do))
+    want, vjp = jax.vjp(lambda *a: jfa.flash_attention(*a, causal=True),
+                        jq, jk, jv)
+    for got, w in zip((o,) + grads, (want,) + vjp(jdo)):
+        _close(got, w, _FIT_TOL[dtype])
+
+
+@pytest.mark.parametrize("bad", ["d256", "float64", "mixed", "empty"])
+def test_kernel_wrappers_refuse_what_cannot_be_fitted(bad):
+    """A head dim above 128, a dtype other than f32/bf16/f16, mixed dtypes
+    and an empty problem reach the kernel wrappers unfitted, and they
+    raise there (on the card, before a launch)."""
+    shape, dtype = (1, 2, 128, 64), torch.float32
+    if bad == "d256":
+        shape = (1, 2, 128, 256)
+    elif bad == "float64":
+        dtype = torch.float64
+    elif bad == "empty":
+        shape = (1, 2, 0, 64)
+    q, k, v, _ = _qkv(shape, dtype)
+    if bad == "mixed":
+        k = k.to(torch.bfloat16)
+    fitted = [fa._fit(t) for t in (q, k, v)]
+    want = TypeError if bad in ("float64", "mixed") else ValueError
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        with pytest.raises(want, match=name):
+            fa._check_problem(name, *fitted)

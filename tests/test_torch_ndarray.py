@@ -335,3 +335,112 @@ def test_engine_controls():
     both(case)
     with pytest.raises(ValueError):
         mt.engine.set_engine_type("FancyEngine")
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput's backward: softmax - onehot(label), not torch's derivative
+# of the softmax, with each option of mxtpu's custom_vjp
+# ---------------------------------------------------------------------------
+
+def test_softmax_output_backward_is_softmax_minus_onehot():
+    def case(pkg):
+        x = pkg.nd.array([[1, 2, 3], [0.5, -1, 2]])
+        x.attach_grad()
+        with pkg.autograd.record():
+            y = pkg.nd.SoftmaxOutput(x, pkg.nd.array([2, 0]))
+        y.backward()
+        return [y.asnumpy(), x.grad.asnumpy()]
+    _, grad = both(case)
+    assert np.abs(grad).max() > 0.8
+
+
+SOFTMAX_OUTPUT_CASES = {
+    "default": ((4, 5), {}),
+    "grad_scale": ((4, 5), dict(grad_scale=2.5)),
+    "normalization_null": ((4, 5), dict(normalization="null")),
+    "normalization_batch": ((4, 5), dict(normalization="batch")),
+    "normalization_valid": ((4, 5), dict(normalization="valid")),
+    "normalization_valid_ignored": ((4, 5), dict(
+        normalization="valid", use_ignore=True, ignore_label=1.0)),
+    "valid_all_ignored": ((4, 5), dict(normalization="valid",
+                                        use_ignore=True, ignore_label=-1.0)),
+    "use_ignore": ((4, 5), dict(use_ignore=True, ignore_label=1.0)),
+    "smooth_alpha": ((4, 5), dict(smooth_alpha=0.1)),
+    "multi_output": ((2, 3, 4), dict(multi_output=True)),
+    "multi_output_ignore_valid": ((2, 3, 4), dict(
+        multi_output=True, use_ignore=True, ignore_label=0.0,
+        normalization="valid", smooth_alpha=0.2)),
+    "preserve_shape": ((4, 5), dict(preserve_shape=True)),
+    "flattened_3d": ((2, 3, 4), {}),
+    "out_grad": ((4, 5), dict(out_grad=True, grad_scale=0.5)),
+}
+
+
+def _softmax_output_inputs(shape, kw, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.standard_normal(shape) * 2).astype(np.float32)
+    lab_shape = (shape[0],) + shape[2:] if kw.get("multi_output") \
+        else (shape[0],)
+    classes = shape[1] if kw.get("multi_output") else shape[-1]
+    label = rng.randint(0, classes, lab_shape).astype(np.float32)
+    if kw.get("ignore_label") == -1.0:
+        label[:] = -1.0
+    head = rng.standard_normal(shape).astype(np.float32)
+    return x, label, head
+
+
+@pytest.mark.parametrize("name", sorted(SOFTMAX_OUTPUT_CASES))
+def test_softmax_output_options_match_mxtpu_vjp(name):
+    """Output and gradients through nd.SoftmaxOutput under autograd, with
+    a head gradient that only ``out_grad`` lets through, against jax.vjp
+    of mxtpu's op; the label's gradient is zero."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from mxtpu.ops import nn as jnn
+    shape, kw = SOFTMAX_OUTPUT_CASES[name]
+    x, label, head = _softmax_output_inputs(shape, kw, seed=len(name))
+    out, vjp = jax.vjp(lambda d, l: jnn.softmax_output(d, l, **kw),
+                       jnp.asarray(x), jnp.asarray(label))
+    dx_want, dlabel_want = vjp(jnp.asarray(head))
+    with mt.cpu():
+        a, lab = mt.nd.array(x), mt.nd.array(label)
+        a.attach_grad()
+        lab.attach_grad()
+        with mt.autograd.record():
+            y = mt.nd.SoftmaxOutput(a, lab, **kw)
+        y.backward(mt.nd.array(head))
+    np.testing.assert_allclose(y.asnumpy(), np.asarray(out), **TOL)
+    np.testing.assert_allclose(a.grad.asnumpy(), np.asarray(dx_want), **TOL)
+    assert not np.asarray(dlabel_want).any()
+    assert not lab.grad.asnumpy().any()
+    assert a.grad.data.dtype == torch.float32
+
+
+def test_softmax_output_through_eval_graph_matches_mxtpu():
+    """The graph evaluator reaches the registered op itself, so a symbol's
+    SoftmaxOutput head ignores the head gradient under autograd too."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from mxtpu.ops import nn as jnn
+    from mxtpu_torch.ops import get_op, nn as tnn
+    assert get_op("SoftmaxOutput").fn is tnn.softmax_output
+    kw = dict(use_ignore=True, ignore_label=2.0, normalization="valid",
+              grad_scale=1.5)
+    x, label, head = _softmax_output_inputs((6, 4), kw, seed=11)
+    _, vjp = jax.vjp(lambda d: jnn.softmax_output(d, jnp.asarray(label),
+                                                  **kw), jnp.asarray(x))
+    want, = vjp(jnp.asarray(head))
+    net = mt.sym.SoftmaxOutput(mt.sym.var("data"), mt.sym.var("label"),
+                               name="softmax", **kw)
+    with mt.cpu():
+        a = mt.nd.array(x)
+        a.attach_grad()
+        with mt.autograd.record():
+            outs, _ = mt.sym.eval_graph(net._outputs, {
+                "data": a.data, "label": torch.from_numpy(label)},
+                training=True)
+            y = mt.nd.NDArray(outs[0])
+        mt.autograd.backward([y], head_grads=[mt.nd.array(head)])
+    np.testing.assert_allclose(a.grad.asnumpy(), np.asarray(want), **TOL)
