@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the hand-written kernels from mxtpu_torch/csrc with nvcc, one
    process per source, all at once, and print ptxas's registers and
    spills (the bf16 dK/dV kernel's by head dim, and the f32 flash
-   kernels' at head dim 128, on lines of their own);
+   kernels' at head dims 16, 32 and 128, on lines of their own); the f32
+   dQ and dK/dV kernels must not spill at head dims 16 and 32;
 3. hold each kernel against its plain PyTorch version on the card: the
    LSTM/GRU time loops at the serving slice's shapes (T=32, H=200,
    N in {1, 32}; float32 and bfloat16), and the three flash-attention
@@ -18,7 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    shape (B=1, H=8, T=8192, D in {64, 128}, bf16, causal), on shard
    offsets that leave rows fully masked, and on lengths that are not a
    multiple of the tile (the last two in f32 at D=16, 32 and 128 and in
-   bf16 at D=16 and 32); bf16 runs all three on the wgmma/TMA kernels
+   bf16 at D=16 and 32), and in f32 at D=16 and 32 with keys past kv_len
+   and with a shard offset whose causal limit falls inside a tile; a
+   second call of each kernel must give the same bits; bf16 runs all
+   three on the wgmma/TMA kernels
    (flash_fwd_sm90, flash_bwd_dq_sm90, flash_bwd_dkv_sm90), held to the
    allowance derived for their rounding of P and dS (SM90_*), and each
    call must launch the kernel its dtype routes to and no other; then
@@ -80,7 +84,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
    calls enqueued behind a sleep kernel: the flash kernels at the
-   training slice's shape and the head kernels); the
+   training slice's shape and the head kernels, where the f32 backward
+   and the head's forward are timed in interleaved pairs against SDPA's
+   backward and torch.softmax); the
    serving slice's requests/s and tokens scored/s at bucket 32; the
    LSTM/GRU forward + backward under autograd beside cuDNN's; the
    training slices' ms per step and where a step's device time goes;
@@ -189,6 +195,10 @@ SM90_LSE_TOL = dict(atol=5e-4, rtol=0.0)
 # far more than its own size: the CPU's flash and dense attention routes,
 # which differ only in such sums, end 3 steps 4.1e-6 apart.
 LM_TOL = dict(atol=3e-5, rtol=1e-5)
+# interleaved (kernel, library call) timings where the two are close: the
+# head kernels against torch.softmax, the f32 flash backward (dQ + dK/dV)
+# at the training slice's shape against SDPA's backward
+PAIRS = 7
 
 
 def fail(msg):
@@ -772,10 +782,12 @@ def lm_train(params, batches, dev, impl="auto"):
 # flash attention: kernels vs plain versions, bounds
 # ---------------------------------------------------------------------------
 
-def flash_inputs(rng, B, H, Tq, Tk, D, dtype, dev, q_off=0, k_off=0):
-    """Flattened q (BH, Tq, D), k/v (BH, Tk, D), the offs vector, and a
-    cotangent dO with a random dlse folded into delta (from the plain
-    forward), as the backward kernels receive them."""
+def flash_inputs(rng, B, H, Tq, Tk, D, dtype, dev, q_off=0, k_off=0,
+                 kv_len=None):
+    """Flattened q (BH, Tq, D), k/v (BH, Tk, D), the offs vector (keys
+    from ``kv_len`` on masked; default Tk), and a cotangent dO with a
+    random dlse folded into delta (from the plain forward), as the
+    backward kernels receive them."""
     import torch
     from mxtpu_torch.ops import flash_attention as fa
 
@@ -783,7 +795,8 @@ def flash_inputs(rng, B, H, Tq, Tk, D, dtype, dev, q_off=0, k_off=0):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev).to(dtype)
     q, k, v = t(B * H, Tq, D), t(B * H, Tk, D), t(B * H, Tk, D)
-    offs = torch.tensor([q_off, k_off, Tk, 1.0 / np.sqrt(D)],
+    offs = torch.tensor([q_off, k_off, Tk if kv_len is None else kv_len,
+                         1.0 / np.sqrt(D)],
                         dtype=torch.float32, device=dev)
     do = t(B * H, Tq, D)
     o, lse = fa.flash_fwd_plain(q, k, v, offs, True)
@@ -834,17 +847,20 @@ def flash_bound(name, BH, Tq, Tk, D, itemsize):
 
 
 def check_flash(fa, rng, dev, B, H, Tq, Tk, D, dtype, tol, q_off=0,
-                k_off=0):
+                k_off=0, kv_len=None):
     """Each flash kernel against its plain version on one input; returns
     ({kernel: max abs error}, inputs). Each call must launch exactly the
     kernel its dtype routes to: bf16 goes to the sm90 kernels (errors
     keyed flash_fwd_sm90 / flash_bwd_dq_sm90 / flash_bwd_dkv_sm90), held
     to the derived SM90_* allowance and also printed against their
-    rounding model (flash_*_bf16p_plain); f32 is held to ``tol``."""
+    rounding model (flash_*_bf16p_plain); f32 is held to ``tol``. A
+    second call must give the same bits: no kernel sums in an order that
+    changes from run to run."""
     import torch
-    a = flash_inputs(rng, B, H, Tq, Tk, D, dtype, dev, q_off, k_off)
-    label = "B=%d H=%d Tq=%d Tk=%d D=%d %s q_off=%d k_off=%d" % (
-        B, H, Tq, Tk, D, dtype, q_off, k_off)
+    kv_len = Tk if kv_len is None else kv_len
+    a = flash_inputs(rng, B, H, Tq, Tk, D, dtype, dev, q_off, k_off, kv_len)
+    label = "B=%d H=%d Tq=%d Tk=%d D=%d %s q_off=%d k_off=%d kv_len=%d" % (
+        B, H, Tq, Tk, D, dtype, q_off, k_off, kv_len)
     bf16 = dtype == torch.bfloat16
     allowance = sm90_allowance(fa, a) if bf16 else None
     bw = (a["q"], a["k"], a["v"], a["do"], a["lse"], a["delta"], a["offs"],
@@ -863,6 +879,11 @@ def check_flash(fa, rng, dev, B, H, Tq, Tk, D, dtype, tol, q_off=0,
         if launched != {route: 1}:
             fail("%s %s launched %s, want one launch of %s"
                  % (name, label, launched, route))
+        again = kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            fail("%s %s: two calls on the same inputs differ" % (route,
+                                                                 label))
         want = plain()
         if not all(bool(torch.isfinite(g.float()).all()) for g in got):
             fail("%s %s: non-finite output" % (route, label))
@@ -880,7 +901,8 @@ def check_flash(fa, rng, dev, B, H, Tq, Tk, D, dtype, tol, q_off=0,
         else:
             check_close("%s %s" % (name, label), got, want, tol)
         errs[route] = max_err(got, want)
-    print("check flash %s: max err %s (tolerance %s%s)%s"
+    print("check flash %s: max err %s (tolerance %s%s), a second call "
+          "bitwise equal%s"
           % (label, {k: "%.3g" % e for k, e in errs.items()}, tol,
              "; sm90 kernels: SM90_* allowance" if bf16 else "",
              "; " + "; ".join(notes) if notes else ""))
@@ -1464,8 +1486,6 @@ CS_SIGNATURES = {
 }
 # the block of cs_softmax_fwd's narrow path
 CS_NARROW_BLOCK = 128
-# interleaved (kernel, torch.softmax) timings of the head kernels
-CS_PAIRS = 7
 # Head kernels vs plain on the card (f32): the same exp, max and sum in
 # another order (and y = e * (1/sum) against e / sum): a few ulps of
 # values <= 1.
@@ -1755,17 +1775,22 @@ def main():
           "head dim: %s" % ("; ".join(
               "D=%d %d, %d / %d" % ((d,) + r) for d, r in dkv)
               or "not built in this process (library found built)"))
-    # the f32 kernels at D=128, where their tile loader spills
-    f32 = sorted((re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernel",
+    # the f32 kernels at D=16 and 32 (the lane split; the backward must
+    # not spill there) and at D=128 (where the tile loader spills)
+    f32 = sorted((int(re.search(r"ILi(\d+)E", e).group(1)),
+                  re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernel",
                             e).group(1), r)
                  for e, r in ptxas_report(_build.build_log.get(
                      "flash_attention", "")).items()
-                 if "ILi128E" in e)
-    print("ptxas f32 flash kernels at D=128 (registers, spill store / load "
-          "bytes): %s" % ("; ".join("%s %d, %d / %d" % ((n,) + r)
-                                    for n, r in f32)
-                          or "not built in this process (library found "
-                          "built)"))
+                 if re.search(r"ILi(16|32|128)E", e))
+    print("ptxas f32 flash kernels (registers, spill store / load bytes): "
+          "%s" % ("; ".join("D=%d %s %d, %d / %d" % ((d, n) + r)
+                            for d, n, r in f32)
+                  or "not built in this process (library found built)"))
+    spilled = ["D=%d %s" % (d, n) for d, n, r in f32
+               if d <= 32 and "bwd" in n and r[1:] != (0, 0)]
+    if spilled:
+        fail("the f32 backward spills at %s" % ", ".join(spilled))
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(args.seed)
@@ -1831,6 +1856,14 @@ def main():
     for D in (16, 32, 128):
         check_flash(fa, rng, dev, 2, 3, 100, 72, D, torch.float32,
                     FLASH_F32_TOL)
+    # the edges of the lane split at D <= 32: keys past kv_len < Tk, Tq
+    # and Tk off the 32-row tile with a shard offset that puts the causal
+    # limit inside a tile
+    for D in (16, 32):
+        check_flash(fa, rng, dev, 1, 2, 96, 128, D, torch.float32,
+                    FLASH_F32_TOL, kv_len=77)
+        check_flash(fa, rng, dev, 1, 2, 90, 110, D, torch.float32,
+                    FLASH_F32_TOL, q_off=40, k_off=13)
     for D in (16, 32):
         check_bf16(2, 3, 100, 72, D)
     # the RNN kernels under autograd: gradients against the CPU, one
@@ -2120,11 +2153,37 @@ def main():
         def timed(fn, n):
             return held_ms(fn, iters=n) if small else cuda_ms(fn, iters=n)
         lib_fwd = timed(sdpa_fwd, iters)
-        lib_bwd = timed(sdpa_fwd_bwd, iters) - lib_fwd
-        for name, (kernel, plain) in flash_calls(fa, a).items():
+        calls = flash_calls(fa, a)
+        medians = {}
+        if not small:
+            lib_bwd = timed(sdpa_fwd_bwd, iters) - lib_fwd
+        else:
+            # the f32 backward (dQ + dK/dV) against SDPA's backward in
+            # PAIRS interleaved pairs; the JSON line takes the medians
+            pairs = [(held_ms(calls["flash_bwd_dq"][0], iters=iters),
+                      held_ms(calls["flash_bwd_dkv"][0], iters=iters),
+                      held_ms(sdpa_fwd_bwd, iters=iters)
+                      - held_ms(sdpa_fwd, iters=iters))
+                     for _ in range(PAIRS)]
+            medians = {n: float(np.median([p[i] for p in pairs]))
+                       for i, n in enumerate(("flash_bwd_dq",
+                                              "flash_bwd_dkv"))}
+            lib_bwd = float(np.median([p[2] for p in pairs]))
+            ours = medians["flash_bwd_dq"] + medians["flash_bwd_dkv"]
+            print("time flash_bwd_dq + flash_bwd_dkv slice pairs (dQ + dK/dV "
+                  "ms, SDPA bwd ms; card time per call, events behind a "
+                  "sleep), in order: %s; kernels faster in %d of %d; "
+                  "medians dQ %.5f, dK/dV %.5f, sum %.5f, SDPA bwd %.5f, "
+                  "ratio %.3f | %s"
+                  % (" ".join("(%.5f, %.5f)" % (q + k, t)
+                              for q, k, t in pairs),
+                     sum(q + k < t for q, k, t in pairs), PAIRS,
+                     medians["flash_bwd_dq"], medians["flash_bwd_dkv"], ours,
+                     lib_bwd, ours / lib_bwd, card))
+        for name, (kernel, plain) in calls.items():
             route = name + "_sm90" if a["q"].dtype == torch.bfloat16 \
                 else name
-            ms = timed(kernel, iters)
+            ms = medians[name] if name in medians else timed(kernel, iters)
             plain_ms = timed(plain, max(3, iters // 5))
             ms2 = timed(kernel, iters)
             lib_ms = lib_fwd if name == "flash_fwd" else lib_bwd
@@ -2236,13 +2295,13 @@ def main():
             # rate, not the card, so the card's own time comes from calls
             # enqueued behind a sleep kernel (held_ms); the event-timed
             # wall time per call is printed beside it. The kernel and
-            # torch.softmax are timed in CS_PAIRS interleaved pairs, and
+            # torch.softmax are timed in PAIRS interleaved pairs, and
             # each reports its median
             wall = {"kernel": cuda_ms(kernel), "plain": cuda_ms(plain),
                     "library": cuda_ms(library) if library else None}
             plain_ms = held_ms(plain)
             pairs = [(held_ms(kernel), held_ms(library) if library else None)
-                     for _ in range(CS_PAIRS)]
+                     for _ in range(PAIRS)]
             ms = float(np.median([p[0] for p in pairs]))
             lib_ms = (float(np.median([p[1] for p in pairs])) if library
                       else None)
@@ -2252,7 +2311,7 @@ def main():
                   "library %s, bound %.3g ms (%s), %.1f%% of bound; wall per "
                   "call, events over 50 back-to-back calls: kernel %.4f ms, "
                   "plain %.4f ms%s; profiler's kernel time %s | %s"
-                  % (name, label, shape[0], shape[1], CS_PAIRS, ms, plain_ms,
+                  % (name, label, shape[0], shape[1], PAIRS, ms, plain_ms,
                      "torch.softmax %.5f ms" % lib_ms if lib_ms is not None
                      else "none (no one-call torch equivalent of y - "
                      "onehot(label))", bound_ms, bound_by,
@@ -2265,7 +2324,7 @@ def main():
                       "ratio %.3f"
                       % (name, label, shape[0], shape[1],
                          " ".join("(%.5f, %.5f)" % p for p in pairs),
-                         sum(k < t for k, t in pairs), CS_PAIRS,
+                         sum(k < t for k, t in pairs), PAIRS,
                          ms / lib_ms))
             if label == "slice":
                 kernels.append({

@@ -13,8 +13,10 @@
 // block takes the place of that axis:
 //   - fwd and dQ: one block per (b*h, Q tile), looping over K/V tiles up
 //     to the causal limit of its last row;
-//   - dK/dV: one block per (b*h, 64-row K tile), looping over Q tiles from
-//     the first row that can see it.
+//   - dK/dV: one block per (b*h, K tile), looping over Q tiles from the
+//     first row that can see it.
+// Under a causal mask the last Q tiles (the first K tiles) do the most
+// work, so blocks take them first and the light ones fill in behind.
 // This is the flash-attention-2 split the TPU code uses: every output row
 // has one owner, so there are no atomics and the results are
 // deterministic.
@@ -28,17 +30,22 @@
 // being streamed (K/V, or Q/dO) sits in shared memory.  All arithmetic is
 // f32: m, l, the accumulators, lse and delta.
 //
-// The forward at D = 16 and 32 (G = 1 or 2) would leave a row fewer than
-// four lanes, and one lane would walk all of its row's keys in series (at
-// the training slice's shape, two warps on an SM).  There a row gets S =
-// 4/G groups instead, and group s scores keys j = s (mod S) of each shared
-// tile with its own running max, sum and accumulator; at the end the S
-// partial results merge with shuffles in a fixed order (m* = max m_s, l =
-// sum l_s e^(m_s - m*), acc likewise), so the result is still
-// deterministic.  A Q tile there is 32 rows, so a block is 128 threads
-// and a grid has twice the blocks.  Shared rows are padded by 8 floats so
-// that the S groups' float4 reads fall in different banks.  At D = 64 and
-// 128, S = 1 and the kernel is the plain one-group-per-row loop.
+// At D = 16 and 32 (G = 1 or 2) a row would get fewer than four lanes,
+// and one lane would walk all of its row's keys (in dK/dV, all of its
+// key's queries) in series: at the training slice's shape, two warps on
+// an SM.  There a row gets S = 4/G groups instead, and group s takes keys
+// (queries) j = s (mod S) of each shared tile with its own partial
+// results; at the end the S partials merge with shuffles in a fixed
+// order, so the result is still deterministic.  The forward keeps a
+// running max and sum a group and merges them as m* = max m_s, l = sum
+// l_s e^(m_s - m*), acc likewise; the backward's p = exp(s scale - lse)
+// needs no running max, so its partial dQ (dK and dV) just add up.  A
+// block there owns 32 rows, so it is 128 threads and a grid has twice
+// the blocks.  Shared rows are padded by 8 floats so that the S groups'
+// float4 reads fall in different banks.  Rows past T still run the loop
+// and the merge (they only skip the store), so the shuffles see whole
+// warps.  At D = 64 and 128, S = 1 and each kernel is the plain
+// one-group-per-row loop.
 //
 // Masks follow the Pallas kernels: key j is live for query i iff j <
 // kv_len and, when causal, q_off + i >= k_off + j (global positions, from
@@ -71,28 +78,28 @@
 namespace {
 
 constexpr float kNeg = -1e30f;  // _NEG of the Pallas kernels
-constexpr int kRows = 64;       // rows a block owns (Q rows, or K rows)
 constexpr int kDT = 16;         // dims of a row one lane holds
 constexpr int kNC = kDT / 4;    // float4 chunks of them
-constexpr int kCH = 8;          // keys (queries) a lane scores per step of the loop
+constexpr int kCH = 8;          // keys (queries) a group scores per step of the loop
 
 // keys (queries) of a shared tile: 4096 f32 at most, 64 at most
 __host__ __device__ constexpr int tile_rows(int D) {
   return (4096 / D) < 64 ? (4096 / D) : 64;
 }
 
-// threads of a dQ or dK/dV block: G = D/16 lanes for each of its 64 rows
-__host__ __device__ constexpr int threads_for(int D) { return kRows * (D / kDT); }
-
-// the forward's shape at head dim D (see the header)
+// a block's shape at head dim D, the same for the forward, dQ and dK/dV
+// (see the header)
 template <int D>
-struct Fwd {
-  static constexpr int G = D / kDT;                 // lanes holding a row's dims
-  static constexpr int S = G < 4 ? 4 / G : 1;       // groups splitting a row's keys
-  static constexpr int kRowsQ = S > 1 ? 32 : kRows;  // Q rows of a block
-  static constexpr int kThreads = kRowsQ * G * S;
-  static constexpr int BK = tile_rows(D);           // keys of a shared tile
-  static constexpr int kLd = D + (S > 1 ? 8 : 0);    // floats between shared rows
+struct Shape {
+  static constexpr int G = D / kDT;              // lanes holding a row's dims
+  static constexpr int S = G < 4 ? 4 / G : 1;    // groups splitting a row's keys (queries)
+  static constexpr int kRows = S > 1 ? 32 : 64;  // rows a block owns (Q rows, or K rows)
+  static constexpr int kThreads = kRows * G * S;
+  static constexpr int BT = tile_rows(D);        // keys (queries) of a shared tile
+  static constexpr int kLd = D + (S > 1 ? 8 : 0);  // floats between shared rows
+  // group s takes rows j0 + s + S*jj (jj < kCH) of a tile, j0 a multiple
+  // of kCH*S: they stay inside it
+  static_assert(BT % (kCH * S) == 0, "a group's rows must stay inside the tile");
 };
 
 // dim of chunk c, element e, for lane g of a group of G
@@ -124,6 +131,18 @@ __device__ __forceinline__ void store_row(float* base, long row, const float (&r
   for (int c = 0; c < kNC; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) base[row * D + dim_of<G>(g, c) + e] = r[c][e] / div;
+}
+
+// sum the S groups' partial results of a row (lanes G, 2G, ... apart),
+// in the same order on every run
+template <int G, int S>
+__device__ __forceinline__ void sum_groups(float (&acc)[kNC][4]) {
+#pragma unroll
+  for (int off = G; off < G * S; off <<= 1)
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += __shfl_xor_sync(0xffffffffu, acc[c][e], off);
 }
 
 // partial dot product of a register slice with row j of a shared tile
@@ -211,13 +230,13 @@ __device__ __forceinline__ int key_end(const Offs& o, int q0, int rows, int caus
 // forward: O and lse for one (b*h, Q tile)
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(Fwd<D>::kThreads)
+__global__ void __launch_bounds__(Shape<D>::kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ offs,
                  float* __restrict__ o, float* __restrict__ lse, int BH, int Tq, int Tk,
                  int n_tiles, int causal) {
-  using F = Fwd<D>;
-  constexpr int G = F::G, S = F::S, R = F::kRowsQ, BK = F::BK, LD = F::kLd;
+  using F = Shape<D>;
+  constexpr int G = F::G, S = F::S, R = F::kRows, BK = F::BT, LD = F::kLd;
   __shared__ __align__(16) float ks[BK * LD];
   __shared__ __align__(16) float vs[BK * LD];
   const int bh = blockIdx.x % BH;
@@ -244,8 +263,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tiles<BK, D, LD, F::kThreads>(ks, kb, vs, vb, k0, Tk);
     __syncthreads();
     const int nk = min(BK, kend - k0);
-    // group s takes keys j0 + s + S*jj of the tile (BK is a multiple of
-    // kCH*S, so they stay inside it)
+    // group s takes keys j0 + s + S*jj of the tile
     for (int j0 = 0; j0 < nk; j0 += kCH * S) {
       float sc[kCH];
       bool live[kCH];
@@ -287,13 +305,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[c][e] *= w;
 #pragma unroll
-    for (int off = G; off < G * S; off <<= 1) {
-      l += __shfl_xor_sync(0xffffffffu, l, off);
-#pragma unroll
-      for (int c = 0; c < kNC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c][e] += __shfl_xor_sync(0xffffffffu, acc[c][e], off);
-    }
+    for (int off = G; off < G * S; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    sum_groups<G, S>(acc);
     m = mm;
   }
   if (qi < Tq && s == 0) {
@@ -308,26 +321,26 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //   dQ = sum_k ds K,  ds = p (dO.V^T - delta) scale,  p = exp(s scale - lse)
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(threads_for(D))
+__global__ void __launch_bounds__(Shape<D>::kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const float* __restrict__ offs, float* __restrict__ dq, int Tq, int Tk,
-                    int n_tiles, int causal) {
-  constexpr int G = D / kDT;
-  constexpr int BK = tile_rows(D);
-  __shared__ __align__(16) float ks[BK * D];
-  __shared__ __align__(16) float vs[BK * D];
-  const int bh = blockIdx.x / n_tiles;
-  const int q0 = (blockIdx.x % n_tiles) * kRows;
-  const int r = threadIdx.x / G, g = threadIdx.x % G;
+                    const float* __restrict__ offs, float* __restrict__ dq, int BH, int Tq,
+                    int Tk, int n_tiles, int causal) {
+  using F = Shape<D>;
+  constexpr int G = F::G, S = F::S, R = F::kRows, BK = F::BT, LD = F::kLd;
+  __shared__ __align__(16) float ks[BK * LD];
+  __shared__ __align__(16) float vs[BK * LD];
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_tiles - 1 - blockIdx.x / BH) * R;  // heaviest tiles first
+  const int r = threadIdx.x / (G * S), s = (threadIdx.x / G) % S, g = threadIdx.x % G;
   const int qi = q0 + r;
   const bool valid = qi < Tq;
   const Offs of = read_offs(offs, Tk);
   const float* kb = k + (long)bh * Tk * D;
   const float* vb = v + (long)bh * Tk * D;
 
-  float qr[kNC][4], dor[kNC][4], acc[kNC][4];
+  float qr[kNC][4], dor[kNC][4], acc[kNC][4];  // acc: over this group's keys
   load_row<G>(qr, q + (long)bh * Tq * D, qi, valid, D, g);
   load_row<G>(dor, dout + (long)bh * Tq * D, qi, valid, D, g);
 #pragma unroll
@@ -337,26 +350,29 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float lse_i = valid ? lse[(long)bh * Tq + qi] : 0.0f;
   const float delta_i = valid ? delta[(long)bh * Tq + qi] : 0.0f;
   const int q_glob = of.q_off + qi;
-  const int kend = key_end(of, q0, kRows, causal);
+  const int kend = key_end(of, q0, R, causal);
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tiles<BK, D, D, threads_for(D)>(ks, kb, vs, vb, k0, Tk);
+    load_tiles<BK, D, LD, F::kThreads>(ks, kb, vs, vb, k0, Tk);
     __syncthreads();
     const int nk = min(BK, kend - k0);
-    for (int j0 = 0; j0 < nk; j0 += kCH) {
+    // group s takes keys j0 + s + S*jj of the tile
+    for (int j0 = 0; j0 < nk; j0 += kCH * S) {
 #pragma unroll
       for (int jj = 0; jj < kCH; ++jj) {
-        const int j = k0 + j0 + jj;
-        const float s = group_sum<G>(dot_smem<G>(qr, ks, j0 + jj, D, g));
-        const float dp = group_sum<G>(dot_smem<G>(dor, vs, j0 + jj, D, g));
+        const int jt = j0 + s + S * jj;
+        const int j = k0 + jt;
+        const float sc = group_sum<G>(dot_smem<G>(qr, ks, jt, LD, g));
+        const float dp = group_sum<G>(dot_smem<G>(dor, vs, jt, LD, g));
         const bool live = j < of.kv_len && (!causal || q_glob >= of.k_off + j);
-        const float p = live ? expf(s * of.scale - lse_i) : 0.0f;
-        axpy_smem<G>(acc, p * (dp - delta_i) * of.scale, ks, j0 + jj, D, g);
+        const float p = live ? expf(sc * of.scale - lse_i) : 0.0f;
+        axpy_smem<G>(acc, p * (dp - delta_i) * of.scale, ks, jt, LD, g);
       }
     }
   }
-  if (valid) store_row<G>(dq + (long)bh * Tq * D, qi, acc, 1.0f, D, g);
+  sum_groups<G, S>(acc);  // nothing to merge at S = 1
+  if (valid && s == 0) store_row<G>(dq + (long)bh * Tq * D, qi, acc, 1.0f, D, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -364,21 +380,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //   dV = sum_q p^T dO,  dK = sum_q ds^T Q
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(threads_for(D))
+__global__ void __launch_bounds__(Shape<D>::kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const float* __restrict__ offs, float* __restrict__ dk,
-                     float* __restrict__ dv, int Tq, int Tk, int n_tiles, int causal) {
-  constexpr int G = D / kDT;
-  constexpr int BQ = tile_rows(D);
-  __shared__ __align__(16) float qs[BQ * D];
-  __shared__ __align__(16) float dos[BQ * D];
+                     float* __restrict__ dv, int BH, int Tq, int Tk, int causal) {
+  using F = Shape<D>;
+  constexpr int G = F::G, S = F::S, R = F::kRows, BQ = F::BT, LD = F::kLd;
+  __shared__ __align__(16) float qs[BQ * LD];
+  __shared__ __align__(16) float dos[BQ * LD];
   __shared__ float lses[BQ];
   __shared__ float deltas[BQ];
-  const int bh = blockIdx.x / n_tiles;
-  const int k0 = (blockIdx.x % n_tiles) * kRows;
-  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const int bh = blockIdx.x % BH;
+  const int k0 = (blockIdx.x / BH) * R;  // heaviest tiles first: the first keys
+  const int r = threadIdx.x / (G * S), s = (threadIdx.x / G) % S, g = threadIdx.x % G;
   const int kj = k0 + r;
   const Offs of = read_offs(offs, Tk);
   const bool valid = kj < Tk;
@@ -388,7 +404,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* lb = lse + (long)bh * Tq;
   const float* eb = delta + (long)bh * Tq;
 
-  float kr[kNC][4], vr[kNC][4], dka[kNC][4], dva[kNC][4];
+  float kr[kNC][4], vr[kNC][4], dka[kNC][4], dva[kNC][4];  // over this group's queries
   load_row<G>(kr, k + (long)bh * Tk * D, kj, valid, D, g);
   load_row<G>(vr, v + (long)bh * Tk * D, kj, valid, D, g);
 #pragma unroll
@@ -402,27 +418,32 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int i0 = qstart_tile; i0 < Tq; i0 += BQ) {
     __syncthreads();
-    load_tiles<BQ, D, D, threads_for(D)>(qs, qb, dos, db, i0, Tq);
+    load_tiles<BQ, D, LD, F::kThreads>(qs, qb, dos, db, i0, Tq);
     for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
       lses[i] = i0 + i < Tq ? lb[i0 + i] : 0.0f;
       deltas[i] = i0 + i < Tq ? eb[i0 + i] : 0.0f;
     }
     __syncthreads();
     const int nq = min(BQ, Tq - i0);
-    for (int ii0 = 0; ii0 < nq; ii0 += kCH) {
+    // group s takes queries ii0 + s + S*ii of the tile; those past Tq
+    // (zero-filled lse and delta) are masked
+    for (int ii0 = 0; ii0 < nq; ii0 += kCH * S) {
 #pragma unroll
       for (int ii = 0; ii < kCH; ++ii) {
-        const int i = i0 + ii0 + ii;
-        const float s = group_sum<G>(dot_smem<G>(kr, qs, ii0 + ii, D, g));
-        const float dp = group_sum<G>(dot_smem<G>(vr, dos, ii0 + ii, D, g));
+        const int it = ii0 + s + S * ii;
+        const int i = i0 + it;
+        const float sc = group_sum<G>(dot_smem<G>(kr, qs, it, LD, g));
+        const float dp = group_sum<G>(dot_smem<G>(vr, dos, it, LD, g));
         const bool live = key_live && i < Tq && (!causal || of.q_off + i >= k_glob);
-        const float p = live ? expf(s * of.scale - lses[ii0 + ii]) : 0.0f;
-        axpy_smem<G>(dva, p, dos, ii0 + ii, D, g);
-        axpy_smem<G>(dka, p * (dp - deltas[ii0 + ii]) * of.scale, qs, ii0 + ii, D, g);
+        const float p = live ? expf(sc * of.scale - lses[it]) : 0.0f;
+        axpy_smem<G>(dva, p, dos, it, LD, g);
+        axpy_smem<G>(dka, p * (dp - deltas[it]) * of.scale, qs, it, LD, g);
       }
     }
   }
-  if (valid) {
+  sum_groups<G, S>(dka);
+  sum_groups<G, S>(dva);
+  if (valid && s == 0) {
     store_row<G>(dk + (long)bh * Tk * D, kj, dka, 1.0f, D, g);
     store_row<G>(dv + (long)bh * Tk * D, kj, dva, 1.0f, D, g);
   }
@@ -433,8 +454,8 @@ int tiles(int T, int rows) { return (T + rows - 1) / rows; }
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const float* offs, void* o,
                float* lse, int BH, int Tq, int Tk, int causal, cudaStream_t s) {
-  const int nt = tiles(Tq, Fwd<D>::kRowsQ);
-  flash_fwd_kernel<D><<<BH * nt, Fwd<D>::kThreads, 0, s>>>(
+  const int nt = tiles(Tq, Shape<D>::kRows);
+  flash_fwd_kernel<D><<<BH * nt, Shape<D>::kThreads, 0, s>>>(
       (const float*)q, (const float*)k, (const float*)v, offs, (float*)o, lse, BH, Tq, Tk,
       nt, causal);
   return (int)cudaGetLastError();
@@ -444,10 +465,10 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, const float* offs, void* dq, int BH, int Tq, int Tk,
               int causal, cudaStream_t s) {
-  const int nt = tiles(Tq, kRows);
-  flash_bwd_dq_kernel<D><<<BH * nt, threads_for(D), 0, s>>>(
+  const int nt = tiles(Tq, Shape<D>::kRows);
+  flash_bwd_dq_kernel<D><<<BH * nt, Shape<D>::kThreads, 0, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta, offs,
-      (float*)dq, Tq, Tk, nt, causal);
+      (float*)dq, BH, Tq, Tk, nt, causal);
   return (int)cudaGetLastError();
 }
 
@@ -455,10 +476,10 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, const float* offs, void* dk, void* dv, int BH, int Tq,
                int Tk, int causal, cudaStream_t s) {
-  const int nt = tiles(Tk, kRows);
-  flash_bwd_dkv_kernel<D><<<BH * nt, threads_for(D), 0, s>>>(
+  const int nt = tiles(Tk, Shape<D>::kRows);
+  flash_bwd_dkv_kernel<D><<<BH * nt, Shape<D>::kThreads, 0, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta, offs,
-      (float*)dk, (float*)dv, Tq, Tk, nt, causal);
+      (float*)dk, (float*)dv, BH, Tq, Tk, causal);
   return (int)cudaGetLastError();
 }
 

@@ -578,6 +578,54 @@ def test_key_split_merge_matches_plain(groups, q_offset, k_offset):
         assert bool((lse[:, :64] == fa._NEG).all())
 
 
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("q_offset,k_offset", [(0, 0), (0, 64), (32, 16)],
+                         ids=["causal", "fully_masked", "shard"])
+def test_backward_split_matches_plain(groups, q_offset, k_offset):
+    """The split the f32 dQ and dK/dV kernels use at D = 16 and 32: S
+    groups of lanes take keys j = s (mod S) of a Q row (queries i = s
+    (mod S) of a key row), and their partial dQ (dK, dV) just add up,
+    since p = exp(s scale - lse) needs no running max. Written out in
+    torch on Tq != Tk, both off the 32-row tile, it gives the plain
+    backward and mxtpu's gradients (jax.grad through its Pallas kernels in
+    interpret mode), fully-masked rows and unseen keys included."""
+    tq, tk, d = 80, 100, 16
+    a = _arrays([(1, 2, tq, d), (1, 2, tk, d), (1, 2, tk, d), (1, 2, tq, d)],
+                151)
+    kw = dict(causal=True, q_offset=q_offset, k_offset=k_offset, **BLOCKS)
+    w = jnp.asarray(a[3])
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        jfa.flash_attention(q, k, v, **kw) * w), argnums=(0, 1, 2))(
+            *_jax(a[:3]))
+    q, k, v, do = (x[0] for x in _torch(a))          # (BH, T, D)
+    offs = torch.tensor([q_offset, k_offset, tk, d ** -0.5])
+    o, lse = fa.flash_fwd_plain(q, k, v, offs, True)
+    delta = (do * o).sum(-1)
+    mask = fa._mask(offs, tq, tk, True, q.device)
+    s = torch.matmul(q, k.transpose(1, 2)) * offs[3]
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.matmul(do, v.transpose(1, 2)) - delta[..., None]) \
+        * offs[3]
+    dq = sum(torch.matmul(ds[..., g::groups], k[:, g::groups])
+             for g in range(groups))
+    dk = sum(torch.matmul(ds[:, g::groups].transpose(1, 2), q[:, g::groups])
+             for g in range(groups))
+    dv = sum(torch.matmul(p[:, g::groups].transpose(1, 2), do[:, g::groups])
+             for g in range(groups))
+    bw = (q, k, v, do, lse, delta, offs, True)
+    _close(dq, fa.flash_bwd_dq_plain(*bw), F32_TOL)
+    for got, plain in zip((dk, dv), fa.flash_bwd_dkv_plain(*bw)):
+        _close(got, plain, F32_TOL)
+    for got, ref in zip((dq, dk, dv), want):
+        _close(got[None], ref, GRAD_TOL)
+    if k_offset == 64:
+        # query i sees key j only where i >= 64 + j: rows 0..63 see none,
+        # and keys 16.. are seen by no query
+        assert float(dq[:, :64].abs().max()) == 0.0
+        assert float(dk[:, 16:].abs().max()) == 0.0
+        assert float(dv[:, 16:].abs().max()) == 0.0
+
+
 # ---------------------------------------------------------------------------
 # problems the kernels lack, fitted to them by the wrapper: other head
 # dims up to 128 (zero-padded), float16 (widened to f32), bases off a
