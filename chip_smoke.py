@@ -8,12 +8,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card: its name, and name and power limit from nvidia-smi;
 2. build the hand-written kernels from mxtpu_torch/csrc with nvcc, one
    process per source, all at once, and print ptxas's registers and
-   spills (the bf16 dK/dV kernel's by head dim, and the f32 flash
-   kernels' at head dims 16, 32 and 128, on lines of their own); the f32
-   dQ and dK/dV kernels must not spill at head dims 16 and 32;
+   spills (the bf16 dK/dV kernel's by head dim, the f32 flash kernels' at
+   head dims 16, 32 and 128, and the LSTM/GRU cluster kernel's by kind,
+   dtypes and rows a cluster, on lines of their own); the f32 dQ and
+   dK/dV kernels must not spill at head dims 16 and 32;
 3. hold each kernel against its plain PyTorch version on the card: the
-   LSTM/GRU time loops at the serving slice's shapes (T=32, H=200,
-   N in {1, 32}; float32 and bfloat16), and the three flash-attention
+   LSTM/GRU time loops (thread-block clusters) at the serving slice's
+   shapes (T=32, H=200, N in {1, 32}; float32 and bfloat16) and at
+   RNN_EXTRA_SHAPES (ragged unit slices at H=37, the streamed mode at
+   H=512 in f32, ragged rows over clusters, T=1), each launch's plan and
+   how many of its clusters the card holds at once printed beside it,
+   each called twice for the same bits; the three flash-attention
    kernels (forward with lse, dQ, dK/dV) at the training slice's shape
    (B=8, H=4, T=256, D=16, f32, causal), at the JAX package's own check
    shape (B=1, H=8, T=8192, D in {64, 128}, bf16, causal), on shard
@@ -84,9 +89,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
    calls enqueued behind a sleep kernel: the flash kernels at the
-   training slice's shape and the head kernels, where the f32 backward
-   and the head's forward are timed in interleaved pairs against SDPA's
-   backward and torch.softmax); the
+   training slice's shape, the head kernels and the LSTM/GRU kernels,
+   where the f32 backward and the head's forward are timed in
+   interleaved pairs against SDPA's backward and torch.softmax, and the
+   LSTM/GRU kernels against cuDNN at N=32 and N=1 by wall time per call,
+   cuDNN's launches waiting for the card); the served LM forward's card
+   time; the
    serving slice's requests/s and tokens scored/s at bucket 32; the
    LSTM/GRU forward + backward under autograd beside cuDNN's; the
    training slices' ms per step and where a step's device time goes;
@@ -195,6 +203,16 @@ SM90_LSE_TOL = dict(atol=5e-4, rtol=0.0)
 # far more than its own size: the CPU's flash and dense attention routes,
 # which differ only in such sums, end 3 steps 4.1e-6 apart.
 LM_TOL = dict(atol=3e-5, rtol=1e-5)
+# LSTM/GRU kernel shapes beyond the served ones, (T, N, H, dtype name):
+# ragged unit slices (H=37, 37 units over 8 CTAs), the streamed mode (H=512
+# f32: the weight slice does not fit shared memory; clusters of 16, 4 rows,
+# N=33 leaves the last cluster one row), ragged rows at the resident mode
+# (N=50: 13 clusters of 4 rows, the last with 2), the plan's 3 rows (N=33)
+# and one step (T=1)
+RNN_EXTRA_SHAPES = ((SEQ, 32, 37, "float32"), (SEQ, 33, 37, "bfloat16"),
+                    (SEQ, 33, 512, "float32"), (SEQ, 33, HIDDEN, "float32"),
+                    (SEQ, 50, HIDDEN, "float32"), (1, 32, HIDDEN, "float32"),
+                    (1, 1, HIDDEN, "bfloat16"))
 # interleaved (kernel, library call) timings where the two are close: the
 # head kernels against torch.softmax, the f32 flash backward (dQ + dK/dV)
 # at the training slice's shape against SDPA's backward
@@ -231,13 +249,14 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def held_ms(fn, iters=50, warmup=5):
+def held_ms(fn, iters=50, warmup=5, required=True):
     """Device ms per call of ``fn`` where one call takes the card less time
     than the host takes to enqueue it: CUDA events around ``iters`` calls
     enqueued while a sleep kernel holds the stream, so the card runs them
     back to back whatever the host's launch cost. The start event must
     still be pending once the last call is enqueued; the sleep grows until
-    it is."""
+    it is. A call that waits for the card cannot be held: that fails, or
+    gives None where not ``required``."""
     import torch
     for _ in range(warmup):
         fn()
@@ -256,6 +275,8 @@ def held_ms(fn, iters=50, warmup=5):
         if held:
             return start.elapsed_time(end) / iters
         cycles *= 4
+    if not required:
+        return None
     fail("a sleep of %d cycles did not outlast enqueueing %d calls"
          % (cycles // 4, iters))
 
@@ -336,14 +357,25 @@ def check_close(name, got, want, tol):
                     tol))
 
 
+def rnn_kernel_label(entry):
+    """'lstm f32/f32 R=2'-style name of an rnn_cluster_kernel entry."""
+    m = re.search(r"rnn_cluster_kernelILi(\d)E(\w+?)Li(\d)E", entry)
+    if not m:
+        return None
+    kind, types, rows = m.groups()
+    types = {"ff": "f32/f32", "f13__nv_bfloat16": "f32/bf16",
+             "13__nv_bfloat16f": "bf16/f32",
+             "13__nv_bfloat16S1_": "bf16/bf16"}.get(types, types)
+    return "%s %s R=%s" % ("gru" if kind == "1" else "lstm", types, rows)
+
+
 # ---------------------------------------------------------------------------
 # kernel inputs at the slice's shapes
 # ---------------------------------------------------------------------------
 
-def lstm_args(rng, N, dtype, dev):
+def lstm_args(rng, N, dtype, dev, T=SEQ, H=HIDDEN):
     import torch
-    H = HIDDEN
-    arrays = [rng.standard_normal((SEQ, N, 4 * H)),
+    arrays = [rng.standard_normal((T, N, 4 * H)),
               rng.standard_normal((N, H)) * 0.5,
               rng.standard_normal((N, H)) * 0.5,
               rng.standard_normal((H, 4 * H)) * 0.07]
@@ -351,10 +383,9 @@ def lstm_args(rng, N, dtype, dev):
             for a in arrays]
 
 
-def gru_args(rng, N, dtype, dev):
+def gru_args(rng, N, dtype, dev, T=SEQ, H=HIDDEN):
     import torch
-    H = HIDDEN
-    arrays = [rng.standard_normal((SEQ, N, 3 * H)),
+    arrays = [rng.standard_normal((T, N, 3 * H)),
               rng.standard_normal((N, H)) * 0.5,
               rng.standard_normal((H, 2 * H)) * 0.07,
               rng.standard_normal((H, H)) * 0.07,
@@ -437,6 +468,64 @@ def cudnn_train(kind, a, cots):
             ys, hT = m(xp, state[0])
         return torch.autograd.grad((ys, hT), wanted, (cots[0], cots[1][None]))
     return call
+
+
+def rnn_kernel_phase(rnn_scan, rng, dev):
+    """lstm_scan and gru_scan against their plain loops on the card: the
+    serving slice's shapes (T=32, H=200, N in {1, 32}, f32 and bf16) and
+    RNN_EXTRA_SHAPES. A second call of each kernel must give the same
+    bits. Prints each launch's plan (cluster size, rows a cluster, mode)
+    and how many of its clusters the card holds at once. Returns each
+    kernel's largest error at the served shapes in f32."""
+    import torch
+    errs = {"lstm_scan": 0.0, "gru_scan": 0.0}
+    cases = [(SEQ, N, HIDDEN, dtype) for N in (1, 32)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(T, N, H, getattr(torch, d)) for T, N, H, d in RNN_EXTRA_SHAPES]
+    for T, N, H, dtype in cases:
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        report = []
+        for name, make in (("lstm_scan", lstm_args), ("gru_scan", gru_args)):
+            a = make(rng, N, dtype, dev, T=T, H=H)
+            fn = getattr(rnn_scan, name)
+            got = fn(*a)
+            again = fn(*a)
+            torch.cuda.synchronize()
+            label = "%s T=%d N=%d H=%d %s" % (name, T, N, H, dtype)
+            if any(not torch.equal(x, y) for x, y in zip(got, again)):
+                fail("%s: a second call gave other bits" % label)
+            want = getattr(rnn_scan, name + "_reference")(*a)
+            check_close(label, got, want, tol)
+            err = max_err(got, want)
+            if dtype == torch.float32 and T == SEQ and H == HIDDEN and \
+                    N in (1, 32):
+                errs[name] = max(errs[name], err)
+            plan = rnn_scan.scan_plan(name.split("_")[0], T, N, H, dtype,
+                                      dtype)
+            report.append(
+                "%s max err %.3g, plan: clusters of %d CTAs x %d rows, %s, "
+                "%d threads, %d B shared a CTA, %d clusters (%d at once)"
+                % (name, err, plan.cluster, plan.rows, plan.mode,
+                   plan.threads, plan.smem, plan.clusters,
+                   rnn_scan.max_active_clusters(name, plan, N, dtype,
+                                                dtype)))
+        print("check T=%d N=%d H=%d %s (tolerance %s), two calls bitwise "
+              "equal: %s" % (T, N, H, dtype, tol, "; ".join(report)))
+    # what the plan assumes of the card: how many clusters it holds at one
+    # CTA an SM (shared memory above half an SM's forces one)
+    held = {}
+    for C in sorted(rnn_scan.CLUSTERS_AT_ONCE):
+        plan = rnn_scan.scan_plan("lstm", SEQ, 1, HIDDEN, torch.float32,
+                                  torch.float32)._replace(cluster=C,
+                                                          smem=150 * 1024)
+        held[C] = rnn_scan.max_active_clusters("lstm_scan", plan, 1,
+                                               torch.float32, torch.float32)
+    print("rnn plan: the card holds %s clusters of %s CTAs at one CTA an SM "
+          "(cudaOccupancyMaxActiveClusters); the plan assumes %s"
+          % ("/".join(str(held[C]) for C in sorted(held)),
+             "/".join(str(C) for C in sorted(held)),
+             "/".join(str(rnn_scan.CLUSTERS_AT_ONCE[C]) for C in sorted(held))))
+    return errs
 
 
 def rnn_grad_phase(rnn_scan, rng, dev):
@@ -1787,6 +1876,12 @@ def main():
           "%s" % ("; ".join("D=%d %s %d, %d / %d" % ((d, n) + r)
                             for d, n, r in f32)
                   or "not built in this process (library found built)"))
+    # the LSTM/GRU cluster kernels, one a (kind, x/state dtypes, rows)
+    rnn = sorted((rnn_kernel_label(e), r) for e, r in ptxas_report(
+        _build.build_log.get("rnn_scan", "")).items() if rnn_kernel_label(e))
+    print("ptxas rnn_cluster_kernel (registers, spill store / load bytes): "
+          "%s" % ("; ".join("%s %d, %d / %d" % ((n,) + r) for n, r in rnn)
+                  or "not built in this process (library found built)"))
     spilled = ["D=%d %s" % (d, n) for d, n, r in f32
                if d <= 32 and "bwd" in n and r[1:] != (0, 0)]
     if spilled:
@@ -1794,26 +1889,7 @@ def main():
 
     # 3. kernels against their plain versions
     rng = np.random.RandomState(args.seed)
-    errs = {"lstm_scan": 0.0, "gru_scan": 0.0}
-    for N in (1, 32):
-        for dtype, tol in ((torch.float32, F32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
-            a = lstm_args(rng, N, dtype, dev)
-            got = rnn_scan.lstm_scan(*a)
-            torch.cuda.synchronize()
-            want = rnn_scan.lstm_scan_reference(*a)
-            check_close("lstm_scan N=%d %s" % (N, dtype), got, want, tol)
-            g = gru_args(rng, N, dtype, dev)
-            got_g = rnn_scan.gru_scan(*g)
-            torch.cuda.synchronize()
-            want_g = rnn_scan.gru_scan_reference(*g)
-            check_close("gru_scan N=%d %s" % (N, dtype), got_g, want_g, tol)
-            e_l, e_g = max_err(got, want), max_err(got_g, want_g)
-            print("check N=%d %s: lstm_scan max err %.3g, gru_scan max err "
-                  "%.3g (tolerance %s)" % (N, dtype, e_l, e_g, tol))
-            if dtype == torch.float32:
-                errs["lstm_scan"] = max(errs["lstm_scan"], e_l)
-                errs["gru_scan"] = max(errs["gru_scan"], e_g)
+    errs = rnn_kernel_phase(rnn_scan, rng, dev)
     # flash attention: the training slice's shape, the JAX package's check
     # shape, shard offsets that leave rows 0..63 fully masked (and a
     # partly visible key block), and lengths off the 64-row tile
@@ -2105,27 +2181,55 @@ def main():
              cudnn_lstm, "lstm", "mxtpu/ops/pallas_rnn.py:64"),
             ("gru_scan", gru_args, rnn_scan.gru_scan_reference,
              cudnn_gru, "gru", "mxtpu/ops/pallas_rnn.py:128")):
-        a = make_args(rng, N, torch.float32, dev)
         kernel = getattr(rnn_scan, name)
-        lib_call = library(*a)
-        lib_err = max_err(lib_call(), plain(*a))
-        ms = cuda_ms(lambda: kernel(*a))
+        timing = {}
+        for n in (N, 1):
+            a = make_args(rng, n, torch.float32, dev)
+            lib_call = library(*a)
+            lib_err = max_err(lib_call(), plain(*a))
+            # the kernel's card time by held_ms (its host cost a call is
+            # close to its card time); cuDNN blocks the host inside each
+            # call, so no sleep kernel can hold its launches: the pairs
+            # compare wall time per call (events over back-to-back calls)
+            # of both, in turns, and the kernel's card time rides beside
+            pairs = [(held_ms(lambda: kernel(*a), iters=20),
+                      cuda_ms(lambda: kernel(*a), iters=20),
+                      cuda_ms(lib_call, iters=20)) for _ in range(PAIRS)]
+            med = [float(np.median([p[i] for p in pairs])) for i in range(3)]
+            wins = sum(p[1] < p[2] for p in pairs)
+            timing[n] = (med, wins)
+            plan = rnn_scan.scan_plan(kind, SEQ, n, HIDDEN, torch.float32,
+                                      torch.float32)
+            print("time %s T=%d N=%d H=%d f32 (clusters of %d x %d rows, "
+                  "%s) pairs (kernel card ms held, kernel wall ms, cuDNN "
+                  "wall ms), in order: %s; medians: kernel %.5f ms card "
+                  "(%.3f us a step), %.5f wall; cuDNN %.5f wall (max "
+                  "|cuDNN - plain| %.3g); kernel faster in %d of %d; "
+                  "cuDNN's card time (profiler) %s | %s"
+                  % (name, SEQ, n, HIDDEN, plan.cluster, plan.rows,
+                     plan.mode, " ".join("(%.5f, %.5f, %.5f)" % p
+                                         for p in pairs),
+                     med[0], med[0] * 1e3 / SEQ, med[1], med[2], lib_err,
+                     wins, PAIRS, prof_ms(lib_call, 5), card))
+        a = make_args(rng, N, torch.float32, dev)
         plain_ms = cuda_ms(lambda: plain(*a), iters=10)
-        lib_ms = cuda_ms(lib_call)
-        ms2 = cuda_ms(lambda: kernel(*a))
         bound_ms, bound_by = bound(kind, N)
-        print("time %s T=%d N=%d H=%d f32: kernel %.4f ms (again %.4f), "
-              "plain %.4f ms, cuDNN %.4f ms (max |cuDNN - plain| %.3g), "
-              "bound %.5f ms (%s), %d launches per request | %s"
-              % (name, SEQ, N, HIDDEN, ms, ms2, plain_ms, lib_ms, lib_err,
-                 bound_ms, bound_by, LAYERS, card))
+        (med, wins), (med1, wins1) = timing[N], timing[1]
+        print("time %s T=%d N=%d H=%d f32: kernel %.5f ms (card, held), "
+              "plain %.4f ms, bound %.5f ms (%s), %.1f%% of bound, %d "
+              "launches per request | %s"
+              % (name, SEQ, N, HIDDEN, med[0], plain_ms, bound_ms, bound_by,
+                 100 * bound_ms / med[0], LAYERS, card))
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxtpu_torch/csrc/rnn_scan.cu",
             "replaces": replaces, "launches": path_launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": errs[name], "ms": med[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms})
+            "library_ms": med[2], "wall_ms": med[1], "pairs": PAIRS,
+            "library_wins": wins, "us_per_step": med[0] * 1e3 / SEQ,
+            "ms_n1": med1[0], "wall_ms_n1": med1[1],
+            "library_ms_n1": med1[2], "library_wins_n1": wins1})
 
     # the time loops under autograd: forward + backward beside cuDNN's
     rnn_train_times(rnn_scan, rng, dev, card)
@@ -2252,10 +2356,17 @@ def main():
     forward_ms = cuda_ms(lambda: program(data, params, aux), iters=reps)
     out = program(data, params, aux)[0]
     copy_ms = cuda_ms(lambda: out.cpu(), iters=reps)
-    print("slice lstm bucket %d breakdown: graph forward %.3f ms, output "
-          "copy to host (%.1f MB) %.3f ms, kernels %.3f ms (2 x lstm_scan) "
-          "| %s" % (N, forward_ms, out.numel() * 4 / 1e6, copy_ms,
-                    LAYERS * kernels[0]["ms"], card))
+    # the forward's card time: its launches queued behind a sleep kernel,
+    # so the host's enqueueing leaves no gap on the card
+    forward_card = held_ms(lambda: program(data, params, aux), iters=reps,
+                           required=False)
+    print("slice lstm bucket %d breakdown: graph forward %.3f ms (events), "
+          "its card time %s (held), output copy to host (%.1f MB) %.3f ms, "
+          "kernels %.3f ms (2 x lstm_scan) | %s"
+          % (N, forward_ms, "not measured (the forward waits for the card)"
+             if forward_card is None else "%.3f ms" % forward_card,
+             out.numel() * 4 / 1e6, copy_ms, LAYERS * kernels[0]["ms"],
+             card))
     busy, top = device_time(lambda: program(data, params, aux), 5)
     print("slice lstm bucket %d forward on the card (profiler): %s; top "
           "kernels (ms per forward): %s"

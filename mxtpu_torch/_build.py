@@ -39,8 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rnn_scan": {
-        "mx_lstm_scan": (_P,) * 7 + (_I,) * 5 + (_P,),
-        "mx_gru_scan": (_P,) * 7 + (_I,) * 5 + (_P,),
+        "mx_lstm_scan": (_P,) * 7 + (_I,) * 11 + (_P,),
+        "mx_gru_scan": (_P,) * 7 + (_I,) * 11 + (_P,),
+        "mx_rnn_max_active_clusters": (_I,) * 10 + (_P,),
     },
     "flash_attention": {
         "mx_flash_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),

@@ -24,15 +24,27 @@ precision (f32 carry and gates, outputs cast back), so bf16 gradients
 belong to the forward that ran. Without grad (serving runs under
 ``torch.inference_mode``) the wrappers launch the kernel directly.
 
+Launch plan. :func:`scan_plan` is a pure function of the problem's
+sizes and dtypes that fixes how the kernels of ``csrc/rnn_scan.cu`` cut
+it: a thread-block cluster of ``cluster`` CTAs (8, or 16) owns ``rows``
+batch rows, each CTA a slice of the hidden units (:func:`unit_slice`)
+with their gate columns, 8 lanes a unit; the CTA's weight slice is ``"resident"`` in shared memory when it fits at
+either cluster size, else ``"streamed"`` from global memory each step.
+The wrapper refuses only a problem no plan takes (H above 2,048).
+
 ``LAUNCHES`` counts kernel launches per kernel; :func:`reset_launches`
 zeroes it. Only a launch bumps it.
 """
 from __future__ import annotations
 
+import ctypes
+from collections import namedtuple
+
 import torch
 
 __all__ = ["lstm_scan", "gru_scan", "lstm_scan_reference",
-           "gru_scan_reference", "LAUNCHES", "reset_launches"]
+           "gru_scan_reference", "scan_plan", "unit_slice", "ScanPlan",
+           "max_active_clusters", "LAUNCHES", "reset_launches"]
 
 LAUNCHES = {"lstm_scan": 0, "gru_scan": 0}
 
@@ -113,12 +125,101 @@ def _check_dtypes(name, x_dtype, s_dtype):
                             "got %s" % (name, d))
 
 
-def _check_sizes(name, T, N, H):
+# ---------------------------------------------------------------------------
+# launch plan
+# ---------------------------------------------------------------------------
+
+# clusters of 8 and of 16 CTAs an H100 SXM (132 SMs) holds at one CTA an
+# SM (cudaOccupancyMaxActiveClusters): a GPC hosts whole clusters, so
+# fewer than 132 // C
+CLUSTERS_AT_ONCE = {8: 15, 16: 7}
+SMEM_LIMIT = 232448        # shared memory a block may use (227 KB)
+MAX_THREADS = 1024
+MAX_ROWS = 4               # batch rows a cluster (the kernel's template)
+# (mode, cluster size) in the order tried: a resident slice first, at the
+# portable size 8, then 16; streamed at 16 (half the weight a CTA reads
+# each step), then 8
+_CANDIDATES = (("resident", 8), ("resident", 16), ("streamed", 16),
+               ("streamed", 8))
+
+SPLIT = 8                  # lanes a unit (the kernel's SPLIT)
+MAX_UNITS = MAX_THREADS // SPLIT
+
+ScanPlan = namedtuple("ScanPlan", "cluster rows mode threads smem "
+                                  "col_stride clusters")
+ScanPlan.__doc__ = """How one lstm_scan/gru_scan launch cuts its problem:
+cluster CTAs a cluster, rows batch rows a cluster, mode "resident" (the
+weight slice in shared memory) or "streamed", threads and smem (bytes) a
+CTA, col_stride the resident slice's padded column count, clusters in
+the grid."""
+
+
+def unit_slice(rank, H, C):
+    """(first unit, units) of CTA ``rank`` of ``C``: the first H % C
+    CTAs take one unit more (the kernel's ``unit_slice``)."""
+    base, extra = divmod(H, C)
+    return rank * base + min(rank, extra), base + (rank < extra)
+
+
+def scan_plan(kind, T, N, H, x_dtype, s_dtype):
+    """The launch plan (:class:`ScanPlan`) of ``kind`` ("lstm" or "gru")
+    at sizes (T, N, H) and dtypes of x_proj/weights and of the state.
+    A cluster takes ceil(N / CLUSTERS_AT_ONCE[cluster]) rows, at most 4,
+    so that up to N = 60 every CTA has an SM of its own (at N = 32: 11
+    clusters of 3 rows, 88 SMs). A unit owns SPLIT = 8 lanes and
+    4 column slots (the GRU's fourth carries x_proj's n part), so a CTA
+    takes at most 128 units. The resident slice is laid out
+    [k/4][column][k%4] in x's dtype with an odd column count, so the 8
+    lanes of a unit, which read 8 k-quads of one column, hit distinct
+    banks; h takes 2 (step parity) x rows x H floats. Raises ValueError
+    where no plan fits."""
+    if kind not in ("lstm", "gru"):
+        raise ValueError("scan_plan: kind %r, want 'lstm' or 'gru'" % kind)
     if T < 1 or N < 1 or H < 1:
-        raise ValueError("%s: empty problem T=%d N=%d H=%d" % (name, T, N, H))
-    if 6 * H * 4 > 227 * 1024:
-        raise ValueError("%s: H=%d exceeds the kernel's shared memory"
-                         % (name, H))
+        raise ValueError("%s_scan: empty problem T=%d N=%d H=%d"
+                         % (kind, T, N, H))
+    elem = torch.empty((), dtype=x_dtype).element_size()
+    hq = -(-H // 4)
+    per_warp = 32 // SPLIT
+    for mode, C in _CANDIDATES:
+        units = -(-H // C)
+        if units > MAX_UNITS:
+            continue
+        warps = -(-units // per_warp)
+        rows = min(MAX_ROWS, -(-N // CLUSTERS_AT_ONCE[C]))
+        col_stride = 4 * per_warp * warps + 1
+        smem = 16 + 2 * rows * 4 * hq * 4    # 2 mbarriers, h by parity
+        if mode == "resident":
+            smem += hq * col_stride * 4 * elem
+        if smem <= SMEM_LIMIT:
+            return ScanPlan(C, rows, mode, 32 * warps, smem, col_stride,
+                            -(-N // rows))
+    raise ValueError("%s_scan: H=%d exceeds the kernel (at most %d units a "
+                     "CTA of a 16-CTA cluster: H <= %d)"
+                     % (kind, H, MAX_UNITS, 16 * MAX_UNITS))
+
+
+def _plan_args(plan):
+    return (plan.cluster, plan.rows, int(plan.mode == "resident"),
+            plan.col_stride, plan.threads, plan.smem)
+
+
+def _check_sizes(name, T, N, H, x_dtype, s_dtype):
+    """The plan of a launch; raises on what the kernel cannot take."""
+    return scan_plan(name.split("_")[0], T, N, H, x_dtype, s_dtype)
+
+
+def max_active_clusters(name, plan, N, x_dtype, s_dtype):
+    """``cudaOccupancyMaxActiveClusters`` of the kernel ``name`` launched
+    by ``plan`` over N rows: how many of its clusters the card holds at
+    once."""
+    from .._build import load
+    out = ctypes.c_int(0)
+    _raise_on(name, load("rnn_scan").mx_rnn_max_active_clusters(
+        int(name == "gru_scan"), N, int(x_dtype == torch.bfloat16),
+        int(s_dtype == torch.bfloat16), *_plan_args(plan),
+        ctypes.byref(out)))
+    return out.value
 
 
 def _raise_on(name, err):
@@ -132,12 +233,12 @@ def _lstm_cuda(x_proj, h0, c0, wh_t):
     T, N, G = x_proj.shape
     H = h0.shape[-1]
     dev = x_proj.device
-    _check_sizes("lstm_scan", T, N, H)
     if G != 4 * H:
         raise ValueError("lstm_scan: x_proj has %d gate columns, want 4H=%d"
                          % (G, 4 * H))
     xd, sd = x_proj.dtype, h0.dtype
     _check_dtypes("lstm_scan", xd, sd)
+    plan = _check_sizes("lstm_scan", T, N, H, xd, sd)
     _check("lstm_scan", [("x_proj", x_proj), ("wh_t", wh_t), ("h0", h0),
                          ("c0", c0)],
            [(T, N, G), (H, G), (N, H), (N, H)], [xd, xd, sd, sd], dev)
@@ -151,7 +252,7 @@ def _lstm_cuda(x_proj, h0, c0, wh_t):
             x_proj.data_ptr(), wh_t.data_ptr(), h0.data_ptr(),
             c0.data_ptr(), ys.data_ptr(), hT.data_ptr(), cT.data_ptr(),
             T, N, H, int(xd == torch.bfloat16), int(sd == torch.bfloat16),
-            stream)
+            *_plan_args(plan), stream)
     _raise_on("lstm_scan", err)
     LAUNCHES["lstm_scan"] += 1
     return ys, hT, cT
@@ -162,12 +263,12 @@ def _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn):
     T, N, G = x_proj.shape
     H = h0.shape[-1]
     dev = x_proj.device
-    _check_sizes("gru_scan", T, N, H)
     if G != 3 * H:
         raise ValueError("gru_scan: x_proj has %d gate columns, want 3H=%d"
                          % (G, 3 * H))
     xd, sd = x_proj.dtype, h0.dtype
     _check_dtypes("gru_scan", xd, sd)
+    plan = _check_sizes("gru_scan", T, N, H, xd, sd)
     _check("gru_scan", [("x_proj", x_proj), ("whrz_t", whrz_t),
                         ("whn_t", whn_t), ("bhn", bhn), ("h0", h0)],
            [(T, N, G), (H, 2 * H), (H, H), (H,), (N, H)],
@@ -181,7 +282,7 @@ def _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn):
             x_proj.data_ptr(), whrz_t.data_ptr(), whn_t.data_ptr(),
             bhn.data_ptr(), h0.data_ptr(), ys.data_ptr(), hT.data_ptr(),
             T, N, H, int(xd == torch.bfloat16), int(sd == torch.bfloat16),
-            stream)
+            *_plan_args(plan), stream)
     _raise_on("gru_scan", err)
     LAUNCHES["gru_scan"] += 1
     return ys, hT
