@@ -84,7 +84,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel a step, train accuracy > 0.9) and is served by
    InferenceEngine on cuda:0 (buckets 1-128) against the same weights
    served on the CPU;
-11. timings: each kernel, its plain version and the PyTorch library call
+11. Module.fit: both examples' training calls through
+   mx.mod.Module(...).fit(...) on the current context, gpu(0). The MLP as
+   custom_softmax.py calls it (its seeds, NDArrayIter with shuffle, SGD
+   lr 0.1 / momentum 0.9, 4 epochs; its head launches cs_softmax_fwd and
+   cs_softmax_bwd once a step, cs_softmax_fwd once a scored batch; train
+   accuracy by score > 0.9), its first 3 steps against the CPU's Module
+   and against the hand-written cs_train loop from the same weights and
+   batches; LeNet as train_mnist.py --network lenet calls it (a local
+   kvstore object, Xavier, SGD lr 0.05 / momentum 0.9, Speedometer, the
+   validation digits scored each epoch, 3 epochs on the example's 2,000
+   synthetic digits), its first 3 steps against the CPU's Module, its
+   validation accuracy >= LENET_MIN_ACC, its checkpoint loaded into a CPU
+   Module scoring the same; then each model's eager step (ms, host time
+   by phase, the card's busy share and launches a step);
+12. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -99,9 +113,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    LSTM/GRU forward + backward under autograd beside cuDNN's; the
    training slices' ms per step and where a step's device time goes;
    NVRTC's compile time and the host cost of one rtc launch; the
-   custom-op model's requests/s at bucket 128;
-12. one JSON line naming every kernel with its launches and error;
-13. the last line: {"ok": true, "device": {...}}.
+   custom-op model's requests/s at bucket 128; Module.fit's eager step
+   beside cs_step's;
+13. one JSON line naming every kernel with its launches (the head
+   kernels': in the MLP's Module.fit) and error;
+14. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -1818,6 +1834,307 @@ def cs_bound(name, rows, cols):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+
+# ---------------------------------------------------------------------------
+# the Module.fit slice: the two examples' own training calls through
+# mx.mod.Module(...).fit(...) on the port: the custom-softmax MLP of
+# example/numpy-ops/custom_softmax.py (its head launching cs_softmax_fwd and
+# cs_softmax_bwd every step) and LeNet of
+# example/image-classification/train_mnist.py --network lenet (BASELINE.json
+# config 1), whose Convolution, Pooling and FullyConnected run on cuDNN and
+# cuBLAS through torch
+# ---------------------------------------------------------------------------
+
+LENET_SAMPLES, LENET_VAL, LENET_BATCH, LENET_EPOCHS = 2000, 500, 64, 3
+LENET_LR, LENET_MOMENTUM = 0.05, 0.9
+# Validation accuracy LeNet must reach on the card: train_mnist.py --network
+# lenet run by mxtpu on the CPU scores 1.000 on its 500 synthetic validation
+# digits (from epoch 0 on); the margin allows ten of them wrong.
+LENET_MIN_ACC = 1.0 - 0.02
+# The first steps of Module.fit, card vs CPU, f32 (TF32 off): the GEMMs and
+# convolutions sum at most 800 products in another order, a relative error
+# of at most 800 x 2^-24 = 4.8e-5 of a gradient element, and SGD moves a
+# weight by lr / batch times its gradient (momentum adds at most the two
+# earlier steps), less than 0.1 in 3 steps here: below 1e-5 of a weight. On
+# the CPU the port's Module.fit ends an epoch within 3e-8 of mxtpu's.
+FIT_TOL = dict(atol=1e-5, rtol=1e-5)
+FIT_STEPS = 3
+
+
+def lenet_symbol(pkg):
+    """train_mnist.py's get_lenet in either package, built in a fresh name
+    scope so that both give the parameters the same names."""
+    with pkg.name.NameManager():
+        data = pkg.sym.var("data")
+        conv1 = pkg.sym.Convolution(data, kernel=(5, 5), num_filter=20)
+        tanh1 = pkg.sym.Activation(conv1, act_type="tanh")
+        pool1 = pkg.sym.Pooling(tanh1, pool_type="max", kernel=(2, 2),
+                                stride=(2, 2))
+        conv2 = pkg.sym.Convolution(pool1, kernel=(5, 5), num_filter=50)
+        tanh2 = pkg.sym.Activation(conv2, act_type="tanh")
+        pool2 = pkg.sym.Pooling(tanh2, pool_type="max", kernel=(2, 2),
+                                stride=(2, 2))
+        flat = pkg.sym.Flatten(pool2)
+        fc1 = pkg.sym.FullyConnected(flat, num_hidden=500)
+        tanh3 = pkg.sym.Activation(fc1, act_type="tanh")
+        fc2 = pkg.sym.FullyConnected(tanh3, num_hidden=10)
+        return pkg.sym.SoftmaxOutput(fc2, name="softmax")
+
+
+def lenet_data():
+    """train_mnist.py's synthetic digits (used when no MNIST files are
+    present, as in this repository): RandomState(0), 2,000 images 1x28x28
+    of noise below 0.1 with a 3x3 block of +0.9 at (2c, 2c) for class c;
+    the first 500 again as validation. (tr_x, tr_y, va_x, va_y)."""
+    rng = np.random.RandomState(0)
+    tr_y = rng.randint(0, 10, LENET_SAMPLES).astype(np.float32)
+    tr_x = rng.rand(LENET_SAMPLES, 1, 28, 28).astype(np.float32) * 0.1
+    for i in range(LENET_SAMPLES):
+        c = int(tr_y[i])
+        tr_x[i, 0, c * 2:c * 2 + 3, c * 2:c * 2 + 3] += 0.9
+    return tr_x, tr_y, tr_x[:LENET_VAL], tr_y[:LENET_VAL]
+
+
+def lenet_init_params(mt, seed):
+    """LeNet's weights as Module.fit draws them (Xavier weights, zero
+    biases) with the port's initializer from ``seed`` on the CPU; {name:
+    numpy}."""
+    mt.random.seed(seed)
+    mod = mt.mod.Module(lenet_symbol(mt), context=mt.cpu())
+    mod.bind([("data", (LENET_BATCH, 1, 28, 28))],
+             [("softmax_label", (LENET_BATCH,))])
+    mod.init_params(mt.init.Xavier())
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def host_params(pkg, params):
+    """{name: numpy} as NDArrays on the CPU of ``pkg`` (None stays)."""
+    if params is None:
+        return None
+    return {k: pkg.nd.array(v, ctx=pkg.cpu()) for k, v in params.items()}
+
+
+def mlp_fit(pkg, x, y, context=None, arg_params=None, num_epoch=CS_EPOCHS,
+            shuffle=True):
+    """custom_softmax.py's main through Module.fit in either package: its
+    seeds, iterator, Module and fit call (on the current context unless
+    ``context``), optionally from given weights ({name: numpy}). Returns
+    (module, iterator)."""
+    np.random.seed(0)       # NDArrayIter shuffles with numpy's global RNG
+    pkg.random.seed(5)
+    train = pkg.io.NDArrayIter(x, y, CS_BATCH, shuffle=shuffle,
+                               label_name="softmax_label")
+    where = {} if context is None else {"context": context}
+    mod = pkg.mod.Module(cs_symbol(pkg), data_names=("data",),
+                         label_names=("softmax_label",), **where)
+    mod.fit(train, optimizer="sgd",
+            optimizer_params={"learning_rate": CS_LR,
+                              "momentum": CS_MOMENTUM},
+            eval_metric="acc", num_epoch=num_epoch,
+            arg_params=host_params(pkg, arg_params))
+    return mod, train
+
+
+def lenet_fit(pkg, data, context=None, arg_params=None,
+              num_epoch=LENET_EPOCHS, shuffle=True, validate=True):
+    """train_mnist.py --network lenet's main through Module.fit in either
+    package: a local kvstore object (so the optimizer runs at the store),
+    Xavier, SGD lr 0.05 / momentum 0.9, Speedometer(64, 50), the
+    validation set scored each epoch; on the current context unless
+    ``context``, optionally from given weights ({name: numpy}). Returns
+    (module, train iterator, validation iterator)."""
+    tr_x, tr_y, va_x, va_y = data
+    train = pkg.io.NDArrayIter(tr_x, tr_y, LENET_BATCH, shuffle=shuffle)
+    val = pkg.io.NDArrayIter(va_x, va_y, LENET_BATCH)
+    kv = pkg.kv.create("local")
+    mod = pkg.mod.Module(lenet_symbol(pkg),
+                         context=context or pkg.context.current_context())
+    mod.fit(train, eval_data=val if validate else None, kvstore=kv,
+            optimizer="sgd",
+            optimizer_params={"learning_rate": LENET_LR,
+                              "momentum": LENET_MOMENTUM},
+            initializer=pkg.init.Xavier(), num_epoch=num_epoch,
+            batch_end_callback=pkg.callback.Speedometer(LENET_BATCH, 50),
+            arg_params=host_params(pkg, arg_params))
+    return mod, train, val
+
+
+def module_params(mod):
+    """A Module's arg params as {name: numpy}."""
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def fit_epoch(mod, data_iter, metric, clock=None):
+    """One epoch of Module.fit's loop body (forward_backward, update, the
+    next batch drawn and staged, update_metric) on a bound, initialized
+    module; returns the steps run. ``clock`` ({phase: seconds}) gathers
+    the host time of each phase."""
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        if clock is not None:
+            clock[phase] = clock.get(phase, 0.0) + time.perf_counter() - t0
+        return out
+    data_iter.reset()
+    feed = iter(data_iter)
+    batch = timed("next batch", next, feed, None)
+    steps = 0
+    while batch is not None:
+        timed("forward_backward", mod.forward_backward, batch)
+        timed("update", mod.update)
+        upcoming = timed("next batch", next, feed, None)
+        if upcoming is not None:
+            timed("prepare", mod.prepare, upcoming)
+        timed("update_metric", mod.update_metric, metric, batch.label)
+        batch = upcoming
+        steps += 1
+    return steps
+
+
+def module_fit_phase(mt, seed, card, workdir):
+    """Both examples through Module.fit on cuda:0: the checks, then the
+    eager step's time, launches and card share. Returns the head kernels'
+    launches in the MLP's fit and each model's ms a step."""
+    import logging
+    import torch
+    gpu = mt.gpu(0)
+    logging.basicConfig(level=logging.INFO, format="  %(message)s",
+                        stream=sys.stdout, force=True)
+    ck = cs_kernels()
+    x_all, y_all = cs_data()
+    # the MLP's first steps from the same weights and batches: the card's
+    # Module, the CPU's Module, and the hand-written loop it replaces
+    cs_p0 = cs_init_params(seed)
+    first = cs_batches(seed)[:FIT_STEPS]
+    idx = np.concatenate(first)
+    got = {ctx: module_params(mlp_fit(mt, x_all[idx], y_all[idx], ctx,
+                                      cs_p0, 1, shuffle=False)[0])
+           for ctx in (gpu, mt.cpu())}
+    loop, _ = cs_train(mt, cs_p0, mt.nd.array(x_all, ctx=gpu),
+                       mt.nd.array(y_all, ctx=gpu), first)
+    loop = {k: v.asnumpy() for k, v in loop.items()}
+    names = sorted(cs_p0)
+    for what, want in (("the CPU's Module", got[mt.cpu()]),
+                       ("cs_train on the card", loop)):
+        check_close("MLP Module.fit after %d steps on the card vs %s"
+                    % (FIT_STEPS, what),
+                    [torch.from_numpy(got[gpu][k]) for k in names],
+                    [torch.from_numpy(want[k]) for k in names], CS_TOL)
+    print("Module.fit MLP: %d steps on the card vs the CPU's Module: max "
+          "|diff| %.3g; vs cs_train: %.3g (tolerance %s)"
+          % (FIT_STEPS, max(np.abs(got[gpu][k] - got[mt.cpu()][k]).max()
+                            for k in names),
+             max(np.abs(got[gpu][k] - loop[k]).max() for k in names),
+             CS_TOL))
+
+    # the example itself: 4 epochs on the current context (gpu(0)), then
+    # its train accuracy by score; each training step launches each head
+    # kernel once, each scored batch the forward once
+    for kern in ck.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    mlp, train = mlp_fit(mt, x_all, y_all)
+    torch.cuda.synchronize()
+    mlp_s = time.perf_counter() - t0
+    fit_launches = {n: kern.launches for n, kern in ck.items()}
+    for kern in ck.values():
+        kern.launches = 0
+    acc = dict(mlp.score(train, "acc"))["accuracy"]
+    score_launches = {n: kern.launches for n, kern in ck.items()}
+    batches = CS_SAMPLES // CS_BATCH
+    if mlp._context != [gpu]:
+        fail("Module's context is %s, not gpu(0)" % mlp._context)
+    for name, n in fit_launches.items():
+        if n != CS_STEPS:
+            fail("%s launched %d times in %d Module.fit steps, want one a "
+                 "step" % (name, n, CS_STEPS))
+    if score_launches != {"cs_softmax_fwd": batches, "cs_softmax_bwd": 0}:
+        fail("score over %d batches launched %s" % (batches, score_launches))
+    if not acc > 0.9:
+        fail("the custom-softmax MLP trained by Module.fit scores train "
+             "accuracy %.4f (the example asserts > 0.9)" % acc)
+    print("Module.fit MLP (custom_softmax.py's call, context %s): %d epochs, "
+          "%d steps in %.3f s; train accuracy %.4f (limit 0.9); launches in "
+          "fit %s, in score %s"
+          % (mlp._context[0], CS_EPOCHS, CS_STEPS, mlp_s, acc, fit_launches,
+             score_launches))
+
+    # LeNet: its first steps from the same weights, card vs CPU
+    data = lenet_data()
+    tr_x, tr_y, va_x, va_y = data
+    le_p0 = lenet_init_params(mt, seed)
+    rows = FIT_STEPS * LENET_BATCH
+    few = (tr_x[:rows], tr_y[:rows], va_x, va_y)
+    got = {ctx: module_params(lenet_fit(mt, few, ctx, le_p0, 1,
+                                        shuffle=False, validate=False)[0])
+           for ctx in (gpu, mt.cpu())}
+    names = sorted(le_p0)
+    check_close("LeNet Module.fit after %d steps, card vs CPU" % FIT_STEPS,
+                [torch.from_numpy(got[gpu][k]) for k in names],
+                [torch.from_numpy(got[mt.cpu()][k]) for k in names], FIT_TOL)
+    print("Module.fit LeNet: %d steps on the card vs the CPU's Module: max "
+          "|diff| %.3g (tolerance %s)"
+          % (FIT_STEPS, max(np.abs(got[gpu][k] - got[mt.cpu()][k]).max()
+                            for k in names), FIT_TOL))
+
+    # the example itself on the current context: 3 epochs, then the final
+    # score; its checkpoint loads into a CPU Module that scores the same
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    lenet, le_train, val = lenet_fit(mt, data)
+    torch.cuda.synchronize()
+    lenet_s = time.perf_counter() - t0
+    val_acc = dict(lenet.score(val, mt.metric.Accuracy()))["accuracy"]
+    if lenet._context != [gpu]:
+        fail("LeNet's Module context is %s, not gpu(0)" % lenet._context)
+    if not val_acc >= LENET_MIN_ACC:
+        fail("LeNet trained by Module.fit scores validation accuracy %.4f "
+             "(limit %.2f)" % (val_acc, LENET_MIN_ACC))
+    prefix = os.path.join(workdir, "lenet")
+    lenet.save_checkpoint(prefix, LENET_EPOCHS)
+    on_cpu = mt.mod.Module.load(prefix, LENET_EPOCHS, context=mt.cpu())
+    on_cpu.bind(val.provide_data, val.provide_label, for_training=False)
+    cpu_acc = dict(on_cpu.score(val, mt.metric.Accuracy()))["accuracy"]
+    out_card = lenet.predict(val).asnumpy()
+    out_cpu = on_cpu.predict(val).asnumpy()
+    if cpu_acc != val_acc or not np.allclose(out_card, out_cpu,
+                                             **SERVE_TOL):
+        fail("LeNet's checkpoint on the CPU scores %.4f (card %.4f), "
+             "outputs differ by %g" % (cpu_acc, val_acc,
+                                       np.abs(out_card - out_cpu).max()))
+    print("Module.fit LeNet (train_mnist.py --network lenet's call, context "
+          "%s, local kvstore): %d epochs of %d steps in %.3f s; validation "
+          "accuracy %.4f (limit %.2f); its checkpoint on the CPU scores "
+          "%.4f, max |card - cpu| over %d outputs %.3g"
+          % (lenet._context[0], LENET_EPOCHS, -(-LENET_SAMPLES //
+                                                LENET_BATCH), lenet_s,
+             val_acc, LENET_MIN_ACC, cpu_acc, out_cpu.shape[0],
+             np.abs(out_card - out_cpu).max()))
+
+    # the eager step: host clock over one epoch of fit's loop body ending in
+    # a synchronize, the host time of each phase, and the profiler's card
+    # time and launches a step
+    step_ms = {}
+    for label, mod, it in (("MLP", mlp, train), ("LeNet", lenet, le_train)):
+        metric = mt.metric.create("acc")
+        fit_epoch(mod, it, metric)
+        torch.cuda.synchronize()
+        clock = {}
+        t0 = time.perf_counter()
+        steps = fit_epoch(mod, it, metric, clock)
+        torch.cuda.synchronize()
+        ms = step_ms[label] = (time.perf_counter() - t0) / steps * 1e3
+        host = "; ".join("%s %.3f ms (%.0f%%)" % (
+            k, v / steps * 1e3, 100 * v / steps * 1e3 / ms)
+            for k, v in clock.items())
+        busy, top = device_time(lambda: fit_epoch(mod, it, metric), 1,
+                                per=steps)
+        print("Module.fit %s eager step: %.3f ms over %d steps (host clock, "
+              "synchronized); host time a step by phase: %s; %s a step; "
+              "per step: %s | %s"
+              % (label, ms, steps, host, busy_of(busy, ms), top, card))
+    return fit_launches, step_ms
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2173,7 +2490,11 @@ def main():
           % (len(cs_requests), list(CS_REQUEST_ROWS), cs_engine.device,
              worst, CS_SERVE_TOL, served_launches))
 
-    # 11. timings at the main paths' shapes
+    # 11. Module.fit: the MLP (its head kernels every step) and LeNet
+    fit_launches, fit_step_ms = module_fit_phase(mt, args.seed, card,
+                                                 workdir)
+
+    # 12. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -2442,7 +2763,7 @@ def main():
                     "name": name, "route": "cuda",
                     "source": "chip_smoke.py",
                     "replaces": "mxtpu/rtc.py:174",
-                    "launches": cs_launches[name],
+                    "launches": fit_launches[name],
                     "max_abs_err": cs_errs[name], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib_ms})
@@ -2478,6 +2799,9 @@ def main():
     cs_step_ms = cs_train_s / CS_STEPS * 1e3
     print("slice custom-op train: %.3f ms per step over %d steps (batch %d) "
           "| %s" % (cs_step_ms, CS_STEPS, CS_BATCH, card))
+    print("Module.fit eager step (fit's loop body, host clock): MLP %.3f ms, "
+          "LeNet %.3f ms; the hand-written cs_step loop %.3f ms | %s"
+          % (fit_step_ms["MLP"], fit_step_ms["LeNet"], cs_step_ms, card))
     few = cs_b[:8]
     busy, top = device_time(lambda: cs_train(mt, cs_p0, xs, ys, few), 1,
                             per=len(few))
@@ -2497,7 +2821,7 @@ def main():
                                       dt / reps * 1e3, card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 12.-13. the result lines
+    # 13.-14. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """mxtpu_torch — the PyTorch/CUDA port of mxtpu for NVIDIA Hopper.
 
-The same public names as ``mxtpu`` (``mx.nd``, ``mx.sym``, ``mx.rnn``,
-``mx.serving``, ``mx.parallel``, ``mx.autograd``, ``mx.engine``,
-``mx.operator`` custom ops, ``mx.rtc``, contexts, checkpoints),
+The same public names as ``mxtpu`` (``mx.nd``, ``mx.sym``, ``mx.mod``
+with ``Module.fit``, ``mx.io``, ``mx.init``, ``mx.optimizer``,
+``mx.metric``, ``mx.kv``, ``mx.callback``, ``mx.lr_scheduler``,
+``mx.random``, ``mx.rnn``, ``mx.serving``, ``mx.parallel``,
+``mx.autograd``, ``mx.engine``, ``mx.operator`` custom ops, ``mx.rtc``,
+contexts, checkpoints),
 computed with PyTorch: plain tensor code in torch, and every kernel that
 ``mxtpu`` wrote in Pallas for the TPU hand-written in CUDA C++ for
 ``sm_90a`` under ``csrc/``, built at first use
@@ -24,8 +27,19 @@ from . import ndarray
 from . import ndarray as nd
 from . import symbol
 from . import symbol as sym
+from . import random
+from . import lr_scheduler
+from . import io
+from . import initializer
+from . import initializer as init
+from . import optimizer
+from . import metric
+from . import kvstore
+from . import kvstore as kv
+from . import executor
 from . import rnn
 from . import model
+from . import callback
 from . import module
 from . import module as mod
 from . import serving
@@ -36,5 +50,7 @@ from .ndarray import NDArray
 
 __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "ops", "ndarray", "nd", "symbol",
-           "sym", "rnn", "model", "module", "mod", "serving", "parallel",
+           "sym", "random", "lr_scheduler", "io", "initializer", "init",
+           "optimizer", "metric", "kvstore", "kv", "executor", "rnn",
+           "model", "callback", "module", "mod", "serving", "parallel",
            "engine", "autograd", "operator", "rtc", "NDArray"]

@@ -1,0 +1,248 @@
+"""Evaluation metrics of the PyTorch port.
+
+Counterpart of ``mxtpu/metric.py``'s ``EvalMetric`` (``update``,
+``get``, ``get_name_value``, ``reset``, and the ``device_batch`` /
+``update_async`` pair), ``CompositeEvalMetric``, ``Accuracy``,
+``CrossEntropy`` and ``create``.
+
+``Accuracy`` and ``CrossEntropy`` accumulate on the predictions' device:
+``update`` adds the batch's sum to a tensor there (labels are moved to
+that device first) and counts its rows on the host, and only ``get``
+reads the sum back. So a training step makes no host sync for its
+metric; a reader such as ``Speedometer`` pays one when it asks. Sums
+accumulate in float32, as in ``mxtpu``.
+"""
+from __future__ import annotations
+
+import numpy
+import torch
+
+from . import ndarray
+
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy",
+           "CrossEntropy", "create", "register", "get"]
+
+
+def check_label_shapes(labels, preds, wrap=False, shape=False):
+    """Raise unless labels and predictions pair up (by count, or by
+    shape with ``shape``)."""
+    measure = (lambda x: x.shape) if shape else len
+    got_l, got_p = measure(labels), measure(preds)
+    if got_l != got_p:
+        raise ValueError(
+            "Shape of labels {} does not match shape of predictions {}"
+            .format(got_l, got_p))
+    if wrap:
+        if isinstance(labels, ndarray.NDArray):
+            labels = [labels]
+        if isinstance(preds, ndarray.NDArray):
+            preds = [preds]
+    return labels, preds
+
+
+def _tensor(arr, device=None):
+    """The tensor of an NDArray (or array-like), on ``device`` if given;
+    a copy to the card is queued without a wait."""
+    t = arr.data if isinstance(arr, ndarray.NDArray) \
+        else torch.as_tensor(numpy.asarray(arr))
+    if device is not None and t.device != device:
+        t = t.to(device, non_blocking=True)
+    return t
+
+
+def _listed(x):
+    return x if isinstance(x, list) else [x]
+
+
+class EvalMetric:
+    """Base metric: a running (sum, count) whose ratio ``get`` returns."""
+
+    def __init__(self, name, output_names=None, label_names=None):
+        self.name = str(name)
+        self.output_names = output_names
+        self.label_names = label_names
+        self.reset()
+
+    def __str__(self):
+        return "EvalMetric: {}".format(dict(self.get_name_value()))
+
+    def update(self, labels, preds):
+        """Accumulate a batch. Metrics with :meth:`device_batch` add its
+        sum on the device; the count is known on the host."""
+        labels, preds = check_label_shapes(labels, preds, True)
+        batch = self.device_batch(labels, preds)
+        if batch is None:
+            raise NotImplementedError()
+        self._accum_device(*batch)
+
+    # -- device-side accumulation ------------------------------------------
+    def device_batch(self, labels, preds):
+        """One batch's (sum tensor on the predictions' device, count), or
+        None where the metric has no device rule."""
+        return None
+
+    def update_async(self, read_fn, reset_fn=None):
+        """Route accumulation through a (sum, count) accumulator that the
+        caller owns (a captured train step): ``read_fn()`` returns the
+        pair accumulated since its last call, and zeroes it; it is called
+        at :meth:`get`. ``reset_fn()`` discards the accumulation."""
+        self._async_reader = read_fn
+        self._async_resetter = reset_fn
+
+    def detach_async(self):
+        self._async_reader = self._async_resetter = None
+
+    def _drain(self):
+        if self._pending is not None:
+            self.sum_metric += float(self._pending)
+            self._pending = None
+        reader = getattr(self, "_async_reader", None)
+        if reader is not None:
+            total, count = reader()
+            self._accum(total, count)
+
+    def reset(self):
+        self.num_inst = 0
+        self.sum_metric = 0.0
+        self._pending = None        # the device sum not yet read back
+        resetter = getattr(self, "_async_resetter", None)
+        if resetter is not None:
+            resetter()
+
+    def _accum(self, total, count):
+        self.sum_metric += total
+        self.num_inst += count
+
+    def _accum_device(self, total, count):
+        self._pending = total if self._pending is None \
+            else self._pending + total
+        self.num_inst += count
+
+    def get(self):
+        self._drain()
+        value = self.sum_metric / self.num_inst if self.num_inst \
+            else float("nan")
+        return (self.name, value)
+
+    def get_name_value(self):
+        name, value = self.get()
+        return list(zip(_listed(name), _listed(value)))
+
+
+_metric_registry = {}
+
+
+def register(klass):
+    _metric_registry[klass.__name__.lower()] = klass
+    return klass
+
+
+def alias(*names):
+    def deco(klass):
+        register(klass)
+        for n in names:
+            _metric_registry[n.lower()] = klass
+        return klass
+    return deco
+
+
+def get(name, *args, **kwargs):
+    try:
+        klass = _metric_registry[name.lower()]
+    except KeyError:
+        raise ValueError("Cannot find metric %s" % name) from None
+    return klass(*args, **kwargs)
+
+
+def create(metric, *args, **kwargs):
+    """A metric from a name, a list of them, or an instance."""
+    if isinstance(metric, list):
+        return CompositeEvalMetric([create(m, *args, **kwargs)
+                                    for m in metric])
+    if isinstance(metric, EvalMetric):
+        return metric
+    if isinstance(metric, str):
+        return get(metric, *args, **kwargs)
+    raise TypeError("metric should be a str, list or EvalMetric")
+
+
+@alias("composite")
+class CompositeEvalMetric(EvalMetric):
+    """Several metrics updated together."""
+
+    def __init__(self, metrics=None, name="composite", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+        self.metrics = [create(m) for m in (metrics or [])]
+
+    def add(self, metric):
+        self.metrics.append(create(metric))
+
+    def update(self, labels, preds):
+        for child in self.metrics:
+            child.update(labels, preds)
+
+    def reset(self):
+        for child in getattr(self, "metrics", ()):
+            child.reset()
+
+    def get(self):
+        names, values = [], []
+        for child in self.metrics:
+            name, value = child.get()
+            names += _listed(name)
+            values += [value] if isinstance(
+                value, (float, int, numpy.generic)) else list(value)
+        return (names, values)
+
+
+@alias("acc")
+class Accuracy(EvalMetric):
+    """Share of rows whose argmax along ``axis`` is the label."""
+
+    def __init__(self, axis=1, name="accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+        self.axis = axis
+
+    def device_batch(self, labels, preds):
+        hits, count = 0, 0
+        for truth, scores in zip(labels, preds):
+            scores = _tensor(scores)
+            truth = _tensor(truth, scores.device)
+            if scores.shape != truth.shape:
+                scores = scores.argmax(dim=self.axis)
+            decided = scores.to(torch.int32).reshape(-1)
+            expected = truth.to(torch.int32).reshape(-1)
+            check_label_shapes(expected, decided)
+            hits = hits + (decided == expected).sum(dtype=torch.float32)
+            count += decided.numel()
+        return hits, count
+
+
+@alias("ce")
+class CrossEntropy(EvalMetric):
+    """Mean of -log(p + eps) of each row's probability for its label."""
+
+    def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+        self.eps = eps
+
+    def device_batch(self, labels, preds):
+        total, count = 0, 0
+        for truth, scores in zip(labels, preds):
+            scores = _tensor(scores)
+            expected = _tensor(truth, scores.device).reshape(-1).long()
+            rows = scores.shape[0]
+            if expected.shape[0] != rows:
+                raise ValueError("%d labels for %d rows"
+                                 % (expected.shape[0], rows))
+            chosen = scores[torch.arange(rows, device=scores.device),
+                            expected].float()
+            total = total - torch.log(chosen + self.eps).sum()
+            count += rows
+        return total, count

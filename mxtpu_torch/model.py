@@ -1,16 +1,97 @@
-"""Checkpoints of the PyTorch port.
+"""Checkpoints and the kvstore training glue of the PyTorch port.
 
-Counterpart of the checkpoint half of ``mxtpu/model.py``: the same
-``prefix-symbol.json`` + ``prefix-%04d.params`` pair, so a checkpoint
-written by either package loads in the other.
+Counterpart of ``mxtpu/model.py``: ``BatchEndParam``, the same
+``prefix-symbol.json`` + ``prefix-%04d.params`` pair (a checkpoint
+written by either package loads in the other), and the helpers that
+``Module`` updates through: ``_create_kvstore``, ``_initialize_kvstore``,
+``_update_params_on_kvstore`` and ``_update_params``.
 """
 from __future__ import annotations
+
+from collections import namedtuple
+
+import numpy as np
 
 from . import ndarray as nd
 from . import symbol as sym
 
-__all__ = ["save_checkpoint", "load_params", "load_checkpoint",
-           "params_from_numpy"]
+__all__ = ["BatchEndParam", "save_checkpoint", "load_params",
+           "load_checkpoint", "params_from_numpy"]
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """``(store, update_on_kvstore)`` from a store or a type name. A name
+    without "dist" on one device means no store (the module's updater
+    runs); a given store object updates the weights at the store, except
+    for a "local" store by name whose largest parameter passes 16M
+    elements."""
+    from . import kvstore as kvs
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(np.prod(param.shape)
+                               for param in arg_params.values()) \
+                    if arg_params else 0
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """One store entry a parameter, then (when the store updates) its
+    value pulled into every device's array. The entry is copied from the
+    first device's array, which holds ``arg_params``' value, so that the
+    store's weight lives where the update runs."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        name = param_names[idx]
+        kvstore.init(name, param_on_devs[0])
+        if update_on_kvstore:
+            kvstore.pull(name, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    """Push each gradient (the store's optimizer updates its weight), then
+    pull the weight into the devices' arrays."""
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        name = param_names[index]
+        kvstore.push(name, grad_list, priority=-index)
+        kvstore.pull(name, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None, param_names=None):
+    """Sum the gradients through the store if there is one, then run the
+    updater on each device's copy, slot ``index * num_device + k``."""
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        if kvstore:
+            name = param_names[index]
+            kvstore.push(name, grad_list, priority=-index)
+            kvstore.pull(name, grad_list, priority=-index)
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            updater(index * num_device + k, g, w)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
@@ -45,9 +126,12 @@ def load_checkpoint(prefix, epoch, ctx=None):
 
 def params_from_numpy(arg_params, aux_params, ctx=None):
     """The port's ``(arg_params, aux_params)`` NDArray dicts from dicts of
-    numpy arrays, such as ``{k: v.asnumpy()}`` of the dicts that
-    ``mxtpu.model.load_params`` returns. Arrays keep their layout: a
-    fused RNN's flat ``parameters`` blob stays in the cuDNN layout of
-    ``rnn_blob_blocks``."""
-    return ({k: nd.array(v, ctx=ctx) for k, v in arg_params.items()},
-            {k: nd.array(v, ctx=ctx) for k, v in aux_params.items()})
+    numpy arrays, or of any arrays with ``asnumpy()``: the dicts that
+    ``mxtpu``'s ``Module.get_params()`` or ``model.load_params`` return,
+    ready for the port's ``Module.init_params`` / ``set_params``. Arrays
+    keep their layout: a fused RNN's flat ``parameters`` blob stays in the
+    cuDNN layout of ``rnn_blob_blocks``."""
+    def convert(table):
+        return {k: nd.array(v.asnumpy() if hasattr(v, "asnumpy") else v,
+                            ctx=ctx) for k, v in (table or {}).items()}
+    return convert(arg_params), convert(aux_params)

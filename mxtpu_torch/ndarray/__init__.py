@@ -97,10 +97,13 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self):
+        """A numpy copy of the value (never a view: optimizers update
+        arrays in place)."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             raise TypeError("numpy has no bfloat16")
-        return t.cpu().numpy()
+        return t.cpu().numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
 
     def asscalar(self):
         if self.size != 1:

@@ -3,7 +3,8 @@
 their ops; the LSTM/GRU time loops live in :mod:`.rnn_scan`, flash
 attention in :mod:`.flash_attention`.
 """
-from .registry import OpDef, register, get_op, next_generator, rng_scope
+from .registry import (OpDef, register, get_op, next_generator, rng_scope,
+                       set_global_seed)
 
 from . import shape_ops      # noqa: F401
 from . import elemwise       # noqa: F401

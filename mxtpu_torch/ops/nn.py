@@ -1,15 +1,20 @@
 """Neural-network ops of the PyTorch port.
 
-Counterpart of the serving-path ops of ``mxtpu/ops/nn.py``:
-FullyConnected, Activation, softmax, Embedding and SoftmaxOutput, whose
-backward is ``mxtpu``'s (a ``torch.autograd.Function`` in place of its
-``custom_vjp``).
+Counterpart of the main-path ops of ``mxtpu/ops/nn.py``:
+FullyConnected, Convolution, Pooling, Activation, softmax, Embedding and
+SoftmaxOutput, whose backward is ``mxtpu``'s (a
+``torch.autograd.Function`` in place of its ``custom_vjp``).
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
-here they are plain PyTorch: ``torch.matmul`` and ``index_select``.
+here they are PyTorch's own calls: ``torch.matmul``, ``index_select``,
+and ``F.conv*d`` / ``F.max_pool*d`` / ``F.avg_pool*d`` (cuDNN on the
+card), the same call on the CPU and the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from .registry import register
 
@@ -22,6 +27,89 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     if bias is not None and not no_bias:
         out = out + bias
     return out
+
+
+def _tuple(v, n):
+    """A per-spatial-dim parameter as an n-tuple (``mxtpu``'s ``_pair``)."""
+    if isinstance(v, int):
+        return (v,) * n
+    v = tuple(v)
+    return v if v else (1,) * n
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution", aliases=("convolution",))
+def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                pad=(), num_filter=0, num_group=1, no_bias=False,
+                workspace=1024, cudnn_tune=None, cudnn_off=False,
+                layout=None):
+    """N-d convolution over NC(D)(H)W data; the weight is (num_filter,
+    C/num_group, *kernel), as in ``mxtpu``."""
+    nsp = data.dim() - 2
+    stride = _tuple(stride, nsp) if stride else (1,) * nsp
+    dilate = _tuple(dilate, nsp) if dilate else (1,) * nsp
+    pad = _tuple(pad, nsp) if pad else (0,) * nsp
+    b = bias if bias is not None and not no_bias else None
+    return _CONV[nsp](data, weight, b, stride, pad, dilate, num_group)
+
+
+def _pool_sum(x, kernel, stride):
+    """Sum over each window of padded ``x`` (no further padding)."""
+    if len(kernel) == 1:        # avg_pool1d has no divisor_override
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(-2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+@register("Pooling", aliases=("pooling",))
+def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
+            pad=(), pooling_convention="valid", cudnn_off=False,
+            count_include_pad=True):
+    """Max, average or sum pooling with ``mxtpu``'s window rules: the
+    edges padded explicitly (-inf for max, 0 otherwise), ``full``
+    padding the high edge so that the windows cover the input (ceil
+    mode), and ``avg`` dividing by the window size, or by the real
+    elements in it when ``count_include_pad`` is off."""
+    nsp = data.dim() - 2
+    if global_pool:
+        kernel = tuple(data.shape[2:])
+        stride = (1,) * nsp
+        pad = (0,) * nsp
+    else:
+        kernel = _tuple(kernel, nsp)
+        stride = _tuple(stride, nsp) if stride else (1,) * nsp
+        pad = _tuple(pad, nsp) if pad else (0,) * nsp
+    edges = []                  # (low, high) a spatial dim
+    for i in range(nsp):
+        high = pad[i]
+        if pooling_convention == "full":
+            size = data.shape[2 + i] + 2 * pad[i]
+            out = -(-(size - kernel[i]) // stride[i]) + 1
+            high += max((out - 1) * stride[i] + kernel[i] - size, 0)
+        edges.append((pad[i], high))
+    flat = [p for lo_hi in reversed(edges) for p in lo_hi]  # F.pad order
+    padded = any(flat)
+    if pool_type == "max":
+        fill = -math.inf if data.is_floating_point()             else torch.iinfo(data.dtype).min
+        x = F.pad(data, flat, value=fill) if padded else data
+        return _MAX_POOL[nsp](x, kernel, stride)
+    if pool_type not in ("avg", "sum"):
+        raise ValueError("unknown pool_type %r" % pool_type)
+    summed = _pool_sum(F.pad(data, flat) if padded else data, kernel,
+                       stride)
+    if pool_type == "sum":
+        return summed
+    if count_include_pad:
+        return summed / math.prod(kernel)
+    ones = torch.ones_like(data)
+    return summed / _pool_sum(F.pad(ones, flat) if padded else ones, kernel,
+                              stride)
 
 
 @register("Activation", aliases=("activation",))

@@ -18,7 +18,8 @@ import threading
 
 import torch
 
-__all__ = ["OpDef", "register", "get_op", "next_generator", "rng_scope"]
+__all__ = ["OpDef", "register", "get_op", "next_generator", "rng_scope",
+           "set_global_seed"]
 
 _REGISTRY = {}
 
@@ -101,3 +102,8 @@ class rng_scope:
 def next_generator():
     """The generator stateful ops draw from now."""
     return _RNG.stack[-1] if _RNG.stack else _RNG.generator
+
+
+def set_global_seed(seed):
+    """Reseed this thread's default generator (``mx.random.seed``)."""
+    _RNG.generator.manual_seed(int(seed))

@@ -1,9 +1,10 @@
 """Shape ops of the PyTorch port.
 
 Counterpart of the part of ``mxtpu/ops/shape_ops.py`` that the fused
-RNN cell's ``unroll``, the serving graphs and ``nd.concatenate`` emit:
-reshape (with MXNet's special codes), swapaxes, expand_dims, concat,
-stack, split and the nullary ``_zeros`` creator.
+RNN cell's ``unroll``, the serving graphs, LeNet and
+``nd.concatenate`` emit: reshape (with MXNet's special codes), Flatten,
+swapaxes, expand_dims, concat, stack, split and the nullary ``_zeros``
+creator.
 """
 from __future__ import annotations
 
@@ -58,6 +59,11 @@ def reshape(data, shape=None, reverse=False):
     if reverse:
         out = out[::-1]
     return torch.reshape(data, tuple(out))
+
+
+@register("flatten", aliases=("Flatten",))
+def flatten(data):
+    return torch.reshape(data, (data.shape[0], -1))
 
 
 @register("swapaxes", aliases=("SwapAxis",))

@@ -159,6 +159,17 @@ class Symbol:
     def list_auxiliary_states(self):
         return [n.name for n in self._classify_vars()[1]]
 
+    # -- attributes --------------------------------------------------------
+    def attr(self, key):
+        """Attribute ``key`` of this symbol's (first) output node."""
+        return self._outputs[0][0].attrs.get(key)
+
+    def attr_dict(self):
+        """``{node name: attributes}`` over the graph (the optimizer reads
+        the variables' ``__lr_mult__`` / ``__wd_mult__`` from it)."""
+        return {node.name: dict(node.attrs) for node in self._topo()
+                if node.attrs}
+
     def list_outputs(self):
         names = []
         for (node, idx) in self._outputs:
@@ -188,6 +199,41 @@ class Symbol:
         shapes, out_shapes = _infer_graph_shapes(self, known, partial)
         return ([shapes.get(n) for n in arg_names], out_shapes,
                 [shapes.get(n) for n in self.list_auxiliary_states()])
+
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)`` as numpy dtypes: the given
+        arguments' types, float32 for every other argument, output and aux
+        state (``mxtpu``'s rule)."""
+        arg_names = self.list_arguments()
+        dtypes = {n: canonical_dtype(t) for n, t in zip(arg_names, args)
+                  if t is not None}
+        dtypes.update({k: canonical_dtype(v) for k, v in kwargs.items()})
+        default = _np.dtype(_np.float32)
+        arg_types = [_np.dtype(dtype_name(dtypes[n])) if n in dtypes
+                     else default for n in arg_names]
+        return (arg_types, [default] * len(self._outputs),
+                [default] * len(self.list_auxiliary_states()))
+
+    # -- binding -----------------------------------------------------------
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    stype_dict=None, **kwargs):
+        """An :class:`~mxtpu_torch.executor.Executor` with zeroed argument,
+        gradient and aux arrays of the shapes inferred from ``kwargs``,
+        on ``ctx`` (default: the current context)."""
+        from ..context import current_context
+        from ..executor import Executor
+        if stype_dict and any(v != "default" for v in stype_dict.values()):
+            raise NotImplementedError("the port binds dense arrays only")
+        return Executor._simple_bind(self, ctx or current_context(),
+                                     grad_req, type_dict, kwargs)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An Executor over the given argument (and gradient, aux)
+        arrays."""
+        from ..executor import Executor
+        return Executor._bind(self, ctx, args, args_grad, grad_req,
+                              aux_states)
 
     # -- serialization -----------------------------------------------------
     def tojson(self):
@@ -249,7 +295,8 @@ def _array_input_names(op, params):
             names.append(p.name)
         else:
             break
-    if op.name == "FullyConnected" and params.get("no_bias", False):
+    if op.name in ("FullyConnected", "Convolution") and \
+            params.get("no_bias", False):
         names = [n for n in names if n != "bias"]
     return names
 
@@ -341,8 +388,11 @@ def _node_num_outputs(op, params):
     return op.num_outputs if isinstance(op.num_outputs, int) else 1
 
 
-def var(name, attr=None, shape=None, dtype=None, **kwargs):
-    """Create a free variable (``sym.var``)."""
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+        dtype=None, init=None, **kwargs):
+    """Create a free variable (``sym.var``); ``lr_mult`` / ``wd_mult``
+    scale the optimizer's rates for it, ``init`` (an Initializer or its
+    ``dumps()``) overrides the module's initializer."""
     node = _Node(None, name)
     attr = _attr_scope_current().get(attr)
     if attr:
@@ -351,6 +401,13 @@ def var(name, attr=None, shape=None, dtype=None, **kwargs):
         node.attrs["__shape__"] = tuple(shape)
     if dtype is not None:
         node.attrs["__dtype__"] = canonical_dtype(dtype)
+    if lr_mult is not None:
+        node.attrs["__lr_mult__"] = lr_mult
+    if wd_mult is not None:
+        node.attrs["__wd_mult__"] = wd_mult
+    if init is not None:
+        node.attrs["__init__"] = init if isinstance(init, str) \
+            else init.dumps()
     node.attrs.update(kwargs)
     return Symbol([(node, 0)])
 
@@ -517,6 +574,19 @@ def _fc_hint(params, in_shapes, input_names):
     out = {"weight": (nh, d)}
     if "bias" in input_names:
         out["bias"] = (nh,)
+    return out
+
+
+@shape_hint("Convolution")
+def _conv_hint(params, in_shapes, input_names):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    nf = int(params.get("num_filter", 0))
+    ng = int(params.get("num_group", 1))
+    out = {"weight": (nf, data[1] // ng) + tuple(params.get("kernel", ()))}
+    if "bias" in input_names:
+        out["bias"] = (nf,)
     return out
 
 

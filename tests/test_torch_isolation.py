@@ -1,6 +1,8 @@
 """mxtpu_torch stands alone: no module of the package (nor chip_smoke.py)
 imports JAX or mxtpu, and the package imports and runs with JAX made
-unimportable."""
+unimportable: the kernels' plain routes, custom ops, and Module.fit with
+its iterator, initializer, optimizer and scheduler, kvstore, metrics and
+callback."""
 import ast
 import pathlib
 import subprocess
@@ -90,6 +92,22 @@ def test_imports_and_runs_without_jax():
         "engine.waitall()\n"
         "assert y.asnumpy().tolist() == [1.0, 9.0]\n"
         "assert x.grad.asnumpy().tolist() == [2.0, -6.0]\n"
+        "net = mt.sym.Convolution(mt.sym.var('data'), kernel=(3, 3),"
+        " num_filter=2)\n"
+        "net = mt.sym.Pooling(net, kernel=(2, 2), stride=(2, 2),"
+        " pool_type='max')\n"
+        "net = mt.sym.FullyConnected(mt.sym.Flatten(net), num_hidden=3)\n"
+        "net = mt.sym.SoftmaxOutput(net, name='softmax')\n"
+        "it = mt.io.NDArrayIter(rng.standard_normal((10, 1, 6, 6))"
+        ".astype(np.float32), rng.randint(0, 3, 10).astype(np.float32),"
+        " 4, shuffle=True)\n"
+        "mod = mt.mod.Module(net, context=mt.cpu())\n"
+        "mod.fit(it, kvstore=mt.kv.create('local'), optimizer='adam',"
+        " initializer=mt.init.Xavier(), eval_metric=['acc', 'ce'],"
+        " num_epoch=2, batch_end_callback=mt.callback.Speedometer(4, 1),"
+        " optimizer_params={'lr_scheduler':"
+        " mt.lr_scheduler.FactorScheduler(2)})\n"
+        "assert 0 <= dict(mod.score(it, 'acc'))['accuracy'] <= 1\n"
         "assert not [m for m in set(sys.modules) - before\n"
         "            if m.split('.')[0] in ('jax', 'jaxlib', 'mxtpu')]\n"
         "print('ok')\n")
