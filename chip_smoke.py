@@ -84,7 +84,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel a step, train accuracy > 0.9) and is served by
    InferenceEngine on cuda:0 (buckets 1-128) against the same weights
    served on the CPU;
-11. Module.fit: both examples' training calls through
+11. Module.fit with the eager step (MXTPU_MODULE_FUSED=0): both
+   examples' training calls through
    mx.mod.Module(...).fit(...) on the current context, gpu(0). The MLP as
    custom_softmax.py calls it (its seeds, NDArrayIter with shuffle, SGD
    lr 0.1 / momentum 0.9, 4 epochs; its head launches cs_softmax_fwd and
@@ -96,9 +97,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    validation digits scored each epoch, 3 epochs on the example's 2,000
    synthetic digits), its first 3 steps against the CPU's Module, its
    validation accuracy >= LENET_MIN_ACC, its checkpoint loaded into a CPU
-   Module scoring the same; then each model's eager step (ms, host time
-   by phase, the card's busy share and launches a step);
-12. timings: each kernel, its plain version and the PyTorch library call
+   Module scoring the same;
+12. Module.fit captured (the fused train step, the default): the same MLP
+   call and LeNet with fit's own kvstore="local" train through one CUDA
+   graph a batch signature: each signature's first step runs for real and
+   is captured, every later step replays. Their first 3 steps against the
+   card's eager steps (CAPTURE_TOL) and the CPU's fused Module (FIT_TOL);
+   whole fits against the eager fits of the same calls (FUSED_FIT_TOL;
+   LeNet's both with cuDNN's deterministic algorithms);
+   FUSED_COMPILES captures and a replay in every other step, no fallback;
+   each MLP graph holds one cs_softmax_fwd and one cs_softmax_bwd node, so
+   the head kernels run once a step; accuracy as in phase 11; no host wait
+   in a steady-state epoch (torch's sync debug mode "error"); a custom op
+   whose Python body reads the card (the example's numpy op) refuses the
+   capture and the trainer falls back to the eager step once. Then each
+   model's step, eager and captured in turns (ms, host time by phase, the
+   card's busy share, kernels and host launch calls a step);
+13. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -113,11 +128,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    LSTM/GRU forward + backward under autograd beside cuDNN's; the
    training slices' ms per step and where a step's device time goes;
    NVRTC's compile time and the host cost of one rtc launch; the
-   custom-op model's requests/s at bucket 128; Module.fit's eager step
-   beside cs_step's;
-13. one JSON line naming every kernel with its launches (the head
-   kernels': in the MLP's Module.fit) and error;
-14. the last line: {"ok": true, "device": {...}}.
+   custom-op model's requests/s at bucket 128; Module.fit's eager and
+   captured steps beside cs_step's;
+14. one JSON line naming every kernel with its launches (the head
+   kernels': in the MLP's captured Module.fit) and error;
+15. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -297,11 +312,19 @@ def held_ms(fn, iters=50, warmup=5, required=True):
          % (cycles // 4, iters))
 
 
+# host calls that put work on the card, as the profiler names them
+LAUNCH_CALLS = frozenset((
+    "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+    "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+    "cudaMemsetAsync"))
+
+
 def device_time(fn, calls, per=1):
     """Device busy ms (None where the profiler recorded no kernel time),
-    kernel launches and the top kernels (ms) per unit of work, from
-    torch.profiler over ``calls`` calls of ``fn`` that do ``per`` units
-    each. For the breakdowns only: no check depends on it."""
+    the kernels the card ran, the host's launch calls (a graph launch is
+    one) and the top kernels (ms) per unit of work, from torch.profiler
+    over ``calls`` calls of ``fn`` that do ``per`` units each. For the
+    breakdowns only: no check depends on it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -309,7 +332,8 @@ def device_time(fn, calls, per=1):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         return None, "not measured (the profiler recorded no kernel time)"
@@ -317,9 +341,11 @@ def device_time(fn, calls, per=1):
     n = calls * per
     busy = sum(e.self_device_time_total for e in events) / n / 1e3
     launches = sum(e.count for e in events) / n
+    host = sum(e.count for e in averages if e.key in LAUNCH_CALLS) / n
     top = ", ".join("%s %.4f" % (e.key[:48], e.self_device_time_total / n
                                  / 1e3) for e in events[:8])
-    return busy, "%.0f kernel launches; %s" % (launches, top)
+    return busy, "%.0f kernel launches (%.1f host launch calls); %s" % (
+        launches, host, top)
 
 
 def prof_ms(fn, calls):
@@ -1701,7 +1727,53 @@ def cs_register(mt):
                 dx = cs_softmax_bwd_plain(y.data, label.data)
             self.assign(in_grad[0], req[0], dx)
 
-    @mt.operator.register("softmax")
+    register_softmax_prop(mt, "softmax", Softmax)
+
+
+# The custom ops of host_read_register: how each body meets a capture.
+HOST_READS = {
+    # the example's asnumpy: torch refuses the copy before CUDA sees it
+    "softmax_host": "copy",
+    # wait_to_read first: CUDA refuses the wait and fails the capture
+    "softmax_wait": "wait",
+    # an error of the op's own, raised only while a capture is under way
+    "softmax_fault": "fault",
+}
+
+
+def host_read_register(mt, op_type="softmax_host"):
+    """Register custom op ``op_type`` of HOST_READS: the example's numpy
+    op itself (example/numpy-ops/custom_softmax.py) written for the port,
+    whose Python body reads its inputs back to the host (asnumpy), so a
+    CUDA graph cannot hold it."""
+    import torch
+    read = HOST_READS[op_type]
+
+    class Softmax(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            if read == "wait":
+                in_data[0].wait_to_read()
+            if read == "fault" and torch.cuda.is_current_stream_capturing():
+                raise ValueError("softmax_fault: a fault of the op's own")
+            x = in_data[0].asnumpy()
+            y = np.exp(x - x.max(axis=1).reshape((x.shape[0], 1)))
+            y /= y.sum(axis=1).reshape((x.shape[0], 1))
+            self.assign(out_data[0], req[0], mt.nd.array(y))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = in_data[1].asnumpy().ravel().astype(int)
+            y = out_data[0].asnumpy()
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], mt.nd.array(y))
+
+    register_softmax_prop(mt, op_type, Softmax)
+
+
+def register_softmax_prop(mt, op_type, op_class):
+    """Register the example's softmax-with-loss signature as ``op_type``,
+    made by ``op_class``."""
+
+    @mt.operator.register(op_type)
     class SoftmaxProp(mt.operator.CustomOpProp):
         def __init__(self):
             super().__init__(need_top_grad=False)
@@ -1719,17 +1791,17 @@ def cs_register(mt):
             return in_type, [in_type[0]], []
 
         def create_operator(self, ctx, shapes, dtypes):
-            return Softmax()
+            return op_class()
 
 
-def cs_symbol(pkg):
+def cs_symbol(pkg, op_type="softmax"):
     """The example's net, in either package."""
     data = pkg.sym.var("data")
     net = pkg.sym.FullyConnected(data, name="fc1", num_hidden=CS_HIDDEN)
     net = pkg.sym.Activation(net, name="relu1", act_type="relu")
     net = pkg.sym.FullyConnected(net, name="fc2", num_hidden=CS_CLASSES)
     return pkg.sym.Custom(net, pkg.sym.var("softmax_label"), name="softmax",
-                          op_type="softmax")
+                          op_type=op_type)
 
 
 def cs_data():
@@ -1936,9 +2008,12 @@ def mlp_fit(pkg, x, y, context=None, arg_params=None, num_epoch=CS_EPOCHS,
 
 
 def lenet_fit(pkg, data, context=None, arg_params=None,
-              num_epoch=LENET_EPOCHS, shuffle=True, validate=True):
+              num_epoch=LENET_EPOCHS, shuffle=True, validate=True,
+              kvstore=None):
     """train_mnist.py --network lenet's main through Module.fit in either
     package: a local kvstore object (so the optimizer runs at the store),
+    or ``kvstore`` as given ("local", fit's default, means no store on one
+    device: the module's Updater runs, and the fused step may engage),
     Xavier, SGD lr 0.05 / momentum 0.9, Speedometer(64, 50), the
     validation set scored each epoch; on the current context unless
     ``context``, optionally from given weights ({name: numpy}). Returns
@@ -1946,7 +2021,7 @@ def lenet_fit(pkg, data, context=None, arg_params=None,
     tr_x, tr_y, va_x, va_y = data
     train = pkg.io.NDArrayIter(tr_x, tr_y, LENET_BATCH, shuffle=shuffle)
     val = pkg.io.NDArrayIter(va_x, va_y, LENET_BATCH)
-    kv = pkg.kv.create("local")
+    kv = pkg.kv.create("local") if kvstore is None else kvstore
     mod = pkg.mod.Module(lenet_symbol(pkg),
                          context=context or pkg.context.current_context())
     mod.fit(train, eval_data=val if validate else None, kvstore=kv,
@@ -1991,10 +2066,10 @@ def fit_epoch(mod, data_iter, metric, clock=None):
     return steps
 
 
-def module_fit_phase(mt, seed, card, workdir):
-    """Both examples through Module.fit on cuda:0: the checks, then the
-    eager step's time, launches and card share. Returns the head kernels'
-    launches in the MLP's fit and each model's ms a step."""
+def module_fit_phase(mt, seed, workdir):
+    """Both examples through Module.fit on cuda:0 with the eager step (run
+    under MXTPU_MODULE_FUSED=0; LeNet's kvstore object keeps it eager in
+    any case): the checks. Returns {"MLP": (module, train iterator)}."""
     import logging
     import torch
     gpu = mt.gpu(0)
@@ -2111,29 +2186,430 @@ def module_fit_phase(mt, seed, card, workdir):
              val_acc, LENET_MIN_ACC, cpu_acc, out_cpu.shape[0],
              np.abs(out_card - out_cpu).max()))
 
-    # the eager step: host clock over one epoch of fit's loop body ending in
-    # a synchronize, the host time of each phase, and the profiler's card
-    # time and launches a step
-    step_ms = {}
-    for label, mod, it in (("MLP", mlp, train), ("LeNet", lenet, le_train)):
-        metric = mt.metric.create("acc")
-        fit_epoch(mod, it, metric)
+    return {"MLP": (mlp, train)}
+
+
+# ---------------------------------------------------------------------------
+# the captured Module.fit: the same two fit calls with the fused train step
+# (mxtpu_torch/module/fused.py), which on the card runs each batch signature's
+# first step for real, captures it in a CUDA graph and replays the graph on
+# every later batch; LeNet with fit's own kvstore="local" (on one device no
+# store, so the fused step engages, as in mxtpu)
+# ---------------------------------------------------------------------------
+
+# Captured vs eager first steps on the card: the same kernels on the same
+# inputs; only lr and the step count become float32 / int32 device scalars
+# (lr * grad stays the same float32 product).
+CAPTURE_TOL = dict(atol=1e-6, rtol=0)
+# A whole fit, captured vs eager: the band tests/test_module_fused.py holds
+# mxtpu's fused fit to its eager one in (rounding grows over the steps).
+FUSED_FIT_TOL = dict(atol=1e-5, rtol=5e-4)
+# Signatures in a fit with a metric, as mxtpu counts its compiles: the
+# bare step (the metric registers after the first batch), then the step
+# with the metric (tests/test_torch_module_fused.py holds the port's counts
+# to mxtpu's on the CPU). Each runs its first step for real; the second
+# signature's second step captures its graph, and every later step
+# replays it: one graph a fit, the bare step's single batch never captured.
+FUSED_COMPILES = 2
+
+
+def with_fused(on, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with MXTPU_MODULE_FUSED set to ``on``."""
+    old = os.environ.get("MXTPU_MODULE_FUSED")
+    os.environ["MXTPU_MODULE_FUSED"] = "1" if on else "0"
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        if old is None:
+            del os.environ["MXTPU_MODULE_FUSED"]
+        else:
+            os.environ["MXTPU_MODULE_FUSED"] = old
+
+
+def captured_steps(mod, label, steps):
+    """Fail unless ``mod`` trained every one of its ``steps`` steps through
+    the fused step: engaged, no fallback, FUSED_COMPILES signatures, each
+    run for real at its first step, one graph (the metric's signature,
+    captured at its second step) and a replay of it in every later step.
+    Returns the entries that hold a graph."""
+    trainer = mod._fused
+    if trainer is None:
+        fail("%s: the fused step is not engaged (%s)"
+             % (label, getattr(mod, "_fused_fallback_logged", "disabled")))
+    stats = trainer._group.stats
+    want = {"steps": steps, "compiles": FUSED_COMPILES,
+            "cache_hits": steps - FUSED_COMPILES, "fallbacks": 0}
+    got = {k: stats[k] for k in want}
+    entries = trainer._cache.entries()
+    replays = sum(e.replays for e in entries)
+    graphs = [e for e in entries if e.graph is not None]
+    if got != want or replays != steps - FUSED_COMPILES or \
+            [e.graph is not None for e in entries] != [False, True]:
+        fail("%s: fused stats %s, %d replays of %d graphs in %d signatures "
+             "(want %s, one graph)"
+             % (label, stats, replays, len(graphs), len(entries), want))
+    return graphs
+
+
+def graph_nodes(mt, entries, kernels, ctx):
+    """Each captured graph's nodes: (kernel nodes, other nodes, {rtc kernel
+    name: its nodes}, replays)."""
+    handles = {n: k.function(ctx) for n, k in kernels.items()}
+    out = []
+    for e in entries:
+        funcs, others = mt._nvrtc.graph_kernel_functions(
+            e.graph.raw_cuda_graph())
+        out.append((len(funcs), others,
+                    {n: funcs.count(h) for n, h in handles.items()},
+                    e.replays))
+    return out
+
+
+def no_sync_epoch(mod, data_iter, metric):
+    """One epoch of fit's loop body under torch's sync debug mode "error":
+    any host wait on the card raises. Returns the steps."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fit_epoch(mod, data_iter, metric)
+    except RuntimeError as e:
+        fail("a steady-state epoch waited for the card: %s" % e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def first_steps(mt, label, run, names):
+    """``run(ctx, fused)`` -> {name: numpy} after FIT_STEPS steps; the
+    captured steps on the card against the eager ones there (CAPTURE_TOL)
+    and against the CPU's fused Module (FIT_TOL)."""
+    import torch
+    gpu = mt.gpu(0)
+    captured = run(gpu, True)
+    for what, want, tol in (("the card's eager steps", run(gpu, False),
+                             CAPTURE_TOL),
+                            ("the CPU's Module", run(mt.cpu(), True),
+                             FIT_TOL)):
+        check_close("%s: %d captured steps vs %s" % (label, FIT_STEPS, what),
+                    [torch.from_numpy(captured[k]) for k in names],
+                    [torch.from_numpy(want[k]) for k in names], tol)
+        print("Module.fit %s: %d captured steps on the card vs %s: max "
+              "|diff| %.3g (tolerance %s)"
+              % (label, FIT_STEPS, what,
+                 max(np.abs(captured[k] - want[k]).max() for k in names),
+                 tol))
+
+
+def fused_fit_phase(mt, seed, eager):
+    """Both examples through Module.fit on cuda:0 with the captured step:
+    its first steps against the eager ones, whole fits against the eager
+    fits of the same calls, one graph a signature, B6 in each MLP step,
+    no host wait in a steady-state epoch, and a custom op that reads the
+    card falling back. ``eager`` gets the eager LeNet of fit's default
+    kvstore. Returns the head kernels' launches in the MLP's fit and
+    {label: (captured module, its iterator)}."""
+    import torch
+    gpu = mt.gpu(0)
+    ck = cs_kernels()
+    x_all, y_all = cs_data()
+    cs_p0 = cs_init_params(seed)
+    idx = np.concatenate(cs_batches(seed)[:FIT_STEPS])
+
+    def mlp_first(ctx, fused):
+        mod, _ = with_fused(fused, mlp_fit, mt, x_all[idx], y_all[idx], ctx,
+                            cs_p0, 1, shuffle=False)
+        if fused and ctx == gpu:
+            captured_steps(mod, "MLP, first steps", FIT_STEPS)
+        return module_params(mod)
+    first_steps(mt, "MLP", mlp_first, sorted(cs_p0))
+
+    # the example's fit, captured: every head launch ran once a step, the
+    # two signatures' first steps by hand and the rest as the graph's nodes
+    for kern in ck.values():
+        kern.launches = 0
+    mlp, train = mlp_fit(mt, x_all, y_all)
+    torch.cuda.synchronize()
+    entries = captured_steps(mlp, "MLP", CS_STEPS)
+    cache = mlp._fused._cache.stats()
+    nodes = graph_nodes(mt, entries, ck, gpu)
+    launches = {n: k.launches + sum(g[2][n] * g[3] for g in nodes)
+                for n, k in ck.items()}
+    for kernel_nodes, others, heads, replays in nodes:
+        if heads != {n: 1 for n in ck}:
+            fail("a captured MLP step holds head kernel nodes %s, want one "
+                 "of each" % heads)
+    if launches != {n: CS_STEPS for n in ck}:
+        fail("head kernels ran %s times in %d captured steps"
+             % (launches, CS_STEPS))
+    acc = dict(mlp.score(train, "acc"))["accuracy"]
+    if not acc > 0.9:
+        fail("the captured MLP scores train accuracy %.4f (limit 0.9)" % acc)
+    eager_mlp = module_params(eager["MLP"][0])
+    got = module_params(mlp)
+    names = sorted(got)
+    check_close("MLP: captured fit vs the eager fit on the card",
+                [torch.from_numpy(got[k]) for k in names],
+                [torch.from_numpy(eager_mlp[k]) for k in names],
+                FUSED_FIT_TOL)
+    metric = mt.metric.create("acc")
+    fit_epoch(mlp, train, metric)
+    no_sync_epoch(mlp, train, metric)
+    print("Module.fit MLP captured (custom_softmax.py's call): %d epochs, "
+          "%d steps: %s; graphs (kernel nodes, other nodes, head nodes, "
+          "replays): %s; head launches %s; train accuracy %.4f (limit 0.9); "
+          "max |captured - eager| after the fit %.3g (tolerance %s); no host "
+          "wait in a steady-state epoch"
+          % (CS_EPOCHS, CS_STEPS, cache, nodes, launches,
+             acc, max(np.abs(got[k] - eager_mlp[k]).max() for k in names),
+             FUSED_FIT_TOL))
+
+    # LeNet with fit's default kvstore="local"
+    data = lenet_data()
+    tr_x, tr_y, va_x, va_y = data
+    le_p0 = lenet_init_params(mt, seed)
+    rows = FIT_STEPS * LENET_BATCH
+    few = (tr_x[:rows], tr_y[:rows], va_x, va_y)
+
+    def lenet_first(ctx, fused):
+        mod = with_fused(fused, lenet_fit, mt, few, ctx, le_p0, 1,
+                         shuffle=False, validate=False, kvstore="local")[0]
+        if fused and ctx == gpu:
+            captured_steps(mod, "LeNet, first steps", FIT_STEPS)
+        return module_params(mod)
+    first_steps(mt, "LeNet", lenet_first, sorted(le_p0))
+
+    def lenet_whole(fused, deterministic=False):
+        # the same shuffle and Xavier draws for every fit
+        np.random.seed(seed)
+        mt.random.seed(seed)
+        old = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            return with_fused(fused, lenet_fit, mt, data, kvstore="local")
+        finally:
+            torch.backends.cudnn.deterministic = old
+    # whole fits are compared under cuDNN's deterministic algorithms: by
+    # its default heuristics a capture may run another convolution
+    # algorithm than the eager step does, and 94 steps carry the rounding
+    # apart past FUSED_FIT_TOL in a conv weight; the first steps above
+    # compare the default algorithms
+    same = [module_params(lenet_whole(fused, True)[0])
+            for fused in (False, True)]
+    eager["LeNet"] = lenet_whole(False)[:2]
+    lenet, le_train, val = lenet_whole(True)
+    steps = LENET_EPOCHS * -(-LENET_SAMPLES // LENET_BATCH)
+    entries = captured_steps(lenet, "LeNet", steps)
+    cache = lenet._fused._cache.stats()
+    le_nodes = graph_nodes(mt, entries, {}, gpu)
+    val_acc = dict(lenet.score(val, mt.metric.Accuracy()))["accuracy"]
+    if not val_acc >= LENET_MIN_ACC:
+        fail("captured LeNet scores validation accuracy %.4f (limit %.2f)"
+             % (val_acc, LENET_MIN_ACC))
+    want, got = same
+    names = sorted(got)
+    check_close("LeNet: captured fit vs the eager fit on the card "
+                "(deterministic cuDNN)",
+                [torch.from_numpy(got[k]) for k in names],
+                [torch.from_numpy(want[k]) for k in names], FUSED_FIT_TOL)
+    metric = mt.metric.create("acc")
+    fit_epoch(lenet, le_train, metric)
+    no_sync_epoch(lenet, le_train, metric)
+    print("Module.fit LeNet captured (train_mnist.py --network lenet's call, "
+          "kvstore='local'): %d epochs, %d steps: %s; graphs (kernel nodes, "
+          "other nodes, -, replays): %s; validation accuracy %.4f (limit "
+          "%.2f); max |captured - eager| after the fit, deterministic cuDNN, "
+          "%.3g (tolerance %s); no host wait in a steady-state epoch"
+          % (LENET_EPOCHS, steps, cache, le_nodes,
+             val_acc, LENET_MIN_ACC,
+             max(np.abs(got[k] - want[k]).max() for k in names),
+             FUSED_FIT_TOL))
+    for op_type in HOST_READS:
+        host_read_fallback(mt, x_all[idx], y_all[idx], cs_p0, op_type)
+    rnn_dropout_fit(mt, seed)
+    return launches, {"MLP": (mlp, train), "LeNet": (lenet, le_train)}
+
+
+def host_read_fallback(mt, x, y, params0, op_type):
+    """A custom op whose Python body reads the card cannot be captured: the
+    trainer falls back to the eager step, warning once and counting the
+    fallback, and trains as the eager path does; after a capture that
+    CUDA failed, the card's default generator draws again. An error of
+    the op's own raised inside the capture is raised out of fit."""
+    import warnings
+    import torch
+    gpu = mt.gpu(0)
+    host_read_register(mt, op_type)
+
+    def run(fused):
+        np.random.seed(0)
+        it = mt.io.NDArrayIter(x, y, CS_BATCH)
+        mod = mt.mod.Module(cs_symbol(mt, op_type), context=gpu)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=host_params(mt, params0))
+        with_fused(fused, mod.init_optimizer, optimizer="sgd",
+                   optimizer_params={"learning_rate": CS_LR,
+                                     "momentum": CS_MOMENTUM})
+        trainer = mod._fused
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fit_epoch(mod, it, mt.metric.create("acc"))
         torch.cuda.synchronize()
-        clock = {}
-        t0 = time.perf_counter()
-        steps = fit_epoch(mod, it, metric, clock)
-        torch.cuda.synchronize()
-        ms = step_ms[label] = (time.perf_counter() - t0) / steps * 1e3
-        host = "; ".join("%s %.3f ms (%.0f%%)" % (
-            k, v / steps * 1e3, 100 * v / steps * 1e3 / ms)
-            for k, v in clock.items())
-        busy, top = device_time(lambda: fit_epoch(mod, it, metric), 1,
-                                per=steps)
-        print("Module.fit %s eager step: %.3f ms over %d steps (host clock, "
-              "synchronized); host time a step by phase: %s; %s a step; "
-              "per step: %s | %s"
-              % (label, ms, steps, host, busy_of(busy, ms), top, card))
-    return fit_launches, step_ms
+        return mod, trainer, [str(w.message) for w in caught]
+
+    if HOST_READS[op_type] == "fault":
+        try:
+            run(True)
+        except ValueError as e:
+            print("Module.fit with a custom op failing inside the capture "
+                  "raised it: %s" % e)
+            return
+        fail("%s: an op's own error inside the capture did not raise"
+             % op_type)
+    mod, trainer, said = run(True)
+    eager, _, _ = run(False)
+    disabled = [m for m in said if "fused train step disabled" in m]
+    if trainer is None or mod._fused is not None or len(disabled) != 1 or \
+            op_type not in disabled[0] or \
+            trainer._group.stats["fallbacks"] != 1:
+        fail("the host-reading custom op %s did not fall back once: "
+             "trainer %s, warnings %s"
+             % (op_type, trainer and trainer._group.stats, said))
+    got, want = module_params(mod), module_params(eager)
+    names = sorted(got)
+    check_close("host-reading custom op %s: fallen-back fit vs the eager "
+                "fit" % op_type,
+                [torch.from_numpy(got[k]) for k in names],
+                [torch.from_numpy(want[k]) for k in names], CAPTURE_TOL)
+    draws = [torch.rand(4, device="cuda:0") for _ in range(2)]
+    if torch.equal(*draws):
+        fail("after %s's fallback the card's default generator repeats"
+             % op_type)
+    print("Module.fit with a host-reading custom op (%s, %s) on the card: "
+          "the capture was refused and the trainer fell back once (%s); "
+          "stats %s; %d steps within %.3g of the eager fit; the default "
+          "generator draws afterwards"
+          % (op_type, HOST_READS[op_type], disabled[0],
+             trainer._group.stats, FIT_STEPS,
+             max(np.abs(got[k] - want[k]).max() for k in names)))
+
+
+# A 2-layer LSTM with dropout between the layers, trained by Module.fit on
+# the card: the RNN op draws its masks from the fused step's generator,
+# which each graph registers (the op's shapes are those of
+# example/rnn-time-major/rnn_cell_demo.py's copy task, a second layer
+# added).
+RNN_T, RNN_N, RNN_V, RNN_H, RNN_DROPOUT, RNN_EPOCHS = 12, 32, 20, 32, 0.5, 3
+
+
+def rnn_dropout_symbol(mt):
+    data = mt.sym.var("data")                       # (N, T) tokens
+    emb = mt.sym.Embedding(mt.sym.swapaxes(data, dim1=0, dim2=1),
+                           input_dim=RNN_V, output_dim=RNN_H)
+    params = mt.sym.var("lstm_parameters", init=mt.init.Uniform(0.1))
+    state, cell = [mt.sym.var(name, shape=(2, RNN_N, RNN_H),
+                              init=mt.init.Zero())
+                   for name in ("lstm_state", "lstm_state_cell")]
+    out = mt.sym.RNN(emb, parameters=params, state=state, state_cell=cell,
+                     state_size=RNN_H, num_layers=2, mode="lstm",
+                     p=RNN_DROPOUT, name="lstm")    # (T, N, H)
+    logits = mt.sym.FullyConnected(mt.sym.reshape(out, shape=(-3, 0)),
+                                   num_hidden=RNN_V)
+    label = mt.sym.reshape(mt.sym.swapaxes(mt.sym.var("softmax_label"),
+                                           dim1=0, dim2=1), shape=(-1,))
+    return mt.sym.SoftmaxOutput(logits, label, name="softmax")
+
+
+def rnn_dropout_fit(mt, seed):
+    """Fail unless the LSTM with dropout trains (the example's Adam)
+    through one captured graph with no fallback, and each replay draws new
+    masks: with lr 0, two
+    replays on one batch differ, and a replay from the first one's
+    generator offset gives its outputs again."""
+    import torch
+    rng = np.random.RandomState(seed)
+    seqs = np.floor(rng.rand(RNN_N * 8, RNN_T) * (RNN_V - 1)) + 1
+    labels = np.zeros_like(seqs)
+    labels[:, 2:] = seqs[:, :-2]                    # the copy task, delay 2
+    np.random.seed(seed)
+    mt.random.seed(seed)
+    it = mt.io.NDArrayIter(seqs.astype(np.float32),
+                           labels.astype(np.float32), RNN_N, shuffle=True)
+    mod = mt.mod.Module(rnn_dropout_symbol(mt), context=mt.gpu(0))
+    mod.fit(it, optimizer="adam", optimizer_params={"learning_rate": 0.015},
+            initializer=mt.init.Xavier(), num_epoch=RNN_EPOCHS,
+            eval_metric="acc")
+    torch.cuda.synchronize()
+    steps = RNN_EPOCHS * 8
+    graphs = captured_steps(mod, "LSTM with dropout", steps)
+    params = module_params(mod)
+    if not all(np.isfinite(v).all() for v in params.values()):
+        fail("LSTM with dropout: the captured fit left non-finite weights")
+    mod._optimizer.lr = 0.0
+    gen = mod._fused._group.generator
+    batch = next(iter(it))
+    outs, offsets = [], []
+    for _ in range(3):
+        if len(outs) == 2:
+            gen.set_offset(offsets[0])
+        offsets.append(gen.get_offset())
+        mod.forward_backward(batch)
+        mod.update()
+        outs.append(mod.get_outputs()[0].asnumpy().copy())
+    if graphs[0].replays != steps - FUSED_COMPILES + 3:
+        fail("LSTM with dropout: the lr-0 steps did not replay the graph")
+    if np.array_equal(outs[0], outs[1]) or \
+            not np.array_equal(outs[0], outs[2]):
+        fail("LSTM with dropout: replays do not draw new masks from the "
+             "step's generator (offsets %s)" % offsets)
+    after = module_params(mod)
+    if any(not np.array_equal(after[k], params[k]) for k in params):
+        fail("LSTM with dropout: a step at lr 0 moved the weights")
+    print("Module.fit LSTM with dropout %.1f between 2 layers (T=%d, N=%d, "
+          "H=%d) captured: %d steps, %s; replays draw new masks (offsets "
+          "%s), a replay from the first offset repeats it"
+          % (RNN_DROPOUT, RNN_T, RNN_N, RNN_H, steps,
+             mod._fused._cache.stats(), offsets))
+
+
+def fit_times(mt, eager, captured, card):
+    """ms a step of fit's loop body (host clock, synchronized), eager and
+    captured in turns (eager, captured, captured, eager) on each model,
+    with the host time of each phase, the card's busy share and the
+    launches a step. Returns {label: {"eager": ms, "captured": ms}}."""
+    import torch
+    out = {}
+    for label in ("MLP", "LeNet"):
+        runs = {"eager": eager[label], "captured": captured[label]}
+        metrics = {k: mt.metric.create("acc") for k in runs}
+        for k, (mod, it) in runs.items():
+            fit_epoch(mod, it, metrics[k])
+        ms = {k: [] for k in runs}
+        clock = {k: {} for k in runs}
+        for k in ("eager", "captured", "captured", "eager"):
+            mod, it = runs[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps = fit_epoch(mod, it, metrics[k], clock[k])
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) / steps * 1e3)
+        out[label] = {k: float(np.mean(v)) for k, v in ms.items()}
+        for k, (mod, it) in runs.items():
+            step = out[label][k]
+            host = "; ".join("%s %.3f" % (p, v / (2 * steps) * 1e3)
+                             for p, v in clock[k].items())
+            busy, top = device_time(
+                lambda: fit_epoch(mod, it, metrics[k]), 1, per=steps)
+            print("Module.fit %s %s step: %.3f ms (two epochs of %d steps: "
+                  "%s, host clock, synchronized); host ms a step by phase: "
+                  "%s; %s; per step: %s | %s"
+                  % (label, k, step, steps,
+                     ", ".join("%.3f" % v for v in ms[k]), host,
+                     busy_of(busy, step), top, card))
+        print("Module.fit %s step: eager %.3f ms, captured %.3f ms (%.2fx) "
+              "| %s" % (label, out[label]["eager"], out[label]["captured"],
+                        out[label]["eager"] / out[label]["captured"], card))
+    return out
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2490,11 +2966,17 @@ def main():
           % (len(cs_requests), list(CS_REQUEST_ROWS), cs_engine.device,
              worst, CS_SERVE_TOL, served_launches))
 
-    # 11. Module.fit: the MLP (its head kernels every step) and LeNet
-    fit_launches, fit_step_ms = module_fit_phase(mt, args.seed, card,
-                                                 workdir)
+    # 11. Module.fit with the eager step: the MLP (its head kernels every
+    # step) and LeNet
+    eager_fits = with_fused(False, module_fit_phase, mt, args.seed, workdir)
 
-    # 12. timings at the main paths' shapes
+    # 12. Module.fit captured: one CUDA graph a batch signature (the main
+    # path, which the head kernels' launches are counted on), then its step
+    # beside the eager one
+    fit_launches, captured_fits = fused_fit_phase(mt, args.seed, eager_fits)
+    fit_step_ms = fit_times(mt, eager_fits, captured_fits, card)
+
+    # 13. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -2799,9 +3281,12 @@ def main():
     cs_step_ms = cs_train_s / CS_STEPS * 1e3
     print("slice custom-op train: %.3f ms per step over %d steps (batch %d) "
           "| %s" % (cs_step_ms, CS_STEPS, CS_BATCH, card))
-    print("Module.fit eager step (fit's loop body, host clock): MLP %.3f ms, "
-          "LeNet %.3f ms; the hand-written cs_step loop %.3f ms | %s"
-          % (fit_step_ms["MLP"], fit_step_ms["LeNet"], cs_step_ms, card))
+    print("Module.fit step (fit's loop body, host clock), eager / captured: "
+          "MLP %.3f / %.3f ms, LeNet %.3f / %.3f ms; the hand-written cs_step "
+          "loop %.3f ms | %s"
+          % (fit_step_ms["MLP"]["eager"], fit_step_ms["MLP"]["captured"],
+             fit_step_ms["LeNet"]["eager"], fit_step_ms["LeNet"]["captured"],
+             cs_step_ms, card))
     few = cs_b[:8]
     busy, top = device_time(lambda: cs_train(mt, cs_p0, xs, ys, few), 1,
                             per=len(few))
@@ -2821,7 +3306,7 @@ def main():
                                       dt / reps * 1e3, card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 13.-14. the result lines
+    # 14.-15. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

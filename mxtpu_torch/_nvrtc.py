@@ -24,14 +24,17 @@ from pathlib import Path
 from .base import MXTPUError
 
 __all__ = ["compile_cubin", "load_module", "get_function", "launch",
-           "set_max_dynamic_shared", "current_context", "toolkit_include_dirs"]
+           "set_max_dynamic_shared", "current_context", "toolkit_include_dirs",
+           "graph_kernel_functions"]
 
 _P = ctypes.c_void_p
 _lock = threading.Lock()
 _libs = {}
 
-# CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES (cuda.h)
+# CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES, CU_GRAPH_NODE_TYPE_KERNEL
+# (cuda.h)
 _MAX_DYNAMIC_SHARED = 8
+_KERNEL_NODE = 0
 
 
 def _toolkit_roots():
@@ -116,6 +119,9 @@ def _cuda():
         _bind(lib, "cuLaunchKernel", (_P,) + (ctypes.c_uint,) * 7
               + (_P, _P, _P))
         _bind(lib, "cuCtxGetCurrent", (_P,))
+        _bind(lib, "cuGraphGetNodes", (_P, _P, _P))
+        _bind(lib, "cuGraphNodeGetType", (_P, _P))
+        _bind(lib, "cuGraphKernelNodeGetParams_v2", (_P, _P))
         _bind(lib, "cuGetErrorString", (ctypes.c_int, _P))
         _libs["cuda"] = lib
         return lib
@@ -227,3 +233,31 @@ def launch(function, grid, block, shared_mem, stream, params):
     _check_cu(_cuda().cuLaunchKernel(
         function, grid[0], grid[1], grid[2], block[0], block[1], block[2],
         shared_mem, stream, arr if params else None, None), "cuLaunchKernel")
+
+
+def graph_kernel_functions(graph):
+    """The ``CUfunction`` of each kernel node of CUDA graph ``graph`` (a
+    ``CUgraph`` handle, as ``torch.cuda.CUDAGraph.raw_cuda_graph()``
+    gives it), in node order, and the count of its other nodes (copies,
+    memsets, events)."""
+    count = ctypes.c_size_t()
+    _check_cu(_cuda().cuGraphGetNodes(graph, None, ctypes.byref(count)),
+              "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    _check_cu(_cuda().cuGraphGetNodes(graph, nodes, ctypes.byref(count)),
+              "cuGraphGetNodes")
+    functions, others = [], 0
+    # CUDA_KERNEL_NODE_PARAMS_v2 starts with the CUfunction; 128 bytes
+    # hold the whole struct
+    params = ctypes.create_string_buffer(128)
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int()
+        _check_cu(_cuda().cuGraphNodeGetType(node, ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+        if kind.value != _KERNEL_NODE:
+            others += 1
+            continue
+        _check_cu(_cuda().cuGraphKernelNodeGetParams_v2(node, params),
+                  "cuGraphKernelNodeGetParams")
+        functions.append(ctypes.c_void_p.from_buffer(params).value)
+    return functions, others

@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "MXTPUError", "canonical_dtype", "dtype_name",
-           "numpy_dtype"]
+__all__ = ["MXNetError", "MXTPUError", "CaptureRefused", "canonical_dtype",
+           "dtype_name", "is_capture_refusal", "numpy_dtype"]
 
 
 class MXTPUError(RuntimeError):
@@ -20,6 +20,34 @@ class MXTPUError(RuntimeError):
 
 
 MXNetError = MXTPUError
+
+
+class CaptureRefused(MXTPUError):
+    """A custom op's Python body did what a CUDA graph cannot hold (a
+    read of the card from the host, say) while a train step was being
+    captured. ``op`` names the op; the message gives torch's reason."""
+
+    def __init__(self, op, reason):
+        super().__init__("custom op %r cannot be captured in a CUDA graph: "
+                         "%s" % (op, reason))
+        self.op = op
+        self.reason = reason
+
+
+# How torch and CUDA word a refusal to record a host read into a CUDA
+# graph: torch refuses a copy to unpinned host memory before it reaches
+# CUDA; CUDA refuses a stream or device wait (``item()``, ``synchronize``)
+# and then fails the rest of the capture.
+_CAPTURE_REFUSALS = ("during CUDA graph capture",
+                     "cudaErrorStreamCaptureUnsupported",
+                     "cudaErrorStreamCaptureInvalidated")
+
+
+def is_capture_refusal(exc):
+    """True when ``exc`` is torch's or CUDA's refusal of a host read (a
+    copy to the host, a wait for the card) while a CUDA graph is being
+    captured; any other error is a fault of its own."""
+    return any(s in str(exc) for s in _CAPTURE_REFUSALS)
 
 _NAME_TO_DTYPE = {
     "float32": torch.float32,

@@ -13,7 +13,9 @@ head (``mxtpu``'s ``_ones_cot``).
 
 The argument, gradient and aux arrays keep their tensors for the
 executor's life: values are copied into them (``forward(**kwargs)``,
-``copy_params_from``) and optimizers update them in place.
+``copy_params_from``) and optimizers update them in place. That is what
+lets :meth:`Executor.make_fused_train_step`'s one function over those
+tensors be captured once in a CUDA graph and replayed on every batch.
 """
 from __future__ import annotations
 
@@ -73,6 +75,7 @@ class Executor:
         self._outputs = None
         self._out_shapes = None
         self._tape = None           # (outputs, leaves) of a training forward
+        self._monitor_callback = None
         # stateful ops (Dropout) draw from the executor's own generator,
         # seeded from numpy's global RNG: one draw an executor, as mxtpu
         # draws its PRNG key, so both packages consume numpy's stream alike
@@ -163,6 +166,9 @@ class Executor:
                 if n in self.aux_dict:
                     _copy_into(self.aux_dict[n], v)
         self._outputs = [NDArray(o.detach(), self._ctx) for o in outs]
+        if self._monitor_callback is not None:
+            for name, arr in zip(self._symbol.list_outputs(), self._outputs):
+                self._monitor_callback(name, arr)
         return self._outputs
 
     def backward(self, out_grads=None, is_train=True):
@@ -204,6 +210,83 @@ class Executor:
                     tgt.zero_()
                 else:
                     tgt.copy_(g)
+
+    def make_fused_train_step(self, train_names, optimizer, opt_slots,
+                              metric_fn=None):
+        """The whole train step as one function over the bound tensors
+        (``mxtpu``'s ``make_fused_train_step``, its local form): forward,
+        backward with ones as the head cotangents (the loss-head
+        pattern), every trained parameter's update by
+        :func:`~mxtpu_torch.optimizer.functional_optimizer_step` (slot
+        ``opt_slots[i]`` for ``train_names[i]``) and, with ``metric_fn``,
+        the metric's (sum, count) added to an accumulator.
+
+        Returns ``(fn, other_names)``: ``other_names`` are the arguments
+        that are not trained (data, labels, fixed parameters) in
+        ``list_arguments()`` order, and ``fn(train_vals, state_trees,
+        aux_vals, other_vals, generator, t, lr, metric_acc)`` takes
+        tensors: the weights, their optimizer states, the aux states, the
+        other arguments, the generator stateful ops draw from, the step
+        count (int32, 0-dim), the learning rate (float32, 0-dim) and a
+        float32 (sum, count) pair. It writes in place the weights, the
+        states, the aux states, ``t`` (+1) and ``metric_acc``, and returns
+        the outputs. Gradients stay inside it (``torch.autograd.grad``),
+        and every tensor it writes keeps its storage, so one call can be
+        captured in a CUDA graph and replayed on new values copied into
+        the same tensors."""
+        from .optimizer import functional_optimizer_step
+        outputs_ref = self._symbol._outputs
+        aux_names = tuple(self._aux_names)
+        train_names = tuple(train_names)
+        other_names = tuple(n for n in self._arg_names
+                            if n not in set(train_names))
+        opt_slots = tuple(opt_slots)
+        device = self._ctx.torch_device()
+
+        def fused(train_vals, state_trees, aux_vals, other_vals, generator,
+                  t, lr, metric_acc):
+            feed = dict(zip(other_names, other_vals))
+            feed.update(zip(aux_names, aux_vals))
+            leaves = [w.detach().requires_grad_() if w.is_floating_point()
+                      else w for w in train_vals]
+            feed.update(zip(train_names, leaves))
+            with torch.enable_grad(), rng_scope(generator):
+                outs, aux_updates = eval_graph(outputs_ref, feed, True,
+                                               device=device)
+            heads = [o for o in outs
+                     if o.requires_grad and o.is_floating_point()]
+            wrt = [i for i, w in enumerate(leaves) if w.requires_grad]
+            grads = [None] * len(leaves)
+            if heads and wrt:
+                found = torch.autograd.grad(
+                    heads, [leaves[i] for i in wrt],
+                    [torch.ones_like(o) for o in heads], allow_unused=True)
+                for i, g in zip(wrt, found):
+                    grads[i] = g
+            with torch.no_grad():
+                for n, a in zip(aux_names, aux_vals):
+                    if n in aux_updates:
+                        a.copy_(aux_updates[n])
+                t.add_(1)
+                for slot, w, g, st in zip(opt_slots, train_vals, grads,
+                                          state_trees):
+                    functional_optimizer_step(
+                        optimizer, slot, w,
+                        torch.zeros_like(w) if g is None else g, st, t, lr)
+                outs = [o.detach() for o in outs]
+                if metric_fn is not None:
+                    m_sum, m_cnt = metric_fn(dict(zip(other_names,
+                                                      other_vals)), outs)
+                    metric_acc[0].add_(m_sum)
+                    metric_acc[1].add_(float(m_cnt))
+            return outs
+
+        return fused, other_names
+
+    def set_monitor_callback(self, callback):
+        """Call ``callback(name, NDArray)`` on each output after every
+        forward (``Monitor.install``)."""
+        self._monitor_callback = callback
 
     @property
     def outputs(self):

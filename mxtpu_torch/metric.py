@@ -1,16 +1,19 @@
 """Evaluation metrics of the PyTorch port.
 
 Counterpart of ``mxtpu/metric.py``'s ``EvalMetric`` (``update``,
-``get``, ``get_name_value``, ``reset``, and the ``device_batch`` /
-``update_async`` pair), ``CompositeEvalMetric``, ``Accuracy``,
-``CrossEntropy`` and ``create``.
+``get``, ``get_name_value``, ``reset``, and the device-side
+accumulation: ``device_batch``, ``supports_device_update``,
+``update_async`` / ``detach_async`` / ``_drain_async``),
+``CompositeEvalMetric``, ``Accuracy``, ``CrossEntropy`` and ``create``.
 
 ``Accuracy`` and ``CrossEntropy`` accumulate on the predictions' device:
 ``update`` adds the batch's sum to a tensor there (labels are moved to
 that device first) and counts its rows on the host, and only ``get``
 reads the sum back. So a training step makes no host sync for its
 metric; a reader such as ``Speedometer`` pays one when it asks. Sums
-accumulate in float32, as in ``mxtpu``.
+accumulate in float32, as in ``mxtpu``. Under the fused ``Module`` train
+step the step itself adds each batch's ``device_batch`` to a (sum, count)
+tensor that the trainer owns (``update_async``); ``get`` reads it.
 """
 from __future__ import annotations
 
@@ -57,10 +60,12 @@ def _listed(x):
 class EvalMetric:
     """Base metric: a running (sum, count) whose ratio ``get`` returns."""
 
-    def __init__(self, name, output_names=None, label_names=None):
+    def __init__(self, name, output_names=None, label_names=None,
+                 **kwargs):
         self.name = str(name)
         self.output_names = output_names
         self.label_names = label_names
+        self._kwargs = kwargs
         self.reset()
 
     def __str__(self):
@@ -81,9 +86,16 @@ class EvalMetric:
         None where the metric has no device rule."""
         return None
 
+    def supports_device_update(self):
+        """True when the metric has a :meth:`device_batch` and pairs all
+        outputs with all labels (the fused step hands it the outputs as
+        they are)."""
+        return (type(self).device_batch is not EvalMetric.device_batch
+                and self.output_names is None and self.label_names is None)
+
     def update_async(self, read_fn, reset_fn=None):
         """Route accumulation through a (sum, count) accumulator that the
-        caller owns (a captured train step): ``read_fn()`` returns the
+        caller owns (the fused train step): ``read_fn()`` returns the
         pair accumulated since its last call, and zeroes it; it is called
         at :meth:`get`. ``reset_fn()`` discards the accumulation."""
         self._async_reader = read_fn
@@ -92,7 +104,7 @@ class EvalMetric:
     def detach_async(self):
         self._async_reader = self._async_resetter = None
 
-    def _drain(self):
+    def _drain_async(self):
         if self._pending is not None:
             self.sum_metric += float(self._pending)
             self._pending = None
@@ -119,7 +131,7 @@ class EvalMetric:
         self.num_inst += count
 
     def get(self):
-        self._drain()
+        self._drain_async()
         value = self.sum_metric / self.num_inst if self.num_inst \
             else float("nan")
         return (self.name, value)
@@ -203,7 +215,7 @@ class Accuracy(EvalMetric):
 
     def __init__(self, axis=1, name="accuracy", output_names=None,
                  label_names=None):
-        super().__init__(name, output_names=output_names,
+        super().__init__(name, axis=axis, output_names=output_names,
                          label_names=label_names)
         self.axis = axis
 
@@ -228,7 +240,7 @@ class CrossEntropy(EvalMetric):
 
     def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
                  label_names=None):
-        super().__init__(name, output_names=output_names,
+        super().__init__(name, eps=eps, output_names=output_names,
                          label_names=label_names)
         self.eps = eps
 

@@ -4,10 +4,13 @@ Counterpart of ``mxtpu/model.py``: ``BatchEndParam``, the same
 ``prefix-symbol.json`` + ``prefix-%04d.params`` pair (a checkpoint
 written by either package loads in the other), and the helpers that
 ``Module`` updates through: ``_create_kvstore``, ``_initialize_kvstore``,
-``_update_params_on_kvstore`` and ``_update_params``.
+``_update_params_on_kvstore`` and ``_update_params``, and the
+``MXTPU_MODULE_FUSED`` gate of the fused train step
+(``_module_fused_enabled``).
 """
 from __future__ import annotations
 
+import os
 from collections import namedtuple
 
 import numpy as np
@@ -20,6 +23,14 @@ __all__ = ["BatchEndParam", "save_checkpoint", "load_params",
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _module_fused_enabled():
+    """MXTPU_MODULE_FUSED gate for the fused Module train step
+    (``module/fused.py``): default on; ``0`` keeps the eager
+    forward/backward/per-parameter update loop everywhere."""
+    return os.environ.get("MXTPU_MODULE_FUSED", "1").strip().lower() \
+        not in ("0", "false", "off")
 
 
 def _create_kvstore(kvstore, num_device, arg_params):

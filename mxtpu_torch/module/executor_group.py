@@ -249,6 +249,10 @@ class DataParallelExecutorGroup:
                                         self.data_layouts)
         return self.input_grad_arrays
 
+    def install_monitor(self, mon):
+        for exe in self.execs:
+            mon.install(exe)
+
     def update_metric(self, eval_metric, labels):
         """Feed each executor's outputs and its slice of the labels to the
         metric."""

@@ -7,8 +7,17 @@ the optimizer runs at the kvstore when one updates there, else in the
 module's Updater), ``forward`` / ``backward`` / ``update`` /
 ``update_metric``, ``get_params`` / ``set_params``, ``reshape`` and the
 checkpoint pair ``save_checkpoint`` / ``load``. The context defaults to
-the current one, ``gpu(0)``. ``mxtpu``'s fused train step is not here:
-each step is a forward, a backward and one update a parameter.
+the current one, ``gpu(0)``.
+
+Fused train step (``MXTPU_MODULE_FUSED``, default on, as in ``mxtpu``):
+on one context with the optimizer in the module's Updater,
+``forward_backward`` runs forward, backward, the whole update and the
+metric's device (sum, count) as one step (``module/fused.py``), on the
+card as one CUDA graph replayed a batch; ``update()`` acknowledges it
+and ``update_metric`` adds nothing on the host. ``get_outputs()`` then
+returns the step's outputs, which the next step overwrites. Everything
+else, and ``MXTPU_MODULE_FUSED=0``, takes the eager step: a forward, a
+backward and one update a parameter.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from ..io import stage_batch
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
                      _update_params_on_kvstore, load_checkpoint)
 from ..ndarray import NDArray
+from . import fused as fused_mod
 from .base_module import BaseModule, _check_input_names, _parse_data_desc
 from .executor_group import DataParallelExecutorGroup
 
@@ -88,6 +98,9 @@ class Module(BaseModule):
         self._update_on_kvstore = self._preload_opt_states = None
         self._grad_req = None
         self._exec_group = self._data_shapes = self._label_shapes = None
+        # fused train step (module/fused.py), made by init_optimizer
+        self._fused = None
+        self._fused_update_pending = False
 
     def _require(self, params=False, optimizer=False):
         if not self.binded:
@@ -125,6 +138,8 @@ class Module(BaseModule):
     def _reset_bind(self):
         self.binded = False
         self._exec_group = self._data_shapes = self._label_shapes = None
+        self._fused = None
+        self._fused_update_pending = False
 
     # -- properties --------------------------------------------------------
     @property
@@ -339,11 +354,24 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+        self._fused = fused_mod.maybe_create(self)
 
     # -- computation -------------------------------------------------------
+    def forward_backward(self, data_batch):
+        """One train step: on the fused path one step covering forward,
+        backward, the update and the metric, which ``update()`` then
+        acknowledges; else a forward and a backward."""
+        if self._fused is not None and self._fused.step(data_batch):
+            self._fused_update_pending = True
+            return
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
     def forward(self, data_batch, is_train=None):
         """Forward of a batch; a batch of other shapes rebinds first."""
         self._require(params=True)
+        if self._fused is not None:
+            self._fused.note_eager_forward()
         curr_data_shapes = tuple(i.shape for i in self._data_shapes)
         new_data_shapes = tuple(i.shape for i in data_batch.data)
         if curr_data_shapes != new_data_shapes:
@@ -376,6 +404,10 @@ class Module(BaseModule):
         """Apply the optimizer to the last backward's gradients."""
         self._require(params=True, optimizer=True)
         self._params_dirty = True
+        if self._fused_update_pending:
+            # the fused step applied this update already
+            self._fused_update_pending = False
+            return
         group = self._exec_group
         if self._update_on_kvstore:
             _update_params_on_kvstore(group.param_arrays, group.grad_arrays,
@@ -397,6 +429,8 @@ class Module(BaseModule):
             merge_multi_context=merge_multi_context)
 
     def update_metric(self, eval_metric, labels):
+        if self._fused is not None and self._fused.note_metric(eval_metric):
+            return  # the fused step added the batch on the device
         self._exec_group.update_metric(eval_metric, labels)
 
     def _sync_params_from_devices(self):
@@ -425,6 +459,12 @@ class Module(BaseModule):
             return
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
+
+    def install_monitor(self, mon):
+        """Attach a monitor (its ``install(executor)``) to the executors;
+        the fused step gives way to the eager one."""
+        self._require()
+        self._exec_group.install_monitor(mon)
 
     def prepare(self, data_batch, sparse_row_id_fn=None):
         """Queue the batch's copy to the (one) context ahead of its step."""

@@ -17,6 +17,13 @@ where the inputs lie: ``create_operator`` receives their
 NDArrays on that device, and run inside ``with ctx:`` (so ``nd.array``
 and friends default to it) with recording paused. That is what lets a
 custom op launch ``mx.rtc`` kernels on the card.
+
+A custom op may run inside a CUDA graph being captured (the fused
+``Module`` train step). If torch or CUDA refuses its body there because
+it reads the card from the host, the error is raised as
+:class:`~mxtpu_torch.base.CaptureRefused` naming the op, so that the
+caller can tell it from a fault of the step itself; every other error
+is raised as it is.
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ import numpy as _np
 import torch
 
 from . import autograd as _ag
-from .base import MXNetError, canonical_dtype
+from .base import (CaptureRefused, MXNetError, canonical_dtype,
+                   is_capture_refusal)
 from .context import Context, cpu
 from .ndarray import NDArray
 from .ops.registry import register as _register_op
@@ -130,6 +138,7 @@ class _Spec:
 
     def __init__(self, op_type, kwargs, in_shapes, in_dtypes, device):
         prop = get_prop(op_type, kwargs)
+        self.op_type = op_type
         if prop.list_auxiliary_states():
             raise NotImplementedError(
                 "custom ops with auxiliary states are not supported")
@@ -163,13 +172,24 @@ class _Spec:
         return [NDArray(torch.zeros(s, dtype=d, device=self.device), self.ctx)
                 for s, d in zip(shapes, dtypes)]
 
+    def _run_body(self, body, *args):
+        """Call the user's ``forward`` or ``backward``; a host read that
+        the stream's capture refused raises :class:`CaptureRefused`."""
+        try:
+            body(*args)
+        except Exception as e:
+            if self.device.type == "cuda" and is_capture_refusal(e) and \
+                    torch.cuda.is_current_stream_capturing():
+                raise CaptureRefused(self.op_type, str(e)) from e
+            raise
+
     def forward(self, is_train, inputs):
         op = self.operator()
         in_data = self._arrays(inputs)
         out_data = self._zeros(self.out_shapes, self.out_dtypes)
         with Context(self.ctx), _ag.pause(train_mode=is_train):
-            op.forward(is_train, ["write"] * self.n_out, in_data, out_data,
-                       [])
+            self._run_body(op.forward, is_train, ["write"] * self.n_out,
+                           in_data, out_data, [])
         return [self._result(o, s, d, "output") for o, s, d in
                 zip(out_data, self.out_shapes, self.out_dtypes)]
 
@@ -178,9 +198,9 @@ class _Spec:
         n_in = len(inputs)
         in_grad = self._zeros(self.in_shapes, self.in_dtypes)
         with Context(self.ctx), _ag.pause(train_mode=True):
-            op.backward(["write"] * n_in, self._arrays(out_grads),
-                        self._arrays(inputs), self._arrays(outputs),
-                        in_grad, [])
+            self._run_body(op.backward, ["write"] * n_in,
+                           self._arrays(out_grads), self._arrays(inputs),
+                           self._arrays(outputs), in_grad, [])
         return [self._result(g, s, d, "input gradient") for g, s, d in
                 zip(in_grad, self.in_shapes, self.in_dtypes)]
 

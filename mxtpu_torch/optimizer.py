@@ -11,6 +11,13 @@ An update runs in place on the weight's and the state's tensors under
 ``torch.no_grad()``, in ``mxtpu``'s order of operations (rescale, clip,
 add ``wd * weight``, then the rule), so the tensors bound to an executor
 stay the same from step to step.
+
+:func:`functional_optimizer_step` runs the same ``update`` with the step
+count ``t`` and the learning rate read from 0-dim tensors on the
+weight's device (``mxtpu``'s traced scalars), so that a step captured in
+a CUDA graph sees the schedule and Adam's bias correction move between
+replays; ``state_to_tree`` / ``tree_to_state`` convert a state slot
+between NDArrays and tensors.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ from .context import cpu
 from .ndarray import NDArray
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "register",
-           "get_updater"]
+           "get_updater", "functional_optimizer_step", "state_to_tree",
+           "tree_to_state"]
 
 
 class Optimizer:
@@ -52,6 +60,8 @@ class Optimizer:
         self.idx2name = dict(param_idx2name or {})
         self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
             if sym is not None else ()
+        # (t, lr) as device tensors while functional_optimizer_step runs
+        self._step_scalars = None
         self.set_lr_mult({})
         self.set_wd_mult({})
 
@@ -144,9 +154,21 @@ class Optimizer:
         return self._scaled(index, self.wd, self.wd_mult)
 
     def _begin_update(self, index):
-        """Count the update; the slot's (lr, wd)."""
+        """Count the update; the slot's (lr, wd). Inside
+        :func:`functional_optimizer_step` nothing is counted on the host
+        and lr is the given tensor times the slot's multiplier."""
+        if self._step_scalars is not None:
+            lr = self._scaled(index, self._step_scalars[1], self.lr_mult)
+            return lr, self._get_wd(index)
         self._update_count(index)
         return self._get_lr(index), self._get_wd(index)
+
+    def _step_count(self, index):
+        """The slot's update count: the given tensor inside
+        :func:`functional_optimizer_step`."""
+        if self._step_scalars is not None:
+            return self._step_scalars[0]
+        return self._index_update_count[index]
 
     def _rescale_clip(self, grad, weight, wd):
         """rescale_grad * grad, clipped to +-clip_gradient, plus wd *
@@ -205,12 +227,19 @@ class Adam(Optimizer):
 
     def update(self, index, weight, grad, state):
         lr, wd = self._begin_update(index)
-        t = self._index_update_count[index]
-        coef1 = 1.0 - self.beta1 ** t
-        coef2 = 1.0 - self.beta2 ** t
-        # in float32, as mxtpu computes it (jnp on Python floats)
-        f32 = _np.float32
-        lr = float(f32(f32(lr) * _np.sqrt(f32(coef2))) / f32(coef1))
+        t = self._step_count(index)
+        if isinstance(t, torch.Tensor):
+            # on the device, in float32, as mxtpu's traced step computes it
+            tf = t.to(torch.float32)
+            coef1 = 1.0 - torch.pow(self.beta1, tf)
+            coef2 = 1.0 - torch.pow(self.beta2, tf)
+            lr = lr * torch.sqrt(coef2) / coef1
+        else:
+            coef1 = 1.0 - self.beta1 ** t
+            coef2 = 1.0 - self.beta2 ** t
+            # in float32, as mxtpu computes it (jnp on Python floats)
+            f32 = _np.float32
+            lr = float(f32(f32(lr) * _np.sqrt(f32(coef2))) / f32(coef1))
         with torch.no_grad():
             w = weight.data
             mean, var = state[0].data, state[1].data
@@ -218,6 +247,45 @@ class Adam(Optimizer):
             mean.mul_(self.beta1).add_((1.0 - self.beta1) * g)
             var.mul_(self.beta2).add_((1.0 - self.beta2) * g.square())
             w.sub_(lr * mean / (var.sqrt() + self.epsilon))
+
+
+def state_to_tree(state):
+    """A state slot (None, an NDArray, or tuples of them) as tensors."""
+    if state is None:
+        return None
+    if isinstance(state, NDArray):
+        return state.data
+    if isinstance(state, (tuple, list)):
+        return tuple(state_to_tree(s) for s in state)
+    return state
+
+
+def tree_to_state(tree):
+    """Tensors back as a state slot of NDArrays sharing them."""
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_to_state(t) for t in tree)
+    return NDArray(tree)
+
+
+def functional_optimizer_step(optimizer, index, weight, grad, state_tree, t,
+                              lr):
+    """One ``optimizer.update`` of slot ``index`` on tensors, in place:
+    ``weight`` and the state's tensors take their new values. The step
+    count ``t`` (int32) and ``lr`` (float32) are 0-dim tensors on the
+    weight's device, already advanced for this step; the slot's lr
+    multiplier scales ``lr`` there. Nothing is counted on the host: the
+    caller keeps ``num_update`` and the slots' counts. Returns ``(weight,
+    state_tree)``."""
+    saved = optimizer._step_scalars
+    optimizer._step_scalars = (t, lr)
+    try:
+        optimizer.update(index, NDArray(weight), NDArray(grad),
+                         tree_to_state(state_tree))
+    finally:
+        optimizer._step_scalars = saved
+    return weight, state_tree
 
 
 def _to_numpy(s):

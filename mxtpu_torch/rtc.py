@@ -222,7 +222,9 @@ def _dims(dims, what):
 
 class CudaKernel:
     """A launchable kernel (reference ``mx.rtc.CudaKernel``).
-    ``launches`` counts its launches."""
+    ``launches`` counts the launches that ran: a launch recorded into a
+    CUDA graph being captured runs at each replay instead (count the
+    graph's nodes of :meth:`function`)."""
 
     def __init__(self, module, name, params):
         self._module = module
@@ -230,6 +232,12 @@ class CudaKernel:
         self._params = params
         self._smem_allowed = {}    # device index -> dynamic bytes allowed
         self.launches = 0
+
+    def function(self, ctx):
+        """The kernel's ``CUfunction`` handle on ``ctx``'s card (loading
+        the module there first)."""
+        return self._module._function(self._name,
+                                      Context(ctx).torch_device().index)
 
     def launch(self, args, ctx, grid_dims=(1, 1, 1), block_dims=(1, 1, 1),
                shared_mem=0):
@@ -281,7 +289,8 @@ class CudaKernel:
                 _nvrtc.launch(fn, grid, block, shared_mem, stream, packed)
         else:
             _nvrtc.launch(fn, grid, block, shared_mem, stream, packed)
-        self.launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            self.launches += 1
         with torch.no_grad():
             for t, c in copies:
                 t.copy_(c)
