@@ -113,7 +113,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    capture and the trainer falls back to the eager step once. Then each
    model's step, eager and captured in turns (ms, host time by phase, the
    card's busy share, kernels and host launch calls a step);
-13. timings: each kernel, its plain version and the PyTorch library call
+13. the bucketed LSTM LM of example/rnn/lstm_bucketing.py (BASELINE.json
+   config 4) through mx.mod.BucketingModule(...).fit(...) on gpu(0), as
+   lstm_bucketing_fit mirrors the example: lstm_scan and gru_scan against
+   their plain versions at each bucket's length (T = 8, 16, 24, 32, N=32,
+   H=200); the example's own run (synthetic_corpus(), vocabulary 64, embed
+   and hidden 200, 2 layers, batch 32, buckets 8/16/24/32, Adam 0.01,
+   Xavier, Perplexity(ignore_label=0), 5 epochs) with FusedRNNCell, then
+   with LSTMCells, each captured: one compile and one graph a bucket, a
+   replay at every later step, every bucket's executors on the fused
+   group's parameter tensors, lstm_scan one node a layer in each
+   FusedRNNCell graph (launches counted as the warm-up steps' own plus
+   nodes x replays, from 0 just before the fit), the last epoch's
+   perplexity below BL_PPL_DROP of the first's; FIT_STEPS steps of the
+   FusedRNNCell model in bucket 32 captured against the same fused step uncaptured on the card
+   (CAPTURE_TOL), the CPU's fused Module (FIT_TOL) and, with SGD, the
+   card's eager step (CAPTURE_TOL): with SGD every weight, with Adam all
+   but BL_ADAM_APART's few; each bucket's graph replayed out of capture
+   order against the eager forward on the weights it starts from; the
+   timed run at PTB's vocabulary (10,000; 2,000
+   synthetic sentences), eager and captured in turns: ms a step by bucket,
+   tokens/s, the card's busy share, graph nodes and pool bytes a bucket,
+   no capture after warm-up, and where bucket 32's captured step spends
+   its card time, from a trace of the trainer's own graph (forward with
+   B4's launches, the head, the recompute backward, the rest of the
+   backward, the update; each kernel node's part marked at its capture);
+   then the GRU variant (gru_scan in every graph), 1
+   epoch, below BL_GRU_PPL_SHARE of the vocabulary in perplexity;
+14. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -130,9 +157,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-14. one JSON line naming every kernel with its launches (the head
-   kernels': in the MLP's captured Module.fit) and error;
-15. the last line: {"ok": true, "device": {...}}.
+15. one JSON line naming every kernel with its launches (the head
+   kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
+   in the bucketed LM's captured fits) and error;
+16. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -140,8 +168,10 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import random
 import re
 import subprocess
 import sys
@@ -2039,11 +2069,12 @@ def module_params(mod):
     return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
 
 
-def fit_epoch(mod, data_iter, metric, clock=None):
+def fit_epoch(mod, data_iter, metric, clock=None, per_bucket=None):
     """One epoch of Module.fit's loop body (forward_backward, update, the
     next batch drawn and staged, update_metric) on a bound, initialized
     module; returns the steps run. ``clock`` ({phase: seconds}) gathers
-    the host time of each phase."""
+    the host time of each phase; ``per_bucket`` ({bucket key: [ms]}) the
+    host time of each step, forward_backward to update_metric."""
     def timed(phase, fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
@@ -2055,12 +2086,16 @@ def fit_epoch(mod, data_iter, metric, clock=None):
     batch = timed("next batch", next, feed, None)
     steps = 0
     while batch is not None:
+        t0 = time.perf_counter()
         timed("forward_backward", mod.forward_backward, batch)
         timed("update", mod.update)
         upcoming = timed("next batch", next, feed, None)
         if upcoming is not None:
             timed("prepare", mod.prepare, upcoming)
         timed("update_metric", mod.update_metric, metric, batch.label)
+        if per_bucket is not None:
+            per_bucket.setdefault(batch.bucket_key, []).append(
+                (time.perf_counter() - t0) * 1e3)
         batch = upcoming
         steps += 1
     return steps
@@ -2571,6 +2606,706 @@ def rnn_dropout_fit(mt, seed):
              mod._fused._cache.stats(), offsets))
 
 
+# ---------------------------------------------------------------------------
+# the bucketed LSTM LM of example/rnn/lstm_bucketing.py (BASELINE.json config
+# 4) trained through BucketingModule.fit: one Module a bucket over one set of
+# parameter tensors; on the card, one CUDA graph a bucket, lstm_scan inside
+# each in the fused-cell model
+# ---------------------------------------------------------------------------
+
+# the example's published widths and recipe
+BL_EMBED, BL_HIDDEN, BL_LAYERS, BL_BATCH = 200, 200, 2, 32
+BL_BUCKETS, BL_LR, BL_EPOCHS = (8, 16, 24, 32), 0.01, 5
+# PTB's vocabulary (as the serving slice) for the timed run, over the
+# example's synthetic sentences
+BL_PTB_SENTENCES = 2000
+BL_GRU_EPOCHS = 1
+# the example's fit must end below this share of its first epoch's
+# perplexity (tests/test_rnn.py holds mxtpu's LM to it)
+BL_PPL_DROP = 0.9
+
+
+def synthetic_corpus(n=500, vocab=64, seed=0):
+    """example/rnn/lstm_bucketing.py's synthetic corpus (a copy: the
+    example imports mxtpu): n sentences of 8, 16, 24 or 32 tokens, each
+    counting up from a random start, ids in [1, vocab)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ln = int(rng.choice([8, 16, 24, 32]))
+        start = rng.randint(1, vocab)
+        out.append([(start + i) % (vocab - 1) + 1 for i in range(ln)])
+    return out, vocab
+
+
+def bucket_sentences(sentences, buckets, bucket, n):
+    """The first ``n`` sentences that fall in ``bucket``."""
+    low = max([b for b in buckets if b < bucket], default=0)
+    return [s for s in sentences if low < len(s) <= bucket][:n]
+
+
+def lstm_bucketing_fit(pkg, sentences, num_vocab, fused, mode="lstm",
+                       num_epoch=BL_EPOCHS, num_hidden=BL_HIDDEN,
+                       num_embed=BL_EMBED, num_layers=BL_LAYERS,
+                       batch_size=BL_BATCH, buckets=BL_BUCKETS, lr=BL_LR,
+                       arg_params=None, seed=0, optimizer="adam"):
+    """example/rnn/lstm_bucketing.py's main in either package (``pkg`` for
+    ``mx``), line for line: BucketSentenceIter, sym_gen (FusedRNNCell of
+    ``mode`` when ``fused``, else a SequentialRNNCell of LSTMCells), a
+    BucketingModule on the current context, and its fit call (Adam at
+    ``lr``, Xavier, Perplexity(ignore_label=0), Speedometer); optionally
+    from given weights ({name: numpy}) or with another ``optimizer``. Python's and numpy's generators
+    are seeded first, so both packages draw one batch order. Returns
+    (module, iterator, the perplexity fit reports after each epoch)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    pkg.random.seed(seed)
+    train = pkg.rnn.BucketSentenceIter(sentences, batch_size,
+                                       buckets=list(buckets),
+                                       invalid_label=0)
+
+    def sym_gen(seq_len):
+        data = pkg.sym.var("data")
+        label = pkg.sym.var("softmax_label")
+        embed = pkg.sym.Embedding(data, input_dim=num_vocab,
+                                  output_dim=num_embed, name="embed")
+        if fused:
+            cell = pkg.rnn.FusedRNNCell(num_hidden, num_layers=num_layers,
+                                        mode=mode, prefix="lstm_")
+            stack = cell
+        else:
+            stack = pkg.rnn.SequentialRNNCell()
+            for i in range(num_layers):
+                stack.add(pkg.rnn.LSTMCell(num_hidden,
+                                           prefix="lstm_l%d_" % i))
+        outputs, _ = stack.unroll(seq_len, inputs=embed, layout="NTC",
+                                  merge_outputs=True)
+        pred = pkg.sym.Reshape(outputs, shape=(-1, num_hidden))
+        pred = pkg.sym.FullyConnected(pred, num_hidden=num_vocab,
+                                      name="pred")
+        label_r = pkg.sym.Reshape(label, shape=(-1,))
+        return (pkg.sym.SoftmaxOutput(pred, label_r, name="softmax"),
+                ("data",), ("softmax_label",))
+
+    mod = pkg.mod.BucketingModule(sym_gen,
+                                  default_bucket_key=train.default_bucket_key,
+                                  context=pkg.context.current_context())
+    perplexity = {}
+
+    def record(param):
+        # before Speedometer, which may reset the metric
+        perplexity[param.epoch] = param.eval_metric.get()[1]
+    mod.fit(train,
+            eval_metric=pkg.metric.Perplexity(ignore_label=0),
+            optimizer=optimizer,
+            optimizer_params={"learning_rate": lr},
+            initializer=pkg.init.Xavier(),
+            num_epoch=num_epoch,
+            batch_end_callback=[record,
+                                pkg.callback.Speedometer(batch_size, 20)],
+            arg_params=host_params(pkg, arg_params))
+    return mod, train, [perplexity[e] for e in sorted(perplexity)]
+
+
+# The first steps of the bucketed LM, captured on the card, against the
+# same fused step uncaptured there, the CPU's fused Module and (SGD) the
+# card's eager step. With SGD every weight within CAPTURE_TOL / FIT_TOL (no
+# division: the port and mxtpu end 3 steps at the example's widths within
+# 7.8e-8 on the CPU). Adam, the example's optimizer, divides each step by
+# sqrt(v) + 1e-8: where a gradient nearly cancels, a last-bit difference in
+# it (another summation order; the embedding's gradient sums its rows by
+# atomics on the card) moves the weight by up to lr (1 - beta1) / 1e-8 =
+# 1e5 times that difference, from the first step on
+# (tests/test_torch_bucketing.py). Adam's steps are held to the tolerances
+# in all but a few weights, each within a limit, set for each comparison at
+# three times its largest readings on the H100 (FusedRNNCell; the
+# LSTMCells' are lower): against the uncaptured step 2-5 weights past
+# CAPTURE_TOL, at most 2.3e-6 (the atomics: it varies run to run); against
+# the CPU 19 past FIT_TOL, at most 4.22e-5.
+BL_FIRST_LR = {"sgd": 0.1, "adam": BL_LR}
+BL_ADAM_APART = {"uncaptured": dict(beyond=15, limit=7e-6),
+                 "cpu": dict(beyond=60, limit=1.3e-4)}
+# a model that has learnt nothing scores the vocabulary size; one epoch of
+# the GRU variant must get below half of it (the port reaches 12.9 of 64 on
+# the CPU)
+BL_GRU_PPL_SHARE = 0.5
+# replays of bucket 32's graph traced for the split of its step
+BL_SPLIT_REPLAYS = 5
+
+
+def mostly_close(got, want, names, tol, beyond, limit):
+    """(weights past ``tol``, largest difference); fails past ``beyond``
+    weights or ``limit``."""
+    past, worst = 0, 0.0
+    for k in names:
+        d = np.abs(got[k] - want[k])
+        past += int((d > tol["atol"] + tol["rtol"] * np.abs(want[k])).sum())
+        worst = max(worst, float(d.max()))
+    return past, worst, past <= beyond and worst <= limit
+
+
+def bucket_graph_report(mt, mod):
+    """Each bucket's captured step: {bucket: (kernel nodes, other nodes,
+    {"lstm"/"gru": time-loop kernel nodes}, replays, pool bytes)};
+    fails unless each bucket holds one program, captured, replayed at
+    every hit."""
+    names = {}
+    out = {}
+    for key, sub in sorted(mod._buckets.items()):
+        trainer = sub._fused
+        if trainer is None:
+            fail("bucket %s: the fused step is not engaged (%s)"
+                 % (key, getattr(sub, "_fused_fallback_logged",
+                                 "disabled")))
+        entries = trainer._cache.entries()
+        stats = trainer._cache.stats()
+        if len(entries) != 1 or entries[0].graph is None or \
+                stats["compiles"] != 1 or \
+                entries[0].replays != stats["hits"]:
+            fail("bucket %s: %d programs %s, graph %s, %d replays (want one "
+                 "program, captured, a replay a hit)"
+                 % (key, len(entries), stats,
+                    entries and entries[0].graph is not None,
+                    entries[0].replays if entries else 0))
+        entry = entries[0]
+        funcs, others = mt._nvrtc.graph_kernel_functions(
+            entry.graph.raw_cuda_graph())
+        scans = {"lstm": 0, "gru": 0}
+        for f in funcs:
+            if f not in names:
+                names[f] = mt._nvrtc.function_name(f)
+            label = rnn_kernel_label(names[f])
+            if label:
+                scans[label.split()[0]] += 1
+        out[key] = (len(funcs), others, scans, entry.replays,
+                    entry.pool_bytes)
+    return out
+
+
+def check_one_store(mod, label):
+    """Fail unless every bucket's executors work on the fused group's
+    parameter and aux tensors."""
+    groups = {id(sub._fused._group) for sub in mod._buckets.values()}
+    fs = next(iter(mod._buckets.values()))._fused._group
+    if len(groups) != 1:
+        fail("%s: the buckets run %d fused groups, want one" % (label,
+                                                               len(groups)))
+    for key, sub in mod._buckets.items():
+        exec_ = sub._exec_group.execs[0]
+        for name, arr in list(fs.param_store.items()) + \
+                list(fs.aux_store.items()):
+            mine = exec_.arg_dict.get(name, exec_.aux_dict.get(name))
+            if mine is not arr or mine.data.data_ptr() != \
+                    arr.data.data_ptr():
+                fail("%s: bucket %s's %s is not the group's tensor"
+                     % (label, key, name))
+
+
+def bucketed_fit(mt, rnn_scan, sentences, vocab, fused, mode="lstm",
+                 num_epoch=BL_EPOCHS):
+    """The example's fit on the current context, gpu(0), captured (the
+    fused step, the default), with the time-loop launch counts set to 0
+    just before it: (module, iterator, perplexities, steps, graph report,
+    {kernel: launches}, seconds). Launches: the warm-up steps' own, plus
+    each graph's nodes times its replays."""
+    import torch
+    rnn_scan.reset_launches()
+    t0 = time.perf_counter()
+    mod, it, ppl = lstm_bucketing_fit(mt, sentences, vocab, fused,
+                                      mode=mode, num_epoch=num_epoch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = dict(rnn_scan.LAUNCHES)
+    steps = num_epoch * len(it.idx)
+    label = "bucketed LM (%s, %s)" % (mode, "FusedRNNCell" if fused
+                                      else "LSTMCells")
+    if mod._curr_module._context != [mt.gpu(0)]:
+        fail("%s: context %s, not gpu(0)" % (label,
+                                             mod._curr_module._context))
+    report = bucket_graph_report(mt, mod)
+    fs = mod._curr_module._fused._group
+    compiles = sum(sub._fused._cache.stats()["compiles"]
+                   for sub in mod._buckets.values())
+    want = {"steps": steps, "compiles": len(BL_BUCKETS),
+            "cache_hits": steps - len(BL_BUCKETS), "fallbacks": 0}
+    got = {k: fs.stats[k] for k in want}
+    if got != want or compiles != len(BL_BUCKETS) or \
+            sorted(report) != sorted(BL_BUCKETS):
+        fail("%s: fused stats %s over buckets %s (want %s)"
+             % (label, fs.stats, sorted(report), want))
+    check_one_store(mod, label)
+    launches = {}
+    for kind in ("lstm", "gru"):
+        name = kind + "_scan"
+        nodes = {k: r[2][kind] for k, r in report.items()}
+        launches[name] = launched[name] + sum(
+            r[2][kind] * r[3] for r in report.values())
+        want_nodes = BL_LAYERS if fused and mode == kind else 0
+        if any(n != want_nodes for n in nodes.values()) or \
+                launches[name] != want_nodes * steps:
+            fail("%s: %s nodes a bucket graph %s, %d launches in %d steps "
+                 "(want %d a graph, one a layer a step)"
+                 % (label, name, nodes, launches[name], steps, want_nodes))
+    return mod, it, ppl, steps, report, launches, seconds
+
+
+def bucketed_first_steps(mt, sentences, vocab, optimizer):
+    """FIT_STEPS steps of the example's fit (FusedRNNCell) in bucket 32
+    from the same weights, captured on the card, against the same fused step run
+    uncaptured on the card (CAPTURE_TOL), the CPU's fused Module (FIT_TOL)
+    and, with SGD, the card's eager step (CAPTURE_TOL); with Adam all but
+    BL_ADAM_APART's weights, each comparison its own. (Adam's eager step
+    folds its rate on the host in float64 where the fused step computes
+    it on the card in float32; mxtpu's two steps end 3 Adam steps of this
+    model 55,764 of 668,864 weights past 1e-6 apart, at most 1.34e-4, on
+    the CPU, and the port's alike, so Adam's eager step is not the fused
+    step's reference.)"""
+    from mxtpu_torch.module import fused as fused_mod
+    gpu = mt.gpu(0)
+    few = bucket_sentences(sentences, BL_BUCKETS, BL_BUCKETS[-1],
+                           FIT_STEPS * BL_BATCH)
+    with mt.cpu():
+        mod0, _, _ = lstm_bucketing_fit(mt, sentences, vocab, True,
+                                        num_epoch=0)
+    p0 = module_params(mod0)
+    names = sorted(p0)
+    lr = BL_FIRST_LR[optimizer]
+
+    def run(ctx, fused_step, capture=True):
+        on_card = fused_mod.FusedModuleTrainer._on_card
+        if not capture:
+            fused_mod.FusedModuleTrainer._on_card = lambda self: False
+        try:
+            with ctx:
+                mod = with_fused(fused_step, lstm_bucketing_fit, mt, few,
+                                 vocab, True, num_epoch=1,
+                                 buckets=BL_BUCKETS[-1:], arg_params=p0,
+                                 optimizer=optimizer, lr=lr)[0]
+        finally:
+            fused_mod.FusedModuleTrainer._on_card = on_card
+        if fused_step and capture and ctx == gpu:
+            report = bucket_graph_report(mt, mod)
+            if [r[3] for r in report.values()] != [FIT_STEPS - 1]:
+                fail("bucketed LM first steps: %s (want one graph, %d "
+                     "replays)" % (report, FIT_STEPS - 1))
+        return module_params(mod)
+    captured = run(gpu, True)
+    label = "bucketed LM (FusedRNNCell) %d steps, %s" % (FIT_STEPS,
+                                                         optimizer)
+    against = [("the fused step uncaptured on the card",
+                run(gpu, True, capture=False), CAPTURE_TOL, "uncaptured"),
+               ("the CPU's fused Module", run(mt.cpu(), True), FIT_TOL,
+                "cpu")]
+    if optimizer == "sgd":
+        against.append(("the card's eager steps", run(gpu, False),
+                        CAPTURE_TOL, None))
+    readings = []
+    for what, want, tol, apart in against:
+        allowed = BL_ADAM_APART[apart] if optimizer == "adam" else \
+            dict(beyond=0, limit=float("inf"))
+        past, worst, ok = mostly_close(captured, want, names, tol,
+                                       **allowed)
+        if not ok:
+            fail("%s: captured vs %s: %d of %d weights past %s, largest "
+                 "difference %.3g (allowed %s)"
+                 % (label, what, past, sum(v.size for v in want.values()),
+                    tol, worst, allowed))
+        readings.append("vs %s: %d weights past %s, max |diff| %.3g"
+                        % (what, past, tol, worst))
+    print("Module.fit %s on the card, captured: %s" % (label,
+                                                      "; ".join(readings)))
+
+
+@contextlib.contextmanager
+def capture_marks(mt, rnn_scan):
+    """While the fused trainer captures a step, the nodes (kernels, copies
+    and sets) its graph holds at the step's phase boundaries, read from
+    the graph under capture (``_nvrtc.capturing_graph``): "backward" as
+    the step enters
+    torch.autograd.grad, "update" as it leaves it, "recompute" and
+    "recompute end" around each call of the time loops' recompute
+    backward (``rnn_scan._recompute_vjp``). Host reads only: the graph
+    holds the nodes it holds without them. Yields {id(entry): [(mark,
+    nodes so far)]}."""
+    import torch
+    from mxtpu_torch.module import fused as fused_mod
+    marks, current, active = {}, {}, set()
+    capture = fused_mod.FusedModuleTrainer._capture
+    grad, recompute = torch.autograd.grad, rnn_scan._recompute_vjp
+
+    def mark(name):
+        entry = current.get("entry")
+        if entry is None or not torch.cuda.is_current_stream_capturing():
+            return
+        funcs, others = mt._nvrtc.graph_kernel_functions(
+            mt._nvrtc.capturing_graph(torch.cuda.current_stream().cuda_stream))
+        marks.setdefault(id(entry), []).append((name, len(funcs) + others))
+
+    def marked_capture(self, entry):
+        current["entry"] = entry
+        try:
+            return capture(self, entry)
+        finally:
+            del current["entry"]
+
+    def marked(fn, before, after):
+        # the recompute takes its own torch.autograd.grad inside the
+        # step's: only the outermost call of each marks
+        def call(*args, **kwargs):
+            if before in active:
+                return fn(*args, **kwargs)
+            active.add(before)
+            try:
+                mark(before)
+                out = fn(*args, **kwargs)
+                mark(after)
+            finally:
+                active.discard(before)
+            return out
+        return call
+    fused_mod.FusedModuleTrainer._capture = marked_capture
+    torch.autograd.grad = marked(grad, "backward", "update")
+    rnn_scan._recompute_vjp = marked(recompute, "recompute", "recompute end")
+    try:
+        yield marks
+    finally:
+        fused_mod.FusedModuleTrainer._capture = capture
+        torch.autograd.grad = grad
+        rnn_scan._recompute_vjp = recompute
+
+
+def traced_replays(graph, n, replays):
+    """torch.profiler over ``replays`` back-to-back replays of ``graph``
+    (``n`` nodes; three replays run first): the device events of each
+    replay that the trace holds whole, in the order they ran, counted
+    back from the last (a node is one event: a kernel, a copy node as
+    the copy kernel it runs, a set; a replay is whole where it runs the
+    last one's events in its order), and each such replay's card busy
+    ms. Fails unless two replays are whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    reps = [events[len(events) - i * n:len(events) - (i - 1) * n]
+            for i in range(len(events) // n, 0, -1)]
+    order = [e.name for e in reps[-1]] if reps else []
+    reps = [es for es in reps if [e.name for e in es] == order]
+    if len(reps) < 2:
+        fail("%d device events traced in %d replays of a graph of %d "
+             "nodes, %d replays whole" % (len(events), replays, n,
+                                          len(reps)))
+    return reps, [sum(e.time_range.elapsed_us() for e in es) / 1e3
+                  for es in reps]
+
+
+def own_graph_split(mt, mod, marks, bucket, own_ms, reps):
+    """Where the trainer's own captured step at ``bucket`` (FusedRNNCell)
+    spends the card's time, from ``reps`` (``traced_replays`` of its
+    graph): captured on one stream, the graph is a chain that runs its
+    nodes in capture order, so the i-th event of a replay is the i-th
+    node the capture recorded, and ``capture_marks``' marks (nodes
+    recorded so far) give it its part: the forward to B4's last kernel
+    (embedding, projections, B4), the head's forward, the head's backward
+    (to the first recompute), the recompute backward, the rest of the
+    backward (the projections' and the embedding's gradients) and the
+    update. A part's card time is the time its nodes ran; medians over
+    the replays. (Not the gaps between nodes: tracing widens them, in a
+    process that has traced before by several times.) Fails unless the
+    marks are in order, every replay runs the same kernels in the same
+    order with B4's two in the forward, every part's card time is
+    positive and their sum, the step's card time, is no more than
+    ``own_ms`` (the graph's replay timed by events, without the
+    profiler) and the 15% that tracing may add to it. Returns ({part:
+    card ms}, B4's card ms, B4's places)."""
+    entry = mod._buckets[bucket]._fused._cache.entries()[0]
+    funcs, others = mt._nvrtc.graph_kernel_functions(
+        entry.graph.raw_cuda_graph())
+    n = len(funcs) + others
+    got = marks.get(id(entry), [])
+    want = ["backward"] + ["recompute", "recompute end"] * BL_LAYERS + \
+        ["update"]
+    at = [k for _m, k in got]
+    order = [k.name for k in reps[-1]]
+    b4 = [i for i, name in enumerate(order) if "rnn_cluster_kernel" in name]
+    if [m for m, _k in got] != want or at != sorted(at) or \
+            not at[-1] < n or \
+            any([k.name for k in ks] != order for ks in reps) or \
+            len(b4) != BL_LAYERS or not b4[-1] + 1 < at[0]:
+        fail("bucket %d's graph: marks %s of %d nodes; %d traced "
+             "replays, %d of them in the last one's order; B4 at %s (want "
+             "%s in order, the same kernels a replay, B4's %d before the "
+             "backward); the last replay's first kernels: %s"
+             % (bucket, got, n, len(reps),
+                sum([k.name for k in ks] == order for ks in reps), b4,
+                want, BL_LAYERS, [name[:40] for name in order[:40]]))
+    a, r, b = at[0], at[1:-1], at[-1]
+    bounds = [("forward (embedding, projections, B4)", 0, b4[-1] + 1),
+              ("head forward", b4[-1] + 1, a),
+              ("head backward", a, r[0])]
+    for i in range(0, len(r), 2):
+        bounds.append(("recompute backward", r[i], r[i + 1]))
+        bounds.append(("other backward", r[i + 1],
+                       r[i + 2] if i + 2 < len(r) else b))
+    bounds.append(("update", b, n))
+    busy = {name: [] for name, _lo, _hi in bounds}
+    b4_busy = []
+    for ks in reps:
+        used = {name: 0.0 for name in busy}
+        for name, lo, hi in bounds:
+            used[name] += sum(k.time_range.elapsed_us()
+                              for k in ks[lo:hi]) / 1e3
+        for name in busy:
+            busy[name].append(used[name])
+        b4_busy.append(sum(ks[i].time_range.elapsed_us() for i in b4) / 1e3)
+    parts = {k: float(np.median(v)) for k, v in busy.items()}
+    if min(parts.values()) <= 0 or sum(parts.values()) > 1.15 * own_ms:
+        fail("bucket %d's step split %s (card time %.3f ms) against the "
+             "graph's replay %.3f ms (want every part positive, the sum at "
+             "most 1.15 x the replay)" % (bucket, parts,
+                                          sum(parts.values()), own_ms))
+    return parts, float(np.median(b4_busy)), b4
+
+
+def replay_out_of_order(mod, it, label):
+    """Each bucket's graph replayed, in ascending and then descending
+    bucket order (one of the two is not the order the graphs were
+    captured in, and each replay follows another graph's in the shared
+    pool), gives the outputs that the eager forward gives on the weights
+    the step starts from (CAPTURE_TOL). Fails on a difference or a new
+    capture."""
+    import torch
+    first = {}
+    it.reset()
+    for batch in it:
+        first.setdefault(batch.bucket_key, batch)
+    fs = mod._curr_module._fused._group
+    compiles = fs.stats["compiles"]
+    worst = 0.0
+    for key in sorted(first) + sorted(first, reverse=True):
+        batch = first[key]
+        mod.forward(batch, is_train=False)
+        want = mod.get_outputs()[0].asnumpy()
+        replays = mod._buckets[key]._fused._cache.entries()[0].replays
+        mod.forward_backward(batch)
+        mod.update()
+        got = mod.get_outputs()[0].asnumpy()
+        torch.cuda.synchronize()
+        if mod._buckets[key]._fused._cache.entries()[0].replays != \
+                replays + 1 or not np.allclose(got, want, **CAPTURE_TOL):
+            fail("%s: bucket %d's graph replayed out of capture order: "
+                 "outputs %.3g from the eager forward's (%s)"
+                 % (label, key, float(np.abs(got - want).max()),
+                    CAPTURE_TOL))
+        worst = max(worst, float(np.abs(got - want).max()))
+    if fs.stats["compiles"] != compiles:
+        fail("%s: the replays out of order compiled anew" % label)
+    return worst
+
+
+def bucketed_lm_phase(mt, rnn_scan, rng, dev, card):
+    """The bucketed LSTM LM (BASELINE.json config 4) through
+    BucketingModule.fit on cuda:0: the time loops at the buckets' lengths
+    against their plain versions; the example's own run, FusedRNNCell
+    (lstm_scan in every bucket's graph) and then LSTMCells, 5 epochs,
+    captured, one graph a bucket over one parameter store, perplexity
+    falling, each bucket's graph right when replayed out of capture
+    order; its first steps against the eager ones and the CPU's; the
+    timed run at PTB's vocabulary, eager and captured in turns, with the
+    graphs, their pools, the card's busy share and where a step's card
+    time goes (a trace of the trainer's own graph); the GRU variant (gru_scan in every graph), 1 epoch.
+    Returns the launches of lstm_scan in the example's fused run and of
+    gru_scan in the GRU variant, and each kernel's largest error against
+    its plain version at the buckets' lengths."""
+    import torch
+    clock = [("start", time.perf_counter())]
+    errs = {"lstm_scan": 0.0, "gru_scan": 0.0}
+    # the time loops at each bucket's length, B=32, H=200
+    for T in BL_BUCKETS:
+        report = []
+        for name, make in (("lstm_scan", lstm_args), ("gru_scan", gru_args)):
+            a = make(rng, BL_BATCH, torch.float32, dev, T=T, H=BL_HIDDEN)
+            got = getattr(rnn_scan, name)(*a)
+            want = getattr(rnn_scan, name + "_reference")(*a)
+            check_close("%s T=%d N=%d H=%d" % (name, T, BL_BATCH, BL_HIDDEN),
+                        got, want, F32_TOL)
+            errs[name] = max(errs[name], max_err(got, want))
+            report.append("%s max err %.3g" % (name, max_err(got, want)))
+        print("check bucket T=%d N=%d H=%d f32 (tolerance %s): %s"
+              % (T, BL_BATCH, BL_HIDDEN, F32_TOL, "; ".join(report)))
+
+    # Embedding on ids outside [0, rows) follows jnp.take (a negative id
+    # wraps once, a row past the end is NaN) with no device-side assert:
+    # the card's context keeps working after it
+    w = np.arange(12, dtype=np.float32).reshape(4, 3) / 10
+    ids = np.array([1, 5, -1, -6, 3, 4], np.float32)
+    rows = [mt.nd.Embedding(mt.nd.array(ids, ctx=ctx), mt.nd.array(w, ctx=ctx),
+                            input_dim=4, output_dim=3).asnumpy()
+            for ctx in (mt.gpu(0), mt.cpu())]
+    torch.cuda.synchronize()
+    if not np.array_equal(rows[0], rows[1], equal_nan=True) or \
+            int(np.isnan(rows[0]).any(1).sum()) != 3:
+        fail("Embedding on out-of-range ids: card %s, CPU %s" % tuple(rows))
+    print("check Embedding on ids %s on the card: rows equal to the CPU's, "
+          "3 NaN rows, no device-side assert" % ids.astype(int).tolist())
+    clock.append(("kernels", time.perf_counter()))
+    # the example's own run: its corpus, 5 epochs, --fused, then the
+    # unfused default, each captured
+    sentences, vocab = synthetic_corpus()
+    out = {}
+    for fused in (True, False):
+        mod, it, ppl, steps, report, launches, secs = bucketed_fit(
+            mt, rnn_scan, sentences, vocab, fused)
+        label = "FusedRNNCell" if fused else "LSTMCells"
+        if not np.isfinite(ppl).all() or not ppl[-1] < BL_PPL_DROP * ppl[0]:
+            fail("bucketed LM (%s): perplexity by epoch %s (the last must "
+                 "be below %.1f x the first)" % (label, ppl, BL_PPL_DROP))
+        if fused:
+            out["lstm_scan"] = launches["lstm_scan"]
+        print("Module.fit bucketed LM (lstm_bucketing.py%s, context gpu(0), "
+              "captured): %d epochs, %d steps in %.2f s; perplexity by "
+              "epoch %s (limit %.1f x the first); %s; graphs by bucket "
+              "(kernel nodes, other nodes, time-loop nodes, replays, pool "
+              "bytes): %s; launches %s; one parameter store"
+              % (" --fused" if fused else "", BL_EPOCHS, steps, secs,
+                 ", ".join("%.4f" % p for p in ppl), BL_PPL_DROP,
+                 mod._curr_module._fused._group.stats, report, launches))
+        worst = replay_out_of_order(mod, it, "bucketed LM (%s)" % label)
+        print("check bucketed LM (%s): each bucket's graph replayed in "
+              "ascending and descending bucket order, outputs against the "
+              "eager forward: max |diff| %.3g (tolerance %s)"
+              % (label, worst, CAPTURE_TOL))
+    clock.append(("the example's fits", time.perf_counter()))
+    # the fused cell's model only (B4's path): the LSTMCells' graphs are
+    # held to the eager forward above
+    for optimizer in ("sgd", "adam"):
+        bucketed_first_steps(mt, sentences, vocab, optimizer)
+    clock.append(("first steps", time.perf_counter()))
+
+    # the timed run at PTB's vocabulary: eager and captured, in turns
+    ptb, ptb_vocab = synthetic_corpus(n=BL_PTB_SENTENCES, vocab=VOCAB)
+    with capture_marks(mt, rnn_scan) as marks:
+        runs = {"eager": with_fused(False, lstm_bucketing_fit, mt, ptb,
+                                    ptb_vocab, True, num_epoch=1),
+                "captured": lstm_bucketing_fit(mt, ptb, ptb_vocab, True,
+                                               num_epoch=1)}
+    clock.append(("PTB-width fits (captures)", time.perf_counter()))
+    if any(sub._fused is not None
+           for sub in runs["eager"][0]._buckets.values()):
+        fail("the eager bucketed LM took the fused step")
+    report = bucket_graph_report(mt, runs["captured"][0])
+    graphs = {k: id(sub._fused._cache.entries()[0].graph)
+              for k, sub in runs["captured"][0]._buckets.items()}
+    metrics = {k: mt.metric.Perplexity(ignore_label=0) for k in runs}
+    per_bucket = {k: {} for k in runs}
+    ms, tokens_s = {k: [] for k in runs}, {k: [] for k in runs}
+    for k in ("eager", "captured", "captured", "eager"):
+        mod, it, _ = runs[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = fit_epoch(mod, it, metrics[k], per_bucket=per_bucket[k])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tokens = sum(BL_BATCH * BL_BUCKETS[i] for i, _j in it.idx)
+        ms[k].append(dt / steps * 1e3)
+        tokens_s[k].append(tokens / dt)
+    after = {k: id(sub._fused._cache.entries()[0].graph)
+             for k, sub in runs["captured"][0]._buckets.items()}
+    if after != graphs or bucket_graph_report(mt, runs["captured"][0]) \
+            .keys() != report.keys():
+        fail("the timed epochs captured again")
+    check_one_store(runs["captured"][0], "bucketed LM at PTB's vocabulary")
+    clock.append(("timed epochs", time.perf_counter()))
+    # the card's busy time: each bucket's graph traced, weighted by the
+    # timed epochs' steps a bucket (the batch copy and the metric's pick
+    # outside the graphs are not counted). The eager step launches the
+    # same kernels one by one; a profiler pass over its epoch takes over
+    # a minute, so its busy time is not measured here
+    traces, busy = {}, {}
+    for key, sub in sorted(runs["captured"][0]._buckets.items()):
+        traces[key], per = traced_replays(
+            sub._fused._cache.entries()[0].graph,
+            report[key][0] + report[key][1], BL_SPLIT_REPLAYS)
+        busy[key] = float(np.median(per))
+    counts = {b: len(v) for b, v in per_bucket["captured"].items()}
+    busy_step = sum(busy[b] * c for b, c in counts.items()) / \
+        sum(counts.values())
+    for k in ("eager", "captured"):
+        mod, it, _ = runs[k]
+        step = float(np.mean(ms[k]))
+        print("Module.fit bucketed LM vocab %d %s step: %.3f ms (two epochs "
+              "of %d steps: %s, host clock, the metric's read of the "
+              "picked values waits for each step), %.0f tokens/s (batch x "
+              "bucket length); ms a step by bucket: %s; %s | %s"
+              % (VOCAB, k, step, len(it.idx),
+                 ", ".join("%.3f" % v for v in ms[k]),
+                 float(np.mean(tokens_s[k])), ", ".join(
+                     "%d: %.3f" % (b, float(np.mean(v)))
+                     for b, v in sorted(per_bucket[k].items())),
+                 busy_of(busy_step, step) + " (the graphs' busy ms by "
+                 "bucket %s, traced)" % ", ".join(
+                     "%d: %.3f" % kv for kv in sorted(busy.items()))
+                 if k == "captured" else "card busy not measured (the "
+                 "same kernels, launched one by one)", card))
+    print("Module.fit bucketed LM vocab %d step: eager %.3f ms, captured "
+          "%.3f ms (%.2fx); graphs by bucket (kernel nodes, other nodes, "
+          "time-loop nodes, replays, pool bytes): %s; the shared pool "
+          "%.1f MB | %s"
+          % (VOCAB, float(np.mean(ms["eager"])),
+             float(np.mean(ms["captured"])),
+             float(np.mean(ms["eager"])) / float(np.mean(ms["captured"])),
+             report, sum(r[4] for r in report.values()) / 1e6, card))
+    clock.append(("graph traces", time.perf_counter()))
+    bucket = BL_BUCKETS[-1]
+    own = runs["captured"][0]._buckets[bucket]._fused
+    own_ms = cuda_ms(own._cache.entries()[0].graph.replay,
+                     iters=BL_SPLIT_REPLAYS, warmup=3)
+    parts, b4_ms, b4_at = own_graph_split(
+        mt, runs["captured"][0], marks, bucket, own_ms, traces[bucket])
+    step = sum(parts.values())
+    backward = sum(v for k, v in parts.items() if "backward" in k)
+    print("Module.fit bucketed LM vocab %d bucket %d captured step on the "
+          "card: the trainer's graph %.3f ms (events over back-to-back "
+          "replays); its trace (%d whole replays, each node's card time "
+          "given to its part): step %.3f ms of card time; by part: %s; B4 "
+          "forward (nodes %s of %d) %.3f ms; backward %.3f ms, %.1f%% of "
+          "the step's card time; marks %s | %s"
+          % (VOCAB, bucket, own_ms, len(traces[bucket]), step, "; ".join(
+                 "%s %.3f ms" % kv for kv in parts.items()), b4_at,
+             report[bucket][0] + report[bucket][1], b4_ms,
+             backward, 100 * backward / step,
+             marks[id(own._cache.entries()[0])], card))
+    clock.append(("the step's split (trace)", time.perf_counter()))
+    # the GRU variant: gru_scan in every bucket's graph
+    mod, it, ppl, steps, report, launches, secs = bucketed_fit(
+        mt, rnn_scan, sentences, vocab, True, mode="gru",
+        num_epoch=BL_GRU_EPOCHS)
+    if not np.isfinite(ppl).all() or \
+            not ppl[-1] < BL_GRU_PPL_SHARE * vocab:
+        fail("bucketed GRU LM: perplexity %s after %d epoch (limit %.1f)"
+             % (ppl, BL_GRU_EPOCHS, BL_GRU_PPL_SHARE * vocab))
+    out["gru_scan"] = launches["gru_scan"]
+    print("Module.fit bucketed GRU LM (FusedRNNCell mode='gru', captured): "
+          "%d epoch, %d steps in %.2f s; perplexity %.4f (limit %.1f); "
+          "graphs by bucket: %s; launches %s"
+          % (BL_GRU_EPOCHS, steps, secs, ppl[-1], BL_GRU_PPL_SHARE * vocab,
+             report, launches))
+    clock.append(("the GRU variant", time.perf_counter()))
+    print("bucketed LM phase: %.1f s (%s)" % (
+        clock[-1][1] - clock[0][1], ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))))
+    return out, errs
+
+
 def fit_times(mt, eager, captured, card):
     """ms a step of fit's loop body (host clock, synchronized), eager and
     captured in turns (eager, captured, captured, eager) on each model,
@@ -2976,7 +3711,16 @@ def main():
     fit_launches, captured_fits = fused_fit_phase(mt, args.seed, eager_fits)
     fit_step_ms = fit_times(mt, eager_fits, captured_fits, card)
 
-    # 13. timings at the main paths' shapes
+    # 13. the bucketed LSTM LM through BucketingModule.fit (the main path
+    # the time-loop kernels' launches are counted on): one graph a bucket
+    # over one parameter store, lstm_scan (and in its GRU variant gru_scan)
+    # inside each
+    bl_launches, bl_errs = bucketed_lm_phase(mt, rnn_scan, rng, dev, card)
+    path_launches.update(bl_launches)
+    for name, err in bl_errs.items():
+        errs[name] = max(errs[name], err)
+
+    # 14. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -3306,7 +4050,7 @@ def main():
                                       dt / reps * 1e3, card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 14.-15. the result lines
+    # 15.-16. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """mxtpu_torch — the PyTorch/CUDA port of mxtpu for NVIDIA Hopper.
 
 The same public names as ``mxtpu`` (``mx.nd``, ``mx.sym``, ``mx.mod``
-with ``Module.fit``, ``mx.io``, ``mx.init``, ``mx.optimizer``,
-``mx.metric``, ``mx.kv``, ``mx.callback``, ``mx.lr_scheduler``,
-``mx.random``, ``mx.rnn``, ``mx.serving``, ``mx.parallel``,
+with ``Module.fit`` and ``BucketingModule``, ``mx.io``, ``mx.init``,
+``mx.optimizer``, ``mx.metric``, ``mx.kv``, ``mx.callback``,
+``mx.lr_scheduler``, ``mx.random``, ``mx.rnn`` (the cells and
+``BucketSentenceIter``), ``mx.serving``, ``mx.parallel``,
 ``mx.autograd``, ``mx.engine``, ``mx.operator`` custom ops, ``mx.rtc``,
 contexts, checkpoints),
 computed with PyTorch: plain tensor code in torch, and every kernel that

@@ -25,16 +25,17 @@ from .base import MXTPUError
 
 __all__ = ["compile_cubin", "load_module", "get_function", "launch",
            "set_max_dynamic_shared", "current_context", "toolkit_include_dirs",
-           "graph_kernel_functions"]
+           "graph_kernel_functions", "function_name", "capturing_graph"]
 
 _P = ctypes.c_void_p
 _lock = threading.Lock()
 _libs = {}
 
-# CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES, CU_GRAPH_NODE_TYPE_KERNEL
-# (cuda.h)
+# CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES, CU_GRAPH_NODE_TYPE_KERNEL,
+# CU_STREAM_CAPTURE_STATUS_ACTIVE (cuda.h)
 _MAX_DYNAMIC_SHARED = 8
 _KERNEL_NODE = 0
+_CAPTURE_ACTIVE = 1
 
 
 def _toolkit_roots():
@@ -233,6 +234,42 @@ def launch(function, grid, block, shared_mem, stream, params):
     _check_cu(_cuda().cuLaunchKernel(
         function, grid[0], grid[1], grid[2], block[0], block[1], block[2],
         shared_mem, stream, arr if params else None, None), "cuLaunchKernel")
+
+
+def function_name(function):
+    """The (mangled) name of a ``CUfunction``, as ``cuFuncGetName`` gives
+    it (libcuda of CUDA 12.3 or later)."""
+    lib = _cuda()
+    with _lock:
+        fn = _libs.get("cuFuncGetName")
+        if fn is None:
+            fn = _libs["cuFuncGetName"] = _bind(lib, "cuFuncGetName",
+                                                (_P, _P))
+    name = ctypes.c_char_p()
+    _check_cu(fn(ctypes.byref(name), ctypes.c_void_p(function)),
+              "cuFuncGetName")
+    return name.value.decode()
+
+
+def capturing_graph(stream):
+    """The ``CUgraph`` that the capture under way on ``stream`` (a
+    ``CUstream`` handle, as ``torch.cuda.Stream.cuda_stream`` gives it)
+    records into, as ``cuStreamGetCaptureInfo`` gives it; raises where no
+    capture is under way. Reading the graph's nodes is allowed during the
+    capture."""
+    lib = _cuda()
+    with _lock:
+        fn = _libs.get("cuStreamGetCaptureInfo_v2")
+        if fn is None:
+            fn = _libs["cuStreamGetCaptureInfo_v2"] = _bind(
+                lib, "cuStreamGetCaptureInfo_v2", (_P,) * 6)
+    status, ident, graph = ctypes.c_int(), ctypes.c_uint64(), _P()
+    _check_cu(fn(_P(stream), ctypes.byref(status), ctypes.byref(ident),
+                 ctypes.byref(graph), None, None), "cuStreamGetCaptureInfo")
+    if status.value != _CAPTURE_ACTIVE:
+        raise MXTPUError("no capture is under way on stream %#x (status %d)"
+                         % (stream, status.value))
+    return graph.value
 
 
 def graph_kernel_functions(graph):

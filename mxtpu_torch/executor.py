@@ -16,6 +16,9 @@ executor's life: values are copied into them (``forward(**kwargs)``,
 ``copy_params_from``) and optimizers update them in place. That is what
 lets :meth:`Executor.make_fused_train_step`'s one function over those
 tensors be captured once in a CUDA graph and replayed on every batch.
+:meth:`Executor.adopt_arrays` aliases the parameter and aux slots to
+another executor's arrays, so that executors of several input shapes
+work on one set of parameter tensors.
 """
 from __future__ import annotations
 
@@ -282,6 +285,28 @@ class Executor:
             return outs
 
         return fused, other_names
+
+    def adopt_arrays(self, arg_src, aux_src):
+        """Alias this executor's argument and aux slots to the given
+        NDArrays (``mxtpu``'s ``adopt_arrays``) where name, shape and
+        dtype agree, so that executors of several input shapes (a
+        rebound module, a bucketing module's buckets) share one set of
+        parameter tensors: a step of any of them updates all, and a
+        switch between them copies nothing."""
+        for table, src in ((self.arg_dict, arg_src), (self.aux_dict, aux_src)):
+            for name, arr in src.items():
+                dst = table.get(name)
+                if dst is not None and dst is not arr and \
+                        dst.shape == arr.shape and dst.dtype == arr.dtype:
+                    table[name] = arr
+        self.arg_arrays = [self.arg_dict[n] for n in self._arg_names]
+        self.aux_arrays = [self.aux_dict[n] for n in self._aux_names]
+
+    def reseed(self):
+        """Seed the stateful ops' generator anew from numpy's global RNG,
+        as binding a new executor does (one draw): a rebind that finds
+        this executor again draws what ``mxtpu``'s fresh executor draws."""
+        self._generator.manual_seed(int(_np.random.randint(0, 2 ** 31 - 1)))
 
     def set_monitor_callback(self, callback):
         """Call ``callback(name, NDArray)`` on each output after every

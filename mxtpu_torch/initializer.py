@@ -4,8 +4,9 @@ Counterpart of ``mxtpu/initializer.py``: ``InitDesc``, an
 ``Initializer`` that dispatches on the parameter's name (``*weight``,
 ``*bias``, ``*gamma``, ``*beta``, running statistics, or a variable's
 ``__init__`` attribute), its registry and ``create``, and Zero, One,
-Constant, Uniform, Normal and Xavier (with ``mxtpu``'s fan and
-``hw_scale`` rule for convolution weights).
+Constant, Uniform, Normal, Xavier (with ``mxtpu``'s fan and
+``hw_scale`` rule for convolution weights) and FusedRNN (a fused RNN's
+flat blob, drawn block by block in ``mxtpu``'s order).
 
 Draws come from :func:`mxtpu_torch.ops.registry.next_generator`, a CPU
 generator (``mx.random.seed`` seeds it), and are then moved to the
@@ -24,7 +25,7 @@ import torch
 from .ops.registry import next_generator
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Xavier", "FusedRNN"]
 
 _INIT_REGISTRY = {}
 
@@ -250,3 +251,64 @@ class Xavier(Initializer):
                  * scale)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class FusedRNN(Initializer):
+    """The flat parameter blob of a fused RNN (``mxtpu``'s FusedRNN): each
+    (layer, direction)'s i2h and h2h weight matrices drawn in turn by the
+    wrapped initializer, in the blob's order (``ops/rnn.py``: all weights
+    first, then all biases), the biases zero, and ``forget_bias`` split
+    over the LSTM forget gate's two biases. ``init`` is an Initializer or
+    its ``dumps()``; None means Xavier(factor_type="in",
+    magnitude=2.34)."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        init_str = init.dumps() if isinstance(init, Initializer) \
+            else (init or Xavier(factor_type="in", magnitude=2.34).dumps())
+        super().__init__(init=init_str, num_hidden=num_hidden,
+                         num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        if isinstance(init, Initializer):
+            self._init = init
+        else:
+            klass, kwargs = json.loads(init_str)
+            self._init = create(klass, **kwargs)
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def __call__(self, desc, arr):
+        self._init_weight(desc, arr)
+
+    def _init_weight(self, desc, arr):
+        from . import ndarray as nd
+        from .context import cpu
+        from .ops.rnn import _GATES, rnn_param_size
+        G, H, L = _GATES[self._mode], self._num_hidden, self._num_layers
+        D = 2 if self._bidirectional else 1
+        total = int(_np.prod(arr.shape))
+        rest = rnn_param_size(self._mode, 0, H, L, self._bidirectional)
+        isz = (total - rest) // (D * G * H)
+        out = torch.zeros(total)
+        off = 0
+        for layer in range(L):
+            in_sz = isz if layer == 0 else H * D
+            for _ in range(D):
+                for shape in ((G * H, in_sz), (G * H, H)):
+                    w = nd.zeros(shape, ctx=cpu())
+                    self._init._init_weight(desc, w)
+                    n = shape[0] * shape[1]
+                    out[off:off + n] = w.data.reshape(-1).float()
+                    off += n
+        for layer in range(L):
+            for _ in range(D):
+                for _half in range(2):
+                    if self._mode == "lstm":
+                        out[off + H:off + 2 * H] = self._forget_bias / 2.0
+                    off += G * H
+        _set(arr, out)

@@ -4,7 +4,8 @@ Counterpart of ``mxtpu/metric.py``'s ``EvalMetric`` (``update``,
 ``get``, ``get_name_value``, ``reset``, and the device-side
 accumulation: ``device_batch``, ``supports_device_update``,
 ``update_async`` / ``detach_async`` / ``_drain_async``),
-``CompositeEvalMetric``, ``Accuracy``, ``CrossEntropy`` and ``create``.
+``CompositeEvalMetric``, ``Accuracy``, ``CrossEntropy``, ``Perplexity``
+and ``create``.
 
 ``Accuracy`` and ``CrossEntropy`` accumulate on the predictions' device:
 ``update`` adds the batch's sum to a tensor there (labels are moved to
@@ -14,6 +15,10 @@ metric; a reader such as ``Speedometer`` pays one when it asks. Sums
 accumulate in float32, as in ``mxtpu``. Under the fused ``Module`` train
 step the step itself adds each batch's ``device_batch`` to a (sum, count)
 tensor that the trainer owns (``update_async``); ``get`` reads it.
+``Perplexity`` has no device rule, as in ``mxtpu``: it picks each row's
+label probability and masks the ignored labels on the predictions'
+device, then reads the picked values back, one host read of a value a
+row, and finishes the batch on the host as ``mxtpu`` does.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 from . import ndarray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy",
-           "CrossEntropy", "create", "register", "get"]
+           "CrossEntropy", "Perplexity", "create", "register", "get"]
 
 
 def check_label_shapes(labels, preds, wrap=False, shape=False):
@@ -258,3 +263,52 @@ class CrossEntropy(EvalMetric):
             total = total - torch.log(chosen + self.eps).sum()
             count += rows
         return total, count
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp of the mean negative log-probability of each row's label, a
+    value a batch, averaged over batches (``mxtpu``'s Perplexity); rows
+    whose label is ``ignore_label`` are left out."""
+
+    def __init__(self, ignore_label, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, ignore_label=ignore_label, axis=axis,
+                         output_names=output_names, label_names=label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def _picked(self, truth, scores):
+        """Each row's probability of its label with the ignored rows set
+        to 1, and the number ignored, in one host array (float32)."""
+        scores = _tensor(scores)
+        flat = _tensor(truth, scores.device).reshape(-1)
+        classes = scores.shape[self.axis]
+        if flat.numel() * classes != scores.numel():
+            raise ValueError("shape mismatch: %s vs. %s"
+                             % (tuple(flat.shape), tuple(scores.shape)))
+        rows = torch.movedim(scores, self.axis, -1).reshape(-1, classes)
+        idx = flat.to(torch.int64).clamp(0, classes - 1)
+        picked = rows.gather(1, idx[:, None])[:, 0].float()
+        ignored = picked.new_zeros(1)
+        if self.ignore_label is not None:
+            masked = flat == self.ignore_label
+            picked = torch.where(masked, picked.new_ones(()), picked)
+            ignored = masked.sum(dtype=torch.float32).reshape(1)
+        return torch.cat([picked, ignored]).cpu().numpy()
+
+    def update(self, labels, preds):
+        if len(labels) != len(preds):
+            raise ValueError("%d labels for %d predictions"
+                             % (len(labels), len(preds)))
+        neg_log = 0.0
+        count = 0
+        for truth, scores in zip(labels, preds):
+            host = self._picked(truth, scores)
+            picked = host[:-1]
+            count -= int(host[-1])
+            neg_log -= float(
+                numpy.log(numpy.maximum(1e-10, picked)).sum())
+            count += picked.size
+        self._accum(
+            numpy.exp(neg_log / count) if count > 0 else float("nan"), 1)

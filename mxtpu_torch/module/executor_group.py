@@ -4,6 +4,15 @@ Counterpart of ``mxtpu/module/executor_group.py``: one executor a
 context, each bound to its slice of the batch; the group copies a
 batch's arrays into the executors' input arrays, runs forward and
 backward on each, gathers outputs and feeds the metric.
+
+The parameter store. The first executors the group binds (or those of a
+``shared_group``, a bucketing module's default bucket) hold the
+parameter and aux arrays, one set a context; every executor bound later
+aliases them (:meth:`Executor.adopt_arrays`). A rebind for other input
+shapes keeps the executors it bound before, one set a signature (data
+and label shapes and dtypes), and finds them again when the shapes come
+back; so a rebind copies no parameter, and a CUDA graph captured over an
+executor's tensors stays valid for that signature.
 """
 from __future__ import annotations
 
@@ -54,7 +63,8 @@ class DataParallelExecutorGroup:
 
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write", state_names=None):
+                 shared_group=None, fixed_param_names=None, grad_req="write",
+                 state_names=None):
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -93,6 +103,10 @@ class DataParallelExecutorGroup:
         self.output_layouts = [
             DataDesc.get_batch_axis(self.symbol[i].attr("__layout__"))
             for i in range(len(self.symbol.list_outputs()))]
+        # executors by signature, and the (params, aux) store a context
+        self._bound = {}
+        self._stores = None if shared_group is None \
+            else list(shared_group._stores)
         self.bind_exec(data_shapes, label_shapes)
 
     def decide_slices(self, data_shapes):
@@ -116,21 +130,47 @@ class DataParallelExecutorGroup:
                                                  self.workload)
         return major_axis
 
+    @staticmethod
+    def _signature(data_shapes, label_shapes):
+        """The input names, shapes and dtypes that an executor is bound
+        for (a dtype given as a class, a name or a numpy dtype alike)."""
+        return tuple((x.name, tuple(x.shape),
+                      _np.dtype(getattr(x, "dtype", _np.float32)).name)
+                     for x in list(data_shapes) + list(label_shapes or []))
+
     def bind_exec(self, data_shapes, label_shapes):
-        """Bind one executor a context on its slice's shapes."""
+        """One executor a context on its slice's shapes: those bound
+        before for the same signature (reseeded, as binding anew would
+        be), else new ones; either way on the group's parameter store."""
         self.batch_size = None
         self.data_layouts = self.decide_slices(data_shapes)
         if label_shapes is not None:
             self.label_layouts = self.decide_slices(label_shapes)
-        self.execs = []
-        for i, ctx in enumerate(self.contexts):
-            descs = self._sliced_shape(data_shapes, i, self.data_layouts)
-            if label_shapes is not None:
-                descs += self._sliced_shape(label_shapes, i,
-                                            self.label_layouts)
-            self.execs.append(self.symbol.simple_bind(
-                ctx=ctx, grad_req=self.grad_req,
-                **{x.name: x.shape for x in descs}))
+        sig = self._signature(data_shapes, label_shapes)
+        execs = self._bound.get(sig)
+        if execs is None:
+            execs = []
+            for i, ctx in enumerate(self.contexts):
+                descs = self._sliced_shape(data_shapes, i,
+                                           self.data_layouts)
+                if label_shapes is not None:
+                    descs += self._sliced_shape(label_shapes, i,
+                                                self.label_layouts)
+                execs.append(self.symbol.simple_bind(
+                    ctx=ctx, grad_req=self.grad_req,
+                    **{x.name: x.shape for x in descs}))
+            self._bound[sig] = execs
+        else:
+            for exec_ in execs:
+                exec_.reseed()
+        self.execs = execs
+        if self._stores is None:
+            self._stores = [
+                ({n: e.arg_dict[n] for n in self.param_names
+                  if n in e.arg_dict},
+                 {n: e.aux_dict[n] for n in self.aux_names})
+                for e in execs]
+        self._adopt()
         self.data_shapes = data_shapes
         self.label_shapes = label_shapes
         self.data_names = [x.name for x in data_shapes]
@@ -138,11 +178,36 @@ class DataParallelExecutorGroup:
             self.label_names = [x.name for x in label_shapes]
         self._collect_arrays()
 
+    def _adopt(self):
+        """Alias the executors to the store. A parameter whose shape
+        follows the inputs' cannot be shared and raises here, at the bind
+        (``mxtpu`` fails later, at the step, where the store's weights do
+        not fit the data)."""
+        for exec_, (params, aux) in zip(self.execs, self._stores):
+            exec_.adopt_arrays(params, aux)
+            for table, store in ((exec_.arg_dict, params),
+                                 (exec_.aux_dict, aux)):
+                for name, arr in store.items():
+                    if name in table and table[name] is not arr:
+                        raise ValueError(
+                            "parameter %r has shape %s for these inputs, "
+                            "%s in the bound store" % (
+                                name, tuple(table[name].shape),
+                                tuple(arr.shape)))
+
     def reshape(self, data_shapes, label_shapes):
         if data_shapes == self.data_shapes and \
                 label_shapes == self.label_shapes:
             return
         self.bind_exec(data_shapes, label_shapes)
+
+    def adopt_store(self, param_store, aux_store):
+        """Alias every executor's parameter and aux slots, now and after
+        every rebind, to the given arrays (``mxtpu``'s ``adopt_store``;
+        the fused step's group store, one context)."""
+        self._stores = [(param_store, aux_store)] * len(self.contexts)
+        self._adopt()
+        self._collect_arrays()
 
     def _sliced_shape(self, shapes, i, major_axis):
         sliced = []

@@ -22,15 +22,29 @@ a device (sum, count) that the metric reads at ``get``.
 built and, on the card, warmed up) as a compile and every later step as
 a hit, so a fit shows ``mxtpu``'s counts: two compiles in warm-up, the
 bare step and then the step with the metric, because the key holds the
-metric. On the card each hit replays a graph, captured at the first hit:
-the bare step, run for one batch only, is never captured. Stateful ops
+metric. The key is ``mxtpu``'s, the batch's signature and the metric
+alone: a rebind for other shapes (fit's scoring of another batch size)
+keeps its executors, and one for shapes seen before finds them again
+(``DataParallelExecutorGroup``), so the entry's tensors are still the
+ones its graph reads. On the card each hit replays a graph, captured at
+the first hit: the bare step, run for one batch only, is never captured.
+
+The group. Every module driving one optimizer (a bucketing module's
+buckets, through ``borrow_optimizer`` and :func:`attach_borrowed`)
+shares one :class:`FusedGroupState`: the parameter and aux store that
+every bucket's executors alias (``seed_store`` / ``adopt_store``), the
+optimizer states the steps read, ``t``, ``lr``, the generator, the
+metric accumulator, the capture stream and one memory pool for all the
+graphs. Each module keeps its own ``ProgramCache``, so a bucketing fit
+shows one compile a bucket and a hit at every later step, as in
+``mxtpu``, and a bucket switch copies nothing. Stateful ops
 (the RNN's dropout) draw from the step's own CUDA generator, which each
 graph registers, so each replay draws the numbers an uncaptured call
 would. Host mirrors stay outside the graph: ``num_update``, each slot's
 update count, the learning rate (written into its device tensor when the
 schedule moves) and the stats. After a fused step ``get_outputs()``
-returns the step's outputs, which the next step overwrites (``mxtpu``'s
-donation contract).
+returns the step's outputs, which the group's next step, of any bucket,
+overwrites (``mxtpu``'s donation contract).
 
 The rest is ``mxtpu``'s escape hatch: a Monitor, a custom updater,
 several contexts, ``inputs_need_grad``, state inputs, ``grad_req`` other
@@ -64,7 +78,8 @@ from ..ndarray import NDArray
 from ..optimizer import state_to_tree
 
 __all__ = ["ProgramCache", "FusedGroupState", "FusedModuleTrainer",
-           "maybe_create", "metric_readback_interval", "_fused_eligible"]
+           "maybe_create", "attach_borrowed", "metric_readback_interval",
+           "_fused_eligible"]
 
 
 class ProgramCache:
@@ -128,6 +143,7 @@ class _Step:
         self.graph = None
         self.outs = None            # the outputs the graph writes
         self.replays = 0
+        self.pool_bytes = 0
 
     def call(self):
         return self.fn(*self.args)
@@ -139,9 +155,12 @@ class _Step:
 
 
 class FusedGroupState:
-    """State of the optimizer's group: the device scalars the step reads
-    (the generator, the step count ``t``, ``lr``), the device metric
-    accumulator, and the counters."""
+    """State shared by every module driving one optimizer (the
+    ``borrow_optimizer`` group: a bucketing module's buckets): the
+    parameter and aux store, the optimizer states the steps read, the
+    device scalars (the generator, the step count ``t``, ``lr``), the
+    device metric accumulator, the capture stream and memory pool, and
+    the counters."""
 
     def __init__(self, optimizer, updater, ctx):
         self.optimizer = optimizer
@@ -152,6 +171,12 @@ class FusedGroupState:
         self.t_dev = None
         self.lr_dev = None
         self.lr_host = None
+        # the parameter and aux arrays every module of the group works on
+        self.param_store = {}
+        self.aux_store = {}
+        self.states = {}             # slot -> the state the steps read
+        self.side = None             # the card's warm-up / capture stream
+        self.pool = None             # the memory pool the graphs share
         # device-side metric accumulation
         self.metric = None
         self.metric_fn = None
@@ -241,11 +266,27 @@ class FusedModuleTrainer:
             if exec_.grad_dict.get(name) is not None:
                 self._train_names.append(name)
                 self._opt_slots.append(i)
+        self._param_names = names_in_graph
         self._cache = ProgramCache()
-        self._states = {}            # slot -> the state the steps read
-        self._side = None            # the card's warm-up / capture stream
         self._last_fused = False
         self._last_metric_applied = False
+
+    # -- group plumbing ----------------------------------------------------
+    def seed_store(self):
+        """First module of the group: its executor's arrays become the
+        group's parameter and aux store."""
+        exec_ = self._module._exec_group.execs[0]
+        fs = self._group
+        fs.param_store = {n: exec_.arg_dict[n] for n in self._param_names}
+        fs.aux_store = {n: exec_.aux_dict[n] for n in exec_._aux_names}
+
+    def adopt_store(self):
+        """Alias this module's executors, now and after every rebind, to
+        the group's store."""
+        fs = self._group
+        if fs.param_store:
+            self._module._exec_group.adopt_store(fs.param_store,
+                                                 fs.aux_store)
 
     # -- fallback ----------------------------------------------------------
     def _disable(self, reason):
@@ -313,7 +354,7 @@ class FusedModuleTrainer:
         a captured graph keeps reading the right storage."""
         updater = self._group.updater
         state = updater.ensure_state(slot, weight)
-        held = self._states.setdefault(slot, state)
+        held = self._group.states.setdefault(slot, state)
         if state is not held:
             with torch.no_grad():
                 for dst, src in zip(_leaves(held), _leaves(state)):
@@ -340,14 +381,15 @@ class FusedModuleTrainer:
     def _warm_up(self, entry):
         """A signature's first step on the card, run for real on the side
         stream the capture will use."""
-        dev = self._group.t_dev.device
+        fs = self._group
+        dev = fs.t_dev.device
         main = torch.cuda.current_stream(dev)
-        if self._side is None:
-            self._side = torch.cuda.Stream(device=dev)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
+        if fs.side is None:
+            fs.side = torch.cuda.Stream(device=dev)
+        fs.side.wait_stream(main)
+        with torch.cuda.stream(fs.side):
             outs = entry.call()
-        main.wait_stream(self._side)
+        main.wait_stream(fs.side)
         for o in outs:
             o.record_stream(main)
         return outs
@@ -355,23 +397,33 @@ class FusedModuleTrainer:
     def _capture(self, entry):
         """Capture one call of the step on the side stream into
         ``entry.graph``, which keeps its node list (``raw_cuda_graph()``)
-        for inspection."""
-        gen = self._group.generator
-        dev = self._group.t_dev.device
+        for inspection. The group's graphs share one memory pool and
+        replay one at a time on one stream. A graph captured later may
+        hold its outputs in blocks that an earlier one freed as
+        temporaries and writes again at each replay, so a step's outputs
+        hold only until the group's next replay, of any bucket (``fit``
+        reads them before it). ``entry.pool_bytes`` is what the capture
+        added to the card's reserved memory."""
+        fs = self._group
+        gen = fs.generator
+        dev = fs.t_dev.device
         torch.cuda.synchronize(dev)
+        if fs.pool is None:
+            fs.pool = torch.cuda.graph_pool_handle()
+        reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         graph.register_generator_state(gen)
-        pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.stream(self._side):
-            graph.capture_begin(pool=pool)
+        with torch.cuda.stream(fs.side):
+            graph.capture_begin(pool=fs.pool)
             try:
                 outs = entry.call()
             except BaseException:
-                _end_failed_capture(graph, pool, dev, gen)
+                _end_failed_capture(graph, fs.pool, dev, gen)
                 raise
             graph.capture_end()
         graph.instantiate()
         entry.graph, entry.outs = graph, outs
+        entry.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 
     def step(self, data_batch):
         """Run one fused forward+backward+update[+metric] step. Returns
@@ -400,10 +452,11 @@ class FusedModuleTrainer:
             exec_group = mod._exec_group
             exec_ = exec_group.execs[0]
 
-        # a graph reads its executor's tensors, so the executor is part of
-        # the key; the entry holds it, so its id is not reused
+        # the key is mxtpu's: the batch's signature and the metric; a
+        # rebind finds the signature's executor again (its group keeps
+        # them), so the entry's tensors are the ones loaded below
         key = (self._shape_sig(data_batch.data),
-               self._shape_sig(data_batch.label), fs.metric_key, id(exec_))
+               self._shape_sig(data_batch.label), fs.metric_key)
         metric_fn = fs.metric_fn if fs.metric_key is not None else None
         states = [self._state(slot, exec_.arg_dict[name])
                   for slot, name in zip(self._opt_slots, self._train_names)]
@@ -422,6 +475,9 @@ class FusedModuleTrainer:
 
         entry, hit = self._cache.get(
             key, lambda: self._build(exec_, metric_fn, states))
+        if entry.exec_ is not exec_:
+            raise RuntimeError("the fused step of signature %s was built "
+                               "over another executor" % (key[:2],))
         if not self._on_card():
             outs = entry.call()
         elif not hit:
@@ -530,4 +586,24 @@ def maybe_create(module):
         return None
     group = FusedGroupState(module._optimizer, module._updater,
                             module._context[0])
-    return FusedModuleTrainer(module, group)
+    trainer = FusedModuleTrainer(module, group)
+    trainer.seed_store()
+    return trainer
+
+
+def attach_borrowed(module, shared_module):
+    """Called from ``Module.borrow_optimizer``: join the lender's group,
+    with this module's executors aliased to the group's store (a bucket
+    switch then copies nothing, and each bucket's graph reads the same
+    parameter, state and scalar tensors)."""
+    lender = getattr(shared_module, "_fused", None)
+    if lender is None:
+        _log_fallback(module, "shared optimizer owner runs eager")
+        return None
+    mode, reason = _fused_eligible(module)
+    if mode is None:
+        _log_fallback(module, reason)
+        return None
+    trainer = FusedModuleTrainer(module, lender._group)
+    trainer.adopt_store()
+    return trainer

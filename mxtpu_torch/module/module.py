@@ -5,9 +5,11 @@ Counterpart of ``mxtpu/module/module.py``'s eager step: ``bind``,
 copied to the context), ``init_optimizer`` (``rescale_grad`` = 1/batch;
 the optimizer runs at the kvstore when one updates there, else in the
 module's Updater), ``forward`` / ``backward`` / ``update`` /
-``update_metric``, ``get_params`` / ``set_params``, ``reshape`` and the
-checkpoint pair ``save_checkpoint`` / ``load``. The context defaults to
-the current one, ``gpu(0)``.
+``update_metric``, ``get_params`` / ``set_params``, ``reshape``,
+``bind(shared_module=)`` and ``borrow_optimizer`` (a bucketing module's
+buckets: one set of parameter arrays, one optimizer) and the checkpoint
+pair ``save_checkpoint`` / ``load``. The context defaults to the current
+one, ``gpu(0)``.
 
 Fused train step (``MXTPU_MODULE_FUSED``, default on, as in ``mxtpu``):
 on one context with the optimizer in the module's Updater,
@@ -266,32 +268,40 @@ class Module(BaseModule):
         self._grad_req = grad_req
         self._data_shapes, self._label_shapes = _parse_data_desc(
             self.data_names, self.label_names, data_shapes, label_shapes)
+        shared_group = None
         if shared_module is not None:
-            raise NotImplementedError("bind(shared_module=) is not ported")
+            if not isinstance(shared_module, Module):
+                raise TypeError("shared_module must be a Module")
+            shared_module._require(params=True)
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
-            for_training, inputs_need_grad,
+            for_training, inputs_need_grad, shared_group,
             fixed_param_names=self._fixed_param_names,
             grad_req=grad_req, state_names=self._state_names)
         self.binded = True
-        if self._arg_params is not None:
+        if shared_module is not None:
+            # the executors work on the shared module's parameter arrays,
+            # and the host copies are its too
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self._params_dirty = shared_module._params_dirty
+            self.params_initialized = True
+        elif self._arg_params is not None:
             # parameters loaded before bind (Module.load)
             self._exec_group.set_params(self._arg_params, self._aux_params,
                                         allow_extra=True)
             self.params_initialized = True
 
     def reshape(self, data_shapes, label_shapes=None):
-        """Rebind for new input shapes, keeping the parameters."""
+        """Rebind for new input shapes. The executors of the new shapes
+        (found again if bound before) work on the same parameter arrays,
+        so nothing is copied."""
         self._require()
-        if self._params_dirty:
-            self._sync_params_from_devices()
         self._data_shapes, self._label_shapes = _parse_data_desc(
             self.data_names, self.label_names, data_shapes, label_shapes)
         self._exec_group.reshape(self._data_shapes, self._label_shapes)
-        if self.params_initialized:
-            self._exec_group.set_params(self._arg_params, self._aux_params,
-                                        allow_extra=True)
 
     # -- optimizer ---------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -355,6 +365,18 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
         self._fused = fused_mod.maybe_create(self)
+
+    def borrow_optimizer(self, shared_module):
+        """Share ``shared_module``'s optimizer, kvstore and Updater (a
+        bucketing module's buckets), and join its fused step's group: one
+        parameter store, one set of optimizer states, one step count."""
+        if not shared_module.optimizer_initialized:
+            raise RuntimeError("the lender has no optimizer yet")
+        for attr in ("_optimizer", "_kvstore", "_update_on_kvstore",
+                     "_updater"):
+            setattr(self, attr, getattr(shared_module, attr))
+        self.optimizer_initialized = True
+        self._fused = fused_mod.attach_borrowed(self, shared_module)
 
     # -- computation -------------------------------------------------------
     def forward_backward(self, data_batch):

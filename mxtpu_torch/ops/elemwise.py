@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .nn import relu
 from .registry import register
 
 
@@ -130,7 +131,7 @@ _UNARY = {
     "log": torch.log,
     "sqrt": torch.sqrt,
     "square": torch.square,
-    "relu": torch.relu,
+    "relu": relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
 }
@@ -138,3 +139,9 @@ _UNARY = {
 for _n, _f in _UNARY.items():
     register(_n, aliases={"negative": ("_neg",),
                           "abs": ("_abs",)}.get(_n, ()))(_f)
+
+
+@register("where")
+def where(condition, x, y):
+    """``x`` where ``condition`` is non-zero, else ``y``."""
+    return torch.where(condition.to(torch.bool), x, y)

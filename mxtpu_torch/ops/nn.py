@@ -1,8 +1,8 @@
 """Neural-network ops of the PyTorch port.
 
 Counterpart of the main-path ops of ``mxtpu/ops/nn.py``:
-FullyConnected, Convolution, Pooling, Activation, softmax, Embedding and
-SoftmaxOutput, whose backward is ``mxtpu``'s (a
+FullyConnected, Convolution, Pooling, Activation, softmax, Embedding,
+Dropout and SoftmaxOutput, whose backward is ``mxtpu``'s (a
 ``torch.autograd.Function`` in place of its ``custom_vjp``).
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
 here they are PyTorch's own calls: ``torch.matmul``, ``index_select``,
@@ -16,7 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .registry import register
+from .registry import next_generator, register
 
 
 @register("FullyConnected", aliases=("fully_connected",))
@@ -112,10 +112,16 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
                               stride)
 
 
+def relu(data):
+    """max(data, 0) with ``jnp.maximum``'s gradient: g where data > 0, g/2
+    where data == 0 (torch.maximum splits a tie as JAX does)."""
+    return torch.maximum(data, data.new_zeros(()))
+
+
 @register("Activation", aliases=("activation",))
 def activation(data, act_type="relu"):
     if act_type == "relu":
-        return torch.relu(data)
+        return relu(data)
     if act_type == "sigmoid":
         return torch.sigmoid(data)
     if act_type == "tanh":
@@ -133,12 +139,50 @@ def softmax(data, axis=-1, temperature=None):
     return torch.softmax(x, dim=axis)
 
 
+def _take_fill(dtype):
+    """``jnp.take``'s fill value for an index out of range: NaN for a
+    floating table, the most negative value for a signed one, the largest
+    for an unsigned one."""
+    if dtype.is_floating_point:
+        return float("nan")
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
 @register("Embedding")
 def embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
               sparse_grad=False):
+    """Rows of ``weight`` as ``jnp.take`` picks them: a negative id counts
+    from the end once, and an id still outside [0, rows) gives a row of
+    ``_take_fill`` (no gradient) instead of raising, so no device-side
+    assert can end the card's context."""
+    rows = weight.shape[0]
     idx = data.reshape(-1).to(torch.int64)
-    return weight.index_select(0, idx).reshape(
-        tuple(data.shape) + (weight.shape[1],))
+    idx = torch.where(idx < 0, idx + rows, idx)
+    valid = (idx >= 0) & (idx < rows)
+    picked = weight.index_select(0, torch.where(valid, idx, 0))
+    picked = torch.where(valid[:, None], picked,
+                         torch.full((), _take_fill(weight.dtype),
+                                    dtype=weight.dtype, device=weight.device))
+    return picked.reshape(tuple(data.shape) + (weight.shape[1],))
+
+
+@register("Dropout", stateful=True, needs_train_flag=True)
+def dropout(data, p=0.5, mode="training", axes=(), _training=False):
+    """Inverted dropout (``mxtpu``'s Dropout): in training, or always
+    with ``mode="always"``, each element kept with probability 1 - p and
+    scaled by 1 / (1 - p), one draw a mask element (``axes`` broadcast
+    the mask) from the step's generator; otherwise the identity."""
+    if p == 0.0 or (not _training and mode != "always"):
+        return data
+    shape = list(data.shape)
+    for ax in axes:
+        shape[ax] = 1
+    keep = 1.0 - p
+    gen = next_generator()
+    mask = torch.rand(shape, generator=gen, device=gen.device) \
+        .to(data.device) < keep
+    return torch.where(mask, data / keep, torch.zeros_like(data))
 
 
 def _one_hot(label, n, dtype):

@@ -33,7 +33,9 @@ either cluster size, else ``"streamed"`` from global memory each step.
 The wrapper refuses only a problem no plan takes (H above 2,048).
 
 ``LAUNCHES`` counts kernel launches per kernel; :func:`reset_launches`
-zeroes it. Only a launch bumps it.
+zeroes it. Only a launch bumps it: a call recorded into a CUDA graph
+capture launches nothing (the graph's node runs at each replay, which
+its owner counts).
 """
 from __future__ import annotations
 
@@ -254,7 +256,8 @@ def _lstm_cuda(x_proj, h0, c0, wh_t):
             T, N, H, int(xd == torch.bfloat16), int(sd == torch.bfloat16),
             *_plan_args(plan), stream)
     _raise_on("lstm_scan", err)
-    LAUNCHES["lstm_scan"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["lstm_scan"] += 1
     return ys, hT, cT
 
 
@@ -284,7 +287,8 @@ def _gru_cuda(x_proj, h0, whrz_t, whn_t, bhn):
             T, N, H, int(xd == torch.bfloat16), int(sd == torch.bfloat16),
             *_plan_args(plan), stream)
     _raise_on("gru_scan", err)
-    LAUNCHES["gru_scan"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["gru_scan"] += 1
     return ys, hT
 
 

@@ -3,8 +3,8 @@
 Counterpart of the part of ``mxtpu/ops/shape_ops.py`` that the fused
 RNN cell's ``unroll``, the serving graphs, LeNet and
 ``nd.concatenate`` emit: reshape (with MXNet's special codes), Flatten,
-swapaxes, expand_dims, concat, stack, split and the nullary ``_zeros``
-creator.
+swapaxes, expand_dims, concat, stack, split, zeros_like, ones_like and
+the nullary ``_zeros`` creator.
 """
 from __future__ import annotations
 
@@ -103,3 +103,13 @@ def _zeros_op(shape=(), dtype="float32", _device=None):
     """Nullary zeros creator (symbolic begin_state)."""
     return torch.zeros(tuple(shape), dtype=canonical_dtype(dtype),
                        device=_device)
+
+
+@register("zeros_like")
+def zeros_like(data):
+    return torch.zeros_like(data)
+
+
+@register("ones_like")
+def ones_like(data):
+    return torch.ones_like(data)

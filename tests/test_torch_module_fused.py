@@ -360,6 +360,63 @@ def test_get_outputs_after_a_fused_step(smoke):
     np.testing.assert_allclose(outs[mt], outs[mx], rtol=1e-5, atol=1e-6)
 
 
+# -- rebinds: the program is keyed on the signature ---------------------------
+
+def _rebind_probe(pkg, probe):
+    """The fused toy MLP from the same weights through rebinds: ``eval``
+    fits 4 epochs of 32-row batches scored on 16-row batches each epoch;
+    ``alternate`` steps 12 batches of 32 and 16 rows in turn. Returns
+    (module, params)."""
+    x, y = _toy_problem()
+    w0 = {k: pkg.nd.array(v.astype(np.float32), ctx=pkg.cpu())
+          for k, v in _toy_params().items()}
+    mod = pkg.mod.Module(_toy_symbol(pkg), context=pkg.cpu())
+    if probe == "eval":
+        train = pkg.io.NDArrayIter(x, y, 32, label_name="softmax_label")
+        val = pkg.io.NDArrayIter(x[:64], y[:64], 16,
+                                 label_name="softmax_label")
+        mod.fit(train, eval_data=val, optimizer="sgd",
+                optimizer_params=OPTIMIZERS["sgd"], arg_params=w0,
+                num_epoch=4, eval_metric="acc")
+    else:
+        mod.bind([("data", (32, 20))], [("softmax_label", (32,))])
+        mod.init_params(arg_params=w0)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=OPTIMIZERS["sgd"])
+        metric = pkg.metric.create("acc")
+        for i in range(12):
+            rows = slice(0, 32) if i % 2 == 0 else slice(32, 48)
+            batch = pkg.io.DataBatch([pkg.nd.array(x[rows], ctx=pkg.cpu())],
+                                     [pkg.nd.array(y[rows], ctx=pkg.cpu())])
+            mod.forward_backward(batch)
+            mod.update()
+            mod.update_metric(metric, batch.label)
+    return mod, _params(mod)
+
+
+@pytest.mark.parametrize("probe,compiles,hits", [("eval", 2, 14),
+                                                 ("alternate", 3, 9)])
+def test_rebinds_hit_the_signatures_program(probe, compiles, hits):
+    """A rebind to a signature seen before (fit's scoring at another batch
+    size, or batches whose size alternates) finds its program: mxtpu's
+    compiles, hits and entries, and its weights. The executors of each
+    signature work on one set of parameter arrays, so a rebind copies
+    none."""
+    got, got_params = _rebind_probe(mt, probe)
+    want, want_params = _rebind_probe(mx, probe)
+    stats = got._fused._cache.stats()
+    assert stats == want._fused._cache.stats()
+    assert (stats["compiles"], stats["hits"]) == (compiles, hits)
+    assert stats["programs"] == len(got._fused._cache.entries()) == compiles
+    _assert_params(got_params, want_params, FIT_TOL)
+    group = got._exec_group
+    assert len(group._bound) == 2
+    first, second = (execs[0] for execs in group._bound.values())
+    for name in ("fc1_weight", "fc2_bias"):
+        assert first.arg_dict[name] is second.arg_dict[name]
+        assert first.arg_dict[name] is got._fused._group.param_store[name]
+
+
 # -- eligibility ---------------------------------------------------------------
 
 class _PortMonitor:

@@ -444,3 +444,65 @@ def test_softmax_output_through_eval_graph_matches_mxtpu():
             y = mt.nd.NDArray(outs[0])
         mt.autograd.backward([y], head_grads=[mt.nd.array(head)])
     np.testing.assert_allclose(a.grad.asnumpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("op", ["Activation", "relu"])
+def test_relu_gradient_splits_a_tie_as_mxtpu(op):
+    """ReLU's gradient is g where x > 0, 0 where x < 0 and g / 2 at x = 0,
+    as jax.vjp of mxtpu's op (jnp.maximum) gives it: through
+    nd.Activation(act_type="relu"), nd.relu and a symbol's graph."""
+    import jax
+    import jax.numpy as jnp
+    from mxtpu.ops import get_op as mx_get_op
+    x = np.array([-1.0, 0.0, 2.0, 0.0, -0.5], np.float32)
+    head = np.array([1.0, 2.0, 3.0, -4.0, 5.0], np.float32)
+    kw = {"act_type": "relu"} if op == "Activation" else {}
+    out, vjp = jax.vjp(lambda d: mx_get_op(op).fn(d, **kw), jnp.asarray(x))
+    want, = vjp(jnp.asarray(head))
+    np.testing.assert_array_equal(np.asarray(want), [0, 1, 3, -2, 0])
+    with mt.cpu():
+        a = mt.nd.array(x)
+        a.attach_grad()
+        with mt.autograd.record():
+            y = getattr(mt.nd, op)(a, **kw)
+        y.backward(mt.nd.array(head))
+        np.testing.assert_array_equal(y.asnumpy(), np.asarray(out))
+        np.testing.assert_array_equal(a.grad.asnumpy(), np.asarray(want))
+        net = getattr(mt.sym, op)(mt.sym.var("data"), **kw)
+        exe = net.simple_bind(ctx=mt.cpu(), data=x.shape)
+        exe.forward(is_train=True, data=mt.nd.array(x))
+        exe.backward(out_grads=[mt.nd.array(head)])
+        np.testing.assert_array_equal(exe.grad_dict["data"].asnumpy(),
+                                      np.asarray(want))
+
+
+@pytest.mark.parametrize("ids", [[1, 5], [-1, 2], [3, -5, 0, 4],
+                                 [[0, 9], [-4, 2]]],
+                         ids=["past_end", "negative", "mixed", "2d"])
+def test_embedding_out_of_range_ids_match_mxtpu(ids):
+    """An id outside [0, rows): jnp.take's rule. A negative id counts from
+    the end once; an id still outside gives a row of NaN, and no error
+    (on the card, no device-side assert). Its row gets no gradient."""
+    import jax
+    import jax.numpy as jnp
+    from mxtpu.ops import nn as jnn
+    w = np.arange(12, dtype=np.float32).reshape(4, 3) / 10
+    data = np.asarray(ids, np.float32)
+    head = np.random.RandomState(1).standard_normal(
+        data.shape + (3,)).astype(np.float32)
+    want = mx.nd.Embedding(mx.nd.array(data), mx.nd.array(w), input_dim=4,
+                           output_dim=3).asnumpy()
+    _, vjp = jax.vjp(lambda t: jnn.embedding(jnp.asarray(data), t,
+                                             input_dim=4, output_dim=3),
+                     jnp.asarray(w))
+    dw_want, = vjp(jnp.asarray(np.nan_to_num(head)))
+    with mt.cpu():
+        weight = mt.nd.array(w)
+        weight.attach_grad()
+        with mt.autograd.record():
+            got = mt.nd.Embedding(mt.nd.array(data), weight, input_dim=4,
+                                  output_dim=3)
+        got.backward(mt.nd.array(head))
+        np.testing.assert_array_equal(got.asnumpy(), want)
+        np.testing.assert_allclose(weight.grad.asnumpy(),
+                                   np.asarray(dw_want), **TOL)
