@@ -140,7 +140,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward, the update; each kernel node's part marked at its capture);
    then the GRU variant (gru_scan in every graph), 1
    epoch, below BL_GRU_PPL_SHARE of the vocabulary in perplexity;
-14. timings: each kernel, its plain version and the PyTorch library call
+14. the ResNet slice (BASELINE.json config 2):
+   example/image-classification/train_imagenet.py --benchmark 1 through
+   common/fit.py's Module.fit call, mirrored by imagenet_fit (the
+   example imports mxtpu), with the context on gpu(0) where fit.py
+   hard-codes cpu(). The first steps of ResNet-50 at 224 (batch 16, TF32
+   off) on the card against the CPU's Module (RN_STEP_SHARE,
+   RN_AUX_TOL), captured steps against eager ones on the card with
+   cuDNN's deterministic algorithms (CAPTURE_TOL, weights and moving
+   statistics); then the full-width run: ResNet-50 at 3x224x224, 1,000
+   classes, batch 128, f32, an epoch cut to RN_STEPS steps, RN_EPOCHS
+   epochs eager (fit.py's kvstore object) and captured
+   (kvstore="local"; one capture a signature, a replay every later step,
+   the 102 moving statistics updated inside the graph), under torch's
+   default TF32 (cuDNN on, matmuls off): the fixed batch's training
+   cross-entropy in the last epoch below RN_CE_SHARE of the first's, no
+   host wait in a captured epoch, ms a step and images/s in turns with
+   the host time by phase, the card's busy share, kernels and host
+   launch calls a step and the share of the step's bound (FLOPs counted
+   by FlopCounterMode at TF32's or float32's peak); the checkpoint loaded
+   into a CPU Module predicting as the card does; the same timings with
+   TF32 off; then Inception-BN: its first steps against the CPU and a
+   short captured epoch at batch 128;
+15. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -157,10 +179,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-15. one JSON line naming every kernel with its launches (the head
+16. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits) and error;
-16. the last line: {"ok": true, "device": {...}}.
+17. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -3306,6 +3328,863 @@ def bucketed_lm_phase(mt, rnn_scan, rng, dev, card):
     return out, errs
 
 
+# ---------------------------------------------------------------------------
+# the ResNet slice: example/image-classification/train_imagenet.py
+# --benchmark 1 (BASELINE.json config 2) through common/fit.py's Module.fit
+# call. The example's modules import mxtpu, so its symbol functions
+# (symbols/resnet.py, symbols/inception_bn.py), its SyntheticDataIter
+# (common/data.py) and its fit call (common/fit.py) are mirrored here, line
+# for line, for either package.
+# ---------------------------------------------------------------------------
+
+def _resnet_bn(pkg, data, name):
+    return pkg.sym.BatchNorm(data, fix_gamma=False, eps=2e-5, momentum=0.9,
+                             name=name)
+
+
+def _residual_unit(pkg, data, num_filter, stride, dim_match, name,
+                   bottleneck):
+    """symbols/resnet.py's residual_unit: BN-relu-conv stack + shortcut."""
+    conv = pkg.sym.Convolution
+    bn1 = _resnet_bn(pkg, data, name + "_bn1")
+    act1 = pkg.sym.Activation(bn1, act_type="relu", name=name + "_relu1")
+    if bottleneck:
+        conv1 = conv(act1, num_filter=num_filter // 4, kernel=(1, 1),
+                     stride=(1, 1), pad=(0, 0), no_bias=True,
+                     name=name + "_conv1")
+        bn2 = _resnet_bn(pkg, conv1, name + "_bn2")
+        act2 = pkg.sym.Activation(bn2, act_type="relu", name=name + "_relu2")
+        conv2 = conv(act2, num_filter=num_filter // 4, kernel=(3, 3),
+                     stride=stride, pad=(1, 1), no_bias=True,
+                     name=name + "_conv2")
+        bn3 = _resnet_bn(pkg, conv2, name + "_bn3")
+        act3 = pkg.sym.Activation(bn3, act_type="relu", name=name + "_relu3")
+        body = conv(act3, num_filter=num_filter, kernel=(1, 1),
+                    stride=(1, 1), pad=(0, 0), no_bias=True,
+                    name=name + "_conv3")
+    else:
+        conv1 = conv(act1, num_filter=num_filter, kernel=(3, 3),
+                     stride=stride, pad=(1, 1), no_bias=True,
+                     name=name + "_conv1")
+        bn2 = _resnet_bn(pkg, conv1, name + "_bn2")
+        act2 = pkg.sym.Activation(bn2, act_type="relu", name=name + "_relu2")
+        body = conv(act2, num_filter=num_filter, kernel=(3, 3),
+                    stride=(1, 1), pad=(1, 1), no_bias=True,
+                    name=name + "_conv2")
+    if dim_match:
+        shortcut = data
+    else:
+        shortcut = conv(act1, num_filter=num_filter, kernel=(1, 1),
+                        stride=stride, no_bias=True, name=name + "_sc")
+    return body + shortcut
+
+
+def resnet_plan(num_layers, image_h):
+    """symbols/resnet.py's _plan: (units a stage, filters a stage,
+    bottleneck?) for a depth; CIFAR-style at 64 px and below."""
+    if image_h <= 64:
+        if (num_layers - 2) % 9 == 0:
+            n = (num_layers - 2) // 9
+            return [n] * 3, [64, 128, 256], True
+        if (num_layers - 2) % 6 == 0:
+            n = (num_layers - 2) // 6
+            return [n] * 3, [16, 32, 64], False
+        raise ValueError("CIFAR resnet depth must satisfy "
+                         "(num_layers-2) %% 9 == 0 or %% 6 == 0, got %d"
+                         % num_layers)
+    table = {18: ([2, 2, 2, 2], False), 34: ([3, 4, 6, 3], False),
+             50: ([3, 4, 6, 3], True), 101: ([3, 4, 23, 3], True),
+             152: ([3, 8, 36, 3], True), 200: ([3, 24, 36, 3], True)}
+    if num_layers not in table:
+        raise ValueError("no unit plan for resnet-%d at %dpx"
+                         % (num_layers, image_h))
+    units, bottleneck = table[num_layers]
+    filters = [256, 512, 1024, 2048] if bottleneck else [64, 128, 256, 512]
+    return units, filters, bottleneck
+
+
+def resnet_symbol(pkg, num_layers=50, image_shape="3,224,224",
+                  num_classes=1000):
+    """symbols/resnet.py's get_symbol (float32; its float16 variant adds
+    Cast, which this slice does not run) in either package, in a fresh
+    name scope."""
+    c, h, w = (int(x) for x in image_shape.split(","))
+    units, filters, bottleneck = resnet_plan(num_layers, h)
+    with pkg.name.NameManager():
+        data = pkg.sym.var("data")
+        body = _resnet_bn(pkg, data, "bn_data")
+        if h <= 64:
+            body = pkg.sym.Convolution(
+                body, num_filter=filters[0] // (4 if bottleneck else 1),
+                kernel=(3, 3), stride=(1, 1), pad=(1, 1), no_bias=True,
+                name="conv0")
+        else:
+            body = pkg.sym.Convolution(body, num_filter=64, kernel=(7, 7),
+                                       stride=(2, 2), pad=(3, 3),
+                                       no_bias=True, name="conv0")
+            body = _resnet_bn(pkg, body, "bn0")
+            body = pkg.sym.Activation(body, act_type="relu", name="relu0")
+            body = pkg.sym.Pooling(body, kernel=(3, 3), stride=(2, 2),
+                                   pad=(1, 1), pool_type="max", name="pool0")
+        for stage, (n_units, n_filter) in enumerate(zip(units, filters)):
+            stride = (1, 1) if stage == 0 else (2, 2)
+            body = _residual_unit(pkg, body, n_filter, stride, False,
+                                  "stage%d_unit1" % (stage + 1), bottleneck)
+            for unit in range(2, n_units + 1):
+                body = _residual_unit(pkg, body, n_filter, (1, 1), True,
+                                      "stage%d_unit%d" % (stage + 1, unit),
+                                      bottleneck)
+        body = _resnet_bn(pkg, body, "bn1")
+        body = pkg.sym.Activation(body, act_type="relu", name="relu1")
+        pool = pkg.sym.Pooling(body, global_pool=True, pool_type="avg",
+                               kernel=(7, 7), name="pool1")
+        flat = pkg.sym.Flatten(pool)
+        fc = pkg.sym.FullyConnected(flat, num_hidden=num_classes, name="fc1")
+        return pkg.sym.SoftmaxOutput(fc, name="softmax")
+
+
+def _inception_unit(pkg, x, channels, kernel, name, stride=(1, 1),
+                    pad=(0, 0)):
+    """symbols/inception_bn.py's _unit: conv -> BN -> relu."""
+    x = pkg.sym.Convolution(x, num_filter=channels, kernel=kernel,
+                            stride=stride, pad=pad, name=name + "_conv")
+    x = pkg.sym.BatchNorm(x, fix_gamma=False, name=name + "_bn")
+    return pkg.sym.Activation(x, act_type="relu", name=name + "_relu")
+
+
+def _inception_tower(pkg, x, name, *stages):
+    for k, (ch, kern, stride, pad) in enumerate(stages):
+        x = _inception_unit(pkg, x, ch, kern, "%s_%d" % (name, k), stride,
+                            pad)
+    return x
+
+
+def _inception_mixed(pkg, x, name, n1x1, n3r, n3, nd3r, nd3, pool, proj,
+                     downsample=False):
+    """symbols/inception_bn.py's _mixed: one Inception block."""
+    stride = (2, 2) if downsample else (1, 1)
+    towers = []
+    if not downsample:
+        towers.append(_inception_tower(pkg, x, name + "_b1",
+                                       (n1x1, (1, 1), (1, 1), (0, 0))))
+    towers.append(_inception_tower(pkg, x, name + "_b3",
+                                   (n3r, (1, 1), (1, 1), (0, 0)),
+                                   (n3, (3, 3), stride, (1, 1))))
+    towers.append(_inception_tower(pkg, x, name + "_bd3",
+                                   (nd3r, (1, 1), (1, 1), (0, 0)),
+                                   (nd3, (3, 3), (1, 1), (1, 1)),
+                                   (nd3, (3, 3), stride, (1, 1))))
+    pooled = pkg.sym.Pooling(x, kernel=(3, 3), stride=stride, pad=(1, 1),
+                             pool_type=pool, name=name + "_pool")
+    if proj:
+        pooled = _inception_unit(pkg, pooled, proj, (1, 1), name + "_bp")
+    towers.append(pooled)
+    return pkg.sym.Concat(*towers, name=name + "_concat")
+
+
+# symbols/inception_bn.py's _PLAN: (name, n1x1, n3x3red, n3x3, nd3x3red,
+# nd3x3, pool, proj, downsample)
+INCEPTION_PLAN = [
+    ("3a", 64, 64, 64, 64, 96, "avg", 32, False),
+    ("3b", 64, 64, 96, 64, 96, "avg", 64, False),
+    ("3c", 0, 128, 160, 64, 96, "max", 0, True),
+    ("4a", 224, 64, 96, 96, 128, "avg", 128, False),
+    ("4b", 192, 96, 128, 96, 128, "avg", 128, False),
+    ("4c", 160, 128, 160, 128, 160, "avg", 128, False),
+    ("4d", 96, 128, 192, 160, 192, "avg", 128, False),
+    ("4e", 0, 128, 192, 192, 256, "max", 0, True),
+    ("5a", 352, 192, 320, 160, 224, "avg", 128, False),
+    ("5b", 352, 192, 320, 192, 224, "max", 128, False),
+]
+
+
+def inception_bn_symbol(pkg, num_classes=1000, image_shape="3,224,224"):
+    """symbols/inception_bn.py's get_symbol in either package, in a fresh
+    name scope (its small-image variant at 28 px and below)."""
+    height = int(str(image_shape).split(",")[1])
+    with pkg.name.NameManager():
+        x = pkg.sym.Variable("data")
+        if height <= 28:
+            x = _inception_unit(pkg, x, 96, (3, 3), "stem", pad=(1, 1))
+            small_plan = [("3a", 32, 32), ("3b", 32, 48), ("3c", 0, 80),
+                          ("4a", 112, 48), ("4b", 96, 64), ("4c", 80, 80),
+                          ("4d", 48, 96), ("4e", 0, 96), ("5a", 176, 160),
+                          ("5b", 176, 160)]
+            for name, c1, c3 in small_plan:
+                if c1 == 0:
+                    conv = _inception_unit(pkg, x, c3, (3, 3),
+                                           name + "_conv", stride=(2, 2),
+                                           pad=(1, 1))
+                    pool = pkg.sym.Pooling(x, kernel=(3, 3), stride=(2, 2),
+                                           pad=(1, 1), pool_type="max",
+                                           name=name + "_pool")
+                    x = pkg.sym.Concat(conv, pool, name=name + "_concat")
+                else:
+                    x = pkg.sym.Concat(
+                        _inception_unit(pkg, x, c1, (1, 1), name + "_1x1"),
+                        _inception_unit(pkg, x, c3, (3, 3), name + "_3x3",
+                                        pad=(1, 1)),
+                        name=name + "_concat")
+            x = pkg.sym.Pooling(x, kernel=(7, 7), pool_type="avg",
+                                name="global_pool")
+        else:
+            x = _inception_unit(pkg, x, 64, (7, 7), "stem1", stride=(2, 2),
+                                pad=(3, 3))
+            x = pkg.sym.Pooling(x, kernel=(3, 3), stride=(2, 2),
+                                pool_type="max", name="pool1")
+            x = _inception_tower(pkg, x, "stem2",
+                                 (64, (1, 1), (1, 1), (0, 0)),
+                                 (192, (3, 3), (1, 1), (1, 1)))
+            x = pkg.sym.Pooling(x, kernel=(3, 3), stride=(2, 2),
+                                pool_type="max", name="pool2")
+            for row in INCEPTION_PLAN:
+                x = _inception_mixed(pkg, x, *row)
+            x = pkg.sym.Pooling(x, kernel=(7, 7), stride=(1, 1),
+                                pool_type="avg", name="global_pool")
+        x = pkg.sym.Flatten(x)
+        x = pkg.sym.FullyConnected(x, num_hidden=num_classes, name="fc1")
+        return pkg.sym.SoftmaxOutput(x, name="softmax")
+
+
+def synthetic_data_iter(pkg, num_classes, data_shape, max_iter,
+                        dtype="float32", ctx=None):
+    """common/data.py's SyntheticDataIter in either package: one random
+    batch from RandomState(0) (data uniform in [-1, 1), labels below
+    ``num_classes``), served ``max_iter`` times an epoch; its arrays on
+    the current context unless ``ctx``."""
+    class SyntheticDataIter(pkg.io.DataIter):
+        def __init__(self):
+            super().__init__(data_shape[0])
+            self.cur_iter = 0
+            self.max_iter = int(max_iter)
+            rng = np.random.RandomState(0)
+            where = {} if ctx is None else {"ctx": ctx}
+            self._data = pkg.nd.array(
+                rng.uniform(-1, 1, data_shape).astype(dtype), **where)
+            self._label = pkg.nd.array(
+                rng.randint(0, num_classes, (data_shape[0],)).astype(dtype),
+                **where)
+            self._dtype = dtype
+
+        @property
+        def provide_data(self):
+            return [pkg.io.DataDesc("data", self._data.shape, self._dtype)]
+
+        @property
+        def provide_label(self):
+            return [pkg.io.DataDesc("softmax_label", self._label.shape,
+                                    self._dtype)]
+
+        def next(self):
+            self.cur_iter += 1
+            if self.cur_iter > self.max_iter:
+                raise StopIteration
+            return pkg.io.DataBatch(data=[self._data], label=[self._label],
+                                    pad=0, provide_data=self.provide_data,
+                                    provide_label=self.provide_label)
+
+        def reset(self):
+            self.cur_iter = 0
+    return SyntheticDataIter()
+
+
+# train_imagenet.py's defaults and fit.py's (the options its --benchmark 1
+# run leaves as they are)
+IMAGENET_ARGS = dict(lr=0.1, lr_factor=0.1, lr_step_epochs="30,60",
+                     mom=0.9, wd=1e-4, disp_batches=20)
+
+
+def imagenet_lr_scheduler(pkg, num_examples, batch_size):
+    """fit.py's _get_lr_scheduler for a run from epoch 0 on one worker:
+    (lr, MultiFactorScheduler at the epochs of lr_step_epochs)."""
+    a = IMAGENET_ARGS
+    epoch_size = num_examples / batch_size
+    steps = [int(epoch_size * int(x)) for x in a["lr_step_epochs"].split(",")]
+    return a["lr"], pkg.lr_scheduler.MultiFactorScheduler(
+        step=steps, factor=a["lr_factor"])
+
+
+def imagenet_fit(pkg, network, batch_size, num_examples, num_epoch,
+                 image_shape="3,224,224", num_classes=1000, context=None,
+                 kvstore=None, arg_params=None, aux_params=None,
+                 batch_end_callback=None, data_ctx=None):
+    """train_imagenet.py --benchmark 1's run of fit.py's fit() in either
+    package: SyntheticDataIter's fixed batch, the kvstore object that
+    fit.py creates from --kv-store "device" (or ``kvstore`` as given:
+    "local" by name means no store on one device, so the fused step may
+    engage), Module on ``context`` (fit.py hard-codes cpu(); the card run
+    passes gpu(0)), SGD lr 0.1 / momentum 0.9 / wd 1e-4 with
+    multi_precision and the MultiFactorScheduler of lr_step_epochs
+    "30,60", accuracy, Xavier(gaussian, in, 2), Speedometer(batch, 20)
+    and allow_missing, from given weights ({name: numpy}) if any.
+    Returns (module, train iterator)."""
+    a = IMAGENET_ARGS
+    kv = pkg.kvstore.create("device") if kvstore is None else kvstore
+    shape = tuple(int(x) for x in image_shape.split(","))
+    train = synthetic_data_iter(pkg, num_classes, (batch_size,) + shape,
+                                num_examples / batch_size, ctx=data_ctx)
+    lr, lr_scheduler = imagenet_lr_scheduler(pkg, num_examples, batch_size)
+    model = pkg.mod.Module(context=context or pkg.context.current_context(),
+                           symbol=network)
+    optimizer_params = {"learning_rate": lr, "wd": a["wd"],
+                        "lr_scheduler": lr_scheduler,
+                        "multi_precision": True, "momentum": a["mom"]}
+    callbacks = [pkg.callback.Speedometer(batch_size, a["disp_batches"])]
+    callbacks += list(batch_end_callback or [])
+    model.fit(train, begin_epoch=0, num_epoch=num_epoch, eval_data=None,
+              eval_metric=[pkg.metric.create("accuracy")], kvstore=kv,
+              optimizer="sgd", optimizer_params=optimizer_params,
+              initializer=pkg.init.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2),
+              arg_params=host_params(pkg, arg_params),
+              aux_params=host_params(pkg, aux_params),
+              batch_end_callback=callbacks, epoch_end_callback=None,
+              allow_missing=True, monitor=None)
+    return model, train
+
+
+def module_aux(mod):
+    """A Module's aux states (the moving statistics) as {name: numpy}."""
+    return {k: v.asnumpy() for k, v in mod.get_params()[1].items()}
+
+
+# The full-width run: ResNet-50 at 3x224x224, 1,000 classes, the example's
+# batch of 128, f32. --num-examples is cut so that an epoch is RN_STEPS
+# steps (train_imagenet.py's 1,281,167 images make 10,009), and each path
+# trains RN_EPOCHS epochs; the lr schedule's steps (epochs 30 and 60) then
+# lie beyond the run, as they lie beyond an epoch of the full run.
+RN_BATCH, RN_SHAPE, RN_CLASSES = 128, "3,224,224", 1000
+RN_STEPS, RN_EPOCHS = 50, 2
+# The first steps card vs CPU, at a batch the CPU takes in seconds.
+RN_CHECK_BATCH = 16
+# The float32 gradient of these networks is discontinuous in the forward's
+# rounding: a ReLU whose input lies within rounding of 0 flips its mask,
+# and one element of a batch of 16 is a large share of a channel's
+# gradient. On the CPU, changing only the thread count moved the port's
+# own Inception-BN gradients by 13% of a parameter's largest, and mxtpu's
+# float32 weights after 3 steps of ResNet-20 lie 0.36 of a step from a
+# float64 run (tests/test_torch_resnet.py). So weights after the first
+# step, card vs CPU, agree within RN_STEP_SHARE of the largest distance a
+# weight of that parameter moved in it, plus RN_ATOL for the conv biases
+# before a BatchNorm (Inception-BN's), whose exact gradient is 0. Later
+# steps start from weights already apart, and at lr 0.1 a difference
+# grows step by step: after FIT_STEPS steps the CPU alone, started from
+# weights one ulp apart, ends 0.677 of its move apart (the norm of the
+# weights' difference over the norm of their move; ResNet-50, batch 16).
+# There the card is held to the CPU within RN_SPREAD times what that
+# one-ulp start makes the CPU differ from itself in the same run: the
+# weights' and the moving statistics' norm shares and each step's loss.
+# The moving
+# statistics after one step come from the forward alone: a batch mean or
+# variance of activations whose float32 convolutions (sums of up to 4,608
+# products, 2.7e-4 relative at worst, about 4e-6 as a random walk) differ
+# in order; through 50 layers, which BatchNorm keeps near unit scale, that
+# stays below RN_AUX_TOL of the largest statistic of a layer.
+RN_STEP_SHARE = 0.5
+RN_ATOL = 1e-5
+RN_SPREAD = 2.0
+RN_AUX_TOL = 1e-3
+# Steps of the captured path held against the eager one on the card (both
+# with cuDNN's deterministic algorithms): the same kernels on the same
+# inputs; only lr becomes a float32 device scalar, so CAPTURE_TOL.
+RN_CAPTURE_STEPS = 6
+# The fixed batch (SyntheticDataIter serves one batch) is learnt: the last
+# epoch's mean training cross-entropy must fall below this share of the
+# first epoch's (ln 1000 = 6.9 at the start).
+RN_CE_SHARE = 0.5
+# Inception-BN's short captured epoch at the full batch
+INCEPTION_STEPS = 10
+# Steps under torch.profiler for a full-width path's busy share (a whole
+# epoch's trace took most of a minute to gather)
+RN_PROFILE_STEPS = 10
+# Peak rates of one H100 SXM (dense, at 700 W): float32 outside the tensor
+# cores, TF32 on them, and HBM bandwidth.
+PEAK_F32, PEAK_TF32 = 67e12, 495e12
+
+
+class StepLosses:
+    """A fit's batch_end_callback: each step's cross-entropy of its batch,
+    from the step's outputs (the softmax), kept on the card until read,
+    so that no step waits for the card."""
+
+    def __init__(self):
+        self.steps = []             # (epoch, 0-dim tensor)
+
+    def __call__(self, param):
+        import torch
+        mod, batch = param.locals["self"], param.locals["batch"]
+        prob = mod.get_outputs()[0].data
+        label = batch.label[0].data.to(prob.device).long()
+        self.steps.append((param.epoch, -torch.log(
+            prob.gather(1, label[:, None]).clamp_min(1e-12)).mean()))
+
+    def values(self):
+        return [float(v) for _, v in self.steps]
+
+    def epoch_means(self):
+        by_epoch = {}
+        for (e, _), v in zip(self.steps, self.values()):
+            by_epoch.setdefault(e, []).append(v)
+        return [float(np.mean(by_epoch[e])) for e in sorted(by_epoch)]
+
+
+def imagenet_init_params(mt, network, batch, image_shape, seed):
+    """fit.py's Xavier draws for ``network``, made by the port's Module on
+    the CPU from ``seed``: ({name: numpy} args, {name: numpy} aux)."""
+    dims = tuple(int(x) for x in image_shape.split(","))
+    mt.random.seed(seed)
+    mod = mt.mod.Module(network, context=mt.cpu())
+    mod.bind([("data", (batch,) + dims)], [("softmax_label", (batch,))])
+    mod.init_params(mt.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    args, auxs = mod.get_params()
+    return ({k: v.asnumpy() for k, v in args.items()},
+            {k: v.asnumpy() for k, v in auxs.items()})
+
+
+def step_share_check(label, got, want, start, share, atol):
+    """Fail unless every array of ``got`` lies within ``share`` of the
+    largest distance that array moved from ``start`` in ``want``, plus
+    ``atol``. Returns the largest |got - want| over that limit."""
+    worst = 0.0
+    for k in sorted(want):
+        step = float(np.abs(want[k] - start[k]).max())
+        diff = float(np.abs(got[k] - want[k]).max())
+        if diff > share * step + atol:
+            fail("%s: %s differs by %.3g, beyond %.2f of its step %.3g + %g"
+                 % (label, k, diff, share, step, atol))
+        worst = max(worst, diff / (share * step + atol))
+    return worst
+
+
+def norm_share(got, want, start):
+    """||got - want|| / ||want - start|| over every array of the dicts:
+    how far two runs ended apart, as a share of how far they moved."""
+    apart = sum(float(np.square(got[k] - want[k]).sum()) for k in want)
+    moved = sum(float(np.square(want[k] - start[k]).sum()) for k in want)
+    return (apart / moved) ** 0.5 if moved else float(apart > 0)
+
+
+def ulp_apart(params, seed):
+    """{name: numpy} with every value moved by one ulp up or down (float32:
+    a relative 2^-23), the sign drawn from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    return {k: (v * (1 + 2.0 ** -23 * rng.choice([-1, 1], v.shape)))
+            .astype(v.dtype) for k, v in sorted(params.items())}
+
+
+def imagenet_first_steps(mt, label, build, image_shape, seed):
+    """The first steps of imagenet_fit at RN_CHECK_BATCH, TF32 off, on the
+    card (gpu(0), the kvstore object's eager path) against the port's CPU
+    Module. After 1 step: each weight within RN_STEP_SHARE of its
+    parameter's step (plus RN_ATOL), the moving statistics within
+    RN_AUX_TOL. After FIT_STEPS steps, where float32 rounding alone sends
+    runs apart: the weights' and the moving statistics' distance from the
+    CPU's, as a share of their move (``norm_share``), and each step's
+    loss, within RN_SPREAD times what the CPU itself gives from weights
+    one ulp apart (plus RN_AUX_TOL of the loss, the forward's rounding at
+    the first step). Each reading printed."""
+    gpu = mt.gpu(0)
+    args0, aux0 = imagenet_init_params(mt, build(mt), RN_CHECK_BATCH,
+                                       image_shape, seed)
+    where = "%s first steps at batch %d, card vs the CPU's Module" % (
+        label, RN_CHECK_BATCH)
+
+    def run(ctx, steps, args):
+        np.random.seed(seed)
+        losses = StepLosses()
+        mod, _ = imagenet_fit(mt, build(mt), RN_CHECK_BATCH,
+                              RN_CHECK_BATCH * steps, 1, image_shape,
+                              RN_CLASSES, context=ctx, arg_params=args,
+                              aux_params=aux0, data_ctx=ctx,
+                              batch_end_callback=[losses])
+        return module_params(mod), module_aux(mod), losses.values()
+
+    g_args, g_aux, _ = run(gpu, 1, args0)
+    c_args, c_aux, _ = run(mt.cpu(), 1, args0)
+    w = step_share_check(where + ", 1 step", g_args, c_args, args0,
+                         RN_STEP_SHARE, RN_ATOL)
+    aux_err = max(float(np.abs(g_aux[k] - c_aux[k]).max()
+                        / np.abs(c_aux[k]).max()) for k in c_aux)
+    if aux_err > RN_AUX_TOL:
+        fail("%s: moving statistics after 1 step differ by %.3g of a "
+             "layer's largest (limit %g)" % (where, aux_err, RN_AUX_TOL))
+    print("%s: 1 step: the weights use %.3g of their limit (%.2f of their "
+          "parameter's step + %g), moving statistics within %.3g of a "
+          "layer's largest (limit %g)" % (where, w, RN_STEP_SHARE, RN_ATOL,
+                                          aux_err, RN_AUX_TOL), flush=True)
+
+    card = run(gpu, FIT_STEPS, args0)
+    cpu = run(mt.cpu(), FIT_STEPS, args0)
+    ulp = run(mt.cpu(), FIT_STEPS, ulp_apart(args0, seed))
+    readings = []
+    for i, (what, start) in enumerate((("weights", args0),
+                                       ("moving statistics", aux0))):
+        got = norm_share(card[i], cpu[i], start)
+        spread = norm_share(ulp[i], cpu[i], start)
+        if not got <= RN_SPREAD * spread + RN_AUX_TOL:
+            fail("%s: %s after %d steps apart by %.3g of their move; the "
+                 "CPU from weights one ulp apart: %.3g (limit %g times it)"
+                 % (where, what, FIT_STEPS, got, spread, RN_SPREAD))
+        readings.append("%s %.3g (the CPU one ulp apart: %.3g)"
+                        % (what, got, spread))
+    for k, (g, c, u) in enumerate(zip(card[2], cpu[2], ulp[2])):
+        if not abs(g - c) <= RN_SPREAD * abs(u - c) + RN_AUX_TOL * c:
+            fail("%s: the loss of step %d is %.6f on the card, %.6f on the "
+                 "CPU (%.6f from weights one ulp apart)"
+                 % (where, k + 1, g, c, u))
+    print("%s: %d steps: apart by a share of their move: %s (limit %g "
+          "times the CPU's own); losses card %s, CPU %s, one ulp apart %s"
+          % (where, FIT_STEPS, "; ".join(readings), RN_SPREAD,
+             ", ".join("%.5f" % x for x in card[2]),
+             ", ".join("%.5f" % x for x in cpu[2]),
+             ", ".join("%.5f" % x for x in ulp[2])), flush=True)
+
+
+def capture_report(mod, steps, label):
+    """The captured fit's counts: fail unless every step ran fused, with
+    one compile (a real first step) and one capture a signature, a replay
+    in every later step and no fallback. (fit.py's metric list makes a
+    composite metric, which stays on the host, so the key has no metric:
+    one signature.) Returns (text, entries with a graph)."""
+    trainer = mod._fused
+    if trainer is None:
+        fail("%s: the fused step is not engaged (%s)"
+             % (label, getattr(mod, "_fused_fallback_logged", "disabled")))
+    stats = trainer._group.stats
+    entries = trainer._cache.entries()
+    replays = sum(e.replays for e in entries)
+    want = {"steps": steps, "compiles": len(entries),
+            "cache_hits": steps - len(entries), "fallbacks": 0}
+    if {k: stats[k] for k in want} != want or \
+            replays != steps - len(entries) or \
+            any(e.graph is None for e in entries):
+        fail("%s: fused stats %s, %d replays over %d signatures (want %s, "
+             "a graph each)" % (label, stats, replays, len(entries), want))
+    return ("%d steps: %d compile(s), %d capture(s), %d replays, pool %s MB"
+            % (steps, len(entries), len(entries), replays,
+               ", ".join("%.1f" % (e.pool_bytes / 2 ** 20)
+                         for e in entries)), entries)
+
+
+def step_bound(mt, mod, batch):
+    """The least time one training step could take at the card's peaks,
+    from one eager forward_backward + update of ``mod`` counted by torch's
+    FlopCounterMode (the convolutions and the matmuls: their FLOPs) and the
+    bytes a step must move (the batch, every weight, momentum and moving
+    statistic read once and written once, the outputs written). Returns
+    (conv FLOPs, matmul FLOPs, bytes)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        mod.forward_backward(batch)
+        mod.update()
+    by_op = counter.get_flop_counts().get("Global", {})
+    conv = sum(v for k, v in by_op.items() if "convolution" in str(k))
+    matmul = counter.get_total_flops() - conv
+    args, auxs = mod.get_params()
+    n_param = sum(v.size for v in args.values())
+    n_aux = sum(v.size for v in auxs.values())
+    nbytes = 4 * (sum(int(np.prod(d.shape)) for d in batch.data)
+                  + batch.label[0].size + 2 * (2 * n_param + n_aux)
+                  + batch.data[0].shape[0] * RN_CLASSES)
+    return conv, matmul, nbytes
+
+
+def bound_ms(flops, nbytes, tf32):
+    """(ms, "operations" or "bytes") for a step's FLOPs and bytes: the
+    convolutions at TF32's or float32's peak, the matmuls (TF32 stays off
+    for them, torch's default) at float32's."""
+    conv, matmul = flops
+    ops = (conv / (PEAK_TF32 if tf32 else PEAK_F32) + matmul / PEAK_F32) \
+        * 1e3
+    mem = nbytes / PEAK_BYTES_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+@contextlib.contextmanager
+def tf32_mode(on):
+    """cuDNN's TF32 as torch's default leaves it (on) or off; matmuls stay
+    at torch's default, off."""
+    import torch
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def resnet_times(mt, runs, setting, card, flops, nbytes):
+    """ms a step of fit's loop body, eager and captured in turns (eager,
+    captured, captured, eager), with the host time by phase, images/s and
+    the share of the bound, then the card's busy share, kernels and host
+    launch calls a step from torch.profiler over RN_PROFILE_STEPS steps.
+    ``runs``: {"eager": (module, iterator), "captured": ...}. Returns
+    {path: ms}."""
+    import torch
+    metrics = {k: mt.metric.create([mt.metric.create("accuracy")])
+               for k in runs}
+    ms = {k: [] for k in runs}
+    clock = {k: {} for k in runs}
+    steps = 0
+    for k in ("eager", "captured", "captured", "eager"):
+        mod, it = runs[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = fit_epoch(mod, it, metrics[k], clock[k])
+        torch.cuda.synchronize()
+        ms[k].append((time.perf_counter() - t0) / steps * 1e3)
+    tf32 = setting == "TF32 on"
+    bound, by = bound_ms(flops, nbytes, tf32)
+    out = {}
+    for k, (mod, it) in runs.items():
+        step = float(np.mean(ms[k]))
+        out[k] = step
+        host = "; ".join("%s %.3f" % (p, v / (2 * steps) * 1e3)
+                         for p, v in clock[k].items())
+        it.max_iter = RN_PROFILE_STEPS
+        try:
+            busy, top = device_time(lambda: fit_epoch(mod, it, metrics[k]),
+                                    1, per=RN_PROFILE_STEPS)
+        finally:
+            it.max_iter = steps
+        print("ResNet-50 %s step, %s (cuDNN TF32 %s, matmul TF32 off): "
+              "%.3f ms (%s), %.1f images/s; bound %.3f ms (%s), %.1f%% of "
+              "it; host ms a step by phase: %s; %s; per step: %s | %s"
+              % (k, setting, "on" if tf32 else "off", step,
+                 ", ".join("%.3f" % v for v in ms[k]), RN_BATCH / step * 1e3,
+                 bound, by, 100 * bound / step, host, busy_of(busy, step),
+                 top, card))
+    print("ResNet-50 step, %s: eager %.3f ms, captured %.3f ms (%.2fx) | %s"
+          % (setting, out["eager"], out["captured"],
+             out["eager"] / out["captured"], card))
+    return out
+
+
+def resnet_full_width(mt, resnet50, seed, card, tf32, setting, bound):
+    """ResNet-50 at full width on gpu(0) under one TF32 setting: the fit
+    call eager (fit.py's kvstore object) and captured (kvstore="local"),
+    RN_EPOCHS epochs under torch's default TF32 (the fixed batch's
+    cross-entropy must fall below RN_CE_SHARE of the first epoch's), one
+    with TF32 off; the captured counts, no host wait in a captured epoch,
+    then both steps timed in turns (resnet_times). Under the default it
+    also counts the step's FLOPs and bytes (``bound``, reused for the
+    other setting) and checks the checkpoint on the CPU. Returns ({path:
+    ms a step}, bound)."""
+    import torch
+    gpu = mt.gpu(0)
+    runs, ce = {}, {}
+    epochs = RN_EPOCHS if tf32 else 1
+    with tf32_mode(tf32):
+        for path, kv in (("eager", None), ("captured", "local")):
+            torch.cuda.reset_peak_memory_stats()
+            ce[path] = StepLosses()
+            np.random.seed(seed)
+            mt.random.seed(seed)
+            t0 = time.perf_counter()
+            mod, it = imagenet_fit(mt, resnet50(mt), RN_BATCH,
+                                   RN_STEPS * RN_BATCH, epochs, RN_SHAPE,
+                                   RN_CLASSES, context=gpu, kvstore=kv,
+                                   batch_end_callback=[ce[path]])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            if mod._context != [gpu]:
+                fail("ResNet-50's Module context is %s, not gpu(0)"
+                     % mod._context)
+            text = "eager (the kvstore object fit.py makes)"
+            if path == "captured":
+                text, entries = capture_report(
+                    mod, epochs * RN_STEPS, "ResNet-50 " + setting)
+                text += "; graph (kernel nodes, other nodes, -, replays): " \
+                    "%s" % graph_nodes(mt, entries, {}, gpu)
+                del entries
+            means = ce[path].epoch_means()
+            if not all(np.isfinite(means)):
+                fail("ResNet-50 %s fit: cross-entropy %s" % (path, means))
+            if tf32 and not means[-1] < RN_CE_SHARE * means[0]:
+                fail("ResNet-50 %s fit: the fixed batch's mean training "
+                     "cross-entropy went from %.4f to %.4f (limit %.2f of "
+                     "the first epoch's)" % (path, means[0], means[-1],
+                                             RN_CE_SHARE))
+            print("ResNet-50 Module.fit %s, %s: %d epoch(s) of %d steps at "
+                  "batch %d in %.2f s; training cross-entropy by epoch %s "
+                  "(limit %.2f of the first); %s; peak memory %.2f GB | %s"
+                  % (path, setting, epochs, RN_STEPS, RN_BATCH, fit_s,
+                     ", ".join("%.4f" % m for m in means), RN_CE_SHARE,
+                     text, torch.cuda.max_memory_allocated() / 1e9, card),
+                  flush=True)
+            runs[path] = (mod, it)
+        if bound is None:
+            mod, it = runs["eager"]
+            it.reset()
+            conv, matmul, nbytes = step_bound(mt, mod, next(iter(it)))
+            bound = ((conv, matmul), nbytes)
+            print("ResNet-50 step at batch %d: %.4g conv FLOPs + %.4g matmul "
+                  "FLOPs (FlopCounterMode over one eager step; %.3g GMAC an "
+                  "image forward), %.4g bytes to move at least; bound %.3f "
+                  "ms with cuDNN TF32, %.3f ms in float32 | %s"
+                  % (RN_BATCH, conv, matmul, (conv + matmul) / 6 / RN_BATCH
+                     / 1e9, nbytes, bound_ms(*bound, True)[0],
+                     bound_ms(*bound, False)[0], card), flush=True)
+        no_sync_epoch(*runs["captured"],
+                      mt.metric.create([mt.metric.create("accuracy")]))
+        times = resnet_times(mt, runs, setting, card, *bound)
+        if tf32:
+            resnet_checkpoint(mt, *runs["captured"])
+    return times, bound
+
+
+def resnet_phase(mt, seed, card):
+    """train_imagenet.py --benchmark 1's fit call on the card (context
+    gpu(0), where fit.py hard-codes cpu()): its first steps against the
+    CPU, captured steps against eager ones, the full-width run (ResNet-50
+    at 224, batch 128) eager and captured under torch's default TF32 and
+    with TF32 off, its checkpoint on the CPU, and Inception-BN. Returns
+    {(path, setting): ms a step}."""
+    import gc
+    import torch
+    gpu = mt.gpu(0)
+    clock = [("start", time.perf_counter())]
+
+    def resnet50(pkg):
+        return resnet_symbol(pkg, 50, RN_SHAPE, RN_CLASSES)
+
+    # the first steps, card vs CPU (TF32 off, as main leaves it)
+    imagenet_first_steps(mt, "ResNet-50", resnet50, RN_SHAPE, seed)
+    clock.append(("first steps", time.perf_counter()))
+
+    # captured against eager on the card, deterministic cuDNN
+    args0, aux0 = imagenet_init_params(mt, resnet50(mt), RN_CHECK_BATCH,
+                                       RN_SHAPE, seed)
+    got = {}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kv in (None, "local"):
+            np.random.seed(seed)
+            mod, _ = imagenet_fit(mt, resnet50(mt), RN_CHECK_BATCH,
+                                  RN_CHECK_BATCH * RN_CAPTURE_STEPS, 1,
+                                  RN_SHAPE, RN_CLASSES, context=gpu,
+                                  kvstore=kv, arg_params=args0,
+                                  aux_params=aux0)
+            if kv == "local":
+                text = capture_report(mod, RN_CAPTURE_STEPS,
+                                      "ResNet-50 capture check")[0]
+            got[kv] = (module_params(mod), module_aux(mod))
+            del mod
+    finally:
+        torch.backends.cudnn.deterministic = old
+    for i, what in enumerate(("weights", "moving statistics")):
+        names = sorted(got[None][i])
+        check_close("ResNet-50: %d captured steps vs eager ones on the card "
+                    "(deterministic cuDNN), %s" % (RN_CAPTURE_STEPS, what),
+                    [torch.from_numpy(got["local"][i][k]) for k in names],
+                    [torch.from_numpy(got[None][i][k]) for k in names],
+                    CAPTURE_TOL)
+    print("ResNet-50 captured vs eager at batch %d (deterministic cuDNN): %s;"
+          " max |diff| weights %.3g, moving statistics %.3g (tolerance %s)"
+          % (RN_CHECK_BATCH, text,
+             max(float(np.abs(got["local"][0][k] - got[None][0][k]).max())
+                 for k in got[None][0]),
+             max(float(np.abs(got["local"][1][k] - got[None][1][k]).max())
+                 for k in got[None][1]), CAPTURE_TOL))
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.append(("capture check", time.perf_counter()))
+
+    # the full-width run, torch's default TF32 (cuDNN's convolutions in
+    # TF32, matmuls in float32), then TF32 off; each run's modules and
+    # graphs are freed before the next
+    out, bound = {}, None
+    for tf32, setting in ((True, "TF32 on"), (False, "TF32 off")):
+        times, bound = resnet_full_width(mt, resnet50, seed, card, tf32,
+                                         setting, bound)
+        for path, ms in times.items():
+            out[path, setting] = ms
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.append(("full width, " + setting, time.perf_counter()))
+
+    # Inception-BN: its first steps against the CPU, then a short captured
+    # epoch at the full batch
+    def inception(pkg):
+        return inception_bn_symbol(pkg, RN_CLASSES, RN_SHAPE)
+    imagenet_first_steps(mt, "Inception-BN", inception, RN_SHAPE, seed)
+    ce = StepLosses()
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    mod, it = imagenet_fit(mt, inception(mt), RN_BATCH,
+                           INCEPTION_STEPS * RN_BATCH, 1, RN_SHAPE,
+                           RN_CLASSES, context=gpu, kvstore="local",
+                           batch_end_callback=[ce])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    text = capture_report(mod, INCEPTION_STEPS, "Inception-BN")[0]
+    if not np.isfinite(ce.epoch_means()[0]):
+        fail("Inception-BN: cross-entropy %s" % ce.epoch_means())
+    metric = mt.metric.create([mt.metric.create("accuracy")])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = fit_epoch(mod, it, metric)
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / steps * 1e3
+    print("Inception-BN Module.fit captured (cuDNN TF32 on): %d steps at "
+          "batch %d in %.2f s, %s; training cross-entropy %.4f; then %.3f ms "
+          "a step, %.1f images/s | %s"
+          % (INCEPTION_STEPS, RN_BATCH, secs, text, ce.epoch_means()[0], step,
+             RN_BATCH / step * 1e3, card))
+    out["captured", "Inception-BN"] = step
+    del mod, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.append(("Inception-BN", time.perf_counter()))
+    print("ResNet phase: %.1f s (%s)" % (
+        clock[-1][1] - clock[0][1], ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))))
+    return out
+
+
+def resnet_checkpoint(mt, mod, it):
+    """The trained module's checkpoint (its moving statistics as aux:
+    entries) loaded into a CPU Module predicts the fixed batch's first
+    RN_CHECK_BATCH images as the card does (TF32 off on the card),
+    within SERVE_TOL."""
+    import tempfile
+    import torch
+    it.reset()
+    batch = next(iter(it))
+    it.reset()
+    x = batch.data[0].asnumpy()[:RN_CHECK_BATCH]
+    y = batch.label[0].asnumpy()[:RN_CHECK_BATCH]
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "resnet50")
+        mod.save_checkpoint(prefix, RN_EPOCHS)
+        preds = {}
+        for ctx in (mt.gpu(0), mt.cpu()):
+            loaded = mt.mod.Module.load(prefix, RN_EPOCHS, context=ctx)
+            loaded.bind([("data", x.shape)], [("softmax_label", y.shape)],
+                        for_training=False)
+            with tf32_mode(False):
+                preds[ctx] = loaded.predict(mt.io.NDArrayIter(
+                    x, y, RN_CHECK_BATCH)).asnumpy()
+    got, want = preds[mt.gpu(0)], preds[mt.cpu()]
+    check_close("ResNet-50's checkpoint: the card's predictions vs the CPU's",
+                [torch.from_numpy(got)], [torch.from_numpy(want)], SERVE_TOL)
+    agree = float((got.argmax(1) == want.argmax(1)).mean())
+    print("ResNet-50 checkpoint (%d aux states) on the CPU: max |card - cpu| "
+          "over %d predictions %.3g (tolerance %s); argmax agrees on %.0f%%, "
+          "train accuracy on them %.3f"
+          % (len(mod.get_params()[1]), x.shape[0],
+             float(np.abs(got - want).max()), SERVE_TOL, 100 * agree,
+             float((want.argmax(1) == y).mean())))
+
+
 def fit_times(mt, eager, captured, card):
     """ms a step of fit's loop body (host clock, synchronized), eager and
     captured in turns (eager, captured, captured, eager) on each model,
@@ -3720,7 +4599,12 @@ def main():
     for name, err in bl_errs.items():
         errs[name] = max(errs[name], err)
 
-    # 14. timings at the main paths' shapes
+    # 14. the ResNet slice: train_imagenet.py --benchmark 1's fit call,
+    # ResNet-50 at full width eager and captured (BatchNorm's moving
+    # statistics inside the captured step), then Inception-BN
+    resnet_ms = resnet_phase(mt, args.seed, card)
+
+    # 15. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -4048,9 +4932,12 @@ def main():
     print("slice custom-op bucket %d: %.2f requests/s (%.3f ms per request, "
           "numpy in and out) | %s" % (CS_BUCKETS[-1], reps / dt,
                                       dt / reps * 1e3, card))
+    print("ResNet slice, ms a step: %s | %s" % (
+        ", ".join("%s %s %.3f" % (k + (v,)) for k, v in resnet_ms.items()),
+        card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 15.-16. the result lines
+    # 16.-17. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

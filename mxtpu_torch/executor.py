@@ -165,8 +165,11 @@ class Executor:
         outs, aux_updates, leaves = self._run(bool(is_train), record)
         self._tape = (outs, leaves) if record else None
         if is_train:
+            # an update that is the aux tensor itself (BatchNorm with
+            # use_global_stats) is not copied: the copy would bump the
+            # version of a tensor the recorded backward may hold
             for n, v in aux_updates.items():
-                if n in self.aux_dict:
+                if n in self.aux_dict and v is not self.aux_dict[n].data:
                     _copy_into(self.aux_dict[n], v)
         self._outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         if self._monitor_callback is not None:
@@ -268,7 +271,7 @@ class Executor:
                     grads[i] = g
             with torch.no_grad():
                 for n, a in zip(aux_names, aux_vals):
-                    if n in aux_updates:
+                    if n in aux_updates and aux_updates[n] is not a:
                         a.copy_(aux_updates[n])
                 t.add_(1)
                 for slot, w, g, st in zip(opt_slots, train_vals, grads,

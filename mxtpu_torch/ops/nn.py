@@ -2,12 +2,13 @@
 
 Counterpart of the main-path ops of ``mxtpu/ops/nn.py``:
 FullyConnected, Convolution, Pooling, Activation, softmax, Embedding,
-Dropout and SoftmaxOutput, whose backward is ``mxtpu``'s (a
+Dropout, BatchNorm and SoftmaxOutput, whose backward is ``mxtpu``'s (a
 ``torch.autograd.Function`` in place of its ``custom_vjp``).
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
 here they are PyTorch's own calls: ``torch.matmul``, ``index_select``,
-and ``F.conv*d`` / ``F.max_pool*d`` / ``F.avg_pool*d`` (cuDNN on the
-card), the same call on the CPU and the card.
+``F.conv*d`` / ``F.max_pool*d`` / ``F.avg_pool*d`` (cuDNN on the
+card) and ``torch.native_batch_norm``, the same call on the CPU and the
+card.
 """
 from __future__ import annotations
 
@@ -183,6 +184,93 @@ def dropout(data, p=0.5, mode="training", axes=(), _training=False):
     mask = torch.rand(shape, generator=gen, device=gen.device) \
         .to(data.device) < keep
     return torch.where(mask, data / keep, torch.zeros_like(data))
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Batch normalisation over dim 1 with the batch's statistics:
+    ``(out, mean, invstd)``, invstd = 1/sqrt(biased var + eps), by
+    ``torch.native_batch_norm`` (no running statistics). Its backward is
+    ``native_batch_norm_backward`` for ``out``, plus what ``mean`` and
+    ``invstd`` pass back to the data when they are used downstream
+    (``output_mean_var``): ``mxtpu`` differentiates them as ``jnp.mean``
+    and ``jnp.var`` are differentiated."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        out, mean, invstd = torch.native_batch_norm(x, gamma, beta, None,
+                                                    None, True, 0.0, eps)
+        ctx.save_for_backward(x, gamma, mean, invstd)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return out, mean, invstd
+
+    @staticmethod
+    def backward(ctx, g_out, g_mean, g_invstd):
+        x, gamma, mean, invstd = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx = dgamma = dbeta = None
+        if g_out is not None:
+            dx, dgamma, dbeta = torch.ops.aten.native_batch_norm_backward(
+                g_out, x, gamma, None, None, mean, invstd, True, ctx.eps,
+                [need[0], need[1], need[2]])
+        if need[0] and (g_mean is not None or g_invstd is not None):
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            m = x.numel() // x.shape[1]
+            extra = torch.zeros_like(x) if dx is None else dx
+            if g_mean is not None:
+                extra = extra + (g_mean / m).reshape(shape)
+            if g_invstd is not None:
+                # d invstd / d x = -invstd^3 (x - mean) / m
+                extra = extra - (g_invstd * invstd.pow(3) / m).reshape(
+                    shape) * (x - mean.reshape(shape))
+            dx = extra
+        if g_out is None:
+            dgamma = torch.zeros_like(gamma) if need[1] else None
+            dbeta = torch.zeros_like(gamma) if need[2] else None
+        return dx, dgamma, dbeta, None
+
+
+def _bn_outputs(params):
+    return 3 if params.get("output_mean_var") else 1
+
+
+@register("BatchNorm", aliases=("batch_norm", "BatchNorm_v1"),
+          num_outputs=5, user_outputs=_bn_outputs, aux_update={3: 3, 4: 4},
+          needs_train_flag=True)
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               output_mean_var=False, axis=1, cudnn_off=False,
+               _training=False):
+    """``mxtpu``'s BatchNorm: ``(out, mean, invstd, new moving mean, new
+    moving var)``. In training (unless ``use_global_stats``) it
+    normalises with the batch's mean and biased variance and blends them
+    into the moving statistics as ``old * momentum + batch * (1 -
+    momentum)``; otherwise it normalises with the moving statistics,
+    which stay. Statistics and arithmetic run in float32 for any input
+    dtype, and ``out`` keeps the input's. ``fix_gamma`` uses ones for
+    gamma (whose gradient is then zero); ``axis`` is the channel axis.
+    The moving statistics are computed here, not by torch, whose running
+    variance is the unbiased one, blended the other way round."""
+    axis = axis % data.dim()
+    # float32 at least (float64 stays: mxtpu has no float64 arrays)
+    f = torch.promote_types(data.dtype, torch.float32)
+    x32 = torch.movedim(data.to(f), axis, 1)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    g, b = g.to(f), beta.to(f)
+    if _training and not use_global_stats:
+        out, mean, invstd = _BatchNormTrain.apply(x32, g, b, float(eps))
+        var = invstd.pow(-2) - eps      # the biased batch variance
+        new_mm = (moving_mean.to(f) * momentum
+                  + mean * (1 - momentum)).to(moving_mean.dtype)
+        new_mv = (moving_var.to(f) * momentum
+                  + var * (1 - momentum)).to(moving_var.dtype)
+    else:
+        mean, new_mm, new_mv = moving_mean, moving_mean, moving_var
+        invstd = torch.rsqrt(moving_var.to(f) + eps)
+        out = F.batch_norm(x32, moving_mean.to(f), moving_var.to(f), g, b,
+                           False, 0.0, eps)
+    out = torch.movedim(out, 1, axis).to(data.dtype)
+    return out, mean, invstd, new_mm, new_mv
 
 
 def _one_hot(label, n, dtype):

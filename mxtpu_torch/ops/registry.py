@@ -28,11 +28,13 @@ class OpDef:
     """A registered operator (see ``mxtpu.ops.registry.OpDef``)."""
 
     __slots__ = ("name", "fn", "differentiable", "stateful", "num_outputs",
-                 "doc", "aux_update", "needs_train_flag", "needs_device")
+                 "doc", "aux_update", "needs_train_flag", "needs_device",
+                 "user_outputs")
 
     def __init__(self, name, fn, differentiable=True, stateful=False,
                  num_outputs=1, doc=None, aux_update=None,
-                 needs_train_flag=False, needs_device=False):
+                 needs_train_flag=False, needs_device=False,
+                 user_outputs=None):
         self.name = name
         self.fn = fn
         self.differentiable = differentiable
@@ -44,6 +46,10 @@ class OpDef:
         self.aux_update = aux_update or {}
         self.needs_train_flag = needs_train_flag
         self.needs_device = needs_device
+        # how many leading outputs a symbol of the op shows (an int, or a
+        # function of the params; None: all): BatchNorm's node has 5, its
+        # symbol 1, or 3 under output_mean_var
+        self.user_outputs = user_outputs
 
     def __repr__(self):
         return "OpDef(%s)" % self.name
@@ -51,14 +57,14 @@ class OpDef:
 
 def register(name=None, differentiable=True, stateful=False, num_outputs=1,
              aliases=(), aux_update=None, needs_train_flag=False,
-             needs_device=False):
+             needs_device=False, user_outputs=None):
     """Decorator registering a function of tensors as a framework op."""
     def deco(fn):
         opname = name or fn.__name__
         op = OpDef(opname, fn, differentiable=differentiable,
                    stateful=stateful, num_outputs=num_outputs,
                    aux_update=aux_update, needs_train_flag=needs_train_flag,
-                   needs_device=needs_device)
+                   needs_device=needs_device, user_outputs=user_outputs)
         _REGISTRY[opname] = op
         for a in aliases:
             _REGISTRY[a] = op

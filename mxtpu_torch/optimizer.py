@@ -2,8 +2,10 @@
 
 Counterpart of ``mxtpu/optimizer.py``'s ``Optimizer`` (registry and
 ``create``, per-parameter lr / wd multipliers from ``set_lr_mult`` /
-``set_wd_mult`` and the symbol's ``__lr_mult__`` / ``__wd_mult__``,
-``rescale_grad``, ``clip_gradient``, ``lr_scheduler``, update counts),
+``set_wd_mult``, the symbol's ``__lr_mult__`` / ``__wd_mult__`` and
+``param_dict``, ``rescale_grad``, ``clip_gradient``, ``lr_scheduler``,
+``multi_precision``'s float32 master weights for float16 ones, update
+counts),
 ``SGD`` (momentum and weight decay, the dense path), ``Adam``, and the
 ``Updater`` with ``get_states`` / ``set_states``.
 
@@ -44,8 +46,10 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 sym=None, begin_num_update=0):
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None):
         self.rescale_grad, self.lr, self.wd = rescale_grad, learning_rate, wd
+        self.multi_precision = multi_precision
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is not None:
             self.lr_scheduler.base_lr = learning_rate
@@ -60,6 +64,8 @@ class Optimizer:
         self.idx2name = dict(param_idx2name or {})
         self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
             if sym is not None else ()
+        # {index: an object with lr_mult and wd_mult} (a Gluon Parameter)
+        self.param_dict = dict(param_dict or {})
         # (t, lr) as device tensors while functional_optimizer_step runs
         self._step_scalars = None
         self.set_lr_mult({})
@@ -90,6 +96,35 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError()
+
+    def _uses_master_weights(self, weight):
+        return self.multi_precision and weight.dtype == torch.float16
+
+    def create_state_multi_precision(self, index, weight):
+        """The state of ``index``: under ``multi_precision`` a float16
+        weight's is ``(float32 master copy, the master's state)``; any
+        other weight's is :meth:`create_state`'s."""
+        if self._uses_master_weights(weight):
+            master = weight.astype(_np.float32)
+            return (master, self.create_state(index, master))
+        if weight.dtype == torch.float16:
+            warnings.warn(
+                "Accumulating with float16 in optimizer can lead to poor "
+                "accuracy or slow convergence. Consider using "
+                "multi_precision=True option of the optimizer")
+        return self.create_state(index, weight)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update`, on the float32 master copy of a float16 weight
+        under ``multi_precision`` (the weight then takes the master's
+        value, rounded); on any other weight, the update itself."""
+        if not self._uses_master_weights(weight):
+            self.update(index, weight, grad, state)
+            return
+        master, inner = state
+        self.update(index, master, grad.astype(_np.float32), inner)
+        with torch.no_grad():
+            weight.data.copy_(master.data)
 
     @property
     def learning_rate(self):
@@ -138,9 +173,12 @@ class Optimizer:
         count[index] = count.get(index, self.begin_num_update) + 1
         self.num_update = max(count[index], self.num_update)
 
-    def _scaled(self, index, base, mults):
-        """``base`` times the slot's multiplier: one keyed by the index,
-        else by the index's name."""
+    def _scaled(self, index, base, mults, which):
+        """``base`` times the slot's multiplier: ``param_dict``'s entry's
+        ``which`` attribute, else one keyed by the index, else by the
+        index's name."""
+        if index in self.param_dict:
+            return base * getattr(self.param_dict[index], which)
         if index in mults:
             return base * mults[index]
         if index in self.idx2name:
@@ -148,17 +186,19 @@ class Optimizer:
         return base
 
     def _get_lr(self, index):
-        return self._scaled(index, self.learning_rate, self.lr_mult)
+        return self._scaled(index, self.learning_rate, self.lr_mult,
+                            "lr_mult")
 
     def _get_wd(self, index):
-        return self._scaled(index, self.wd, self.wd_mult)
+        return self._scaled(index, self.wd, self.wd_mult, "wd_mult")
 
     def _begin_update(self, index):
         """Count the update; the slot's (lr, wd). Inside
         :func:`functional_optimizer_step` nothing is counted on the host
         and lr is the given tensor times the slot's multiplier."""
         if self._step_scalars is not None:
-            lr = self._scaled(index, self._step_scalars[1], self.lr_mult)
+            lr = self._scaled(index, self._step_scalars[1], self.lr_mult,
+                              "lr_mult")
             return lr, self._get_wd(index)
         self._update_count(index)
         return self._get_lr(index), self._get_wd(index)
@@ -281,8 +321,9 @@ def functional_optimizer_step(optimizer, index, weight, grad, state_tree, t,
     saved = optimizer._step_scalars
     optimizer._step_scalars = (t, lr)
     try:
-        optimizer.update(index, NDArray(weight), NDArray(grad),
-                         tree_to_state(state_tree))
+        optimizer.update_multi_precision(index, NDArray(weight),
+                                         NDArray(grad),
+                                         tree_to_state(state_tree))
     finally:
         optimizer._step_scalars = saved
     return weight, state_tree
@@ -319,7 +360,8 @@ class Updater:
         """The state slot for ``index``, created or moved to the weight's
         context as ``__call__`` needs it."""
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
             self.states_synced[index] = True
         elif not self.states_synced[index]:
             self.states[index] = self.sync_state_context(self.states[index],
@@ -328,8 +370,8 @@ class Updater:
         return self.states[index]
 
     def __call__(self, index, grad, weight):
-        self.optimizer.update(index, weight, grad,
-                              self.ensure_state(index, weight))
+        self.optimizer.update_multi_precision(
+            index, weight, grad, self.ensure_state(index, weight))
 
     def sync_state_context(self, state, context):
         if isinstance(state, NDArray):

@@ -25,7 +25,10 @@ __all__ = ["Symbol", "var", "Variable", "load", "load_json", "eval_graph"]
 
 
 class _Node:
-    """Graph node: an op application or a free variable."""
+    """Graph node: an op application or a free variable. A variable with
+    a ``__scalar__`` attribute is a constant of that value (``mxtpu``
+    writes ``sym - 1.0`` as such a node, named ``_scalar_1.0``): not an
+    argument, and fed as the number itself."""
 
     __slots__ = ("op", "name", "inputs", "params", "num_outputs", "attrs",
                  "aux_positions", "input_names")
@@ -44,6 +47,10 @@ class _Node:
     @property
     def is_variable(self):
         return self.op is None
+
+    @property
+    def is_scalar(self):
+        return self.op is None and "__scalar__" in self.attrs
 
 
 class Symbol:
@@ -116,26 +123,31 @@ class Symbol:
 
     # -- graph traversal ---------------------------------------------------
     def _topo(self):
-        seen = set()
-        order = []
-
-        def visit(node):
-            if id(node) in seen:
-                return
-            seen.add(id(node))
-            for (n, _) in node.inputs:
-                visit(n)
-            order.append(node)
-
-        for (n, _) in self._outputs:
-            visit(n)
+        """Nodes in depth-first post-order (inputs before the node), each
+        once; iterative, so no closure cycle and no recursion limit."""
+        seen, order = set(), []
+        for (root, _) in self._outputs:
+            if id(root) in seen:
+                continue
+            seen.add(id(root))
+            stack = [(root, iter(root.inputs))]
+            while stack:
+                node, pending = stack[-1]
+                for (n, _) in pending:
+                    if id(n) not in seen:
+                        seen.add(id(n))
+                        stack.append((n, iter(n.inputs)))
+                        break
+                else:
+                    stack.pop()
+                    order.append(node)
         return order
 
     def _classify_vars(self):
         """Return (arg_nodes, aux_nodes) in first-visit order."""
         aux_ids, arg_ids = set(), set()
         nodes = self._topo()
-        order = [n for n in nodes if n.is_variable]
+        order = [n for n in nodes if n.is_variable and not n.is_scalar]
         for node in nodes:
             if node.op is None:
                 continue
@@ -372,7 +384,9 @@ def _apply_op(op, name, inputs, params, attrs=None, input_names=()):
         in_refs.append(s._outputs[0])
     node = _Node(op, name, in_refs, params, attrs, input_names)
     node.num_outputs = _node_num_outputs(op, params)
-    return Symbol([(node, i) for i in range(node.num_outputs)])
+    shown = op.user_outputs(params) if callable(op.user_outputs) \
+        else op.user_outputs
+    return Symbol([(node, i) for i in range(shown or node.num_outputs)])
 
 
 def _node_num_outputs(op, params):
@@ -494,6 +508,55 @@ def _resolve_creation_shape(node, params, consumers, get_input_shape,
                                     for d in params["shape"])
 
 
+class _GraphEval:
+    """One evaluation of a graph: the node values computed so far (each
+    node once, on first use, depth first) and the aux states' updates.
+    A class and not nested closures: a recursive closure refers to itself
+    through its cell, and that cycle would keep every activation of the
+    step alive until Python's cycle collector ran."""
+
+    def __init__(self, nodes, feed, training, device):
+        self.feed, self.training, self.device = feed, training, device
+        self.cache = {}
+        self.aux_updates = {}
+        self.consumers = _build_consumer_map(nodes)
+        self.fallback = {k: tuple(v.shape) for k, v in feed.items()
+                         if v.dim() > 0}
+
+    def in_shape(self, ref):
+        n2, oi2 = ref
+        return tuple(self.node(n2)[oi2].shape) or None
+
+    def node(self, node):
+        key = id(node)
+        if key in self.cache:
+            return self.cache[key]
+        if node.is_scalar:
+            vals = (node.attrs["__scalar__"],)
+        elif node.is_variable:
+            if node.name not in self.feed:
+                raise KeyError("no value bound for variable %r" % node.name)
+            vals = (self.feed[node.name],)
+        else:
+            in_vals = [self.node(inp)[oi] for (inp, oi) in node.inputs]
+            params = dict(node.params)
+            if node.op.needs_train_flag:
+                params["_training"] = self.training
+            if node.op.needs_device:
+                params["_device"] = self.device
+            _resolve_creation_shape(node, params, self.consumers,
+                                    self.in_shape, self.fallback)
+            out = node.op.fn(*in_vals, **params)
+            vals = out if isinstance(out, tuple) else (out,)
+            for in_pos, out_idx in node.op.aux_update.items():
+                if in_pos < len(node.inputs):
+                    src, _ = node.inputs[in_pos]
+                    if src.is_variable:
+                        self.aux_updates[src.name] = vals[out_idx]
+        self.cache[key] = vals
+        return vals
+
+
 def eval_graph(sym_outputs, feed, training=False, device=None):
     """Evaluate graph outputs given ``{var_name: tensor}``.
 
@@ -504,44 +567,10 @@ def eval_graph(sym_outputs, feed, training=False, device=None):
     if device is None:
         device = next((v.device for v in feed.values()
                        if isinstance(v, torch.Tensor)), torch.device("cpu"))
-    cache = {}
-    aux_updates = {}
-    consumer_map = _build_consumer_map(Symbol(list(sym_outputs))._topo())
-    fallback = {k: tuple(v.shape) for k, v in feed.items() if v.dim() > 0}
-
-    def in_shape(ref):
-        n2, oi2 = ref
-        return tuple(eval_node(n2)[oi2].shape) or None
-
-    def eval_node(node):
-        key = id(node)
-        if key in cache:
-            return cache[key]
-        if node.is_variable:
-            if node.name not in feed:
-                raise KeyError("no value bound for variable %r" % node.name)
-            vals = (feed[node.name],)
-        else:
-            in_vals = [eval_node(inp)[oi] for (inp, oi) in node.inputs]
-            params = dict(node.params)
-            if node.op.needs_train_flag:
-                params["_training"] = training
-            if node.op.needs_device:
-                params["_device"] = device
-            _resolve_creation_shape(node, params, consumer_map, in_shape,
-                                    fallback)
-            out = node.op.fn(*in_vals, **params)
-            vals = out if isinstance(out, tuple) else (out,)
-            for in_pos, out_idx in node.op.aux_update.items():
-                if in_pos < len(node.inputs):
-                    src, _ = node.inputs[in_pos]
-                    if src.is_variable:
-                        aux_updates[src.name] = vals[out_idx]
-        cache[key] = vals
-        return vals
-
-    outputs = [eval_node(n)[oi] for (n, oi) in sym_outputs]
-    return outputs, aux_updates
+    run = _GraphEval(Symbol(list(sym_outputs))._topo(), feed, training,
+                     device)
+    outputs = [run.node(n)[oi] for (n, oi) in sym_outputs]
+    return outputs, run.aux_updates
 
 
 # ---------------------------------------------------------------------------
@@ -605,6 +634,15 @@ def _label_hint(params, in_shapes, input_names):
     return {"label": (data[0],)}
 
 
+@shape_hint("BatchNorm")
+def _bn_hint(params, in_shapes, input_names):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    c = (data[int(params.get("axis", 1)) % len(data)],)
+    return {"gamma": c, "beta": c, "moving_mean": c, "moving_var": c}
+
+
 @shape_hint("Custom")
 def _custom_hint(params, in_shapes, input_names):
     """The shapes the prop's ``infer_shape`` gives the inputs not yet
@@ -653,6 +691,8 @@ def _infer_graph_shapes(sym, known, partial=False):
 
     def value(ref):
         inp, oi = ref
+        if inp.is_scalar:
+            return inp.attrs["__scalar__"]
         if inp.is_variable:
             if inp.name not in shapes:
                 return None
@@ -663,7 +703,7 @@ def _infer_graph_shapes(sym, known, partial=False):
 
     def in_shape(ref):
         v = value(ref)
-        return None if v is None else tuple(v.shape)
+        return None if v is None else tuple(getattr(v, "shape", ()))
 
     for node in nodes:
         if node.is_variable:

@@ -13,7 +13,8 @@ PPL_RTOL. Counts (each bucket's ProgramCache, the fused group's stats,
 numpy's global RNG state) are equal. Also here: BucketSentenceIter's
 batches and order, Perplexity, the shared parameter store across
 buckets (tests/test_module_fused.py's bucketing case, ported), and the
-artifacts that cross between the packages.
+artifacts that cross between the packages (a GRUCell JSON of mxtpu's,
+with its ``_scalar_1.0`` constant, among them).
 """
 import importlib.util
 import pathlib
@@ -427,9 +428,12 @@ def test_lm_symbol_json_crosses(smoke, fused):
 
 
 def test_gru_cell_json_with_a_number_stays_one_way():
-    """ROADMAP A3, pinned as it stands: GRUCell's ``1.0 - update`` is a
-    ``_rminus_scalar`` node in the port's JSON, which mxtpu loads, and a
-    ``_scalar_1.0`` variable in mxtpu's, which the port cannot infer."""
+    """ROADMAP A3, closed (the name is kept from when the test pinned the
+    fault): GRUCell's ``1.0 - update`` is a ``_rminus_scalar`` node in
+    the port's JSON, which mxtpu loads, and a ``_scalar_1.0`` constant
+    in mxtpu's, which the port now loads as that number: not an
+    argument, the same inferred shapes, and the same outputs from the
+    same weights in both packages."""
     def gru(pkg):
         with pkg.name.NameManager():
             out, _ = pkg.rnn.GRUCell(4, prefix="gru_").unroll(
@@ -437,10 +441,25 @@ def test_gru_cell_json_with_a_number_stays_one_way():
         return out
     ported = mx.sym.load_json(gru(mt).tojson())
     assert ported.infer_shape(data=(3, 2, 5))[1] == [(3, 2, 4)]
-    from_mxtpu = mt.sym.load_json(gru(mx).tojson())
-    assert "_scalar_1.0" in from_mxtpu.list_arguments()
-    with pytest.raises(ValueError, match="cannot infer shapes"):
-        from_mxtpu.infer_shape(data=(3, 2, 5))
+    want = gru(mx)
+    from_mxtpu = mt.sym.load_json(want.tojson())
+    assert "_scalar_1.0" in want.tojson()
+    assert from_mxtpu.list_arguments() == want.list_arguments()
+    shapes = from_mxtpu.infer_shape(data=(3, 2, 5))
+    assert shapes == want.infer_shape(data=(3, 2, 5))
+    assert shapes[1] == [(3, 2, 4)]
+    rng = np.random.RandomState(0)
+    args = {n: rng.uniform(-1, 1, s).astype(np.float32)
+            for n, s in zip(want.list_arguments(), shapes[0])}
+    outs = []
+    for pkg, sym in ((mt, from_mxtpu), (mx, want)):
+        exe = sym.simple_bind(ctx=pkg.cpu(), grad_req="null",
+                              data=(3, 2, 5))
+        outs.append(exe.forward(**{k: pkg.nd.array(v, ctx=pkg.cpu())
+                                   for k, v in args.items()})[0].asnumpy())
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-6, atol=1e-7)
+    assert mx.sym.load_json(from_mxtpu.tojson()).list_arguments() == \
+        want.list_arguments()
 
 
 @pytest.mark.parametrize("fused", [True, False],

@@ -7,9 +7,17 @@ or a local KVStore with set_optimizer (named keys, as update_on_kvstore),
 and compares every weight and state after 1 and 3 steps. Both compute in
 float32 with the same operations in the same order (mxtpu through its
 jnp ops, the port through torch's); tolerance 1e-6 relative and absolute
-for weights and states of magnitude about 1.
+for weights and states of magnitude about 1. The constructor keywords
+that fit.py passes (``multi_precision``) or that Gluon's Trainer passes
+(``param_dict``) are held the same way, and SGD's weight decay, which
+skips gamma and beta (their ``wd_mult`` is 0), eagerly and through the
+functional step that the captured train step runs.
 """
+import types
+
+import jax.numpy as jnp
 import numpy as np
+import torch
 import pytest
 
 import mxtpu as mx
@@ -32,6 +40,14 @@ CASES = {
     "adam_wd_clip_rescale": ("adam", dict(learning_rate=0.02, wd=1e-2,
                                           clip_gradient=0.5,
                                           rescale_grad=0.25)),
+    # fit.py's keywords: on float32 weights multi_precision changes nothing
+    "sgd_fit_keywords": ("sgd", dict(learning_rate=0.1, momentum=0.9,
+                                     wd=1e-4, multi_precision=True)),
+    # param_dict's multipliers beat the symbol's and the names' rule
+    "sgd_param_dict": ("sgd", dict(learning_rate=0.1, momentum=0.9, wd=1e-2,
+                                   param_dict={0: (3.0, 0.0), 2: (0.5, 2.0)})),
+    "adam_param_dict": ("adam", dict(learning_rate=0.01, wd=1e-2,
+                                     param_dict={1: (2.0, 1.0)})),
 }
 
 
@@ -50,6 +66,9 @@ def _make(pkg, name, kw, idx2name):
     sched = kw.pop("scheduler", None)
     if sched is not None:
         kw["lr_scheduler"] = pkg.lr_scheduler.FactorScheduler(*sched)
+    if "param_dict" in kw:      # what a Gluon Parameter carries
+        kw["param_dict"] = {i: types.SimpleNamespace(lr_mult=lr, wd_mult=wd)
+                            for i, (lr, wd) in kw["param_dict"].items()}
     return pkg.optimizer.create(name, sym=_sym(pkg), param_idx2name=idx2name,
                                 **kw)
 
@@ -204,3 +223,95 @@ def test_lr_schedulers_match_mxtpu(make):
     for t in range(1, 16):
         assert got(t) == want(t)
     assert got.state_dict() == want.state_dict()
+
+
+def test_multi_precision_keeps_float32_master_weights():
+    """float16 weights under multi_precision: the state is (float32
+    master, momentum), the update runs on the master and the weight takes
+    its value rounded, as in mxtpu; without it, the state is the momentum
+    alone, in float16."""
+    w0, grads = _data(3)
+    got = {}
+    for pkg in (mt, mx):
+        for mp in (True, False):
+            opt = pkg.optimizer.create("sgd", learning_rate=0.1,
+                                       momentum=0.9, wd=1e-4,
+                                       multi_precision=mp,
+                                       param_idx2name=dict(enumerate(NAMES)))
+            updater = pkg.optimizer.get_updater(opt)
+            weights = {n: pkg.nd.array(w0[n], ctx=pkg.cpu(),
+                                       dtype="float16") for n in NAMES}
+            for g in grads:
+                for i, n in enumerate(NAMES):
+                    updater(i, pkg.nd.array(g[n], ctx=pkg.cpu(),
+                                            dtype="float16"), weights[n])
+            got[pkg, mp] = ([weights[n].asnumpy() for n in NAMES],
+                            [_state_arrays(updater.states[i])
+                             for i in range(len(NAMES))])
+    for mp in (True, False):
+        (gw, gs), (ww, ws) = got[mt, mp], got[mx, mp]
+        for a, b in zip(gw, ww):
+            assert a.dtype == b.dtype == np.float16
+            np.testing.assert_allclose(a.astype(np.float32),
+                                       b.astype(np.float32), rtol=1e-3,
+                                       atol=1e-3)
+        for a, b in zip(gs, ws):
+            assert [x.dtype for x in a] == [x.dtype for x in b] == \
+                ([np.float32, np.float32] if mp else [np.float16])
+            for x, y in zip(a, b):
+                np.testing.assert_allclose(x, y, **(TOL if mp else dict(
+                    rtol=1e-3, atol=1e-3)))
+
+
+WD_NAMES = ("conv0_weight", "bn0_gamma", "bn0_beta", "fc1_bias")
+
+
+@pytest.mark.parametrize("path", ["eager", "functional"])
+def test_sgd_weight_decay_skips_gamma_and_beta(path):
+    """One step of fit.py's SGD (lr 0.1, momentum 0.9, wd 1e-4,
+    multi_precision) on a conv weight, a BatchNorm's gamma and beta and a
+    bias: gamma and beta decay at wd_mult 0, the others at wd. The port's
+    Updater (eager) or functional_optimizer_step (the captured step's,
+    with t and lr as device scalars) against mxtpu's, and against the
+    rule written out."""
+    rng = np.random.RandomState(5)
+    w0 = {n: rng.standard_normal((4, 3)).astype(np.float32)
+          for n in WD_NAMES}
+    g0 = {n: rng.standard_normal((4, 3)).astype(np.float32)
+          for n in WD_NAMES}
+    kw = dict(learning_rate=0.1, momentum=0.9, wd=1e-4,
+              multi_precision=True, param_idx2name=dict(enumerate(WD_NAMES)))
+    got, want = {}, {}
+    for pkg, out in ((mt, got), (mx, want)):
+        opt = pkg.optimizer.create("sgd", **kw)
+        assert opt.wd_mult == {"bn0_gamma": 0.0, "bn0_beta": 0.0}
+        for i, n in enumerate(WD_NAMES):
+            if path == "eager" or pkg is mx:
+                w = pkg.nd.array(w0[n], ctx=pkg.cpu())
+                updater = pkg.optimizer.get_updater(opt)
+                updater(i, pkg.nd.array(g0[n], ctx=pkg.cpu()), w)
+                out[n] = w.asnumpy()
+            else:
+                w = torch.tensor(w0[n])
+                state = mt.optimizer.state_to_tree(
+                    opt.create_state_multi_precision(
+                        i, mt.nd.array(w0[n], ctx=mt.cpu())))
+                mt.optimizer.functional_optimizer_step(
+                    opt, i, w, torch.tensor(g0[n]), state,
+                    torch.tensor(1, dtype=torch.int32),
+                    torch.tensor(0.1, dtype=torch.float32))
+                out[n] = w.numpy()
+    if path == "functional":        # mxtpu's own functional step
+        opt = mx.optimizer.create("sgd", **kw)
+        for i, n in enumerate(WD_NAMES):
+            state = mx.optimizer.state_to_tree(
+                opt.create_state_multi_precision(i, mx.nd.array(w0[n])))
+            w, _ = mx.optimizer.functional_optimizer_step(
+                opt, i, jnp.asarray(w0[n]), jnp.asarray(g0[n]), state,
+                jnp.asarray(1, jnp.int32), jnp.asarray(0.1, jnp.float32))
+            np.testing.assert_allclose(np.asarray(w), want[n], **TOL)
+    for n in WD_NAMES:
+        wd = 0.0 if n.startswith("bn0_") else 1e-4
+        rule = w0[n] - 0.1 * (g0[n] + wd * w0[n])
+        np.testing.assert_allclose(got[n], want[n], **TOL, err_msg=n)
+        np.testing.assert_allclose(got[n], rule, **TOL, err_msg=n)

@@ -77,3 +77,32 @@ def test_missing_input_shape_raises():
         lm_symbol(mt).infer_shape()
     args, outs, _ = lm_symbol(mt).infer_shape_partial()
     assert outs == [None]
+
+
+def test_a_training_step_leaves_no_reference_cycle():
+    """A training forward and backward through the Executor leaves no
+    garbage cycle: ``eval_graph`` once evaluated through a recursive
+    closure, whose cycle kept every activation of a step (and the graph
+    that saved them) alive until Python's cycle collector ran. At
+    ResNet-50's batch of 128 that is about 20 GB a step on the card."""
+    import gc
+    data = mt.sym.var("data")
+    x = mt.sym.Convolution(data, num_filter=4, kernel=(3, 3), name="c1")
+    x = mt.sym.Activation(x, act_type="relu")
+    x = mt.sym.FullyConnected(x, num_hidden=3, name="fc")
+    net = mt.sym.SoftmaxOutput(x, name="softmax")
+    ex = net.simple_bind(mt.cpu(), data=(2, 1, 6, 6), softmax_label=(2,))
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(2):
+            ex.forward(is_train=True)
+            ex.backward()
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        found = gc.collect()
+        garbage = list(gc.garbage)
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert found == 0, sorted({type(o).__name__ for o in garbage})
