@@ -16,7 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    LSTM/GRU time loops (thread-block clusters) at the serving slice's
    shapes (T=32, H=200, N in {1, 32}; float32 and bfloat16) and at
    RNN_EXTRA_SHAPES (ragged unit slices at H=37, the streamed mode at
-   H=512 in f32, ragged rows over clusters, T=1), each launch's plan and
+   H=512 in f32, ragged rows over clusters, T=1) and GL_LM_KERNEL_SHAPES
+   (the Gluon LM at its example's widths: T=8, N=16, H=64; at PTB's it
+   is the serving slice's shape), each launch's plan and
    how many of its clusters the card holds at once printed beside it,
    each called twice for the same bits; the three flash-attention
    kernels (forward with lse, dQ, dK/dV) at the training slice's shape
@@ -162,7 +164,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    into a CPU Module predicting as the card does; the same timings with
    TF32 off; then Inception-BN: its first steps against the CPU and a
    short captured epoch at batch 128;
-15. timings: each kernel, its plain version and the PyTorch library call
+15. the Gluon slice (BASELINE.json config 3): gluon.model_zoo.vision.
+   resnet18_v1 (classes 1,000) with Xavier(gaussian, in, 2), trained by
+   example/gluon/mnist.py's loop (autograd.record, loss.backward(),
+   Trainer.step with fit.py's SGD 0.1 / 0.9 / wd 1e-4,
+   SoftmaxCrossEntropyLoss) over a gluon DataLoader of an ArrayDataset of
+   synthetic images from --seed, on gpu(0): the first step at batch 16
+   (TF32 off) against the CPU per weight (RN_STEP_SHARE) and the moving
+   statistics (RN_AUX_TOL), 3 steps within RN_SPREAD of the CPU's own
+   spread from weights one ulp apart; GL_CAPTURE_STEPS hybridized steps
+   (one compile, one capture of the forward and the backward at the
+   second call, a replay at every later one) against eager ones under
+   deterministic cuDNN (GL_HYB_TOL); the hybridized block called twice
+   under one record() a step (a shared-weight pair) for GL_SHARED_STEPS
+   steps against the eager block (GL_HYB_TOL), the second call of each
+   step after the capture evaluating the traced graph uncaptured, since
+   the graphs' activations await the first call's backward (counted);
+   then 3x224x224 at batch 128, eager
+   and hybridized, under torch's default TF32 and with TF32 off: the
+   fixed data learnt (GL_CE_SHARE), ms a step and images/s in turns, the
+   host time by phase (data loader, forward/backward, trainer.step), the
+   card's busy share and launches a step, the share of the step's bound
+   (FLOPs by FlopCounterMode), the graphs' pool. The Gluon word LM of
+   example/gluon/word_language_model.py: its own run (vocabulary 40, 4
+   epochs, the example's perplexity assertions), at PTB's widths
+   (vocabulary 10,000, embed and hidden 200, 2 layers, bptt 32, batch
+   32) its first 3 steps against the CPU and GL_LM_STEPS steps timed, and
+   the GRU variant; lstm_scan (gru_scan) launched once a layer a forward,
+   counted from 0 just before each run. The hybridized MLP of
+   example/gluon/mnist.py: accuracy > GL_MNIST_ACC;
+16. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -179,10 +210,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-16. one JSON line naming every kernel with its launches (the head
+17. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
-   in the bucketed LM's captured fits) and error;
-17. the last line: {"ok": true, "device": {...}}.
+   in the bucketed LM's captured fits, and in the Gluon LM's runs as
+   launches_gluon_lm) and error;
+18. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -575,7 +607,8 @@ def rnn_kernel_phase(rnn_scan, rng, dev):
     errs = {"lstm_scan": 0.0, "gru_scan": 0.0}
     cases = [(SEQ, N, HIDDEN, dtype) for N in (1, 32)
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(T, N, H, getattr(torch, d)) for T, N, H, d in RNN_EXTRA_SHAPES]
+    cases += [(T, N, H, getattr(torch, d)) for T, N, H, d in
+              RNN_EXTRA_SHAPES + GL_LM_KERNEL_SHAPES]
     for T, N, H, dtype in cases:
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         report = []
@@ -4225,6 +4258,746 @@ def fit_times(mt, eager, captured, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The Gluon slice (BASELINE.json config 3, "Gluon hybridize() ResNet-18 +
+# autograd imperative mode"): gluon.model_zoo.vision.resnet18_v1 trained by
+# example/gluon/mnist.py's loop (autograd.record, backward, Trainer.step)
+# over a DataLoader, eager and hybridized; the Gluon LSTM LM of
+# example/gluon/word_language_model.py (B4 every forward) and a GRU variant
+# (B5); the hybridized MLP of example/gluon/mnist.py. The examples import
+# mxtpu, so their models and loops are mirrored here for either package.
+# ---------------------------------------------------------------------------
+
+# ResNet-18 v1 at its published widths: 3x224x224, 1,000 classes, f32, the
+# batch of 128 that train_imagenet.py uses, fit.py's SGD for config 2
+GL_BATCH, GL_SHAPE, GL_CLASSES = 128, (3, 224, 224), 1000
+GL_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+GL_PREFIX = "resnetv10_"
+# the fixed data: GL_DATA_BATCHES batches of synthetic images, served by a
+# DataLoader with GL_WORKERS worker threads; the run that must learn it
+# takes GL_LEARN_STEPS steps, and its last GL_CE_STEPS steps' mean
+# cross-entropy must fall below GL_CE_SHARE of its first GL_CE_STEPS'
+GL_DATA_BATCHES, GL_WORKERS = 2, 2
+GL_LEARN_STEPS, GL_CE_STEPS, GL_CE_SHARE = 40, 4, 0.5
+# steps a timed run (eager, hybridized, hybridized, eager), and the steps
+# under torch.profiler for the busy share
+GL_STEPS, GL_PROFILE_STEPS = 10, 4
+# steps of the hybridized path held against the eager one on the card,
+# both under cuDNN's deterministic algorithms: the same kernels on the same
+# inputs, replayed from a graph
+GL_CAPTURE_STEPS = 6
+GL_HYB_TOL = dict(atol=1e-6, rtol=0)
+# steps of the shared-weight pair (the block called twice a step)
+GL_SHARED_STEPS = 3
+# example/gluon/word_language_model.py: its own widths, and PTB's (the
+# widths BASELINE.json config 4 trains): (vocab, embed, hidden, layers,
+# bptt, batch)
+GL_LM_EXAMPLE = (40, 32, 64, 1, 8, 16)
+GL_LM_PTB = (10000, 200, 200, 2, 32, 32)
+GL_LM_LR, GL_LM_CLIP = 0.005, 5.0
+GL_LM_EPOCHS, GL_LM_TOKENS = 4, 8000          # the example's own run
+GL_LM_STEPS = 20                               # the timed PTB-width run
+# the example's own assertions on its perplexities
+GL_LM_PPL_DROP, GL_LM_PPL_VOCAB = 0.8, 0.7
+# B4 and B5 held against their plain loops at the Gluon LM's shapes (the
+# PTB-width shape is the serving slice's)
+GL_LM_KERNEL_SHAPES = ((8, 16, 64, "float32"),)
+# example/gluon/mnist.py: its accuracy must exceed this
+GL_MNIST_ACC = 0.9
+
+
+def gluon_resnet18(pkg, classes=GL_CLASSES, thumbnail=False):
+    """gluon.model_zoo.vision.resnet18_v1 under the prefix its first
+    instance gets in a fresh process, so names match across packages."""
+    return pkg.gluon.model_zoo.vision.resnet18_v1(
+        classes=classes, thumbnail=thumbnail, prefix=GL_PREFIX)
+
+
+def gluon_xavier(pkg):
+    """The initializer of BASELINE.json config 3 (fit.py's for config 2)."""
+    return pkg.init.Xavier(rnd_type="gaussian", factor_type="in",
+                           magnitude=2)
+
+
+def gluon_weights(pkg, net, seed, sample, init=None):
+    """Initialize ``net`` on the CPU from ``seed`` (deferred shapes from one
+    forward of ``sample``, numpy) and return {name: numpy}: the weights the
+    card's and the CPU's runs start from."""
+    pkg.random.seed(seed)
+    cpu = pkg.cpu()
+    with cpu:
+        net.initialize(init or gluon_xavier(pkg), ctx=cpu)
+        net(pkg.nd.array(sample, ctx=cpu))
+    return {k: v.data().asnumpy() for k, v in net.collect_params().items()}
+
+
+def gluon_load(pkg, net, weights, ctx):
+    """Give ``net`` ``weights`` ({name: numpy}) on ``ctx``: the port
+    through ParameterDict.load_dict, mxtpu parameter by parameter."""
+    params = net.collect_params()
+    if hasattr(params, "load_dict"):
+        params.load_dict(weights, ctx=ctx)
+        return net
+    for k, v in weights.items():
+        params[k].set_data(pkg.nd.array(v, ctx=ctx))
+    return net
+
+
+def gluon_values(net):
+    """{name: numpy} of every parameter, moving statistics included."""
+    return {k: v.data().asnumpy() for k, v in net.collect_params().items()}
+
+
+def gluon_images(seed, n, shape=GL_SHAPE, classes=GL_CLASSES):
+    """Synthetic images in [-1, 1) and integer labels (float32) from
+    ``seed``."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1.0, 1.0, (n,) + tuple(shape)).astype(np.float32)
+    y = rng.randint(0, classes, n).astype(np.float32)
+    return x, y
+
+
+class GluonRun:
+    """example/gluon/mnist.py:56-60's loop over a gluon DataLoader of an
+    ArrayDataset, on ``ctx``: ``with autograd.record(): loss =
+    loss_fn(net(x), y)``, ``loss.backward()``, ``trainer.step(batch)``.
+    ``steps(n)`` runs n steps (a new pass over the data when one ends),
+    keeping each step's mean loss on the device; ``clock`` gathers the host
+    seconds of each phase."""
+
+    def __init__(self, pkg, net, data, ctx, batch, hybridize,
+                 opt=GL_OPT, workers=0):
+        self.pkg, self.net, self.ctx, self.batch = pkg, net, ctx, batch
+        if hybridize:
+            net.hybridize()
+        self.trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                         dict(opt))
+        self.loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+        self.loader = pkg.gluon.data.DataLoader(
+            pkg.gluon.data.ArrayDataset(*data), batch_size=batch,
+            shuffle=False, last_batch="discard", num_workers=workers)
+        self.losses = []
+        self.clock = {}
+        self._it = None
+
+    def _next(self):
+        with self.ctx:
+            for _ in range(2):
+                if self._it is None:
+                    self._it = iter(self.loader)
+                try:
+                    return next(self._it)
+                except StopIteration:
+                    self._it = None
+        raise RuntimeError("the DataLoader gave no batch")
+
+    def steps(self, n):
+        pkg, clock = self.pkg, self.clock
+        for _ in range(n):
+            t0 = time.perf_counter()
+            x, y = self._next()
+            t1 = time.perf_counter()
+            with pkg.autograd.record():
+                loss = self.loss_fn(self.net(x), y)
+            loss.backward()
+            t2 = time.perf_counter()
+            self.trainer.step(self.batch)
+            t3 = time.perf_counter()
+            self.losses.append(loss.mean())
+            for phase, dt in (("data loader", t1 - t0),
+                              ("forward/backward", t2 - t1),
+                              ("trainer.step", t3 - t2)):
+                clock[phase] = clock.get(phase, 0.0) + dt
+        return self
+
+    def loss_values(self):
+        return [float(v.asscalar()) for v in self.losses]
+
+
+def gluon_resnet_run(pkg, weights, data, ctx, batch, hybridize, steps,
+                     classes=GL_CLASSES, thumbnail=False, workers=0):
+    """ResNet-18 v1 from ``weights`` trained ``steps`` steps on ``ctx``
+    (the port's or mxtpu's); returns the GluonRun."""
+    net = gluon_load(pkg, gluon_resnet18(pkg, classes, thumbnail), weights,
+                     ctx)
+    return GluonRun(pkg, net, data, ctx, batch, hybridize,
+                    workers=workers).steps(steps)
+
+
+def hybrid_report(net, label, steps):
+    """Fail unless the hybridized ``net`` ran ``steps`` calls as one program
+    (one signature and train flag): one compile, one capture at its second
+    call, a replay in every later one, no uncaptured call and no
+    fallback. Returns the counts
+    as text."""
+    stats = net.cache_stats()
+    want = {"programs": 1, "compiles": 1, "hits": steps - 1, "captures": 1,
+            "replays": steps - 1, "uncaptured": 0, "fallbacks": 0}
+    if stats != want:
+        fail("%s: hybridized counts %s, want %s" % (label, stats, want))
+    prog = net.programs()[0]
+    return ("%d calls: 1 compile, 1 capture, %d replays; graph pool %.1f MB"
+            % (steps, stats["replays"], prog.pool_bytes / 2 ** 20))
+
+
+def gluon_first_steps(mt, seed):
+    """ResNet-18's first steps at RN_CHECK_BATCH, TF32 off, on the card
+    (eager) against the CPU: after 1 step each weight within RN_STEP_SHARE
+    of its parameter's step (plus RN_ATOL), the moving statistics within
+    RN_AUX_TOL of a layer's largest; after FIT_STEPS steps the weights' and
+    the moving statistics' distance from the CPU's, as a share of their
+    move, and each step's loss, within RN_SPREAD times what the CPU itself
+    gives from weights one ulp apart (as imagenet_first_steps)."""
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    data = gluon_images(seed, RN_CHECK_BATCH * FIT_STEPS)
+    w0 = gluon_weights(mt, gluon_resnet18(mt), seed, data[0][:1])
+    where = "Gluon ResNet-18 first steps at batch %d, card vs CPU" \
+        % RN_CHECK_BATCH
+    aux = [k for k in w0 if k.endswith(("running_mean", "running_var"))]
+
+    def run(ctx, steps, weights):
+        r = gluon_resnet_run(mt, weights, data, ctx, RN_CHECK_BATCH, False,
+                             steps)
+        vals = gluon_values(r.net)
+        return ({k: v for k, v in vals.items() if k not in aux},
+                {k: vals[k] for k in aux}, r.loss_values())
+
+    g_w, g_aux, _ = run(gpu, 1, w0)
+    c_w, c_aux, _ = run(cpu, 1, w0)
+    args0 = {k: v for k, v in w0.items() if k not in aux}
+    w = step_share_check(where + ", 1 step", g_w, c_w, args0, RN_STEP_SHARE,
+                         RN_ATOL)
+    aux_err = max(float(np.abs(g_aux[k] - c_aux[k]).max()
+                        / np.abs(c_aux[k]).max()) for k in aux)
+    if aux_err > RN_AUX_TOL:
+        fail("%s: moving statistics after 1 step differ by %.3g of a layer's "
+             "largest (limit %g)" % (where, aux_err, RN_AUX_TOL))
+    card = run(gpu, FIT_STEPS, w0)
+    host = run(cpu, FIT_STEPS, w0)
+    ulp = run(cpu, FIT_STEPS, ulp_apart(w0, seed))
+    readings = []
+    for i, (what, start) in enumerate((("weights", args0), (
+            "moving statistics", {k: w0[k] for k in aux}))):
+        got = norm_share(card[i], host[i], start)
+        spread = norm_share(ulp[i], host[i], start)
+        if not got <= RN_SPREAD * spread + RN_AUX_TOL:
+            fail("%s: %s after %d steps apart by %.3g of their move; the CPU "
+                 "from weights one ulp apart: %.3g (limit %g times it)"
+                 % (where, what, FIT_STEPS, got, spread, RN_SPREAD))
+        readings.append("%s %.3g (the CPU one ulp apart: %.3g)"
+                        % (what, got, spread))
+    for k, (g, c, u) in enumerate(zip(card[2], host[2], ulp[2])):
+        if not abs(g - c) <= RN_SPREAD * abs(u - c) + RN_AUX_TOL * c:
+            fail("%s: the loss of step %d is %.6f on the card, %.6f on the "
+                 "CPU (%.6f from weights one ulp apart)"
+                 % (where, k + 1, g, c, u))
+    print("%s: 1 step: the weights use %.3g of their limit (%.2f of their "
+          "parameter's step + %g), moving statistics within %.3g of a "
+          "layer's largest (limit %g); %d steps: apart by a share of their "
+          "move: %s (limit %g times the CPU's own); losses card %s, CPU %s, "
+          "one ulp apart %s"
+          % (where, w, RN_STEP_SHARE, RN_ATOL, aux_err, RN_AUX_TOL,
+             FIT_STEPS, "; ".join(readings), RN_SPREAD,
+             ", ".join("%.5f" % x for x in card[2]),
+             ", ".join("%.5f" % x for x in host[2]),
+             ", ".join("%.5f" % x for x in ulp[2])), flush=True)
+    return w0
+
+
+def gluon_hybrid_check(mt, w0, seed):
+    """GL_CAPTURE_STEPS hybridized steps against eager ones on the card at
+    RN_CHECK_BATCH, both with cuDNN's deterministic algorithms: weights and
+    moving statistics within GL_HYB_TOL, and the hybridized block's counts
+    (hybrid_report)."""
+    import torch
+    gpu = mt.gpu(0)
+    data = gluon_images(seed + 1, RN_CHECK_BATCH * GL_CAPTURE_STEPS)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {h: gluon_resnet_run(mt, w0, data, gpu, RN_CHECK_BATCH, h,
+                                    GL_CAPTURE_STEPS) for h in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = old
+    text = hybrid_report(runs[True].net, "Gluon ResNet-18 capture check",
+                         GL_CAPTURE_STEPS)
+    got, want = gluon_values(runs[True].net), gluon_values(runs[False].net)
+    names = sorted(want)
+    check_close("Gluon ResNet-18: %d hybridized steps vs eager ones on the "
+                "card (deterministic cuDNN)" % GL_CAPTURE_STEPS,
+                [torch.from_numpy(got[k]) for k in names],
+                [torch.from_numpy(want[k]) for k in names], GL_HYB_TOL)
+    print("Gluon ResNet-18 hybridized vs eager at batch %d (deterministic "
+          "cuDNN): %s; max |diff| over weights and moving statistics %.3g "
+          "(tolerance %s); losses hybridized %s, eager %s"
+          % (RN_CHECK_BATCH, text, max(float(np.abs(got[k] - want[k]).max())
+                                       for k in names), GL_HYB_TOL,
+             ", ".join("%.5f" % v for v in runs[True].loss_values()),
+             ", ".join("%.5f" % v for v in runs[False].loss_values())),
+          flush=True)
+
+
+def gluon_shared_call_check(mt, w0, seed):
+    """One hybridized ResNet-18 called twice under one record() a step, on
+    two batches of RN_CHECK_BATCH images with one loss over both (a
+    shared-weight pair, as a siamese net or a triplet loss calls it),
+    GL_SHARED_STEPS steps against the eager block, both under cuDNN's
+    deterministic algorithms: losses, weights and moving statistics within
+    GL_HYB_TOL. The first step's second call captures; from the second
+    step on, a step's first call replays and its second finds the graphs
+    busy (their activations await the first call's backward) and
+    evaluates the traced graph uncaptured."""
+    import torch
+    gpu = mt.gpu(0)
+    x, y = gluon_images(seed + 4, 2 * RN_CHECK_BATCH)
+    halves = [(mt.nd.array(x[i::2], ctx=gpu), mt.nd.array(y[i::2], ctx=gpu))
+              for i in (0, 1)]
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for hyb in (False, True):
+            net = gluon_load(mt, gluon_resnet18(mt), w0, gpu)
+            if hyb:
+                net.hybridize()
+            trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                       dict(GL_OPT))
+            loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+            losses = []
+            for _ in range(GL_SHARED_STEPS):
+                with mt.autograd.record():
+                    loss = sum(loss_fn(net(a), b).mean() for a, b in halves)
+                loss.backward()
+                trainer.step(len(halves))
+                losses.append(float(loss.asscalar()))
+            runs[hyb] = (net, losses)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    net = runs[True][0]
+    stats = net.cache_stats()
+    want = dict(programs=1, compiles=1, hits=2 * GL_SHARED_STEPS - 1,
+                captures=1, replays=GL_SHARED_STEPS,
+                uncaptured=GL_SHARED_STEPS - 1, fallbacks=0)
+    if stats != want:
+        fail("Gluon ResNet-18 called twice a step: hybridized counts %s, "
+             "want %s" % (stats, want))
+    got, ref = gluon_values(net), gluon_values(runs[False][0])
+    names = sorted(ref)
+    check_close("Gluon ResNet-18 called twice a step: %d hybridized steps "
+                "vs eager ones on the card (deterministic cuDNN)"
+                % GL_SHARED_STEPS,
+                [torch.tensor(runs[True][1])]
+                + [torch.from_numpy(got[k]) for k in names],
+                [torch.tensor(runs[False][1])]
+                + [torch.from_numpy(ref[k]) for k in names], GL_HYB_TOL)
+    print("Gluon ResNet-18 called twice under one record() a step, batch "
+          "%d a call: %d steps, counts %s; max |diff| over losses, weights "
+          "and moving statistics %.3g (tolerance %s); losses hybridized %s, "
+          "eager %s"
+          % (RN_CHECK_BATCH, GL_SHARED_STEPS, stats,
+             max([float(np.abs(got[k] - ref[k]).max()) for k in names]
+                 + [abs(a - b) for a, b in zip(runs[True][1],
+                                               runs[False][1])]),
+             GL_HYB_TOL, ", ".join("%.5f" % v for v in runs[True][1]),
+             ", ".join("%.5f" % v for v in runs[False][1])), flush=True)
+
+
+def gluon_step_bound(mt, run):
+    """One eager step of ``run`` under FlopCounterMode: (conv FLOPs, matmul
+    FLOPs, bytes a step must move: the batch, every weight, momentum and
+    moving statistic read once and written once, the logits written)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        run.steps(1)
+    by_op = counter.get_flop_counts().get("Global", {})
+    conv = sum(v for k, v in by_op.items() if "convolution" in str(k))
+    matmul = counter.get_total_flops() - conv
+    n_param = n_aux = 0
+    for p in run.net.collect_params().values():
+        if p.grad_req == "null":
+            n_aux += p.data().size
+        else:
+            n_param += p.data().size
+    nbytes = 4 * (GL_BATCH * (int(np.prod(GL_SHAPE)) + 1)
+                  + 2 * (2 * n_param + n_aux) + GL_BATCH * GL_CLASSES)
+    return (conv, matmul), nbytes
+
+
+def gluon_full_width(mt, w0, seed, card, tf32, setting, bound):
+    """ResNet-18 v1 at 224, batch 128, on gpu(0) under one TF32 setting,
+    eager and hybridized: under torch's default TF32 each path first
+    trains GL_LEARN_STEPS steps and must learn the fixed data; then both
+    are timed in turns (eager, hybridized, hybridized, eager; GL_STEPS
+    steps each): ms a step, images/s, host ms by phase, the card's busy
+    share and launches a step, the share of the step's bound (FLOPs by
+    FlopCounterMode, counted once in ``bound``). Returns ({path: ms},
+    bound)."""
+    import torch
+    gpu = mt.gpu(0)
+    data = gluon_images(seed + 2, GL_BATCH * GL_DATA_BATCHES)
+    runs, out = {}, {}
+    with tf32_mode(tf32):
+        for path in ("eager", "hybridized"):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            runs[path] = run = gluon_resnet_run(
+                mt, w0, data, gpu, GL_BATCH, path == "hybridized",
+                GL_LEARN_STEPS if tf32 else 2, workers=GL_WORKERS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            ce = run.loss_values()
+            if not all(np.isfinite(ce)):
+                fail("Gluon ResNet-18 %s: losses %s" % (path, ce))
+            first = float(np.mean(ce[:GL_CE_STEPS]))
+            last = float(np.mean(ce[-GL_CE_STEPS:]))
+            if tf32 and not last < GL_CE_SHARE * first:
+                fail("Gluon ResNet-18 %s: the fixed data's cross-entropy "
+                     "went from %.4f to %.4f over %d steps (limit %.2f of the "
+                     "first)" % (path, first, last, len(ce), GL_CE_SHARE))
+            text = "eager" if path == "eager" else hybrid_report(
+                run.net, "Gluon ResNet-18 " + setting, len(ce))
+            print("Gluon ResNet-18 %s, %s: %d steps at batch %d in %.2f s; "
+                  "cross-entropy of the first %d steps %.4f, of the last %d "
+                  "%.4f (limit %.2f of the first); %s; peak memory %.2f GB "
+                  "| %s" % (path, setting, len(ce), GL_BATCH, secs,
+                            GL_CE_STEPS, first, GL_CE_STEPS, last,
+                            GL_CE_SHARE, text,
+                            torch.cuda.max_memory_allocated() / 1e9, card),
+                  flush=True)
+            run.clock.clear()
+        if bound is None:
+            bound = gluon_step_bound(mt, runs["eager"])
+            (conv, matmul), nbytes = bound
+            print("Gluon ResNet-18 step at batch %d: %.4g conv FLOPs + %.4g "
+                  "matmul FLOPs (FlopCounterMode over one eager step; %.3g "
+                  "GMAC an image forward), %.4g bytes to move at least; "
+                  "bound %.3f ms with cuDNN TF32, %.3f ms in float32 | %s"
+                  % (GL_BATCH, conv, matmul, (conv + matmul) / 6 / GL_BATCH
+                     / 1e9, nbytes, bound_ms(*bound, True)[0],
+                     bound_ms(*bound, False)[0], card), flush=True)
+            runs["eager"].clock.clear()
+        ms = {k: [] for k in runs}
+        for path in ("eager", "hybridized", "hybridized", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[path].steps(GL_STEPS)
+            torch.cuda.synchronize()
+            ms[path].append((time.perf_counter() - t0) / GL_STEPS * 1e3)
+        limit, by = bound_ms(*bound, tf32)
+        for path, run in runs.items():
+            step = out[path] = float(np.mean(ms[path]))
+            host = "; ".join("%s %.3f" % (p, v / (2 * GL_STEPS) * 1e3)
+                             for p, v in run.clock.items())
+            busy, top = device_time(lambda: run.steps(GL_PROFILE_STEPS), 1,
+                                    per=GL_PROFILE_STEPS)
+            print("Gluon ResNet-18 %s step, %s (cuDNN TF32 %s, matmul TF32 "
+                  "off): %.3f ms (%s), %.1f images/s; bound %.3f ms (%s), "
+                  "%.1f%% of it; host ms a step by phase: %s; %s; per step: "
+                  "%s | %s"
+                  % (path, setting, "on" if tf32 else "off", step,
+                     ", ".join("%.3f" % v for v in ms[path]),
+                     GL_BATCH / step * 1e3, limit, by, 100 * limit / step,
+                     host, busy_of(busy, step), top, card), flush=True)
+        print("Gluon ResNet-18 step, %s: eager %.3f ms, hybridized %.3f ms "
+              "(%.2fx) | %s" % (setting, out["eager"], out["hybridized"],
+                                out["eager"] / out["hybridized"], card))
+    return out, bound
+
+
+def markov_corpus(n_tokens, vocab, rng, support=None):
+    """example/gluon/word_language_model.py's corpus (a copy: the example
+    imports mxtpu): each token's successor drawn from its state's
+    heavy-tailed distribution over the vocabulary, or, with ``support``,
+    over that many successors a state (the same kind of chain at PTB's
+    vocabulary, whose full transition matrix would take 800 MB)."""
+    if support is None:
+        trans = rng.dirichlet(np.full(vocab, 0.12), size=vocab)
+        succ = np.broadcast_to(np.arange(vocab), (vocab, vocab))
+    else:
+        succ = rng.randint(0, vocab, (vocab, support))
+        trans = rng.dirichlet(np.full(support, 0.12), size=vocab)
+    toks = np.zeros(n_tokens, np.int64)
+    for i in range(1, n_tokens):
+        toks[i] = succ[toks[i - 1]][rng.choice(trans.shape[1],
+                                               p=trans[toks[i - 1]])]
+    return toks
+
+
+def lm_batchify(toks, batch):
+    nb = len(toks) // batch
+    return toks[:nb * batch].reshape(batch, nb).T   # (nb, batch)
+
+
+def gluon_rnn_model(pkg, vocab, embed, hidden, layers, mode="lstm"):
+    """The example's RNNModel (an eager gluon.Block: embedding, a fused
+    LSTM or GRU layer, a Dense decoder), with the layer count and mode as
+    arguments, under the prefix its first instance gets."""
+    gluon = pkg.gluon
+
+    class RNNModel(gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embedding = gluon.nn.Embedding(vocab, embed)
+                layer = gluon.rnn.LSTM if mode == "lstm" else gluon.rnn.GRU
+                self.lstm = layer(hidden, num_layers=layers)
+                self.decoder = gluon.nn.Dense(vocab, flatten=False)
+
+        def forward(self, x):
+            return self.decoder(self.lstm(self.embedding(x)))
+
+    return RNNModel(prefix="rnnmodel0_")
+
+
+def gluon_lm_train(pkg, model, data, ctx, bptt, batch, steps=None,
+                   epochs=None, clock=None):
+    """The example's loop: Adam (GL_LM_LR, clip_gradient GL_LM_CLIP),
+    SoftmaxCrossEntropyLoss over ``logits.reshape((-3, 0))``, ``bptt``
+    tokens a step over ``data`` (nb, batch). Runs ``epochs`` passes, or
+    ``steps`` steps. Returns (each pass's perplexity, each step's mean
+    loss); the sums stay on the device until the end."""
+    trainer = pkg.gluon.Trainer(model.collect_params(), "adam",
+                                {"learning_rate": GL_LM_LR,
+                                 "clip_gradient": GL_LM_CLIP})
+    ce = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+    starts = list(range(0, data.shape[0] - bptt - 1, bptt))
+    plan = [starts] * epochs if epochs else [
+        [starts[i % len(starts)] for i in range(steps)]]
+    sums, means = [], []
+    for pass_starts in plan:
+        total = []
+        for i in pass_starts:
+            x = pkg.nd.array(data[i:i + bptt].astype("f"), ctx=ctx)
+            t = pkg.nd.array(data[i + 1:i + bptt + 1].astype("f"), ctx=ctx)
+            t0 = time.perf_counter()
+            with pkg.autograd.record():
+                logits = model(x)
+                loss = ce(logits.reshape((-3, 0)), t.reshape((-1,)))
+            loss.backward()
+            t1 = time.perf_counter()
+            trainer.step(bptt * batch)
+            if clock is not None:
+                clock["forward/backward"] = clock.get(
+                    "forward/backward", 0.0) + t1 - t0
+                clock["trainer.step"] = clock.get(
+                    "trainer.step", 0.0) + time.perf_counter() - t1
+            total.append(loss.sum())
+            means.append(loss.mean())
+        sums.append((total, len(pass_starts) * bptt * batch))
+    ppl = [float(np.exp(sum(float(v.asscalar()) for v in total) / n))
+           for total, n in sums]
+    return ppl, [float(v.asscalar()) for v in means]
+
+
+def gluon_lm_phase(mt, rnn_scan, seed, card):
+    """The Gluon word LM on gpu(0): the example's own run (its widths, 4
+    epochs, its perplexity assertions), lstm_scan launched once a layer a
+    forward; at PTB's widths the first FIT_STEPS steps against the CPU
+    (weights and losses within RN_SPREAD times the CPU's own spread from
+    weights one ulp apart: Adam's float32 steps jump where a rounding flips
+    a mask), then GL_LM_STEPS steps timed (ms a step, tokens/s); the GRU
+    variant, gru_scan once a layer a forward. Returns {kernel: launches}."""
+    import torch
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    launches = {}
+
+    def lm(widths, mode, tokens):
+        vocab, embed, hidden, layers, bptt, batch = widths
+        rng = np.random.RandomState(seed)
+        toks = markov_corpus(tokens, vocab, rng,
+                             None if vocab <= 1000 else 16)
+        model = gluon_rnn_model(mt, vocab, embed, hidden, layers, mode)
+        w0 = gluon_weights(mt, model, seed, np.zeros((1, 1), np.float32),
+                           init=mt.init.Xavier())
+        return lm_batchify(toks, batch), w0
+
+    def counted(kernel, forwards, layers, fn):
+        rnn_scan.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = rnn_scan.LAUNCHES[kernel]
+        if got != forwards * layers:
+            fail("Gluon LM: %s launched %d times in %d forwards of %d "
+                 "layer(s)" % (kernel, got, forwards, layers))
+        launches[kernel] = launches.get(kernel, 0) + got
+        return out
+
+    # the example's own run
+    widths = GL_LM_EXAMPLE
+    data, w0 = lm(widths, "lstm", GL_LM_TOKENS)
+    model = gluon_load(mt, gluon_rnn_model(mt, *widths[:4]), w0, gpu)
+    starts = len(range(0, data.shape[0] - widths[4] - 1, widths[4]))
+    t0 = time.perf_counter()
+    ppls, _ = counted("lstm_scan", GL_LM_EPOCHS * starts, widths[3],
+                      lambda: gluon_lm_train(mt, model, data, gpu,
+                                             widths[4], widths[5],
+                                             epochs=GL_LM_EPOCHS))
+    secs = time.perf_counter() - t0
+    if not (ppls[-1] < ppls[0] * GL_LM_PPL_DROP
+            and ppls[-1] < widths[0] * GL_LM_PPL_VOCAB):
+        fail("Gluon word LM (the example's run): perplexity by epoch %s"
+             % ppls)
+    print("Gluon word LM, the example's run on gpu(0) (vocabulary %d, embed "
+          "%d, hidden %d, %d layer, bptt %d, batch %d, %d epochs of %d "
+          "steps): perplexity by epoch %s (the example asserts < %.1f of the "
+          "first and < %.1f); lstm_scan launched once a forward; %.2f s"
+          % (widths[0], widths[1], widths[2], widths[3], widths[4],
+             widths[5], GL_LM_EPOCHS, starts, ", ".join(
+                 "%.2f" % p for p in ppls), GL_LM_PPL_DROP,
+             widths[0] * GL_LM_PPL_VOCAB, secs), flush=True)
+
+    # PTB's widths: first steps against the CPU, then timed; the GRU variant
+    widths = GL_LM_PTB
+    vocab, embed, hidden, layers, bptt, batch = widths
+    tokens = batch * (bptt * GL_LM_STEPS + 2)
+    for mode, kernel in (("lstm", "lstm_scan"), ("gru", "gru_scan")):
+        data, w0 = lm(widths, mode, tokens)
+        where = "Gluon word LM (%s) at PTB's widths, first %d steps, card " \
+            "vs CPU" % (mode, FIT_STEPS)
+
+        def first(ctx, weights):
+            model = gluon_load(mt, gluon_rnn_model(mt, vocab, embed, hidden,
+                                                   layers, mode),
+                               weights, ctx)
+            _, losses = gluon_lm_train(mt, model, data, ctx, bptt, batch,
+                                       steps=FIT_STEPS)
+            return gluon_values(model), losses
+
+        g = counted(kernel, FIT_STEPS, layers, lambda: first(gpu, w0))
+        c = first(cpu, w0)
+        u = first(cpu, ulp_apart(w0, seed))
+        got, spread = norm_share(g[0], c[0], w0), norm_share(u[0], c[0], w0)
+        if not got <= RN_SPREAD * spread + RN_AUX_TOL:
+            fail("%s: weights apart by %.3g of their move; the CPU from "
+                 "weights one ulp apart: %.3g" % (where, got, spread))
+        for k, (a, b, d) in enumerate(zip(g[1], c[1], u[1])):
+            if not abs(a - b) <= RN_SPREAD * abs(d - b) + RN_AUX_TOL * b:
+                fail("%s: the loss of step %d is %.6f on the card, %.6f on "
+                     "the CPU (%.6f from weights one ulp apart)"
+                     % (where, k + 1, a, b, d))
+        print("%s: weights apart by %.3g of their move (the CPU one ulp "
+              "apart: %.3g, limit %g times it); losses card %s, CPU %s, one "
+              "ulp apart %s" % (where, got, spread, RN_SPREAD,
+                                ", ".join("%.5f" % v for v in g[1]),
+                                ", ".join("%.5f" % v for v in c[1]),
+                                ", ".join("%.5f" % v for v in u[1])),
+              flush=True)
+        model = gluon_load(mt, gluon_rnn_model(mt, vocab, embed, hidden,
+                                               layers, mode), w0, gpu)
+        gluon_lm_train(mt, model, data, gpu, bptt, batch, steps=2)
+        clock = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppl, _ = counted(kernel, GL_LM_STEPS, layers,
+                         lambda: gluon_lm_train(mt, model, data, gpu, bptt,
+                                                batch, steps=GL_LM_STEPS,
+                                                clock=clock))
+        step = (time.perf_counter() - t0) / GL_LM_STEPS * 1e3
+        busy, top = device_time(lambda: gluon_lm_train(
+            mt, model, data, gpu, bptt, batch, steps=2), 1, per=2)
+        print("Gluon word LM (%s) at PTB's widths (vocabulary %d, embed %d, "
+              "hidden %d, %d layers, bptt %d, batch %d): %.3f ms a step, "
+              "%.0f tokens/s over %d steps (perplexity %.1f); host ms a step "
+              "by phase: %s; %s; per step: %s; %s launched once a layer a "
+              "forward | %s"
+              % (mode, vocab, embed, hidden, layers, bptt, batch, step,
+                 bptt * batch / step * 1e3, GL_LM_STEPS, ppl[0], "; ".join(
+                     "%s %.3f" % (p, v / GL_LM_STEPS * 1e3)
+                     for p, v in clock.items()), busy_of(busy, step), top,
+                 kernel, card), flush=True)
+    return launches
+
+
+def synthetic_mnist(n=512, seed=0):
+    """example/gluon/mnist.py's synthetic digits (a copy: the example
+    imports mxtpu)."""
+    r = np.random.RandomState(seed)
+    y = (r.rand(n) * 10).astype("f")
+    x = r.rand(n, 1, 28, 28).astype("f") * 0.1
+    for i in range(n):  # a class-dependent blob, so the task is learnable
+        c = int(y[i])
+        x[i, 0, 2 * c:2 * c + 6, 4:24] += 0.8
+    return x, y
+
+
+def gluon_mnist(pkg, ctx, epochs=3, batch_size=64, lr=0.1):
+    """example/gluon/mnist.py's main on ``ctx`` (its seed, NDArrayIter with
+    shuffle, the hybridized 3-layer MLP, SGD with momentum, Accuracy). The
+    port's NDArrayIter serves host batches, so they are moved to ``ctx``.
+    Returns (the last epoch's accuracy, the net)."""
+    np.random.seed(0)
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential(prefix="hybridsequential0_")
+    net.add(nn.Dense(128, activation="relu"),
+            nn.Dense(64, activation="relu"),
+            nn.Dense(10))
+    net.initialize(pkg.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    x, y = synthetic_mnist()
+    train = pkg.io.NDArrayIter(x, y, batch_size, shuffle=True)
+    trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": lr, "momentum": 0.9})
+    loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = pkg.metric.Accuracy()
+    for _ in range(epochs):
+        train.reset()
+        metric.reset()
+        for batch in train:
+            data = batch.data[0].as_in_context(ctx)
+            label = batch.label[0].as_in_context(ctx)
+            with pkg.autograd.record():
+                out = net(data.reshape((data.shape[0], -1)))
+                loss = loss_fn(out, label)
+            loss.backward()
+            trainer.step(data.shape[0])
+            metric.update([label], [out])
+    return metric.get()[1], net
+
+
+def gluon_phase(mt, rnn_scan, seed, card):
+    """The Gluon slice on gpu(0): ResNet-18 v1's first steps against the
+    CPU, hybridized against eager (also called twice a step), the
+    full-width run under TF32 on and off; the Gluon word LM (B4; B5 in the
+    GRU variant); the hybridized MLP of example/gluon/mnist.py. Returns ({(path, setting): ms a step},
+    {kernel: launches in the Gluon LM})."""
+    import gc
+    import torch
+    clock = [("start", time.perf_counter())]
+    w0 = gluon_first_steps(mt, seed)
+    clock.append(("first steps", time.perf_counter()))
+    gluon_hybrid_check(mt, w0, seed)
+    clock.append(("hybridized vs eager", time.perf_counter()))
+    gluon_shared_call_check(mt, w0, seed)
+    clock.append(("called twice a step", time.perf_counter()))
+    full = gluon_weights(mt, gluon_resnet18(mt), seed,
+                         np.zeros((1,) + GL_SHAPE, np.float32))
+    out, bound = {}, None
+    for tf32, setting in ((True, "TF32 on"), (False, "TF32 off")):
+        times, bound = gluon_full_width(mt, full, seed, card, tf32, setting,
+                                        bound)
+        for path, ms in times.items():
+            out[path, setting] = ms
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.append(("full width, " + setting, time.perf_counter()))
+    launches = gluon_lm_phase(mt, rnn_scan, seed, card)
+    clock.append(("word LM", time.perf_counter()))
+    acc, net = gluon_mnist(mt, mt.gpu(0))
+    if not acc > GL_MNIST_ACC:
+        fail("example/gluon/mnist.py on gpu(0): accuracy %.4f (the example "
+             "asserts > %.1f)" % (acc, GL_MNIST_ACC))
+    print("example/gluon/mnist.py hybridized on gpu(0): last epoch's "
+          "accuracy %.4f (> %.1f); %s"
+          % (acc, GL_MNIST_ACC, net.cache_stats()), flush=True)
+    clock.append(("MLP", time.perf_counter()))
+    print("Gluon phase: %.1f s (%s)" % (
+        clock[-1][1] - clock[0][1], ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))))
+    return out, launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4604,7 +5377,13 @@ def main():
     # statistics inside the captured step), then Inception-BN
     resnet_ms = resnet_phase(mt, args.seed, card)
 
-    # 15. timings at the main paths' shapes
+    # 15. the Gluon slice: ResNet-18 v1 through autograd.record / backward /
+    # Trainer.step, eager and hybridized (one captured forward and backward
+    # a signature); the Gluon word LM (the second path B4's and B5's
+    # launches are counted on, from 0 just before each run); the MLP
+    gluon_ms, gl_launches = gluon_phase(mt, rnn_scan, args.seed, card)
+
+    # 16. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -4655,6 +5434,7 @@ def main():
             "name": name, "route": "cuda",
             "source": "mxtpu_torch/csrc/rnn_scan.cu",
             "replaces": replaces, "launches": path_launches[name],
+            "launches_gluon_lm": gl_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": med[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": med[2], "wall_ms": med[1], "pairs": PAIRS,
@@ -4935,9 +5715,12 @@ def main():
     print("ResNet slice, ms a step: %s | %s" % (
         ", ".join("%s %s %.3f" % (k + (v,)) for k, v in resnet_ms.items()),
         card))
+    print("Gluon ResNet-18 slice, ms a step: %s | %s" % (
+        ", ".join("%s %s %.3f" % (k + (v,)) for k, v in gluon_ms.items()),
+        card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 16.-17. the result lines
+    # 17.-18. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,8 @@ with ``Module.fit`` and ``BucketingModule``, ``mx.io``, ``mx.init``,
 ``mx.lr_scheduler``, ``mx.random``, ``mx.rnn`` (the cells and
 ``BucketSentenceIter``), ``mx.serving``, ``mx.parallel``,
 ``mx.autograd``, ``mx.engine``, ``mx.operator`` custom ops, ``mx.rtc``,
+``mx.gluon`` (blocks, ``hybridize``, Trainer, layers, losses, data,
+model zoo, fused RNN layers),
 contexts, checkpoints),
 computed with PyTorch: plain tensor code in torch, and every kernel that
 ``mxtpu`` wrote in Pallas for the TPU hand-written in CUDA C++ for
@@ -47,6 +49,7 @@ from . import serving
 from . import parallel
 from . import operator
 from . import rtc
+from . import gluon
 from .ndarray import NDArray
 
 __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
@@ -54,4 +57,4 @@ __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "sym", "random", "lr_scheduler", "io", "initializer", "init",
            "optimizer", "metric", "kvstore", "kv", "executor", "rnn",
            "model", "callback", "module", "mod", "serving", "parallel",
-           "engine", "autograd", "operator", "rtc", "NDArray"]
+           "engine", "autograd", "operator", "rtc", "gluon", "NDArray"]

@@ -263,19 +263,28 @@ def _invoke(op, args, kwargs):
     outputs on the inputs' context. Under ``record()`` the op runs with
     torch's grad mode on and its floating inputs join the graph;
     otherwise it records nothing. Under ``NaiveEngine`` it waits for its
-    result."""
+    result.
+
+    As in ``mxtpu``'s ``invoke``: the outputs that ``op.aux_update``
+    names are written back into their input arrays (BatchNorm's moving
+    statistics), detached and in place, so no graph hangs on them and a
+    captured graph that reads those tensors sees the new values; and the
+    call returns the op's ``user_outputs`` leading outputs (BatchNorm's
+    one, or three under ``output_mean_var``), one array alone and not in
+    a list."""
     recording = _ag.is_recording()
     ctx = _device_of(args) or _device_of(kwargs.values()) \
         or current_context()
 
-    def tensor(v):
+    def tensor(pos, v):
         if not isinstance(v, NDArray):
             return v
-        if recording and op.differentiable and not v._data.requires_grad:
+        if recording and op.differentiable and pos not in op.aux_update \
+                and not v._data.requires_grad:
             v._data = _ag._leaf(v._data)
         return v._data
-    tensors = [tensor(a) for a in args]
-    kw = {k: tensor(v) for k, v in kwargs.items()}
+    tensors = [tensor(i, a) for i, a in enumerate(args)]
+    kw = {k: tensor(None, v) for k, v in kwargs.items()}
     if op.needs_train_flag:
         kw.setdefault("_training", _ag.is_training())
     if op.needs_device:
@@ -283,11 +292,20 @@ def _invoke(op, args, kwargs):
     with torch.set_grad_enabled(recording):
         out = op.fn(*tensors, **kw)
     outs = out if isinstance(out, tuple) else (out,)
+    for in_pos, out_pos in op.aux_update.items():
+        if in_pos < len(args) and isinstance(args[in_pos], NDArray) \
+                and outs[out_pos] is not tensors[in_pos]:
+            with torch.no_grad():
+                args[in_pos]._data.copy_(outs[out_pos].detach())
     if _engine.is_synchronous() and outs[-1].device.type == "cuda":
         torch.cuda.synchronize(outs[-1].device)
-    if isinstance(out, tuple):
-        return [NDArray(o, ctx) for o in out]
-    return NDArray(out, ctx)
+    shown = op.user_outputs(kw) if callable(op.user_outputs) \
+        else op.user_outputs
+    if shown is not None:
+        outs = outs[:shown]
+    if len(outs) == 1:
+        return NDArray(outs[0], ctx)
+    return [NDArray(o, ctx) for o in outs]
 
 
 def array(source, ctx=None, dtype=None):

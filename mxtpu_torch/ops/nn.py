@@ -1,9 +1,10 @@
 """Neural-network ops of the PyTorch port.
 
 Counterpart of the main-path ops of ``mxtpu/ops/nn.py``:
-FullyConnected, Convolution, Pooling, Activation, softmax, Embedding,
-Dropout, BatchNorm and SoftmaxOutput, whose backward is ``mxtpu``'s (a
-``torch.autograd.Function`` in place of its ``custom_vjp``).
+FullyConnected, Convolution, Pooling, Activation, LeakyReLU, softmax,
+log_softmax, Embedding, Dropout, BatchNorm and SoftmaxOutput, whose
+backward is ``mxtpu``'s (a ``torch.autograd.Function`` in place of its
+``custom_vjp``).
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
 here they are PyTorch's own calls: ``torch.matmul``, ``index_select``,
 ``F.conv*d`` / ``F.max_pool*d`` / ``F.avg_pool*d`` (cuDNN on the
@@ -134,10 +135,46 @@ def activation(data, act_type="relu"):
     raise ValueError("unknown act_type %r" % act_type)
 
 
+@register("LeakyReLU", needs_train_flag=True, stateful=True)
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334, _training=False):
+    """``mxtpu``'s LeakyReLU family: leaky, elu, selu, prelu (``gamma`` a
+    slope a channel, axis 1) and rrelu (a slope drawn from U[lower,
+    upper) an element in training, their mean otherwise)."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data >= 0, data,
+                                   alpha * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "rrelu":
+        if _training:
+            gen = next_generator()
+            u = torch.empty(data.shape, device=gen.device).uniform_(
+                lower_bound, upper_bound, generator=gen)
+            return torch.where(data >= 0, data,
+                               u.to(device=data.device, dtype=data.dtype)
+                               * data)
+        return torch.where(data >= 0, data,
+                           (lower_bound + upper_bound) / 2.0 * data)
+    raise ValueError("unknown act_type %r" % act_type)
+
+
 @register("softmax")
 def softmax(data, axis=-1, temperature=None):
     x = data / temperature if temperature else data
     return torch.softmax(x, dim=axis)
+
+
+@register("log_softmax")
+def log_softmax(data, axis=-1, temperature=None):
+    x = data / temperature if temperature else data
+    return torch.log_softmax(x, dim=axis)
 
 
 def _take_fill(dtype):

@@ -4,13 +4,15 @@ Counterpart of the part of ``mxtpu/ops/shape_ops.py`` that the fused
 RNN cell's ``unroll``, the serving graphs, LeNet and
 ``nd.concatenate`` emit: reshape (with MXNet's special codes), Flatten,
 swapaxes, expand_dims, concat, stack, split, zeros_like, ones_like and
-the nullary ``_zeros`` creator.
+the nullary ``_zeros`` creator; and ``pick``, which Gluon's
+``SoftmaxCrossEntropyLoss`` takes its labels' entries with.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import canonical_dtype
+from .nn import _take_fill
 from .registry import register
 
 
@@ -96,6 +98,25 @@ def split(data, num_outputs=2, axis=1, squeeze_axis=False):
     if squeeze_axis:
         outs = [torch.squeeze(o, dim=axis) for o in outs]
     return tuple(outs)
+
+
+@register("pick")
+def pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """``data``'s element at ``index`` along ``axis``, as ``mxtpu``'s
+    ``jnp.take_along_axis`` picks it: a negative index counts from the
+    end once, and one still outside the axis gives NaN (no gradient)
+    instead of raising, so no device-side assert can end the card's
+    context. (``mode`` is accepted and, as in ``mxtpu``, not used.)"""
+    axis = axis % data.dim()
+    n = data.shape[axis]
+    idx = index.to(torch.int64).unsqueeze(axis)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    out = torch.gather(data, axis, torch.where(valid, idx, 0))
+    out = torch.where(valid, out, torch.full((), _take_fill(out.dtype),
+                                             dtype=out.dtype,
+                                             device=out.device))
+    return out if keepdims else out.squeeze(axis)
 
 
 @register("_zeros", needs_device=True)

@@ -506,3 +506,52 @@ def test_embedding_out_of_range_ids_match_mxtpu(ids):
         np.testing.assert_array_equal(got.asnumpy(), want)
         np.testing.assert_allclose(weight.grad.asnumpy(),
                                    np.asarray(dw_want), **TOL)
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_batchnorm_writes_its_moving_statistics_back(training):
+    """C10: eager nd.BatchNorm under record() writes its new moving
+    statistics into the moving_mean / moving_var arrays, as mxtpu's
+    invoke writes aux outputs back (in training; in inference they stay).
+    The port writes them in place, detached: the tensors keep their
+    storage, and no graph hangs on them."""
+    x = np.random.RandomState(0).randn(4, 3, 2, 2).astype(np.float32)
+    ptrs = []
+
+    def case(pkg):
+        nd = pkg.nd
+        a = nd.array(x)
+        g, b = nd.array([1.0, 2.0, 0.5]), nd.array([0.1, 0.0, -0.2])
+        mm, mv = nd.zeros((3,)), nd.ones((3,))
+        if pkg is mt:
+            ptrs.append((mm.data.data_ptr(), mv.data.data_ptr()))
+        with pkg.autograd.record(train_mode=training):
+            out = nd.BatchNorm(a, g, b, mm, mv, fix_gamma=False)
+        if pkg is mt:
+            ptrs.append((mm.data.data_ptr(), mv.data.data_ptr()))
+            assert not mm.data.requires_grad and not mv.data.requires_grad
+        return [out.asnumpy(), mm.asnumpy(), mv.asnumpy()]
+    got = both(case)
+    assert ptrs[0] == ptrs[1]
+    moved = float(np.abs(got[1]).sum() + np.abs(got[2] - 1).sum())
+    assert (moved > 0) == training
+
+
+@pytest.mark.parametrize("output_mean_var", [False, True])
+def test_batchnorm_returns_its_shown_outputs(output_mean_var):
+    """C11: nd.BatchNorm returns the op's user_outputs: one NDArray, or
+    three (out, mean, invstd) under output_mean_var, as mxtpu's."""
+    x = np.random.RandomState(1).randn(5, 2, 3).astype(np.float32)
+    shapes = []
+
+    def case(pkg):
+        nd = pkg.nd
+        out = nd.BatchNorm(nd.array(x), nd.ones((2,)), nd.zeros((2,)),
+                           nd.zeros((2,)), nd.ones((2,)),
+                           output_mean_var=output_mean_var)
+        outs = out if output_mean_var else [out]
+        shapes.append([type(out).__name__, len(outs)])
+        return [o.asnumpy() for o in outs]
+    both(case)
+    want = ["list", 3] if output_mean_var else ["NDArray", 1]
+    assert shapes == [want, want]
