@@ -193,7 +193,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    the GRU variant; lstm_scan (gru_scan) launched once a layer a forward,
    counted from 0 just before each run. The hybridized MLP of
    example/gluon/mnist.py: accuracy > GL_MNIST_ACC;
-16. timings: each kernel, its plain version and the PyTorch library call
+16. the CIFAR records slice: example/image-classification/
+   train_cifar10.py --synthetic 5120 through common/fit.py's Module.fit
+   call, mirrored by cifar_fit (the example imports mxtpu), on gpu(0).
+   The example's records (28x28 JPEG, quality 95; 5,120 for training, 40
+   steps an epoch, and 1,024 for validation) are written under a
+   temporary directory and read by the port's ImageRecordIter with
+   train_cifar10's level-2 augmentation (pad 4, fill 127, random crop and
+   mirror, h/s/l jitter 36/50/50) on its pool of 4 spawned decode
+   processes (the pool path is asserted, each pool's start-up printed).
+   The iterator alone (fit.py's test-io loop): images/s beside the host's
+   cores. ResNet-110 (bottleneck, 12 units a stage at 64/128/256) at
+   3x28x28, 10 classes, batch 128, f32, SGD lr 0.05 / momentum 0.9 / wd
+   1e-4, eager (fit.py's kvstore object) and captured (kvstore="local":
+   one capture, a replay every later step) for CF_EPOCHS epochs under
+   torch's default TF32, the validation records scored each epoch: the
+   last 4 steps' cross-entropy below CF_CE_SHARE of the first 4's; after
+   each fit its validation outputs equal an eager copy's given its
+   weights and moving statistics (CF_EVAL_TOL); no host wait in a
+   captured epoch; batches staged behind a sleep kernel with their
+   pinned host memory dropped arrive intact, and the copy up timed from
+   pinned and pageable memory; the steps timed in turns (ms, images/s, the
+   host's wait for a batch, the card's busy share, launches a step, the
+   bound from FlopCounterMode), with the captured step also repeated on
+   one batch already on the card: whether the decoders or the card set
+   the captured step's pace; the same timings with TF32 off; a captured
+   fit whose last batch is padded replays it;
+17. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -210,11 +236,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-17. one JSON line naming every kernel with its launches (the head
+18. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
    launches_gluon_lm) and error;
-18. the last line: {"ok": true, "device": {...}}.
+19. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -2124,27 +2150,46 @@ def module_params(mod):
     return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
 
 
-def fit_epoch(mod, data_iter, metric, clock=None, per_bucket=None):
-    """One epoch of Module.fit's loop body (forward_backward, update, the
-    next batch drawn and staged, update_metric) on a bound, initialized
-    module; returns the steps run. ``clock`` ({phase: seconds}) gathers
-    the host time of each phase; ``per_bucket`` ({bucket key: [ms]}) the
-    host time of each step, forward_backward to update_metric."""
+def clocked(clock, phase, fn, *a):
+    """``fn(*a)``, its host seconds added to ``clock[phase]`` (``clock``
+    None: not counted)."""
+    t0 = time.perf_counter()
+    out = fn(*a)
+    if clock is not None:
+        clock[phase] = clock.get(phase, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def fit_steps(mod, data_iter, metric, steps=None, batch=None, clock=None,
+              per_bucket=None):
+    """Module.fit's loop body (forward_backward, update, the next batch
+    drawn and staged, update_metric) on a bound, initialized module, from
+    where ``data_iter`` stands (``batch``: the batch already drawn, if
+    any). ``steps`` None runs to the iterator's end; a number of steps
+    resets the iterator at an epoch's end (inside "next batch") and goes
+    on. ``clock`` ({phase: seconds}) gathers the host time of each phase;
+    ``per_bucket`` ({bucket key: [ms]}) the host time of each step,
+    forward_backward to update_metric. Returns (the next batch drawn, or
+    None at the iterator's end; the steps run)."""
     def timed(phase, fn, *a):
-        t0 = time.perf_counter()
-        out = fn(*a)
-        if clock is not None:
-            clock[phase] = clock.get(phase, 0.0) + time.perf_counter() - t0
-        return out
-    data_iter.reset()
-    feed = iter(data_iter)
-    batch = timed("next batch", next, feed, None)
-    steps = 0
-    while batch is not None:
+        return clocked(clock, phase, fn, *a)
+
+    def draw():
+        try:
+            return data_iter.next()
+        except StopIteration:
+            if steps is None:
+                return None
+        data_iter.reset()
+        return data_iter.next()
+    if batch is None:
+        batch = timed("next batch", draw)
+    run = 0
+    while batch is not None and run != steps:
         t0 = time.perf_counter()
         timed("forward_backward", mod.forward_backward, batch)
         timed("update", mod.update)
-        upcoming = timed("next batch", next, feed, None)
+        upcoming = timed("next batch", draw)
         if upcoming is not None:
             timed("prepare", mod.prepare, upcoming)
         timed("update_metric", mod.update_metric, metric, batch.label)
@@ -2152,8 +2197,15 @@ def fit_epoch(mod, data_iter, metric, clock=None, per_bucket=None):
             per_bucket.setdefault(batch.bucket_key, []).append(
                 (time.perf_counter() - t0) * 1e3)
         batch = upcoming
-        steps += 1
-    return steps
+        run += 1
+    return batch, run
+
+
+def fit_epoch(mod, data_iter, metric, clock=None, per_bucket=None):
+    """One epoch of fit_steps from a reset; returns the steps run."""
+    data_iter.reset()
+    return fit_steps(mod, data_iter, metric, clock=clock,
+                     per_bucket=per_bucket)[1]
 
 
 def module_fit_phase(mt, seed, workdir):
@@ -3627,14 +3679,49 @@ IMAGENET_ARGS = dict(lr=0.1, lr_factor=0.1, lr_step_epochs="30,60",
                      mom=0.9, wd=1e-4, disp_batches=20)
 
 
-def imagenet_lr_scheduler(pkg, num_examples, batch_size):
+def fit_lr_scheduler(pkg, lr, lr_factor, lr_step_epochs, num_examples,
+                     batch_size):
     """fit.py's _get_lr_scheduler for a run from epoch 0 on one worker:
-    (lr, MultiFactorScheduler at the epochs of lr_step_epochs)."""
-    a = IMAGENET_ARGS
+    (lr, MultiFactorScheduler at the epochs of lr_step_epochs), or (lr,
+    None) without a factor below 1."""
+    if lr_factor is None or lr_factor >= 1:
+        return lr, None
     epoch_size = num_examples / batch_size
-    steps = [int(epoch_size * int(x)) for x in a["lr_step_epochs"].split(",")]
-    return a["lr"], pkg.lr_scheduler.MultiFactorScheduler(
-        step=steps, factor=a["lr_factor"])
+    steps = [int(epoch_size * int(x)) for x in lr_step_epochs.split(",")]
+    return lr, pkg.lr_scheduler.MultiFactorScheduler(step=steps,
+                                                     factor=lr_factor)
+
+
+def fit_call(pkg, network, train, val, kv, num_epoch, lr, lr_scheduler,
+             mom, wd, batch_size, disp_batches, context=None,
+             arg_params=None, aux_params=None, batch_end_callback=None,
+             eval_end_callback=None):
+    """common/fit.py's Module.fit call (fit.py:200-232) in either package,
+    for a run from epoch 0 with no checkpoint prefix and no monitor: Module
+    on ``context`` (fit.py hard-codes cpu(); the card runs pass gpu(0)),
+    SGD with ``lr`` / ``mom`` / ``wd``, multi_precision and the scheduler,
+    accuracy, Xavier(gaussian, in, 2), Speedometer(batch, disp_batches)
+    and allow_missing, from given weights ({name: numpy}) if any. The
+    callbacks after Speedometer observe the run; fit.py passes none.
+    Returns the module."""
+    model = pkg.mod.Module(context=context or pkg.context.current_context(),
+                           symbol=network)
+    optimizer_params = {"learning_rate": lr, "wd": wd,
+                        "lr_scheduler": lr_scheduler,
+                        "multi_precision": True, "momentum": mom}
+    callbacks = [pkg.callback.Speedometer(batch_size, disp_batches)]
+    callbacks += list(batch_end_callback or [])
+    model.fit(train, begin_epoch=0, num_epoch=num_epoch, eval_data=val,
+              eval_metric=[pkg.metric.create("accuracy")], kvstore=kv,
+              optimizer="sgd", optimizer_params=optimizer_params,
+              initializer=pkg.init.Xavier(rnd_type="gaussian",
+                                          factor_type="in", magnitude=2),
+              arg_params=host_params(pkg, arg_params),
+              aux_params=host_params(pkg, aux_params),
+              batch_end_callback=callbacks, epoch_end_callback=None,
+              eval_end_callback=eval_end_callback,
+              allow_missing=True, monitor=None)
+    return model
 
 
 def imagenet_fit(pkg, network, batch_size, num_examples, num_epoch,
@@ -3645,34 +3732,21 @@ def imagenet_fit(pkg, network, batch_size, num_examples, num_epoch,
     package: SyntheticDataIter's fixed batch, the kvstore object that
     fit.py creates from --kv-store "device" (or ``kvstore`` as given:
     "local" by name means no store on one device, so the fused step may
-    engage), Module on ``context`` (fit.py hard-codes cpu(); the card run
-    passes gpu(0)), SGD lr 0.1 / momentum 0.9 / wd 1e-4 with
-    multi_precision and the MultiFactorScheduler of lr_step_epochs
-    "30,60", accuracy, Xavier(gaussian, in, 2), Speedometer(batch, 20)
-    and allow_missing, from given weights ({name: numpy}) if any.
-    Returns (module, train iterator)."""
+    engage), and fit_call with SGD lr 0.1 / momentum 0.9 / wd 1e-4 and the
+    MultiFactorScheduler of lr_step_epochs "30,60", Speedometer(batch,
+    20). Returns (module, train iterator)."""
     a = IMAGENET_ARGS
     kv = pkg.kvstore.create("device") if kvstore is None else kvstore
     shape = tuple(int(x) for x in image_shape.split(","))
     train = synthetic_data_iter(pkg, num_classes, (batch_size,) + shape,
                                 num_examples / batch_size, ctx=data_ctx)
-    lr, lr_scheduler = imagenet_lr_scheduler(pkg, num_examples, batch_size)
-    model = pkg.mod.Module(context=context or pkg.context.current_context(),
-                           symbol=network)
-    optimizer_params = {"learning_rate": lr, "wd": a["wd"],
-                        "lr_scheduler": lr_scheduler,
-                        "multi_precision": True, "momentum": a["mom"]}
-    callbacks = [pkg.callback.Speedometer(batch_size, a["disp_batches"])]
-    callbacks += list(batch_end_callback or [])
-    model.fit(train, begin_epoch=0, num_epoch=num_epoch, eval_data=None,
-              eval_metric=[pkg.metric.create("accuracy")], kvstore=kv,
-              optimizer="sgd", optimizer_params=optimizer_params,
-              initializer=pkg.init.Xavier(rnd_type="gaussian",
-                                          factor_type="in", magnitude=2),
-              arg_params=host_params(pkg, arg_params),
-              aux_params=host_params(pkg, aux_params),
-              batch_end_callback=callbacks, epoch_end_callback=None,
-              allow_missing=True, monitor=None)
+    lr, lr_scheduler = fit_lr_scheduler(pkg, a["lr"], a["lr_factor"],
+                                        a["lr_step_epochs"], num_examples,
+                                        batch_size)
+    model = fit_call(pkg, network, train, None, kv, num_epoch, lr,
+                     lr_scheduler, a["mom"], a["wd"], batch_size,
+                     a["disp_batches"], context, arg_params, aux_params,
+                     batch_end_callback)
     return model, train
 
 
@@ -3900,13 +3974,13 @@ def capture_report(mod, steps, label):
                          for e in entries)), entries)
 
 
-def step_bound(mt, mod, batch):
+def step_bound(mt, mod, batch, classes=RN_CLASSES):
     """The least time one training step could take at the card's peaks,
     from one eager forward_backward + update of ``mod`` counted by torch's
     FlopCounterMode (the convolutions and the matmuls: their FLOPs) and the
     bytes a step must move (the batch, every weight, momentum and moving
-    statistic read once and written once, the outputs written). Returns
-    (conv FLOPs, matmul FLOPs, bytes)."""
+    statistic read once and written once, the ``classes`` outputs a row
+    written). Returns (conv FLOPs, matmul FLOPs, bytes)."""
     from torch.utils.flop_counter import FlopCounterMode
     counter = FlopCounterMode(display=False)
     with counter:
@@ -3920,7 +3994,7 @@ def step_bound(mt, mod, batch):
     n_aux = sum(v.size for v in auxs.values())
     nbytes = 4 * (sum(int(np.prod(d.shape)) for d in batch.data)
                   + batch.label[0].size + 2 * (2 * n_param + n_aux)
-                  + batch.data[0].shape[0] * RN_CLASSES)
+                  + batch.data[0].shape[0] * classes)
     return conv, matmul, nbytes
 
 
@@ -4998,6 +5072,573 @@ def gluon_phase(mt, rnn_scan, seed, card):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# The CIFAR records slice: example/image-classification/train_cifar10.py
+# --synthetic N, its JPEG records read by ImageRecordIter's decode pool and
+# trained through common/fit.py's Module.fit call. The example imports
+# mxtpu, so its arguments, record writer, iterators and fit call are
+# mirrored here for either package.
+# ---------------------------------------------------------------------------
+
+# The run at the example's own widths: ResNet-110 at 3x28x28, 10 classes,
+# batch 128, f32; --synthetic 5120 (40 steps an epoch; 1,024 validation
+# records, as ensure_synthetic makes them). Under torch's default TF32
+# each path trains CF_EPOCHS epochs and must learn the data: the mean
+# cross-entropy of its last 4 steps below CF_CE_SHARE of its first 4's;
+# with TF32 off each trains one epoch for its times. The iterator alone
+# reads CF_IO_EPOCHS epochs.
+CF_RECORDS, CF_EPOCHS, CF_IO_EPOCHS = 5120, 5, 2
+CF_CE_SHARE = 0.5
+CF_LAYERS = 110
+# timed turns of CF_TIMED_STEPS steps (eager, captured, the captured step
+# on a held batch twice, captured, eager); the busy share from
+# torch.profiler over CF_PROFILE_STEPS steps
+CF_TIMED_STEPS, CF_PROFILE_STEPS = 10, 4
+# the padded-batch check: records for 3 steps at batch 128, the last one
+# padded by 40 rows
+CF_PAD_RECORDS = 3 * 128 - 40
+# After a fit, the validation outputs (score()'s forward) against an
+# eager Module bound for inference with the weights and moving statistics
+# read from the fitted one, both under cuDNN's deterministic algorithms:
+# the same kernels on the same inputs, so within CF_EVAL_TOL of the
+# softmax.
+CF_EVAL_TOL = 1e-5
+# The decoders set the captured step's pace when the step fed by them takes
+# longer than CF_PACE times the same step repeated on one batch already on
+# the card.
+CF_PACE = 1.05
+
+
+def cifar_args(**overrides):
+    """train_cifar10.py's arguments as its parser gives them with no
+    command line: fit.py's and data.py's defaults, the augmentations of
+    set_data_aug_level(parser, 2), then the script's own set_defaults;
+    ``overrides`` replace any of them. An argparse.Namespace."""
+    args = dict(
+        # fit.add_fit_args
+        network="resnet", num_layers=CF_LAYERS, engine="module",
+        kv_store="device", num_epochs=300, lr=0.05, lr_factor=0.1,
+        lr_step_epochs="200,250", initializer="default", optimizer="sgd",
+        mom=0.9, wd=0.0001, batch_size=128, disp_batches=20,
+        model_prefix=None, monitor=0, load_epoch=None, top_k=0, loss="",
+        test_io=0, dtype="float32", gc_type="none", gc_threshold=0.5,
+        # data.add_data_args
+        data_train=os.path.join("data", "cifar10_train.rec"),
+        data_val=os.path.join("data", "cifar10_val.rec"),
+        rgb_mean="123.68,116.779,103.939", pad_size=4, image_shape="3,28,28",
+        num_classes=10, num_examples=50000, data_nthreads=4, benchmark=0,
+        # data.add_data_aug_args at level 2
+        random_crop=1, random_mirror=1, max_random_h=36, max_random_s=50,
+        max_random_l=50, max_random_aspect_ratio=0,
+        max_random_rotate_angle=0, max_random_shear_ratio=0,
+        max_random_scale=1, min_random_scale=1,
+        # train_cifar10.py
+        synthetic=0)
+    args.update(overrides)
+    return argparse.Namespace(**args)
+
+
+def make_synthetic_recfile(pkg, path, num_images, image_hw, num_classes,
+                           seed=0):
+    """common/data.py's make_synthetic_recfile in either package: JPEG
+    records (quality 95) whose brightness follows the label."""
+    rng = np.random.RandomState(seed)
+    writer = pkg.recordio.MXRecordIO(path, "w")
+    try:
+        for i in range(num_images):
+            label = i % num_classes
+            base = 40 + (175 * label) // max(1, num_classes - 1)
+            img = rng.randint(-35, 36, (image_hw, image_hw, 3)) + base
+            img = np.clip(img, 0, 255).astype(np.uint8)
+            header = pkg.recordio.IRHeader(0, float(label), i, 0)
+            writer.write(pkg.recordio.pack_img(header, img, quality=95))
+    finally:
+        writer.close()
+    return path
+
+
+def cifar_synthetic(pkg, args, root):
+    """train_cifar10.py's ensure_synthetic, writing under ``root`` instead
+    of the working directory's data/: (train .rec, validation .rec)."""
+    hw = int(args.image_shape.split(",")[1])
+    train = os.path.join(root, "cifar10_synth_train.rec")
+    val = os.path.join(root, "cifar10_synth_val.rec")
+    make_synthetic_recfile(pkg, train, args.synthetic, hw, args.num_classes,
+                           seed=0)
+    make_synthetic_recfile(pkg, val, max(args.batch_size,
+                                         args.synthetic // 5), hw,
+                           args.num_classes, seed=1)
+    return train, val
+
+
+def get_rec_iter(pkg, args, kv=None):
+    """common/data.py's get_rec_iter (its record branch) in either package:
+    the (train, validation) ImageRecordIters, sharded by the kvstore's
+    rank."""
+    image_shape = tuple(int(x) for x in args.image_shape.split(","))
+    rank, nworker = (kv.rank, kv.num_workers) if kv else (0, 1)
+    rgb_mean = [float(x) for x in args.rgb_mean.split(",")]
+    train = pkg.io.ImageRecordIter(
+        path_imgrec=args.data_train,
+        data_shape=image_shape,
+        batch_size=args.batch_size,
+        mean_r=rgb_mean[0], mean_g=rgb_mean[1], mean_b=rgb_mean[2],
+        rand_crop=args.random_crop,
+        rand_mirror=args.random_mirror,
+        pad=args.pad_size, fill_value=127,
+        max_random_scale=args.max_random_scale,
+        min_random_scale=args.min_random_scale,
+        max_aspect_ratio=args.max_random_aspect_ratio,
+        random_h=args.max_random_h, random_s=args.max_random_s,
+        random_l=args.max_random_l,
+        max_rotate_angle=args.max_random_rotate_angle,
+        max_shear_ratio=args.max_random_shear_ratio,
+        preprocess_threads=args.data_nthreads,
+        shuffle=True, num_parts=nworker, part_index=rank)
+    if not args.data_val:
+        return train, None
+    val = pkg.io.ImageRecordIter(
+        path_imgrec=args.data_val,
+        data_shape=image_shape,
+        batch_size=args.batch_size,
+        mean_r=rgb_mean[0], mean_g=rgb_mean[1], mean_b=rgb_mean[2],
+        rand_crop=False, rand_mirror=False,
+        preprocess_threads=args.data_nthreads,
+        num_parts=nworker, part_index=rank)
+    return train, val
+
+
+def run_test_io(args, train):
+    """fit.py's _run_test_io: one epoch of ``train`` with every batch's
+    data waited for, Speedometer-style lines every disp_batches batches.
+    Returns (batches, seconds)."""
+    t0 = tic = time.perf_counter()
+    n = 0
+    for i, batch in enumerate(train):
+        for d in batch.data:
+            d.wait_to_read()
+        n = i + 1
+        if n % args.disp_batches == 0:
+            print("  test-io batch [%d]\tspeed: %.2f samples/sec"
+                  % (i, args.disp_batches * args.batch_size
+                     / (time.perf_counter() - tic)))
+            tic = time.perf_counter()
+    return n, time.perf_counter() - t0
+
+
+def cifar_fit(pkg, args, network, context=None, kvstore=None,
+              arg_params=None, aux_params=None, batch_end_callback=None,
+              eval_end_callback=None):
+    """train_cifar10.py's call of fit.py's fit() in either package: the
+    kvstore object of --kv-store (or ``kvstore`` as given: "local" by name
+    keeps no store, so the fused step engages), get_rec_iter's iterators
+    (test_io: the iterator alone, no training), and fit_call with the
+    schedule of lr_step_epochs, validation data scored each epoch.
+    Returns (module or None, train, validation)."""
+    kv = pkg.kvstore.create(args.kv_store) if kvstore is None else kvstore
+    train, val = get_rec_iter(pkg, args, None if isinstance(kv, str) else kv)
+    if args.test_io:
+        run_test_io(args, train)
+        return None, train, val
+    lr, lr_scheduler = fit_lr_scheduler(pkg, args.lr, args.lr_factor,
+                                        args.lr_step_epochs,
+                                        args.num_examples, args.batch_size)
+    mod = fit_call(pkg, network, train, val, kv, args.num_epochs, lr,
+                   lr_scheduler, args.mom, args.wd, args.batch_size,
+                   args.disp_batches, context, arg_params, aux_params,
+                   batch_end_callback, eval_end_callback)
+    return mod, train, val
+
+
+def pool_iters(label, *iters):
+    """Fail unless each ImageRecordIter serves from the decode pool;
+    returns the pools' start-up seconds as text."""
+    from mxtpu_torch.image import _FastRecordIter
+    for it in iters:
+        if not isinstance(it._prefetch, _FastRecordIter):
+            fail("%s: ImageRecordIter took the in-process path (%s), not "
+                 "the decode pool" % (label, type(it._prefetch).__name__))
+    return ", ".join("not in" if it._prefetch.startup_s is None
+                     else "%.2f s" % it._prefetch.startup_s for it in iters)
+
+
+def cifar_staging(mt, train, card, batches=8):
+    """The batch's one copy up, as Module.prepare makes it (stage_batch):
+    ``batches`` batches drawn from the live iterator and staged behind a
+    sleep kernel, each host tensor dropped as soon as its copy is queued,
+    so a pinned block reused before its copy ran would show as a batch
+    that differs on the card; then the copy's card ms (held_ms) and host
+    ms a call from pinned memory beside the same copy from pageable
+    memory."""
+    import torch
+    gpu = mt.gpu(0)
+    train.reset()
+    train.next()                            # the new epoch's first batch is in
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 24)              # about 8 ms: the copies queue
+    staged = []
+    for _ in range(batches):
+        batch = train.next()
+        want = batch.data[0].asnumpy().copy()
+        pinned = batch.data[0].data.is_pinned()
+        mt.io.stage_batch(batch, gpu)
+        staged.append((batch.data[0], want))
+        del batch
+    torch.cuda.synchronize()
+    for got, want in staged:
+        if not np.array_equal(got.asnumpy(), want):
+            fail("a staged batch differs from the batch the iterator made: "
+                 "its host memory was reused before the copy ran")
+    host = staged[0][1]
+    sources = {"pinned": torch.from_numpy(host).pin_memory(),
+               "pageable": torch.from_numpy(host.copy())}
+    text = []
+    for name, src in sources.items():
+        def copy():
+            return src.to(gpu.torch_device(), non_blocking=True)
+        card_ms = held_ms(copy, iters=20, required=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            copy()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        text.append("%s: card %s ms, host %.4f ms a call"
+                    % (name, "not held" if card_ms is None
+                       else "%.4f" % card_ms, host_ms))
+    if not pinned:
+        fail("the iterator's batches are not in pinned memory on a host "
+             "with a card")
+    print("CIFAR batch copy up (%.2f MB, one a step, Module.prepare): %d "
+          "batches staged behind a sleep kernel, host tensors dropped, all "
+          "equal on the card; %s | %s"
+          % (host.nbytes / 1e6, batches, "; ".join(text), card), flush=True)
+
+
+def cifar_io(mt, args, card):
+    """The iterator alone: fit.py's test-io loop over CF_IO_EPOCHS epochs
+    after the first batch (which waits out the pools' start-up), timed:
+    images/s beside the host's cores; then the batch's copy up. Returns
+    images/s."""
+    train, val = get_rec_iter(mt, args)
+    try:
+        train.next()
+        batches, secs = 0, 0.0
+        for epoch in range(CF_IO_EPOCHS):
+            if epoch:
+                train.reset()
+            n, dt = run_test_io(args, train)
+            batches, secs = batches + n, secs + dt
+        rate = batches * args.batch_size / secs
+        cifar_staging(mt, train, card)
+        from mxtpu_torch import _image_worker
+        decoder = "cv2" if _image_worker._cv2 is not None else "PIL"
+        print("CIFAR ImageRecordIter alone (%d %s decode processes, the "
+              "pool path; pools' start-up to the first batch: %s): %d "
+              "batches of %d in %.3f s, %.1f images/s | os.cpu_count() %d, "
+              "sched_getaffinity %d | %s"
+              % (args.data_nthreads, decoder, pool_iters("test-io", train,
+                                                         val),
+                 batches, args.batch_size, secs, rate, os.cpu_count(),
+                 len(os.sched_getaffinity(0)), card), flush=True)
+    finally:
+        train.close()
+        val.close()
+    return rate
+
+
+def cifar_val_check(mt, mod, val, train, network, path):
+    """``mod``'s validation outputs after its fit (the forward score()
+    runs) against an eager Module bound for inference and given the
+    weights and moving statistics read from ``mod`` (get_params), both
+    under deterministic cuDNN: fails beyond CF_EVAL_TOL. Returns text:
+    that Module's accuracy on the validation batches with the moving
+    statistics and with each batch's own (its forward in training mode),
+    on as many augmented batches drawn from ``train`` with the moving
+    statistics, and the mean predicted - true validation class."""
+    import torch
+    arg, aux = mod.get_params()
+    val.reset()
+    batches = list(val)
+    drawn = [train.next() for _ in batches]
+    copy = mt.mod.Module(network, context=mt.gpu(0))
+    copy.bind(val.provide_data, val.provide_label, for_training=False)
+    copy.set_params(arg, aux)
+
+    def outputs(m, feed, is_train):
+        """(softmax, labels) over ``feed``, padded rows dropped."""
+        probs, labels = [], []
+        for b in feed:
+            m.forward(b, is_train=is_train)
+            n = b.label[0].shape[0] - b.pad
+            probs.append(m.get_outputs()[0].asnumpy()[:n])
+            labels.append(b.label[0].asnumpy()[:n])
+        return np.concatenate(probs), np.concatenate(labels)
+
+    def accuracy(out):
+        return float((out[0].argmax(1) == out[1]).mean())
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fitted, eager = outputs(mod, batches, False), \
+            outputs(copy, batches, False)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    gap = float(np.abs(fitted[0] - eager[0]).max())
+    if not gap <= CF_EVAL_TOL:
+        fail("CIFAR %s fit: its validation outputs lie %.3g from an eager "
+             "Module's given its weights and moving statistics (limit %g)"
+             % (path, gap, CF_EVAL_TOL))
+    augmented = accuracy(outputs(copy, drawn, False))
+    own = accuracy(outputs(copy, batches, True))    # moves copy's statistics
+    return ("validation outputs %.3g from an eager copy's (deterministic "
+            "cuDNN, limit %g); accuracy with the moving statistics %.4f on "
+            "the validation batches, %.4f on %d augmented training batches;"
+            " with each validation batch's own statistics %.4f; predicted - "
+            "true validation class %.3f on average"
+            % (gap, CF_EVAL_TOL, accuracy(fitted), augmented, len(drawn),
+               own, float((fitted[0].argmax(1) - fitted[1]).mean())))
+
+
+def cifar_run(mt, args, network, seed, path, card, learn):
+    """One cifar_fit on gpu(0) (eager: the kvstore object; captured:
+    kvstore="local"), its pools checked, each step's cross-entropy and
+    each epoch's validation accuracy read, its validation outputs held to
+    an eager copy's (cifar_val_check); ``learn``: the learning check.
+    Returns (module, train, validation)."""
+    import torch
+    ce, val_acc = StepLosses(), []
+    np.random.seed(seed)
+    mt.random.seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod, train, val = cifar_fit(
+        mt, args, network, context=mt.gpu(0),
+        kvstore=None if path == "eager" else "local",
+        batch_end_callback=[ce], eval_end_callback=lambda p: val_acc.append(
+            dict(p.eval_metric.get_name_value())["accuracy"]))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    startup = pool_iters("CIFAR %s fit" % path, train, val)
+    if mod._context != [mt.gpu(0)]:
+        fail("CIFAR Module context is %s, not gpu(0)" % mod._context)
+    per_epoch = args.num_examples // args.batch_size
+    steps = args.num_epochs * per_epoch
+    text = "eager (the kvstore object fit.py makes)"
+    if path == "captured":
+        text, entries = capture_report(mod, steps, "CIFAR ResNet-%d"
+                                       % args.num_layers)
+        text += "; graph (kernel nodes, other nodes, -, replays): %s" % \
+            graph_nodes(mt, entries, {}, mt.gpu(0))
+        del entries
+    losses = ce.values()
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail("CIFAR %s fit: %d steps, cross-entropy %s" % (path, len(losses),
+                                                          losses))
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    if learn and not last < CF_CE_SHARE * first:
+        fail("CIFAR %s fit: the cross-entropy of the last 4 steps %.4f is "
+             "not below %.2f of the first 4's %.4f"
+             % (path, last, CF_CE_SHARE, first))
+    ends = ", ".join("%.4f" % np.mean(losses[e - 4:e])
+                     for e in range(per_epoch, steps + 1, per_epoch))
+    checked = cifar_val_check(mt, mod, val, train, network, path)
+    print("CIFAR ResNet-%d Module.fit %s: %d epoch(s) of %d steps at batch %d "
+          "in %.2f s (pools' start-up to the first batch: %s); cross-entropy "
+          "first 4 steps %.4f, last 4 %.4f%s; last 4 of each epoch %s; "
+          "validation accuracy by epoch %s; %s; %s; peak memory %.2f GB | %s"
+          % (args.num_layers, path, args.num_epochs, per_epoch,
+             args.batch_size, fit_s, startup, first, last,
+             " (limit %.4f, %.2f of the first 4's)"
+             % (CF_CE_SHARE * first, CF_CE_SHARE) if learn else "", ends,
+             ", ".join("%.4f" % a for a in val_acc), checked, text,
+             torch.cuda.max_memory_allocated() / 1e9, card), flush=True)
+    return mod, train, val
+
+
+def cifar_times(mt, runs, setting, card, bound, batch):
+    """ms a step of fit's loop body over the live record iterators, eager
+    and captured, and the captured step repeated on one batch already on
+    the card ("fixed": no wait for the decoders), in turns of
+    CF_TIMED_STEPS steps (eager, captured, fixed, fixed, captured, eager),
+    with the host time by phase (the wait for a batch in "next batch" and
+    "prepare"), images/s, the share of the bound, and from torch.profiler
+    over CF_PROFILE_STEPS steps the card's busy share and launches a step.
+    Returns {path: (ms, card busy ms or None)}."""
+    import torch
+    metrics = {k: mt.metric.create([mt.metric.create("accuracy")])
+               for k in runs}
+    held = {k: None for k in runs}
+    ms = {k: [] for k in ("eager", "captured", "fixed")}
+    clock = {k: {} for k in runs}
+    for k in ("eager", "captured", "fixed", "fixed", "captured", "eager"):
+        mod, it = runs["captured" if k == "fixed" else k][:2]
+        if k == "fixed":
+            fixed = held["captured"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CF_TIMED_STEPS):
+                mod.forward_backward(fixed)
+                mod.update()
+                mod.update_metric(metrics["captured"], fixed.label)
+        else:
+            held[k] = fit_steps(mod, it, metrics[k], 1, held[k])[0]  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            held[k] = fit_steps(mod, it, metrics[k], CF_TIMED_STEPS,
+                                held[k], clock[k])[0]
+        torch.cuda.synchronize()
+        ms[k].append((time.perf_counter() - t0) / CF_TIMED_STEPS * 1e3)
+    tf32 = setting == "TF32 on"
+    bound_at, by = bound_ms(*bound, tf32)
+    out = {}
+    for k, (mod, it, _val) in runs.items():
+        step = float(np.mean(ms[k]))
+        host = "; ".join("%s %.3f" % (p, v / (2 * CF_TIMED_STEPS) * 1e3)
+                         for p, v in clock[k].items())
+
+        def profiled():
+            held[k] = fit_steps(mod, it, metrics[k], CF_PROFILE_STEPS,
+                                held[k])[0]
+        busy, top = device_time(profiled, 1, per=CF_PROFILE_STEPS)
+        out[k] = (step, busy)
+        print("CIFAR ResNet-%d %s step, %s (cuDNN TF32 %s, matmul TF32 off):"
+              " %.3f ms (%s), %.1f images/s; bound %.3f ms (%s), %.1f%% of "
+              "it; host ms a step by phase: %s; %s; per step: %s | %s"
+              % (CF_LAYERS, k, setting, "on" if tf32 else "off", step,
+                 ", ".join("%.3f" % v for v in ms[k]), batch / step * 1e3,
+                 bound_at, by, 100 * bound_at / step, host,
+                 busy_of(busy, step), top, card), flush=True)
+    fixed = float(np.mean(ms["fixed"]))
+    out["fixed"] = (fixed, None)
+    print("CIFAR ResNet-%d step, %s: eager %.3f ms, captured %.3f ms (%.2fx); "
+          "captured on one held batch %.3f ms (%s), %.1f images/s | %s"
+          % (CF_LAYERS, setting, out["eager"][0], out["captured"][0],
+             out["eager"][0] / out["captured"][0], fixed,
+             ", ".join("%.3f" % v for v in ms["fixed"]), batch / fixed * 1e3,
+             card), flush=True)
+    return out
+
+
+def cifar_pad_check(mt, network, seed, root, card):
+    """A captured fit over CF_PAD_RECORDS records (3 steps an epoch, the
+    last padded), 2 epochs, the same records as validation data: one
+    capture, a replay in every later step, the padded batches among
+    them."""
+    args = cifar_args(synthetic=CF_PAD_RECORDS, num_examples=CF_PAD_RECORDS,
+                      num_epochs=2, data_nthreads=2)
+    args.data_train = args.data_val = make_synthetic_recfile(
+        mt, os.path.join(root, "cifar10_pad.rec"), CF_PAD_RECORDS,
+        int(args.image_shape.split(",")[1]), args.num_classes)
+    pads = []
+    np.random.seed(seed)
+    mod, train, val = cifar_fit(
+        mt, args, network, context=mt.gpu(0), kvstore="local",
+        batch_end_callback=[lambda p: pads.append(p.locals["batch"].pad)])
+    try:
+        pool_iters("CIFAR padded batch", train, val)
+        steps = -(-CF_PAD_RECORDS // args.batch_size) * args.num_epochs
+        text = capture_report(mod, steps, "CIFAR padded last batch")[0]
+        want = [0, 0, steps // 2 * args.batch_size - CF_PAD_RECORDS] * 2
+        if pads != want:
+            fail("CIFAR padded last batch: pads %s, want %s" % (pads, want))
+        print("CIFAR captured fit over %d records at batch %d: pads by step "
+              "%s; %s (the padded batches replayed) | %s"
+              % (CF_PAD_RECORDS, args.batch_size, pads, text, card),
+              flush=True)
+    finally:
+        train.close()
+        val.close()
+
+
+def cifar_phase(mt, seed, card):
+    """train_cifar10.py --synthetic CF_RECORDS's fit call on gpu(0) through
+    the port's ImageRecordIter decode pool: the records written under a
+    temporary directory, the iterator alone, ResNet-110 eager and captured
+    under torch's default TF32 (CF_EPOCHS epochs, the data learnt) and with
+    TF32 off (one epoch), the steps timed in turns beside the bound, and
+    the padded last batch replayed. Returns {(path, setting): ms a
+    step}."""
+    import gc
+    import tempfile
+    import torch
+    clock = [("start", time.perf_counter())]
+
+    def resnet110(pkg):
+        return resnet_symbol(pkg, CF_LAYERS, "3,28,28", 10)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        args = cifar_args(synthetic=CF_RECORDS, num_examples=CF_RECORDS,
+                          num_epochs=CF_EPOCHS)
+        args.data_train, args.data_val = cifar_synthetic(mt, args, root)
+        clock.append(("records", time.perf_counter()))
+        io_rate = cifar_io(mt, args, card)
+        clock.append(("iterator alone", time.perf_counter()))
+        bound = None
+        for tf32, setting in ((True, "TF32 on"), (False, "TF32 off")):
+            run_args = cifar_args(**vars(args))
+            run_args.num_epochs = CF_EPOCHS if tf32 else 1
+            runs = {}
+            with tf32_mode(tf32):
+                try:
+                    for path in ("eager", "captured"):
+                        runs[path] = cifar_run(mt, run_args, resnet110(mt),
+                                               seed, path, card, tf32)
+                    if bound is None:
+                        mod, it, _ = runs["eager"]
+                        conv, matmul, nbytes = step_bound(
+                            mt, mod, fit_steps(mod, it, None, 0)[0], 10)
+                        bound = ((conv, matmul), nbytes)
+                        print("CIFAR ResNet-%d step at batch %d: %.4g conv "
+                              "FLOPs + %.4g matmul FLOPs (FlopCounterMode "
+                              "over one eager step; %.4g GMAC an image "
+                              "forward), %.4g bytes to move at least; bound "
+                              "%.4f ms with cuDNN TF32, %.4f ms in float32 | "
+                              "%s" % (CF_LAYERS, args.batch_size, conv,
+                                      matmul, (conv + matmul) / 6
+                                      / args.batch_size / 1e9, nbytes,
+                                      bound_ms(*bound, True)[0],
+                                      bound_ms(*bound, False)[0], card),
+                              flush=True)
+                    if tf32:
+                        no_sync_epoch(runs["captured"][0],
+                                      runs["captured"][1], mt.metric.create(
+                                          [mt.metric.create("accuracy")]))
+                    times = cifar_times(mt, runs, setting, card, bound,
+                                        args.batch_size)
+                finally:
+                    for mod, train, val in runs.values():
+                        train.close()
+                        val.close()
+            for path, (ms, busy) in times.items():
+                out[path, setting] = ms
+            step, busy = times["captured"]
+            fixed = times["fixed"][0]
+            pace = "the decoders" if step > CF_PACE * fixed else "the card"
+            print("CIFAR pace, %s: the captured step %.1f images/s fed by the "
+                  "decoders, %.1f on one held batch; the decoders alone %.1f "
+                  "images/s; the card busy %s ms a step: set by %s (the "
+                  "decoders if the fed step is beyond %.2f of the held "
+                  "one's) | %s"
+                  % (setting, args.batch_size / step * 1e3,
+                     args.batch_size / fixed * 1e3, io_rate,
+                     "not measured" if busy is None else "%.3f" % busy,
+                     pace, CF_PACE, card), flush=True)
+            del runs
+            gc.collect()
+            torch.cuda.empty_cache()
+            clock.append(("fits and times, " + setting, time.perf_counter()))
+        cifar_pad_check(mt, resnet110(mt), seed, root, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.append(("padded batch", time.perf_counter()))
+    print("CIFAR phase: %.1f s (%s)" % (
+        clock[-1][1] - clock[0][1], ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5383,7 +6024,11 @@ def main():
     # launches are counted on, from 0 just before each run); the MLP
     gluon_ms, gl_launches = gluon_phase(mt, rnn_scan, args.seed, card)
 
-    # 16. timings at the main paths' shapes
+    # 16. the CIFAR records slice: train_cifar10.py --synthetic's fit call,
+    # ResNet-110 fed by ImageRecordIter's decode pool, eager and captured
+    cifar_ms = cifar_phase(mt, args.seed, card)
+
+    # 17. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -5718,9 +6363,12 @@ def main():
     print("Gluon ResNet-18 slice, ms a step: %s | %s" % (
         ", ".join("%s %s %.3f" % (k + (v,)) for k, v in gluon_ms.items()),
         card))
+    print("CIFAR ResNet-110 slice, ms a step: %s | %s" % (
+        ", ".join("%s %s %.3f" % (k + (v,)) for k, v in cifar_ms.items()),
+        card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 17.-18. the result lines
+    # 18.-19. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

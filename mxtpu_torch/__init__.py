@@ -3,7 +3,8 @@
 The same public names as ``mxtpu`` (``mx.nd``, ``mx.sym``, ``mx.mod``
 with ``Module.fit`` and ``BucketingModule``, ``mx.io``, ``mx.init``,
 ``mx.optimizer``, ``mx.metric``, ``mx.kv``, ``mx.callback``,
-``mx.lr_scheduler``, ``mx.random``, ``mx.rnn`` (the cells and
+``mx.lr_scheduler``, ``mx.random``, ``mx.recordio``, ``mx.image``
+(the record pipeline behind ``mx.io.ImageRecordIter``), ``mx.rnn`` (the cells and
 ``BucketSentenceIter``), ``mx.serving``, ``mx.parallel``,
 ``mx.autograd``, ``mx.engine``, ``mx.operator`` custom ops, ``mx.rtc``,
 ``mx.gluon`` (blocks, ``hybridize``, Trainer, layers, losses, data,
@@ -33,6 +34,8 @@ from . import symbol as sym
 from . import random
 from . import lr_scheduler
 from . import io
+from . import recordio
+from . import image
 from . import initializer
 from . import initializer as init
 from . import optimizer
@@ -54,7 +57,8 @@ from .ndarray import NDArray
 
 __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "ops", "ndarray", "nd", "symbol",
-           "sym", "random", "lr_scheduler", "io", "initializer", "init",
+           "sym", "random", "lr_scheduler", "io", "recordio", "image",
+           "initializer", "init",
            "optimizer", "metric", "kvstore", "kv", "executor", "rnn",
            "model", "callback", "module", "mod", "serving", "parallel",
            "engine", "autograd", "operator", "rtc", "gluon", "NDArray"]

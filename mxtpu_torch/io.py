@@ -1,9 +1,11 @@
 """Data iterators of the PyTorch port.
 
-Counterpart of the in-memory half of ``mxtpu/io.py``: the
-DataDesc / DataBatch / DataIter protocol and NDArrayIter with shuffle,
-``last_batch_handle`` (pad / discard / roll_over), pad counts and the
-``state_dict`` resume position. Batches come up as NDArrays on the host
+Counterpart of ``mxtpu/io.py``: the DataDesc / DataBatch / DataIter
+protocol; NDArrayIter with shuffle, ``last_batch_handle`` (pad / discard
+/ roll_over), pad counts and the ``state_dict`` resume position; the
+combinators ResizeIter and PrefetchingIter (a background thread a
+wrapped iterator, double-buffered); and ImageRecordIter over
+:mod:`mxtpu_torch.image`. Batches come up as NDArrays on the host
 (``cpu()``); the executor group copies them to its context, and
 :func:`stage_batch` moves an upcoming batch there ahead of its step
 without making the host wait for the card.
@@ -14,6 +16,8 @@ under one ``np.random.seed`` both packages see the same batches.
 """
 from __future__ import annotations
 
+import logging
+import threading
 from collections import namedtuple
 
 import numpy as _np
@@ -22,8 +26,11 @@ from . import ndarray as nd
 from .context import cpu
 from .ndarray import NDArray
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
+__all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
+           "PrefetchingIter", "NDArrayIter", "ImageRecordIter",
            "stage_batch"]
+
+_log = logging.getLogger(__name__)
 
 
 def stage_batch(batch, ctx):
@@ -121,6 +128,253 @@ class DataIter:
 
     def getpad(self):
         pass
+
+
+class _CurrentBatchIter(DataIter):
+    """Combinator base: serves next/getdata/... off self.current_batch,
+    which subclasses refresh in iter_next()."""
+
+    current_batch = None
+
+    def next(self):
+        if not self.iter_next():
+            raise StopIteration
+        return self.current_batch
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class ResizeIter(_CurrentBatchIter):
+    """Resize an iterator to ``size`` batches an epoch, wrapping the
+    inner one around when its epoch is shorter."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(batch_size=data_iter.batch_size)
+        self.data_iter, self.size = data_iter, size
+        self.reset_internal, self.cur = reset_internal, 0
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        if hasattr(data_iter, "default_bucket_key"):
+            self.default_bucket_key = data_iter.default_bucket_key
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def state_dict(self):
+        # cur alone is not resumable when the wrapped epoch is shorter
+        # than `size`: the inner position is part of the cursor
+        return {"cur": int(self.cur),
+                "inner": self.data_iter.state_dict()}
+
+    def load_state_dict(self, state):
+        self.data_iter.load_state_dict(state.get("inner") or {})
+        self.cur = int(state["cur"])
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:   # wrap around: one epoch of the wrapped
+            self.data_iter.reset()   # iterator is shorter than `size`
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+
+# prefetch liveness tick: every wait on a double-buffer event re-checks
+# the peer (worker: shutdown flag, consumer: the worker thread's life) at
+# this period instead of blocking forever on a peer that died
+_PREFETCH_TICK = 1.0
+
+
+def _wait_all(events, threads=None):
+    """Wait for every event; with ``threads`` given, a worker that died
+    without delivering (thread gone, event never set) raises instead of
+    parking the consumer forever."""
+    for i, e in enumerate(events):
+        while not e.wait(timeout=_PREFETCH_TICK):
+            t = threads[i] if threads is not None and i < len(threads) \
+                else None
+            if t is not None and not t.is_alive():
+                raise RuntimeError(
+                    "prefetch worker %d died without delivering its "
+                    "batch" % i)
+
+
+def _clear_all(events):
+    for e in events:
+        e.clear()
+
+
+def _set_all(events):
+    for e in events:
+        e.set()
+
+
+class PrefetchingIter(_CurrentBatchIter):
+    """Thread-prefetching combinator: one worker thread a wrapped
+    iterator fetches batch i+1 while the consumer holds batch i (a
+    data_taken / data_ready event pair a slot). ``state_dict`` is the
+    position after the last batch delivered, never where the threads ran
+    ahead to; an error in a worker is raised by the consumer's next
+    ``next()``."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        super().__init__()
+        self.iters = iters if isinstance(iters, list) else [iters]
+        self.n_iter = len(self.iters)
+        if not self.n_iter:
+            raise ValueError("PrefetchingIter needs an iterator")
+        self.rename_data, self.rename_label = rename_data, rename_label
+        self.batch_size = self.provide_data[0][1][0]
+        self.data_ready = [threading.Event() for _ in self.iters]
+        self.data_taken = [threading.Event() for _ in self.iters]
+        _set_all(self.data_taken)
+        self.started = True
+        self.next_batch = [None] * self.n_iter
+        # each worker snapshots its iterator's position right after
+        # fetching a batch; the consumer adopts that snapshot when the
+        # batch is delivered
+        self._delivered = 0
+        self._next_state = [None] * self.n_iter
+        self._inner_states = None
+        self._errors = [None] * self.n_iter
+        self.prefetch_threads = [
+            threading.Thread(target=self._worker, args=(i,), daemon=True)
+            for i in range(self.n_iter)]
+        for thread in self.prefetch_threads:
+            thread.start()
+
+    def _worker(self, i):
+        """Pull batch i+1 while the consumer holds batch i."""
+        while True:
+            while not self.data_taken[i].wait(timeout=_PREFETCH_TICK):
+                if not self.started:
+                    return
+            if not self.started:
+                return
+            try:
+                self.next_batch[i] = self.iters[i].next()
+                # an iterator without the resume contract still
+                # prefetches; restore then resets and fast-forwards
+                sd = getattr(self.iters[i], "state_dict", None)
+                self._next_state[i] = sd() if sd is not None else None
+            except StopIteration:
+                self.next_batch[i] = None
+                self._next_state[i] = None
+            except BaseException as exc:  # noqa: B036 — handed on: the
+                # consumer re-raises it from iter_next, never stranded
+                self.next_batch[i] = None
+                self._next_state[i] = None
+                self._errors[i] = exc
+            self.data_taken[i].clear()
+            self.data_ready[i].set()
+
+    def __del__(self):
+        try:
+            self.started = False
+            _set_all(self.data_taken)
+            for thread in self.prefetch_threads:
+                thread.join(timeout=1.0)
+        except Exception as e:
+            # teardown-order races during interpreter exit are expected
+            _log.debug("PrefetchingIter teardown failed: %s", e)
+
+    def _renamed_descs(self, renames, attr):
+        sources = [getattr(i, attr) for i in self.iters]
+        if renames is None:
+            return [d for descs in sources for d in descs]
+        return [DataDesc(r[d.name], d.shape, d.dtype)
+                if isinstance(d, DataDesc) else DataDesc(*d)
+                for r, descs in zip(renames, sources) for d in descs]
+
+    @property
+    def provide_data(self):
+        return self._renamed_descs(self.rename_data, "provide_data")
+
+    @property
+    def provide_label(self):
+        return self._renamed_descs(self.rename_label, "provide_label")
+
+    def reset(self):
+        _wait_all(self.data_ready, self.prefetch_threads)
+        for i in self.iters:
+            i.reset()
+        self._delivered = 0
+        self._inner_states = None
+        self._errors = [None] * self.n_iter
+        _clear_all(self.data_ready)
+        _set_all(self.data_taken)
+
+    def state_dict(self):
+        """Position after the last delivered batch."""
+        return {"delivered": int(self._delivered),
+                "iters": None if self._inner_states is None
+                else list(self._inner_states)}
+
+    def load_state_dict(self, state):
+        """Park the workers, rewind the wrapped iterators to the delivered
+        position (exactly when they keep a state, by reset and
+        fast-forward otherwise) and prefetch on from there."""
+        _wait_all(self.data_ready, self.prefetch_threads)
+        inner = state.get("iters")
+        delivered = int(state.get("delivered", 0))
+        for k, it in enumerate(self.iters):
+            st = inner[k] if inner is not None else None
+            if st:
+                it.load_state_dict(st)
+            else:
+                it.reset()
+                for _ in range(delivered):
+                    it.next()
+        self._delivered = delivered
+        self._inner_states = list(inner) if inner is not None else None
+        self.next_batch = [None] * self.n_iter
+        self._next_state = [None] * self.n_iter
+        self._errors = [None] * self.n_iter
+        _clear_all(self.data_ready)
+        _set_all(self.data_taken)
+
+    def iter_next(self):
+        _wait_all(self.data_ready, self.prefetch_threads)
+        errors = [e for e in self._errors if e is not None]
+        if errors:
+            self._errors = [None] * self.n_iter
+            raise errors[0]
+        exhausted = [b is None for b in self.next_batch]
+        if any(exhausted):
+            if not all(exhausted):
+                raise RuntimeError(
+                    "Number of entry mismatches between iterators")
+            return False
+        self._delivered += 1
+        self._inner_states = list(self._next_state)
+        lead = self.next_batch[0]
+        if any(b.pad != lead.pad for b in self.next_batch):
+            raise RuntimeError("Number of entry mismatches between "
+                               "iterators")
+        self.current_batch = DataBatch(
+            [a for b in self.next_batch for a in b.data],
+            [a for b in self.next_batch for a in b.label],
+            lead.pad, lead.index,
+            provide_data=self.provide_data,
+            provide_label=self.provide_label)
+        _clear_all(self.data_ready)
+        _set_all(self.data_taken)
+        return True
 
 
 def _init_data(data, allow_empty, default_name):
@@ -269,3 +523,10 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+def ImageRecordIter(**kwargs):
+    """RecordIO image pipeline (MXNet's ImageRecordIter), implemented in
+    :mod:`mxtpu_torch.image` over :mod:`mxtpu_torch.recordio`."""
+    from .image import ImageRecordIterImpl
+    return ImageRecordIterImpl(**kwargs)

@@ -1,5 +1,5 @@
-"""mxtpu_torch stands alone: no module of the package (nor chip_smoke.py)
-imports JAX or mxtpu, and the package imports and runs with JAX made
+"""mxtpu_torch stands alone: no module of the package (nor chip_smoke.py
+or cifar_seeds.py) imports JAX or mxtpu, and the package imports and runs with JAX made
 unimportable: the kernels' plain routes, custom ops, and Module.fit with
 its iterator, initializer, optimizer and scheduler, kvstore, metrics and
 callback."""
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mxtpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "cifar_seeds.py"]
 
 
 def _imported_modules(path):
