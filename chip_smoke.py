@@ -219,7 +219,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    one batch already on the card: whether the decoders or the card set
    the captured step's pace; the same timings with TF32 off; a captured
    fit whose last batch is padded replays it;
-17. timings: each kernel, its plain version and the PyTorch library call
+17. the SSD slice (BASELINE.json config 5): multibox_nms (csrc/vision.cu,
+   MultiBoxDetection's greedy NMS, one block an image) against its plain
+   loop at SSD-300's 8,732 anchors and 21 classes, batch 1 and 8, on tied
+   scores, with force_suppress and with nms_topk=400, each call twice for
+   the same bits (class ids equal), and timed beside its bound; the
+   MultiBox ops on cuda:0 against the CPU at batch 32 (cls_target equal);
+   then, with the kernel's count from 0, example/ssd/train_ssd_toy.py's
+   main (ssd_toy_main) on gpu(0), its first 3 steps against the CPU
+   (SSD_TOY_TOL), its losses falling; and SSD-300 on VGG16-reduced
+   (ssd300_vgg16, MXNet SSD's published config) at full width, batch 32,
+   f32, from 1,024 synthetic 300x300 JPEG records through ImageDetIter
+   (random crop, pad and mirror, mean/std), eager and hybridized for 3
+   epochs each (the last 4 steps' loss below SSD_LOSS_SHARE of the first
+   4's), both timed in turns fed by the iterator and on one batch held on
+   the card (ms, images/s, host ms by phase, busy share, launches, peak
+   memory), the iterator alone, FLOPs and the bound with TF32 on and
+   off, and a held-out image decoded on the kernel against the CPU's
+   plain loop;
+18. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -236,11 +254,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-18. one JSON line naming every kernel with its launches (the head
+19. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
-   launches_gluon_lm) and error;
-19. the last line: {"ok": true, "device": {...}}.
+   launches_gluon_lm; multibox_nms's: in the SSD slice's decodes) and
+   error;
+20. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -5639,6 +5658,834 @@ def cifar_phase(mt, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: SSD (BASELINE.json config 5): example/ssd/train_ssd_toy.py, and
+# SSD-300 on VGG16-reduced trained from JPEG records through ImageDetIter;
+# MultiBoxDetection's greedy NMS on the kernel multibox_nms
+# ---------------------------------------------------------------------------
+
+SSD_TOY_HW, SSD_TOY_BATCH, SSD_TOY_EPOCHS = 32, 16, 4
+SSD_TOY_SIZES, SSD_TOY_RATIOS = (0.3, 0.45, 0.6), (1.0, 2.0, 0.5)
+SSD_TOY_PREFIX = "toyssd0_"
+# the toy's first steps on the card (TF32 off) against the CPU's from the
+# same weights: each step's mean class and box loss within this; Adam's
+# first steps move a weight by about lr whatever its gradient's size, so a
+# gradient near 0 whose sign the sum order flips moves its weight the
+# other way: the losses, not the weights, are held
+SSD_TOY_TOL = dict(rtol=1e-4, atol=1e-6)
+
+# MXNet v1.x example/ssd/symbol/symbol_factory.py,
+# get_config("vgg16_reduced", 300): from relu4_3 and relu7, then four extra
+# scales (1x1 at num_filters // 2, then 3x3 at the stride and pad)
+SSD300 = dict(
+    num_filters=(512, -1, 512, 256, 256, 256),
+    strides=(-1, -1, 2, 2, 1, 1),
+    pads=(-1, -1, 1, 1, 0, 0),
+    sizes=((.1, .141), (.2, .272), (.37, .447), (.54, .619), (.71, .79),
+           (.88, .961)),
+    ratios=((1, 2, .5),) + ((1, 2, .5, 3, 1. / 3),) * 3 + ((1, 2, .5),) * 2,
+    normalizations=(20, -1, -1, -1, -1, -1),
+    steps=tuple(s / 300.0 for s in (8, 16, 32, 64, 100, 300)))
+SSD_CLASSES, SSD_PREFIX = 20, "ssd300_"
+SSD_HW, SSD_BATCH, SSD_ANCHORS = 300, 32, 8732
+SSD_RECORDS, SSD_EPOCHS = 1024, 3            # 32 steps an epoch
+SSD_LOSS_STEPS, SSD_LOSS_SHARE = 4, 0.7
+SSD_STEPS, SSD_PROFILE_STEPS = 10, 4
+# MXNet SSD's train_net.py: SGD 0.004 / 0.9 / 5e-4, rescale_grad 1 (the
+# loss is normalized by the valid anchors already), Xavier(gaussian, out, 2)
+SSD_OPT = {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4}
+SSD_TARGET = dict(overlap_threshold=0.5, ignore_label=-1.0,
+                  negative_mining_ratio=3.0, negative_mining_thresh=0.5,
+                  variances=(0.1, 0.1, 0.2, 0.2))
+SSD_AUG = dict(rand_crop=1, rand_pad=1, rand_mirror=True, mean=True,
+               std=True)
+SSD_NMS_THRESHOLD = 0.45                     # example/ssd's deploy nms_thresh
+SSD_MAX_OBJECTS = 3
+# the kernel against its plain version: class ids equal, floats within
+DET_TOL = dict(atol=1e-6, rtol=0)
+# MultiBoxTarget's box targets on the card against the CPU: torch.log on
+# the card may differ from the CPU's in the last place
+TARGET_TOL = dict(atol=1e-5, rtol=1e-5)
+# operations a tested pair costs the kernel (IoU: 4 min/max, 5 subtractions,
+# 4 clamps, 3 products, a sum, a quotient, 2 comparisons, the class test)
+NMS_PAIR_OPS = 21
+
+
+def synthetic_detection_set(n=64, hw=32, seed=0):
+    """train_ssd_toy.py:28-41: images with one bright square; the label is
+    its box, class 0."""
+    rng = np.random.RandomState(seed)
+    images, labels = [], []
+    for _ in range(n):
+        img = rng.randint(0, 40, (hw, hw, 3)).astype(np.uint8)
+        size = rng.randint(8, 16)
+        y0 = rng.randint(0, hw - size)
+        x0 = rng.randint(0, hw - size)
+        img[y0:y0 + size, x0:x0 + size] = 230
+        images.append(img)
+        labels.append(np.array([[0, x0 / hw, y0 / hw,
+                                 (x0 + size) / hw, (y0 + size) / hw]],
+                               np.float32))
+    return images, labels
+
+
+def toy_ssd(pkg, num_anchors, prefix=SSD_TOY_PREFIX):
+    """train_ssd_toy.py:44-63's ToySSD in either package, its layers made
+    under its name scope so that names match across packages."""
+    nn = pkg.gluon.nn
+
+    class ToySSD(pkg.gluon.HybridBlock):
+        """Tiny single-scale SSD head."""
+
+        def __init__(self, num_anchors, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.backbone = nn.HybridSequential()
+                for ch in (16, 32):
+                    self.backbone.add(nn.Conv2D(ch, 3, padding=1),
+                                      nn.BatchNorm(),
+                                      nn.Activation("relu"),
+                                      nn.MaxPool2D(2))
+                self.cls_head = nn.Conv2D(num_anchors * 2, 3, padding=1)
+                self.box_head = nn.Conv2D(num_anchors * 4, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            feat = self.backbone(x)
+            cls = self.cls_head(feat)      # [B, A*2, H, W]
+            box = self.box_head(feat)      # [B, A*4, H, W]
+            return feat, cls, box
+
+    return ToySSD(num_anchors, prefix=prefix)
+
+
+def toy_sample():
+    """The toy's first image as its main feeds it: [1, 3, 32, 32] in
+    [0, 1]."""
+    images, _ = synthetic_detection_set(hw=SSD_TOY_HW)
+    return images[0].transpose(2, 0, 1)[None].astype(np.float32) / 255.0
+
+
+def ssd_toy_main(pkg, ctx, weights=None, max_steps=None):
+    """train_ssd_toy.py's main (:66-119), line for line, in either package
+    on ``ctx``: the toy set, ToySSD with Xavier, Adam 2e-3, 4 epochs of
+    batch 16 (SoftmaxCrossEntropyLoss on the classes, L1Loss on the masked
+    boxes, targets by MultiBoxTarget), then one image decoded through
+    MultiBoxDetection. ``weights`` ({name: numpy}) replace the Xavier
+    draws (the packages draw differently); ``max_steps`` stops early.
+    Returns {"net", "steps": [(cls, box) a step], "epochs": [(cls, box)
+    an epoch], "det": the decoded image's rows}."""
+    nd, autograd, gluon = pkg.nd, pkg.autograd, pkg.gluon
+    with ctx:
+        pkg.random.seed(0)
+        np.random.seed(0)
+        hw = SSD_TOY_HW
+        sizes, ratios = SSD_TOY_SIZES, SSD_TOY_RATIOS
+        num_anchors = len(sizes) + len(ratios) - 1
+
+        images, labels = synthetic_detection_set(hw=hw)
+        net = toy_ssd(pkg, num_anchors)
+        net.initialize(pkg.init.Xavier(), ctx=ctx)
+        if weights is not None:
+            net(nd.array(toy_sample(), ctx=ctx))
+            gluon_load(pkg, net, weights, ctx)
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 2e-3})
+        cls_loss = gluon.loss.SoftmaxCrossEntropyLoss()
+        box_loss = gluon.loss.L1Loss()
+
+        batch_size = SSD_TOY_BATCH
+        steps, epochs = [], []
+        for epoch in range(SSD_TOY_EPOCHS):
+            tot_c = tot_b = 0.0
+            for i in range(0, len(images), batch_size):
+                if max_steps is not None and len(steps) == max_steps:
+                    break
+                x = nd.array(np.stack(
+                    [im.transpose(2, 0, 1) for im in
+                     images[i:i + batch_size]]).astype(np.float32) / 255.0)
+                y = nd.array(np.stack(labels[i:i + batch_size]))
+                with autograd.record():
+                    feat, cls, box = net(x)
+                    anchors = nd.contrib.MultiBoxPrior(
+                        feat, sizes=sizes, ratios=ratios)
+                    b = cls.shape[0]
+                    cls_pred = nd.transpose(cls, (0, 2, 3, 1)).reshape(
+                        (b, -1, 2))
+                    box_pred = nd.transpose(box, (0, 2, 3, 1)).reshape(
+                        (b, -1))
+                    box_target, box_mask, cls_target = \
+                        nd.contrib.MultiBoxTarget(
+                            anchors, y, nd.transpose(cls_pred, (0, 2, 1)))
+                    lc = cls_loss(cls_pred, cls_target)
+                    lb = box_loss(box_pred * box_mask, box_target)
+                    loss = lc + lb
+                loss.backward()
+                trainer.step(b)
+                c, bx = float(lc.mean().asnumpy()), float(lb.mean().asnumpy())
+                steps.append((c, bx))
+                tot_c += c
+                tot_b += bx
+            nb = len(images) / batch_size
+            epochs.append((tot_c / nb, tot_b / nb))
+
+        # decode detections for one image
+        feat, cls, box = net(nd.array(toy_sample()))
+        anchors = nd.contrib.MultiBoxPrior(feat, sizes=sizes, ratios=ratios)
+        cls_pred = nd.transpose(cls, (0, 2, 3, 1)).reshape((1, -1, 2))
+        probs = nd.transpose(nd.softmax(cls_pred, axis=-1), (0, 2, 1))
+        box_pred = nd.transpose(box, (0, 2, 3, 1)).reshape((1, -1))
+        det = nd.contrib.MultiBoxDetection(probs, box_pred, anchors,
+                                           nms_threshold=0.5)
+        return {"net": net, "steps": steps, "epochs": epochs,
+                "det": det.asnumpy()}
+
+
+def ssd300_feature_hw(hw=SSD_HW):
+    """The sides of SSD-300's six feature maps at an input of ``hw``:
+    relu4_3 after pools 1-3 (pool3 rounding up), relu7 after pool4 (pool5,
+    fc6 and fc7 keep the side), then each extra scale's 3x3 convolution."""
+    side = (hw - 2) // 2 + 1
+    side = (side - 2) // 2 + 1
+    side = -(-(side - 2) // 2) + 1
+    sides = [side, (side - 2) // 2 + 1]
+    for stride, pad in zip(SSD300["strides"][2:], SSD300["pads"][2:]):
+        sides.append((sides[-1] + 2 * pad - 3) // stride + 1)
+    return sides
+
+
+def ssd300_vgg16(pkg, width_div=1, classes=SSD_CLASSES, prefix=SSD_PREFIX):
+    """SSD-300 on VGG16-reduced (SSD300's config) as a Gluon HybridBlock in
+    either package: VGG16 through relu4_3 (pool3 rounding up: 75 -> 38),
+    pool4, conv5, pool5 (3x3, stride 1, pad 1), fc6 (3x3, dilation 6,
+    1,024), fc7 (1x1, 1,024), four extra scales; relu4_3 L2-normalized
+    over channels times a learnt per-channel scale (initialized to 20);
+    a 3x3 class head (A * (classes + 1)) and box head (A * 4) a scale,
+    each NCHW -> NHWC, flattened and concatenated over the scales. Returns
+    (class predictions [B, classes + 1, anchors], box predictions
+    [B, anchors * 4]). ``width_div`` divides every channel width (the CPU
+    tests run 300x300 at 1/8)."""
+    nn = pkg.gluon.nn
+    cfg = SSD300
+
+    def width(c):
+        return max(1, c // width_div)
+
+    def conv(seq, channels, kernel=3, **kw):
+        seq.add(nn.Conv2D(width(channels), kernel, **kw),
+                nn.Activation("relu"))
+
+    class SSD300VGG16(pkg.gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.to_relu4_3 = nn.HybridSequential()
+                for stage, (n, c) in enumerate(((2, 64), (2, 128), (3, 256),
+                                                (3, 512))):
+                    if stage:
+                        self.to_relu4_3.add(nn.MaxPool2D(
+                            pool_size=2, strides=2, ceil_mode=stage == 3))
+                    for _ in range(n):
+                        conv(self.to_relu4_3, c, padding=1)
+                self.scale = self.params.get(
+                    "relu4_3_scale", shape=(1, width(512), 1, 1),
+                    init=pkg.init.Constant(cfg["normalizations"][0]))
+                self.to_relu7 = nn.HybridSequential()
+                self.to_relu7.add(nn.MaxPool2D(pool_size=2, strides=2))
+                for _ in range(3):
+                    conv(self.to_relu7, 512, padding=1)
+                self.to_relu7.add(nn.MaxPool2D(pool_size=3, strides=1,
+                                               padding=1))
+                conv(self.to_relu7, 1024, padding=6, dilation=6)   # fc6
+                conv(self.to_relu7, 1024, kernel=1)                # fc7
+                self.extras = nn.HybridSequential()
+                for nf, stride, pad in zip(cfg["num_filters"][2:],
+                                           cfg["strides"][2:],
+                                           cfg["pads"][2:]):
+                    extra = nn.HybridSequential()
+                    conv(extra, nf // 2, kernel=1)
+                    conv(extra, nf, strides=stride, padding=pad)
+                    self.extras.add(extra)
+                self.cls_heads = nn.HybridSequential()
+                self.box_heads = nn.HybridSequential()
+                for sizes, ratios in zip(cfg["sizes"], cfg["ratios"]):
+                    a = len(sizes) + len(ratios) - 1
+                    self.cls_heads.add(nn.Conv2D(a * (classes + 1), 3,
+                                                 padding=1))
+                    self.box_heads.add(nn.Conv2D(a * 4, 3, padding=1))
+
+        def hybrid_forward(self, F, x, scale):
+            x = self.to_relu4_3(x)
+            feats = [F.broadcast_mul(F.L2Normalization(x, mode="channel"),
+                                     scale)]
+            x = self.to_relu7(x)
+            feats.append(x)
+            for extra in self.extras:
+                x = extra(x)
+                feats.append(x)
+            cls, box = [], []
+            for feat, cls_head, box_head in zip(feats, self.cls_heads,
+                                                self.box_heads):
+                cls.append(F.Flatten(F.transpose(cls_head(feat),
+                                                 axes=(0, 2, 3, 1))))
+                box.append(F.Flatten(F.transpose(box_head(feat),
+                                                 axes=(0, 2, 3, 1))))
+            cls = F.reshape(F.concat(*cls, dim=1), shape=(0, -1, classes + 1))
+            return F.transpose(cls, axes=(0, 2, 1)), F.concat(*box, dim=1)
+
+    return SSD300VGG16(prefix=prefix)
+
+
+def ssd300_xavier(pkg):
+    """MXNet SSD's initializer: Xavier(gaussian, out, magnitude 2)."""
+    return pkg.init.Xavier(rnd_type="gaussian", factor_type="out",
+                           magnitude=2)
+
+
+def ssd300_anchors(pkg, ctx, hw=SSD_HW):
+    """[1, 8,732, 4] at 300: nd.contrib.MultiBoxPrior a scale, at its
+    sizes, ratios and step, concatenated (outside the block, as the toy
+    computes its anchors)."""
+    return pkg.nd.concat(*[
+        pkg.nd.contrib.MultiBoxPrior(pkg.nd.zeros((1, 1, side, side),
+                                                  ctx=ctx),
+                                     sizes=sizes, ratios=ratios,
+                                     steps=(step, step))
+        for side, sizes, ratios, step in zip(
+            ssd300_feature_hw(hw), SSD300["sizes"], SSD300["ratios"],
+            SSD300["steps"])], dim=1)
+
+
+def ssd_targets(pkg, anchors, label, cls_preds):
+    """MultiBoxTarget at MXNet SSD's settings: (box_target, box_mask,
+    cls_target)."""
+    return pkg.nd.contrib.MultiBoxTarget(anchors, label, cls_preds,
+                                         **SSD_TARGET)
+
+
+def ssd_loss(pkg, cls_preds, box_preds, targets):
+    """MXNet SSD's training loss from MultiBoxTarget's ``targets``: the
+    softmax cross-entropy of each anchor whose class target is not
+    ignored, and smooth_l1(box_mask * (box_pred - box_target), scalar=1),
+    both summed and divided by the count of those valid anchors (the
+    SoftmaxOutput and MakeLoss of ``normalization="valid"``). Returns
+    (class loss, box loss)."""
+    nd = pkg.nd
+    box_target, box_mask, cls_target = targets
+    valid = cls_target >= 0
+    n_valid = nd.clip(nd.sum(valid), a_min=1.0)
+    logp = nd.log_softmax(cls_preds, axis=1)
+    ce = -nd.pick(logp, nd.clip(cls_target, a_min=0.0), axis=1)
+    cls_loss = nd.sum(ce * valid) / n_valid
+    box_loss = nd.sum(nd.smooth_l1(box_mask * (box_preds - box_target),
+                                   scalar=1.0)) / n_valid
+    return cls_loss, box_loss
+
+
+class SSDRun:
+    """MXNet SSD's training step over ``net`` on ``ctx``: ``with
+    autograd.record()``: the net, MultiBoxTarget, the loss; ``backward``;
+    ``Trainer.step(1)`` (SGD, SSD_OPT). ``steps(n, it)`` takes batches from
+    the iterator ``it`` (a new epoch where one ends; each copied to
+    ``ctx``), ``held(n)`` repeats one batch kept on ``ctx``. Each step's
+    (class, box) losses stay on the device; ``clock`` gathers the host
+    seconds of each phase."""
+
+    def __init__(self, pkg, net, anchors, ctx, hybridize):
+        self.pkg, self.net, self.anchors, self.ctx = pkg, net, anchors, ctx
+        if hybridize:
+            net.hybridize()
+        self.trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                         dict(SSD_OPT))
+        self.losses = []
+        self.clock = {}
+        self.batch = None
+
+    def _next(self, it):
+        for _ in range(2):
+            try:
+                b = it.next()
+            except StopIteration:
+                it.reset()
+                continue
+            return (b.data[0].as_in_context(self.ctx),
+                    b.label[0].as_in_context(self.ctx))
+        raise RuntimeError("the iterator gave no batch")
+
+    def step(self, x, y, t0):
+        pkg, clock = self.pkg, self.clock
+        t1 = time.perf_counter()
+        with pkg.autograd.record():
+            cls_preds, box_preds = self.net(x)
+            t2 = time.perf_counter()
+            targets = ssd_targets(pkg, self.anchors, y, cls_preds)
+            t3 = time.perf_counter()
+            lc, lb = ssd_loss(pkg, cls_preds, box_preds, targets)
+            loss = lc + lb
+        loss.backward()
+        t4 = time.perf_counter()
+        self.trainer.step(1)
+        t5 = time.perf_counter()
+        self.losses.append((lc, lb))
+        for phase, dt in (("next", t1 - t0), ("forward/backward",
+                                              (t2 - t1) + (t4 - t3)),
+                          ("MultiBoxTarget", t3 - t2),
+                          ("trainer.step", t5 - t4)):
+            clock[phase] = clock.get(phase, 0.0) + dt
+
+    def steps(self, n, it):
+        for _ in range(n):
+            t0 = time.perf_counter()
+            x, y = self._next(it)
+            self.step(x, y, t0)
+        return self
+
+    def held(self, n):
+        for _ in range(n):
+            self.step(*self.batch, time.perf_counter())
+        return self
+
+    def loss_values(self):
+        return [float((c + b).asscalar()) for c, b in self.losses]
+
+
+def ssd_records(pkg, path, n, hw=SSD_HW, seed=0, quality=95):
+    """``n`` synthetic JPEG records of ``hw`` x ``hw``: a noise background
+    and one to three axis-aligned rectangles of SSD_CLASSES classes, each
+    class its own colour from a palette drawn from ``seed``; the label is
+    ImageDetIter's flat [2, 5, (class, x0, y0, x1, y1) an object], the
+    corners normalized."""
+    rng = np.random.RandomState(seed)
+    palette = np.random.RandomState(1234).randint(0, 256, (SSD_CLASSES, 3))
+    writer = pkg.recordio.MXRecordIO(path, "w")
+    for i in range(n):
+        img = rng.randint(80, 176, (hw, hw, 3)).astype(np.uint8)
+        objs = []
+        for _ in range(rng.randint(1, SSD_MAX_OBJECTS + 1)):
+            c = rng.randint(SSD_CLASSES)
+            w, h = rng.randint(hw // 10, hw // 2, 2)
+            x0, y0 = rng.randint(0, hw - w), rng.randint(0, hw - h)
+            img[y0:y0 + h, x0:x0 + w] = palette[c]
+            objs.append([c, x0 / hw, y0 / hw, (x0 + w) / hw, (y0 + h) / hw])
+        label = np.concatenate([[2, 5], np.ravel(objs)]).astype(np.float32)
+        writer.write(pkg.recordio.pack_img(
+            pkg.recordio.IRHeader(0, label, i, 0), img, quality=quality))
+    writer.close()
+    return path
+
+
+def det_iter(pkg, path, batch, augment, seed):
+    """ImageDetIter over ``path`` at SSD_HW with SSD_AUG (``augment``) or
+    mean/std only, Python's random seeded with ``seed``."""
+    random.seed(seed)
+    aug = dict(SSD_AUG) if augment else dict(mean=True, std=True)
+    return pkg.image.ImageDetIter(batch, (3, SSD_HW, SSD_HW),
+                                  path_imgrec=path, shuffle=augment, **aug)
+
+
+def nms_inputs(vision, anchors, rng, batch, tied=False):
+    """MultiBoxDetection's rows before the NMS at SSD-300's shape: softmax
+    probabilities over 21 classes and box offsets from ``rng``, decoded
+    against ``anchors`` (on their device). ``tied`` rounds the
+    probabilities to sixteenths, so rows tie and many fall below the
+    threshold."""
+    import torch
+    num = anchors.shape[1]
+    logits = rng.standard_normal((batch, SSD_CLASSES + 1, num)) * 3
+    probs = np.exp(logits - logits.max(1, keepdims=True))
+    probs /= probs.sum(1, keepdims=True)
+    if tied:
+        probs = np.round(probs * 16) / 16
+    loc = 0.5 * rng.standard_normal((batch, num * 4))
+    dev = anchors.device
+    return vision.detection_rows(
+        torch.tensor(probs, dtype=torch.float32, device=dev),
+        torch.tensor(loc, dtype=torch.float32, device=dev), anchors)
+
+
+def nms_pairs(vision, cls_id, boxes, force, limit):
+    """The (row, later row) IoU tests the greedy pass needs on these rows:
+    for each row i < limit alive at its turn with a class, the later rows
+    still alive then of its class (any class with ``force``). The
+    kernel's operations are these pairs times NMS_PAIR_OPS."""
+    import torch
+    num = cls_id.shape[1]
+    j = torch.arange(num, device=cls_id.device)
+    alive = torch.ones_like(cls_id, dtype=torch.bool)
+    pairs = torch.zeros((), dtype=torch.int64, device=cls_id.device)
+    for i in range(limit):
+        ci = cls_id[:, i:i + 1]
+        live = alive[:, i:i + 1] & (ci >= 0)
+        cand = live & alive & (j > i) & ((ci == cls_id) | force)
+        pairs += cand.sum()
+        iou = vision._corner_iou(boxes[:, i:i + 1], boxes)
+        alive = alive & ~(cand & (iou > SSD_NMS_THRESHOLD))
+    return int(pairs)
+
+
+def nms_kernel_phase(mt, vision, rng, card):
+    """multibox_nms against its plain version on the card at SSD-300's
+    shape (8,732 anchors, 21 classes): batch 1 and 8, tied scores,
+    force_suppress, nms_topk=400; each kernel call twice for the same
+    bits, class ids equal to the plain loop's. Then the kernel's and the
+    plain loop's times at batch 1 and 8 beside the bound. Returns
+    (largest error, {batch: (ms, plain ms, bound ms, bound by)})."""
+    import torch
+    anchors = ssd300_anchors(mt, mt.gpu(0)).data
+    if anchors.shape[1] != SSD_ANCHORS:
+        fail("SSD-300 has %d anchors, not %d" % (anchors.shape[1],
+                                                 SSD_ANCHORS))
+    worst, timing = 0.0, {}
+    for label, batch, tied, force, topk in (
+            ("batch 1", 1, False, False, -1), ("batch 8", 8, False, False, -1),
+            ("tied scores", 8, True, False, -1),
+            ("force_suppress", 8, False, True, -1),
+            ("nms_topk 400", 8, False, False, 400)):
+        cls_id, score, boxes = nms_inputs(vision, anchors, rng, batch, tied)
+        limit = SSD_ANCHORS if topk <= 0 else topk
+        got = vision.multibox_nms(boxes, cls_id, SSD_NMS_THRESHOLD, force,
+                                  limit)
+        again = vision.multibox_nms(boxes, cls_id, SSD_NMS_THRESHOLD, force,
+                                    limit)
+        want = vision.multibox_nms_plain(boxes, cls_id, SSD_NMS_THRESHOLD,
+                                         force, limit)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail("multibox_nms %s: two calls differ" % label)
+        if not torch.equal(got, want):
+            fail("multibox_nms %s: %d of %d class ids differ from the plain "
+                 "loop" % (label, int((got != want).sum()), got.numel()))
+        worst = max(worst, float((got - want).abs().max()))
+        kept = int((got >= 0).sum())
+        print("multibox_nms %s (%d x %d rows, %d with a class): %d kept, "
+              "equal to the plain loop, bitwise repeatable"
+              % (label, batch, SSD_ANCHORS, int((cls_id >= 0).sum()), kept),
+              flush=True)
+        if label.startswith("batch"):
+            ms = cuda_ms(lambda: vision.multibox_nms(
+                boxes, cls_id, SSD_NMS_THRESHOLD, False, limit), iters=20)
+            plain_ms = cuda_ms(lambda: vision.multibox_nms_plain(
+                boxes, cls_id, SSD_NMS_THRESHOLD, False, limit), iters=1,
+                warmup=0)
+            pairs = nms_pairs(vision, cls_id, boxes, False, limit)
+            ops_ms = pairs * NMS_PAIR_OPS / PEAK_F32 * 1e3
+            bytes_ms = batch * SSD_ANCHORS * (16 + 4 + 4) / PEAK_BYTES_S * 1e3
+            bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else \
+                (bytes_ms, "bytes")
+            timing[batch] = (ms, plain_ms, bound, by)
+            print("time multibox_nms %s: %.4f ms (CUDA events, 20 calls), "
+                  "plain loop %.2f ms; %d pairs tested; bound %.6f ms (%s), "
+                  "the kernel at %.3f%% of it; no library call | %s"
+                  % (label, ms, plain_ms, pairs, bound, by,
+                     100 * bound / ms, card), flush=True)
+    return worst, timing
+
+
+def multibox_card_check(mt, rng, card):
+    """MultiBoxPrior, Target (mining on) and Detection on cuda:0 against
+    the CPU at SSD-300's shapes: batch 32, one to three objects an image
+    (the rest -1), 8,732 anchors, 21 classes. cls_target and box_mask
+    equal, box_target within TARGET_TOL; the detections' class ids
+    equal, the rest within DET_TOL."""
+    import torch
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    nd = mt.nd
+    anchors = {"gpu": ssd300_anchors(mt, gpu), "cpu": ssd300_anchors(mt, cpu)}
+    if not torch.equal(anchors["gpu"].data.cpu(), anchors["cpu"].data):
+        fail("MultiBoxPrior on the card differs from the CPU")
+    label = np.full((SSD_BATCH, SSD_MAX_OBJECTS, 5), -1.0, np.float32)
+    for i in range(SSD_BATCH):
+        n = rng.randint(1, SSD_MAX_OBJECTS + 1)
+        xy = rng.uniform(0, 0.7, (n, 2))
+        wh = rng.uniform(0.05, 0.3, (n, 2))
+        label[i, :n] = np.concatenate(
+            [rng.randint(0, SSD_CLASSES, (n, 1)), xy, xy + wh], 1)
+    preds = rng.standard_normal((SSD_BATCH, SSD_CLASSES + 1, SSD_ANCHORS)
+                                ).astype(np.float32)
+    outs = {}
+    for name, ctx in (("gpu", gpu), ("cpu", cpu)):
+        outs[name] = [o.data.cpu() for o in ssd_targets(
+            mt, anchors[name], nd.array(label, ctx=ctx),
+            nd.array(preds, ctx=ctx))]
+    (bt, bm, ct), (bt_c, bm_c, ct_c) = outs["gpu"], outs["cpu"]
+    if not (torch.equal(ct, ct_c) and torch.equal(bm, bm_c)):
+        fail("MultiBoxTarget on the card: %d class targets and %d mask "
+             "entries differ from the CPU" % (int((ct != ct_c).sum()),
+                                             int((bm != bm_c).sum())))
+    check_close("MultiBoxTarget box_target", [bt], [bt_c], TARGET_TOL)
+    probs = rng.standard_normal(preds.shape) * 3
+    probs = np.exp(probs - probs.max(1, keepdims=True))
+    probs = (probs / probs.sum(1, keepdims=True)).astype(np.float32)
+    loc = (0.5 * rng.standard_normal((SSD_BATCH, SSD_ANCHORS * 4))).astype(
+        np.float32)
+    det = {}
+    for name, ctx in (("gpu", gpu), ("cpu", cpu)):
+        det[name] = nd.contrib.MultiBoxDetection(
+            nd.array(probs, ctx=ctx), nd.array(loc, ctx=ctx), anchors[name],
+            nms_threshold=SSD_NMS_THRESHOLD).data.cpu()
+    if not torch.equal(det["gpu"][..., 0], det["cpu"][..., 0]):
+        fail("MultiBoxDetection on the card: %d class ids differ from the "
+             "CPU" % int((det["gpu"][..., 0] != det["cpu"][..., 0]).sum()))
+    check_close("MultiBoxDetection", [det["gpu"]], [det["cpu"]], DET_TOL)
+    print("MultiBox ops on the card against the CPU at batch %d, %d "
+          "anchors: anchors equal; MultiBoxTarget (mining 3:1) class "
+          "targets equal (%d positive, %d negative, %d ignored), box targets "
+          "within %g; MultiBoxDetection class ids equal (%d kept), floats "
+          "within %g" % (SSD_BATCH, SSD_ANCHORS, int((ct > 0).sum()),
+                         int((ct == 0).sum()), int((ct < 0).sum()),
+                         float((bt - bt_c).abs().max()),
+                         int((det["gpu"][..., 0] >= 0).sum()),
+                         float((det["gpu"] - det["cpu"]).abs().max())),
+          flush=True)
+
+
+def toy_card_phase(mt, card):
+    """train_ssd_toy.py's main on gpu(0) from the CPU's Xavier draws: its
+    first 3 steps' losses against the CPU's (SSD_TOY_TOL), its 4 epochs'
+    class and box losses falling, the decoded image's rows finite."""
+    cpu, gpu = mt.cpu(), mt.gpu(0)
+    num_anchors = len(SSD_TOY_SIZES) + len(SSD_TOY_RATIOS) - 1
+    w0 = gluon_weights(mt, toy_ssd(mt, num_anchors), 0, toy_sample(),
+                       init=mt.init.Xavier())
+    want = ssd_toy_main(mt, cpu, w0, max_steps=FIT_STEPS)["steps"]
+    t0 = time.perf_counter()
+    run = ssd_toy_main(mt, gpu, w0)
+    secs = time.perf_counter() - t0
+    got = run["steps"][:FIT_STEPS]
+    if not np.allclose(got, want, **SSD_TOY_TOL):
+        fail("the toy SSD's first %d steps on the card %s, on the CPU %s "
+             "(%s)" % (FIT_STEPS, got, want, SSD_TOY_TOL))
+    (c0, b0), (c1, b1) = run["epochs"][0], run["epochs"][-1]
+    if not (c1 < c0 and b1 < b0):
+        fail("the toy SSD's losses did not fall: %s" % run["epochs"])
+    det = run["det"]
+    if det.shape != (1, 8 * 8 * num_anchors, 6) or \
+            not np.isfinite(det).all():
+        fail("the toy's detections: %s" % (det.shape,))
+    print("toy SSD (train_ssd_toy.py's main) on gpu(0): %d steps in %.2f s; "
+          "first %d steps within %s of the CPU's (largest gap %.3g); epochs' "
+          "(class, box) losses %s; top detection %s | %s"
+          % (len(run["steps"]), secs, FIT_STEPS, SSD_TOY_TOL,
+             float(np.abs(np.subtract(got, want)).max()),
+             ", ".join("(%.4f, %.4f)" % e for e in run["epochs"]),
+             np.round(det[0, 0], 3).tolist(), card), flush=True)
+
+
+def ssd300_step_bound(mt, run):
+    """One eager held step of ``run`` under FlopCounterMode: ((conv FLOPs,
+    matmul FLOPs), bytes a step must move: the batch and its labels read,
+    every weight and momentum read and written)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        run.held(1)
+    by_op = counter.get_flop_counts().get("Global", {})
+    conv = sum(v for k, v in by_op.items() if "convolution" in str(k))
+    matmul = counter.get_total_flops() - conv
+    n_param = sum(p.data().size for p in run.net.collect_params().values())
+    nbytes = 4 * (SSD_BATCH * 3 * SSD_HW * SSD_HW
+                  + SSD_BATCH * SSD_MAX_OBJECTS * 5 + 2 * 2 * n_param)
+    return (conv, matmul), nbytes
+
+
+def ssd300_train(mt, w0, anchors, path, path_label, hybridize, seed, card):
+    """SSD-300 from ``w0`` on gpu(0), eager or hybridized, fed by
+    ImageDetIter (SSD_AUG) for SSD_EPOCHS epochs: the last SSD_LOSS_STEPS
+    steps' loss below SSD_LOSS_SHARE of the first's. Returns the run and
+    its iterator."""
+    import torch
+    gpu = mt.gpu(0)
+    net = gluon_load(mt, ssd300_vgg16(mt), w0, gpu)
+    run = SSDRun(mt, net, anchors, gpu, hybridize)
+    it = det_iter(mt, path, SSD_BATCH, True, seed)
+    steps = SSD_EPOCHS * SSD_RECORDS // SSD_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run.steps(steps, it)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = run.loss_values()
+    if not all(np.isfinite(losses)):
+        fail("SSD-300 %s: losses %s" % (path_label, losses))
+    first = float(np.mean(losses[:SSD_LOSS_STEPS]))
+    last = float(np.mean(losses[-SSD_LOSS_STEPS:]))
+    if not last < SSD_LOSS_SHARE * first:
+        fail("SSD-300 %s: the loss went from %.4f (first %d steps) to %.4f "
+             "(last %d) over %d steps; limit %.2f of the first"
+             % (path_label, first, SSD_LOSS_STEPS, last, SSD_LOSS_STEPS,
+                steps, SSD_LOSS_SHARE))
+    text = "eager" if not hybridize else hybrid_report(
+        net, "SSD-300", steps)
+    print("SSD-300 %s: %d steps (%d epochs of %d records, batch %d) from "
+          "ImageDetIter in %.2f s; loss (class + box) of the first %d steps "
+          "%.4f, of the last %d %.4f (limit %.2f of the first); %s; peak "
+          "memory %.2f GB | %s"
+          % (path_label, steps, SSD_EPOCHS, SSD_RECORDS, SSD_BATCH, secs,
+             SSD_LOSS_STEPS, first, SSD_LOSS_STEPS, last, SSD_LOSS_SHARE,
+             text, torch.cuda.max_memory_allocated() / 1e9, card),
+          flush=True)
+    run.clock.clear()
+    return run, it
+
+
+def ssd300_phase(mt, vision, seed, card, workdir):
+    """SSD-300 at full width (BASELINE.json config 5), batch 32, f32 under
+    torch's default TF32 (cuDNN on, matmuls off), from SSD_RECORDS
+    synthetic JPEG records through ImageDetIter: the iterator alone; eager
+    and hybridized training, each learning; both timed in turns fed by
+    the iterator and on one batch held on the card; FLOPs and the bound;
+    a held-out image decoded through MultiBoxDetection on the kernel
+    against the CPU's plain loop on the same outputs. Returns {(path,
+    feed): ms a step}."""
+    import torch
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    t0 = time.perf_counter()
+    path = ssd_records(mt, os.path.join(workdir, "ssd_train.rec"),
+                       SSD_RECORDS, seed=seed)
+    held_path = ssd_records(mt, os.path.join(workdir, "ssd_val.rec"), 1,
+                            seed=seed + 1)
+    print("SSD-300 records: %d JPEGs of %dx%d written in %.2f s (%.1f MB)"
+          % (SSD_RECORDS, SSD_HW, SSD_HW, time.perf_counter() - t0,
+             os.path.getsize(path) / 1e6), flush=True)
+    it = det_iter(mt, path, SSD_BATCH, True, seed)
+    n = 0
+    t0 = time.perf_counter()
+    for batch in it:
+        n += batch.data[0].shape[0]
+        if batch.data[0].shape != (SSD_BATCH, 3, SSD_HW, SSD_HW) or \
+                batch.label[0].shape != (SSD_BATCH, SSD_MAX_OBJECTS, 5):
+            fail("ImageDetIter batch %s / %s" % (batch.data[0].shape,
+                                                 batch.label[0].shape))
+    io_rate = n / (time.perf_counter() - t0)
+    print("ImageDetIter alone (in-process decode + SSD augmentation, one "
+          "epoch): %.1f images/s on %d host cores | %s"
+          % (io_rate, os.cpu_count(), card), flush=True)
+    anchors = ssd300_anchors(mt, gpu)
+    out = {}
+    with tf32_mode(True):
+        mt.random.seed(seed)
+        net = ssd300_vgg16(mt)
+        net.initialize(ssd300_xavier(mt), ctx=gpu)
+        net(mt.nd.zeros((1, 3, SSD_HW, SSD_HW), ctx=gpu))
+        w0 = gluon_values(net)
+        del net
+        runs = {}
+        for path_label, hyb in (("eager", False), ("hybridized", True)):
+            runs[path_label] = ssd300_train(mt, w0, anchors, path,
+                                            path_label, hyb, seed, card)
+        for run, it in runs.values():
+            x, y = run._next(it)
+            run.batch = (x, y)
+        ms, clocks = {}, {}
+        for path_label in ("eager", "hybridized", "hybridized", "eager"):
+            run, it = runs[path_label]
+            for feed in ("fed", "held"):
+                run.clock = clocks.setdefault((path_label, feed), {})
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if feed == "fed":
+                    run.steps(SSD_STEPS, it)
+                else:
+                    run.held(SSD_STEPS)
+                torch.cuda.synchronize()
+                ms.setdefault((path_label, feed), []).append(
+                    (time.perf_counter() - t0) / SSD_STEPS * 1e3)
+        for run, _it in runs.values():
+            run.clock = {}            # the untimed steps below
+        flops, nbytes = ssd300_step_bound(mt, runs["eager"][0])
+        conv, matmul = flops
+        on, by_on = bound_ms(flops, nbytes, True)
+        off, by_off = bound_ms(flops, nbytes, False)
+        print("SSD-300 step at batch %d: %.4g conv FLOPs + %.4g matmul FLOPs "
+              "(FlopCounterMode over one eager step; %.3g GMAC an image "
+              "forward), %.4g bytes to move at least; bound %.3f ms (%s) "
+              "with cuDNN TF32, %.3f ms (%s) in float32 | %s"
+              % (SSD_BATCH, conv, matmul, (conv + matmul) / 6 / SSD_BATCH
+                 / 1e9, nbytes, on, by_on, off, by_off, card), flush=True)
+        for path_label, (run, it) in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            busy, top = device_time(lambda: run.held(SSD_PROFILE_STEPS), 1,
+                                    per=SSD_PROFILE_STEPS)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            for feed in ("fed", "held"):
+                step = out[(path_label, feed)] = float(
+                    np.mean(ms[(path_label, feed)]))
+                host = "; ".join(
+                    "%s %.3f" % (p, v / (2 * SSD_STEPS) * 1e3)
+                    for p, v in clocks[(path_label, feed)].items())
+                print("SSD-300 %s step, %s (cuDNN TF32 on): %.3f ms (%s), "
+                      "%.1f images/s; bound %.3f ms (%s), %.1f%% of it; "
+                      "host ms a step by phase: %s | %s"
+                      % (path_label, "fed by ImageDetIter" if feed == "fed"
+                         else "one batch held on the card", step,
+                         ", ".join("%.3f" % v for v in ms[(path_label, feed)]),
+                         SSD_BATCH / step * 1e3, on, by_on,
+                         100 * on / step, host, card), flush=True)
+            print("SSD-300 %s held step on the card (profiler): %s; per "
+                  "step: %s; peak memory %.2f GB | %s"
+                  % (path_label, busy_of(busy, out[(path_label, "held")]),
+                     top, peak, card), flush=True)
+        pace = out[("hybridized", "fed")] / out[("hybridized", "held")]
+        print("SSD-300: the iterator alone gives %.1f images/s, the "
+              "hybridized step takes %.1f images/s held and %.1f fed (fed "
+              "%.2fx held): %s sets the pace | %s"
+              % (io_rate, SSD_BATCH / out[("hybridized", "held")] * 1e3,
+                 SSD_BATCH / out[("hybridized", "fed")] * 1e3, pace,
+                 "the iterator" if pace > CF_PACE else "the card", card),
+              flush=True)
+        # a held-out image decoded on the kernel and by the CPU's plain loop
+        run = runs["eager"][0]
+        val = det_iter(mt, held_path, 1, False, seed).next()
+        cls_preds, box_preds = run.net(val.data[0].as_in_context(gpu))
+    probs = mt.nd.softmax(cls_preds, axis=1)
+    before = vision.LAUNCHES["multibox_nms"]
+    det = mt.nd.contrib.MultiBoxDetection(
+        probs, box_preds, anchors, nms_threshold=SSD_NMS_THRESHOLD).data
+    if vision.LAUNCHES["multibox_nms"] != before + 1:
+        fail("MultiBoxDetection on the card did not launch multibox_nms")
+    want = mt.nd.contrib.MultiBoxDetection(
+        probs.as_in_context(cpu), box_preds.as_in_context(cpu),
+        anchors.as_in_context(cpu), nms_threshold=SSD_NMS_THRESHOLD).data
+    det = det.cpu()
+    if det.shape != (1, SSD_ANCHORS, 6) or not torch.isfinite(det).all():
+        fail("SSD-300 detections: %s" % (tuple(det.shape),))
+    if not torch.equal(det[..., 0], want[..., 0]):
+        fail("SSD-300's held-out detections: class ids differ from the "
+             "CPU's plain loop")
+    check_close("SSD-300 held-out detections", [det], [want], DET_TOL)
+    kept = det[0][det[0, :, 0] >= 0]
+    print("SSD-300 held-out image: %d detections kept by multibox_nms, equal "
+          "to the CPU's plain loop (class ids; floats within %g); top %s; "
+          "the image's objects %s"
+          % (kept.shape[0], DET_TOL["atol"],
+             np.round(kept[:3].numpy(), 3).tolist(),
+             np.round(val.label[0].asnumpy()[0], 3).tolist()), flush=True)
+    return out
+
+
+def ssd_phase(mt, seed, card):
+    """Phase 17: multibox_nms against its plain version; the MultiBox ops
+    on the card against the CPU; then the main path, counted from 0:
+    train_ssd_toy.py's main and SSD-300 on the card. Returns (ms a step by
+    (path, feed), launches of multibox_nms on the main path, the kernel's
+    largest error, its timing by batch)."""
+    import tempfile
+    from mxtpu_torch.ops import vision
+    t_phase = time.time()
+    rng = np.random.RandomState(seed)
+    err, timing = nms_kernel_phase(mt, vision, rng, card)
+    multibox_card_check(mt, rng, card)
+    vision.LAUNCHES["multibox_nms"] = 0
+    toy_card_phase(mt, card)
+    with tempfile.TemporaryDirectory(prefix="ssd_records_") as workdir:
+        ms = ssd300_phase(mt, vision, seed, card, workdir)
+    launches = vision.LAUNCHES["multibox_nms"]
+    if launches == 0:
+        fail("the SSD path never launched multibox_nms")
+    print("SSD phase: %.1f s (%s)" % (time.time() - t_phase, card),
+          flush=True)
+    return ms, launches, err, timing
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6028,7 +6875,12 @@ def main():
     # ResNet-110 fed by ImageRecordIter's decode pool, eager and captured
     cifar_ms = cifar_phase(mt, args.seed, card)
 
-    # 17. timings at the main paths' shapes
+    # 17. the SSD slice: multibox_nms against its plain version, the
+    # MultiBox ops against the CPU, then train_ssd_toy.py's main and SSD-300
+    # from JPEG records (multibox_nms counted from 0 just before them)
+    ssd_ms, nms_launches, nms_err, nms_timing = ssd_phase(mt, args.seed, card)
+
+    # 18. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -6366,9 +7218,20 @@ def main():
     print("CIFAR ResNet-110 slice, ms a step: %s | %s" % (
         ", ".join("%s %s %.3f" % (k + (v,)) for k, v in cifar_ms.items()),
         card))
+    print("SSD-300 slice, ms a step: %s | %s" % (
+        ", ".join("%s %s %.3f" % (k + (v,)) for k, v in ssd_ms.items()),
+        card))
+    nms_ms, nms_plain, nms_bound, nms_by = nms_timing[1]
+    kernels.append({
+        "name": "multibox_nms", "route": "cuda",
+        "source": "mxtpu_torch/csrc/vision.cu",
+        "replaces": "mxtpu/ops/vision.py:311",
+        "launches": nms_launches, "max_abs_err": nms_err, "ms": nms_ms,
+        "plain_ms": nms_plain, "bound_ms": nms_bound, "bound_by": nms_by,
+        "library_ms": None})
     print("total %.1f s" % (time.time() - t_start))
 
-    # 18.-19. the result lines
+    # 19.-20. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

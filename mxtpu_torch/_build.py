@@ -29,14 +29,16 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 SOURCES = {"rnn_scan": CSRC / "rnn_scan.cu",
            "flash_attention": CSRC / "flash_attention.cu",
-           "flash_attention_sm90": CSRC / "flash_attention_sm90.cu"}
+           "flash_attention_sm90": CSRC / "flash_attention_sm90.cu",
+           "vision": CSRC / "vision.cu"}
 _HEADER_SUFFIXES = (".h", ".cuh", ".hpp", ".inl")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # (argtypes) of each C entry: pointers and the stream as c_void_p, sizes
-# and flags as c_int; every entry returns cudaGetLastError() as an int
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# and flags as c_int, reals as c_float; every entry returns
+# cudaGetLastError() as an int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "rnn_scan": {
         "mx_lstm_scan": (_P,) * 7 + (_I,) * 11 + (_P,),
@@ -52,6 +54,9 @@ _SIGNATURES = {
         "mx_flash_fwd_sm90": (_P,) * 6 + (_I,) * 5 + (_P,),
         "mx_flash_bwd_dq_sm90": (_P,) * 8 + (_I,) * 5 + (_P,),
         "mx_flash_bwd_dkv_sm90": (_P,) * 9 + (_I,) * 5 + (_P,),
+    },
+    "vision": {
+        "mx_multibox_nms": (_P,) * 3 + (_I,) * 3 + (_F,) + (_I,) * 2 + (_P,),
     },
 }
 

@@ -920,3 +920,11 @@ class ImageRecordIterImpl:
 
     def __next__(self):
         return self._prefetch.__next__()
+
+
+# the detection pipeline lives in a module of its own, re-exported here as
+# mxtpu.image re-exports it
+from .image_detection import (DetAugmenter, DetBorrowAug,  # noqa: E402
+                              DetRandomSelectAug, DetHorizontalFlipAug,
+                              DetRandomCropAug, DetRandomPadAug,
+                              CreateDetAugmenter, ImageDetIter)

@@ -28,10 +28,10 @@ from .. import autograd as _ag
 from .. import engine as _engine
 from ..base import canonical_dtype, numpy_dtype
 from ..context import Context, cpu, current_context
-from ..ops.registry import get_op
+from ..ops.registry import ContribNamespace, get_op
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "concatenate", "waitall", "save", "load"]
+           "concatenate", "waitall", "save", "load", "contrib"]
 
 
 class NDArray:
@@ -417,14 +417,21 @@ def load(fname, ctx=None):
     return out
 
 
-def __getattr__(name):
-    op = get_op(name)
-    if op is None:
-        raise AttributeError("module 'mxtpu_torch.ndarray' has no "
-                             "attribute %r" % name)
-
+def _op_function(op, name):
+    """``nd.<name>``: op ``op`` run eagerly on its arguments."""
     def fn(*args, **kwargs):
         return _invoke(op, args, kwargs)
     fn.__name__ = name
     fn.__doc__ = op.doc
     return fn
+
+
+contrib = ContribNamespace(_op_function)
+
+
+def __getattr__(name):
+    op = get_op(name)
+    if op is None:
+        raise AttributeError("module 'mxtpu_torch.ndarray' has no "
+                             "attribute %r" % name)
+    return _op_function(op, name)

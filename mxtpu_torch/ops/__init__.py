@@ -1,7 +1,8 @@
 """Operator library of the PyTorch port: one registry behind ``nd.*`` and
 ``sym.*``, as in ``mxtpu.ops``. Importing the modules below registers
 their ops; the LSTM/GRU time loops live in :mod:`.rnn_scan`, flash
-attention in :mod:`.flash_attention`.
+attention in :mod:`.flash_attention`, the detection ops and their NMS
+kernel in :mod:`.vision`.
 """
 from .registry import (OpDef, register, get_op, next_generator, rng_scope,
                        set_global_seed)
@@ -11,6 +12,7 @@ from . import elemwise       # noqa: F401
 from . import reduce         # noqa: F401
 from . import nn             # noqa: F401
 from . import rnn            # noqa: F401
+from . import vision         # noqa: F401
 
 
 @register("_contrib_flash_attention", aliases=("flash_attention",))

@@ -1,6 +1,6 @@
 """Elementwise ops of the PyTorch port: the broadcast arithmetic and
 comparison families, their tensor-scalar forms, and the unary math that
-NDArray arithmetic and custom ops call.
+NDArray arithmetic and custom ops call; ``clip`` and ``smooth_l1``.
 
 Counterpart of part of ``mxtpu/ops/elemwise.py``, under the same registry
 names and aliases. None of them is a Pallas kernel in ``mxtpu``; here
@@ -145,3 +145,24 @@ for _n, _f in _UNARY.items():
 def where(condition, x, y):
     """``x`` where ``condition`` is non-zero, else ``y``."""
     return torch.where(condition.to(torch.bool), x, y)
+
+
+@register("clip")
+def clip(data, a_min=None, a_max=None):
+    """``data`` clipped to [a_min, a_max], as ``jnp.clip`` composes it
+    (a maximum, then a minimum): at a bound the gradient halves, as
+    ``jnp.maximum``'s and torch's ``maximum`` split a tie."""
+    if a_min is not None:
+        data = torch.maximum(data, _full_like_scalar(data, a_min))
+    if a_max is not None:
+        data = torch.minimum(data, _full_like_scalar(data, a_max))
+    return data
+
+
+@register("smooth_l1")
+def smooth_l1(data, scalar=1.0):
+    """0.5 s^2 x^2 where |x| < 1/s^2, else |x| - 0.5/s^2."""
+    s2 = scalar * scalar
+    absd = torch.abs(data)
+    return torch.where(absd < 1.0 / s2, 0.5 * s2 * data * data,
+                       absd - 0.5 / s2)

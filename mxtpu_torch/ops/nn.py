@@ -4,7 +4,7 @@ Counterpart of the main-path ops of ``mxtpu/ops/nn.py``:
 FullyConnected, Convolution, Pooling, Activation, LeakyReLU, softmax,
 log_softmax, Embedding, Dropout, BatchNorm and SoftmaxOutput, whose
 backward is ``mxtpu``'s (a ``torch.autograd.Function`` in place of its
-``custom_vjp``).
+``custom_vjp``); L2Normalization and BlockGrad, which SSD uses.
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
 here they are PyTorch's own calls: ``torch.matmul``, ``index_select``,
 ``F.conv*d`` / ``F.max_pool*d`` / ``F.avg_pool*d`` (cuDNN on the
@@ -399,3 +399,24 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                 normalization=str(normalization), out_grad=bool(out_grad),
                 smooth_alpha=float(smooth_alpha))
     return _SoftmaxOutput.apply(data, label, opts)
+
+
+@register("L2Normalization")
+def l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data`` over sqrt(sum of squares + eps): over all but the batch
+    axis (``instance``), over the channels (``channel``) or over the
+    spatial axes (``spatial``)."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=red,
+                                       keepdim=True) + eps)
+
+
+@register("BlockGrad", aliases=("stop_gradient",))
+def block_grad(data):
+    """``data``, with no gradient flowing back through it."""
+    return data.detach()

@@ -18,8 +18,8 @@ import threading
 
 import torch
 
-__all__ = ["OpDef", "register", "get_op", "next_generator", "rng_scope",
-           "set_global_seed"]
+__all__ = ["OpDef", "register", "get_op", "ContribNamespace",
+           "next_generator", "rng_scope", "set_global_seed"]
 
 _REGISTRY = {}
 
@@ -74,6 +74,22 @@ def register(name=None, differentiable=True, stateful=False, num_outputs=1,
 
 def get_op(name):
     return _REGISTRY.get(name)
+
+
+class ContribNamespace:
+    """``nd.contrib`` / ``sym.contrib``: attribute ``X`` is
+    ``make(op, "X")`` of registry op ``_contrib_X``, else of ``X``, as
+    ``mxtpu``'s contrib namespaces resolve it."""
+
+    def __init__(self, make):
+        self._make = make
+
+    def __getattr__(self, name):
+        for candidate in ("_contrib_" + name, name):
+            op = get_op(candidate)
+            if op is not None:
+                return self._make(op, name)
+        raise AttributeError("no contrib op %r" % name)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ Counterpart of the part of ``mxtpu/ops/shape_ops.py`` that the fused
 RNN cell's ``unroll``, the serving graphs, LeNet and
 ``nd.concatenate`` emit: reshape (with MXNet's special codes), Flatten,
 swapaxes, expand_dims, concat, stack, split, zeros_like, ones_like and
-the nullary ``_zeros`` creator; and ``pick``, which Gluon's
-``SoftmaxCrossEntropyLoss`` takes its labels' entries with.
+the nullary ``_zeros`` creator; ``pick``, which Gluon's
+``SoftmaxCrossEntropyLoss`` takes its labels' entries with; and
+``transpose`` and ``slice_axis``, which the SSD heads use.
 """
 from __future__ import annotations
 
@@ -68,6 +69,14 @@ def flatten(data):
     return torch.reshape(data, (data.shape[0], -1))
 
 
+@register("transpose")
+def transpose(data, axes=None):
+    """Permute the axes (reverse them when ``axes`` is empty)."""
+    if axes is None or tuple(axes) == ():
+        axes = tuple(range(data.dim() - 1, -1, -1))
+    return data.permute(*axes).contiguous()
+
+
 @register("swapaxes", aliases=("SwapAxis",))
 def swapaxes(data, dim1=0, dim2=0):
     return torch.transpose(data, dim1, dim2).contiguous()
@@ -76,6 +85,15 @@ def swapaxes(data, dim1=0, dim2=0):
 @register("expand_dims")
 def expand_dims(data, axis=0):
     return torch.unsqueeze(data, axis)
+
+
+@register("slice_axis")
+def slice_axis(data, axis=0, begin=0, end=None):
+    """``data[begin:end]`` along ``axis`` (Python's rules for negative
+    and missing bounds)."""
+    idx = [slice(None)] * data.dim()
+    idx[axis] = slice(begin, end)
+    return data[tuple(idx)]
 
 
 @register("concat", aliases=("Concat",))

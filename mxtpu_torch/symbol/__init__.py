@@ -18,10 +18,11 @@ import torch
 
 from ..attribute import current as _attr_scope_current
 from ..base import canonical_dtype, dtype_name
-from ..ops.registry import get_op
+from ..ops.registry import ContribNamespace, get_op
 from .. import name as _name_mgr
 
-__all__ = ["Symbol", "var", "Variable", "load", "load_json", "eval_graph"]
+__all__ = ["Symbol", "var", "Variable", "load", "load_json", "eval_graph",
+           "contrib"]
 
 
 class _Node:
@@ -744,14 +745,21 @@ def _infer_graph_shapes(sym, known, partial=False):
     return shapes, out_shapes
 
 
-def __getattr__(name):
-    op = get_op(name)
-    if op is None:
-        raise AttributeError("module 'mxtpu_torch.symbol' has no attribute "
-                             "%r" % name)
-
+def _op_function(op, name):
+    """``sym.<name>``: a symbol of op ``op`` over its arguments."""
     def fn(*args, **kwargs):
         return _create_symbol(op, *args, **kwargs)
     fn.__name__ = name
     fn.__doc__ = op.doc
     return fn
+
+
+contrib = ContribNamespace(_op_function)
+
+
+def __getattr__(name):
+    op = get_op(name)
+    if op is None:
+        raise AttributeError("module 'mxtpu_torch.symbol' has no attribute "
+                             "%r" % name)
+    return _op_function(op, name)

@@ -44,6 +44,13 @@ def test_scan_catches_forbidden_imports():
         assert not _forbidden(m)
 
 
+def test_scan_covers_the_detection_slice():
+    """The glob finds the modules a slice adds: the detection ops and
+    pipeline here."""
+    for rel in ("mxtpu_torch/ops/vision.py", "mxtpu_torch/image_detection.py"):
+        assert ROOT / rel in PORT_FILES
+
+
 def test_imports_and_runs_without_jax():
     code = (
         "import sys\n"
