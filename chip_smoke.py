@@ -237,7 +237,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    memory), the iterator alone, FLOPs and the bound with TF32 on and
    off, and a held-out image decoded on the kernel against the CPU's
    plain loop;
-18. timings: each kernel, its plain version and the PyTorch library call
+18. multi-output graphs and detection training: example/rcnn/
+   train_rcnn_toy.py's main (rcnn_toy_main) on gpu(0) at its own widths
+   (64 images of 32x32, batch 8, the 16/32-channel backbone, 8 epochs of
+   Adam): the RPN Group of SoftmaxOutput(multi_output, use_ignore),
+   MakeLoss(smooth_l1) and BlockGrad trained through simple_bind, then
+   Proposal (its NMS on multibox_nms, counted from 0 just before the
+   run: one launch for its one call), get_internals()["feat_output"],
+   ROIPooling and the roi head; the example's three asserts, the first 3
+   RPN steps against the CPU's (RCNN_TOL), the rois and pooled features
+   against the CPU's Proposal and ROIPooling on the same inputs. 18b.
+   Proposal at Faster R-CNN's size (600x1000, a 38x63 map at stride 16,
+   28,728 anchors, 6,000 before the NMS, 300 after): its rois equal to
+   the plain NMS loop's on the card, multibox_nms at that shape timed
+   beside its bound;
+19. example/python-howto/multiple_outputs.py on gpu(0) against the CPU,
+   and example/multi-task/multitask_mnist.py's Module.fit (784 -> 128 ->
+   {10, 2}, batch 128, 2,048 + 512 digits, Adam 1e-3, 4 epochs,
+   MultiAccuracy, two labels): its first 3 steps, eager and fused,
+   against the CPU's Module (MT_TOL); the fit eager and as fit makes it
+   by default, both heads above MT_MIN_ACC, the fused trainer's
+   captures, replays and fallbacks printed; the cost of MultiAccuracy's
+   host reads against Accuracy summed on the card;
+20. the data files at MNIST's published size (60,000 + 10,000 images,
+   idx.gz written from --seed as example/utils/get_data.py writes them;
+   CIFAR-10's 10,000 test images as its python pickle): LeNet through
+   Module.fit fed by MNISTIter (batch 64, softmax_label), eager and
+   captured, validation accuracy >= LENET_MIN_ACC; example/gluon/
+   mnist.py's hybridized MLP fed by gluon.data.vision.MNIST with
+   ToTensor and Normalize through a DataLoader (worker threads, samples
+   on the host, one copy up a batch), test accuracy above
+   MN_GLUON_MIN_ACC; for both, the iterator alone, the step fed against
+   the step on a held batch, the host's wait for a batch, the card's
+   busy share, and which side sets the pace; vision.CIFAR10 with
+   RandomFlipLeftRight through a DataLoader alone; one epoch of CSVIter
+   and LibSVMIter (dense) staged on gpu(0), equal to the CPU's batches;
+21. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -254,12 +289,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-19. one JSON line naming every kernel with its launches (the head
+22. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
-   launches_gluon_lm; multibox_nms's: in the SSD slice's decodes) and
-   error;
-20. the last line: {"ok": true, "device": {...}}.
+   launches_gluon_lm; multibox_nms's: in the SSD slice's decodes, and in
+   the R-CNN toy as launches_rcnn_toy, with its time at Proposal's shape)
+   and error;
+23. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -2146,11 +2182,16 @@ def lenet_fit(pkg, data, context=None, arg_params=None,
     device: the module's Updater runs, and the fused step may engage),
     Xavier, SGD lr 0.05 / momentum 0.9, Speedometer(64, 50), the
     validation set scored each epoch; on the current context unless
-    ``context``, optionally from given weights ({name: numpy}). Returns
-    (module, train iterator, validation iterator)."""
-    tr_x, tr_y, va_x, va_y = data
-    train = pkg.io.NDArrayIter(tr_x, tr_y, LENET_BATCH, shuffle=shuffle)
-    val = pkg.io.NDArrayIter(va_x, va_y, LENET_BATCH)
+    ``context``, optionally from given weights ({name: numpy}). ``data``
+    is (train x, train y, validation x, validation y) for NDArrayIters,
+    or the (train, validation) iterators themselves. Returns (module,
+    train iterator, validation iterator)."""
+    if len(data) == 2:
+        train, val = data
+    else:
+        tr_x, tr_y, va_x, va_y = data
+        train = pkg.io.NDArrayIter(tr_x, tr_y, LENET_BATCH, shuffle=shuffle)
+        val = pkg.io.NDArrayIter(va_x, va_y, LENET_BATCH)
     kv = pkg.kv.create("local") if kvstore is None else kvstore
     mod = pkg.mod.Module(lenet_symbol(pkg),
                          context=context or pkg.context.current_context())
@@ -4459,19 +4500,22 @@ class GluonRun:
     seconds of each phase."""
 
     def __init__(self, pkg, net, data, ctx, batch, hybridize,
-                 opt=GL_OPT, workers=0):
+                 opt=GL_OPT, workers=0, shuffle=False):
         self.pkg, self.net, self.ctx, self.batch = pkg, net, ctx, batch
         if hybridize:
             net.hybridize()
         self.trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
                                          dict(opt))
         self.loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+        if not isinstance(data, pkg.gluon.data.Dataset):
+            data = pkg.gluon.data.ArrayDataset(*data)
         self.loader = pkg.gluon.data.DataLoader(
-            pkg.gluon.data.ArrayDataset(*data), batch_size=batch,
-            shuffle=False, last_batch="discard", num_workers=workers)
+            data, batch_size=batch, shuffle=shuffle, last_batch="discard",
+            num_workers=workers)
         self.losses = []
         self.clock = {}
         self._it = None
+        self._last = None
 
     def _next(self):
         with self.ctx:
@@ -4484,11 +4528,13 @@ class GluonRun:
                     self._it = None
         raise RuntimeError("the DataLoader gave no batch")
 
-    def steps(self, n):
+    def steps(self, n, held=False):
+        """``n`` steps; ``held``: on the batch drawn last, again."""
         pkg, clock = self.pkg, self.clock
         for _ in range(n):
             t0 = time.perf_counter()
-            x, y = self._next()
+            x, y = self._last if held else self._next()
+            self._last = (x, y)
             t1 = time.perf_counter()
             with pkg.autograd.record():
                 loss = self.loss_fn(self.net(x), y)
@@ -5475,18 +5521,20 @@ def cifar_run(mt, args, network, seed, path, card, learn):
     return mod, train, val
 
 
-def cifar_times(mt, runs, setting, card, bound, batch):
-    """ms a step of fit's loop body over the live record iterators, eager
-    and captured, and the captured step repeated on one batch already on
-    the card ("fixed": no wait for the decoders), in turns of
-    CF_TIMED_STEPS steps (eager, captured, fixed, fixed, captured, eager),
-    with the host time by phase (the wait for a batch in "next batch" and
-    "prepare"), images/s, the share of the bound, and from torch.profiler
-    over CF_PROFILE_STEPS steps the card's busy share and launches a step.
-    Returns {path: (ms, card busy ms or None)}."""
+def fed_held_times(mt, runs, label, card, steps, profile_steps, batch,
+                   metric, bound_text=None):
+    """ms a step of fit's loop body over the live iterators, eager and
+    captured, and the captured step repeated on one batch already on the
+    card ("fixed": no wait for the iterator), in turns of ``steps`` steps
+    (eager, captured, fixed, fixed, captured, eager), with the host time
+    by phase (the wait for a batch in "next batch" and "prepare"),
+    images/s, ``bound_text(ms)`` (the share of the bound) where given,
+    and from torch.profiler over ``profile_steps`` steps the card's busy
+    share and launches a step. ``runs``: {path: (module, iterator,
+    ...)}; ``metric()`` makes a path's metric. Returns {path: (ms, card
+    busy ms or None)}."""
     import torch
-    metrics = {k: mt.metric.create([mt.metric.create("accuracy")])
-               for k in runs}
+    metrics = {k: metric() for k in runs}
     held = {k: None for k in runs}
     ms = {k: [] for k in ("eager", "captured", "fixed")}
     clock = {k: {} for k in runs}
@@ -5496,7 +5544,7 @@ def cifar_times(mt, runs, setting, card, bound, batch):
             fixed = held["captured"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(CF_TIMED_STEPS):
+            for _ in range(steps):
                 mod.forward_backward(fixed)
                 mod.update()
                 mod.update_metric(metrics["captured"], fixed.label)
@@ -5504,39 +5552,51 @@ def cifar_times(mt, runs, setting, card, bound, batch):
             held[k] = fit_steps(mod, it, metrics[k], 1, held[k])[0]  # warm
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            held[k] = fit_steps(mod, it, metrics[k], CF_TIMED_STEPS,
-                                held[k], clock[k])[0]
+            held[k] = fit_steps(mod, it, metrics[k], steps, held[k],
+                                clock[k])[0]
         torch.cuda.synchronize()
-        ms[k].append((time.perf_counter() - t0) / CF_TIMED_STEPS * 1e3)
-    tf32 = setting == "TF32 on"
-    bound_at, by = bound_ms(*bound, tf32)
+        ms[k].append((time.perf_counter() - t0) / steps * 1e3)
     out = {}
-    for k, (mod, it, _val) in runs.items():
+    for k, (mod, it) in ((k, v[:2]) for k, v in runs.items()):
         step = float(np.mean(ms[k]))
-        host = "; ".join("%s %.3f" % (p, v / (2 * CF_TIMED_STEPS) * 1e3)
+        host = "; ".join("%s %.3f" % (p, v / (2 * steps) * 1e3)
                          for p, v in clock[k].items())
 
         def profiled():
-            held[k] = fit_steps(mod, it, metrics[k], CF_PROFILE_STEPS,
+            held[k] = fit_steps(mod, it, metrics[k], profile_steps,
                                 held[k])[0]
-        busy, top = device_time(profiled, 1, per=CF_PROFILE_STEPS)
+        busy, top = device_time(profiled, 1, per=profile_steps)
         out[k] = (step, busy)
-        print("CIFAR ResNet-%d %s step, %s (cuDNN TF32 %s, matmul TF32 off):"
-              " %.3f ms (%s), %.1f images/s; bound %.3f ms (%s), %.1f%% of "
-              "it; host ms a step by phase: %s; %s; per step: %s | %s"
-              % (CF_LAYERS, k, setting, "on" if tf32 else "off", step,
-                 ", ".join("%.3f" % v for v in ms[k]), batch / step * 1e3,
-                 bound_at, by, 100 * bound_at / step, host,
+        print("%s %s step: %.3f ms (%s), %.1f images/s%s; host ms a step by "
+              "phase: %s; %s; per step: %s | %s"
+              % (label, k, step, ", ".join("%.3f" % v for v in ms[k]),
+                 batch / step * 1e3,
+                 "; " + bound_text(step) if bound_text else "", host,
                  busy_of(busy, step), top, card), flush=True)
     fixed = float(np.mean(ms["fixed"]))
     out["fixed"] = (fixed, None)
-    print("CIFAR ResNet-%d step, %s: eager %.3f ms, captured %.3f ms (%.2fx); "
-          "captured on one held batch %.3f ms (%s), %.1f images/s | %s"
-          % (CF_LAYERS, setting, out["eager"][0], out["captured"][0],
+    print("%s step: eager %.3f ms, captured %.3f ms (%.2fx); captured on one "
+          "held batch %.3f ms (%s), %.1f images/s | %s"
+          % (label, out["eager"][0], out["captured"][0],
              out["eager"][0] / out["captured"][0], fixed,
              ", ".join("%.3f" % v for v in ms["fixed"]), batch / fixed * 1e3,
              card), flush=True)
     return out
+
+
+def cifar_times(mt, runs, setting, card, bound, batch):
+    """:func:`fed_held_times` of the CIFAR fits over the record iterators,
+    CF_TIMED_STEPS steps a turn, beside the bound. Returns {path: (ms,
+    card busy ms or None)}."""
+    tf32 = setting == "TF32 on"
+    bound_at, by = bound_ms(*bound, tf32)
+    return fed_held_times(
+        mt, runs, "CIFAR ResNet-%d, %s (cuDNN TF32 %s, matmul TF32 off):"
+        % (CF_LAYERS, setting, "on" if tf32 else "off"), card,
+        CF_TIMED_STEPS, CF_PROFILE_STEPS, batch,
+        lambda: mt.metric.create([mt.metric.create("accuracy")]),
+        lambda step: "bound %.3f ms (%s), %.1f%% of it"
+        % (bound_at, by, 100 * bound_at / step))
 
 
 def cifar_pad_check(mt, network, seed, root, card):
@@ -6102,11 +6162,13 @@ def nms_inputs(vision, anchors, rng, batch, tied=False):
         torch.tensor(loc, dtype=torch.float32, device=dev), anchors)
 
 
-def nms_pairs(vision, cls_id, boxes, force, limit):
+def nms_pairs(vision, cls_id, boxes, force, limit,
+              threshold=SSD_NMS_THRESHOLD):
     """The (row, later row) IoU tests the greedy pass needs on these rows:
     for each row i < limit alive at its turn with a class, the later rows
-    still alive then of its class (any class with ``force``). The
-    kernel's operations are these pairs times NMS_PAIR_OPS."""
+    still alive then of its class (any class with ``force``), a pair
+    suppressing its later row above ``threshold``. The kernel's
+    operations are these pairs times NMS_PAIR_OPS."""
     import torch
     num = cls_id.shape[1]
     j = torch.arange(num, device=cls_id.device)
@@ -6118,7 +6180,7 @@ def nms_pairs(vision, cls_id, boxes, force, limit):
         cand = live & alive & (j > i) & ((ci == cls_id) | force)
         pairs += cand.sum()
         iou = vision._corner_iou(boxes[:, i:i + 1], boxes)
-        alive = alive & ~(cand & (iou > SSD_NMS_THRESHOLD))
+        alive = alive & ~(cand & (iou > threshold))
     return int(pairs)
 
 
@@ -6484,6 +6546,1075 @@ def ssd_phase(mt, seed, card):
     print("SSD phase: %.1f s (%s)" % (time.time() - t_phase, card),
           flush=True)
     return ms, launches, err, timing
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: example/rcnn/train_rcnn_toy.py, the toy Faster R-CNN: an RPN
+# Group of SoftmaxOutput, MakeLoss and BlockGrad trained through
+# simple_bind, then Proposal (its NMS on multibox_nms),
+# get_internals()["feat_output"], ROIPooling and an roi head; and Proposal
+# at Faster R-CNN's size. The example imports mxtpu, so its main is
+# mirrored here for either package.
+# ---------------------------------------------------------------------------
+
+RCNN_HW, RCNN_STRIDE, RCNN_SCALES, RCNN_RATIOS = 32, 4, (4,), (1.0,)
+RCNN_FEAT = RCNN_HW // RCNN_STRIDE
+RCNN_A = len(RCNN_SCALES) * len(RCNN_RATIOS)
+RCNN_N, RCNN_BATCH, RCNN_EPOCHS, RCNN_HEAD_STEPS, RCNN_LR = 64, 8, 8, 60, 0.01
+RCNN_INPUTS = ("data", "rpn_cls_label", "bbox_target", "bbox_weight")
+RCNN_PROPOSAL = dict(rpn_pre_nms_top_n=32, rpn_post_nms_top_n=8,
+                     threshold=0.7, rpn_min_size=4, scales=RCNN_SCALES,
+                     ratios=RCNN_RATIOS, feature_stride=RCNN_STRIDE)
+# the example's three asserts
+RCNN_MIN_RPN_ACC, RCNN_MIN_RECALL, RCNN_MIN_HEAD_ACC = 0.9, 0.75, 0.85
+# the RPN's first steps on the card (TF32 off) against the CPU's from the
+# same weights: each step's objectness cross-entropy and box loss, as
+# SSD_TOY_TOL holds the SSD toy's (Adam moves a weight by about lr whatever
+# its gradient's size, so the losses and not the weights are held)
+RCNN_TOL = dict(rtol=1e-4, atol=1e-6)
+# Proposal on the card against the CPU on the same inputs: the same rois
+# kept in the same order; their corners (pixels of a 32x32 image) come
+# from exp and products that may round differently on the card
+RCNN_ROI_TOL = dict(rtol=0, atol=1e-4)
+
+# Proposal at Faster R-CNN's size (VGG16 at stride 16 on a 600x1000
+# image: a 38x63 map) with the op's defaults: scales (4, 8, 16, 32) and
+# ratios (0.5, 1, 2), 12 anchors a cell, 28,728 in all; 6,000 before the
+# NMS, 300 after, threshold 0.7
+FRCNN_MAP, FRCNN_IM, FRCNN_CELL_ANCHORS = (38, 63), (600, 1000), 12
+FRCNN_PROPOSAL = dict(rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300,
+                      threshold=0.7, feature_stride=16)
+
+
+def rcnn_images(n, seed=0):
+    """train_rcnn_toy.py's make_images: one bright square an image, and
+    its box (x1, y1, x2, y2)."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(0, 0.3, (n, 1, RCNN_HW, RCNN_HW)).astype("f")
+    boxes = np.zeros((n, 4), "f")
+    for i in range(n):
+        size = rng.randint(12, 18)
+        r0 = rng.randint(0, RCNN_HW - size)
+        c0 = rng.randint(0, RCNN_HW - size)
+        x[i, 0, r0:r0 + size, c0:c0 + size] += 0.7
+        boxes[i] = (c0, r0, c0 + size - 1, r0 + size - 1)
+    return x, boxes
+
+
+def rcnn_anchors():
+    """train_rcnn_toy.py's all_anchors: the Proposal op's grid."""
+    base = float(RCNN_STRIDE)
+    ctr = (base - 1) / 2
+    side = base * RCNN_SCALES[0]
+    cells = []
+    for r in range(RCNN_FEAT):
+        for c in range(RCNN_FEAT):
+            cx, cy = c * base + ctr, r * base + ctr
+            cells.append([cx - side / 2, cy - side / 2,
+                          cx + side / 2, cy + side / 2])
+    return np.asarray(cells, "f")
+
+
+def rcnn_iou(boxes, gt):
+    """train_rcnn_toy.py's iou of each box with ``gt``."""
+    x1 = np.maximum(boxes[:, 0], gt[0])
+    y1 = np.maximum(boxes[:, 1], gt[1])
+    x2 = np.minimum(boxes[:, 2], gt[2])
+    y2 = np.minimum(boxes[:, 3], gt[3])
+    inter = np.clip(x2 - x1 + 1, 0, None) * np.clip(y2 - y1 + 1, 0, None)
+    area_b = (boxes[:, 2] - boxes[:, 0] + 1) * (boxes[:, 3] - boxes[:, 1] + 1)
+    area_g = (gt[2] - gt[0] + 1) * (gt[3] - gt[1] + 1)
+    return inter / (area_b + area_g - inter)
+
+
+def rcnn_targets(boxes):
+    """train_rcnn_toy.py's rpn_targets: each anchor's label (1 object, 0
+    background, -1 ignored), box deltas and regression mask."""
+    anchors = rcnn_anchors()
+    n = boxes.shape[0]
+    labels = np.zeros((n, RCNN_A * RCNN_FEAT * RCNN_FEAT), "f")
+    deltas = np.zeros((n, RCNN_A * 4, RCNN_FEAT, RCNN_FEAT), "f")
+    for i in range(n):
+        ious = rcnn_iou(anchors, boxes[i])
+        lab = -np.ones(anchors.shape[0], "f")
+        lab[ious < 0.3] = 0.0
+        lab[ious >= 0.5] = 1.0
+        lab[np.argmax(ious)] = 1.0
+        labels[i] = lab
+        aw = anchors[:, 2] - anchors[:, 0] + 1
+        ah = anchors[:, 3] - anchors[:, 1] + 1
+        acx = anchors[:, 0] + aw / 2
+        acy = anchors[:, 1] + ah / 2
+        gw = boxes[i, 2] - boxes[i, 0] + 1
+        gh = boxes[i, 3] - boxes[i, 1] + 1
+        gcx = boxes[i, 0] + gw / 2
+        gcy = boxes[i, 1] + gh / 2
+        d = np.stack([(gcx - acx) / aw, (gcy - acy) / ah,
+                      np.log(gw / aw) * np.ones_like(aw),
+                      np.log(gh / ah) * np.ones_like(ah)], 1)
+        d[lab != 1.0] = 0.0
+        deltas[i] = d.reshape(RCNN_FEAT, RCNN_FEAT, RCNN_A * 4) \
+            .transpose(2, 0, 1)
+    weights = (labels == 1.0).astype("f").reshape(-1, RCNN_FEAT, RCNN_FEAT,
+                                                  RCNN_A)
+    weights = np.repeat(weights.transpose(0, 3, 1, 2), 4, axis=1)
+    return labels, deltas, weights
+
+
+def rcnn_rpn_symbol(pkg):
+    """train_rcnn_toy.py's get_rpn_symbol in either package, in a fresh
+    name scope: Group([SoftmaxOutput(multi_output, use_ignore),
+    MakeLoss(smooth_l1), BlockGrad(bbox)])."""
+    sym = pkg.sym
+    with pkg.name.NameManager():
+        body = sym.var("data")
+        for i, ch in enumerate((16, 32)):
+            body = sym.Convolution(body, num_filter=ch, kernel=(3, 3),
+                                   pad=(1, 1), name="conv%d" % i)
+            body = sym.Activation(body, act_type="relu")
+            body = sym.Pooling(body, kernel=(2, 2), stride=(2, 2),
+                               pool_type="max")
+        feat = sym.Convolution(body, num_filter=32, kernel=(3, 3),
+                               pad=(1, 1), name="rpn_conv")
+        feat = sym.Activation(feat, act_type="relu", name="feat")
+        cls = sym.Convolution(feat, num_filter=2 * RCNN_A, kernel=(1, 1),
+                              name="rpn_cls_score")
+        cls = sym.Reshape(cls, shape=(0, 2, -1))
+        cls_out = sym.SoftmaxOutput(cls, multi_output=True, use_ignore=True,
+                                    ignore_label=-1, name="rpn_cls")
+        bbox = sym.Convolution(feat, num_filter=4 * RCNN_A, kernel=(1, 1),
+                               name="rpn_bbox_pred")
+        bbox_tgt = sym.var("bbox_target")
+        bbox_w = sym.var("bbox_weight")
+        bbox_loss = sym.MakeLoss(
+            sym.smooth_l1(bbox_w * (bbox - bbox_tgt), scalar=3.0),
+            grad_scale=1.0, name="rpn_bbox_loss")
+        return sym.Group([cls_out, bbox_loss, sym.BlockGrad(bbox)])
+
+
+def rcnn_losses(outs, labels):
+    """One RPN step's (objectness cross-entropy over the labelled anchors,
+    box loss an image) from the Group's outputs."""
+    probs = outs[0].asnumpy()
+    b, a = np.nonzero(labels >= 0)
+    p = probs[b, labels[b, a].astype(np.int64), a]
+    return (float(-np.log(p).mean()),
+            float(outs[1].asnumpy().sum() / labels.shape[0]))
+
+
+def rcnn_toy_main(pkg, ctx, weights=None, max_steps=None):
+    """train_rcnn_toy.py's main, line for line, in either package on
+    ``ctx``: stage 1 trains the RPN Group through simple_bind (Xavier,
+    Adam 0.01, 8 epochs of batch 8), stage 2 runs Proposal on its
+    outputs, get_internals()["feat_output"], ROIPooling and the roi head
+    (60 Adam steps). ``weights`` ({name: numpy}) replace the RPN's Xavier
+    draws (the packages draw differently); ``max_steps`` stops stage 1
+    early and skips the head. Returns {"steps": [(objectness
+    cross-entropy, box loss)] a step, "rpn_acc", "probs", "bbox_pred",
+    "im_info", "rois", "recall", "feat", "pooled", "head_acc" (None with
+    ``max_steps``)}."""
+    mx = pkg
+    hw, feat_hw, a, bsz = RCNN_HW, RCNN_FEAT, RCNN_A, RCNN_BATCH
+    with ctx:
+        np.random.seed(0)
+        mx.random.seed(0)
+        n = RCNN_N
+        x, boxes = rcnn_images(n)
+        labels, deltas, bbox_weights = rcnn_targets(boxes)
+
+        # stage 1: train the RPN
+        sym = rcnn_rpn_symbol(mx)
+        exe = sym.simple_bind(ctx, grad_req="write", data=(bsz, 1, hw, hw),
+                              rpn_cls_label=(bsz, a * feat_hw * feat_hw),
+                              bbox_target=(bsz, 4 * a, feat_hw, feat_hw),
+                              bbox_weight=(bsz, 4 * a, feat_hw, feat_hw))
+        init = mx.init.Xavier()
+        for name, arr in exe.arg_dict.items():
+            if name not in RCNN_INPUTS:
+                init(mx.init.InitDesc(name), arr)
+        for name, value in (weights or {}).items():
+            exe.arg_dict[name][:] = value
+        opt = mx.optimizer.Adam(learning_rate=RCNN_LR)
+        states = {k: opt.create_state(i, exe.arg_dict[k])
+                  for i, k in enumerate(exe.grad_dict)}
+        steps = []
+        for epoch in range(RCNN_EPOCHS):
+            for b in range(0, n, bsz):
+                if len(steps) == max_steps:
+                    break
+                exe.arg_dict["data"][:] = x[b:b + bsz]
+                exe.arg_dict["rpn_cls_label"][:] = labels[b:b + bsz]
+                exe.arg_dict["bbox_target"][:] = deltas[b:b + bsz]
+                exe.arg_dict["bbox_weight"][:] = bbox_weights[b:b + bsz]
+                outs = exe.forward(is_train=True)
+                exe.backward()
+                for i, (k, g) in enumerate(exe.grad_dict.items()):
+                    if g is not None and k not in RCNN_INPUTS:
+                        opt.update(i, exe.arg_dict[k], g, states[k])
+                steps.append(rcnn_losses(outs, labels[b:b + bsz]))
+
+        # RPN objectness accuracy on labelled anchors
+        exe.arg_dict["data"][:] = x[:bsz]
+        exe.arg_dict["rpn_cls_label"][:] = labels[:bsz]
+        exe.arg_dict["bbox_target"][:] = deltas[:bsz]
+        exe.arg_dict["bbox_weight"][:] = bbox_weights[:bsz]
+        probs = exe.forward(is_train=False)[0].asnumpy()
+        pred = probs.argmax(axis=1)
+        mask = labels[:bsz] >= 0
+        rpn_acc = float((pred[mask] == labels[:bsz][mask]).mean())
+
+        # stage 2: Proposal + ROIPooling + roi head
+        cls_prob = mx.nd.array(probs.reshape(bsz, 2 * a, feat_hw, feat_hw))
+        bbox_pred = mx.nd.array(exe.outputs[2].asnumpy().reshape(
+            bsz, 4 * a, feat_hw, feat_hw))
+        im_info = np.tile([hw, hw, 1.0], (bsz, 1)).astype("f")
+        rois = mx.nd.Proposal(cls_prob, bbox_pred, mx.nd.array(im_info),
+                              **RCNN_PROPOSAL)
+        rois_np = rois.asnumpy()
+        recalls = []
+        for i in range(bsz):
+            mine = rois_np[rois_np[:, 0] == i][:, 1:]
+            recalls.append(rcnn_iou(mine, boxes[i]).max() if len(mine)
+                           else 0.0)
+        recall = float(np.mean([r > 0.5 for r in recalls]))
+
+        feat_sym = sym.get_internals()["feat_output"]
+        feat_exe = feat_sym.simple_bind(ctx, grad_req="null",
+                                        data=(bsz, 1, hw, hw))
+        feat_exe.copy_params_from(
+            {k: v for k, v in exe.arg_dict.items()
+             if k in feat_exe.arg_dict and k != "data"}, {})
+        feat_exe.arg_dict["data"][:] = x[:bsz]
+        feat = feat_exe.forward(is_train=False)[0]
+        pooled = mx.nd.ROIPooling(feat, rois, pooled_size=(4, 4),
+                                  spatial_scale=1.0 / RCNN_STRIDE)
+        out = {"steps": steps, "rpn_acc": rpn_acc, "probs": probs,
+               "bbox_pred": bbox_pred.asnumpy(), "im_info": im_info,
+               "rois": rois_np, "recall": recall, "feat": feat.asnumpy(),
+               "pooled": pooled.asnumpy(), "head_acc": None}
+        if max_steps is not None:
+            return out
+        roi_labels = np.zeros((rois_np.shape[0],), "f")
+        for j in range(rois_np.shape[0]):
+            i = int(rois_np[j, 0])
+            roi_labels[j] = 1.0 if rcnn_iou(rois_np[j:j + 1, 1:],
+                                            boxes[i])[0] > 0.5 else 0.0
+        head = mx.sym.var("pooled")
+        head_net = mx.sym.FullyConnected(mx.sym.Flatten(head), num_hidden=32,
+                                         name="head_fc1")
+        head_net = mx.sym.Activation(head_net, act_type="relu")
+        head_net = mx.sym.FullyConnected(head_net, num_hidden=2,
+                                         name="head_fc2")
+        head_net = mx.sym.SoftmaxOutput(head_net, name="cls")
+        hexe = head_net.simple_bind(ctx, grad_req="write",
+                                    pooled=tuple(pooled.shape),
+                                    cls_label=(pooled.shape[0],))
+        for name, arr in hexe.arg_dict.items():
+            if name not in ("pooled", "cls_label"):
+                init(mx.init.InitDesc(name), arr)
+        hopt = mx.optimizer.Adam(learning_rate=RCNN_LR)
+        hstates = {k: hopt.create_state(i, hexe.arg_dict[k])
+                   for i, k in enumerate(hexe.grad_dict)}
+        hexe.arg_dict["pooled"][:] = pooled
+        hexe.arg_dict["cls_label"][:] = roi_labels
+        for step in range(RCNN_HEAD_STEPS):
+            hexe.forward(is_train=True)
+            hexe.backward()
+            for i, (k, g) in enumerate(hexe.grad_dict.items()):
+                if g is not None and k not in ("pooled", "cls_label"):
+                    hopt.update(i, hexe.arg_dict[k], g, hstates[k])
+        pred = hexe.forward(is_train=False)[0].asnumpy().argmax(axis=1)
+        out["head_acc"] = float((pred == roi_labels).mean())
+        return out
+
+
+def rcnn_phase(mt, vision, card):
+    """Phase 18: train_rcnn_toy.py's main on gpu(0), multibox_nms counted
+    from 0 just before it: the example's three asserts, its first 3 RPN
+    steps against the CPU's (RCNN_TOL), one kernel launch for its one
+    Proposal call, and its rois and pooled features against the CPU's
+    Proposal and ROIPooling on the same inputs. Returns the launches."""
+    cpu, gpu = mt.cpu(), mt.gpu(0)
+    want = rcnn_toy_main(mt, cpu, max_steps=FIT_STEPS)["steps"]
+    vision.LAUNCHES["multibox_nms"] = 0
+    t0 = time.perf_counter()
+    run = rcnn_toy_main(mt, gpu)
+    secs = time.perf_counter() - t0
+    launches = vision.LAUNCHES["multibox_nms"]
+    if launches != 1:
+        fail("the R-CNN toy's one Proposal call launched multibox_nms %d "
+             "times" % launches)
+    got = run["steps"][:FIT_STEPS]
+    if not np.allclose(got, want, **RCNN_TOL):
+        fail("the R-CNN toy's first %d RPN steps on the card %s, on the CPU "
+             "%s (%s)" % (FIT_STEPS, got, want, RCNN_TOL))
+    for what, value, ok, limit in (
+            ("RPN objectness accuracy", run["rpn_acc"],
+             run["rpn_acc"] > RCNN_MIN_RPN_ACC, "> %g" % RCNN_MIN_RPN_ACC),
+            ("proposal recall@0.5", run["recall"],
+             run["recall"] >= RCNN_MIN_RECALL, ">= %g" % RCNN_MIN_RECALL),
+            ("roi head accuracy", run["head_acc"],
+             run["head_acc"] > RCNN_MIN_HEAD_ACC,
+             "> %g" % RCNN_MIN_HEAD_ACC)):
+        if not ok:
+            fail("the R-CNN toy on gpu(0): %s %.3f (the example asserts %s)"
+                 % (what, value, limit))
+    nd = mt.nd
+    with cpu:
+        rois = nd.Proposal(
+            nd.array(run["probs"].reshape(run["bbox_pred"].shape[0], -1,
+                                          RCNN_FEAT, RCNN_FEAT)),
+            nd.array(run["bbox_pred"]), nd.array(run["im_info"]),
+            **RCNN_PROPOSAL).asnumpy()
+        pooled = nd.ROIPooling(nd.array(run["feat"]), nd.array(run["rois"]),
+                               pooled_size=(4, 4),
+                               spatial_scale=1.0 / RCNN_STRIDE).asnumpy()
+    if not np.allclose(run["rois"], rois, **RCNN_ROI_TOL):
+        fail("the R-CNN toy's rois on the card differ from the CPU's "
+             "Proposal on the same inputs by %g"
+             % np.abs(run["rois"] - rois).max())
+    if not np.array_equal(run["pooled"], pooled):
+        fail("ROIPooling on the card differs from the CPU's by %g"
+             % np.abs(run["pooled"] - pooled).max())
+    first, last = np.mean(run["steps"][:4], 0), np.mean(run["steps"][-4:], 0)
+    print("R-CNN toy (train_rcnn_toy.py's main) on gpu(0): %d RPN steps and "
+          "%d head steps in %.2f s; RPN objectness accuracy %.3f (> %g), "
+          "proposal recall@0.5 %.3f (>= %g), roi head accuracy %.3f (> %g); "
+          "first %d RPN steps' (cross-entropy, box loss) within %s of the "
+          "CPU's (largest gap %.3g); first 4 steps' mean (%.4f, %.4f), last "
+          "4 steps' (%.4f, %.4f); %d rois within %g px of the CPU's "
+          "Proposal (largest gap %.3g), pooled features equal; "
+          "multibox_nms launched %d time(s) for 1 Proposal call | %s"
+          % (len(run["steps"]), RCNN_HEAD_STEPS, secs, run["rpn_acc"],
+             RCNN_MIN_RPN_ACC, run["recall"], RCNN_MIN_RECALL,
+             run["head_acc"], RCNN_MIN_HEAD_ACC, FIT_STEPS, RCNN_TOL,
+             float(np.abs(np.subtract(got, want)).max()), first[0],
+             first[1], last[0], last[1], rois.shape[0],
+             RCNN_ROI_TOL["atol"], float(np.abs(run["rois"] - rois).max()),
+             launches, card), flush=True)
+    return launches
+
+
+def proposal_size_phase(mt, vision, rng, card):
+    """Phase 18b: Proposal at Faster R-CNN's size on gpu(0): one image of
+    600x1000 at stride 16, random objectness and small deltas from
+    ``rng``. Its rois equal those of the same op with the NMS on the
+    plain loop on the card. Then multibox_nms at the shape the op gave
+    it (6,000 rows, one class) timed beside its bound, the plain loop
+    beside it. Returns (ms, plain ms, bound ms, bound by)."""
+    import torch
+    nd, gpu = mt.nd, mt.gpu(0)
+    h, w = FRCNN_MAP
+    fg = rng.uniform(0, 1, (1, FRCNN_CELL_ANCHORS, h, w)).astype(np.float32)
+    inputs = [nd.array(v, ctx=gpu) for v in (
+        np.concatenate([1 - fg, fg], 1),
+        (0.1 * rng.standard_normal((1, 4 * FRCNN_CELL_ANCHORS, h, w)))
+        .astype(np.float32),
+        np.array([[FRCNN_IM[0], FRCNN_IM[1], 1.0]], np.float32))]
+    kernel, calls = vision.multibox_nms, []
+
+    def recorded(*args):
+        calls.append(args)
+        return kernel(*args)
+    rois = {}
+    for name, nms in (("kernel", recorded),
+                      ("plain", vision.multibox_nms_plain)):
+        vision.multibox_nms = nms
+        try:
+            rois[name] = nd.Proposal(*inputs, **FRCNN_PROPOSAL).data
+        finally:
+            vision.multibox_nms = kernel
+    torch.cuda.synchronize()
+    if len(calls) != 1:
+        fail("Proposal made %d NMS calls, not 1" % len(calls))
+    if not torch.equal(rois["kernel"], rois["plain"]):
+        fail("Proposal at %dx%d: %d of %d roi values differ between "
+             "multibox_nms and its plain loop on the card"
+             % (FRCNN_IM + (int((rois["kernel"] != rois["plain"]).sum()),
+                            rois["kernel"].numel())))
+    boxes, cls_id, threshold, force, limit = calls[0]
+    anchors = FRCNN_CELL_ANCHORS * h * w
+    ms = cuda_ms(lambda: kernel(boxes, cls_id, threshold, force, limit),
+                 iters=20)
+    plain_ms = cuda_ms(lambda: vision.multibox_nms_plain(
+        boxes, cls_id, threshold, force, limit), iters=1, warmup=0)
+    kept = int((kernel(boxes, cls_id, threshold, force, limit) >= 0).sum())
+    pairs = nms_pairs(vision, cls_id, boxes, force, limit, threshold)
+    ops_ms = pairs * NMS_PAIR_OPS / PEAK_F32 * 1e3
+    bytes_ms = cls_id.numel() * (16 + 4 + 4) / PEAK_BYTES_S * 1e3
+    bound, by = (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+    print("Proposal at Faster R-CNN's size (%dx%d image, a %dx%d map at "
+          "stride 16, %d anchors, top %d before the NMS, %d after, threshold "
+          "%g) on gpu(0): its %d rois equal those of the plain NMS loop on "
+          "the card; %d boxes survive the NMS | %s"
+          % (FRCNN_IM + FRCNN_MAP + (anchors, limit,
+                                     FRCNN_PROPOSAL["rpn_post_nms_top_n"],
+                                     threshold, rois["kernel"].shape[0],
+                                     kept, card)), flush=True)
+    print("time multibox_nms at Proposal's shape (1 x %d rows, one class, "
+          "force_suppress): %.4f ms (CUDA events, 20 calls), plain loop %.2f "
+          "ms; %d pairs tested; bound %.6f ms (%s), the kernel at %.3f%% of "
+          "it; no library call (torch has no NMS) | %s"
+          % (limit, ms, plain_ms, pairs, bound, by, 100 * bound / ms, card),
+          flush=True)
+    return ms, plain_ms, bound, by
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: multi-output graphs through Module.fit:
+# example/python-howto/multiple_outputs.py and
+# example/multi-task/multitask_mnist.py (a Group of two SoftmaxOutput heads,
+# two labels, a custom EvalMetric), mirrored for either package.
+# ---------------------------------------------------------------------------
+
+MT_TRAIN, MT_TEST, MT_BATCH, MT_EPOCHS, MT_LR = 2048, 512, 128, 4, 1e-3
+MT_LABELS = ("softmax_digit_label", "softmax_parity_label")
+MT_MIN_ACC = 0.9                   # the example asserts both heads above
+# the first steps' cross-entropies of both heads, card vs CPU (Adam: the
+# losses and not the weights are held, as RCNN_TOL)
+MT_TOL = dict(rtol=1e-4, atol=1e-6)
+MT_TIMED_EPOCHS = 2
+
+
+def multitask_digits(n, seed=0):
+    """multitask_mnist.py's synthetic_digits: fixed class prototypes plus
+    noise of ``seed``."""
+    protos = np.random.RandomState(0).uniform(0, 1, (10, 784)) \
+        .astype(np.float32)
+    r = np.random.RandomState(seed)
+    y = r.randint(0, 10, n)
+    x = protos[y] + 0.25 * r.randn(n, 784).astype(np.float32)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def multitask_symbol(pkg):
+    """multitask_mnist.py's build(): 784 -> 128 relu -> {10, 2} softmax
+    heads, grouped."""
+    sym = pkg.sym
+    with pkg.name.NameManager():
+        shared = sym.FullyConnected(sym.var("data"), name="fc1",
+                                    num_hidden=128)
+        shared = sym.Activation(shared, name="relu1", act_type="relu")
+        digit = sym.SoftmaxOutput(sym.FullyConnected(
+            shared, name="fc_digit", num_hidden=10), name="softmax_digit")
+        parity = sym.SoftmaxOutput(sym.FullyConnected(
+            shared, name="fc_parity", num_hidden=2), name="softmax_parity")
+        return sym.Group([digit, parity])
+
+
+def multi_accuracy(pkg, num=2):
+    """multitask_mnist.py's MultiAccuracy: accuracy a head, read on the
+    host (no device rule)."""
+
+    class MultiAccuracy(pkg.metric.EvalMetric):
+        def __init__(self, num=2):
+            self.num = num
+            super().__init__("multi-accuracy")
+
+        def reset(self):
+            self.num_inst = [0] * self.num
+            self.sum_metric = [0.0] * self.num
+
+        def update(self, labels, preds):
+            for i in range(self.num):
+                pred = preds[i].asnumpy().argmax(axis=1)
+                label = labels[i].asnumpy().astype(np.int64)
+                self.sum_metric[i] += float((pred == label).sum())
+                self.num_inst[i] += len(label)
+
+        def get(self):
+            accs = [s / max(n, 1) for s, n in zip(self.sum_metric,
+                                                  self.num_inst)]
+            return (["digit-acc", "parity-acc"], accs)
+
+    return MultiAccuracy(num)
+
+
+def multitask_iters(pkg, n_train=MT_TRAIN, shuffle=True):
+    """multitask_mnist.py's iterators (shuffle from numpy's global
+    stream)."""
+    xtr, ytr = multitask_digits(n_train, seed=0)
+    xte, yte = multitask_digits(MT_TEST, seed=1)
+    train = pkg.io.NDArrayIter(
+        xtr, {MT_LABELS[0]: ytr, MT_LABELS[1]: (ytr % 2).astype(np.float32)},
+        MT_BATCH, shuffle=shuffle)
+    val = pkg.io.NDArrayIter(
+        xte, {MT_LABELS[0]: yte, MT_LABELS[1]: (yte % 2).astype(np.float32)},
+        MT_BATCH)
+    return train, val
+
+
+def multitask_module(pkg, context=None):
+    where = {} if context is None else {"context": context}
+    return pkg.mod.Module(multitask_symbol(pkg), data_names=("data",),
+                          label_names=MT_LABELS, **where)
+
+
+def multitask_fit(pkg, context=None, num_epoch=MT_EPOCHS):
+    """multitask_mnist.py's main through Module.fit in either package (its
+    seeds, iterators, Adam 1e-3, MultiAccuracy), on the current context
+    unless ``context``; then the example's scoring loop. Returns (module,
+    train, validation, [digit accuracy, parity accuracy])."""
+    np.random.seed(0)
+    pkg.random.seed(11)
+    train, val = multitask_iters(pkg)
+    mod = multitask_module(pkg, context)
+    mod.fit(train, eval_data=val, optimizer="adam",
+            optimizer_params={"learning_rate": MT_LR},
+            eval_metric=multi_accuracy(pkg), num_epoch=num_epoch)
+    metric = multi_accuracy(pkg)
+    metric.reset()
+    val.reset()
+    for batch in val:
+        mod.forward(batch, is_train=False)
+        metric.update(batch.label, mod.get_outputs())
+    return mod, train, val, metric.get()[1]
+
+
+def multitask_init_params(pkg, seed):
+    """The multitask net's weights as Module draws them by default, from
+    ``seed`` on the CPU; {name: numpy}."""
+    pkg.random.seed(seed)
+    mod = multitask_module(pkg, pkg.cpu())
+    train, _ = multitask_iters(pkg, shuffle=False)
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params()
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def multitask_first_steps(pkg, context, arg_params, steps=FIT_STEPS):
+    """The example's first ``steps`` Module steps (its shuffled batches,
+    Adam 1e-3) from ``arg_params`` on ``context``: each step's
+    cross-entropy of the digit head and of the parity head."""
+    np.random.seed(0)
+    pkg.random.seed(11)
+    train, _ = multitask_iters(pkg)
+    mod = multitask_module(pkg, context)
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(arg_params=host_params(pkg, arg_params))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": MT_LR})
+    losses = []
+    for _ in range(steps):
+        batch = train.next()
+        mod.forward_backward(batch)
+        mod.update()
+        losses.append(tuple(
+            float(-np.log(o.asnumpy()[np.arange(o.shape[0]),
+                                      lab.asnumpy().astype(np.int64)]).mean())
+            for o, lab in zip(mod.get_outputs(), batch.label)))
+    return losses
+
+
+def multiple_outputs_main(pkg, ctx):
+    """example/python-howto/multiple_outputs.py's main on ``ctx``: a Group
+    of fc, relu(fc) and BlockGrad(relu), bound by simple_bind, read from
+    one forward; the example's checks. Returns (the executor, its list of
+    outputs, the outputs as numpy)."""
+    sym = pkg.sym
+    with pkg.name.NameManager():
+        data = sym.Variable("data")
+        fc = sym.FullyConnected(data, num_hidden=8, name="fc")
+        act = sym.Activation(fc, act_type="relu", name="relu")
+        out = sym.Group([fc, act, sym.BlockGrad(act)])
+    if len(out.list_outputs()) != 3:
+        fail("multiple_outputs: %s" % out.list_outputs())
+    ex = out.simple_bind(ctx, data=(2, 4))
+    r = np.random.RandomState(0)
+    ex.arg_dict["data"][:] = r.randn(2, 4).astype("f")
+    for k, v in ex.arg_dict.items():
+        if k != "data":
+            v[:] = r.uniform(-1, 1, v.shape).astype("f")
+    fc_o, act_o, blocked = [o.asnumpy() for o in ex.forward()]
+    if not (np.allclose(act_o, np.maximum(fc_o, 0), rtol=1e-6)
+            and np.allclose(blocked, act_o, rtol=1e-6)):
+        fail("multiple_outputs on %s: relu or BlockGrad output wrong" % ctx)
+    return ex, out.list_outputs(), [fc_o, act_o, blocked]
+
+
+def fused_report(mod):
+    """The fused trainer's engagement as text: captures, replays, steps
+    and fallbacks, or why it did not engage."""
+    trainer = mod._fused
+    if trainer is None:
+        return "fused step not engaged: %s" % getattr(
+            mod, "_fused_fallback_logged", "disabled after a fallback")
+    stats = trainer._group.stats
+    entries = trainer._cache.entries()
+    return ("fused step engaged: %d steps, %d signatures, %d graphs "
+            "captured, %d replays, %d fallbacks"
+            % (stats["steps"], len(entries),
+               sum(e.graph is not None for e in entries),
+               sum(e.replays for e in entries), stats["fallbacks"]))
+
+
+def multi_output_phase(mt, seed, card):
+    """Phase 19: multiple_outputs.py on gpu(0) against the CPU (outputs,
+    and the gradients of a backward with the implicit head gradients:
+    none through BlockGrad); the multitask net's first 3 Module steps on
+    the card, eager and fused, against the CPU's; its fit eager and as
+    fit makes it by default, both heads above MT_MIN_ACC, the fused
+    trainer's engagement printed; then the cost of MultiAccuracy's host
+    reads against a metric accumulated on the card. Returns {path: ms a
+    step}."""
+    import torch
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    exes = {}
+    for ctx in (gpu, cpu):
+        ex, names, outs = multiple_outputs_main(mt, ctx)
+        ex.forward(is_train=True)
+        ex.backward()
+        exes[ctx] = (names, outs, {k: g.asnumpy()
+                                   for k, g in ex.grad_dict.items()})
+    (names, outs, grads), (names_c, outs_c, grads_c) = exes[gpu], exes[cpu]
+    if names != names_c or not all(np.allclose(a, b, **FIT_TOL) for a, b in
+                                   zip(outs + list(grads.values()),
+                                       outs_c + list(grads_c.values()))):
+        fail("multiple_outputs on gpu(0) differs from the CPU")
+    print("multiple_outputs.py on gpu(0): outputs %s equal the CPU's within "
+          "%s, relu and BlockGrad checks hold; backward with the implicit "
+          "head gradients: fc_bias's gradient %s (fc's ones plus relu's, "
+          "none through BlockGrad), equal to the CPU's"
+          % (names, FIT_TOL, np.round(grads["fc_bias"], 3).tolist()),
+          flush=True)
+
+    p0 = multitask_init_params(mt, seed)
+    want = multitask_first_steps(mt, cpu, p0)
+    for fused in (False, True):
+        got = with_fused(fused, multitask_first_steps, mt, gpu, p0)
+        if not np.allclose(got, want, **MT_TOL):
+            fail("the multitask net's first %d steps on the card (%s) %s, on "
+                 "the CPU %s (%s)" % (FIT_STEPS, "fused" if fused else
+                                      "eager", got, want, MT_TOL))
+        print("multitask net: %d Module steps on the card (%s) against the "
+              "CPU's: (digit, parity) cross-entropies %s, largest gap %.3g "
+              "(%s)" % (FIT_STEPS, "fused" if fused else "eager",
+                        ", ".join("(%.5f, %.5f)" % g for g in got),
+                        float(np.abs(np.subtract(got, want)).max()), MT_TOL),
+              flush=True)
+
+    runs = {}
+    for label, fused in (("eager", False), ("default", True)):
+        t0 = time.perf_counter()
+        mod, train, val, accs = with_fused(fused, multitask_fit, mt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if mod._context != [gpu]:
+            fail("the multitask Module's context is %s" % mod._context)
+        if not (accs[0] > MT_MIN_ACC and accs[1] > MT_MIN_ACC):
+            fail("multitask_mnist.py's fit on gpu(0) (%s): accuracies %s "
+                 "(the example asserts > %g)" % (label, accs, MT_MIN_ACC))
+        if fused and mod._fused is None:
+            fail("the multitask fit did not engage the fused step, where "
+                 "mxtpu's predicate does: %s" % fused_report(mod))
+        print("multitask_mnist.py's fit on gpu(0), %s (MXTPU_MODULE_FUSED=%d):"
+              " %d epochs in %.2f s; digit accuracy %.4f, parity %.4f (> %g);"
+              " %s | %s" % (label, fused, MT_EPOCHS, secs, accs[0], accs[1],
+                            MT_MIN_ACC, fused_report(mod), card), flush=True)
+        runs[label] = (mod, train)
+
+    # MultiAccuracy reads both heads' outputs on the host every step; the
+    # same fit's steps with Accuracy, summed on the card, in turns
+    mod, train = runs["default"]
+    metrics = {"MultiAccuracy": multi_accuracy(mt),
+               "Accuracy": mt.metric.Accuracy()}
+    ms = {k: [] for k in metrics}
+    for k in metrics:
+        fit_epoch(mod, train, metrics[k])
+    for k in ("MultiAccuracy", "Accuracy", "Accuracy", "MultiAccuracy"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = sum(fit_epoch(mod, train, metrics[k])
+                    for _ in range(MT_TIMED_EPOCHS))
+        torch.cuda.synchronize()
+        ms[k].append((time.perf_counter() - t0) / steps * 1e3)
+    out = {k: float(np.mean(v)) for k, v in ms.items()}
+    print("multitask fused step with MultiAccuracy (host reads of both "
+          "outputs a step) %.3f ms (%s), with Accuracy on the card %.3f ms "
+          "(%s): the host reads cost %.3f ms a step; %s | %s"
+          % (out["MultiAccuracy"], ", ".join("%.3f" % v for v in
+                                               ms["MultiAccuracy"]),
+             out["Accuracy"], ", ".join("%.3f" % v for v in ms["Accuracy"]),
+             out["MultiAccuracy"] - out["Accuracy"], fused_report(mod),
+             card), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the data files at MNIST's published size (60,000 training and
+# 10,000 test images, idx.gz as example/utils/get_data.py's get_mnist writes
+# them, from --seed): LeNet (BASELINE.json config 1) through Module.fit fed
+# by MNISTIter, eager and captured; the hybridized MLP of
+# example/gluon/mnist.py fed by gluon.data.vision.MNIST, transforms and a
+# DataLoader; CIFAR10's 10,000 test images (python pickles) through a
+# DataLoader; one epoch of CSVIter and LibSVMIter
+# ---------------------------------------------------------------------------
+
+MN_TRAIN, MN_TEST, MN_BATCH = 60000, 10000, 64
+# example/gluon/mnist.py's MLP fed by vision.MNIST must reach this test
+# accuracy after one epoch: the classes are get_mnist's fixed prototypes
+# under noise (the port reaches 1.0 on the CPU at 2,000 images)
+MN_GLUON_MIN_ACC = 0.98
+MN_GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+MN_WORKERS = 2                     # the DataLoader's threads, as phase 15's
+# the loader alone in the caller's thread (no workers), over this many
+# batches: whether the worker threads help a host-bound loader
+MN_SERIAL_BATCHES = 200
+MN_TIMED_STEPS, MN_PROFILE_STEPS = 50, 10
+# the fed step against the held one: the iterator sets the pace beyond this
+MN_PACE = 1.05
+CIFAR_TEST, CIFAR_BATCH = 10000, 128
+FILE_ROWS = 2000                   # CSV and LibSVM rows (MNIST test images)
+
+
+def write_idx(path, array, magic):
+    """An idx.gz file as get_data.py's _write_idx_* write it."""
+    import gzip
+    import struct
+    with gzip.open(path, "wb") as f:
+        f.write(struct.pack(">%dI" % (array.ndim + 1), magic,
+                            *array.shape))
+        f.write(array.astype(np.uint8).tobytes())
+
+
+def mnist_files(root, seed, n_train, n_test):
+    """get_data.py's get_mnist under ``root`` from ``seed``: ten fixed
+    28x28 prototypes in [0, 160) plus N(0, 24) noise, clipped to [0,
+    255], labels uniform. Returns the (images, labels) paths a split."""
+    rng = np.random.RandomState(seed)
+    protos = rng.uniform(0, 160, (10, 28, 28))
+    paths = {}
+    for split, n, img, lbl in (
+            ("train", n_train, "train-images-idx3-ubyte.gz",
+             "train-labels-idx1-ubyte.gz"),
+            ("test", n_test, "t10k-images-idx3-ubyte.gz",
+             "t10k-labels-idx1-ubyte.gz")):
+        labels = rng.randint(0, 10, n)
+        images = np.clip(protos[labels] + rng.normal(0, 24, (n, 28, 28)),
+                         0, 255)
+        paths[split] = (os.path.join(root, img), os.path.join(root, lbl))
+        write_idx(paths[split][0], images, 2051)
+        write_idx(paths[split][1], labels, 2049)
+    return paths
+
+
+def cifar_pickles(root, seed, n_test):
+    """CIFAR-10's test batch as the python pickle of
+    ``cifar-10-batches-py/test_batch`` (rows of 3 x 32 x 32 uint8,
+    channel-major, and a list of labels), from ``seed``: each class a
+    mean colour under noise, as get_data.py's get_cifar10 draws them."""
+    import pickle
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, n_test)
+    data = np.clip(rng.normal(100 + 12 * labels[:, None], 40,
+                              (n_test, 3072)), 0, 255).astype(np.uint8)
+    pydir = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(pydir, exist_ok=True)
+    with open(os.path.join(pydir, "test_batch"), "wb") as f:
+        pickle.dump({"data": data, "labels": labels.tolist()}, f)
+
+
+def mnist_iters(pkg, paths, batch=MN_BATCH):
+    """get_data.py's get_mnist_iters: MNISTIter over the training files
+    (shuffled) and the test files."""
+    train = pkg.io.MNISTIter(image=paths["train"][0],
+                             label=paths["train"][1], batch_size=batch,
+                             shuffle=True)
+    val = pkg.io.MNISTIter(image=paths["test"][0], label=paths["test"][1],
+                           batch_size=batch, shuffle=False)
+    return train, val
+
+
+def mnist_transform(pkg):
+    """The samples' transform: ToTensor, then Normalize(0.13, 0.31)."""
+    transforms = pkg.gluon.data.vision.transforms
+    return transforms.Compose([transforms.ToTensor(),
+                               transforms.Normalize(0.13, 0.31)])
+
+
+def gluon_mlp(pkg, ctx):
+    """example/gluon/mnist.py's hybridized MLP (128 relu, 64 relu, 10) with
+    Xavier on ``ctx``."""
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential(prefix="hybridsequential0_")
+    net.add(nn.Dense(128, activation="relu"), nn.Dense(64, activation="relu"),
+            nn.Dense(10))
+    net.initialize(pkg.init.Xavier(), ctx=ctx)
+    return net
+
+
+def gluon_files_accuracy(pkg, net, root, ctx):
+    """The MLP's accuracy over vision.MNIST(train=False) through a
+    DataLoader."""
+    vision = pkg.gluon.data.vision
+    loader = pkg.gluon.data.DataLoader(
+        vision.MNIST(root, train=False).transform_first(
+            mnist_transform(pkg)), batch_size=MN_BATCH * 4)
+    metric = pkg.metric.Accuracy()
+    with ctx:
+        for x, y in loader:
+            metric.update([y], [net(x)])
+    return metric.get()[1]
+
+
+def loader_rate(ctx, loader, batches=None):
+    """Images/s of ``loader`` alone over one epoch (or its first
+    ``batches``), its batches put on ``ctx`` and waited for."""
+    import torch
+    t0 = time.perf_counter()
+    n = 0
+    with ctx:
+        for i, batch in enumerate(loader):
+            if i == batches:
+                break
+            n += batch[0].shape[0]
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def iter_rate(data_iter):
+    """Images/s of one epoch of a DataIter alone (its host batches)."""
+    data_iter.reset()
+    t0 = time.perf_counter()
+    n = sum(b.data[0].shape[0] - (b.pad or 0) for b in data_iter)
+    return n / (time.perf_counter() - t0)
+
+
+def pace_line(label, fed, held, alone, batch, busy, card):
+    """Which side sets a fed step's pace, as text printed."""
+    pace = "the iterator" if fed > MN_PACE * held else "the card"
+    print("%s pace: the step fed %.1f images/s, on one held batch %.1f; the "
+          "iterator alone %.1f images/s; the card busy %s ms a fed step: set "
+          "by %s (the iterator if the fed step is beyond %.2f of the held "
+          "one's) | %s"
+          % (label, batch / fed * 1e3, batch / held * 1e3, alone,
+             "not measured" if busy is None else "%.3f" % busy, pace,
+             MN_PACE, card), flush=True)
+    return pace
+
+
+def lenet_files(mt, paths, card):
+    """LeNet through Module.fit fed by MNISTIter at 60,000 images, one
+    epoch eager (MXTPU_MODULE_FUSED=0, fit's kvstore="local") and one
+    captured, each scored on the 10,000 test images: validation accuracy
+    >= LENET_MIN_ACC. Then the iterator alone, and fed_held_times.
+    Returns {path: ms a step} and the pace."""
+    import torch
+    if mt.io.MNISTIter(image=paths["test"][0], label=paths["test"][1],
+                       batch_size=MN_BATCH).provide_label[0].name != \
+            "softmax_label":
+        fail("MNISTIter's label is not named softmax_label")
+    runs = {}
+    for path, fused in (("eager", False), ("captured", True)):
+        iters = mnist_iters(mt, paths)
+        np.random.seed(0)
+        mt.random.seed(0)
+        t0 = time.perf_counter()
+        mod = with_fused(fused, lenet_fit, mt, iters, num_epoch=1,
+                         kvstore="local")[0]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        acc = dict(mod.score(iters[1], mt.metric.Accuracy()))["accuracy"]
+        if not acc >= LENET_MIN_ACC:
+            fail("LeNet fed by MNISTIter (%s): validation accuracy %.4f "
+                 "(limit %.2f)" % (path, acc, LENET_MIN_ACC))
+        if fused != (mod._fused is not None):
+            fail("LeNet fed by MNISTIter (%s): %s" % (path, fused_report(mod)))
+        print("LeNet through Module.fit fed by MNISTIter (%d images, batch "
+              "%d, softmax_label), %s: 1 epoch in %.2f s; validation accuracy "
+              "over %d images %.4f (limit %.2f); %s | %s"
+              % (MN_TRAIN, MN_BATCH, path, secs, MN_TEST, acc, LENET_MIN_ACC,
+                 fused_report(mod), card), flush=True)
+        runs[path] = (mod, iters[0])
+    alone = iter_rate(mnist_iters(mt, paths)[0])
+    print("MNISTIter alone: %.1f images/s (one epoch of %d, host batches) | %s"
+          % (alone, MN_TRAIN, card), flush=True)
+    times = fed_held_times(mt, runs, "LeNet fed by MNISTIter", card,
+                           MN_TIMED_STEPS, MN_PROFILE_STEPS, MN_BATCH,
+                           mt.metric.Accuracy)
+    pace = pace_line("LeNet fed by MNISTIter", times["captured"][0],
+                     times["fixed"][0], alone, MN_BATCH,
+                     times["captured"][1], card)
+    return {k: v[0] for k, v in times.items()}, pace
+
+
+def gluon_files(mt, root, card):
+    """example/gluon/mnist.py's hybridized MLP on gpu(0) fed by
+    vision.MNIST(train=True) through transform_first(ToTensor,
+    Normalize(0.13, 0.31)) and a DataLoader (batch 64, shuffle,
+    MN_WORKERS threads): one epoch, then its test accuracy above
+    MN_GLUON_MIN_ACC; the loader alone; the step fed against the step on
+    a held batch in turns, the host's wait for a batch, the card's busy
+    share. Returns ({path: ms a step}, the pace)."""
+    import torch
+    gpu = mt.gpu(0)
+    vision = mt.gluon.data.vision
+    np.random.seed(0)
+    mt.random.seed(0)
+    train = vision.MNIST(root, train=True).transform_first(
+        mnist_transform(mt))
+    sample, label = train[0]
+    if sample.context != mt.cpu() or sample.shape != (1, 28, 28):
+        fail("vision.MNIST's transformed sample: %s on %s"
+             % (sample.shape, sample.context))
+    net = gluon_mlp(mt, gpu)
+    run = GluonRun(mt, net, train, gpu, MN_BATCH, True, MN_GLUON_OPT,
+                   workers=MN_WORKERS, shuffle=True)
+    steps = len(run.loader)
+    t0 = time.perf_counter()
+    run.steps(steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    acc = gluon_files_accuracy(mt, net, root, gpu)
+    if not acc > MN_GLUON_MIN_ACC:
+        fail("example/gluon/mnist.py fed by vision.MNIST: test accuracy %.4f "
+             "(stated before the run: > %.2f)" % (acc, MN_GLUON_MIN_ACC))
+    losses = run.loss_values()
+    print("example/gluon/mnist.py's MLP hybridized on gpu(0), fed by "
+          "vision.MNIST + ToTensor + Normalize through a DataLoader (%d "
+          "threads, batch %d, shuffle): 1 epoch of %d steps in %.2f s; loss "
+          "%.4f -> %.4f; test accuracy over %d images %.4f (> %.2f); %s | %s"
+          % (MN_WORKERS, MN_BATCH, steps, secs, np.mean(losses[:10]),
+             np.mean(losses[-10:]), MN_TEST, acc, MN_GLUON_MIN_ACC,
+             net.cache_stats(), card), flush=True)
+    alone = loader_rate(gpu, run.loader)
+    serial = loader_rate(gpu, mt.gluon.data.DataLoader(
+        train, batch_size=MN_BATCH, shuffle=True), MN_SERIAL_BATCHES)
+    print("vision.MNIST DataLoader alone (%d threads, transforms on the "
+          "host, one pinned copy up a batch): %.1f images/s over an epoch; "
+          "in the caller's thread (no workers): %.1f images/s over %d "
+          "batches | %s" % (MN_WORKERS, alone, serial, MN_SERIAL_BATCHES,
+                           card), flush=True)
+    ms = {"fed": [], "held": []}
+    clocks = {k: {} for k in ms}
+    for k in ("fed", "held", "held", "fed"):
+        run.clock = clocks[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.steps(MN_TIMED_STEPS, held=k == "held")
+        torch.cuda.synchronize()
+        ms[k].append((time.perf_counter() - t0) / MN_TIMED_STEPS * 1e3)
+    out = {}
+    for k in ms:
+        step = out[k] = float(np.mean(ms[k]))
+        busy, top = device_time(lambda: run.steps(MN_PROFILE_STEPS,
+                                                  held=k == "held"),
+                                1, per=MN_PROFILE_STEPS)
+        out[k + " busy"] = busy
+        print("example/gluon/mnist.py MLP step %s: %.3f ms (%s), %.1f "
+              "images/s; host ms a step by phase: %s; %s; per step: %s | %s"
+              % (k, step, ", ".join("%.3f" % v for v in ms[k]),
+                 MN_BATCH / step * 1e3, "; ".join(
+                     "%s %.3f" % (p, v / (2 * MN_TIMED_STEPS) * 1e3)
+                     for p, v in clocks[k].items()), busy_of(busy, step),
+                 top, card), flush=True)
+    pace = pace_line("example/gluon/mnist.py fed by vision.MNIST",
+                     out["fed"], out["held"], alone, MN_BATCH,
+                     out["fed busy"], card)
+    return {"fed": out["fed"], "held": out["held"]}, pace
+
+
+def cifar_files(mt, root, card):
+    """vision.CIFAR10(train=False) over the 10,000 pickled test images,
+    RandomFlipLeftRight, ToTensor and Normalize, through a DataLoader
+    alone onto gpu(0): images/s. Returns the rate."""
+    transforms = mt.gluon.data.vision.transforms
+    test = mt.gluon.data.vision.CIFAR10(root, train=False)
+    if len(test) != CIFAR_TEST or test[0][0].shape != (32, 32, 3):
+        fail("vision.CIFAR10: %d samples of %s" % (len(test),
+                                                   test[0][0].shape))
+    loader = mt.gluon.data.DataLoader(test.transform_first(
+        transforms.Compose([transforms.RandomFlipLeftRight(),
+                            transforms.ToTensor(),
+                            transforms.Normalize((0.49, 0.48, 0.45),
+                                                 (0.25, 0.24, 0.26))])),
+        batch_size=CIFAR_BATCH, num_workers=MN_WORKERS)
+    rate = loader_rate(mt.gpu(0), loader)
+    print("vision.CIFAR10 (%d test images, pickles) with RandomFlipLeftRight,"
+          " ToTensor and Normalize through a DataLoader (%d threads, batch "
+          "%d) alone onto gpu(0): %.1f images/s | %s"
+          % (CIFAR_TEST, MN_WORKERS, CIFAR_BATCH, rate, card), flush=True)
+    return rate
+
+
+def text_files(mt, paths, root, card):
+    """The first FILE_ROWS MNIST test images as a CSV pair (pixels, labels)
+    and as a LibSVM file (the non-zero pixels), one epoch of CSVIter and
+    of LibSVMIter (batch 64, the last batch padded), each batch staged on
+    gpu(0) and equal there to the batches of the same iterator on the
+    CPU."""
+    import torch
+    images = mt.io.read_idx(paths["test"][0], 2051)[:FILE_ROWS]
+    labels = mt.io.read_idx(paths["test"][1], 2049)[:FILE_ROWS]
+    rows = images.reshape(FILE_ROWS, -1)
+    csv, csv_label = (os.path.join(root, n) for n in ("d.csv", "l.csv"))
+    np.savetxt(csv, rows, fmt="%d", delimiter=",")
+    np.savetxt(csv_label, labels, fmt="%d", delimiter=",")
+    svm = os.path.join(root, "d.libsvm")
+    with open(svm, "w") as f:
+        for y, r in zip(labels, rows):
+            nz = np.nonzero(r)[0]
+            f.write("%d %s\n" % (y, " ".join("%d:%d" % (i, r[i])
+                                              for i in nz)))
+    for name, make in (
+            ("CSVIter", lambda: mt.io.CSVIter(
+                data_csv=csv, data_shape=(1, 28, 28), label_csv=csv_label,
+                batch_size=MN_BATCH)),
+            ("LibSVMIter", lambda: mt.io.LibSVMIter(
+                data_libsvm=svm, data_shape=(784,), batch_size=MN_BATCH))):
+        t0 = time.perf_counter()
+        it = make()
+        parse = time.perf_counter() - t0
+        want = [(b.data[0].asnumpy(), b.label[0].asnumpy(), b.pad)
+                for b in make()]
+        got = []
+        t0 = time.perf_counter()
+        for b in it:
+            mt.io.stage_batch(b, mt.gpu(0))
+            got.append((b.data[0], b.label[0], b.pad))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if len(got) != len(want) or not all(
+                d.context == mt.gpu(0) and np.array_equal(d.asnumpy(), wd)
+                and np.array_equal(lab.asnumpy(), wl) and p == wp
+                for (d, lab, p), (wd, wl, wp) in zip(got, want)):
+            fail("%s's batches staged on gpu(0) differ from its batches on "
+                 "the CPU" % name)
+        print("%s over %d rows (MNIST test images): parsed in %.2f s; one "
+              "epoch of %d batches (last padded by %d) staged on gpu(0) in "
+              "%.3f s, equal to the CPU's batches | %s"
+              % (name, FILE_ROWS, parse, len(got), got[-1][2], secs, card),
+              flush=True)
+
+
+def data_files_phase(mt, seed, card):
+    """Phase 20: MNIST's idx.gz files at their published size and
+    CIFAR-10's test pickle, written from ``seed``; LeNet fed by MNISTIter,
+    the Gluon MLP fed by vision.MNIST, CIFAR10 through a DataLoader, and
+    CSVIter / LibSVMIter. Returns ({(path, feed): ms a step}, {model:
+    pace})."""
+    import tempfile
+    clock = [("start", time.perf_counter())]
+    with tempfile.TemporaryDirectory(prefix="data_files_") as root:
+        paths = mnist_files(root, seed, MN_TRAIN, MN_TEST)
+        cifar_pickles(root, seed, CIFAR_TEST)
+        clock.append(("files written", time.perf_counter()))
+        lenet_ms, lenet_pace = lenet_files(mt, paths, card)
+        clock.append(("LeNet", time.perf_counter()))
+        gluon_ms, gluon_pace = gluon_files(mt, root, card)
+        clock.append(("Gluon MLP", time.perf_counter()))
+        cifar_files(mt, root, card)
+        clock.append(("CIFAR10", time.perf_counter()))
+        text_files(mt, paths, root, card)
+        clock.append(("CSV and LibSVM", time.perf_counter()))
+    print("data files phase: %.1f s (%s)" % (
+        clock[-1][1] - clock[0][1], ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))), flush=True)
+    ms = {("LeNet", k): v for k, v in lenet_ms.items()}
+    ms.update({("Gluon MLP", k): v for k, v in gluon_ms.items()})
+    return ms, {"LeNet": lenet_pace, "Gluon MLP": gluon_pace}
 
 
 def main():
@@ -6880,7 +8011,25 @@ def main():
     # from JPEG records (multibox_nms counted from 0 just before them)
     ssd_ms, nms_launches, nms_err, nms_timing = ssd_phase(mt, args.seed, card)
 
-    # 18. timings at the main paths' shapes
+    # 18. the R-CNN toy: an RPN Group trained through simple_bind, then
+    # Proposal on multibox_nms (counted from 0 just before it); 18b.
+    # Proposal at Faster R-CNN's size, multibox_nms timed there
+    from mxtpu_torch.ops import vision
+    t_phase = time.time()
+    rcnn_launches = rcnn_phase(mt, vision, card)
+    proposal_timing = proposal_size_phase(mt, vision, rng, card)
+    print("R-CNN phase: %.1f s" % (time.time() - t_phase), flush=True)
+
+    # 19. multi-output graphs through Module.fit: multiple_outputs.py and
+    # the multitask net, eager and fused
+    t_phase = time.time()
+    multitask_ms = multi_output_phase(mt, args.seed, card)
+    print("multi-output phase: %.1f s" % (time.time() - t_phase), flush=True)
+
+    # 20. the data files at MNIST's published size
+    files_ms, paces = data_files_phase(mt, args.seed, card)
+
+    # 21. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -7221,17 +8370,26 @@ def main():
     print("SSD-300 slice, ms a step: %s | %s" % (
         ", ".join("%s %s %.3f" % (k + (v,)) for k, v in ssd_ms.items()),
         card))
+    print("multitask fused step, ms: %s; data files, ms a step: %s; who "
+          "sets the fed pace: %s | %s" % (
+              ", ".join("%s %.3f" % kv for kv in multitask_ms.items()),
+              ", ".join("%s %s %.3f" % (k + (v,))
+                        for k, v in files_ms.items()),
+              ", ".join("%s: %s" % kv for kv in paces.items()), card))
     nms_ms, nms_plain, nms_bound, nms_by = nms_timing[1]
     kernels.append({
         "name": "multibox_nms", "route": "cuda",
         "source": "mxtpu_torch/csrc/vision.cu",
         "replaces": "mxtpu/ops/vision.py:311",
-        "launches": nms_launches, "max_abs_err": nms_err, "ms": nms_ms,
+        "launches": nms_launches, "launches_rcnn_toy": rcnn_launches,
+        "max_abs_err": nms_err, "ms": nms_ms,
         "plain_ms": nms_plain, "bound_ms": nms_bound, "bound_by": nms_by,
-        "library_ms": None})
+        "library_ms": None, "proposal_ms": proposal_timing[0],
+        "proposal_plain_ms": proposal_timing[1],
+        "proposal_bound_ms": proposal_timing[2]})
     print("total %.1f s" % (time.time() - t_start))
 
-    # 19.-20. the result lines
+    # 22.-23. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ Counterpart of ``mxtpu/gluon/data/dataloader.py``: batches a Dataset
 through a Sampler, in the caller's thread or in worker threads that
 make batches ahead of the consumer (``num_workers``, up to ``prefetch``
 batches ahead), delivered in order, a worker's error raised to the
-caller. ``default_batchify_fn`` stacks samples on the host, in one copy
+caller. ``default_batchify_fn`` stacks samples on the host (arrays, or
+NDArrays on the host such as ``data.vision``'s samples), in one copy
 that leaves the interpreter lock free for the other workers, and puts
 the batch on the current context (the iterating thread's, in the
 workers too); where that is a card the batch goes up from pinned host
@@ -28,22 +29,30 @@ __all__ = ["DataLoader", "default_batchify_fn"]
 
 
 def default_batchify_fn(data):
-    """Stack samples into a batch on the current context: NDArrays with
-    ``nd.stack``, tuples field by field, anything else as ``nd.array`` of
-    their numpy stack would (its dtype rules: float64 as float32, int64 as
-    int32). The stack is written once, straight into the host tensor the
-    batch leaves from, pinned when the context is a card."""
-    if isinstance(data[0], NDArray):
-        return nd.stack(*data, axis=0)
+    """Stack samples into a batch on the current context: tuples field by
+    field; NDArrays on a card with ``nd.stack``; host NDArrays, and
+    anything else as ``nd.array`` of their numpy stack would take it (its
+    dtype rules: float64 as float32, int64 as int32), in one copy, straight
+    into the host tensor the batch leaves from, pinned when the context
+    is a card, and from there up in one copy that does not block the
+    host. The copies leave the interpreter lock free for the other
+    workers."""
     if isinstance(data[0], tuple):
         return [default_batchify_fn(i) for i in zip(*data)]
-    dtype = _np.result_type(*{_np.asarray(d).dtype for d in data})
-    dtype = _NARROW.get(dtype, dtype)
+    if isinstance(data[0], NDArray) and data[0].context.device_type != "cpu":
+        return nd.stack(*data, axis=0)
     ctx = current_context()
     on_card = ctx.device_type == "gpu"
-    host = torch.empty((len(data),) + _np.shape(data[0]),
-                       dtype=canonical_dtype(dtype), pin_memory=on_card)
-    _np.stack(data, out=host.numpy())   # numpy copies without the GIL
+    if isinstance(data[0], NDArray):
+        host = torch.empty((len(data),) + data[0].shape, dtype=data[0].dtype,
+                           pin_memory=on_card)
+        torch.stack([d.data for d in data], out=host)
+    else:
+        dtype = _np.result_type(*{_np.asarray(d).dtype for d in data})
+        dtype = _NARROW.get(dtype, dtype)
+        host = torch.empty((len(data),) + _np.shape(data[0]),
+                           dtype=canonical_dtype(dtype), pin_memory=on_card)
+        _np.stack(data, out=host.numpy())
     if not on_card:
         return NDArray(host, ctx)
     return NDArray(host.to(ctx.torch_device(), non_blocking=True), ctx)

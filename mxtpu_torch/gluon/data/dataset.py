@@ -1,11 +1,13 @@
 """Gluon datasets of the PyTorch port (``mxtpu/gluon/data/dataset.py``:
 Dataset with ``transform`` / ``transform_first``, SimpleDataset,
-ArrayDataset; ``RecordFileDataset`` waits for the record reader)."""
+ArrayDataset, RecordFileDataset)."""
 from __future__ import annotations
+
+import os
 
 from ...ndarray import NDArray
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -86,3 +88,22 @@ class ArrayDataset(Dataset):
 
 def _length(data):
     return data.shape[0] if isinstance(data, NDArray) else len(data)
+
+
+class RecordFileDataset(Dataset):
+    """The records of a RecordIO file, in the order of its ``.idx`` file
+    (beside it, same stem), as bytes. ``mxtpu``'s opens
+    ``recordio.IndexedRecordIO``, which its ``recordio`` does not define,
+    so it raises AttributeError; the port opens the indexed reader,
+    ``MXIndexedRecordIO``."""
+
+    def __init__(self, filename):
+        from ... import recordio
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

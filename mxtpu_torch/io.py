@@ -4,11 +4,12 @@ Counterpart of ``mxtpu/io.py``: the DataDesc / DataBatch / DataIter
 protocol; NDArrayIter with shuffle, ``last_batch_handle`` (pad / discard
 / roll_over), pad counts and the ``state_dict`` resume position; the
 combinators ResizeIter and PrefetchingIter (a background thread a
-wrapped iterator, double-buffered); and ImageRecordIter over
-:mod:`mxtpu_torch.image`. Batches come up as NDArrays on the host
-(``cpu()``); the executor group copies them to its context, and
-:func:`stage_batch` moves an upcoming batch there ahead of its step
-without making the host wait for the card.
+wrapped iterator, double-buffered); the file iterators MNISTIter (idx
+and idx.gz files), CSVIter and LibSVMIter (dense batches); and
+ImageRecordIter over :mod:`mxtpu_torch.image`. Batches come up as
+NDArrays on the host (``cpu()``); the executor group copies them to its
+context, and :func:`stage_batch` moves an upcoming batch there ahead of
+its step without making the host wait for the card.
 
 ``shuffle=True`` draws from numpy's global RNG exactly as ``mxtpu``
 does (one ``np.random.shuffle`` of the row index at construction), so
@@ -16,7 +17,9 @@ under one ``np.random.seed`` both packages see the same batches.
 """
 from __future__ import annotations
 
+import gzip
 import logging
+import struct
 import threading
 from collections import namedtuple
 
@@ -27,8 +30,8 @@ from .context import cpu
 from .ndarray import NDArray
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
-           "PrefetchingIter", "NDArrayIter", "ImageRecordIter",
-           "stage_batch"]
+           "PrefetchingIter", "NDArrayIter", "CSVIter", "MNISTIter",
+           "LibSVMIter", "ImageRecordIter", "stage_batch"]
 
 _log = logging.getLogger(__name__)
 
@@ -65,6 +68,16 @@ class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
     @staticmethod
     def get_batch_axis(layout):
         return 0 if layout is None else layout.find("N")
+
+    @staticmethod
+    def get_list(shapes, types):
+        """DataDescs of ``(name, shape)`` pairs, each with its dtype from
+        the ``(name, dtype)`` pairs ``types`` (a name missing there raises
+        KeyError), or the default dtype when ``types`` is None."""
+        if types is None:
+            return [DataDesc(n, s) for n, s in shapes]
+        dtype_of = dict(types)
+        return [DataDesc(n, s, dtype_of[n]) for n, s in shapes]
 
 
 class DataBatch:
@@ -448,6 +461,10 @@ class NDArrayIter(DataIter):
         return [DataDesc(k, tuple([self.batch_size] + list(v.shape[1:])),
                          v.dtype) for k, v in self.label]
 
+    def hard_reset(self):
+        """Back to the first batch, ignoring ``roll_over``'s carry."""
+        self.cursor = -self.batch_size
+
     def state_dict(self):
         return {"cursor": int(self.cursor),
                 "batch_size": int(self.batch_size),
@@ -523,6 +540,184 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class _InnerIter(DataIter):
+    """An iterator that serves the batches of an inner NDArrayIter."""
+
+    _inner = None
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def state_dict(self):
+        return self._inner.state_dict()
+
+    def load_state_dict(self, state):
+        self._inner.load_state_dict(state)
+
+    def next(self):
+        return self._inner.next()
+
+
+class CSVIter(_InnerIter):
+    """Rows of a CSV file as batches of ``data_shape``, labels from
+    ``label_csv`` (zeros of ``label_shape`` without one); ``round_batch``
+    pads the last batch from the start, else drops it."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, round_batch=True, dtype="float32",
+                 data_name="data", label_name="softmax_label", **kwargs):
+        super().__init__(batch_size)
+        data = _np.loadtxt(data_csv, delimiter=",", dtype=dtype, ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = _np.loadtxt(label_csv, delimiter=",", dtype=dtype,
+                                ndmin=2).reshape((-1,) + tuple(label_shape))
+        else:
+            label = _np.zeros((data.shape[0],) + tuple(label_shape),
+                              dtype=dtype)
+        self._inner = NDArrayIter(
+            data={data_name: data}, label={label_name: label},
+            batch_size=batch_size,
+            last_batch_handle="pad" if round_batch else "discard")
+
+
+def read_idx(path, magic):
+    """The array of an idx (or idx.gz) file: uint8 of the shape its
+    header gives; ``magic`` is the header's first word (2051 for images
+    of rows x cols, 2049 for labels)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    dims = 3 if magic == 2051 else 1
+    with opener(path, "rb") as f:
+        head = struct.unpack(">%dI" % (dims + 1), f.read(4 * (dims + 1)))
+        if head[0] != magic:
+            raise ValueError("%s is not an MNIST %s file (magic %d)"
+                             % (path, "image" if dims == 3 else "label",
+                                head[0]))
+        return _np.frombuffer(f.read(), dtype=_np.uint8).reshape(head[1:])
+
+
+class MNISTIter(_InnerIter):
+    """Batches of the MNIST idx (or idx.gz) files ``image`` and ``label``:
+    pixels over 255 as float32, (B, 1, 28, 28) or (B, 784) with ``flat``;
+    every ``num_parts``-th image from ``part_index``; shuffled once by
+    ``RandomState(seed)``; the rows past the last whole batch dropped.
+
+    The label is named ``softmax_label``, as MXNet's C++ iterator and the
+    CSV and LibSVM iterators name it. ``mxtpu``'s MNISTIter names it
+    ``label``, so a Module bound to ``softmax_label`` trains there against
+    zeros; that one difference is deliberate."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128, shuffle=True,
+                 flat=False, silent=False, seed=0, part_index=0, num_parts=1,
+                 **kwargs):
+        super().__init__(batch_size)
+        images = read_idx(image, 2051).astype(_np.float32) / 255.0
+        labels = read_idx(label, 2049).astype(_np.float32)
+        if num_parts > 1:
+            images = images[part_index::num_parts]
+            labels = labels[part_index::num_parts]
+        if shuffle:
+            perm = _np.random.RandomState(seed).permutation(images.shape[0])
+            images, labels = images[perm], labels[perm]
+        images = images.reshape((images.shape[0], -1) if flat else
+                                (images.shape[0], 1) + images.shape[1:])
+        self._inner = NDArrayIter({"data": images},
+                                  {"softmax_label": labels},
+                                  batch_size=batch_size,
+                                  last_batch_handle="discard")
+
+
+class LibSVMIter(DataIter):
+    """Batches of a LibSVM text file (``label idx:val idx:val ...`` a
+    line), as dense rows of ``data_shape``. Labels come from the lines,
+    or from the rows of ``label_libsvm`` (densified to ``label_shape``'s
+    width, else to its largest index + 1), which must have as many rows.
+    With ``round_batch`` the last batch wraps to the first rows (its
+    ``pad`` counts them); without it the last partial batch is dropped.
+
+    ``mxtpu`` serves 1-d rows as CSR arrays; the port has no sparse
+    arrays yet and serves the same values dense."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=None, batch_size=1, round_batch=True,
+                 data_name="data", label_name="softmax_label", **kwargs):
+        super().__init__(batch_size)
+        self._data_name, self._label_name = data_name, label_name
+        self._data_shape = tuple(data_shape) \
+            if hasattr(data_shape, "__len__") else (int(data_shape),)
+        self._width = int(_np.prod(self._data_shape))
+        rows, labels = self._parse(data_libsvm)
+        self._rows = rows
+        if label_libsvm is not None:
+            lab_rows, _ = self._parse(label_libsvm)
+            if len(lab_rows) != len(rows):
+                raise ValueError(
+                    "label file %r has %d rows but data file %r has %d"
+                    % (label_libsvm, len(lab_rows), data_libsvm, len(rows)))
+            w = int(label_shape[-1]) if label_shape else \
+                1 + max((i for r in lab_rows for i, _ in r), default=0)
+            labels = [self._densify(r, w) for r in lab_rows]
+        self._labels = _np.asarray(labels, _np.float32)
+        self._round_batch = round_batch
+        self._cursor = 0
+
+    @staticmethod
+    def _parse(path):
+        rows, labels = [], []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                rows.append([(int(i), float(v)) for i, v in
+                             (t.split(":") for t in parts[1:])])
+        return rows, labels
+
+    @staticmethod
+    def _densify(row, width):
+        out = _np.zeros(width, _np.float32)
+        for idx, val in row:
+            out[idx] = val
+        return out
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self._data_name,
+                         (self.batch_size,) + self._data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(self._label_name, (self.batch_size,)
+                         + tuple(self._labels.shape[1:]))]
+
+    def reset(self):
+        self._cursor = 0
+
+    def next(self):
+        n = len(self._rows)
+        if self._cursor >= n or (not self._round_batch
+                                 and n - self._cursor < self.batch_size):
+            raise StopIteration
+        idx = _np.arange(self._cursor, self._cursor + self.batch_size) % n
+        self._cursor += self.batch_size
+        data = _np.stack([self._densify(self._rows[i], self._width)
+                          for i in idx]).reshape((self.batch_size,)
+                                                 + self._data_shape)
+        return DataBatch(data=[nd.array(data, ctx=cpu())],
+                         label=[nd.array(self._labels[idx], ctx=cpu())],
+                         pad=max(0, self._cursor - n))
 
 
 def ImageRecordIter(**kwargs):

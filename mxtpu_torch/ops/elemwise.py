@@ -45,7 +45,7 @@ _BINARY = {
                       ("elemwise_sub", "_minus", "_sub", "broadcast_minus")),
     "broadcast_mul": (_commutes(torch.mul), ("elemwise_mul", "_mul")),
     "broadcast_div": (_number_first(torch.div), ("elemwise_div", "_div")),
-    "broadcast_mod": (torch.remainder, ("_mod",)),
+    "broadcast_mod": (_number_first(torch.remainder), ("_mod",)),
     "broadcast_power": (torch.pow, ("_power", "pow")),
     "broadcast_maximum": (_number_first(torch.maximum),
                           ("_maximum", "maximum")),
@@ -92,7 +92,11 @@ _SCALAR_OPS = {
     "_rdiv_scalar": ("_RDivScalar",
                      lambda x, s: torch.div(_full_like_scalar(x, s), x)),
     "_mod_scalar": ("_ModScalar", torch.remainder),
-    "_rmod_scalar": ("_RModScalar", lambda x, s: torch.remainder(s, x)),
+    # the scalar as a 0-d tensor: torch differentiates remainder(tensor,
+    # tensor) by x as -floor(s / x), jnp.mod's gradient, and a Python
+    # number first has no derivative
+    "_rmod_scalar": ("_RModScalar",
+                     lambda x, s: torch.remainder(_full_like_scalar(x, s), x)),
     "_power_scalar": ("_PowerScalar", torch.pow),
     "_rpower_scalar": ("_RPowerScalar", lambda x, s: torch.pow(s, x)),
     "_maximum_scalar": ("_MaximumScalar", lambda x, s: torch.maximum(

@@ -4,7 +4,8 @@ Counterpart of the main-path ops of ``mxtpu/ops/nn.py``:
 FullyConnected, Convolution, Pooling, Activation, LeakyReLU, softmax,
 log_softmax, Embedding, Dropout, BatchNorm and SoftmaxOutput, whose
 backward is ``mxtpu``'s (a ``torch.autograd.Function`` in place of its
-``custom_vjp``); L2Normalization and BlockGrad, which SSD uses.
+``custom_vjp``); L2Normalization and BlockGrad, which SSD uses; MakeLoss
+and identity, which multi-output graphs use.
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
 here they are PyTorch's own calls: ``torch.matmul``, ``index_select``,
 ``F.conv*d`` / ``F.max_pool*d`` / ``F.avg_pool*d`` (cuDNN on the
@@ -302,10 +303,13 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         new_mv = (moving_var.to(f) * momentum
                   + var * (1 - momentum)).to(moving_var.dtype)
     else:
-        mean, new_mm, new_mv = moving_mean, moving_mean, moving_var
-        invstd = torch.rsqrt(moving_var.to(f) + eps)
-        out = F.batch_norm(x32, moving_mean.to(f), moving_var.to(f), g, b,
-                           False, 0.0, eps)
+        # the moving statistics enter detached: their gradients are zero,
+        # as in mxtpu, which never differentiates an aux input, and
+        # F.batch_norm refuses running statistics that require a gradient
+        mm, mv = moving_mean.detach(), moving_var.detach()
+        mean, new_mm, new_mv = mm, moving_mean, moving_var
+        invstd = torch.rsqrt(mv.to(f) + eps)
+        out = F.batch_norm(x32, mm.to(f), mv.to(f), g, b, False, 0.0, eps)
     out = torch.movedim(out, 1, axis).to(data.dtype)
     return out, mean, invstd, new_mm, new_mv
 
@@ -420,3 +424,38 @@ def l2_normalization(data, eps=1e-10, mode="instance"):
 def block_grad(data):
     """``data``, with no gradient flowing back through it."""
     return data.detach()
+
+
+class _MakeLoss(torch.autograd.Function):
+    """The identity forward; the backward ``grad_scale`` everywhere, over
+    the batch size when ``per_batch``, whatever the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, per_batch):
+        ctx.grad_scale, ctx.per_batch = grad_scale, per_batch
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        grad = torch.full_like(g, ctx.grad_scale)
+        if ctx.per_batch:
+            grad = grad / g.shape[0]
+        return grad, None, None
+
+
+@register("MakeLoss", aliases=("make_loss",))
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """Mark ``data`` as a loss: the forward is the identity, and the
+    backward sends ``grad_scale`` to every element, divided by the batch
+    size under ``normalization="batch"``, whatever gradient comes from
+    above. These are ``mxtpu``'s semantics, which differ from MXNet's:
+    MXNet's ``valid_thresh`` and ``normalization="valid"`` (divide by the
+    count of elements above the threshold) change nothing here, as they
+    change nothing in ``mxtpu``."""
+    return _MakeLoss.apply(data, float(grad_scale), normalization == "batch")
+
+
+@register("identity", aliases=("_copy", "copy"))
+def identity(data):
+    """A copy of ``data`` (its gradient passes through)."""
+    return data.clone()

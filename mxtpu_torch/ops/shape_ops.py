@@ -6,14 +6,15 @@ RNN cell's ``unroll``, the serving graphs, LeNet and
 swapaxes, expand_dims, concat, stack, split, zeros_like, ones_like and
 the nullary ``_zeros`` creator; ``pick``, which Gluon's
 ``SoftmaxCrossEntropyLoss`` takes its labels' entries with; and
-``transpose`` and ``slice_axis``, which the SSD heads use.
+``transpose`` and ``slice_axis``, which the SSD heads use; ``one_hot``
+and ``cast`` (the Gluon vision transforms cast their images).
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import canonical_dtype
-from .nn import _take_fill
+from .nn import _one_hot, _take_fill
 from .registry import register
 
 
@@ -135,6 +136,21 @@ def pick(data, index, axis=-1, keepdims=False, mode="clip"):
                                              dtype=out.dtype,
                                              device=out.device))
     return out if keepdims else out.squeeze(axis)
+
+
+@register("one_hot", differentiable=False)
+def one_hot(indices, depth=0, on_value=1.0, off_value=0.0, dtype="float32"):
+    """``on_value`` at each index's place along a new last axis of
+    ``depth``, ``off_value`` elsewhere; an index outside [0, depth) gives
+    a row of ``off_value``, as ``jax.nn.one_hot`` does in ``mxtpu``."""
+    oh = _one_hot(indices.to(torch.int32), int(depth), canonical_dtype(dtype))
+    return oh * on_value + (1 - oh) * off_value
+
+
+@register("cast", aliases=("Cast",))
+def cast(data, dtype="float32"):
+    """``data`` as ``dtype``."""
+    return data.to(canonical_dtype(dtype))
 
 
 @register("_zeros", needs_device=True)

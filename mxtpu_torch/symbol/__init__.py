@@ -21,8 +21,8 @@ from ..base import canonical_dtype, dtype_name
 from ..ops.registry import ContribNamespace, get_op
 from .. import name as _name_mgr
 
-__all__ = ["Symbol", "var", "Variable", "load", "load_json", "eval_graph",
-           "contrib"]
+__all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
+           "eval_graph", "contrib"]
 
 
 class _Node:
@@ -121,6 +121,14 @@ class Symbol:
     def __iter__(self):
         for i in range(len(self._outputs)):
             yield self[i]
+
+    def get_internals(self):
+        """A symbol of every output of every node of the graph, variables
+        included, in ``mxtpu``'s topological order and named as
+        :meth:`list_outputs` names them, so that
+        ``sym.get_internals()["feat_output"]`` picks one out."""
+        return Symbol([(node, i) for node in self._topo()
+                       for i in range(node.num_outputs)])
 
     # -- graph traversal ---------------------------------------------------
     def _topo(self):
@@ -428,6 +436,12 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
 
 
 Variable = var
+
+
+def Group(symbols):
+    """One symbol whose outputs are the given symbols' outputs, in order
+    (``sym.Group``): a graph with several heads."""
+    return Symbol([out for s in symbols for out in s._outputs])
 
 
 def load(fname):

@@ -216,3 +216,46 @@ def test_executor_writes_the_moving_statistics():
     for i, (g, w) in enumerate(zip(got[mt], got[mx])):
         _close(g, w, F32_TOL, "value %d" % i)
     assert not np.allclose(got[mt][1], mm)
+
+
+@pytest.mark.parametrize("training", [True, False],
+                         ids=["record-train", "record-predict"])
+def test_global_stats_gradients_match_mxtpu(training):
+    """C13: nd.BatchNorm with ``use_global_stats=True`` and all five
+    inputs ``attach_grad()``ed, under record() in training and outside
+    it: the moving statistics get zero gradients, as mxtpu's autograd
+    gives them (it never differentiates an aux input), and data, gamma
+    and beta get ``jax.vjp``'s of mxtpu's op. The port raised "not
+    differentiable with respect to argument 'running_mean'"."""
+    rng = np.random.RandomState(3)
+    vals = [rng.randn(2, 3, 4).astype(np.float32),
+            rng.uniform(0.5, 1.5, 3).astype(np.float32),
+            rng.randn(3).astype(np.float32),
+            rng.randn(3).astype(np.float32),
+            rng.uniform(0.5, 2.0, 3).astype(np.float32)]
+    head = rng.randn(2, 3, 4).astype(np.float32)
+    kw = dict(use_global_stats=True, fix_gamma=False)
+
+    def run(pkg):
+        arrs = [pkg.nd.array(v) for v in vals]
+        for a in arrs:
+            a.attach_grad()
+        with pkg.autograd.record(train_mode=training):
+            y = pkg.nd.BatchNorm(*arrs, **kw)
+        y.backward(pkg.nd.array(head))
+        return [y.asnumpy()] + [a.grad.asnumpy() for a in arrs]
+    with mt.cpu():
+        got = run(mt)
+    want = run(mx)
+    fn = jax_op("BatchNorm").fn
+    out, vjp = jax.vjp(
+        lambda d, g, b: fn(d, g, b, jnp.asarray(vals[3]),
+                           jnp.asarray(vals[4]), _training=training,
+                           **kw)[0], *[jnp.asarray(v) for v in vals[:3]])
+    ref = [out] + list(vjp(jnp.asarray(head)))
+    for i, name in enumerate(("out", "data", "gamma", "beta")):
+        _close(got[i], ref[i], F32_TOL, name)
+        _close(got[i], want[i], F32_TOL, name)
+    for i, name in ((4, "moving_mean"), (5, "moving_var")):
+        np.testing.assert_array_equal(got[i], np.zeros(3, np.float32), name)
+        np.testing.assert_array_equal(want[i], np.zeros(3, np.float32), name)

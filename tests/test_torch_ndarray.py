@@ -555,3 +555,38 @@ def test_batchnorm_returns_its_shown_outputs(output_mean_var):
     both(case)
     want = ["list", 3] if output_mean_var else ["NDArray", 1]
     assert shapes == [want, want]
+
+
+RMOD_X = [[0.7, 0.8, 0.9],
+          np.random.RandomState(5).uniform(0.3, 3.0, 6).tolist(),
+          (-np.random.RandomState(6).uniform(0.3, 3.0, 6)).tolist()]
+
+
+@pytest.mark.parametrize("form", ["op", "operator"])
+@pytest.mark.parametrize("xs", RMOD_X, ids=["fixed", "positive", "negative"])
+def test_rmod_scalar_gradient_matches_jax_vjp(xs, form):
+    """C12: ``nd._rmod_scalar(x, scalar=2.0)`` (and ``2.0 % x``) under
+    record() gives ``jnp.mod(2.0, x)``'s value and its ``jax.vjp``
+    gradient in x, -floor(2 / x) times the head gradient, where torch
+    has no derivative for a number's remainder by a tensor."""
+    import jax
+    import jax.numpy as jnp
+    x = np.asarray(xs, np.float32)
+    head = np.random.RandomState(7).uniform(0.5, 1.5, x.shape) \
+        .astype(np.float32)
+    want, vjp = jax.vjp(lambda v: jnp.mod(2.0, v), jnp.asarray(x))
+    (dx_want,) = vjp(jnp.asarray(head))
+
+    def case(pkg):
+        a = pkg.nd.array(x)
+        a.attach_grad()
+        with pkg.autograd.record():
+            y = pkg.nd._rmod_scalar(a, scalar=2.0) if form == "op" \
+                else 2.0 % a
+        y.backward(pkg.nd.array(head))
+        return [y.asnumpy(), a.grad.asnumpy()]
+    got = both(case)
+    np.testing.assert_allclose(got[0], np.asarray(want), **TOL)
+    np.testing.assert_allclose(got[1], np.asarray(dx_want), **TOL)
+    if xs == RMOD_X[0]:
+        np.testing.assert_array_equal(got[1] / head, [-2.0, -2.0, -2.0])
