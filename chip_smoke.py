@@ -157,13 +157,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    the 102 moving statistics updated inside the graph), under torch's
    default TF32 (cuDNN on, matmuls off): the fixed batch's training
    cross-entropy in the last epoch below RN_CE_SHARE of the first's, no
-   host wait in a captured epoch, ms a step and images/s in turns with
-   the host time by phase, the card's busy share, kernels and host
-   launch calls a step and the share of the step's bound (FLOPs counted
-   by FlopCounterMode at TF32's or float32's peak); the checkpoint loaded
-   into a CPU Module predicting as the card does; the same timings with
-   TF32 off; then Inception-BN: its first steps against the CPU and a
-   short captured epoch at batch 128;
+   host wait in a captured epoch, ms a step and images/s in turns of
+   RN_TIMED_STEPS steps with the host time by phase, the card's busy
+   share, kernels and host launch calls a step and the share of the
+   step's bound (FLOPs counted by FlopCounterMode at TF32's or float32's
+   peak); the checkpoint loaded into a CPU Module predicting as the card
+   does; the same timings with TF32 off, each path fitted one epoch of
+   RN_OFF_STEPS steps; then Inception-BN: its first steps against the CPU
+   and a short captured epoch at batch 128;
 15. the Gluon slice (BASELINE.json config 3): gluon.model_zoo.vision.
    resnet18_v1 (classes 1,000) with Xavier(gaussian, in, 2), trained by
    example/gluon/mnist.py's loop (autograd.record, loss.backward(),
@@ -229,10 +230,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    main (ssd_toy_main) on gpu(0), its first 3 steps against the CPU
    (SSD_TOY_TOL), its losses falling; and SSD-300 on VGG16-reduced
    (ssd300_vgg16, MXNet SSD's published config) at full width, batch 32,
-   f32, from 1,024 synthetic 300x300 JPEG records through ImageDetIter
-   (random crop, pad and mirror, mean/std), eager and hybridized for 3
-   epochs each (the last 4 steps' loss below SSD_LOSS_SHARE of the first
-   4's), both timed in turns fed by the iterator and on one batch held on
+   f32, from SSD_RECORDS synthetic 300x300 JPEG records through
+   ImageDetIter (random crop, pad and mirror, mean/std), eager and
+   hybridized for SSD_EPOCHS epochs each (the last 4 steps' loss below
+   SSD_LOSS_SHARE of the first 4's), both timed in turns fed by the iterator and on one batch held on
    the card (ms, images/s, host ms by phase, busy share, launches, peak
    memory), the iterator alone, FLOPs and the bound with TF32 on and
    off, and a held-out image decoded on the kernel against the CPU's
@@ -266,13 +267,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    captured, validation accuracy >= LENET_MIN_ACC; example/gluon/
    mnist.py's hybridized MLP fed by gluon.data.vision.MNIST with
    ToTensor and Normalize through a DataLoader (worker threads, samples
-   on the host, one copy up a batch), test accuracy above
-   MN_GLUON_MIN_ACC; for both, the iterator alone, the step fed against
+   on the host, one copy up a batch) for MN_GLUON_STEPS batches, test
+   accuracy above MN_GLUON_MIN_ACC; for both, the iterator alone, the step fed against
    the step on a held batch, the host's wait for a batch, the card's
    busy share, and which side sets the pace; vision.CIFAR10 with
    RandomFlipLeftRight through a DataLoader alone; one epoch of CSVIter
    and LibSVMIter (dense) staged on gpu(0), equal to the CPU's batches;
-21. timings: each kernel, its plain version and the PyTorch library call
+21. the op sweep on the card: every op the port registers (CARD_SWEEP,
+   one row of inputs each; a CPU test holds the table to the registry)
+   through mt.nd on gpu(0) against cpu() with TF32 off, its outputs and,
+   where it is differentiable, its inputs' gradients within SWEEP_TOL;
+   the count that passed and the names that failed are printed, and any
+   failure fails the run;
+22. the examples the sweep's ops open, each main mirrored (the examples
+   import mxtpu) and run on gpu(0) to its own asserts: example/fcn-xs/
+   fcn_toy.py (Deconvolution, Crop), svm_mnist.py (SVMOutput),
+   nce-loss/nce_lm.py (batch_dot), neural-style/neural_style_toy.py
+   (dot), kaggle-ndsb2/train_ndsb2.py (LogisticRegressionOutput through
+   FeedForward, CSVIter and metric.np); each one's first 3 steps on the
+   card against the CPU (EX_SHARE);
+23. FCN-8s on VGG16 (get_fcn8s_symbol of MXNet's example/fcn-xs, Caffe's
+   voc-fcn8s) at full width: 500x500, batch 1, 21 classes, f32, through
+   Module.fit on gpu(0). Each Crop's window inside its map (offsets 5, 9,
+   31); the first forward/backward at FCN_CHECK_HW against the CPU (TF32
+   off, FCN_TOL); FCN_CAPTURE_STEPS captured steps against eager ones;
+   FCN_EPOCHS epochs of FCN_IMAGES synthetic images (shapes whose class
+   sets their colour, 255 on their edges) eager and captured under
+   torch's default TF32 (the loss falls and the pixel accuracy rises);
+   both steps timed in turns beside the bound from the layers' FLOPs,
+   the card's busy share, the three Deconvolutions' card time forward
+   and backward, the peak memory;
+24. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -289,13 +314,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-22. one JSON line naming every kernel with its launches (the head
+25. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
    launches_gluon_lm; multibox_nms's: in the SSD slice's decodes, and in
    the R-CNN toy as launches_rcnn_toy, with its time at Proposal's shape)
    and error;
-23. the last line: {"ok": true, "device": {...}}.
+26. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -3819,9 +3844,11 @@ def module_aux(mod):
 # batch of 128, f32. --num-examples is cut so that an epoch is RN_STEPS
 # steps (train_imagenet.py's 1,281,167 images make 10,009), and each path
 # trains RN_EPOCHS epochs; the lr schedule's steps (epochs 30 and 60) then
-# lie beyond the run, as they lie beyond an epoch of the full run.
+# lie beyond the run, as they lie beyond an epoch of the full run. With
+# TF32 off each path trains one epoch of RN_OFF_STEPS steps (its times
+# only), and every timed turn is RN_TIMED_STEPS steps.
 RN_BATCH, RN_SHAPE, RN_CLASSES = 128, "3,224,224", 1000
-RN_STEPS, RN_EPOCHS = 50, 2
+RN_STEPS, RN_EPOCHS, RN_OFF_STEPS, RN_TIMED_STEPS = 30, 2, 20, 20
 # The first steps card vs CPU, at a batch the CPU takes in seconds.
 RN_CHECK_BATCH = 16
 # The float32 gradient of these networks is discontinuous in the forward's
@@ -4100,6 +4127,7 @@ def resnet_times(mt, runs, setting, card, flops, nbytes):
     steps = 0
     for k in ("eager", "captured", "captured", "eager"):
         mod, it = runs[k]
+        it.max_iter = RN_TIMED_STEPS
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         steps = fit_epoch(mod, it, metrics[k], clock[k])
@@ -4137,7 +4165,7 @@ def resnet_full_width(mt, resnet50, seed, card, tf32, setting, bound):
     call eager (fit.py's kvstore object) and captured (kvstore="local"),
     RN_EPOCHS epochs under torch's default TF32 (the fixed batch's
     cross-entropy must fall below RN_CE_SHARE of the first epoch's), one
-    with TF32 off; the captured counts, no host wait in a captured epoch,
+    epoch of RN_OFF_STEPS with TF32 off; the captured counts, no host wait in a captured epoch,
     then both steps timed in turns (resnet_times). Under the default it
     also counts the step's FLOPs and bytes (``bound``, reused for the
     other setting) and checks the checkpoint on the CPU. Returns ({path:
@@ -4146,6 +4174,7 @@ def resnet_full_width(mt, resnet50, seed, card, tf32, setting, bound):
     gpu = mt.gpu(0)
     runs, ce = {}, {}
     epochs = RN_EPOCHS if tf32 else 1
+    epoch_steps = RN_STEPS if tf32 else RN_OFF_STEPS
     with tf32_mode(tf32):
         for path, kv in (("eager", None), ("captured", "local")):
             torch.cuda.reset_peak_memory_stats()
@@ -4154,7 +4183,7 @@ def resnet_full_width(mt, resnet50, seed, card, tf32, setting, bound):
             mt.random.seed(seed)
             t0 = time.perf_counter()
             mod, it = imagenet_fit(mt, resnet50(mt), RN_BATCH,
-                                   RN_STEPS * RN_BATCH, epochs, RN_SHAPE,
+                                   epoch_steps * RN_BATCH, epochs, RN_SHAPE,
                                    RN_CLASSES, context=gpu, kvstore=kv,
                                    batch_end_callback=[ce[path]])
             torch.cuda.synchronize()
@@ -4165,7 +4194,7 @@ def resnet_full_width(mt, resnet50, seed, card, tf32, setting, bound):
             text = "eager (the kvstore object fit.py makes)"
             if path == "captured":
                 text, entries = capture_report(
-                    mod, epochs * RN_STEPS, "ResNet-50 " + setting)
+                    mod, epochs * epoch_steps, "ResNet-50 " + setting)
                 text += "; graph (kernel nodes, other nodes, -, replays): " \
                     "%s" % graph_nodes(mt, entries, {}, gpu)
                 del entries
@@ -4180,7 +4209,7 @@ def resnet_full_width(mt, resnet50, seed, card, tf32, setting, bound):
             print("ResNet-50 Module.fit %s, %s: %d epoch(s) of %d steps at "
                   "batch %d in %.2f s; training cross-entropy by epoch %s "
                   "(limit %.2f of the first); %s; peak memory %.2f GB | %s"
-                  % (path, setting, epochs, RN_STEPS, RN_BATCH, fit_s,
+                  % (path, setting, epochs, epoch_steps, RN_BATCH, fit_s,
                      ", ".join("%.4f" % m for m in means), RN_CE_SHARE,
                      text, torch.cuda.max_memory_allocated() / 1e9, card),
                   flush=True)
@@ -5152,7 +5181,7 @@ def gluon_phase(mt, rnn_scan, seed, card):
 # cross-entropy of its last 4 steps below CF_CE_SHARE of its first 4's;
 # with TF32 off each trains one epoch for its times. The iterator alone
 # reads CF_IO_EPOCHS epochs.
-CF_RECORDS, CF_EPOCHS, CF_IO_EPOCHS = 5120, 5, 2
+CF_RECORDS, CF_EPOCHS, CF_IO_EPOCHS = 5120, 3, 1
 CF_CE_SHARE = 0.5
 CF_LAYERS = 110
 # timed turns of CF_TIMED_STEPS steps (eager, captured, the captured step
@@ -5748,7 +5777,7 @@ SSD300 = dict(
     steps=tuple(s / 300.0 for s in (8, 16, 32, 64, 100, 300)))
 SSD_CLASSES, SSD_PREFIX = 20, "ssd300_"
 SSD_HW, SSD_BATCH, SSD_ANCHORS = 300, 32, 8732
-SSD_RECORDS, SSD_EPOCHS = 1024, 3            # 32 steps an epoch
+SSD_RECORDS, SSD_EPOCHS = 768, 2             # 24 steps an epoch
 SSD_LOSS_STEPS, SSD_LOSS_SHARE = 4, 0.7
 SSD_STEPS, SSD_PROFILE_STEPS = 10, 4
 # MXNet SSD's train_net.py: SGD 0.004 / 0.9 / 5e-4, rescale_grad 1 (the
@@ -7261,6 +7290,9 @@ MN_WORKERS = 2                     # the DataLoader's threads, as phase 15's
 # the loader alone in the caller's thread (no workers), over this many
 # batches: whether the worker threads help a host-bound loader
 MN_SERIAL_BATCHES = 200
+# the Gluon MLP's fed run and the loader alone: this many batches (of an
+# epoch's 937)
+MN_GLUON_STEPS = 200
 MN_TIMED_STEPS, MN_PROFILE_STEPS = 50, 10
 # the fed step against the held one: the iterator sets the pace beyond this
 MN_PACE = 1.05
@@ -7461,7 +7493,7 @@ def gluon_files(mt, root, card):
     net = gluon_mlp(mt, gpu)
     run = GluonRun(mt, net, train, gpu, MN_BATCH, True, MN_GLUON_OPT,
                    workers=MN_WORKERS, shuffle=True)
-    steps = len(run.loader)
+    steps = MN_GLUON_STEPS
     t0 = time.perf_counter()
     run.steps(steps)
     torch.cuda.synchronize()
@@ -7473,19 +7505,19 @@ def gluon_files(mt, root, card):
     losses = run.loss_values()
     print("example/gluon/mnist.py's MLP hybridized on gpu(0), fed by "
           "vision.MNIST + ToTensor + Normalize through a DataLoader (%d "
-          "threads, batch %d, shuffle): 1 epoch of %d steps in %.2f s; loss "
+          "threads, batch %d, shuffle): %d steps in %.2f s; loss "
           "%.4f -> %.4f; test accuracy over %d images %.4f (> %.2f); %s | %s"
           % (MN_WORKERS, MN_BATCH, steps, secs, np.mean(losses[:10]),
              np.mean(losses[-10:]), MN_TEST, acc, MN_GLUON_MIN_ACC,
              net.cache_stats(), card), flush=True)
-    alone = loader_rate(gpu, run.loader)
+    alone = loader_rate(gpu, run.loader, MN_GLUON_STEPS)
     serial = loader_rate(gpu, mt.gluon.data.DataLoader(
         train, batch_size=MN_BATCH, shuffle=True), MN_SERIAL_BATCHES)
     print("vision.MNIST DataLoader alone (%d threads, transforms on the "
-          "host, one pinned copy up a batch): %.1f images/s over an epoch; "
-          "in the caller's thread (no workers): %.1f images/s over %d "
-          "batches | %s" % (MN_WORKERS, alone, serial, MN_SERIAL_BATCHES,
-                           card), flush=True)
+          "host, one pinned copy up a batch): %.1f images/s over %d "
+          "batches; in the caller's thread (no workers): %.1f images/s over "
+          "%d batches | %s" % (MN_WORKERS, alone, MN_GLUON_STEPS, serial,
+                              MN_SERIAL_BATCHES, card), flush=True)
     ms = {"fed": [], "held": []}
     clocks = {k: {} for k in ms}
     for k in ("fed", "held", "held", "fed"):
@@ -7615,6 +7647,1377 @@ def data_files_phase(mt, seed, card):
     ms = {("LeNet", k): v for k, v in lenet_ms.items()}
     ms.update({("Gluon MLP", k): v for k, v in gluon_ms.items()})
     return ms, {"LeNet": lenet_pace, "Gluon MLP": gluon_pace}
+
+
+
+# ---------------------------------------------------------------------------
+# The op sweep on the card: every op the port registers, forward and (where
+# it is differentiable) gradient on gpu(0) against the same call on cpu()
+# ---------------------------------------------------------------------------
+
+# the card's sweep against the CPU, TF32 off: outputs and gradients within
+# SWEEP_TOL of each value or of the tensor's largest (cuBLAS, cuDNN and
+# the reductions sum in another order than the CPU); integer outputs equal
+SWEEP_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _su(r, *shape, lo=-1.0, hi=1.0):
+    return r.uniform(lo, hi, shape).astype(np.float32)
+
+
+def _sa(r, *shape, lo=0.2, hi=1.0):
+    """Floats bounded away from 0, either sign (kinks of abs, sign)."""
+    return (r.uniform(lo, hi, shape) * r.choice([-1.0, 1.0], shape)) \
+        .astype(np.float32)
+
+
+def _sd(r, *shape):
+    """Distinct values (no ties for max, sort, argmax)."""
+    n = int(np.prod(shape))
+    vals = (np.arange(n) - n / 2.0) * 0.1 + r.uniform(-0.01, 0.01, n)
+    return r.permutation(vals).reshape(shape).astype(np.float32)
+
+
+def _si(r, *shape, high):
+    return r.randint(0, high, shape).astype(np.int32)
+
+
+def _sb(r, *shape):
+    return r.randint(0, 2, shape).astype(np.float32)
+
+
+def _sweep_anchors(n=16):
+    """n boxes of a 4x4 grid on the unit square (corner form)."""
+    g = (np.arange(4) + 0.5) / 4
+    cx, cy = np.meshgrid(g, g)
+    half = 0.15
+    return np.stack([cx - half, cy - half, cx + half, cy + half],
+                    -1).reshape(1, n, 4).astype(np.float32)
+
+
+def _sweep_rnn(r):
+    from mxtpu_torch.ops.rnn import rnn_param_size
+    T, N, I, H = 4, 2, 3, 5
+    return [_su(r, T, N, I), _su(r, rnn_param_size("lstm", I, H, 1, False),
+                                  lo=-0.3, hi=0.3),
+            _su(r, 1, N, H), _su(r, 1, N, H)]
+
+
+_SWEEP_POS = {"log": 0.3, "log10": 0.3, "log2": 0.3, "sqrt": 0.3,
+              "rsqrt": 0.3, "cbrt": 0.3, "rcbrt": 0.3, "gamma": 0.5,
+              "gammaln": 0.5}
+_SWEEP_RANGE = {"arcsin": (-0.8, 0.8), "arccos": (-0.8, 0.8),
+                "arctanh": (-0.8, 0.8), "arccosh": (1.5, 3.0),
+                "log1p": (-0.5, 2.0), "ceil": (-3, 3), "floor": (-3, 3),
+                "trunc": (-3, 3), "fix": (-3, 3), "rint": (-3, 3),
+                "round": (-3, 3), "radians": (-180, 180)}
+
+# {op: (inputs from a RandomState, params)}: one row for every op the port
+# registers (a CPU test holds the table to the registry); no mxtpu import
+CARD_SWEEP = {}
+for _n in ("abs", "sign", "relu", "reciprocal", "softsign"):
+    CARD_SWEEP[_n] = (lambda r: [_sa(r, 3, 4)], {})
+for _n in ("negative", "exp", "expm1", "square", "sigmoid", "tanh", "sin",
+           "cos", "tan", "sinh", "cosh", "arcsinh", "arctan", "degrees",
+           "erf", "softrelu", "identity", "BlockGrad", "zeros_like",
+           "ones_like", "L2Normalization", "log_softmax", "softmax",
+           "SoftmaxActivation", "flatten"):
+    CARD_SWEEP[_n] = (lambda r: [_su(r, 3, 4)], {})
+for _n, _lo in _SWEEP_POS.items():
+    CARD_SWEEP[_n] = ((lambda lo: lambda r: [_su(r, 3, 4, lo=lo, hi=3.0)])(
+        _lo), {})
+for _n, (_lo, _hi) in _SWEEP_RANGE.items():
+    CARD_SWEEP[_n] = ((lambda lo, hi: lambda r: [_su(r, 3, 4, lo=lo,
+                                                      hi=hi)])(_lo, _hi), {})
+CARD_SWEEP["logical_not"] = (
+    lambda r: [r.choice([0.0, 1.0, 2.0], (3, 4)).astype("f")], {})
+for _n in ("plus", "minus", "rminus", "mul", "div", "maximum", "minimum",
+           "hypot"):
+    CARD_SWEEP["_%s_scalar" % _n] = (lambda r: [_sa(r, 3, 4)],
+                                     {"scalar": 0.7})
+CARD_SWEEP["_rdiv_scalar"] = (lambda r: [_sa(r, 3, 4, lo=0.5)],
+                              {"scalar": 2.0})
+CARD_SWEEP["_mod_scalar"] = (lambda r: [_su(r, 3, 4, lo=2.1, hi=2.9)],
+                             {"scalar": 0.8})
+CARD_SWEEP["_rmod_scalar"] = (lambda r: [_su(r, 3, 4, lo=0.7, hi=0.95)],
+                              {"scalar": 2.5})
+CARD_SWEEP["_power_scalar"] = (lambda r: [_su(r, 3, 4, lo=0.3, hi=2.0)],
+                               {"scalar": 2.5})
+CARD_SWEEP["_rpower_scalar"] = (lambda r: [_su(r, 3, 4, lo=-2, hi=2)],
+                                {"scalar": 2.0})
+for _n in ("equal", "not_equal", "greater", "greater_equal", "lesser",
+           "lesser_equal", "logical_and", "logical_or", "logical_xor"):
+    CARD_SWEEP["_%s_scalar" % _n] = (
+        lambda r: [r.choice([0.0, 0.5, 1.0], (3, 4)).astype("f")],
+        {"scalar": 0.5})
+    CARD_SWEEP["broadcast_" + _n] = (lambda r: [_sb(r, 3, 4), _sb(r, 1, 4)],
+                                     {})
+for _n in ("add", "sub", "mul", "maximum", "minimum", "hypot"):
+    CARD_SWEEP["broadcast_" + _n] = (lambda r: [_sd(r, 3, 4), _sa(r, 1, 4)],
+                                     {})
+CARD_SWEEP["broadcast_div"] = (
+    lambda r: [_su(r, 3, 4), _su(r, 1, 4, lo=0.3, hi=2.0)], {})
+CARD_SWEEP["broadcast_mod"] = (
+    lambda r: [_su(r, 3, 4, lo=2.1, hi=2.9), _su(r, 1, 4, lo=0.7, hi=0.95)],
+    {})
+CARD_SWEEP["broadcast_power"] = (
+    lambda r: [_su(r, 3, 4, lo=0.3, hi=2.0), _su(r, 1, 4, lo=-2, hi=2)], {})
+CARD_SWEEP["arctan2"] = (lambda r: [_sa(r, 3, 4), _sa(r, 3, 4)], {})
+CARD_SWEEP["add_n"] = (lambda r: [_su(r, 3, 4) for _ in range(3)], {})
+CARD_SWEEP["where"] = (lambda r: [_sb(r, 3, 4), _su(r, 3, 4), _su(r, 3, 4)],
+                       {})
+CARD_SWEEP["clip"] = (lambda r: [_sd(r, 3, 4)], {"a_min": -0.45,
+                                                 "a_max": 0.45})
+CARD_SWEEP["smooth_l1"] = (lambda r: [_su(r, 3, 4, lo=-2, hi=2)],
+                           {"scalar": 1.0})
+for _n, _p in (("sum", {"axis": 1}), ("mean", {"axis": 0, "keepdims": True}),
+               ("max", {"axis": 1}), ("min", {"axis": (0, 2)}),
+               ("nansum", {"axis": 1}), ("norm", {"axis": 1}),
+               ("argmax", {"axis": 1}), ("argmin", {"axis": 0}),
+               ("argmax_channel", {}), ("sort", {"is_ascend": False}),
+               ("argsort", {}), ("topk", {"k": 2, "ret_typ": "both"})):
+    CARD_SWEEP[_n] = (lambda r: [_sd(r, 3, 4, 2)], _p)
+for _n in ("prod", "nanprod"):
+    CARD_SWEEP[_n] = (lambda r: [_su(r, 3, 4, lo=0.5, hi=1.5)], {"axis": 1})
+CARD_SWEEP.update({
+    "cast": (lambda r: [_su(r, 3, 4)], {"dtype": "float16"}),
+    "concat": (lambda r: [_su(r, 2, 3), _su(r, 2, 4)], {"dim": 1}),
+    "stack": (lambda r: [_su(r, 3, 4), _su(r, 3, 4)], {"axis": 1}),
+    "split": (lambda r: [_su(r, 2, 6)], {"num_outputs": 3, "axis": 1}),
+    "reshape": (lambda r: [_su(r, 2, 6)], {"shape": (3, -1)}),
+    "expand_dims": (lambda r: [_su(r, 3, 4)], {"axis": 1}),
+    "squeeze": (lambda r: [_su(r, 3, 1, 4)], {"axis": 1}),
+    "transpose": (lambda r: [_su(r, 2, 3, 4)], {"axes": (2, 0, 1)}),
+    "swapaxes": (lambda r: [_su(r, 2, 3, 4)], {"dim1": 0, "dim2": 2}),
+    "tile": (lambda r: [_su(r, 2, 3)], {"reps": (2, 2)}),
+    "repeat": (lambda r: [_su(r, 2, 3)], {"repeats": 2, "axis": 1}),
+    "reverse": (lambda r: [_su(r, 3, 4)], {"axis": 1}),
+    "slice": (lambda r: [_su(r, 4, 5)], {"begin": (None, 4),
+                                         "end": (None, 0),
+                                         "step": (2, -1)}),
+    "slice_axis": (lambda r: [_su(r, 4, 5)], {"axis": 1, "begin": 1,
+                                              "end": 4}),
+    "slice_like": (lambda r: [_su(r, 4, 5), _su(r, 2, 3)], {}),
+    "take": (lambda r: [_su(r, 4, 3), _si(r, 5, high=6)], {"mode": "wrap"}),
+    "batch_take": (lambda r: [_su(r, 3, 4), _si(r, 3, high=4)], {}),
+    "pick": (lambda r: [_su(r, 3, 4), _si(r, 3, high=4).astype("f")],
+             {"axis": 1}),
+    "gather_nd": (lambda r: [_su(r, 4, 5), _si(r, 2, 3, high=4)], {}),
+    "scatter_nd": (lambda r: [_su(r, 4),
+                              np.array([[0, 2, 0, 3]], np.int32)],
+                   {"shape": (5,)}),
+    "one_hot": (lambda r: [_si(r, 5, high=4)], {"depth": 4}),
+    "depth_to_space": (lambda r: [_su(r, 1, 8, 2, 2)], {"block_size": 2}),
+    "space_to_depth": (lambda r: [_su(r, 1, 2, 4, 4)], {"block_size": 2}),
+    "diag": (lambda r: [_su(r, 4, 4)], {"k": 1}),
+    "broadcast_axis": (lambda r: [_su(r, 3, 1)], {"axis": 1, "size": 4}),
+    "broadcast_like": (lambda r: [_su(r, 3, 1), _su(r, 3, 4)], {}),
+    "broadcast_to": (lambda r: [_su(r, 3, 1)], {"shape": (3, 4)}),
+    "pad": (lambda r: [_su(r, 1, 2, 3, 4, 3)],
+            {"mode": "reflect", "pad_width": (0, 0, 0, 0, 1, 2, 2, 1, 1, 1)}),
+    "_index": (lambda r: [_su(r, 4, 5)], {"key": (slice(1, 3),)}),
+    "shape_array": (lambda r: [_su(r, 3, 4)], {}),
+    "size_array": (lambda r: [_su(r, 3, 4)], {}),
+    "_ones": (lambda r: [], {"shape": (3, 4)}),
+    "_zeros": (lambda r: [], {"shape": (3, 4)}),
+    "dot": (lambda r: [_su(r, 2, 3, 4), _su(r, 4, 5)], {}),
+    "batch_dot": (lambda r: [_su(r, 2, 4, 3), _su(r, 2, 4, 5)],
+                  {"transpose_a": True}),
+    "Activation": (lambda r: [_sa(r, 3, 4)], {"act_type": "softrelu"}),
+    "LeakyReLU": (lambda r: [_sa(r, 3, 4)], {"act_type": "elu",
+                                             "slope": 0.3}),
+    "FullyConnected": (lambda r: [_su(r, 2, 3), _su(r, 4, 3), _su(r, 4)],
+                       {"num_hidden": 4}),
+    "Convolution": (lambda r: [_su(r, 2, 4, 6, 6), _su(r, 6, 2, 3, 3),
+                               _su(r, 6)],
+                    {"kernel": (3, 3), "num_filter": 6, "pad": (1, 1),
+                     "stride": (2, 2), "num_group": 2}),
+    "Deconvolution": (lambda r: [_su(r, 1, 4, 4, 4), _su(r, 4, 3, 4, 4),
+                                 _su(r, 6)],
+                      {"kernel": (4, 4), "num_filter": 6, "stride": (2, 2),
+                       "adj": (1, 1), "num_group": 2, "no_bias": False}),
+    "Pooling": (lambda r: [_sd(r, 1, 2, 5, 5)],
+                {"kernel": (2, 2), "pool_type": "max", "stride": (2, 2),
+                 "pooling_convention": "full"}),
+    "BatchNorm": (lambda r: [_su(r, 2, 3, 4), _su(r, 3, lo=0.3, hi=2.0),
+                             _su(r, 3), _su(r, 3),
+                             _su(r, 3, lo=0.3, hi=2.0)],
+                  {"fix_gamma": False, "use_global_stats": True}),
+    "LayerNorm": (lambda r: [_su(r, 3, 4), _su(r, 4), _su(r, 4)], {}),
+    "InstanceNorm": (lambda r: [_su(r, 2, 3, 5), _su(r, 3), _su(r, 3)], {}),
+    "LRN": (lambda r: [_su(r, 1, 4, 3, 3)], {"alpha": 1e-2, "nsize": 3}),
+    "Embedding": (lambda r: [_si(r, 2, 3, high=5).astype("f"),
+                             _su(r, 5, 4)],
+                  {"input_dim": 5, "output_dim": 4}),
+    "Dropout": (lambda r: [_su(r, 3, 4)], {"p": 0.5}),
+    "UpSampling": (lambda r: [_su(r, 1, 2, 3, 3), _su(r, 1, 2, 3, 3)],
+                   {"scale": 2, "num_args": 2, "multi_input_mode": "sum"}),
+    "Crop": (lambda r: [_su(r, 1, 2, 7, 6), _su(r, 1, 1, 4, 3)],
+             {"offset": (2, 1)}),
+    "MakeLoss": (lambda r: [_su(r, 3)], {"grad_scale": 0.5}),
+    "SoftmaxOutput": (lambda r: [_su(r, 2, 4, 3),
+                                 _si(r, 2, 3, high=4).astype("f")],
+                      {"multi_output": True}),
+    "LinearRegressionOutput": (lambda r: [_su(r, 3, 4), _su(r, 3, 4)], {}),
+    "MAERegressionOutput": (lambda r: [_su(r, 3, 4), _su(r, 3, 4)], {}),
+    "LogisticRegressionOutput": (lambda r: [_su(r, 3, 4), _su(r, 3, 4)], {}),
+    "SVMOutput": (lambda r: [_su(r, 3, 4), _si(r, 3, high=4).astype("f")],
+                  {"margin": 0.5}),
+    "RNN": (_sweep_rnn, {"state_size": 5, "num_layers": 1, "mode": "lstm",
+                         "state_outputs": True}),
+    "Custom": (lambda r: [_su(r, 3, 4)], {"op_type": "sweep_square"}),
+    "_contrib_flash_attention": (
+        lambda r: [_su(r, 1, 2, 32, 16), _su(r, 1, 2, 32, 16),
+                   _su(r, 1, 2, 32, 16)], {"causal": True}),
+    "BilinearSampler": (lambda r: [_su(r, 1, 2, 5, 5),
+                                   _su(r, 1, 2, 4, 4, lo=-0.7, hi=0.7)], {}),
+    "GridGenerator": (lambda r: [np.array([[1.1, 0.1, 0.05, -0.1, 0.9,
+                                            -0.05]], np.float32)],
+                      {"transform_type": "affine", "target_shape": (4, 4)}),
+    "SpatialTransformer": (lambda r: [_su(r, 1, 2, 5, 5),
+                                      np.array([[1.0, 0.1, 0.05, -0.1, 0.9,
+                                                 -0.05]], np.float32)],
+                           {"target_shape": (4, 4)}),
+    "ROIPooling": (lambda r: [_sd(r, 1, 2, 6, 6),
+                              np.array([[0, 0, 0, 3, 3], [0, 1, 1, 5, 5]],
+                                       np.float32)],
+                   {"pooled_size": (2, 2), "spatial_scale": 1.0}),
+    "_contrib_PSROIPooling": (
+        lambda r: [_su(r, 1, 8, 6, 6), np.array([[0, 0, 0, 4, 4]],
+                                                np.float32)],
+        {"output_dim": 2, "pooled_size": 2, "spatial_scale": 1.0}),
+    "Correlation": (lambda r: [_su(r, 1, 2, 5, 5), _su(r, 1, 2, 5, 5)],
+                    {"kernel_size": 1, "max_displacement": 1}),
+    "SequenceLast": (lambda r: [_su(r, 4, 3, 2),
+                                np.array([2, 4, 3], np.float32)],
+                     {"use_sequence_length": True}),
+    "SequenceMask": (lambda r: [_su(r, 4, 3, 2),
+                                np.array([2, 4, 3], np.float32)],
+                     {"use_sequence_length": True, "value": -1.0}),
+    "SequenceReverse": (lambda r: [_su(r, 4, 3, 2),
+                                   np.array([2, 4, 3], np.float32)],
+                        {"use_sequence_length": True}),
+    "_contrib_MultiBoxPrior": (lambda r: [_su(r, 1, 3, 4, 4)],
+                               {"sizes": (0.5, 0.3), "ratios": (1.0, 2.0)}),
+    "_contrib_MultiBoxTarget": (
+        lambda r: [_sweep_anchors(),
+                   np.array([[[0, 0.1, 0.1, 0.6, 0.6],
+                              [1, 0.5, 0.4, 0.9, 0.95]]], np.float32),
+                   _su(r, 1, 3, 16)], {}),
+    "_contrib_MultiBoxDetection": (
+        lambda r: [np.exp(_su(r, 1, 3, 16)) / np.exp(_su(r, 1, 3, 16)).sum(
+            1, keepdims=True), _su(r, 1, 64, lo=-0.1, hi=0.1),
+                   _sweep_anchors()], {"nms_threshold": 0.3}),
+    "_contrib_Proposal": (
+        lambda r: [_su(r, 1, 24, 4, 4, lo=0.0, hi=1.0),
+                   _su(r, 1, 48, 4, 4, lo=-0.1, hi=0.1),
+                   np.array([[64, 64, 1]], np.float32)],
+        {"rpn_pre_nms_top_n": 12, "rpn_post_nms_top_n": 4,
+         "rpn_min_size": 1}),
+    "_contrib_MultiProposal": (
+        lambda r: [_su(r, 2, 24, 4, 4, lo=0.0, hi=1.0),
+                   _su(r, 2, 48, 4, 4, lo=-0.1, hi=0.1),
+                   np.array([[64, 64, 1], [64, 64, 1]], np.float32)],
+        {"rpn_pre_nms_top_n": 12, "rpn_post_nms_top_n": 4,
+         "rpn_min_size": 1}),
+})
+
+
+def sweep_register(mt):
+    """The custom op the sweep's ``Custom`` row calls: x^2 with its
+    gradient, written in the NDArray API (so it runs on either device)."""
+    from mxtpu_torch import operator
+
+    class Square(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 2 * in_data[0] * out_grad[0])
+
+    @operator.register("sweep_square")
+    class SquareProp(operator.CustomOpProp):
+        def list_arguments(self):
+            return ["data"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Square()
+
+
+def sweep_row(mt, name, ctx, seed=0):
+    """Op ``name``'s row of CARD_SWEEP through ``mt.nd`` on ``ctx``:
+    (its outputs as numpy, and where the op is differentiable the
+    gradients of sum(cotangent * output) with respect to its float
+    inputs, else []). The generator is reseeded first, so a stochastic
+    op draws the same on either device."""
+    from mxtpu_torch.ops.registry import get_op
+    make, params = CARD_SWEEP[name]
+    r = np.random.RandomState(seed)
+    args = make(r)
+    op = get_op(name)
+    fidx = [i for i, a in enumerate(args)
+            if isinstance(a, np.ndarray) and a.dtype.kind == "f"] \
+        if op.differentiable else []
+    fn = getattr(mt.nd, name)
+    with ctx:
+        mt.random.seed(seed)
+        nds = [mt.nd.array(a, ctx=ctx) if isinstance(a, np.ndarray) else a
+               for a in args]
+        out = fn(*nds, **params)
+        outs = [o.asnumpy() for o in (out if isinstance(out, list)
+                                      else [out])]
+        if not fidx:
+            return outs, []
+        mt.random.seed(seed)
+        for i in fidx:
+            nds[i].attach_grad()
+        with mt.autograd.record():
+            out = fn(*nds, **params)
+        out = out if isinstance(out, list) else [out]
+        heads = [(o, mt.nd.array(r.normal(0, 1, o.shape).astype("f"),
+                                 ctx=ctx, dtype=o.dtype))
+                 for o in out if o.data.requires_grad]
+        if heads:
+            mt.autograd.backward([h[0] for h in heads],
+                                 head_grads=[h[1] for h in heads])
+        grads = [nds[i].grad.asnumpy() if heads and nds[i].grad is not None
+                 else np.zeros(args[i].shape, np.float32) for i in fidx]
+    return outs, grads
+
+
+def sweep_close(got, want):
+    """None if ``got`` matches ``want`` (SWEEP_TOL, of each value or of
+    the largest; integers and bools exactly), else what differs."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return "%s %s against %s %s" % (got.shape, got.dtype, want.shape,
+                                        want.dtype)
+    if got.dtype.kind not in "fc":
+        return None if np.array_equal(got, want) else "integers differ"
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    if not np.array_equal(np.isnan(g), np.isnan(w)):
+        return "NaNs differ"
+    ok = ~np.isnan(w)
+    scale = max(1.0, float(np.abs(w[ok]).max())) if ok.any() else 1.0
+    err = np.abs(g[ok] - w[ok])
+    if (err > SWEEP_TOL["atol"] * scale + SWEEP_TOL["rtol"] * np.abs(
+            w[ok])).any():
+        return "max |diff| %.3g" % float(err.max())
+    return None
+
+
+def op_sweep_phase(mt, card):
+    """Every registered op's CARD_SWEEP row on gpu(0) against cpu(): the
+    outputs and, where differentiable, the gradients. Prints the count
+    that passed and the names that failed; any failure fails the run."""
+    from mxtpu_torch.ops.registry import _REGISTRY
+    t0 = time.time()
+    sweep_register(mt)
+    names = sorted({op.name for op in _REGISTRY.values()})
+    if set(names) != set(CARD_SWEEP):
+        fail("the op sweep's table and the registry differ: %s"
+             % sorted(set(names) ^ set(CARD_SWEEP)))
+    failed, grads = {}, 0
+    for name in names:
+        try:
+            got_o, got_g = sweep_row(mt, name, mt.gpu(0))
+            want_o, want_g = sweep_row(mt, name, mt.cpu())
+        except Exception as e:      # noqa: BLE001 - reported, then fatal
+            failed[name] = "raised %s: %s" % (type(e).__name__, e)
+            continue
+        grads += bool(want_g)
+        diffs = [sweep_close(g, w) for g, w in zip(got_o + got_g,
+                                                    want_o + want_g)]
+        if len(got_o) != len(want_o) or any(diffs):
+            failed[name] = "; ".join(d for d in diffs if d) or "arity"
+    print("op sweep on gpu(0) against cpu() (TF32 off, tolerance %s): %d of "
+          "%d ops passed (%d with gradients) in %.1f s; failed: %s | %s"
+          % (SWEEP_TOL, len(names) - len(failed), len(names), grads,
+             time.time() - t0, ", ".join("%s (%s)" % kv for kv in
+                                         sorted(failed.items())) or "none",
+             card), flush=True)
+    if failed:
+        fail("the op sweep failed on the card for %s" % sorted(failed))
+    return len(names)
+
+
+
+# ---------------------------------------------------------------------------
+# The examples the op sweep's ops open, each a mirror of the example's main
+# (the examples import mxtpu) with ``pkg`` for mxtpu and the context a
+# parameter where the example hard-codes cpu()
+# ---------------------------------------------------------------------------
+
+# first steps, card against the CPU: each array (a Module example's
+# weight steps, a Gluon loop's losses, weights or image) within EX_SHARE of
+# its largest value, or of EX_FLOOR times the example's largest where that
+# is more: a bias before a BatchNorm has no gradient, so its step is
+# rounding alone
+EX_SHARE, EX_FLOOR = 1e-3, 1e-2
+FCN_TOY_HW, FCN_TOY_CLASSES = 32, 2
+NDSB_FRAMES, NDSB_IMG, NDSB_BINS = 30, 32, 600
+NCE_VOCAB, NCE_EMBED, NCE_K = 200, 32, 8
+STYLE_HW = 24
+
+
+def fcn_toy_data(n, seed=0):
+    """example/fcn-xs/fcn_toy.py's make_data: a bright square on noise."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(0, 0.3, (n, 1, FCN_TOY_HW, FCN_TOY_HW)).astype("f")
+    y = np.zeros((n, FCN_TOY_HW, FCN_TOY_HW), "f")
+    for i in range(n):
+        size = rng.randint(8, 18)
+        r0 = rng.randint(0, FCN_TOY_HW - size)
+        c0 = rng.randint(0, FCN_TOY_HW - size)
+        x[i, 0, r0:r0 + size, c0:c0 + size] += 0.7
+        y[i, r0:r0 + size, c0:c0 + size] = 1.0
+    return x, y
+
+
+def fcn_toy_symbol(pkg):
+    """fcn_toy.py's get_fcn_symbol: two conv/pool stages to stride 4, a
+    1x1 score, an 8x8 stride-4 Deconvolution, Crop to the data, a
+    per-pixel SoftmaxOutput."""
+    data = pkg.sym.var("data")
+    body = data
+    for i, ch in enumerate((16, 32)):
+        body = pkg.sym.Convolution(body, num_filter=ch, kernel=(3, 3),
+                                   pad=(1, 1), name="conv%d" % i)
+        body = pkg.sym.Activation(body, act_type="relu")
+        body = pkg.sym.Pooling(body, kernel=(2, 2), stride=(2, 2),
+                               pool_type="max", name="pool%d" % i)
+    score = pkg.sym.Convolution(body, num_filter=FCN_TOY_CLASSES,
+                                kernel=(1, 1), name="score")
+    up = pkg.sym.Deconvolution(score, num_filter=FCN_TOY_CLASSES,
+                               kernel=(8, 8), stride=(4, 4), pad=(2, 2),
+                               num_group=1, name="bigscore")
+    up = pkg.sym.Crop(up, data, name="crop")
+    return pkg.sym.SoftmaxOutput(up, multi_output=True, use_ignore=True,
+                                 ignore_label=-1, name="softmax")
+
+
+def fcn_toy_main(pkg, ctx):
+    """fcn_toy.py's main on ``ctx``: Module.fit (Adam 0.01, Xavier, 6
+    epochs of 12 batches), then the pixel accuracy on the training images
+    (the example asserts > 0.93). Returns the accuracy."""
+    np.random.seed(0)
+    pkg.random.seed(0)
+    x, y = fcn_toy_data(96)
+    sym = fcn_toy_symbol(pkg)
+    train = pkg.io.NDArrayIter(x, y, batch_size=8, shuffle=True,
+                               label_name="softmax_label")
+    mod = pkg.mod.Module(sym, context=ctx)
+    mod.fit(train, optimizer="adam", optimizer_params={"learning_rate": 0.01},
+            initializer=pkg.init.Xavier(), num_epoch=6)
+    val = pkg.io.NDArrayIter(x, y, batch_size=8, label_name="softmax_label")
+    correct = total = 0
+    for batch in val:
+        mod.forward(batch, is_train=False)
+        pred = mod.get_outputs()[0].asnumpy().argmax(axis=1)
+        lab = batch.label[0].asnumpy()
+        correct += (pred == lab).sum()
+        total += lab.size
+    acc = correct / total
+    if not acc > 0.93:
+        fail("fcn_toy on %s: pixel accuracy %.3f (the example asserts > "
+             "0.93)" % (ctx, acc))
+    return float(acc)
+
+
+def svm_digits(n, seed=0):
+    """example/svm_mnist/svm_mnist.py's synthetic_digits."""
+    protos = np.random.RandomState(0).uniform(0, 1, (10, 784)) \
+        .astype(np.float32)
+    r = np.random.RandomState(seed)
+    y = r.randint(0, 10, n)
+    x = protos[y] + 0.25 * r.randn(n, 784).astype(np.float32)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def svm_symbol(pkg, use_linear=False):
+    """svm_mnist.py's build: 784 -> 128 relu -> 10 -> SVMOutput."""
+    data = pkg.sym.var("data")
+    net = pkg.sym.FullyConnected(data, name="fc1", num_hidden=128)
+    net = pkg.sym.Activation(net, name="relu1", act_type="relu")
+    net = pkg.sym.FullyConnected(net, name="fc2", num_hidden=10)
+    return pkg.sym.SVMOutput(net, name="svm", use_linear=use_linear,
+                             margin=1.0, regularization_coefficient=1.0)
+
+
+def svm_mnist_main(pkg, ctx):
+    """svm_mnist.py's main on ``ctx``: the squared and the linear hinge,
+    each Module.fit for 4 epochs of SGD (momentum 0.9, wd 1e-4), scored
+    (the example asserts accuracy > 0.9). Returns {use_linear: acc}."""
+    np.random.seed(0)
+    pkg.random.seed(7)
+    xtr, ytr = svm_digits(2048, seed=0)
+    xte, yte = svm_digits(512, seed=1)
+    batch = 128
+    train = pkg.io.NDArrayIter(xtr, ytr, batch, shuffle=True,
+                               label_name="svm_label")
+    val = pkg.io.NDArrayIter(xte, yte, batch, label_name="svm_label")
+    accs = {}
+    for use_linear, lr in ((False, 1e-3), (True, 1e-2)):
+        mod = pkg.mod.Module(svm_symbol(pkg, use_linear),
+                             data_names=("data",),
+                             label_names=("svm_label",), context=ctx)
+        mod.fit(train, eval_data=val, optimizer="sgd",
+                optimizer_params={"learning_rate": lr, "momentum": 0.9,
+                                  "wd": 1e-4},
+                eval_metric="acc", num_epoch=4)
+        acc = dict(mod.score(val, "acc"))["accuracy"]
+        if not acc > 0.9:
+            fail("svm_mnist on %s, use_linear=%s: accuracy %.3f (the "
+                 "example asserts > 0.9)" % (ctx, use_linear, acc))
+        accs[use_linear] = float(acc)
+    return accs
+
+
+def nce_model(pkg):
+    """example/nce-loss/nce_lm.py's NCEModel: logits <in_embed(center),
+    out_embed(label)> by batch_dot."""
+    gluon, nn = pkg.gluon, pkg.gluon.nn
+
+    class NCEModel(gluon.Block):
+        def __init__(self, **kw):
+            super(NCEModel, self).__init__(**kw)
+            with self.name_scope():
+                self.in_embed = nn.Embedding(NCE_VOCAB, NCE_EMBED)
+                self.out_embed = nn.Embedding(NCE_VOCAB, NCE_EMBED)
+
+        def forward(self, center, labels):
+            e_in = self.in_embed(center)
+            e_out = self.out_embed(labels)
+            return pkg.nd.batch_dot(
+                e_out, pkg.nd.reshape(e_in, shape=(-1, NCE_EMBED, 1))) \
+                .reshape((labels.shape[0], labels.shape[1]))
+    return NCEModel()
+
+
+def nce_lm_main(pkg, ctx, steps=400, weights=None):
+    """nce_lm.py's main on ``ctx``: 400 Adam steps of NCE with 8 noise
+    labels, then full-vocabulary retrieval (the example asserts > 0.9).
+    ``weights`` ({name suffix: numpy}) replaces the Normal(0.1) draw;
+    ``steps`` cuts the run (no retrieval check then). Returns (each step's
+    mean loss, the accuracy or None, the weights at the end)."""
+    pkg.random.seed(17)
+    r = np.random.RandomState(0)
+    mapping = r.permutation(NCE_VOCAB)
+    net = nce_model(pkg)
+    net.initialize(pkg.init.Normal(0.1), ctx=ctx)
+    params = net.collect_params()
+    if weights is not None:
+        for k, p in params.items():
+            p.set_data(pkg.nd.array(weights[k.split("_", 1)[1]], ctx=ctx))
+    trainer = pkg.gluon.Trainer(params, "adam", {"learning_rate": 5e-3})
+    loss_fn = pkg.gluon.loss.SigmoidBinaryCrossEntropyLoss(
+        from_sigmoid=False)
+    batch = 256
+    losses = []
+    for step in range(steps):
+        center = r.randint(0, NCE_VOCAB, batch)
+        true_ctx = mapping[center]
+        noise = r.randint(0, NCE_VOCAB, (batch, NCE_K))
+        labels = np.concatenate([true_ctx[:, None], noise], axis=1)
+        target = np.zeros((batch, 1 + NCE_K), np.float32)
+        target[:, 0] = 1.0
+        c_nd = pkg.nd.array(center.astype(np.float32), ctx=ctx)
+        l_nd = pkg.nd.array(labels.astype(np.float32), ctx=ctx)
+        with pkg.autograd.record():
+            logits = net(c_nd, l_nd)
+            loss = loss_fn(logits, pkg.nd.array(target, ctx=ctx))
+        loss.backward()
+        trainer.step(batch)
+        losses.append(float(loss.mean().asnumpy()))
+    end = {k.split("_", 1)[1]: p.data().asnumpy() for k, p in params.items()}
+    if steps < 400:
+        return losses, None, end
+    centers = pkg.nd.array(np.arange(NCE_VOCAB, dtype=np.float32), ctx=ctx)
+    e_in = net.in_embed(centers).asnumpy()
+    e_out = net.out_embed(centers).asnumpy()
+    acc = float(((e_in @ e_out.T).argmax(axis=1) == mapping).mean())
+    if not acc > 0.9:
+        fail("nce_lm on %s: retrieval accuracy %.3f (the example asserts > "
+             "0.9)" % (ctx, acc))
+    return losses, acc, end
+
+
+def style_extractor(pkg, ctx):
+    """neural_style_toy.py's make_extractor: two fixed conv taps."""
+    nn = pkg.gluon.nn
+    f1 = nn.HybridSequential()
+    f1.add(nn.Conv2D(8, 3, padding=1), nn.Activation("relu"))
+    f2 = nn.HybridSequential()
+    f2.add(nn.MaxPool2D(2), nn.Conv2D(16, 3, padding=1),
+           nn.Activation("relu"))
+    for f in (f1, f2):
+        f.initialize(pkg.init.Xavier(rnd_type="gaussian", magnitude=2),
+                     ctx=ctx)
+    return f1, f2
+
+
+def style_gram(pkg, feat):
+    """neural_style_toy.py's gram: (c, hw) x (hw, c) by nd.dot."""
+    b, c, h, w = feat.shape
+    flat = pkg.nd.reshape(feat, shape=(c, h * w))
+    return pkg.nd.dot(flat, flat.T) / (c * h * w)
+
+
+def neural_style_main(pkg, ctx, steps=200, weights=None):
+    """neural_style_toy.py's main on ``ctx``: 200 steps of gradient
+    descent on the input image (content, gram-matrix style and total
+    variation losses through a fixed conv extractor); the example asserts
+    the loss falls below 0.4 of its start. ``weights`` (a list of numpy
+    arrays in the extractor's order) replaces its Xavier draw. Returns
+    (each step's loss, the image at the end)."""
+    np.random.seed(0)
+    pkg.random.seed(0)
+    rng = np.random.RandomState(0)
+    content = np.zeros((1, 3, STYLE_HW, STYLE_HW), "f")
+    content[:, :, 6:18, 6:18] = 1.0
+    style = np.tile((np.add.outer(np.arange(STYLE_HW), np.arange(STYLE_HW))
+                     % 6 < 3).astype("f"), (1, 3, 1, 1))
+    f1, f2 = style_extractor(pkg, ctx)
+    c_nd = pkg.nd.array(content, ctx=ctx)
+    s_nd = pkg.nd.array(style, ctx=ctx)
+    if weights is not None:
+        with pkg.autograd.pause():
+            f2(f1(c_nd))            # the deferred shapes, then the weights
+        for p, w in zip(list(f1.collect_params().values())
+                        + list(f2.collect_params().values()), weights):
+            p.set_data(pkg.nd.array(w, ctx=ctx))
+    with pkg.autograd.pause():
+        content_feat = f1(c_nd)
+        s1 = f1(s_nd)
+        style_grams = [style_gram(pkg, s1), style_gram(pkg, f2(s1))]
+    img = pkg.nd.array(rng.uniform(0, 1, content.shape).astype("f"),
+                       ctx=ctx)
+    img.attach_grad()
+    losses = []
+    for step in range(steps):
+        with pkg.autograd.record():
+            feats = [f1(img)]
+            feats.append(f2(feats[0]))
+            closs = pkg.nd.mean(pkg.nd.square(feats[0] - content_feat))
+            sloss = sum(pkg.nd.mean(pkg.nd.square(style_gram(pkg, f) - g))
+                        for f, g in zip(feats, style_grams))
+            tv = pkg.nd.mean(pkg.nd.square(
+                img[:, :, 1:, :] - img[:, :, :-1, :])) + \
+                pkg.nd.mean(pkg.nd.square(
+                    img[:, :, :, 1:] - img[:, :, :, :-1]))
+            loss = closs + 20.0 * sloss + 0.1 * tv
+        loss.backward()
+        # the example rebinds img's buffer to img - 8 grad and zeroes the
+        # gradient through the private _data; here through the public API
+        img[:] = img - 8.0 * img.grad
+        img.grad[:] = 0
+        losses.append(float(loss.asscalar()))
+    if steps == 200 and not losses[-1] < losses[0] * 0.4:
+        fail("neural_style_toy on %s: loss %.4f -> %.4f (the example "
+             "asserts below 0.4 of the start)" % (ctx, losses[0],
+                                                   losses[-1]))
+    return losses, img.asnumpy()
+
+
+def ndsb2_stacks(n, rng):
+    """example/kaggle-ndsb2/train_ndsb2.py's synth_stacks."""
+    yy, xx = np.mgrid[0:NDSB_IMG, 0:NDSB_IMG].astype(np.float32)
+    data = np.empty((n, NDSB_FRAMES, NDSB_IMG, NDSB_IMG), np.float32)
+    volumes = rng.uniform(30, 270, n).astype(np.float32)
+    for i in range(n):
+        r0 = 2.0 + volumes[i] / 40.0
+        phase = rng.uniform(0, 2 * np.pi)
+        for t in range(NDSB_FRAMES):
+            r = r0 * (1.0 + 0.35 * np.sin(2 * np.pi * t / NDSB_FRAMES
+                                          + phase))
+            d2 = (xx - NDSB_IMG / 2) ** 2 + (yy - NDSB_IMG / 2) ** 2
+            frame = 110.0 * (d2 < r * r) + rng.normal(0, 6,
+                                                       (NDSB_IMG, NDSB_IMG))
+            data[i, t] = np.clip(frame + 60.0, 0, 255)
+    return data, volumes
+
+
+def ndsb2_encode_label(volumes):
+    return np.array([(v < np.arange(NDSB_BINS)) for v in volumes],
+                    dtype=np.uint8)
+
+
+def ndsb2_write_csvs(root, data, volumes):
+    data_csv = os.path.join(root, "train-data.csv")
+    label_csv = os.path.join(root, "train-systole.csv")
+    np.savetxt(data_csv, data.reshape(len(data), -1), delimiter=",",
+               fmt="%g")
+    np.savetxt(label_csv, ndsb2_encode_label(volumes), delimiter=",",
+               fmt="%g")
+    return data_csv, label_csv
+
+
+def ndsb2_lenet(pkg):
+    """train_ndsb2.py's get_lenet: frame differences by SliceChannel, two
+    conv/BN/relu/pool stages, dropout, 600 sigmoid outputs."""
+    source = pkg.sym.Variable("data")
+    source = (source - 128) * (1.0 / 128)
+    frames = pkg.sym.SliceChannel(source, num_outputs=NDSB_FRAMES)
+    diffs = [frames[i + 1] - frames[i] for i in range(NDSB_FRAMES - 1)]
+    source = pkg.sym.Concat(*diffs)
+    net = pkg.sym.Convolution(source, kernel=(5, 5), num_filter=16)
+    net = pkg.sym.BatchNorm(net, fix_gamma=True)
+    net = pkg.sym.Activation(net, act_type="relu")
+    net = pkg.sym.Pooling(net, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    net = pkg.sym.Convolution(net, kernel=(3, 3), num_filter=16)
+    net = pkg.sym.BatchNorm(net, fix_gamma=True)
+    net = pkg.sym.Activation(net, act_type="relu")
+    net = pkg.sym.Pooling(net, pool_type="max", kernel=(2, 2), stride=(2, 2))
+    flatten = pkg.sym.Flatten(net)
+    flatten = pkg.sym.Dropout(flatten)
+    fc1 = pkg.sym.FullyConnected(data=flatten, num_hidden=NDSB_BINS)
+    return pkg.sym.LogisticRegressionOutput(data=fc1, name="softmax")
+
+
+def ndsb2_crps(label, pred):
+    """train_ndsb2.py's CRPS metric."""
+    pred = np.maximum.accumulate(pred, axis=1)
+    return np.sum(np.square(label - pred)) / label.size
+
+
+def ndsb2_main(pkg, ctx, root, num_cases=48, batch_size=8, num_epochs=12):
+    """train_ndsb2.py's main on ``ctx`` (the example hard-codes cpu()):
+    stacks through CSV files and CSVIter, FeedForward.fit (SGD 0.01,
+    momentum 0.9, wd 1e-5) with the CRPS metric, then predict; the
+    example asserts the CRPS below 0.6 of the all-half CDF's. Returns
+    (crps, baseline)."""
+    rng = np.random.RandomState(7)
+    data, volumes = ndsb2_stacks(num_cases, rng)
+    data_csv, label_csv = ndsb2_write_csvs(root, data, volumes)
+    data_train = pkg.io.CSVIter(
+        data_csv=data_csv, data_shape=(NDSB_FRAMES, NDSB_IMG, NDSB_IMG),
+        label_csv=label_csv, label_shape=(NDSB_BINS,),
+        batch_size=batch_size)
+    model = pkg.model.FeedForward(
+        ctx=ctx, symbol=ndsb2_lenet(pkg), num_epoch=num_epochs,
+        learning_rate=0.01, wd=0.00001, momentum=0.9)
+    model.fit(X=data_train, eval_metric=pkg.metric.np(ndsb2_crps))
+    preds = model.predict(pkg.io.CSVIter(
+        data_csv=data_csv, data_shape=(NDSB_FRAMES, NDSB_IMG, NDSB_IMG),
+        batch_size=batch_size))
+    preds = np.maximum.accumulate(np.asarray(preds), axis=1)
+    truth = ndsb2_encode_label(volumes)
+    crps = float(np.square(truth - preds).sum() / truth.size)
+    baseline = float(np.square(truth - 0.5).sum() / truth.size)
+    if not crps < 0.6 * baseline:
+        fail("train_ndsb2 on %s: CRPS %.4f against the all-half %.4f (the "
+             "example asserts below 0.6 of it)" % (ctx, crps, baseline))
+    return crps, baseline
+
+
+def module_steps(pkg, ctx, sym, data_iter, arg_params, aux_params,
+                 optimizer, optimizer_params, label_names=("softmax_label",),
+                 steps=FIT_STEPS, seed=0):
+    """``steps`` eager Module steps (forward_backward, update) of ``sym``
+    from ``arg_params`` on ``ctx`` over ``data_iter``'s first batches:
+    {name: numpy} of the weights after them. Eager on either device, so
+    a Dropout draws from the executor's generator, seeded alike."""
+    if os.environ.get("MXTPU_MODULE_FUSED") != "0":
+        return with_fused(False, module_steps, pkg, ctx, sym, data_iter,
+                          arg_params, aux_params, optimizer,
+                          optimizer_params, label_names, steps, seed)
+    pkg.random.seed(seed)
+    np.random.seed(seed)
+    data_iter.reset()
+    mod = pkg.mod.Module(sym, context=ctx, label_names=label_names)
+    mod.bind(data_iter.provide_data, data_iter.provide_label)
+    mod.init_params(arg_params=host_params(pkg, arg_params),
+                    aux_params=host_params(pkg, aux_params or {}))
+    mod.init_optimizer(optimizer=optimizer,
+                       optimizer_params=optimizer_params)
+    for _ in range(steps):
+        mod.forward_backward(data_iter.next())
+        mod.update()
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def module_init(pkg, sym, data_iter, initializer, seed=0,
+                label_names=("softmax_label",)):
+    """The weights ``initializer`` gives ``sym`` from ``seed`` on the CPU:
+    ({arg: numpy}, {aux: numpy})."""
+    pkg.random.seed(seed)
+    mod = pkg.mod.Module(sym, context=pkg.cpu(), label_names=label_names)
+    mod.bind(data_iter.provide_data, data_iter.provide_label)
+    mod.init_params(initializer)
+    args, auxs = mod.get_params()
+    return ({k: v.asnumpy() for k, v in args.items()},
+            {k: v.asnumpy() for k, v in auxs.items()})
+
+
+def module_delta(after, before):
+    """{name: after - before}: the steps a Module's weights took."""
+    return {k: after[k] - before[k] for k in before}
+
+
+def example_first_steps(pkg, ctx, root):
+    """Each example's first FIT_STEPS steps on ``ctx`` from weights drawn
+    on the CPU: {example: {weight name: the steps it took}} (nce_lm and
+    neural_style_toy: each step's loss and the weights, or the image)."""
+    out = {}
+    np.random.seed(0)
+    x, y = fcn_toy_data(96)
+    it = pkg.io.NDArrayIter(x, y, batch_size=8, shuffle=True,
+                            label_name="softmax_label")
+    with pkg.name.NameManager():     # the same auto names on each device
+        sym = fcn_toy_symbol(pkg)
+    args, auxs = module_init(pkg, sym, it, pkg.init.Xavier())
+    out["fcn_toy"] = module_delta(module_steps(
+        pkg, ctx, sym, it, args, auxs, "adam", {"learning_rate": 0.01}),
+        args)
+    xtr, ytr = svm_digits(2048)
+    it = pkg.io.NDArrayIter(xtr, ytr, 128, shuffle=True,
+                            label_name="svm_label")
+    for use_linear, lr in ((False, 1e-3), (True, 1e-2)):
+        with pkg.name.NameManager():
+            sym = svm_symbol(pkg, use_linear)
+        args, auxs = module_init(pkg, sym, it, pkg.init.Uniform(0.01),
+                                 label_names=("svm_label",))
+        out["svm_mnist use_linear=%s" % use_linear] = module_delta(
+            module_steps(pkg, ctx, sym, it, args, auxs, "sgd",
+                         {"learning_rate": lr, "momentum": 0.9, "wd": 1e-4},
+                         label_names=("svm_label",)), args)
+    losses, _, end = nce_lm_main(pkg, ctx, steps=FIT_STEPS)
+    out["nce_lm"] = dict(end, losses=np.array(losses))
+    losses, img = neural_style_main(pkg, ctx, steps=FIT_STEPS)
+    out["neural_style_toy"] = {"losses": np.array(losses), "image": img}
+    data, volumes = ndsb2_stacks(8 * FIT_STEPS, np.random.RandomState(7))
+    data_csv, label_csv = ndsb2_write_csvs(root, data, volumes)
+    it = pkg.io.CSVIter(data_csv=data_csv,
+                        data_shape=(NDSB_FRAMES, NDSB_IMG, NDSB_IMG),
+                        label_csv=label_csv, label_shape=(NDSB_BINS,),
+                        batch_size=8)
+    with pkg.name.NameManager():
+        sym = ndsb2_lenet(pkg)
+    args, auxs = module_init(pkg, sym, it, pkg.init.Uniform(0.01))
+    out["train_ndsb2"] = module_delta(module_steps(
+        pkg, ctx, sym, it, args, auxs, "sgd",
+        {"learning_rate": 0.01, "wd": 0.00001, "momentum": 0.9}), args)
+    return out
+
+
+def examples_phase(mt, card):
+    """The five examples the op sweep's ops open, each main on gpu(0) to
+    its own asserts, and each one's first steps on the card against the
+    CPU (EX_SHARE). Returns {example: seconds}."""
+    import tempfile
+    gpu = mt.gpu(0)
+    secs = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        firsts = {}
+        for label, ctx in (("gpu", gpu), ("cpu", mt.cpu())):
+            with ctx:
+                firsts[label] = example_first_steps(mt, ctx, root)
+        for ex, got in firsts["gpu"].items():
+            want = firsts["cpu"][ex]
+            top = max(float(np.abs(w).max()) for w in want.values())
+            worst = 0.0
+            for k, w in want.items():
+                w = np.asarray(w, np.float64)
+                err = float(np.abs(np.asarray(got[k], np.float64) - w).max()
+                            ) / max(float(np.abs(w).max()), EX_FLOOR * top,
+                                    1e-30)
+                worst = max(worst, err)
+                if not err <= EX_SHARE:
+                    fail("%s: %s after %d steps on gpu(0) differs from the "
+                         "CPU's by %.3g of its largest value (limit %g)"
+                         % (ex, k, FIT_STEPS, err, EX_SHARE))
+            print("%s: first %d steps on gpu(0) against the CPU: %d arrays "
+                  "within %.3g of their largest values (limit %g)"
+                  % (ex, FIT_STEPS, len(want), worst, EX_SHARE), flush=True)
+        secs["first steps"] = time.time() - t0
+        with gpu:
+            for ex, run in (
+                    ("fcn_toy", lambda: "pixel accuracy %.3f"
+                     % fcn_toy_main(mt, gpu)),
+                    ("svm_mnist", lambda: "accuracy (squared, linear "
+                     "hinge) %.3f, %.3f" % tuple(
+                         svm_mnist_main(mt, gpu).values())),
+                    ("nce_lm", lambda: "retrieval accuracy %.3f, loss "
+                     "%.4f -> %.4f" % (lambda l, a, _: (a, l[0], l[-1]))(
+                         *nce_lm_main(mt, gpu))),
+                    ("neural_style_toy", lambda: "loss %.4f -> %.4f"
+                     % (lambda l, _: (l[0], l[-1]))(
+                         *neural_style_main(mt, gpu))),
+                    ("train_ndsb2", lambda: "CRPS %.4f (all-half %.4f)"
+                     % ndsb2_main(mt, gpu, root))):
+                t0 = time.time()
+                text = run()
+                secs[ex] = time.time() - t0
+                print("%s's main on gpu(0): %s, its asserts hold; %.1f s | %s"
+                      % (ex, text, secs[ex], card), flush=True)
+    return secs
+
+
+
+# ---------------------------------------------------------------------------
+# FCN-8s on VGG16 (Long, Shelhamer and Darrell, CVPR 2015; Caffe's
+# voc-fcn8s, as MXNet v1.x example/fcn-xs/symbol_fcnxs.py get_fcn8s_symbol
+# builds it) at full width through Module.fit
+# ---------------------------------------------------------------------------
+
+FCN_CLASSES, FCN_IGNORE = 21, 255
+FCN_HW, FCN_IMAGES, FCN_EPOCHS = 500, 16, 4   # batch 1, f32
+FCN_CHECK_HW = 64                   # the CPU check's image: every crop fits
+FCN_CROPS = {"score_pool4c": 5, "score_pool3c": 9, "upscore": 31}
+# fcn_xs.py's optimizer: SGD on the unnormalized (summed) pixel loss
+FCN_OPT = {"learning_rate": 1e-10, "momentum": 0.99, "wd": 0.0005}
+FCN_CAPTURE_STEPS = 3
+# the first forward/backward on the card against the CPU (TF32 off), each
+# output and gradient within FCN_TOL of its largest value
+FCN_TOL = 1e-4
+FCN_TIMED_STEPS, FCN_PROFILE_STEPS = 16, 4
+VGG16_BLOCKS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
+                (512, 512, 512))
+
+
+def fcn8s_symbol(pkg, classes=FCN_CLASSES, width_div=1, dropout=0.5):
+    """get_fcn8s_symbol: VGG16 (conv1_1 padded by 100, each block closed
+    by a 2x2 max pool), fc6 as a 7x7 convolution to 4096 and fc7 as 1x1,
+    each with ReLU and dropout; score; score2 = 2x Deconvolution added to
+    score_pool4 cropped at 5, score4 = 2x added to score_pool3 cropped at
+    9, bigscore = 8x cropped to the data at 31; a per-pixel SoftmaxOutput
+    ignoring 255. ``width_div`` narrows every layer (for the CPU tests).
+    The upsampling weights are plain variables: fcn8s_init starts them
+    as the source does."""
+    S = pkg.sym
+    data = S.Variable("data")
+    x, pools = data, []
+    for b, widths in enumerate(VGG16_BLOCKS):
+        for i, w in enumerate(widths):
+            name = "conv%d_%d" % (b + 1, i + 1)
+            pad = (100, 100) if name == "conv1_1" else (1, 1)
+            x = S.Convolution(x, kernel=(3, 3), pad=pad,
+                              num_filter=w // width_div, name=name)
+            x = S.Activation(x, act_type="relu",
+                             name="relu%d_%d" % (b + 1, i + 1))
+        x = S.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2),
+                      name="pool%d" % (b + 1))
+        pools.append(x)
+    for name, k in (("fc6", 7), ("fc7", 1)):
+        x = S.Convolution(x, kernel=(k, k), num_filter=4096 // width_div,
+                          name=name)
+        x = S.Activation(x, act_type="relu", name="relu" + name[2:])
+        x = S.Dropout(x, p=dropout, name="drop" + name[2:])
+    score = S.Convolution(x, kernel=(1, 1), num_filter=classes,
+                          name="score")
+
+    def up(inp, name, k, s):
+        return S.Deconvolution(inp, kernel=(k, k), stride=(s, s),
+                               adj=(s - 1, s - 1), num_filter=classes,
+                               name=name)
+
+    score2 = up(score, "score2", 4, 2)
+    score_pool4 = S.Convolution(pools[3], kernel=(1, 1), num_filter=classes,
+                                name="score_pool4")
+    fused = score2 + S.Crop(score_pool4, score2, offset=(5, 5),
+                            name="score_pool4c")
+    score4 = up(fused, "score4", 4, 2)
+    score_pool3 = S.Convolution(pools[2], kernel=(1, 1), num_filter=classes,
+                                name="score_pool3")
+    final = score4 + S.Crop(score_pool3, score4, offset=(9, 9),
+                            name="score_pool3c")
+    bigscore = up(final, "bigscore", 16, 8)
+    upscore = S.Crop(bigscore, data, offset=(31, 31), name="upscore")
+    return S.SoftmaxOutput(upscore, multi_output=True, use_ignore=True,
+                           ignore_label=FCN_IGNORE, name="softmax")
+
+
+def fcn8s_layers(sym, hw):
+    """Each Convolution / Deconvolution of ``sym`` at a ``hw`` image:
+    [(name, op, input shape, weight shape, output shape)], from the
+    symbol's own shape inference."""
+    internals = sym.get_internals()
+    names = internals.list_outputs()
+    _, outs, _ = internals.infer_shape(data=(1, 3, hw, hw))
+    shapes = dict(zip(names, outs))
+    args, _, _ = sym.infer_shape(data=(1, 3, hw, hw))
+    arg_shapes = dict(zip(sym.list_arguments(), args))
+    graph = json.loads(sym.tojson())
+    nodes, layers = graph["nodes"], []
+    for n in nodes:
+        if n["op"] in ("Convolution", "Deconvolution"):
+            src = nodes[n["inputs"][0][0]]
+            xin = arg_shapes[src["name"]] if src["op"] == "null" \
+                else shapes[src["name"] + "_output"]
+            layers.append((n["name"], n["op"], xin,
+                           arg_shapes[n["name"] + "_weight"],
+                           shapes[n["name"] + "_output"]))
+    return layers
+
+
+def fcn8s_crop_check(sym, hw):
+    """Fail unless each Crop's window (its offset, the reference map's
+    size) lies inside the map it cuts; returns the windows as text."""
+    internals = sym.get_internals()
+    _, outs, _ = internals.infer_shape(data=(1, 3, hw, hw))
+    shapes = dict(zip(internals.list_outputs(), outs))
+    pairs = {"score_pool4c": ("score_pool4", "score2"),
+             "score_pool3c": ("score_pool3", "score4"),
+             "upscore": ("bigscore", None)}
+    text = []
+    for crop, off in FCN_CROPS.items():
+        src, ref = pairs[crop]
+        have = shapes[src + "_output"][2:]
+        want = (hw, hw) if ref is None else shapes[ref + "_output"][2:]
+        if not all(off + w <= h for w, h in zip(want, have)):
+            fail("FCN-8s at %d: crop %s of %s at offset %d does not fit %s"
+                 % (hw, crop, want, off, have))
+        text.append("%s %dx%d at %d in %dx%d" % (crop, want[0], want[1], off,
+                                                 have[0], have[1]))
+    return "; ".join(text)
+
+
+def fcn8s_flops(layers):
+    """The FLOPs of one training step from the layers' shapes: each
+    convolution's and transposed convolution's multiply-adds (x2) in the
+    forward, again for the data gradient (not for the first layer) and
+    again for the weight gradient; pooling, ReLU and the loss are left
+    out as small beside them. Returns (forward FLOPs, step FLOPs)."""
+    fwd = step = 0
+    for name, op, xin, w, out in layers:
+        if op == "Convolution":
+            macs = int(np.prod(out)) * int(np.prod(w[1:]))
+        else:                       # weight (C_in, C_out, kh, kw)
+            macs = int(np.prod(xin)) * int(np.prod(w[1:]))
+        fwd += 2 * macs
+        step += 2 * macs * (2 if name == "conv1_1" else 3)
+    return fwd, step
+
+
+def fcn8s_data(n, hw, seed, classes=FCN_CLASSES):
+    """``n`` synthetic images with learnable structure: a noisy background
+    (class 0) and 1-3 rectangles or discs, each of a class whose colour
+    it takes (a fixed palette from the class, plus noise); the label map
+    has 255 on a 3-pixel band along each shape's edge, as VOC marks its
+    boundaries. Returns (images n x 3 x hw x hw, labels n x hw x hw)."""
+    rng = np.random.RandomState(seed)
+    palette = np.random.RandomState(1000).uniform(-1, 1, (classes, 3))
+    palette[0] = 0.0
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    x = rng.normal(0, 0.2, (n, 3, hw, hw)).astype(np.float32)
+    y = np.zeros((n, hw, hw), np.float32)
+    for i in range(n):
+        for _ in range(rng.randint(1, 4)):
+            c = rng.randint(1, classes)
+            cy, cx = rng.randint(hw // 8, hw - hw // 8, 2)
+            ry, rx = rng.randint(hw // 12, hw // 4, 2)
+            if rng.rand() < 0.5:
+                inside = (np.abs(yy - cy) <= ry) & (np.abs(xx - cx) <= rx)
+                edge = inside & ~((np.abs(yy - cy) <= ry - 3)
+                                  & (np.abs(xx - cx) <= rx - 3))
+            else:
+                d = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+                inside, edge = d <= ry, (d <= ry) & (d > ry - 3)
+            x[i][:, inside] = palette[c][:, None] + rng.normal(
+                0, 0.2, (3, int(inside.sum())))
+            y[i][inside] = c
+            y[i][edge] = FCN_IGNORE
+    return x, y
+
+
+class FcnStepStats:
+    """A fit's batch_end_callback: each step's mean pixel cross-entropy
+    and pixel accuracy over the pixels not labelled 255, from the step's
+    outputs, kept on the card until read."""
+
+    def __init__(self):
+        self.steps = []             # (epoch, ce, accuracy) 0-dim tensors
+
+    def __call__(self, param):
+        import torch
+        mod, batch = param.locals["self"], param.locals["batch"]
+        prob = mod.get_outputs()[0].data
+        label = batch.label[0].data.to(prob.device)
+        valid = label != FCN_IGNORE
+        lab = torch.where(valid, label, 0).long()
+        p = prob.gather(1, lab[:, None])[:, 0].clamp_min(1e-12)
+        n = valid.sum().clamp_min(1)
+        self.steps.append((param.epoch,
+                           -(torch.log(p) * valid).sum() / n,
+                           ((prob.argmax(1) == lab) & valid).sum() / n))
+
+    def epoch_means(self):
+        by = {}
+        for e, ce, acc in self.steps:
+            by.setdefault(e, []).append((float(ce), float(acc)))
+        return [tuple(np.mean(by[e], axis=0)) for e in sorted(by)]
+
+
+def fcn8s_iter(pkg, x, y, shuffle):
+    return pkg.io.NDArrayIter(x, y, batch_size=1, shuffle=shuffle,
+                              label_name="softmax_label")
+
+
+FCN_UPSAMPLE = ("score2_weight", "score4_weight", "bigscore_weight")
+
+
+def fcn8s_upsample(shape):
+    """An upsampling weight (C_in, C_out, k, k) as the source starts it
+    (voc-fcn8s's surgery.interp, fcn-xs's init_fcnxs): the Bilinear
+    initializer's kernel from each class to itself, zeros between
+    classes. (Bilinear itself fills every channel pair with the kernel,
+    which gives every class the same score.)"""
+    k = shape[3]
+    f = np.ceil(k / 2.0)
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    ramp = 1 - np.abs(np.arange(k) / f - c)
+    w = np.zeros(shape, np.float32)
+    for i in range(min(shape[0], shape[1])):
+        w[i, i] = np.outer(ramp[:shape[2]], ramp)
+    return w
+
+
+def fcn8s_init(pkg, sym, hw, seed):
+    """FCN-8s's weights from ``seed`` on the CPU: Xavier, the upsampling
+    weights as fcn8s_upsample starts them. {name: numpy}."""
+    x, y = fcn8s_data(1, hw, seed)
+    args = module_init(pkg, sym, fcn8s_iter(pkg, x, y, False),
+                       pkg.init.Xavier(), seed)[0]
+    for name in FCN_UPSAMPLE:
+        args[name] = fcn8s_upsample(args[name].shape)
+    return args
+
+
+def fcn8s_fit(pkg, sym, x, y, ctx, epochs, arg_params=None, callback=None,
+              kvstore="local"):
+    """FCN-8s through Module.fit on ``ctx`` as fcn_xs.py fits it (SGD at
+    FCN_OPT, Xavier; batch 1), its pixel accuracy in a metric list as
+    fit.py passes one (updated after the step, so the captured step has
+    one signature). Returns (the module, its iterator)."""
+    it = fcn8s_iter(pkg, x, y, True)
+    mod = pkg.mod.Module(sym, context=ctx)
+    mod.fit(it, optimizer="sgd", optimizer_params=dict(FCN_OPT),
+            initializer=pkg.init.Xavier(), num_epoch=epochs,
+            arg_params=None if arg_params is None
+            else host_params(pkg, arg_params), kvstore=kvstore,
+            batch_end_callback=callback, eval_metric=["acc"])
+    return mod, it
+
+
+def fcn8s_card_check(mt, sym, seed):
+    """The first forward and backward at FCN_CHECK_HW (TF32 off) on
+    gpu(0) against the CPU from the same weights: the softmax and every
+    weight's gradient, each within FCN_TOL of its largest value."""
+    import torch
+    args = fcn8s_init(mt, sym, FCN_CHECK_HW, seed)
+    x, y = fcn8s_data(1, FCN_CHECK_HW, seed + 1)
+    got = {}
+    for label, ctx in (("gpu", mt.gpu(0)), ("cpu", mt.cpu())):
+        with ctx:
+            np.random.seed(seed)    # the executor's generator: the dropout
+            ex = sym.simple_bind(ctx, data=x.shape,      # masks, drawn alike
+                                 softmax_label=y.shape)
+            for k, v in ex.arg_dict.items():
+                v[:] = {"data": x, "softmax_label": y}.get(k, args.get(k))
+            out = ex.forward(is_train=True)[0].asnumpy()
+            ex.backward()
+            got[label] = dict(
+                {k: g.asnumpy() for k, g in ex.grad_dict.items()
+                 if g is not None and k in args}, softmax=out)
+    worst = 0.0
+    for k, want in got["cpu"].items():
+        have = got["gpu"][k]
+        scale = max(float(np.abs(want).max()), 1e-30)
+        err = float(np.abs(have - want).max()) / scale
+        worst = max(worst, err)
+        if not err <= FCN_TOL:
+            fail("FCN-8s at %d: %s on gpu(0) differs from the CPU by %.3g "
+                 "of its largest value (limit %g)" % (FCN_CHECK_HW, k, err,
+                                                      FCN_TOL))
+    return worst, len(got["cpu"])
+
+
+def fcn8s_capture_check(mt, seed):
+    """FCN_CAPTURE_STEPS captured steps against eager ones on the card
+    from the same weights, at full size, under deterministic cuDNN, with
+    the dropout layers at p=0 (eager steps draw their masks from another
+    generator than the captured step's). Returns the largest difference
+    in the weights, relative to each weight's largest step."""
+    import torch
+    sym = fcn8s_symbol(mt, dropout=0.0)
+    args = fcn8s_init(mt, sym, FCN_HW, seed)
+    x, y = fcn8s_data(FCN_CAPTURE_STEPS, FCN_HW, seed + 2)
+    got = {}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fused in (False, True):
+            np.random.seed(seed)
+            mod, _ = with_fused(fused, fcn8s_fit, mt, sym, x, y, mt.gpu(0),
+                                1, arg_params=args)
+            if fused:
+                capture_report(mod, FCN_CAPTURE_STEPS, "FCN-8s")
+            got[fused] = module_params(mod)
+            del mod
+    finally:
+        torch.backends.cudnn.deterministic = old
+    worst = 0.0
+    for k, w0 in args.items():
+        step = float(np.abs(got[False][k] - w0).max())
+        diff = float(np.abs(got[True][k] - got[False][k]).max())
+        if diff > max(1e-3 * step, 1e-12):
+            fail("FCN-8s: %s after %d captured steps differs from the "
+                 "eager steps by %.3g (its largest step %.3g)"
+                 % (k, FCN_CAPTURE_STEPS, diff, step))
+        worst = max(worst, diff / step if step else 0.0)
+    return worst
+
+
+def fcn8s_deconv_ms(mt, layers):
+    """Card ms of each Deconvolution of the step at its own shapes:
+    forward alone and forward + backward (data and weight gradients)."""
+    import torch
+    from mxtpu_torch.ops.registry import get_op
+    deconv = get_op("Deconvolution").fn
+    out = {}
+    for name, op, xin, w, _ in layers:
+        if op != "Deconvolution":
+            continue
+        k, s = w[2], {4: 2, 16: 8}[w[2]]
+        x = torch.randn(xin, device="cuda", requires_grad=True)
+        wt = torch.randn(w, device="cuda", requires_grad=True)
+        kw = dict(kernel=(k, k), stride=(s, s), adj=(s - 1, s - 1),
+                  num_filter=w[1])
+        fwd = cuda_ms(lambda: deconv(x, wt, **kw), iters=20)
+
+        def both():
+            y = deconv(x, wt, **kw)
+            torch.autograd.grad(y, (x, wt), torch.ones_like(y))
+        out[name] = (fwd, cuda_ms(both, iters=20))
+    return out
+
+
+def fcn8s_phase(mt, seed, card):
+    """FCN-8s on VGG16 at full width (500x500, batch 1, 21 classes, f32)
+    through Module.fit on gpu(0): the crops inside their maps; the first
+    forward/backward at FCN_CHECK_HW against the CPU (TF32 off); captured
+    steps against eager ones; then FCN_EPOCHS epochs of FCN_IMAGES
+    synthetic images eager and captured under torch's default TF32 (the
+    loss falls, the pixel accuracy rises), both timed in turns beside the
+    bound from the layers' FLOPs, with the busy share, the three
+    Deconvolutions' card time and the peak memory. Returns {path: ms}."""
+    import gc
+    import torch
+    gpu = mt.gpu(0)
+    clock = [("start", time.perf_counter())]
+    sym = fcn8s_symbol(mt)
+    windows = fcn8s_crop_check(sym, FCN_HW)
+    check_windows = fcn8s_crop_check(sym, FCN_CHECK_HW)
+    layers = fcn8s_layers(sym, FCN_HW)
+    fwd_flops, step_flops = fcn8s_flops(layers)
+    n_param = sum(int(np.prod(s)) for s, n in zip(
+        sym.infer_shape(data=(1, 3, FCN_HW, FCN_HW))[0],
+        sym.list_arguments()) if n not in ("data", "softmax_label"))
+    print("FCN-8s on VGG16 at %dx%d: %d weights; crops %s (at %d: %s); "
+          "%.4g FLOPs a forward, %.4g a training step (from the layers' "
+          "shapes) | %s" % (FCN_HW, FCN_HW, n_param, windows, FCN_CHECK_HW,
+                            check_windows, fwd_flops, step_flops, card),
+          flush=True)
+    worst, n = fcn8s_card_check(mt, sym, seed)
+    print("FCN-8s first forward/backward at %dx%d (TF32 off) on gpu(0) "
+          "against the CPU: softmax and %d gradients within %.3g of their "
+          "largest values (limit %g)" % (FCN_CHECK_HW, FCN_CHECK_HW, n - 1,
+                                         worst, FCN_TOL), flush=True)
+    clock.append(("first step", time.perf_counter()))
+    worst = fcn8s_capture_check(mt, seed)
+    print("FCN-8s: %d captured steps against eager ones at %dx%d "
+          "(deterministic cuDNN, dropout p=0): weights within %.3g of their "
+          "largest step" % (FCN_CAPTURE_STEPS, FCN_HW, FCN_HW, worst),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.append(("capture check", time.perf_counter()))
+
+    x, y = fcn8s_data(FCN_IMAGES, FCN_HW, seed)
+    args = fcn8s_init(mt, sym, FCN_HW, seed)
+    runs, stats = {}, {}
+    with tf32_mode(True):
+        for path, fused in (("eager", False), ("captured", True)):
+            torch.cuda.reset_peak_memory_stats()
+            stats[path] = FcnStepStats()
+            np.random.seed(seed)
+            mt.random.seed(seed)
+            t0 = time.perf_counter()
+            mod, it = with_fused(fused, fcn8s_fit, mt, sym, x, y, gpu,
+                                 FCN_EPOCHS, arg_params=args,
+                                 callback=[stats[path]])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            text = "eager"
+            if fused:
+                text = capture_report(mod, FCN_EPOCHS * FCN_IMAGES,
+                                      "FCN-8s")[0]
+            means = stats[path].epoch_means()
+            ce = [m[0] for m in means]
+            acc = [m[1] for m in means]
+            if not (np.isfinite(ce).all() and ce[-1] < ce[0]
+                    and acc[-1] > acc[0]):
+                fail("FCN-8s %s fit: pixel cross-entropy by epoch %s, pixel "
+                     "accuracy %s (the loss must fall, the accuracy rise)"
+                     % (path, ce, acc))
+            print("FCN-8s Module.fit %s (cuDNN TF32 on): %d epochs of %d "
+                  "images at %dx%d, batch 1, in %.2f s; pixel cross-entropy "
+                  "by epoch %s, pixel accuracy (without 255) %s; %s; peak "
+                  "memory %.2f GB | %s"
+                  % (path, FCN_EPOCHS, FCN_IMAGES, FCN_HW, FCN_HW, secs,
+                     ", ".join("%.4f" % v for v in ce),
+                     ", ".join("%.4f" % v for v in acc), text,
+                     torch.cuda.max_memory_allocated() / 1e9, card),
+                  flush=True)
+            runs[path] = (mod, it)
+        clock.append(("fits", time.perf_counter()))
+        # the steps in turns (eager, captured, captured, eager)
+        metrics = {k: mt.metric.create("acc") for k in runs}
+        ms = {k: [] for k in runs}
+        for k in ("eager", "captured", "captured", "eager"):
+            mod, it = runs[k]
+            it.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps = fit_steps(mod, it, metrics[k], steps=FCN_TIMED_STEPS)[1]
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) / steps * 1e3)
+        bound = step_flops / PEAK_TF32 * 1e3
+        out = {}
+        for k, (mod, it) in runs.items():
+            step = float(np.mean(ms[k]))
+            out[k] = step
+            it.reset()
+            busy, top = device_time(lambda: fit_steps(
+                mod, it, metrics[k], steps=FCN_PROFILE_STEPS), 1,
+                per=FCN_PROFILE_STEPS)
+            print("FCN-8s %s step (cuDNN TF32 on): %.3f ms (%s), %.1f "
+                  "images/s; bound %.3f ms (%.4g FLOPs at TF32's %.0f "
+                  "TFLOP/s; operations), %.1f%% of it; %s; per step: %s | %s"
+                  % (k, step, ", ".join("%.3f" % v for v in ms[k]),
+                     1e3 / step, bound, step_flops, PEAK_TF32 / 1e12,
+                     100 * bound / step, busy_of(busy, step), top, card),
+                  flush=True)
+        deconv = fcn8s_deconv_ms(mt, layers)
+    print("FCN-8s Deconvolutions' card time (cuDNN TF32 on), ms forward / "
+          "forward + backward: %s | %s" % (", ".join(
+              "%s %.4f / %.4f" % ((k,) + v) for k, v in deconv.items()),
+              card))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.append(("timings", time.perf_counter()))
+    print("FCN-8s phase: %.1f s (%s)" % (
+        clock[-1][1] - clock[0][1], ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))), flush=True)
+    return out
 
 
 def main():
@@ -8029,7 +9432,18 @@ def main():
     # 20. the data files at MNIST's published size
     files_ms, paces = data_files_phase(mt, args.seed, card)
 
-    # 21. timings at the main paths' shapes
+    # 21. every registered op on the card against the CPU
+    op_sweep_phase(mt, card)
+
+    # 22. the examples the op sweep's ops open, each main on gpu(0)
+    t_phase = time.time()
+    examples_phase(mt, card)
+    print("examples phase: %.1f s" % (time.time() - t_phase), flush=True)
+
+    # 23. FCN-8s on VGG16 at full width through Module.fit
+    fcn_ms = fcn8s_phase(mt, args.seed, card)
+
+    # 24. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -8376,6 +9790,9 @@ def main():
               ", ".join("%s %s %.3f" % (k + (v,))
                         for k, v in files_ms.items()),
               ", ".join("%s: %s" % kv for kv in paces.items()), card))
+    print("FCN-8s at %dx%d, ms a step: %s | %s" % (
+        FCN_HW, FCN_HW, ", ".join("%s %.3f" % kv for kv in fcn_ms.items()),
+        card))
     nms_ms, nms_plain, nms_bound, nms_by = nms_timing[1]
     kernels.append({
         "name": "multibox_nms", "route": "cuda",
@@ -8389,7 +9806,7 @@ def main():
         "proposal_bound_ms": proposal_timing[2]})
     print("total %.1f s" % (time.time() - t_start))
 
-    # 22.-23. the result lines
+    # 25.-26. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

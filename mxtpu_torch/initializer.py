@@ -5,8 +5,9 @@ Counterpart of ``mxtpu/initializer.py``: ``InitDesc``, an
 ``*bias``, ``*gamma``, ``*beta``, running statistics, or a variable's
 ``__init__`` attribute), its registry and ``create``, and Zero, One,
 Constant, Uniform, Normal, Xavier (with ``mxtpu``'s fan and
-``hw_scale`` rule for convolution weights) and FusedRNN (a fused RNN's
-flat blob, drawn block by block in ``mxtpu``'s order).
+``hw_scale`` rule for convolution weights), Bilinear (the upsampling
+kernel of a Deconvolution) and FusedRNN (a fused RNN's flat blob, drawn
+block by block in ``mxtpu``'s order).
 
 Draws come from :func:`mxtpu_torch.ops.registry.next_generator`, a CPU
 generator (``mx.random.seed`` seeds it), and are then moved to the
@@ -25,7 +26,8 @@ import torch
 from .ops.registry import next_generator
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier", "FusedRNN"]
+           "Constant", "Uniform", "Normal", "Xavier", "Bilinear",
+           "FusedRNN"]
 
 _INIT_REGISTRY = {}
 
@@ -251,6 +253,24 @@ class Xavier(Initializer):
                  * scale)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel in every (in, out) channel pair of a
+    (C_in, C_out, kh, kw) Deconvolution weight: (1 - |x / f - c|) (1 -
+    |y / f - c|) with f = ceil(kw / 2) and c = (2 f - 1 - f % 2) / (2 f),
+    the rule of ``mxtpu``'s (and MXNet's) Bilinear."""
+
+    def _init_weight(self, _, arr):
+        shape = tuple(arr.shape)
+        f = _np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        x = 1 - _np.abs(_np.arange(shape[3]) / f - c)
+        y = 1 - _np.abs(_np.arange(shape[2]) / f - c)
+        kernel = (y[:, None] * x[None, :]).astype("float32")
+        _set(arr, torch.from_numpy(_np.ascontiguousarray(
+            _np.broadcast_to(kernel, shape))))
 
 
 @register

@@ -4,8 +4,9 @@ Counterpart of ``mxtpu/metric.py``'s ``EvalMetric`` (``update``,
 ``get``, ``get_name_value``, ``reset``, and the device-side
 accumulation: ``device_batch``, ``supports_device_update``,
 ``update_async`` / ``detach_async`` / ``_drain_async``),
-``CompositeEvalMetric``, ``Accuracy``, ``CrossEntropy``, ``Perplexity``
-and ``create``.
+``CompositeEvalMetric``, ``Accuracy``, ``CrossEntropy``, ``Perplexity``,
+``CustomMetric`` and ``np`` (a metric from a numpy function of the label
+and the prediction, read back to the host each batch) and ``create``.
 
 ``Accuracy`` and ``CrossEntropy`` accumulate on the predictions' device:
 ``update`` adds the batch's sum to a tensor there (labels are moved to
@@ -28,7 +29,8 @@ import torch
 from . import ndarray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy",
-           "CrossEntropy", "Perplexity", "create", "register", "get"]
+           "CrossEntropy", "Perplexity", "CustomMetric", "np", "create",
+           "register", "get"]
 
 
 def check_label_shapes(labels, preds, wrap=False, shape=False):
@@ -180,7 +182,9 @@ def create(metric, *args, **kwargs):
         return metric
     if isinstance(metric, str):
         return get(metric, *args, **kwargs)
-    raise TypeError("metric should be a str, list or EvalMetric")
+    if callable(metric):
+        return CustomMetric(metric, *args, **kwargs)
+    raise TypeError("metric should be a str, callable, list or EvalMetric")
 
 
 @alias("composite")
@@ -312,3 +316,39 @@ class Perplexity(EvalMetric):
             count += picked.size
         self._accum(
             numpy.exp(neg_log / count) if count > 0 else float("nan"), 1)
+
+
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` of numpy arrays, returning a
+    value (counted once) or a (sum, count) pair. It has no device rule:
+    each batch's labels and predictions are read back to the host."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if "<" in name:
+                name = "custom(%s)" % name
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            labels, preds = check_label_shapes(labels, preds, True)
+        for scores, truth in zip(preds, labels):
+            outcome = self._feval(_tensor(truth).cpu().numpy(),
+                                  _tensor(scores).cpu().numpy())
+            if isinstance(outcome, tuple):
+                self._accum(*outcome)
+            else:
+                self._accum(outcome, 1)
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A :class:`CustomMetric` over ``numpy_feval(label, pred)``."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)

@@ -77,6 +77,11 @@ class NDArray:
     def context(self):
         return self._ctx
 
+    @property
+    def T(self):
+        """The array with its axes reversed (``transpose``)."""
+        return _invoke(get_op("transpose"), [self], {})
+
     ctx = context
 
     @property

@@ -2,7 +2,8 @@
 ``sym.*``, as in ``mxtpu.ops``. Importing the modules below registers
 their ops; the LSTM/GRU time loops live in :mod:`.rnn_scan`, flash
 attention in :mod:`.flash_attention`, the detection ops and their NMS
-kernel in :mod:`.vision`.
+kernel in :mod:`.vision`; ``dot`` and ``batch_dot`` in
+:mod:`.linalg_ops`, ``Crop`` in :mod:`.extra_ops`.
 """
 from .registry import (OpDef, register, get_op, next_generator, rng_scope,
                        set_global_seed)
@@ -13,6 +14,8 @@ from . import reduce         # noqa: F401
 from . import nn             # noqa: F401
 from . import rnn            # noqa: F401
 from . import vision         # noqa: F401
+from . import linalg_ops     # noqa: F401
+from . import extra_ops      # noqa: F401
 
 
 @register("_contrib_flash_attention", aliases=("flash_attention",))

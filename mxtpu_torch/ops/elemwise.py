@@ -1,6 +1,7 @@
 """Elementwise ops of the PyTorch port: the broadcast arithmetic and
-comparison families, their tensor-scalar forms, and the unary math that
-NDArray arithmetic and custom ops call; ``clip`` and ``smooth_l1``.
+comparison families (with ``arctan2`` and ``hypot``), their tensor-scalar
+forms, the unary math family of ``mxtpu``'s ``_UNARY``, ``add_n``,
+``clip`` and ``smooth_l1``.
 
 Counterpart of part of ``mxtpu/ops/elemwise.py``, under the same registry
 names and aliases. None of them is a Pallas kernel in ``mxtpu``; here
@@ -51,6 +52,8 @@ _BINARY = {
                           ("_maximum", "maximum")),
     "broadcast_minimum": (_number_first(torch.minimum),
                           ("_minimum", "minimum")),
+    "broadcast_hypot": (_number_first(torch.hypot), ("_hypot",)),
+    "arctan2": (_number_first(torch.atan2), ()),
 }
 
 for _n, (_f, _aliases) in _BINARY.items():
@@ -103,6 +106,8 @@ _SCALAR_OPS = {
         x, _full_like_scalar(x, s))),
     "_minimum_scalar": ("_MinimumScalar", lambda x, s: torch.minimum(
         x, _full_like_scalar(x, s))),
+    "_hypot_scalar": ("_HypotScalar", lambda x, s: torch.hypot(
+        x, _full_like_scalar(x, s))),
 }
 
 for _n, (_camel, _f) in _SCALAR_OPS.items():
@@ -119,30 +124,90 @@ for _n, (_camel, _f) in {
     "_greater_equal_scalar": ("_GreaterEqualScalar", torch.ge),
     "_lesser_scalar": ("_LesserScalar", torch.lt),
     "_lesser_equal_scalar": ("_LesserEqualScalar", torch.le),
+    "_logical_and_scalar": ("_LogicalAndScalar", torch.logical_and),
+    "_logical_or_scalar": ("_LogicalOrScalar", torch.logical_or),
+    "_logical_xor_scalar": ("_LogicalXorScalar", torch.logical_xor),
 }.items():
     def _mk_scalar_logic(f):
         def g(data, scalar=1.0):
-            return _as_input_dtype(f(data, float(scalar)), data)
+            return _as_input_dtype(f(data, _full_like_scalar(
+                data, float(scalar))), data)
         return g
     register(_n, differentiable=False, aliases=(_camel,))(
         _mk_scalar_logic(_f))
 
 
+def _round_half_away(x):
+    """MXNet's ``round`` (C's ``roundf``): half away from zero, where
+    ``mxtpu``'s ``jnp.round`` rounds half to even. ``x - trunc(x)`` is
+    exact, so no sum rounds a value below one half up."""
+    if not x.is_floating_point():
+        return x.clone()
+    t = torch.trunc(x)
+    return torch.where(torch.abs(x - t) >= 0.5, t + torch.sign(x), t)
+
+
+def _gamma(x):
+    """MXNet's ``gamma`` (C's ``tgamma``): the signed Gamma function.
+    ``mxtpu``'s ``exp(gammaln(x))`` is |Gamma(x)|, which differs where
+    Gamma is negative: x < 0 with an odd floor."""
+    mag = torch.exp(torch.lgamma(x))
+    odd = torch.remainder(torch.floor(x), 2.0) == 1.0
+    return torch.where((x < 0) & odd, -mag, mag)
+
+
+def _cbrt(x):
+    """The real cube root (torch has no ``cbrt``): its gradient is
+    ``jnp.cbrt``'s, 1 / (3 cbrt(x)^2)."""
+    return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+
+
 _UNARY = {
     "negative": torch.neg,
     "abs": torch.abs,
+    "sign": torch.sign,
+    "round": _round_half_away,
+    "rint": torch.round,                # half to even, as jnp.rint
+    "ceil": torch.ceil,
+    "floor": torch.floor,
+    "trunc": torch.trunc,
+    "fix": torch.trunc,
+    "square": torch.square,
+    "sqrt": torch.sqrt,
+    "rsqrt": torch.rsqrt,
+    "cbrt": _cbrt,
+    "rcbrt": lambda x: 1.0 / _cbrt(x),
     "exp": torch.exp,
     "log": torch.log,
-    "sqrt": torch.sqrt,
-    "square": torch.square,
-    "relu": relu,
+    "log10": torch.log10,
+    "log2": torch.log2,
+    "log1p": torch.log1p,
+    "expm1": torch.expm1,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
+    "degrees": torch.rad2deg,
+    "radians": torch.deg2rad,
+    "reciprocal": lambda x: 1.0 / x,
+    "erf": torch.erf,
+    "gamma": _gamma,
+    "gammaln": torch.lgamma,
     "sigmoid": torch.sigmoid,
-    "tanh": torch.tanh,
+    "softsign": lambda x: x / (1 + torch.abs(x)),
+    "relu": relu,
+    "softrelu": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    "logical_not": lambda x: _as_input_dtype(x == 0, x),
 }
 
+# piecewise-constant ops: no gradient, as in mxtpu
+_STEP = ("sign", "round", "rint", "ceil", "floor", "trunc", "fix",
+         "logical_not")
+
 for _n, _f in _UNARY.items():
-    register(_n, aliases={"negative": ("_neg",),
-                          "abs": ("_abs",)}.get(_n, ()))(_f)
+    register(_n, differentiable=_n not in _STEP,
+             aliases={"negative": ("_neg",),
+                      "abs": ("_abs",)}.get(_n, ()))(_f)
 
 
 @register("where")
@@ -170,3 +235,12 @@ def smooth_l1(data, scalar=1.0):
     absd = torch.abs(data)
     return torch.where(absd < 1.0 / s2, 0.5 * s2 * data * data,
                        absd - 0.5 / s2)
+
+
+@register("add_n", aliases=("ElementWiseSum", "_element_wise_sum"))
+def add_n(*args):
+    """The sum of N arrays, added left to right."""
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out

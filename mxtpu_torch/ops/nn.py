@@ -5,12 +5,15 @@ FullyConnected, Convolution, Pooling, Activation, LeakyReLU, softmax,
 log_softmax, Embedding, Dropout, BatchNorm and SoftmaxOutput, whose
 backward is ``mxtpu``'s (a ``torch.autograd.Function`` in place of its
 ``custom_vjp``); L2Normalization and BlockGrad, which SSD uses; MakeLoss
-and identity, which multi-output graphs use.
+and identity, which multi-output graphs use; Deconvolution and
+UpSampling, which fully convolutional nets use; SoftmaxActivation,
+LayerNorm, InstanceNorm and LRN; and the other loss heads with
+``mxtpu``'s own backward (the three regression outputs, SVMOutput).
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
 here they are PyTorch's own calls: ``torch.matmul``, ``index_select``,
-``F.conv*d`` / ``F.max_pool*d`` / ``F.avg_pool*d`` (cuDNN on the
-card) and ``torch.native_batch_norm``, the same call on the CPU and the
-card.
+``F.conv*d`` / ``F.conv_transpose*d`` / ``F.max_pool*d`` /
+``F.avg_pool*d`` (cuDNN on the card) and ``torch.native_batch_norm``,
+the same call on the CPU and the card.
 """
 from __future__ import annotations
 
@@ -56,6 +59,78 @@ def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     pad = _tuple(pad, nsp) if pad else (0,) * nsp
     b = bias if bias is not None and not no_bias else None
     return _CONV[nsp](data, weight, b, stride, pad, dilate, num_group)
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def deconv_geometry(in_spatial, kernel, stride, dilate, pad, adj,
+                    target_shape):
+    """(pad, adj) of a Deconvolution: as given, unless a non-zero
+    ``target_shape`` overrides both, solved from out = (in - 1) s - 2 p +
+    k_eff + adj with adj in {0, 1} as ``mxtpu`` (after MXNet's InferPad)
+    solves it; a target larger than the zero-pad output raises."""
+    nsp = len(in_spatial)
+    if not (target_shape and any(_tuple(target_shape, nsp))):
+        return pad, adj
+    target_shape = _tuple(target_shape, nsp)
+    pads, adjs = [], []
+    for i in range(nsp):
+        k_eff = (kernel[i] - 1) * dilate[i] + 1
+        full = (in_spatial[i] - 1) * stride[i] + k_eff
+        excess = full - target_shape[i]
+        if excess < 0:
+            raise ValueError(
+                "too big target shape: target_shape[%d]=%d exceeds the "
+                "maximum achievable output %d for input %d, stride %d, "
+                "kernel %d, dilate %d" % (i, target_shape[i], full,
+                                          in_spatial[i], stride[i],
+                                          kernel[i], dilate[i]))
+        p = (excess + 1) // 2
+        pads.append(p)
+        adjs.append(2 * p - excess)
+    return tuple(pads), tuple(adjs)
+
+
+@register("Deconvolution", aliases=("deconvolution",))
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), target_shape=(), num_filter=0, num_group=1,
+                  no_bias=True, workspace=512, cudnn_tune=None,
+                  cudnn_off=False, layout=None):
+    """Transposed N-d convolution (1-, 2- or 3-d) over NC(D)(H)W data.
+    The weight is (C_in, num_filter/num_group, *kernel), as in MXNet and
+    ``mxtpu``, which is ``F.conv_transpose*d``'s layout; the output is
+    (in - 1) s - 2 p + (k - 1) d + 1 + adj a spatial dim. The bias counts
+    only with ``no_bias=False`` (MXNet's default is bias-less). Where
+    torch refuses ``adj`` (not below the stride or the dilation), the
+    full transposed convolution is cut to the window, with zeros past
+    its end, as ``mxtpu``'s padded correlation gives them."""
+    nsp = data.dim() - 2
+    stride = _tuple(stride, nsp) if stride else (1,) * nsp
+    dilate = _tuple(dilate, nsp) if dilate else (1,) * nsp
+    pad = _tuple(pad, nsp) if pad else (0,) * nsp
+    adj = _tuple(adj, nsp) if adj else (0,) * nsp
+    kernel = _tuple(kernel, nsp) if kernel else tuple(weight.shape[2:])
+    pad, adj = deconv_geometry(tuple(data.shape[2:]), kernel, stride,
+                               dilate, pad, adj, target_shape)
+    b = bias if bias is not None and not no_bias else None
+    if all(a < max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        return _CONV_T[nsp](data, weight, b, stride, pad, adj, num_group,
+                            dilate)
+    out = _CONV_T[nsp](data, weight, b, stride, 0, 0, num_group, dilate)
+    for i in range(nsp):
+        size = out.shape[2 + i] - 2 * pad[i] + adj[i]
+        keep = min(size, out.shape[2 + i] - pad[i])
+        out = out.narrow(2 + i, pad[i], keep)
+        if keep < size:
+            shape = list(out.shape)
+            shape[2 + i] = size - keep
+            fill = torch.zeros(shape, dtype=out.dtype, device=out.device)
+            if b is not None:
+                fill = fill + b.reshape((1, -1) + (1,) * nsp)
+            out = torch.cat([out, fill], dim=2 + i)
+    return out
 
 
 def _pool_sum(x, kernel, stride):
@@ -176,6 +251,86 @@ def softmax(data, axis=-1, temperature=None):
 def log_softmax(data, axis=-1, temperature=None):
     x = data / temperature if temperature else data
     return torch.log_softmax(x, dim=axis)
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, mode="instance"):
+    """Softmax over the channels (``channel``) or over all but the batch
+    axis (``instance``)."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
+
+
+@register("LayerNorm")
+def layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """(x - mean) / sqrt(var + eps) * gamma + beta over ``axis``, with the
+    biased variance, computed in float32 and returned in the data's
+    dtype, as ``mxtpu`` computes it."""
+    f = torch.promote_types(data.dtype, torch.float32)
+    x = data.to(f)
+    axis = axis % data.dim()
+    mean = x.mean(dim=axis, keepdim=True)
+    var = x.var(dim=axis, unbiased=False, keepdim=True)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    out = (x - mean) * torch.rsqrt(var + eps)
+    out = out * gamma.to(f).reshape(shape) + beta.to(f).reshape(shape)
+    return out.to(data.dtype)
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """Each sample's channel normalised over its spatial axes (biased
+    variance), then scaled by gamma and shifted by beta a channel."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, unbiased=False, keepdim=True)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+@register("LRN")
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalisation across channels: x / (knorm + alpha
+    / nsize * sum of x^2 over the nsize channels around) ^ beta."""
+    sq = torch.square(data)
+    half = nsize // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    window = torch.zeros_like(sq)
+    for i in range(nsize):
+        window = window + padded.narrow(1, i, data.shape[1])
+    return data * torch.pow(knorm + alpha * window / nsize, -beta)
+
+
+@register("UpSampling")
+def upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest: each input repeated up to the first input's size times
+    ``scale`` (an input of another size by its own factor, as MXNet
+    does), then concatenated over the channels, or summed with
+    ``multi_input_mode="sum"`` (``mxtpu`` concatenates in either mode).
+    Bilinear: the data resized by ``scale`` with linear interpolation
+    (half-pixel centres), as ``mxtpu``'s ``jax.image.resize`` does; the
+    weight input is accepted and, as there, not used."""
+    data = args[0]
+    if sample_type == "nearest":
+        oh, ow = data.shape[2] * scale, data.shape[3] * scale
+        outs = [torch.repeat_interleave(torch.repeat_interleave(
+            a, oh // a.shape[2], dim=2), ow // a.shape[3], dim=3)
+            for a in args]
+        if len(outs) == 1:
+            return outs[0]
+        if multi_input_mode == "sum":
+            out = outs[0]
+            for o in outs[1:]:
+                out = out + o
+            return out
+        return torch.cat(outs, dim=1)
+    return F.interpolate(data, scale_factor=scale, mode="bilinear",
+                         align_corners=False)
 
 
 def _take_fill(dtype):
@@ -403,6 +558,88 @@ def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                 normalization=str(normalization), out_grad=bool(out_grad),
                 smooth_alpha=float(smooth_alpha))
     return _SoftmaxOutput.apply(data, label, opts)
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """A regression head: the forward ``fwd(data)``; the backward
+    ``grad(out, label) * grad_scale / prod(shape[1:])`` whatever the head
+    gradient, and zero for the label (``mxtpu``'s ``_regression``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad, grad_scale):
+        out = fwd(data)
+        ctx.save_for_backward(out, label)
+        ctx.grad, ctx.grad_scale = grad, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        num = math.prod(out.shape[1:])
+        d = ctx.grad(out, label.reshape(out.shape).to(out.dtype)) \
+            * (ctx.grad_scale / num)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return d.to(out.dtype), dlabel, None, None, None
+
+
+def _regression(name, fwd, grad, doc):
+    def op(data, label, grad_scale=1.0):
+        return _RegressionOutput.apply(data, label, fwd, grad,
+                                       float(grad_scale))
+    op.__name__ = name
+    op.__doc__ = doc
+    register(name)(op)
+
+
+_regression("LinearRegressionOutput", lambda d: d, lambda o, l: o - l,
+            "The identity forward; backward (out - label) / dim.")
+_regression("MAERegressionOutput", lambda d: d,
+            lambda o, l: torch.sign(o - l),
+            "The identity forward; backward sign(out - label) / dim.")
+_regression("LogisticRegressionOutput", torch.sigmoid, lambda o, l: o - l,
+            "The sigmoid forward; backward (out - label) / dim.")
+
+
+class _SVMOutput(torch.autograd.Function):
+    """The identity forward; the hinge loss's gradient backward, whatever
+    the head gradient (``mxtpu``'s ``svm_output``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, coef, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.opts = (margin, coef, use_linear)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, l = ctx.saved_tensors
+        margin, coef, use_linear = ctx.opts
+        onehot = _one_hot(l.to(torch.int32), d.shape[1], d.dtype)
+        score_t = torch.sum(d * onehot, dim=1, keepdim=True)
+        slack = d - score_t + margin
+        if use_linear:
+            grad = torch.where(slack > 0, coef, 0.0).to(d.dtype)
+        else:
+            grad = torch.where(slack > 0, 2 * coef * slack,
+                               torch.zeros_like(slack))
+        grad = grad * (1 - onehot) - onehot * torch.sum(
+            grad * (1 - onehot), dim=1, keepdim=True)
+        dl = torch.zeros_like(l) if ctx.needs_input_grad[1] else None
+        return grad.to(d.dtype), dl, None, None, None
+
+
+@register("SVMOutput")
+def svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+               use_linear=False):
+    """A large-margin head: the forward is the identity; the backward is
+    the one-vs-rest hinge loss's gradient for each wrong class whose
+    score is within ``margin`` of the true class's (linear with
+    ``use_linear``, else squared), scaled by
+    ``regularization_coefficient``, and minus their sum at the true
+    class."""
+    return _SVMOutput.apply(data, label, float(margin),
+                            float(regularization_coefficient),
+                            bool(use_linear))
 
 
 @register("L2Normalization")

@@ -18,7 +18,7 @@ import threading
 
 import torch
 
-__all__ = ["OpDef", "register", "get_op", "ContribNamespace",
+__all__ = ["OpDef", "register", "alias", "get_op", "ContribNamespace",
            "next_generator", "rng_scope", "set_global_seed"]
 
 _REGISTRY = {}
@@ -70,6 +70,13 @@ def register(name=None, differentiable=True, stateful=False, num_outputs=1,
             _REGISTRY[a] = op
         return fn
     return deco
+
+
+def alias(existing, *names):
+    """Register more names for the op registered as ``existing``."""
+    op = _REGISTRY[existing]
+    for n in names:
+        _REGISTRY[n] = op
 
 
 def get_op(name):

@@ -7,7 +7,17 @@ swapaxes, expand_dims, concat, stack, split, zeros_like, ones_like and
 the nullary ``_zeros`` creator; ``pick``, which Gluon's
 ``SoftmaxCrossEntropyLoss`` takes its labels' entries with; and
 ``transpose`` and ``slice_axis``, which the SSD heads use; ``one_hot``
-and ``cast`` (the Gluon vision transforms cast their images).
+and ``cast`` (the Gluon vision transforms cast their images); and the
+rest of ``mxtpu``'s shape and index ops: squeeze, slice, slice_like,
+take, batch_take, gather_nd, scatter_nd, tile, repeat, pad, reverse, the
+broadcasts, ``_index``, shape_array, size_array, diag, depth_to_space,
+space_to_depth and ``_ones``.
+
+Indices follow ``mxtpu``'s JAX rules rather than raising, so that no
+device-side assert can end the card's context: a negative index counts
+from the end once; beyond that a gather clamps (``gather_nd``), fills
+(``batch_take``, as ``pick``) or takes ``take``'s clip/wrap mode, and a
+scatter drops it (``scatter_nd``, whose duplicates add up).
 """
 from __future__ import annotations
 
@@ -168,3 +178,237 @@ def zeros_like(data):
 @register("ones_like")
 def ones_like(data):
     return torch.ones_like(data)
+
+
+@register("squeeze")
+def squeeze(data, axis=None):
+    """``data`` without its size-1 axes (only those of ``axis``)."""
+    if axis is None:
+        return torch.squeeze(data)
+    ax = tuple(axis) if isinstance(axis, (list, tuple)) else (int(axis),)
+    return torch.squeeze(data, dim=ax)
+
+
+def _strided(data, dim, begin, end, step):
+    """``data[begin:end:step]`` along ``dim`` with Python's rules, also
+    for a negative step, which torch's slicing refuses."""
+    start, stop, st = slice(begin, end, step).indices(data.shape[dim])
+    if st > 0:
+        return data[(slice(None),) * dim + (slice(start, stop, st),)]
+    idx = torch.arange(start, stop, st, device=data.device)
+    return torch.index_select(data, dim, idx)
+
+
+@register("slice", aliases=("crop",))
+def slice_op(data, begin=(), end=(), step=()):
+    """``data[b0:e0:s0, b1:e1:s1, ...]`` over the leading axes; a None
+    bound or step takes Python's default, a step may be negative."""
+    step = tuple(step) if step else (None,) * len(begin)
+    for i, (b, e) in enumerate(zip(begin, end)):
+        s = step[i] if i < len(step) else None
+        data = _strided(data, i, b, e, s)
+    return data
+
+
+@register("slice_like")
+def slice_like(data, shape_like, axes=()):
+    """``data`` cut to ``shape_like``'s sizes along ``axes`` (all shared
+    axes by default), from index 0."""
+    axes = axes or tuple(range(min(data.dim(), shape_like.dim())))
+    idx = [slice(None)] * data.dim()
+    for ax in axes:
+        idx[ax] = slice(0, shape_like.shape[ax])
+    return data[tuple(idx)]
+
+
+@register("take")
+def take(a, indices, axis=0, mode="clip"):
+    """Slices of ``a`` along ``axis`` at ``indices`` (cast to int):
+    ``clip`` clamps an index into [0, n), anything else wraps it mod n."""
+    axis = axis % a.dim()
+    n = a.shape[axis]
+    idx = indices.to(torch.int64)
+    idx = idx.clamp(0, n - 1) if mode == "clip" else torch.remainder(idx, n)
+    out = torch.index_select(a, axis, idx.reshape(-1))
+    return out.reshape(tuple(a.shape[:axis]) + tuple(indices.shape)
+                       + tuple(a.shape[axis + 1:]))
+
+
+@register("batch_take")
+def batch_take(a, indices):
+    """``a[i, indices[i]]`` for each row i (``pick`` along axis 1)."""
+    return pick(a, indices.reshape(-1), axis=1)
+
+
+def _wrapped(indices, shape):
+    """Each row m of an int (M, ...) index tensor with a negative index
+    counted from the end of axis m once: the rows and a mask of those in
+    range."""
+    idx = indices.to(torch.int64)
+    sizes = torch.tensor(shape[:idx.shape[0]], device=idx.device).reshape(
+        (-1,) + (1,) * (idx.dim() - 1))
+    idx = torch.where(idx < 0, idx + sizes, idx)
+    return idx, ((idx >= 0) & (idx < sizes)).all(dim=0)
+
+
+@register("gather_nd")
+def gather_nd(data, indices):
+    """``data[indices[0], indices[1], ...]``: ``indices`` has the index
+    axis first, shape (M, ...); an index outside its axis is clamped, as
+    JAX clamps a gather."""
+    idx, _ = _wrapped(indices, tuple(data.shape))
+    rows = [idx[m].clamp(0, data.shape[m] - 1) for m in range(idx.shape[0])]
+    return data[tuple(rows)]
+
+
+@register("scatter_nd")
+def scatter_nd(data, indices, shape=()):
+    """Zeros of ``shape`` with ``data`` added at ``indices`` (index axis
+    first, as ``gather_nd``): duplicate indices add up, an index outside
+    ``shape`` is dropped."""
+    shape = tuple(shape)
+    idx, ok = _wrapped(indices, shape)
+    rows = tuple(torch.where(ok, idx[m], 0) for m in range(idx.shape[0]))
+    okb = ok.reshape(tuple(ok.shape) + (1,) * (data.dim() - ok.dim()))
+    vals = torch.where(okb, data, torch.zeros_like(data))
+    out = torch.zeros(shape, dtype=data.dtype, device=data.device)
+    return out.index_put(rows, vals, accumulate=True)
+
+
+@register("tile")
+def tile(data, reps):
+    return torch.tile(data, tuple(reps) if isinstance(reps, (list, tuple))
+                      else (int(reps),))
+
+
+@register("repeat")
+def repeat(data, repeats=1, axis=None):
+    """Each element ``repeats`` times along ``axis`` (of the flattened
+    array when None)."""
+    if axis is None:
+        return torch.repeat_interleave(data.reshape(-1), int(repeats))
+    return torch.repeat_interleave(data, int(repeats), dim=axis)
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """Source index of each position of an axis of size ``n`` padded by
+    (lo, hi): ``edge`` repeats the end, ``reflect`` mirrors about it
+    without repeating it (numpy's and ``jnp.pad``'s modes)."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    j = torch.remainder(i, period)
+    return torch.where(j >= n, period - j, j)
+
+
+@register("pad", aliases=("Pad",))
+def pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """``data`` padded by ``pad_width``, MXNet's flat (before, after)
+    pairs axis by axis from the FIRST axis (``F.pad`` counts from the
+    last); ``constant`` fills with ``constant_value``, ``edge`` repeats
+    the border, ``reflect`` mirrors it, on any number of axes."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(len(pad_width) // 2)]
+    if mode == "constant":
+        flat = [p for lo_hi in reversed(pw) for p in lo_hi]
+        return torch.nn.functional.pad(data, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise ValueError(mode)
+    for ax, (lo, hi) in enumerate(pw):
+        if lo or hi:
+            data = torch.index_select(
+                data, ax, _pad_index(data.shape[ax], lo, hi, mode,
+                                     data.device))
+    return data
+
+
+@register("reverse", aliases=("flip",))
+def reverse(data, axis=0):
+    ax = tuple(axis) if isinstance(axis, (list, tuple)) else (int(axis),)
+    return torch.flip(data, dims=ax)
+
+
+@register("broadcast_to")
+def broadcast_to(data, shape=()):
+    """``data`` broadcast to ``shape``; a 0 keeps that axis' size."""
+    tgt = tuple(int(s) if s != 0 else data.shape[i]
+                for i, s in enumerate(shape))
+    return torch.broadcast_to(data, tgt).contiguous()
+
+
+@register("broadcast_axis", aliases=("broadcast_axes",))
+def broadcast_axis(data, axis=(), size=()):
+    """``data``'s size-1 axes ``axis`` broadcast to ``size``."""
+    if isinstance(axis, int):
+        axis, size = (axis,), (size,)
+    tgt = list(data.shape)
+    for a, s in zip(axis, size):
+        tgt[a] = s
+    return torch.broadcast_to(data, tuple(tgt)).contiguous()
+
+
+@register("broadcast_like")
+def broadcast_like(data, like):
+    return torch.broadcast_to(data, tuple(like.shape)).contiguous()
+
+
+@register("_index")
+def _index(data, key=()):
+    """Basic indexing, differentiable (``NDArray.__getitem__`` under
+    autograd)."""
+    return data[key]
+
+
+@register("shape_array", differentiable=False)
+def shape_array(data):
+    """The shape as a 1-d int64 array (MXNet's dtype; ``mxtpu``'s is
+    int32, JAX's widest without x64)."""
+    return torch.tensor(tuple(data.shape), dtype=torch.int64,
+                        device=data.device)
+
+
+@register("size_array", differentiable=False)
+def size_array(data):
+    """The element count as a 1-element int64 array."""
+    return torch.tensor([data.numel()], dtype=torch.int64,
+                        device=data.device)
+
+
+@register("diag")
+def diag(data, k=0):
+    """A 1-d ``data`` as the k-th diagonal of a matrix; of a 2-d one its
+    k-th diagonal; of more axes the k-th diagonal over axes 0 and 1,
+    placed last (``jnp.diagonal``)."""
+    if data.dim() <= 2:
+        return torch.diag(data, k)
+    return torch.diagonal(data, offset=k, dim1=0, dim2=1)
+
+
+@register("depth_to_space")
+def depth_to_space(data, block_size):
+    """MXNet's DCR order: (b, c, h, w) viewed as (b, bs, bs, c/bs^2, h,
+    w) and moved to (b, c/bs^2, h, bs, w, bs). ``pixel_shuffle`` is CRD
+    and gives another answer."""
+    b, c, h, w = data.shape
+    bs = block_size
+    x = data.reshape(b, bs, bs, c // (bs * bs), h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, c // (bs * bs), h * bs, w * bs)
+
+
+@register("space_to_depth")
+def space_to_depth(data, block_size):
+    """The inverse of ``depth_to_space``."""
+    b, c, h, w = data.shape
+    bs = block_size
+    x = data.reshape(b, c, h // bs, bs, w // bs, bs)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, c * bs * bs, h // bs, w // bs)
+
+
+@register("_ones", needs_device=True)
+def _ones_op(shape=(), dtype="float32", _device=None):
+    """Nullary ones creator."""
+    return torch.ones(tuple(shape), dtype=canonical_dtype(dtype),
+                      device=_device)

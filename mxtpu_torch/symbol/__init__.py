@@ -296,7 +296,16 @@ class Symbol:
 
 # Optional (default=None) fn parameters that denote *array* inputs; any
 # other default-None parameter is a static param (as in mxtpu)
-_OPTIONAL_ARRAY_PARAMS = {"bias", "state", "state_cell", "parameters"}
+_OPTIONAL_ARRAY_PARAMS = {"bias", "state", "state_cell", "parameters",
+                          "crop_like"}
+
+# optional array inputs with no implicit variable: absent unless given
+_OPTIONAL_NO_AUTO = {"crop_like"}
+
+# loss heads whose implicit label variable is ``<name>_label``
+_LABELLED_HEADS = ("SoftmaxOutput", "LinearRegressionOutput",
+                   "LogisticRegressionOutput", "MAERegressionOutput",
+                   "SVMOutput")
 
 
 def _array_input_names(op, params):
@@ -316,9 +325,10 @@ def _array_input_names(op, params):
             names.append(p.name)
         else:
             break
-    if op.name in ("FullyConnected", "Convolution") and \
-            params.get("no_bias", False):
-        names = [n for n in names if n != "bias"]
+    if op.name in ("FullyConnected", "Convolution", "Deconvolution"):
+        # each op's own no_bias default: Deconvolution's is bias-less
+        if params.get("no_bias", sig.parameters["no_bias"].default):
+            names = [n for n in names if n != "bias"]
     return names
 
 
@@ -359,12 +369,14 @@ def _create_symbol(op, *args, **kwargs):
             elif argname in sym_kwargs:
                 inputs.append(sym_kwargs.pop(argname))
                 used_names.append(argname)
+            elif argname in _OPTIONAL_NO_AUTO:
+                continue        # the op gets None
             elif argname == "state_cell" and \
                     params.get("mode", "lstm") != "lstm":
                 continue        # only LSTM has a cell state
             else:
                 # implicit weight/bias/label variables, named as in mxtpu
-                if op.name == "SoftmaxOutput" and argname == "label":
+                if op.name in _LABELLED_HEADS and argname == "label":
                     vname = name + "_label"
                 else:
                     vname = "%s_%s" % (name, argname)
@@ -634,12 +646,43 @@ def _conv_hint(params, in_shapes, input_names):
     return out
 
 
+@shape_hint("Deconvolution")
+def _deconv_hint(params, in_shapes, input_names):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    nf = int(params.get("num_filter", 0))
+    ng = int(params.get("num_group", 1))
+    out = {"weight": (data[1], nf // ng) + tuple(params.get("kernel", ()))}
+    if "bias" in input_names:
+        out["bias"] = (nf,)
+    return out
+
+
+@shape_hint("LayerNorm")
+def _ln_hint(params, in_shapes, input_names):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    c = (data[int(params.get("axis", -1)) % len(data)],)
+    return {"gamma": c, "beta": c}
+
+
+@shape_hint("InstanceNorm")
+def _in_hint(params, in_shapes, input_names):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    return {"gamma": (data[1],), "beta": (data[1],)}
+
+
 @shape_hint("Embedding")
 def _emb_hint(params, in_shapes, input_names):
     return {"weight": (int(params["input_dim"]), int(params["output_dim"]))}
 
 
 @shape_hint("SoftmaxOutput")
+@shape_hint("SVMOutput")
 def _label_hint(params, in_shapes, input_names):
     data = in_shapes.get("data")
     if data is None:
@@ -647,6 +690,14 @@ def _label_hint(params, in_shapes, input_names):
     if params.get("multi_output"):
         return {"label": (data[0],) + tuple(data[2:])}
     return {"label": (data[0],)}
+
+
+@shape_hint("LinearRegressionOutput")
+@shape_hint("LogisticRegressionOutput")
+@shape_hint("MAERegressionOutput")
+def _reg_label_hint(params, in_shapes, input_names):
+    data = in_shapes.get("data")
+    return {"label": data} if data else {}
 
 
 @shape_hint("BatchNorm")
