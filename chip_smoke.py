@@ -297,7 +297,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    both steps timed in turns beside the bound from the layers' FLOPs,
    the card's busy share, the three Deconvolutions' card time forward
    and backward, the peak memory;
-24. timings: each kernel, its plain version and the PyTorch library call
+24. the examples cached_attention and moe_ffn open, mirrored (the
+   examples import mxtpu) and run on gpu(0) at their own widths: each
+   TRAIN symbol's first 3 fused Module.fit steps (captured) against the
+   CPU's (EX_SHARE); a generation program that reads the card inside its
+   capture raises; example/char_lm/char_lm.py's main through the fused
+   Module.fit (perplexity < 1.35), its GEN checkpoint served by
+   InferenceEngine.from_checkpoint and GenerateScheduler (the memorized
+   text, the same tokens twice, no new program, every prefill and decode
+   program a CUDA graph); example/moe_transformer/
+   moe_transformer.py's train() on one device (perplexity < 2.5), its
+   unsharded engine e0 against the CPU's (1e-5) and swap_weights building
+   nothing;
+25. full width: char_lm's build_lm at the ALiBi paper's WikiText-103
+   widths (16 layers, d 1024, 8 heads, vocabulary 267,735, f32; cache
+   1,024) served on gpu(0) (K = 32 slots, prefill buckets 32/128/512, 64
+   sequences of prompts 16-512 tokens and 128 new tokens through
+   GenerateScheduler: tokens/s, TTFT and decode-step percentiles beside
+   the step's bound, the step's busy share, captures before and after;
+   TF32 off, and the first 16 tokens of 2 sequences against the CPU's);
+   the first forward/backward at 2 layers and T=64 against the CPU
+   (WT_TOL); 10 captured Module.fit steps at batch 8 x 512 with Adam and
+   TF32 on beside the FLOPs bound, peak memory; moe_ffn at Switch-Base-8
+   (d_model 768, d_ff 3,072, 8 experts, top-1, capacity factor 1.25, 4,096
+   tokens) forward and backward against the CPU (the same routing,
+   SWITCH_TOL) and its ms beside the einsums' bound;
+26. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -314,13 +339,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-25. one JSON line naming every kernel with its launches (the head
+27. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
    launches_gluon_lm; multibox_nms's: in the SSD slice's decodes, and in
    the R-CNN toy as launches_rcnn_toy, with its time at Proposal's shape)
    and error;
-26. the last line: {"ok": true, "device": {...}}.
+28. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -3848,7 +3873,7 @@ def module_aux(mod):
 # TF32 off each path trains one epoch of RN_OFF_STEPS steps (its times
 # only), and every timed turn is RN_TIMED_STEPS steps.
 RN_BATCH, RN_SHAPE, RN_CLASSES = 128, "3,224,224", 1000
-RN_STEPS, RN_EPOCHS, RN_OFF_STEPS, RN_TIMED_STEPS = 30, 2, 20, 20
+RN_STEPS, RN_EPOCHS, RN_OFF_STEPS, RN_TIMED_STEPS = 30, 2, 10, 10
 # The first steps card vs CPU, at a batch the CPU takes in seconds.
 RN_CHECK_BATCH = 16
 # The float32 gradient of these networks is discontinuous in the forward's
@@ -4459,7 +4484,7 @@ GL_LM_EXAMPLE = (40, 32, 64, 1, 8, 16)
 GL_LM_PTB = (10000, 200, 200, 2, 32, 32)
 GL_LM_LR, GL_LM_CLIP = 0.005, 5.0
 GL_LM_EPOCHS, GL_LM_TOKENS = 4, 8000          # the example's own run
-GL_LM_STEPS = 20                               # the timed PTB-width run
+GL_LM_STEPS = 10                               # the timed PTB-width run
 # the example's own assertions on its perplexities
 GL_LM_PPL_DROP, GL_LM_PPL_VOCAB = 0.8, 0.7
 # B4 and B5 held against their plain loops at the Gluon LM's shapes (the
@@ -5187,7 +5212,7 @@ CF_LAYERS = 110
 # timed turns of CF_TIMED_STEPS steps (eager, captured, the captured step
 # on a held batch twice, captured, eager); the busy share from
 # torch.profiler over CF_PROFILE_STEPS steps
-CF_TIMED_STEPS, CF_PROFILE_STEPS = 10, 4
+CF_TIMED_STEPS, CF_PROFILE_STEPS = 5, 4
 # the padded-batch check: records for 3 steps at batch 128, the last one
 # padded by 40 rows
 CF_PAD_RECORDS = 3 * 128 - 40
@@ -7289,7 +7314,7 @@ MN_GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9}
 MN_WORKERS = 2                     # the DataLoader's threads, as phase 15's
 # the loader alone in the caller's thread (no workers), over this many
 # batches: whether the worker threads help a host-bound loader
-MN_SERIAL_BATCHES = 200
+MN_SERIAL_BATCHES = 100
 # the Gluon MLP's fed run and the loader alone: this many batches (of an
 # epoch's 937)
 MN_GLUON_STEPS = 200
@@ -7897,6 +7922,16 @@ CARD_SWEEP.update({
     "SequenceReverse": (lambda r: [_su(r, 4, 3, 2),
                                    np.array([2, 4, 3], np.float32)],
                         {"use_sequence_length": True}),
+    # the write at pos 4 clamps to row S - T = 3, as dynamic_update_slice
+    "cached_attention": (
+        lambda r: [_su(r, 2, 3, 8), _su(r, 2, 3, 8), _su(r, 2, 3, 8),
+                   _su(r, 2, 6, 8), _su(r, 2, 6, 8),
+                   np.array([1, 4], np.float32)],
+        {"num_heads": 2, "alibi": True}),
+    # top-2 at capacity factor 1: some tokens find their experts full
+    "moe_ffn": (lambda r: [_su(r, 2, 8, 8), _su(r, 8, 4), _su(r, 4, 8, 6),
+                           _su(r, 4, 6), _su(r, 4, 6, 8), _su(r, 4, 8)],
+                {"capacity_factor": 1.0, "num_selected": 2}),
     "_contrib_MultiBoxPrior": (lambda r: [_su(r, 1, 3, 4, 4)],
                                {"sizes": (0.5, 0.3), "ratios": (1.0, 2.0)}),
     "_contrib_MultiBoxTarget": (
@@ -8417,7 +8452,7 @@ def ndsb2_main(pkg, ctx, root, num_cases=48, batch_size=8, num_epochs=12):
 
 def module_steps(pkg, ctx, sym, data_iter, arg_params, aux_params,
                  optimizer, optimizer_params, label_names=("softmax_label",),
-                 steps=FIT_STEPS, seed=0):
+                 steps=FIT_STEPS, seed=0, data_names=("data",)):
     """``steps`` eager Module steps (forward_backward, update) of ``sym``
     from ``arg_params`` on ``ctx`` over ``data_iter``'s first batches:
     {name: numpy} of the weights after them. Eager on either device, so
@@ -8425,11 +8460,13 @@ def module_steps(pkg, ctx, sym, data_iter, arg_params, aux_params,
     if os.environ.get("MXTPU_MODULE_FUSED") != "0":
         return with_fused(False, module_steps, pkg, ctx, sym, data_iter,
                           arg_params, aux_params, optimizer,
-                          optimizer_params, label_names, steps, seed)
+                          optimizer_params, label_names, steps, seed,
+                          data_names)
     pkg.random.seed(seed)
     np.random.seed(seed)
     data_iter.reset()
-    mod = pkg.mod.Module(sym, context=ctx, label_names=label_names)
+    mod = pkg.mod.Module(sym, context=ctx, data_names=data_names,
+                         label_names=label_names)
     mod.bind(data_iter.provide_data, data_iter.provide_label)
     mod.init_params(arg_params=host_params(pkg, arg_params),
                     aux_params=host_params(pkg, aux_params or {}))
@@ -8442,11 +8479,12 @@ def module_steps(pkg, ctx, sym, data_iter, arg_params, aux_params,
 
 
 def module_init(pkg, sym, data_iter, initializer, seed=0,
-                label_names=("softmax_label",)):
+                label_names=("softmax_label",), data_names=("data",)):
     """The weights ``initializer`` gives ``sym`` from ``seed`` on the CPU:
     ({arg: numpy}, {aux: numpy})."""
     pkg.random.seed(seed)
-    mod = pkg.mod.Module(sym, context=pkg.cpu(), label_names=label_names)
+    mod = pkg.mod.Module(sym, context=pkg.cpu(), data_names=data_names,
+                         label_names=label_names)
     mod.bind(data_iter.provide_data, data_iter.provide_label)
     mod.init_params(initializer)
     args, auxs = mod.get_params()
@@ -9020,6 +9058,1016 @@ def fcn8s_phase(mt, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Attention beyond flash: example/char_lm/char_lm.py and
+# example/moe_transformer/moe_transformer.py, each mirrored with ``pkg``
+# for mxtpu and the context a parameter where the example hard-codes cpu()
+# (the examples import mxtpu); the char LM's generate half through the
+# port's GenerateScheduler (the example's ModelServer / ServingClient hop
+# waits for the port of the server)
+# ---------------------------------------------------------------------------
+
+CL_TEXT = "the quick brown fox jumps over the lazy dog. " * 40
+CL_CHARS = sorted(set(CL_TEXT))
+CL_C2I = {c: i for i, c in enumerate(CL_CHARS)}
+CL_VOCAB = len(CL_CHARS)
+CL_ARGS = dict(dim=32, heads=2, layers=2, seq_len=48, cache_len=64,
+               epochs=8, batch_size=32)       # the example's defaults
+CL_SEED, CL_NEW = "the quick brown ", 40
+CL_WANT = "fox jumps over the lazy dog."
+MOE_V, MOE_D, MOE_H, MOE_E, MOE_FF = 16, 32, 2, 8, 16
+MOE_T, MOE_PERIOD, MOE_EPOCHS = 16, 4, 20
+# a key's bias shifts every score of a query row alike, which the softmax
+# ignores: its gradient is rounding alone
+A7_NO_GRAD = ("_k_bias",)
+
+
+def char_lm_build(pkg, dim, heads, layers, cache_len, vocab=CL_VOCAB):
+    """char_lm.py's build_lm: one stack, the TRAIN graph with zero-fed
+    caches of length T, the GEN graph with a bigger cache and the
+    ``*_next`` outputs."""
+    data = pkg.sym.Variable("data")
+    pos = pkg.sym.Variable("pos", shape=(0,), dtype="int32")
+    x = pkg.sym.Embedding(data=data, input_dim=vocab, output_dim=dim,
+                          name="tok_emb")
+    cache_next = []
+    for li in range(layers):
+        kc = pkg.sym.Variable("kc%d" % li, shape=(0, cache_len, dim))
+        vc = pkg.sym.Variable("vc%d" % li, shape=(0, cache_len, dim))
+        q = pkg.sym.FullyConnected(data=x, num_hidden=dim, flatten=False,
+                                   name="l%d_q" % li)
+        k = pkg.sym.FullyConnected(data=x, num_hidden=dim, flatten=False,
+                                   name="l%d_k" % li)
+        v = pkg.sym.FullyConnected(data=x, num_hidden=dim, flatten=False,
+                                   name="l%d_v" % li)
+        att = pkg.sym.cached_attention(q, k, v, kc, vc, pos,
+                                       num_heads=heads, alibi=True,
+                                       name="l%d_att" % li)
+        o = pkg.sym.FullyConnected(data=att[0], num_hidden=dim,
+                                   flatten=False, name="l%d_o" % li)
+        x = x + o
+        f = pkg.sym.FullyConnected(data=x, num_hidden=2 * dim,
+                                   flatten=False, name="l%d_f1" % li)
+        f = pkg.sym.Activation(f, act_type="relu")
+        f = pkg.sym.FullyConnected(data=f, num_hidden=dim, flatten=False,
+                                   name="l%d_f2" % li)
+        x = x + f
+        cache_next.append(pkg.sym.identity(att[1], name="kc%d_next" % li))
+        cache_next.append(pkg.sym.identity(att[2], name="vc%d_next" % li))
+    logits = pkg.sym.FullyConnected(data=x, num_hidden=vocab,
+                                    flatten=False, name="head")
+    return logits, cache_next
+
+
+def char_lm_train_symbol(pkg, dim, heads, layers, seq_len, vocab=CL_VOCAB):
+    logits, _ = char_lm_build(pkg, dim, heads, layers, seq_len, vocab)
+    flat = pkg.sym.Reshape(logits, shape=(-1, vocab))
+    return pkg.sym.SoftmaxOutput(flat, name="softmax")
+
+
+def char_lm_gen_symbol(pkg, dim, heads, layers, cache_len, vocab=CL_VOCAB):
+    logits, cache_next = char_lm_build(pkg, dim, heads, layers, cache_len,
+                                       vocab)
+    return pkg.sym.Group([logits] + cache_next)
+
+
+def char_lm_feed(seq_len, dim, layers):
+    """char_lm.py's sliding next-char windows: ({input: array}, labels)."""
+    ids = np.asarray([CL_C2I[c] for c in CL_TEXT], np.int32)
+    starts = np.arange(0, len(ids) - seq_len - 1, 3)
+    X = np.stack([ids[s:s + seq_len] for s in starts]).astype("f")
+    Y = np.stack([ids[s + 1:s + seq_len + 1] for s in starts]).astype("f")
+    feed = {"data": X, "pos": np.zeros((len(X),), "f")}
+    for li in range(layers):
+        feed["kc%d" % li] = np.zeros((len(X), seq_len, dim), "f")
+        feed["vc%d" % li] = np.zeros((len(X), seq_len, dim), "f")
+    return feed, Y
+
+
+def char_lm_train(pkg, ctx, prefix, dim=32, heads=2, layers=2, seq_len=48,
+                  cache_len=64, epochs=8, batch_size=32):
+    """char_lm.py's main up to the checkpoint, on ``ctx``: Module.fit of the
+    TRAIN symbol (the example's Adam and Xavier), its perplexity assert,
+    the GEN symbol saved with the trained weights. Returns (module,
+    perplexity)."""
+    os.environ.setdefault("MXTPU_PS_HEARTBEAT", "0")
+    pkg.random.seed(0)
+    np.random.seed(0)
+    T, D = seq_len, dim
+    feed, Y = char_lm_feed(T, D, layers)
+    it = pkg.io.NDArrayIter(feed, {"softmax_label": Y},
+                            batch_size=batch_size, shuffle=True)
+    mod = pkg.mod.Module(char_lm_train_symbol(pkg, D, heads, layers, T),
+                         context=ctx, data_names=sorted(feed),
+                         label_names=["softmax_label"])
+    mod.fit(it, num_epoch=epochs, optimizer="adam",
+            optimizer_params={"learning_rate": 3e-3},
+            initializer=pkg.init.Xavier(),
+            eval_metric=pkg.metric.Perplexity(ignore_label=None))
+    it.reset()
+    ppl = dict(mod.score(
+        it, pkg.metric.Perplexity(ignore_label=None)))["perplexity"]
+    assert ppl < 1.35, "corpus not learned (perplexity %.3f)" % ppl
+    arg_params, aux_params = mod.get_params()
+    pkg.model.save_checkpoint(
+        prefix, 0, char_lm_gen_symbol(pkg, D, heads, layers, cache_len),
+        arg_params, aux_params)
+    return mod, ppl
+
+
+def generate(sched, prompt, max_new, **kw):
+    """One sequence through a GenerateScheduler: (tokens, reply info)."""
+    req = sched.submit("r%d" % id(prompt), prompt, max_new, **kw)
+    if isinstance(req, tuple):
+        raise RuntimeError("generate refused: %r" % (req,))
+    verdict, info = req.wait()
+    if verdict != "ok":
+        raise RuntimeError("generate failed: %s %s" % (verdict, info))
+    return [int(t) for t in info["tokens"]], info
+
+
+def char_lm_serve(mt, prefix, ctx, slots=None):
+    """char_lm.py's serving half through the port's GenerateScheduler: the
+    GEN checkpoint loaded by InferenceEngine.from_checkpoint on ``ctx``,
+    greedy decode of the memorized text, a second sequence with the same
+    tokens and no new program. Returns (text, engine, scheduler stats)."""
+    from mxtpu_torch.serving import GenerateScheduler, InferenceEngine
+    engine = InferenceEngine.from_checkpoint(prefix, 0, {"data": (1,)},
+                                             buckets=(1,), ctx=ctx)
+    assert engine.is_generative, "gen symbol must declare the KV contract"
+    sched = GenerateScheduler(engine, 64, slots=slots)
+    try:
+        prompt = np.asarray([CL_C2I[c] for c in CL_SEED], np.int32)
+        toks, info = generate(sched, prompt, CL_NEW)
+        text = "".join(CL_CHARS[t] for t in toks)
+        assert text.startswith(CL_WANT), \
+            "memorized corpus not reproduced: %r" % text
+        before = engine.cache.compiles
+        toks2, _ = generate(sched, prompt, CL_NEW)
+        assert toks2 == toks, "greedy decode must be deterministic"
+        assert engine.cache.compiles == before, \
+            "decode retraced (%d -> %d compiles)" \
+            % (before, engine.cache.compiles)
+        return text, engine, sched.stats()
+    finally:
+        sched.stop()
+
+
+def moe_build_model(pkg, seq_len):
+    """moe_transformer.py's build_model: 2 x cached_attention, the MoE FFN
+    (8 experts, top-1, capacity factor 2), the head."""
+    D = MOE_D
+    data = pkg.sym.Variable("data")
+    pos = pkg.sym.Variable("pos", shape=(0,), dtype="int32")
+    x = pkg.sym.Embedding(data=data, input_dim=MOE_V, output_dim=D,
+                          name="tok_emb")
+    for li in range(2):
+        kc = pkg.sym.Variable("kc%d" % li, shape=(0, seq_len, D))
+        vc = pkg.sym.Variable("vc%d" % li, shape=(0, seq_len, D))
+        q = pkg.sym.FullyConnected(data=x, num_hidden=D, flatten=False,
+                                   name="l%d_q" % li)
+        k = pkg.sym.FullyConnected(data=x, num_hidden=D, flatten=False,
+                                   name="l%d_k" % li)
+        v = pkg.sym.FullyConnected(data=x, num_hidden=D, flatten=False,
+                                   name="l%d_v" % li)
+        att = pkg.sym.cached_attention(q, k, v, kc, vc, pos,
+                                       num_heads=MOE_H, alibi=True,
+                                       name="l%d_att" % li)
+        o = pkg.sym.FullyConnected(data=att[0], num_hidden=D,
+                                   flatten=False, name="l%d_o" % li)
+        x = x + o
+    gate = pkg.sym.Variable("moe_gate", shape=(D, MOE_E))
+    w1 = pkg.sym.Variable("moe_w1", shape=(MOE_E, D, MOE_FF))
+    b1 = pkg.sym.Variable("moe_b1", shape=(MOE_E, MOE_FF))
+    w2 = pkg.sym.Variable("moe_w2", shape=(MOE_E, MOE_FF, D))
+    b2 = pkg.sym.Variable("moe_b2", shape=(MOE_E, D))
+    moe = pkg.sym.moe_ffn(x, gate, w1, b1, w2, b2, capacity_factor=2.0,
+                          num_selected=1, name="moe")
+    x = x + moe[0]
+    logits = pkg.sym.FullyConnected(data=x, num_hidden=MOE_V,
+                                    flatten=False, name="head")
+    flat = pkg.sym.Reshape(logits, shape=(-1, MOE_V))
+    return pkg.sym.SoftmaxOutput(flat, name="softmax")
+
+
+def moe_init_params(pkg, seed=11):
+    """moe_transformer.py's explicit init of the declared MoE vars."""
+    D, E, FF = MOE_D, MOE_E, MOE_FF
+    rng = np.random.RandomState(seed)
+    s = 0.1
+    host = {"moe_gate": rng.randn(D, E).astype(np.float32) * s,
+            "moe_w1": rng.randn(E, D, FF).astype(np.float32) * s,
+            "moe_b1": np.zeros((E, FF), np.float32),
+            "moe_w2": rng.randn(E, FF, D).astype(np.float32) * s,
+            "moe_b2": np.zeros((E, D), np.float32)}
+    return {k: pkg.nd.array(v, ctx=pkg.cpu()) for k, v in host.items()}
+
+
+def moe_stream_batches(n=256, seed=3):
+    """moe_transformer.py's periodic token stream."""
+    T = MOE_T
+    rng = np.random.RandomState(seed)
+    head = rng.randint(0, MOE_V, size=(n, MOE_PERIOD))
+    reps = (T + 1 + MOE_PERIOD - 1) // MOE_PERIOD + 1
+    full = np.tile(head, (1, reps))[:, :T + 1]
+    return full[:, :T].astype("f"), full[:, 1:].astype("f")
+
+
+def moe_feed(X):
+    feed = {"data": X, "pos": np.zeros((len(X),), "f")}
+    for li in range(2):
+        feed["kc%d" % li] = np.zeros((len(X), MOE_T, MOE_D), "f")
+        feed["vc%d" % li] = np.zeros((len(X), MOE_T, MOE_D), "f")
+    return feed
+
+
+def moe_train(pkg, ctx, epochs=6):
+    """moe_transformer.py's train() on one device (``ctx``; the mesh
+    waits for the port of the mesh layer). Returns (module, perplexity,
+    {name: numpy})."""
+    np.random.seed(0)
+    pkg.random.seed(0)
+    X, Y = moe_stream_batches()
+    feed = moe_feed(X)
+    it = pkg.io.NDArrayIter(feed, {"softmax_label": Y}, batch_size=32,
+                            shuffle=True)
+    mod = pkg.mod.Module(moe_build_model(pkg, MOE_T), context=ctx,
+                         data_names=sorted(feed),
+                         label_names=["softmax_label"])
+    mod.fit(it, num_epoch=epochs, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-2},
+            initializer=pkg.init.Xavier(),
+            arg_params=moe_init_params(pkg), allow_missing=True,
+            eval_metric=pkg.metric.Perplexity(ignore_label=None))
+    it.reset()
+    ppl = dict(mod.score(
+        it, pkg.metric.Perplexity(ignore_label=None)))["perplexity"]
+    args, _auxs = mod.get_params()
+    return mod, ppl, {k: v.asnumpy().copy() for k, v in args.items()}
+
+
+def moe_engine(pkg, host, ctx=None):
+    """moe_transformer.py's unsharded engine e0 (buckets 1 and 8) over
+    ``host`` weights, and the feed of its parity request."""
+    shapes = {"data": (MOE_T,), "pos": ()}
+    for li in range(2):
+        shapes["kc%d" % li] = (MOE_T, MOE_D)
+        shapes["vc%d" % li] = (MOE_T, MOE_D)
+    kw = {} if ctx is None else {"ctx": ctx}
+    eng = pkg.serving.InferenceEngine(moe_build_model(pkg, MOE_T), host, {},
+                                      shapes, buckets=(1, 8), warm=True,
+                                      **kw)
+    x = moe_stream_batches(n=8, seed=9)[0]
+    zeros = {"pos": np.zeros((len(x),), np.int32), "data": x}
+    for li in range(2):
+        zeros["kc%d" % li] = np.zeros((len(x), MOE_T, MOE_D), "f")
+        zeros["vc%d" % li] = np.zeros((len(x), MOE_T, MOE_D), "f")
+    return eng, [zeros[n] for n in sorted(shapes)]
+
+
+def a7_first_fits(pkg, ctx, steps=FIT_STEPS, inits=None):
+    """Each TRAIN symbol's first ``steps`` steps through Module.fit (the
+    fused step where it engages: on the card captured from its second
+    signature's second step) on ``ctx`` from weights drawn on the CPU (or
+    ``inits``: {symbol: {weight: numpy}}), over the first ``steps``
+    batches unshuffled: {symbol: {weight: the steps it took}}, with each
+    symbol's learning rate, whether its fit ran fused, and the weights
+    it started from."""
+    out = {}
+    cl = CL_ARGS
+    feed, Y = char_lm_feed(cl["seq_len"], cl["dim"], cl["layers"])
+    with pkg.name.NameManager():
+        sym = char_lm_train_symbol(pkg, cl["dim"], cl["heads"],
+                                   cl["layers"], cl["seq_len"])
+    n = steps * cl["batch_size"]
+    it = pkg.io.NDArrayIter({k: v[:n] for k, v in feed.items()},
+                            {"softmax_label": Y[:n]},
+                            batch_size=cl["batch_size"])
+    args, _ = module_init(pkg, sym, it, pkg.init.Xavier(),
+                          data_names=sorted(feed))
+    out["char_lm"] = (sym, it, args, 3e-3, sorted(feed))
+    X, Y = moe_stream_batches()
+    feed = moe_feed(X)
+    with pkg.name.NameManager():
+        sym = moe_build_model(pkg, MOE_T)
+    n = steps * 32
+    it = pkg.io.NDArrayIter({k: v[:n] for k, v in feed.items()},
+                            {"softmax_label": Y[:n]}, batch_size=32)
+    pkg.random.seed(0)
+    mod = pkg.mod.Module(sym, context=pkg.cpu(), data_names=sorted(feed))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(pkg.init.Xavier(), arg_params=moe_init_params(pkg),
+                    allow_missing=True)
+    args = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    out["moe_transformer"] = (sym, it, args, 1e-2, sorted(feed))
+    steps_taken = {}
+    for name, (sym, it, args, lr, data_names) in out.items():
+        if inits is not None:
+            args = inits[name]
+        steps_taken[name + " lr"] = lr
+        steps_taken[name + " init"] = args
+        pkg.random.seed(0)
+        np.random.seed(0)
+        it.reset()
+        mod = pkg.mod.Module(sym, context=ctx, data_names=data_names,
+                             label_names=["softmax_label"])
+        mod.fit(it, num_epoch=1, optimizer="adam",
+                optimizer_params={"learning_rate": lr},
+                arg_params=host_params(pkg, args),
+                eval_metric=pkg.metric.Perplexity(ignore_label=None))
+        got = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+        steps_taken[name] = module_delta(got, args)
+        steps_taken[name + " fused"] = getattr(mod, "_fused", None) \
+            is not None
+    return steps_taken
+
+
+def gen_graphs(engine):
+    """Fail unless every prefill and decode program ``engine`` built runs
+    as a captured CUDA graph over tensors on the card (no program of the
+    card takes a path of the CPU's). Returns how many there are."""
+    import torch
+    from mxtpu_torch.serving.engine import _GraphProgram
+    progs = [e for e in engine.cache.entries()
+             if isinstance(e, _GraphProgram)]
+    if not torch.cuda.is_available():
+        return len(progs)
+    bad = [p.name for p in progs if p.graph is None or not all(
+        t.is_cuda for t in p.params)]
+    if not progs or bad:
+        fail("generation programs not captured on the card: %s of %d"
+             % (bad, len(progs)))
+    return len(progs)
+
+
+def capture_fault_check(mt):
+    """A generation program whose body waits for the card cannot be
+    captured: its capture must raise (no eager fallback), and the card
+    must work after it."""
+    import torch
+    from mxtpu_torch.serving.engine import _GraphProgram
+    dev = torch.device("cuda", 0)
+    x = torch.ones(4, device=dev)
+    prog = _GraphProgram("probe", lambda: x * float(x.sum().item()), dev,
+                         (), torch.cuda.Stream(device=dev))
+    prog()                          # the first call runs for real
+    try:
+        prog()
+    except RuntimeError as e:
+        if "could not be captured" not in str(e):
+            raise
+    else:
+        fail("a generation program that reads the card was captured")
+    if float((x * 2).sum().item()) != 8.0:
+        fail("the card misbehaves after a failed capture")
+
+
+def a7_phase(mt, card):
+    """Phase 24: the examples cached_attention and moe_ffn open, on gpu(0)
+    at their own widths. Each TRAIN symbol's first FIT_STEPS fused steps
+    against the CPU's (EX_SHARE); char_lm's main (the fused fit,
+    perplexity < 1.35, the GEN checkpoint) and its generate half through
+    GenerateScheduler (the memorized text, the same tokens twice, no new
+    capture); moe_transformer's train() to perplexity < 2.5 and its
+    unsharded engine e0 against the CPU's (1e-5), a weight swap building
+    nothing. Returns {part: seconds}."""
+    import tempfile
+    import torch
+    gpu = mt.gpu(0)
+    secs = {}
+    t0 = time.time()
+    firsts = {}
+    for label, ctx in (("gpu", gpu), ("cpu", mt.cpu())):
+        with ctx:
+            firsts[label] = a7_first_fits(mt, ctx)
+    for ex in ("char_lm", "moe_transformer"):
+        if not firsts["gpu"][ex + " fused"]:
+            fail("%s: the fused Module step did not engage on gpu(0)" % ex)
+        got, want = firsts["gpu"][ex], firsts["cpu"][ex]
+        lr = firsts["cpu"][ex + " lr"]
+        top = max(float(np.abs(w).max()) for w in want.values())
+        worst, bad, unsteered = 0.0, [], []
+        for k, w in want.items():
+            if k.endswith(A7_NO_GRAD):
+                # no gradient but rounding's: Adam steps by the sign of
+                # noise, at most lr a step on either device
+                step = max(float(np.abs(got[k]).max()),
+                           float(np.abs(w).max()))
+                unsteered.append(k)
+                if not step <= FIT_STEPS * lr * (1 + 1e-3):
+                    bad.append("%s stepped %.3g" % (k, step))
+                continue
+            err = float(np.abs(got[k] - w).max()) / max(
+                float(np.abs(w).max()), EX_FLOOR * top, 1e-30)
+            worst = max(worst, err)
+            if not err <= EX_SHARE:
+                bad.append("%s by %.3g" % (k, err))
+        if bad:
+            fail("%s: after %d fused steps on gpu(0) weights differ from "
+                 "the CPU's (limit %g of the largest step): %s"
+                 % (ex, FIT_STEPS, EX_SHARE, "; ".join(bad)))
+        print("%s: first %d fused Module.fit steps (captured on gpu(0)) "
+              "against the CPU: %d weights within %.3g of their largest "
+              "steps (limit %g); %d key biases (no gradient: softmax "
+              "ignores a shift common to a row's scores) within Adam's "
+              "%d x lr" % (ex, FIT_STEPS, len(want) - len(unsteered), worst,
+                          EX_SHARE, len(unsteered), FIT_STEPS), flush=True)
+    secs["first steps"] = time.time() - t0
+    if torch.cuda.is_available():
+        capture_fault_check(mt)
+        print("a generation program that reads the card mid-capture: its "
+              "capture raised, the card worked after it", flush=True)
+    with tempfile.TemporaryDirectory() as root, gpu:
+        t0 = time.time()
+        prefix = os.path.join(root, "char_lm")
+        mod, ppl = char_lm_train(mt, gpu, prefix, **CL_ARGS)
+        if mod._fused is None or mod._fused._group.stats["fallbacks"]:
+            fail("char_lm: Module.fit did not run the captured step "
+                 "(%s)" % getattr(mod, "_fused_fallback_logged", None))
+        fit_stats = dict(mod._fused._group.stats)
+        text, engine, sched = char_lm_serve(mt, prefix, gpu)
+        graphs = gen_graphs(engine)
+        secs["char_lm"] = time.time() - t0
+        print("char_lm's main on gpu(0): perplexity %.4f (< 1.35) through "
+              "the fused Module.fit (%d steps, %d compiles, %d fallbacks); "
+              "the GEN checkpoint served by GenerateScheduler: %r, the same "
+              "tokens twice; engine %s, %d generation programs, each a CUDA "
+              "graph; scheduler %d sequences, %d decode steps, %d tokens; "
+              "%.1f s | %s"
+              % (ppl, fit_stats["steps"], fit_stats["compiles"],
+                 fit_stats["fallbacks"], text, engine.cache.stats(), graphs,
+                 sched["sequences"], sched["steps"], sched["tokens"],
+                 secs["char_lm"], card), flush=True)
+        t0 = time.time()
+        mod, ppl, host = moe_train(mt, gpu, epochs=MOE_EPOCHS)
+        if mod._fused is None:
+            fail("moe_transformer: the fused Module step did not engage")
+        assert ppl < 2.5, "MoE did not learn the stream (%.3f)" % ppl
+        e0, feed = moe_engine(mt, host, gpu)
+        e_cpu, _ = moe_engine(mt, host, mt.cpu())
+        o0 = e0.predict(feed)[0]
+        d = float(np.max(np.abs(o0 - e_cpu.predict(feed)[0])))
+        if not d < 1e-5:
+            fail("moe_transformer: e0 on gpu(0) differs from the CPU's by "
+                 "%.3g (limit 1e-5)" % d)
+        compiles = e0.stats()["compiles"]
+        e0.predict(feed)
+        v = e0.swap_weights(host)
+        if not (v == 1 and e0.stats()["compiles"] == compiles):
+            fail("moe_transformer: swap_weights built programs (%s)"
+                 % e0.stats())
+        secs["moe_transformer"] = time.time() - t0
+        print("moe_transformer's train() on gpu(0): perplexity %.4f (< 2.5) "
+              "after %d epochs; e0 (buckets 1, 8) against the CPU's: max "
+              "|diff| %.3g (limit 1e-5); %d programs, none built by "
+              "swap_weights; %.1f s | %s"
+              % (ppl, MOE_EPOCHS, d, compiles, secs["moe_transformer"],
+                 card), flush=True)
+    torch.cuda.empty_cache()
+    return secs
+
+
+# ---------------------------------------------------------------------------
+# Full width: char_lm's build_lm at the widths of the ALiBi paper's
+# WikiText-103 model (Press, Smith and Lewis, arXiv:2108.12409, section 4,
+# after Baevski and Auli): 16 layers, d = 1024, 8 heads, trained on windows
+# of 512, served with a cache of 1,024 (the paper's extrapolation to 2L),
+# vocabulary 267,735, f32. build_lm's own block stays: FFN 2d, ReLU, no
+# LayerNorm, a plain embedding and head. And moe_ffn at Switch-Base-8's
+# widths (Fedus, Zoph and Shazeer, arXiv:2101.03961).
+# ---------------------------------------------------------------------------
+
+WT = dict(layers=16, dim=1024, heads=8, train_len=512, cache_len=1024,
+          vocab=267735)
+WT_SLOTS, WT_BUCKETS = 32, "32,128,512"
+WT_SEQS, WT_NEW, WT_PLEN = 64, 128, (16, 512)
+WT_CHECK_SEQS, WT_CHECK_TOKENS = 2, 16
+WT_TRAIN_BATCH, WT_TRAIN_STEPS = 8, 10
+WT_CHECK_LAYERS, WT_CHECK_T, WT_CHECK_BATCH, WT_TOL = 2, 64, 1, 1e-4
+WT_PROFILE_STEPS = 20
+SWITCH = dict(dim=768, ff=3072, experts=8, top=1, cf=1.25, tokens=4096)
+SWITCH_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def matmul_tf32(on):
+    """TF32 in matmuls and cuDNN, on or off, restored after."""
+    import torch
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set for the block, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def wt_weights(mt, sym, seed, layers, device):
+    """Weights for build_lm at WT's widths, drawn on ``device`` from
+    ``seed``: N(0, 1/fan_in) in every projection (the two that feed the
+    residual stream also over 2 x layers, so 16 layers keep its scale),
+    N(0, 1) embeddings, zero biases. {name: NDArray on device}."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = dict(zip(sym.list_arguments(), sym.infer_shape(
+        data=(1, 8), pos=(1,), **{"%sc%d" % (c, i): (1, 8, WT["dim"])
+                                  for c in "kv" for i in range(layers)})[0]))
+    out = {}
+    for name, shape in sorted(shapes.items()):
+        if not name.endswith(("_weight", "_bias")):
+            continue
+        if name.endswith("_bias"):
+            t = torch.zeros(shape, device=device)
+        else:
+            std = 1.0 if name == "tok_emb_weight" else shape[1] ** -0.5
+            if name.endswith(("_o_weight", "_f2_weight")):
+                std /= (2 * layers) ** 0.5
+            t = torch.randn(shape, generator=gen, device=device) * std
+        out[name] = mt.nd.NDArray(t, mt.gpu(0) if t.is_cuda else mt.cpu())
+    return out
+
+
+def wt_prompts(seed):
+    """WT_SEQS prompts, lengths uniform in WT_PLEN, tokens uniform over the
+    vocabulary, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(WT_PLEN[0], WT_PLEN[1] + 1, size=WT_SEQS)
+    return [rng.randint(0, WT["vocab"], size=n).astype(np.int32)
+            for n in lens]
+
+
+def wt_decode_bound(engine, slots):
+    """Bytes a decode step must move (every weight but the embedding read
+    once, K embedding rows, the whole K-slot cache read once and K rows a
+    cache written, the tokens) and its FLOPs (2 a weight a slot, and the
+    K rows' attention over the cache): (bytes, FLOPs)."""
+    params = dict(zip(engine._param_names, engine._stores[0][0]))
+    S, D, L = WT["cache_len"], WT["dim"], WT["layers"]
+    dense = sum(v.numel() for n, v in params.items() if n != "tok_emb_weight")
+    nbytes = 4 * (dense + slots * D + 2 * L * slots * S * D
+                  + 2 * L * slots * D + 2 * slots)
+    flops = 2 * slots * dense + 2 * 2 * L * slots * S * D
+    return nbytes, flops
+
+
+def wt_serve(mt, seed, card):
+    """The full-width GEN engine on gpu(0): WT_SEQS prompts through
+    GenerateScheduler (K = WT_SLOTS, prefill buckets WT_BUCKETS), timed;
+    then WT_CHECK_SEQS of them on the CPU from the same weights: the first
+    WT_CHECK_TOKENS tokens must agree. TF32 off. Returns a dict of
+    numbers."""
+    import gc
+    import torch
+    from mxtpu_torch.serving import GenerateScheduler, InferenceEngine
+    gpu = mt.gpu(0)
+    L = WT["layers"]
+    gen_sym = char_lm_gen_symbol(mt, WT["dim"], WT["heads"], L,
+                                 WT["cache_len"], vocab=WT["vocab"])
+    weights = wt_weights(mt, gen_sym, seed, L, torch.device("cuda", 0))
+    n_param = sum(v.size for v in weights.values())
+    prompts = wt_prompts(seed)
+    checked = sorted(range(WT_SEQS), key=lambda i: len(prompts[i]))[
+        :WT_CHECK_SEQS]
+    out = {"params": n_param}
+    clock = [("start", time.perf_counter())]
+    with env_set(MXTPU_SERVE_GENERATE_SLOTS=WT_SLOTS,
+                 MXTPU_SERVE_GENERATE_PREFILL_BUCKETS=WT_BUCKETS):
+        t0 = time.perf_counter()
+        engine = InferenceEngine(gen_sym, weights, {}, {"data": (1,)},
+                                 buckets=(1,), ctx=gpu)
+        torch.cuda.synchronize()
+        out["warm_s"] = time.perf_counter() - t0
+        before = engine.cache.compiles
+        sched = GenerateScheduler(engine, 2 * WT_SEQS)
+        t0 = time.perf_counter()
+        reqs = [sched.submit("w%d" % i, p, WT_NEW)
+                for i, p in enumerate(prompts)]
+        replies = [r.wait(600) for r in reqs]
+        wall = time.perf_counter() - t0
+        bad = [r for r in replies if r[0] != "ok"]
+        if bad:
+            fail("full-width serving: %d sequences failed: %s"
+                 % (len(bad), bad[:2]))
+        tokens = [r[1]["tokens"].tolist() for r in replies]
+        steps = np.array(sched.step_times())
+        ttft = np.array([r.ttft_ms for r in reqs])
+        stats = sched.stats()
+        sched.drain()
+        out.update(
+            tokens=sum(len(t) for t in tokens), wall_s=wall,
+            ttft_p50=float(np.percentile(ttft, 50)),
+            ttft_p99=float(np.percentile(ttft, 99)),
+            step_p50=float(np.percentile(steps, 50)),
+            step_p99=float(np.percentile(steps, 99)), steps=len(steps),
+            compiles=(before, engine.cache.compiles), sched=stats,
+            mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if engine.cache.compiles != before:
+            fail("full-width serving built programs while answering (%d -> "
+                 "%d)" % (before, engine.cache.compiles))
+        if any(len(t) != WT_NEW for t in tokens):
+            fail("full-width serving: a sequence stopped short of %d "
+                 "tokens" % WT_NEW)
+        nbytes, flops = wt_decode_bound(engine, WT_SLOTS)
+        out["bound_ms"] = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32) * 1e3
+        out["bound_by"] = "bytes" if nbytes / PEAK_BYTES_S >= \
+            flops / PEAK_F32 else "operations"
+        out["bound_bytes"], out["bound_flops"] = nbytes, flops
+        # the decode step alone: its card time and busy share, on the
+        # drained lane's state (its captured program)
+        params, aux, _v = engine._resolve_store(None)
+        state = engine.gen_state_init(WT_SLOTS)
+
+        def step():
+            engine.gen_step(state, params, aux)[0].cpu()
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WT_PROFILE_STEPS):
+            step()
+        out["step_wall"] = (time.perf_counter() - t0) / WT_PROFILE_STEPS \
+            * 1e3
+        out["busy"], out["top"] = device_time(step, WT_PROFILE_STEPS)
+        if engine.cache.compiles != before:
+            fail("the decode step's timing built a program")
+        out["graphs"] = gen_graphs(engine)
+        engine.gen_state_release(state)
+        clock.append(("card", time.perf_counter()))
+        host = {k: v.asnumpy() for k, v in weights.items()}
+        del engine, sched, weights, params, aux, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the CPU from the same weights, 2 slots, plain float32
+    with env_set(MXTPU_SERVE_GENERATE_SLOTS=WT_CHECK_SEQS,
+                 MXTPU_SERVE_GENERATE_PREFILL_BUCKETS=WT_BUCKETS), \
+            mt.cpu():
+        t0 = time.perf_counter()
+        cpu_engine = InferenceEngine(gen_sym, host, {}, {"data": (1,)},
+                                     buckets=(1,), ctx=mt.cpu())
+        sched = GenerateScheduler(cpu_engine, 8)
+        want = [generate(sched, prompts[i], WT_CHECK_TOKENS)[0]
+                for i in checked]
+        sched.drain()
+        out["cpu_s"] = time.perf_counter() - t0
+    clock.append(("cpu", time.perf_counter()))
+    for i, w in zip(checked, want):
+        if tokens[i][:WT_CHECK_TOKENS] != w:
+            fail("full-width serving: sequence %d's first %d tokens on "
+                 "gpu(0) %s, on the CPU %s" % (i, WT_CHECK_TOKENS,
+                                               tokens[i][:WT_CHECK_TOKENS],
+                                               w))
+    out["checked"] = [len(prompts[i]) for i in checked]
+    del cpu_engine, host
+    gc.collect()
+    out["clock"] = ", ".join("%s %.1f" % (name, t - clock[i][1])
+                             for i, (name, t) in enumerate(clock[1:]))
+    return out
+
+
+def wt_train_flops(batch, T):
+    """FLOPs of one training step of WT's TRAIN symbol at ``batch`` x T: 6
+    a weight a token (forward, and the two products of the backward) but
+    the embedding's lookup, and the dense causal attention's four
+    products (T x T scores, all computed) three times over."""
+    L, D, V = WT["layers"], WT["dim"], WT["vocab"]
+    dense = L * (4 * D * D + 4 * D * D) + D * V
+    tokens = batch * T
+    return 6 * tokens * dense + 3 * 2 * 2 * L * batch * T * T * D
+
+
+def wt_check_grads(mt, seed):
+    """The first forward/backward of the TRAIN symbol at WT's widths with
+    WT_CHECK_LAYERS layers and T = WT_CHECK_T on gpu(0) against the CPU
+    (TF32 off): the softmax and every weight's gradient within WT_TOL of
+    its largest value. Returns (worst, arrays compared)."""
+    import torch
+    T, L, B = WT_CHECK_T, WT_CHECK_LAYERS, WT_CHECK_BATCH
+    sym = char_lm_train_symbol(mt, WT["dim"], WT["heads"], L, T,
+                               vocab=WT["vocab"])
+    args = {k: v.asnumpy() for k, v in wt_weights(
+        mt, sym, seed, L, torch.device("cuda", 0)).items()}
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, WT["vocab"], size=(B, T)).astype("f")
+    y = rng.randint(0, WT["vocab"], size=(B * T,)).astype("f")
+    feed = {"data": x, "pos": np.zeros((B,), "f"), "softmax_label": y}
+    for i in range(L):
+        feed["kc%d" % i] = feed["vc%d" % i] = np.zeros((B, T, WT["dim"]),
+                                                       "f")
+    got = {}
+    for label, ctx in (("gpu", mt.gpu(0)), ("cpu", mt.cpu())):
+        with ctx:
+            ex = sym.simple_bind(ctx, grad_req="write",
+                                 **{k: v.shape for k, v in feed.items()})
+            for k, v in ex.arg_dict.items():
+                v[:] = feed[k] if k in feed else args[k]
+            out = ex.forward(is_train=True)[0].asnumpy()
+            ex.backward()
+            got[label] = dict({k: g.asnumpy() for k, g in
+                               ex.grad_dict.items()
+                               if g is not None and k in args},
+                              softmax=out)
+            del ex
+    worst = 0.0
+    top = max(float(np.abs(g).max()) for k, g in got["cpu"].items()
+              if k != "softmax")
+    for k, want in got["cpu"].items():
+        if k.endswith(A7_NO_GRAD):
+            # rounding alone on either device: small beside every other
+            # gradient, not close to each other
+            noise = max(float(np.abs(got[d][k]).max()) for d in got)
+            if not noise <= WT_TOL * top:
+                fail("full-width LM: %s's gradient %.3g, not rounding "
+                     "beside the largest gradient %.3g" % (k, noise, top))
+            continue
+        err = float(np.abs(got["gpu"][k] - want).max()) / max(
+            float(np.abs(want).max()), 1e-30)
+        worst = max(worst, err)
+        if not err <= WT_TOL:
+            fail("full-width LM (%d layers, T=%d): %s on gpu(0) differs "
+                 "from the CPU by %.3g of its largest value (limit %g)"
+                 % (L, T, k, err, WT_TOL))
+    return worst, len(got["cpu"])
+
+
+def fused_summary(mod, steps, label):
+    """Fail unless all ``steps`` steps of ``mod``'s fit ran fused with no
+    fallback, each signature's graph replayed at every step after its
+    first two. Returns (text, the entries holding a graph)."""
+    trainer = mod._fused
+    if trainer is None:
+        fail("%s: the fused step is not engaged (%s)"
+             % (label, getattr(mod, "_fused_fallback_logged", "disabled")))
+    stats = trainer._group.stats
+    entries = trainer._cache.entries()
+    graphs = [e for e in entries if e.graph is not None]
+    replays = sum(e.replays for e in entries)
+    if stats["steps"] != steps or stats["fallbacks"] or not graphs or \
+            replays != steps - stats["compiles"]:
+        fail("%s: fused stats %s, %d replays of %d graphs in %d signatures"
+             % (label, stats, replays, len(graphs), len(entries)))
+    return ("%d steps: %d compiles, %d captures, %d replays, pool %s MB"
+            % (steps, stats["compiles"], len(graphs), replays, ", ".join(
+                "%.1f" % (e.pool_bytes / 2 ** 20) for e in graphs)), graphs)
+
+
+def wt_train(mt, seed, card):
+    """WT_TRAIN_STEPS captured Module.fit steps of the TRAIN symbol at
+    WT_TRAIN_BATCH x train_len with Adam on gpu(0), TF32 on: ms a step of
+    the fit (each batch fed from the host: the tokens and the zero caches
+    the TRAIN symbol takes as data) and of the captured step alone (CUDA
+    events over replays of its graph), against the FLOPs bound; the peak
+    memory. Returns a dict of numbers."""
+    import gc
+    import torch
+    T, L, B = WT["train_len"], WT["layers"], WT_TRAIN_BATCH
+    sym = char_lm_train_symbol(mt, WT["dim"], WT["heads"], L, T,
+                               vocab=WT["vocab"])
+    gpu = mt.gpu(0)
+    rng = np.random.RandomState(seed)
+    n, epochs = B * WT_TRAIN_STEPS, 1
+    ids = rng.randint(0, WT["vocab"], size=(n, T + 1)).astype("f")
+    zeros = np.zeros((n, T, WT["dim"]), "f")
+    feed = {"data": ids[:, :T], "pos": np.zeros((n,), "f")}
+    for i in range(L):
+        feed["kc%d" % i] = feed["vc%d" % i] = zeros
+    batch_bytes = sum(v[:B].nbytes for v in feed.values()) + 4 * B * T
+    it = mt.io.NDArrayIter(feed, {"softmax_label": ids[:, 1:]},
+                           batch_size=B)
+    torch.cuda.reset_peak_memory_stats()
+    with gpu, matmul_tf32(True):
+        weights = wt_weights(mt, sym, seed, L, torch.device("cuda", 0))
+        mod = mt.mod.Module(sym, context=gpu, data_names=sorted(feed),
+                            label_names=["softmax_label"])
+        times = []
+
+        def clock(_param):
+            torch.cuda.synchronize()
+            times.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=epochs, optimizer="adam",
+                optimizer_params={"learning_rate": 1e-4},
+                arg_params=weights, batch_end_callback=clock,
+                eval_metric=mt.metric.Perplexity(ignore_label=None))
+        fit_s = time.perf_counter() - t0
+        text, graphs = fused_summary(mod, WT_TRAIN_STEPS, "full-width LM")
+        held = cuda_ms(graphs[-1].replay, iters=3, warmup=1)
+    fed = np.diff(times)[2:] * 1e3      # steps 4.. replay the graph
+    flops = wt_train_flops(B, T)
+    out = {"step_ms": float(np.median(fed)), "held_ms": held,
+           "fit_s": fit_s, "steps": fed.tolist(), "flops": flops,
+           "batch_mb": batch_bytes / 1e6,
+           "bound_ms": flops / PEAK_TF32 * 1e3, "capture": text,
+           "mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del mod, weights, it, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def switch_relu_mask(xs, sw):
+    """The dispatch tensor and the experts' ReLU branch (pre-activation >
+    0, ``(E, C, F)``) of moe_ffn on ``xs``, as its forward computes them."""
+    import torch
+    from mxtpu_torch.parallel.moe import moe_capacity, moe_dispatch
+    x, gate, w1, b1 = (t.detach() for t in xs[:4])
+    with torch.no_grad():
+        disp = moe_dispatch(x @ gate, moe_capacity(
+            x.shape[0], gate.shape[1], sw["cf"], sw["top"]), sw["top"])[0]
+        h = torch.einsum("ecd,edh->ech", torch.einsum(
+            "tec,td->ecd", disp, x), w1) + b1[:, None, :]
+    return disp.cpu().numpy(), (h > 0).cpu().numpy()
+
+
+def switch_moe_check(mt, seed, card_dev=None):
+    """moe_ffn at Switch-Base-8's widths (d_model 768, d_ff 3,072, 8
+    experts, top-1, capacity factor 1.25) on 4,096 tokens, f32, TF32 off:
+    forward and backward on gpu(0) against the CPU. The routing must be
+    the same (equal dispatch tensors); the output, aux and every gradient
+    within SWITCH_TOL of its largest value, except where the two devices
+    took different ReLU branches (a pre-activation within rounding of 0:
+    float32 against float64 moves w1's gradient by 5% of its largest on
+    the CPU alone), whose w1 columns, b1 entries and token rows are
+    counted and left out. Then the card's forward and forward + backward
+    ms (CUDA events) against the bound of the einsum formulation. Returns
+    a dict of numbers."""
+    import torch
+    from mxtpu_torch.parallel.moe import moe_capacity
+    from mxtpu_torch.ops.nn import moe_ffn
+    sw = SWITCH
+    D, F, E, N = sw["dim"], sw["ff"], sw["experts"], sw["tokens"]
+    rng = np.random.RandomState(seed)
+    host = [rng.randn(N, D).astype("f"),
+            (rng.randn(D, E) * D ** -0.5).astype("f"),
+            (rng.randn(E, D, F) * D ** -0.5).astype("f"),
+            np.zeros((E, F), "f"),
+            (rng.randn(E, F, D) * F ** -0.5).astype("f"),
+            np.zeros((E, D), "f")]
+    cot = rng.randn(N, D).astype("f")
+    card_dev = card_dev or torch.device("cuda", 0)
+    got, masks = {}, {}
+    for label, dev in (("gpu", card_dev), ("cpu", torch.device("cpu"))):
+        xs = [torch.tensor(a, device=dev, requires_grad=True) for a in host]
+        y, aux = moe_ffn(*xs, capacity_factor=sw["cf"],
+                         num_selected=sw["top"])
+        (y * torch.tensor(cot, device=dev)).sum().add(aux.sum()).backward()
+        masks[label] = switch_relu_mask(xs, sw)
+        got[label] = [y.detach().cpu().numpy(), aux.detach().cpu().numpy()
+                      ] + [x.grad.cpu().numpy() for x in xs]
+    disp = masks["cpu"][0]
+    if not np.array_equal(masks["gpu"][0], disp):
+        fail("moe_ffn at Switch-Base-8: the routing on gpu(0) differs from "
+             "the CPU's")
+    flips = masks["gpu"][1] != masks["cpu"][1]            # (E, C, F)
+    keep = [None, None,
+            ~(disp[:, flips.any(-1)].any(-1))[:, None],      # x's rows
+            None, ~flips.any(1)[:, None, :],                 # w1 (E, D, F)
+            ~flips.any(1), None, None]                       # b1 (E, F)
+    worst = 0.0
+    names = ("y", "aux", "x", "gate_weight", "w1", "b1", "w2", "b2")
+    for name, g, w, k in zip(names, got["gpu"], got["cpu"], keep):
+        scale = max(float(np.abs(w).max()), 1e-30)
+        diff = np.abs(g - w)
+        if k is not None:
+            diff = np.where(k, diff, 0.0)
+        err = float(diff.max()) / scale
+        worst = max(worst, err)
+        if not err <= SWITCH_TOL:
+            fail("moe_ffn at Switch-Base-8: %s on gpu(0) differs from the "
+                 "CPU by %.3g of its largest value (limit %g; %d ReLU "
+                 "branches differ)" % (name, err, SWITCH_TOL,
+                                       int(flips.sum())))
+    xs = [torch.tensor(a, device=card_dev, requires_grad=True)
+          for a in host]
+    g_y = torch.tensor(cot, device=card_dev)
+
+    def fwd():
+        with torch.no_grad():
+            moe_ffn(*xs, capacity_factor=sw["cf"], num_selected=sw["top"])
+
+    def fwd_bwd():
+        y, aux = moe_ffn(*xs, capacity_factor=sw["cf"],
+                         num_selected=sw["top"])
+        torch.autograd.backward([y, aux], [g_y, torch.ones_like(aux)])
+    C = moe_capacity(N, E, sw["cf"], sw["top"])
+    # dispatch and combine: 2 products of T x (E C) x D; the experts: 2 of
+    # E C x D x F; the gate: T x D x E
+    flops = 2 * (2 * N * E * C * D + 2 * E * C * D * F + N * D * E)
+    nbytes = 4 * (N * D * 2 + D * E + 2 * E * D * F + E * F + E * D)
+    return {"worst": worst, "capacity": C, "flops": flops,
+            "flips": int(flips.sum()), "units": int(flips.size),
+            "fwd_ms": cuda_ms(fwd, iters=20),
+            "fwd_bwd_ms": cuda_ms(fwd_bwd, iters=10),
+            "bound_ms": max(flops / PEAK_F32, nbytes / PEAK_BYTES_S) * 1e3,
+            "kept": int(disp.sum())}
+
+
+def wt_phase(mt, seed, card):
+    """Phase 25: the full-width ALiBi LM served (WT_SEQS sequences through
+    GenerateScheduler, its first tokens against the CPU) and trained (the
+    first forward/backward at 2 layers against the CPU, then
+    WT_TRAIN_STEPS captured steps), and moe_ffn at Switch-Base-8's widths
+    against the CPU. Prints each result beside its bound. Returns
+    {part: seconds}."""
+    import torch
+    clock = [("start", time.perf_counter())]
+    with matmul_tf32(False):
+        sv = wt_serve(mt, seed, card)
+    clock.append(("serve", time.perf_counter()))
+    tok_s = sv["tokens"] / sv["wall_s"]
+    print("full-width ALiBi LM (%d layers, d %d, %d heads, vocabulary %d, "
+          "cache %d; %d weights, f32, TF32 off) served on gpu(0) by "
+          "GenerateScheduler: %d sequences (prompts %d-%d tokens, %d new "
+          "each, K = %d slots, prefill buckets %s) in %.3f s: %.1f tokens/s; "
+          "TTFT p50 %.3f ms, p99 %.3f ms; decode step (program call + the "
+          "read of its K tokens) p50 %.4f ms, p99 %.4f ms over %d steps, "
+          "bound %.4f ms (%.4g bytes at 3.35 TB/s, %.4g FLOPs; %s), p50 at "
+          "%.1f%% of it; the step alone %.4f ms, %s; %s; captures %d before "
+          "the sequences, %d after (%d generation programs, each a CUDA "
+          "graph); engine warm-up %.1f s; peak memory %.2f GB | %s"
+          % (WT["layers"], WT["dim"], WT["heads"], WT["vocab"],
+             WT["cache_len"], sv["params"], WT_SEQS, WT_PLEN[0], WT_PLEN[1],
+             WT_NEW, WT_SLOTS, WT_BUCKETS, sv["wall_s"], tok_s,
+             sv["ttft_p50"], sv["ttft_p99"], sv["step_p50"], sv["step_p99"],
+             sv["steps"], sv["bound_ms"], sv["bound_bytes"],
+             sv["bound_flops"], sv["bound_by"],
+             100 * sv["bound_ms"] / sv["step_p50"], sv["step_wall"],
+             busy_of(sv["busy"], sv["step_wall"]), sv["top"],
+             sv["compiles"][0], sv["compiles"][1], sv["graphs"],
+             sv["warm_s"], sv["mem_gb"], card), flush=True)
+    print("full-width ALiBi LM: the first %d tokens of the %d sequences "
+          "with the shortest prompts (%s tokens) on gpu(0) equal the CPU's "
+          "from the same weights (%.1f s on the CPU; serving %s s)"
+          % (WT_CHECK_TOKENS, WT_CHECK_SEQS, sv["checked"], sv["cpu_s"],
+             sv["clock"]), flush=True)
+    with matmul_tf32(False):
+        worst, n = wt_check_grads(mt, seed)
+    clock.append(("gradient check", time.perf_counter()))
+    print("full-width ALiBi LM at %d layers, T = %d, batch %d (TF32 off): "
+          "the first forward/backward on gpu(0) against the CPU: softmax "
+          "and %d gradients within %.3g of their largest values (limit %g), "
+          "the %d key biases' (rounding alone) below %g of the largest "
+          "gradient" % (WT_CHECK_LAYERS, WT_CHECK_T, WT_CHECK_BATCH,
+                        n - 1 - WT_CHECK_LAYERS, worst, WT_TOL,
+                        WT_CHECK_LAYERS, WT_TOL), flush=True)
+    tr = wt_train(mt, seed, card)
+    clock.append(("train", time.perf_counter()))
+    print("full-width ALiBi LM trained through Module.fit on gpu(0) (Adam, "
+          "batch %d x %d, TF32 on): %s; fit step %.3f ms (median of steps "
+          "4-%d: %s; each batch %.1f MB from the host, the zero caches "
+          "most of it), %.0f tokens/s; the captured step alone %.3f ms; "
+          "bound %.3f ms (%.4g FLOPs at TF32's 495 TFLOP/s; operations), "
+          "%.1f%% of it; fit %.1f s; peak memory %.2f GB | %s"
+          % (WT_TRAIN_BATCH, WT["train_len"], tr["capture"], tr["step_ms"],
+             WT_TRAIN_STEPS, ", ".join("%.3f" % v for v in tr["steps"]),
+             tr["batch_mb"],
+             WT_TRAIN_BATCH * WT["train_len"] / tr["step_ms"] * 1e3,
+             tr["held_ms"], tr["bound_ms"], tr["flops"],
+             100 * tr["bound_ms"] / tr["held_ms"], tr["fit_s"],
+             tr["mem_gb"], card), flush=True)
+    with matmul_tf32(False):
+        sw = switch_moe_check(mt, seed)
+    clock.append(("moe", time.perf_counter()))
+    print("moe_ffn at Switch-Base-8 (d_model %d, d_ff %d, %d experts, top-%d, "
+          "capacity factor %g: %d slots an expert, %d of %d tokens kept), "
+          "f32, TF32 off: routing on gpu(0) equal to the CPU's, values and "
+          "gradients within %.3g of their largest (limit %g) where both "
+          "took the same ReLU branch (%d of %d differ); forward %.4f "
+          "ms, forward + backward %.4f ms; the forward's bound %.4f ms "
+          "(%.4g FLOPs of the einsum formulation at float32's 67 TFLOP/s; "
+          "operations), %.1f%% of it | %s"
+          % (SWITCH["dim"], SWITCH["ff"], SWITCH["experts"], SWITCH["top"],
+             SWITCH["cf"], sw["capacity"], sw["kept"], SWITCH["tokens"],
+             sw["worst"], SWITCH_TOL, sw["flips"], sw["units"],
+             sw["fwd_ms"], sw["fwd_bwd_ms"],
+             sw["bound_ms"], sw["flops"],
+             100 * sw["bound_ms"] / sw["fwd_ms"], card), flush=True)
+    torch.cuda.empty_cache()
+    print("full-width phase: %.1f s (%s)" % (
+        clock[-1][1] - clock[0][1], ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))), flush=True)
+    return {"tokens_s": tok_s, "step_ms": sv["step_p50"],
+            "train_ms": tr["step_ms"]}
+
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -9443,7 +10491,16 @@ def main():
     # 23. FCN-8s on VGG16 at full width through Module.fit
     fcn_ms = fcn8s_phase(mt, args.seed, card)
 
-    # 24. timings at the main paths' shapes
+    # 24. the examples cached_attention and moe_ffn open, at their widths
+    t_phase = time.time()
+    a7_phase(mt, card)
+    print("A7 examples phase: %.1f s" % (time.time() - t_phase), flush=True)
+
+    # 25. the ALiBi LM at WikiText-103 widths served and trained, and
+    # moe_ffn at Switch-Base-8's
+    wt_phase(mt, args.seed, card)
+
+    # 26. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -9806,7 +10863,7 @@ def main():
         "proposal_bound_ms": proposal_timing[2]})
     print("total %.1f s" % (time.time() - t_start))
 
-    # 25.-26. the result lines
+    # 27.-28. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -109,6 +109,13 @@ class ProgramCache:
             self.compiles += 1
         return entry, False
 
+    def discard(self, keep):
+        """Drop every entry for which ``keep(key, entry)`` is false."""
+        with self._lock:
+            for key in [k for k, e in self._programs.items()
+                        if not keep(k, e)]:
+                del self._programs[key]
+
     def entries(self):
         """The entries built so far."""
         with self._lock:

@@ -7,17 +7,20 @@ backward is ``mxtpu``'s (a ``torch.autograd.Function`` in place of its
 ``custom_vjp``); L2Normalization and BlockGrad, which SSD uses; MakeLoss
 and identity, which multi-output graphs use; Deconvolution and
 UpSampling, which fully convolutional nets use; SoftmaxActivation,
-LayerNorm, InstanceNorm and LRN; and the other loss heads with
-``mxtpu``'s own backward (the three regression outputs, SVMOutput).
+LayerNorm, InstanceNorm and LRN; the other loss heads with
+``mxtpu``'s own backward (the three regression outputs, SVMOutput); and
+``cached_attention`` (the decode primitive of generation, ALiBi
+included) and ``moe_ffn``, which the char LM and the MoE transformer use.
 None of them is a Pallas kernel in ``mxtpu`` (XLA lowers them there), so
-here they are PyTorch's own calls: ``torch.matmul``, ``index_select``,
-``F.conv*d`` / ``F.conv_transpose*d`` / ``F.max_pool*d`` /
-``F.avg_pool*d`` (cuDNN on the card) and ``torch.native_batch_norm``,
-the same call on the CPU and the card.
+here they are PyTorch's own calls: ``torch.matmul`` / ``torch.bmm``,
+``index_select``, ``F.conv*d`` / ``F.conv_transpose*d`` /
+``F.max_pool*d`` / ``F.avg_pool*d`` (cuDNN on the card) and
+``torch.native_batch_norm``, the same call on the CPU and the card.
 """
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -696,3 +699,127 @@ def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
 def identity(data):
     """A copy of ``data`` (its gradient passes through)."""
     return data.clone()
+
+
+# ---------------------------------------------------------------------------
+# KV-cached causal self-attention, the decode primitive of generation
+# (``mxtpu/ops/nn.py`` cached_attention). One op serves training and both
+# phases of generation: at pos=0 over zero caches with S >= T it is plain
+# causal self-attention; a decode step at pos=p writes row p and attends
+# rows s <= p. Rows past a true prompt length hold garbage, but the causal
+# mask shows row j only once j <= pos of a later step, and the step at j
+# overwrites row j before attending it.
+#
+# The functional form (training, and every call outside a static_cache
+# scope) returns new cache tensors. Inside a static_cache scope, with no
+# gradient recorded, the op writes the T new rows into the caches it was
+# given and returns those same tensors: the generation programs keep their
+# packed K-slot state as static tensors, so a decode step reads the cache
+# once and writes T rows instead of copying it.
+# ---------------------------------------------------------------------------
+
+class _StaticCache(threading.local):
+    def __init__(self):
+        self.depth = 0
+
+
+_STATIC_CACHE = _StaticCache()
+
+
+class static_cache:
+    """Scope in which ``cached_attention`` writes its caches in place."""
+
+    def __enter__(self):
+        _STATIC_CACHE.depth += 1
+        return self
+
+    def __exit__(self, *a):
+        _STATIC_CACHE.depth -= 1
+
+
+def _flag(v):
+    """An op attribute read as ``mxtpu`` reads it: a symbol saved by
+    either package stores ``True`` as the string ``"True"``."""
+    return bool(v) and str(v).lower() not in ("false", "0")
+
+
+def _alibi_slopes(heads, dtype, device):
+    """ALiBi's slope of head i, ``2^(-8(i+1)/H)`` (Press et al.), made on
+    ``device`` in float64 and rounded once, as ``mxtpu`` rounds its Python
+    floats: no host-to-device copy, so a CUDA graph can capture it."""
+    i = torch.arange(1, heads + 1, dtype=torch.float64, device=device)
+    return torch.exp2(-8.0 * i / heads).to(dtype)
+
+
+@register("cached_attention", num_outputs=3)
+def cached_attention(query, key, value, k_cache, v_cache, pos, num_heads=1,
+                     alibi=False):
+    """query/key/value ``[B, T, D]``; caches ``[B, S, D]``; ``pos [B]``
+    (each sample's write offset). Returns ``(out, k_cache_next,
+    v_cache_next)``. The T rows are written at ``pos`` clamped into
+    ``[0, S - T]``, as ``lax.dynamic_update_slice`` clamps, cast to the
+    cache dtype; query row t of sample b attends cache rows ``s <= pos_b
+    + t`` (the unclamped position), masked scores set to -1e30 before the
+    softmax, scores divided by ``sqrt(hd)`` in the query dtype.
+    ``alibi`` subtracts ``2^(-8(i+1)/H) * ((pos + t) - s)`` from head i's
+    scores: absolute positions, so a prefill chunk and a decode step see
+    the same bias. The write offsets are built on the device from
+    ``pos``: no host read."""
+    p = pos.to(torch.int32).reshape(-1)
+    B, T, D = query.shape
+    S = k_cache.shape[1]
+    H = int(num_heads)
+    hd = D // H
+    dev = query.device
+    t_idx = torch.arange(T, dtype=torch.int32, device=dev)
+    start = torch.clamp(p, 0, max(S - T, 0))
+    rows = (start[:, None] + t_idx[None, :]).long()            # [B, T]
+    index = rows[:, :, None].expand(B, T, D)
+    key_c = key.to(k_cache.dtype)
+    value_c = value.to(v_cache.dtype)
+    if _STATIC_CACHE.depth and not torch.is_grad_enabled():
+        new_k = k_cache.scatter_(1, index, key_c)
+        new_v = v_cache.scatter_(1, index, value_c)
+    else:
+        new_k = k_cache.scatter(1, index, key_c)
+        new_v = v_cache.scatter(1, index, value_c)
+    kq = new_k.to(query.dtype)
+    vq = new_v.to(query.dtype)
+    # one product a head over its column slice of the caches: a strided
+    # view cuBLAS reads in place, where a heads-first einsum would copy
+    # the whole cache into another layout first
+    heads = [slice(h * hd, (h + 1) * hd) for h in range(H)]
+    scores = torch.stack([torch.bmm(query[:, :, c], kq[:, :, c].transpose(
+        1, 2)) for c in heads], dim=1) / torch.full(
+        (), float(hd), dtype=query.dtype, device=dev).sqrt()
+    s_idx = torch.arange(S, dtype=torch.int32, device=dev)[None, None, :]
+    q_abs = p[:, None, None] + t_idx[None, :, None]            # [B, T, 1]
+    allowed = s_idx <= q_abs                                   # [B, T, S]
+    if _flag(alibi):
+        slopes = _alibi_slopes(H, scores.dtype, dev)
+        dist = (q_abs - s_idx).to(scores.dtype)                # [B, T, S]
+        scores = scores - slopes[None, :, None, None] * dist[:, None]
+    scores = torch.where(allowed[:, None, :, :], scores,
+                         torch.full((), -1e30, dtype=scores.dtype,
+                                    device=dev))
+    att = torch.softmax(scores, dim=-1)
+    out = torch.cat([torch.bmm(att[:, h], vq[:, :, c])
+                     for h, c in enumerate(heads)], dim=-1)
+    return out.to(query.dtype), new_k, new_v
+
+
+@register("moe_ffn", num_outputs=2)
+def moe_ffn(data, gate_weight, w1, b1, w2, b2, capacity_factor=1.25,
+            num_selected=1):
+    """Expert feed-forward over the token dimension (``mxtpu``'s op over
+    :func:`mxtpu_torch.parallel.moe.moe_ffn`). ``data [B, T, D]`` (or
+    ``[T, D]``); ``gate_weight [D, E]``; ``w1 [E, D, H]``; ``b1 [E, H]``;
+    ``w2 [E, H, D]``; ``b2 [E, D]``. Returns ``(y, aux)``: y shaped like
+    data, aux the ``(1,)`` Switch load-balancing loss."""
+    from ..parallel.moe import moe_ffn as _moe_ffn
+    shape = data.shape
+    x = data.reshape(-1, shape[-1])
+    y, aux = _moe_ffn(x, gate_weight, w1, b1, w2, b2,
+                      capacity_factor=float(capacity_factor),
+                      num_selected=int(num_selected))
+    return y.reshape(shape).to(data.dtype), aux.reshape(1)

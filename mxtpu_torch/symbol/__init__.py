@@ -722,6 +722,31 @@ def _custom_hint(params, in_shapes, input_names):
             if k is None and s is not None}
 
 
+@shape_hint("cached_attention")
+def _cached_attention_hint(params, in_shapes, input_names):
+    """``pos`` is one offset a sample; the two caches share a shape."""
+    out = {}
+    query = in_shapes.get("query")
+    if query is not None:
+        out["pos"] = (query[0],)
+    cache = in_shapes.get("k_cache") or in_shapes.get("v_cache")
+    if cache is not None:
+        out["k_cache"] = out["v_cache"] = cache
+    return out
+
+
+@shape_hint("moe_ffn")
+def _moe_ffn_hint(params, in_shapes, input_names):
+    """The expert stacks from ``w1 (E, D, H)``: the gate ``(D, E)``, the
+    biases ``(E, H)`` and ``(E, D)``, ``w2 (E, H, D)``."""
+    w1 = in_shapes.get("w1")
+    if w1 is None:
+        return {}
+    e, d, h = w1
+    return {"gate_weight": (d, e), "b1": (e, h), "w2": (e, h, d),
+            "b2": (e, d)}
+
+
 @shape_hint("RNN")
 def _rnn_hint(params, in_shapes, input_names):
     from ..ops.rnn import rnn_param_size

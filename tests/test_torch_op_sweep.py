@@ -53,12 +53,16 @@ PORT_SKIP = {
     "_contrib_flash_attention": "tests/test_torch_flash_attention.py (the "
                                 "kernels' plain versions against mxtpu's "
                                 "Pallas kernels in interpret mode)",
+    "cached_attention": "tests/test_torch_cached_attention.py (forward and "
+                        "jax.vjp gradients against mxtpu: prefill, decode, "
+                        "the clamp, ALiBi)",
+    "moe_ffn": "tests/test_torch_cached_attention.py (forward and jax.vjp "
+               "gradients against mxtpu: top-1, top-2, dropped tokens)",
 }
 
 # every canonical mxtpu op the port does not register yet, with the
 # ROADMAP item that ports it
 NOT_PORTED = {
-    "cached_attention": "A7", "moe_ffn": "A7",
     "ctc_loss": "A8",
     "_contrib_gc_quantize_2bit": "A11", "_contrib_gc_dequantize_2bit": "A11",
 }
@@ -127,7 +131,10 @@ def test_registry_partition():
     assert not stale, "NOT_PORTED entries the port registers: %s" % stale
     unknown = sorted(set(NOT_PORTED) - set(canon))
     assert not unknown, "NOT_PORTED entries mxtpu lacks: %s" % unknown
-    assert skipped <= ported and skipped <= set(SKIP), sorted(skipped)
+    # a skip names the port's own test where mxtpu's sweep skips the op
+    # too, or has no spec for it (cached_attention, moe_ffn)
+    assert skipped <= ported and skipped <= set(SKIP) | (
+        set(canon) - set(SPECS)), sorted(skipped)
     assert all("tests/test_torch_" in r for r in PORT_SKIP.values())
     untested = sorted(ported - set(SPECS) - skipped)
     assert not untested, "ported ops with no spec or skip: %s" % untested
@@ -139,8 +146,9 @@ def test_registry_partition():
             if t is None or t.name != op.name:
                 wrong.append((n, op.name, t and t.name))
     assert not wrong, "aliases resolving elsewhere in the port: %s" % wrong
-    # what the ROADMAP counts: A2 leaves these for A7, A8, A9 and A11
-    assert len(NOT_PORTED) == 61, len(NOT_PORTED)
+    # what the ROADMAP counts: A7 ported, these wait for A8, A9 and A11
+    assert len(NOT_PORTED) == 59, len(NOT_PORTED)
+    assert len(ported) == 185, len(ported)
 
 
 @pytest.mark.parametrize("name", ported_specs())
