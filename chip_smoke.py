@@ -9387,9 +9387,9 @@ def gen_graphs(engine):
     as a captured CUDA graph over tensors on the card (no program of the
     card takes a path of the CPU's). Returns how many there are."""
     import torch
-    from mxtpu_torch.serving.engine import _GraphProgram
+    from mxtpu_torch.module.fused import GraphProgram
     progs = [e for e in engine.cache.entries()
-             if isinstance(e, _GraphProgram)]
+             if isinstance(e, GraphProgram)]
     if not torch.cuda.is_available():
         return len(progs)
     bad = [p.name for p in progs if p.graph is None or not all(
@@ -9405,10 +9405,10 @@ def capture_fault_check(mt):
     captured: its capture must raise (no eager fallback), and the card
     must work after it."""
     import torch
-    from mxtpu_torch.serving.engine import _GraphProgram
+    from mxtpu_torch.module.fused import GraphProgram
     dev = torch.device("cuda", 0)
     x = torch.ones(4, device=dev)
-    prog = _GraphProgram("probe", lambda: x * float(x.sum().item()), dev,
+    prog = GraphProgram("probe", lambda: x * float(x.sum().item()), dev,
                          (), torch.cuda.Stream(device=dev))
     prog()                          # the first call runs for real
     try:
@@ -9541,9 +9541,9 @@ WT = dict(layers=16, dim=1024, heads=8, train_len=512, cache_len=1024,
           vocab=267735)
 WT_SLOTS, WT_BUCKETS = 32, "32,128,512"
 WT_SEQS, WT_NEW, WT_PLEN = 64, 128, (16, 512)
-WT_CHECK_SEQS, WT_CHECK_TOKENS = 2, 16
+WT_CHECK_TOKENS = 8
 WT_TRAIN_BATCH, WT_TRAIN_STEPS = 8, 10
-WT_CHECK_LAYERS, WT_CHECK_T, WT_CHECK_BATCH, WT_TOL = 2, 64, 1, 1e-4
+WT_CHECK_LAYERS, WT_CHECK_T, WT_CHECK_BATCH, WT_TOL = 2, 64, 2, 1e-4
 WT_PROFILE_STEPS = 20
 SWITCH = dict(dim=768, ff=3072, experts=8, top=1, cf=1.25, tokens=4096)
 SWITCH_TOL = 1e-4
@@ -9627,12 +9627,26 @@ def wt_decode_bound(engine, slots):
     return nbytes, flops
 
 
+def wt_checked(prompts):
+    """The indices of the shortest prompt in each prefill bucket of
+    WT_BUCKETS that any prompt falls in, so the check against the CPU
+    runs every prefill graph, and decodes at positions up to the 512
+    bucket's."""
+    buckets = [int(b) for b in WT_BUCKETS.split(",")]
+    short = {}
+    for i, p in enumerate(prompts):
+        b = min(b for b in buckets if len(p) <= b)
+        if b not in short or len(p) < len(prompts[short[b]]):
+            short[b] = i
+    return [short[b] for b in sorted(short)]
+
+
 def wt_serve(mt, seed, card):
     """The full-width GEN engine on gpu(0): WT_SEQS prompts through
     GenerateScheduler (K = WT_SLOTS, prefill buckets WT_BUCKETS), timed;
-    then WT_CHECK_SEQS of them on the CPU from the same weights: the first
-    WT_CHECK_TOKENS tokens must agree. TF32 off. Returns a dict of
-    numbers."""
+    then the shortest prompt of each bucket on the CPU from the same
+    weights: the first WT_CHECK_TOKENS tokens must agree. TF32 off.
+    Returns a dict of numbers."""
     import gc
     import torch
     from mxtpu_torch.serving import GenerateScheduler, InferenceEngine
@@ -9643,8 +9657,7 @@ def wt_serve(mt, seed, card):
     weights = wt_weights(mt, gen_sym, seed, L, torch.device("cuda", 0))
     n_param = sum(v.size for v in weights.values())
     prompts = wt_prompts(seed)
-    checked = sorted(range(WT_SEQS), key=lambda i: len(prompts[i]))[
-        :WT_CHECK_SEQS]
+    checked = wt_checked(prompts)
     out = {"params": n_param}
     clock = [("start", time.perf_counter())]
     with env_set(MXTPU_SERVE_GENERATE_SLOTS=WT_SLOTS,
@@ -9713,17 +9726,21 @@ def wt_serve(mt, seed, card):
         del engine, sched, weights, params, aux, state
         gc.collect()
         torch.cuda.empty_cache()
-    # the CPU from the same weights, 2 slots, plain float32
-    with env_set(MXTPU_SERVE_GENERATE_SLOTS=WT_CHECK_SEQS,
+    # the CPU from the same weights, a slot a checked prompt, float32
+    with env_set(MXTPU_SERVE_GENERATE_SLOTS=len(checked),
                  MXTPU_SERVE_GENERATE_PREFILL_BUCKETS=WT_BUCKETS), \
             mt.cpu():
         t0 = time.perf_counter()
         cpu_engine = InferenceEngine(gen_sym, host, {}, {"data": (1,)},
                                      buckets=(1,), ctx=mt.cpu())
         sched = GenerateScheduler(cpu_engine, 8)
-        want = [generate(sched, prompts[i], WT_CHECK_TOKENS)[0]
+        reqs = [sched.submit("c%d" % i, prompts[i], WT_CHECK_TOKENS)
                 for i in checked]
+        replies = [r.wait(600) for r in reqs]
         sched.drain()
+        if any(r[0] != "ok" for r in replies):
+            fail("full-width serving on the CPU: %s" % (replies,))
+        want = [r[1]["tokens"].tolist() for r in replies]
         out["cpu_s"] = time.perf_counter() - t0
     clock.append(("cpu", time.perf_counter()))
     for i, w in zip(checked, want):
@@ -9869,8 +9886,10 @@ def wt_train(mt, seed, card):
         text, graphs = fused_summary(mod, WT_TRAIN_STEPS, "full-width LM")
         held = cuda_ms(graphs[-1].replay, iters=3, warmup=1)
     fed = np.diff(times)[2:] * 1e3      # steps 4.. replay the graph
+    window = times[-1] - times[2]
     flops = wt_train_flops(B, T)
     out = {"step_ms": float(np.median(fed)), "held_ms": held,
+           "window_s": window, "tok_s": len(fed) * B * T / window,
            "fit_s": fit_s, "steps": fed.tolist(), "flops": flops,
            "batch_mb": batch_bytes / 1e6,
            "bound_ms": flops / PEAK_TF32 * 1e3, "capture": text,
@@ -9983,8 +10002,8 @@ def wt_phase(mt, seed, card):
     GenerateScheduler, its first tokens against the CPU) and trained (the
     first forward/backward at 2 layers against the CPU, then
     WT_TRAIN_STEPS captured steps), and moe_ffn at Switch-Base-8's widths
-    against the CPU. Prints each result beside its bound. Returns
-    {part: seconds}."""
+    against the CPU. Prints each result beside its bound and the phase's
+    seconds by part."""
     import torch
     clock = [("start", time.perf_counter())]
     with matmul_tf32(False):
@@ -10011,10 +10030,11 @@ def wt_phase(mt, seed, card):
              busy_of(sv["busy"], sv["step_wall"]), sv["top"],
              sv["compiles"][0], sv["compiles"][1], sv["graphs"],
              sv["warm_s"], sv["mem_gb"], card), flush=True)
-    print("full-width ALiBi LM: the first %d tokens of the %d sequences "
-          "with the shortest prompts (%s tokens) on gpu(0) equal the CPU's "
-          "from the same weights (%.1f s on the CPU; serving %s s)"
-          % (WT_CHECK_TOKENS, WT_CHECK_SEQS, sv["checked"], sv["cpu_s"],
+    print("full-width ALiBi LM: the first %d tokens of the shortest "
+          "sequence in each prefill bucket (prompts of %s tokens, buckets "
+          "%s) on gpu(0) equal the CPU's from the same weights (%.1f s on "
+          "the CPU; serving %s s)"
+          % (WT_CHECK_TOKENS, sv["checked"], WT_BUCKETS, sv["cpu_s"],
              sv["clock"]), flush=True)
     with matmul_tf32(False):
         worst, n = wt_check_grads(mt, seed)
@@ -10029,15 +10049,16 @@ def wt_phase(mt, seed, card):
     tr = wt_train(mt, seed, card)
     clock.append(("train", time.perf_counter()))
     print("full-width ALiBi LM trained through Module.fit on gpu(0) (Adam, "
-          "batch %d x %d, TF32 on): %s; fit step %.3f ms (median of steps "
-          "4-%d: %s; each batch %.1f MB from the host, the zero caches "
-          "most of it), %.0f tokens/s; the captured step alone %.3f ms; "
-          "bound %.3f ms (%.4g FLOPs at TF32's 495 TFLOP/s; operations), "
-          "%.1f%% of it; fit %.1f s; peak memory %.2f GB | %s"
-          % (WT_TRAIN_BATCH, WT["train_len"], tr["capture"], tr["step_ms"],
-             WT_TRAIN_STEPS, ", ".join("%.3f" % v for v in tr["steps"]),
-             tr["batch_mb"],
-             WT_TRAIN_BATCH * WT["train_len"] / tr["step_ms"] * 1e3,
+          "batch %d x %d, TF32 on): %s; steps 4-%d fed from the host: "
+          "%.1f tokens/s over the whole window (%.3f s, %.3f ms a step), "
+          "the median step %.3f ms (steps: %s; each batch %.1f MB from the "
+          "host, the zero caches most of it); the captured step alone "
+          "%.3f ms; bound %.3f ms (%.4g FLOPs at TF32's 495 TFLOP/s; "
+          "operations), %.1f%% of it; fit %.1f s; peak memory %.2f GB | %s"
+          % (WT_TRAIN_BATCH, WT["train_len"], tr["capture"], WT_TRAIN_STEPS,
+             tr["tok_s"], tr["window_s"],
+             tr["window_s"] * 1e3 / len(tr["steps"]), tr["step_ms"],
+             ", ".join("%.3f" % v for v in tr["steps"]), tr["batch_mb"],
              tr["held_ms"], tr["bound_ms"], tr["flops"],
              100 * tr["bound_ms"] / tr["held_ms"], tr["fit_s"],
              tr["mem_gb"], card), flush=True)
@@ -10063,8 +10084,6 @@ def wt_phase(mt, seed, card):
         clock[-1][1] - clock[0][1], ", ".join(
             "%s %.1f" % (name, t - clock[i][1])
             for i, (name, t) in enumerate(clock[1:]))), flush=True)
-    return {"tokens_s": tok_s, "step_ms": sv["step_p50"],
-            "train_ms": tr["step_ms"]}
 
 
 

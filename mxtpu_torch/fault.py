@@ -1,52 +1,36 @@
 """Deterministic fault injection: the part of ``mxtpu/fault.py`` the
 serving path of the port fires.
 
-A component calls :func:`fire` at a fixed point (the generation
-scheduler at ``serve.step``, once a decode step) and an installed
-:class:`FaultInjector` decides, from deterministic per-rule counters
-(never the clock, never randomness), whether that event is dropped,
-delayed or severed. Specs are ``mxtpu``'s (``MXTPU_FAULT_SPEC`` or
-:func:`install`): rules separated by ``;``, each a comma-separated list
-of ``key=value`` pairs, e.g. ``kind=delay,point=serve.step,delay=0.05,
-nth=2,count=50``.
+The generation scheduler calls :func:`fire` at ``serve.step``, once a
+decode step, and an installed spec decides, from deterministic per-rule
+counters (never the clock, never randomness), whether that step is
+dropped or delayed. A spec is ``mxtpu``'s syntax: rules separated by
+``;``, each a comma-separated list of ``key=value`` pairs, e.g.
+``kind=delay,point=serve.step,delay=0.05,nth=2,count=50``.
 
 Rule keys: ``kind`` — ``drop`` (:func:`fire` returns ``"drop"``; the
-caller skips the event), ``delay`` / ``stall`` (sleep ``delay`` seconds,
-then proceed) or ``sever`` (raise :class:`FaultSever`); ``point`` — one
-of ``mxtpu``'s points, or ``any``; ``op`` — the operation to match
-(``*`` matches all, ``|`` separates alternatives); ``key`` — a substring
-of the event's key; ``nth`` — the 1-based matching event at which the
-rule starts firing; ``count`` — how many consecutive matching events
-fire (``inf`` for all). The transport and training kinds of ``mxtpu``
-(``kill``, ``truncate``, ``partition``, the worker signals) come with the
-port of the distributed kvstore and the server.
+caller skips the event) or ``delay`` (sleep ``delay`` seconds, then
+proceed); ``point`` — ``serve.step`` or ``any``; ``nth`` — the 1-based
+matching event at which the rule starts firing; ``count`` — how many
+consecutive matching events fire (``inf`` for all). ``mxtpu``'s other
+kinds and points come with the port of the server, the kvstore and the
+trainers that fire them.
 """
 from __future__ import annotations
 
-import os
 import threading
 import time
 
-__all__ = ["FaultSever", "FaultInjector", "install", "uninstall",
-           "inject", "fire", "active", "parse_spec"]
+__all__ = ["install", "uninstall", "fire"]
 
-_POINTS = ("worker.send", "worker.recv", "server.recv", "server.send",
-           "worker.step", "module.step", "serve.request", "serve.batch",
-           "serve.step", "serve.swap", "publish.snapshot", "ctl.poll",
-           "ctl.action", "stream.append", "stream.tail", "any")
-_KINDS = ("sever", "drop", "delay", "stall")
-
-
-class FaultSever(ConnectionError):
-    """An injected connection loss."""
+_POINTS = ("serve.step", "any")
+_KINDS = ("drop", "delay")
 
 
 class _Rule:
-    __slots__ = ("kind", "point", "op", "ops", "key", "nth", "count",
-                 "delay", "seen", "fired")
+    __slots__ = ("kind", "point", "nth", "count", "delay", "seen", "fired")
 
-    def __init__(self, kind, point="any", op="*", key=None, nth=1,
-                 count=1, delay=0.0):
+    def __init__(self, kind, point="any", nth=1, count=1, delay=0.0):
         if kind not in _KINDS:
             raise ValueError("unknown fault kind %r (one of %s)"
                              % (kind, "/".join(_KINDS)))
@@ -55,23 +39,11 @@ class _Rule:
                              % (point, "/".join(_POINTS)))
         self.kind = kind
         self.point = point
-        self.op = op
-        self.ops = None if op == "*" else frozenset(op.split("|"))
-        self.key = key
         self.nth = int(nth)
-        self.count = float("inf") if count in ("inf", float("inf")) \
-            else int(count)
+        self.count = float("inf") if count == "inf" else int(count)
         self.delay = float(delay)
         self.seen = 0          # matching events observed
         self.fired = 0         # faults delivered
-
-    def matches(self, point, op, key):
-        if self.point != "any" and self.point != point:
-            return False
-        if self.ops is not None and op not in self.ops:
-            return False
-        return self.key is None or (key is not None
-                                    and self.key in str(key))
 
 
 def _parse_rule(text):
@@ -89,115 +61,42 @@ def _parse_rule(text):
     return _Rule(**kw)
 
 
-def parse_spec(spec):
-    """Parse a spec string into rules."""
-    return [_parse_rule(r) for r in spec.split(";") if r.strip()]
-
-
-class FaultInjector:
-    """The rules and their deterministic counters (thread-safe: every
-    rule's nth/count window stays exact under concurrent fires)."""
-
-    def __init__(self, spec_or_rules):
-        if isinstance(spec_or_rules, str):
-            self.rules = parse_spec(spec_or_rules)
-        else:
-            self.rules = list(spec_or_rules)
-        self._lock = threading.Lock()
-
-    def _select(self, point, op, key):
-        with self._lock:
-            for rule in self.rules:
-                if not rule.matches(point, op, key):
-                    continue
-                rule.seen += 1
-                if rule.seen >= rule.nth and rule.fired < rule.count:
-                    rule.fired += 1
-                    return rule
-        return None
-
-    def fire(self, point, op=None, key=None):
-        """Deliver the fault scheduled for this event: None (proceed,
-        after sleeping for a delay), ``"drop"``, or raise
-        :class:`FaultSever`."""
-        rule = self._select(point, op, key)
-        if rule is None:
-            return None
-        if rule.kind in ("delay", "stall"):
-            time.sleep(rule.delay)
-            return None
-        if rule.kind == "drop":
-            return "drop"
-        raise FaultSever("injected sever at %s (%s)" % (point, op))
-
-    def stats(self):
-        """Per-rule (kind, point, op, seen, fired)."""
-        with self._lock:
-            return [(r.kind, r.point, r.op, r.seen, r.fired)
-                    for r in self.rules]
-
-
-_injector = None
-_env_loaded = False
+_rules = None
 _guard = threading.Lock()
 
 
 def install(spec):
-    """Install a spec string, rule list or FaultInjector globally.
-    Returns the injector."""
-    global _injector, _env_loaded
+    """Install a spec string globally, in place of any earlier one."""
+    global _rules
+    rules = [_parse_rule(r) for r in spec.split(";") if r.strip()]
     with _guard:
-        _injector = spec if isinstance(spec, FaultInjector) \
-            else FaultInjector(spec)
-        _env_loaded = True
-        return _injector
+        _rules = rules
 
 
 def uninstall():
-    global _injector, _env_loaded
+    global _rules
     with _guard:
-        _injector = None
-        _env_loaded = True     # an explicit uninstall wins over the env
+        _rules = None
 
 
-def active():
-    """The installed injector, read from ``MXTPU_FAULT_SPEC`` on first
-    use; None when fault-free."""
-    global _injector, _env_loaded
-    if not _env_loaded:
-        with _guard:
-            if not _env_loaded:
-                spec = os.environ.get("MXTPU_FAULT_SPEC", "").strip()
-                if spec:
-                    _injector = FaultInjector(spec)
-                _env_loaded = True
-    return _injector
-
-
-def fire(point, op=None, key=None):
-    """The hook components call; free when no injector is installed."""
-    inj = active()
-    if inj is None:
+def fire(point):
+    """The hook components call: None (proceed, after sleeping for a
+    delay) or ``"drop"``. Free when no spec is installed."""
+    if _rules is None:
         return None
-    return inj.fire(point, op=op, key=key)
-
-
-class inject:
-    """``with fault.inject(spec):`` — a scoped install that restores the
-    previous injector on exit."""
-
-    def __init__(self, spec):
-        self._spec = spec
-        self.injector = None
-
-    def __enter__(self):
-        with _guard:
-            self._saved = _injector
-        self.injector = install(self._spec)
-        return self.injector
-
-    def __exit__(self, *exc):
-        global _injector
-        with _guard:
-            _injector = self._saved
-        return False
+    with _guard:
+        rule = None
+        for r in _rules or ():
+            if r.point != "any" and r.point != point:
+                continue
+            r.seen += 1
+            if r.seen >= r.nth and r.fired < r.count:
+                r.fired += 1
+                rule = r
+                break
+    if rule is None:
+        return None
+    if rule.kind == "delay":
+        time.sleep(rule.delay)
+        return None
+    return "drop"

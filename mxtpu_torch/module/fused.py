@@ -77,9 +77,9 @@ from ..model import _module_fused_enabled
 from ..ndarray import NDArray
 from ..optimizer import state_to_tree
 
-__all__ = ["ProgramCache", "FusedGroupState", "FusedModuleTrainer",
-           "maybe_create", "attach_borrowed", "metric_readback_interval",
-           "_fused_eligible"]
+__all__ = ["ProgramCache", "GraphProgram", "FusedGroupState",
+           "FusedModuleTrainer", "maybe_create", "attach_borrowed",
+           "metric_readback_interval", "_fused_eligible"]
 
 
 class ProgramCache:
@@ -535,6 +535,88 @@ def _end_failed_capture(graph, pool, dev, generator):
     torch._C._cuda_releasePool(dev.index, pool)
     for gen in (torch.cuda.default_generators[dev.index], generator):
         gen.graphsafe_set_state(gen.clone_state())
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+class GraphProgram:
+    """A forward-only program captured on its own: ``fn``, run with no
+    gradient, over static tensors (its inputs are written into them
+    before a call), keeping ``params`` alive (the weights it reads). On
+    the CPU every call runs ``fn``. On the card the first call runs it
+    for real on the side stream ``side``, and the next call (or
+    :meth:`prime`) captures it there in a CUDA graph with a pool of its
+    own, which every later call replays; a failed capture is ended
+    (:func:`_end_failed_capture`) and raises. The outputs are the graph's
+    and hold until its next replay. Not reentrant: one caller at a time.
+    The serving engine's generation programs are such programs."""
+
+    def __init__(self, name, fn, device, params, side):
+        self.name, self.fn, self.device = name, fn, device
+        self.params, self.side = params, side
+        self.graph = None
+        self.outs = None
+        self.ran = False
+
+    def _run(self):
+        with torch.no_grad():
+            return self.fn()
+
+    def __call__(self):
+        if self.device.type != "cuda":
+            return self._run()
+        if self.graph is None:
+            if not self.ran:
+                self.ran = True
+                return self._run_side()
+            self._capture()
+        self.graph.replay()
+        return self.outs
+
+    def prime(self):
+        """Run once and capture now, so that no request pays for either
+        (the state a decode program advances is scratch at warm-up)."""
+        if self.device.type == "cuda" and self.graph is None:
+            if not self.ran:
+                self.ran = True
+                self._run_side()
+            self._capture()
+
+    def _run_side(self):
+        main = torch.cuda.current_stream(self.device)
+        side = self.side
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            outs = self._run()
+        main.wait_stream(side)
+        for t in _tensors(outs):
+            t.record_stream(main)
+        return outs
+
+    def _capture(self):
+        dev = self.device
+        torch.cuda.synchronize(dev)
+        pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self.side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                outs = self._run()
+            except BaseException as e:
+                _end_failed_capture(graph, pool, dev,
+                                    torch.cuda.default_generators[dev.index])
+                raise RuntimeError("the %s program could not be captured "
+                                   "in a CUDA graph: %s: %s"
+                                   % (self.name, type(e).__name__, e)) from e
+            graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(self.side)
+        self.graph, self.outs = graph, outs
 
 
 def _leaves(state):

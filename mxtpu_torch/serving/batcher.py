@@ -75,11 +75,6 @@ _GEN_GAUGES = {
         "serve.gen.queue_hwm", "generate queue high-water mark",
         ("inst",)),
 }
-_GEN_TTFT_MS = _obs.histogram(
-    "serve.gen.ttft_ms", "admission -> first token wall time")
-_GEN_STEP_MS = _obs.histogram(
-    "serve.gen.step_ms", "decode step wall time (one program call and "
-    "the read of its tokens)")
 _GEN_INST = itertools.count(1)
 
 
@@ -339,7 +334,6 @@ class GenerateScheduler:
             return
         tok0 = int(first.cpu()[0])            # the prefill's host read
         req.ttft_ms = (time.monotonic() - req.enq_t) * 1e3
-        _GEN_TTFT_MS.observe(req.ttft_ms)
         self._c["tokens"].inc()
         req.emit(tok0)
         if (req.max_new <= 1
@@ -361,9 +355,7 @@ class GenerateScheduler:
         for lane in list(self._lanes.values()):
             if lane.active == 0:
                 continue
-            act = _fault.fire("serve.step", op="generate",
-                              key="active=%d" % lane.active)
-            if act == "drop":
+            if _fault.fire("serve.step") == "drop":
                 self._c["step_faults"].inc()
                 for slot, req in enumerate(lane.slot_req):
                     if req is not None:
@@ -376,7 +368,6 @@ class GenerateScheduler:
                 lane.state, lane.store[0], lane.store[1])
             toks = nxt.cpu().numpy()          # the one host read a step
             ms = (time.perf_counter() - t0) * 1e3
-            _GEN_STEP_MS.observe(ms)
             self._step_ms.append(ms)
             self._c["steps"].inc()
             self._c["tokens"].inc(lane.active)

@@ -36,7 +36,8 @@ place: ``cached_attention`` writes each step's row into the caches it is
 given (``ops.nn.static_cache``), where ``mxtpu`` donates the state and
 XLA aliases the write, so a step never copies the cache. On the card the
 prefill program of each bucket and the decode program of each state are
-captured as CUDA graphs, over one weight version each: at
+captured as CUDA graphs (:class:`~mxtpu_torch.module.fused.GraphProgram`),
+over one weight version each: at
 :meth:`InferenceEngine.warm` for the stable version, else at their first
 call (run for real) and captured at the second; a failed capture raises.
 On the CPU the same programs run eagerly. Inactive slots compute garbage
@@ -54,7 +55,7 @@ import torch
 
 from ..base import canonical_dtype, dtype_name
 from ..context import current_context
-from ..module.fused import ProgramCache, _end_failed_capture
+from ..module.fused import GraphProgram, ProgramCache
 from ..ops.nn import static_cache
 from ..symbol import Symbol, eval_graph
 
@@ -109,83 +110,6 @@ class GenState:
     @property
     def slots(self):
         return int(self.tok.shape[0])
-
-
-def _tensors(tree):
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, (tuple, list)):
-        return [t for x in tree for t in _tensors(x)]
-    return []
-
-
-class _GraphProgram:
-    """A generation program: ``fn`` over static tensors (its inputs are
-    written into them before a call), over the weights of one store,
-    ``params``, which it keeps alive. On the CPU every call runs ``fn``.
-    On the card the first call runs it for real on the engine's side
-    stream ``side``, and the next call (or :meth:`prime`, at warm-up)
-    captures it there in a CUDA graph with a pool of its own, which every
-    later call replays; a failed capture raises. The outputs are the
-    graph's and hold until its next replay. Not reentrant: one caller at
-    a time (the scheduler's thread)."""
-
-    def __init__(self, name, fn, device, params, side):
-        self.name, self.fn, self.device = name, fn, device
-        self.params, self.side = params, side
-        self.graph = None
-        self.outs = None
-        self.ran = False
-
-    def __call__(self):
-        if self.device.type != "cuda":
-            return self.fn()
-        if self.graph is None:
-            if not self.ran:
-                self.ran = True
-                return self._run_side()
-            self._capture()
-        self.graph.replay()
-        return self.outs
-
-    def prime(self):
-        """Run once and capture now, so that no request pays for either
-        (the state a decode program advances is scratch at warm-up)."""
-        if self.device.type == "cuda" and self.graph is None:
-            if not self.ran:
-                self.ran = True
-                self._run_side()
-            self._capture()
-
-    def _run_side(self):
-        main = torch.cuda.current_stream(self.device)
-        side = self.side
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            outs = self.fn()
-        main.wait_stream(side)
-        for t in _tensors(outs):
-            t.record_stream(main)
-        return outs
-
-    def _capture(self):
-        dev = self.device
-        torch.cuda.synchronize(dev)
-        pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self.side):
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                outs = self.fn()
-            except BaseException as e:
-                _end_failed_capture(graph, pool, dev,
-                                    torch.cuda.default_generators[dev.index])
-                raise RuntimeError("the %s program could not be captured "
-                                   "in a CUDA graph: %s: %s"
-                                   % (self.name, type(e).__name__, e)) from e
-            graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(self.side)
-        self.graph, self.outs = graph, outs
 
 
 class InferenceEngine:
@@ -326,7 +250,7 @@ class InferenceEngine:
             for old in sorted(self._stores)[:-self._KEEP_VERSIONS]:
                 del self._stores[old]
             live = {id(p) for p, _a in self._stores.values()}
-        self.cache.discard(lambda _k, e: not isinstance(e, _GraphProgram)
+        self.cache.discard(lambda _k, e: not isinstance(e, GraphProgram)
                            or id(e.params) in live)
         self._note("swaps")
         return v
@@ -604,17 +528,16 @@ class InferenceEngine:
         feed.update(zip((n for n, _s, _d, _i in g["states"]), caches))
 
         def prefill():
-            with torch.no_grad():
-                logits, new = self._gen_run(feed)
-                if logits.dim() == 2:          # flattened head: (L, V)
-                    logits = logits.reshape(1, L, -1)
-                at = (length.long() - 1)[:, None, None].expand(
-                    1, 1, logits.shape[-1])
-                last = logits.gather(1, at)
-                first = torch.argmax(last[:, 0, :], dim=-1).to(torch.int32)
+            logits, new = self._gen_run(feed)
+            if logits.dim() == 2:              # flattened head: (L, V)
+                logits = logits.reshape(1, L, -1)
+            at = (length.long() - 1)[:, None, None].expand(
+                1, 1, logits.shape[-1])
+            last = logits.gather(1, at)
+            first = torch.argmax(last[:, 0, :], dim=-1).to(torch.int32)
             return first, (caches if new is None else new)
 
-        prog = _GraphProgram("prefill L=%d" % L, prefill, dev, params,
+        prog = GraphProgram("prefill L=%d" % L, prefill, dev, params,
                              self._side)
         prog.tokens, prog.length = tokens, length
         return prog
@@ -630,19 +553,18 @@ class InferenceEngine:
         feed.update(zip((n for n, _s, _d, _i in g["states"]), state.states))
 
         def decode():
-            with torch.no_grad():
-                logits, new = self._gen_run(feed)
-                if logits.dim() == 3:
-                    logits = logits[:, -1, :]
-                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-                if new is not None:
-                    for c, v in zip(state.states, new):
-                        c.copy_(v)
-                state.tok.copy_(nxt[:, None].to(state.tok.dtype))
-                state.pos.add_(1)
+            logits, new = self._gen_run(feed)
+            if logits.dim() == 3:
+                logits = logits[:, -1, :]
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if new is not None:
+                for c, v in zip(state.states, new):
+                    c.copy_(v)
+            state.tok.copy_(nxt[:, None].to(state.tok.dtype))
+            state.pos.add_(1)
             return nxt
 
-        return _GraphProgram("decode K=%d" % state.slots, decode, self._dev,
+        return GraphProgram("decode K=%d" % state.slots, decode, self._dev,
                              params, self._side)
 
     def _build_gen_adopt(self, K):
