@@ -322,7 +322,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    (d_model 768, d_ff 3,072, 8 experts, top-1, capacity factor 1.25, 4,096
    tokens) forward and backward against the CPU (the same routing,
    SWITCH_TOL) and its ms beside the einsums' bound;
-26. timings: each kernel, its plain version and the PyTorch library call
+26. fit.py's --optimizer nag --mom 0.9 --wd 1e-4 --initializer msra --top-k
+   5 --loss ce,nll through train_imagenet.py --benchmark 1's fit call
+   (imagenet_fit, fit.py's _select_initializer and _eval_metrics mirrored)
+   at ResNet-50's width (224, batch 128, TF32 off): MSRAPrelu's deviation
+   by its formula, 3 captured NAG steps equal to eager ones under
+   deterministic cuDNN, the captured step timed beside phase 14's SGD step
+   with update_metric's host ms, top-5 / CE / NLL against a host recompute;
+27. every optimizer of the registry (16) through LeNet's Module.fit with
+   its momentum, weight decay and clipping: 8 captured steps (5 replays
+   past the capture) against 8 eager ones, the first eager step against
+   the CPU's, SGLD by its noise's band; a line each, captured or eager
+   and why;
+28. RNN checkpoints on the bucketed LM at PTB's widths (FusedRNNCell, 3
+   epochs, upstream's cudnn_lstm_bucketing.py recipe): do_rnn_checkpoint
+   and the optimizer's states each epoch, lstm_scan counted from 0 just
+   before the fit (one a layer a step), the last checkpoint scored through
+   the unfused LSTMCells against the fused module, a run resumed at epoch
+   1 against the one never stopped;
+29. example/module/sequential_module.py, example/module/python_loss.py and
+   example/python-howto/monitor_weights.py (mirrored) on gpu(0) to their
+   asserts, and upstream MXNet's python_loss.py chain (a Module and a
+   PythonLossModule in a SequentialModule) through fit;
+30. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -339,13 +361,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-27. one JSON line naming every kernel with its launches (the head
+31. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
-   launches_gluon_lm; multibox_nms's: in the SSD slice's decodes, and in
-   the R-CNN toy as launches_rcnn_toy, with its time at Proposal's shape)
-   and error;
-28. the last line: {"ok": true, "device": {...}}.
+   launches_gluon_lm, lstm_scan's in the checkpointed fit as
+   launches_rnn_checkpoint; multibox_nms's: in the SSD slice's decodes,
+   and in the R-CNN toy as launches_rcnn_toy, with its time at Proposal's
+   shape) and error;
+32. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -355,6 +378,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import os
 import random
 import re
@@ -2861,6 +2885,41 @@ def bucket_sentences(sentences, buckets, bucket, n):
     return [s for s in sentences if low < len(s) <= bucket][:n]
 
 
+def lstm_rnn_cell(pkg, fused, mode="lstm", num_hidden=BL_HIDDEN,
+                  num_layers=BL_LAYERS):
+    """The example's recurrent stack: a FusedRNNCell of ``mode`` when
+    ``fused``, else a SequentialRNNCell of LSTMCells
+    (example/rnn/lstm_bucketing.py:80-89)."""
+    if fused:
+        return pkg.rnn.FusedRNNCell(num_hidden, num_layers=num_layers,
+                                    mode=mode, prefix="lstm_")
+    stack = pkg.rnn.SequentialRNNCell()
+    for i in range(num_layers):
+        stack.add(pkg.rnn.LSTMCell(num_hidden, prefix="lstm_l%d_" % i))
+    return stack
+
+
+def lstm_sym_gen(pkg, num_vocab, fused, mode="lstm", num_hidden=BL_HIDDEN,
+                 num_embed=BL_EMBED, num_layers=BL_LAYERS):
+    """The example's sym_gen: Embedding, the stack unrolled over the
+    bucket, FullyConnected to the vocabulary, SoftmaxOutput."""
+    def sym_gen(seq_len):
+        data = pkg.sym.var("data")
+        label = pkg.sym.var("softmax_label")
+        embed = pkg.sym.Embedding(data, input_dim=num_vocab,
+                                  output_dim=num_embed, name="embed")
+        stack = lstm_rnn_cell(pkg, fused, mode, num_hidden, num_layers)
+        outputs, _ = stack.unroll(seq_len, inputs=embed, layout="NTC",
+                                  merge_outputs=True)
+        pred = pkg.sym.Reshape(outputs, shape=(-1, num_hidden))
+        pred = pkg.sym.FullyConnected(pred, num_hidden=num_vocab,
+                                      name="pred")
+        label_r = pkg.sym.Reshape(label, shape=(-1,))
+        return (pkg.sym.SoftmaxOutput(pred, label_r, name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
 def lstm_bucketing_fit(pkg, sentences, num_vocab, fused, mode="lstm",
                        num_epoch=BL_EPOCHS, num_hidden=BL_HIDDEN,
                        num_embed=BL_EMBED, num_layers=BL_LAYERS,
@@ -2880,30 +2939,8 @@ def lstm_bucketing_fit(pkg, sentences, num_vocab, fused, mode="lstm",
     train = pkg.rnn.BucketSentenceIter(sentences, batch_size,
                                        buckets=list(buckets),
                                        invalid_label=0)
-
-    def sym_gen(seq_len):
-        data = pkg.sym.var("data")
-        label = pkg.sym.var("softmax_label")
-        embed = pkg.sym.Embedding(data, input_dim=num_vocab,
-                                  output_dim=num_embed, name="embed")
-        if fused:
-            cell = pkg.rnn.FusedRNNCell(num_hidden, num_layers=num_layers,
-                                        mode=mode, prefix="lstm_")
-            stack = cell
-        else:
-            stack = pkg.rnn.SequentialRNNCell()
-            for i in range(num_layers):
-                stack.add(pkg.rnn.LSTMCell(num_hidden,
-                                           prefix="lstm_l%d_" % i))
-        outputs, _ = stack.unroll(seq_len, inputs=embed, layout="NTC",
-                                  merge_outputs=True)
-        pred = pkg.sym.Reshape(outputs, shape=(-1, num_hidden))
-        pred = pkg.sym.FullyConnected(pred, num_hidden=num_vocab,
-                                      name="pred")
-        label_r = pkg.sym.Reshape(label, shape=(-1,))
-        return (pkg.sym.SoftmaxOutput(pred, label_r, name="softmax"),
-                ("data",), ("softmax_label",))
-
+    sym_gen = lstm_sym_gen(pkg, num_vocab, fused, mode, num_hidden,
+                           num_embed, num_layers)
     mod = pkg.mod.BucketingModule(sym_gen,
                                   default_bucket_key=train.default_bucket_key,
                                   context=pkg.context.current_context())
@@ -3802,30 +3839,69 @@ def fit_lr_scheduler(pkg, lr, lr_factor, lr_step_epochs, num_examples,
                                                      factor=lr_factor)
 
 
+def fit_initializer(pkg, initializer="default", network=None):
+    """common/fit.py's _select_initializer (fit.py:125-137) in either
+    package: its table looked up by the --initializer name."""
+    if initializer == "default":
+        if network == "alexnet":
+            return pkg.init.Normal()
+        if "vgg" in (network or ""):
+            return pkg.init.Xavier()
+        return pkg.init.Xavier(rnd_type="gaussian", factor_type="in",
+                               magnitude=2)
+    table = {"xavier": pkg.init.Xavier, "msra": pkg.init.MSRAPrelu,
+             "orthogonal": pkg.init.Orthogonal, "normal": pkg.init.Normal,
+             "uniform": pkg.init.Uniform, "one": pkg.init.One,
+             "zero": pkg.init.Zero}
+    return table[initializer]()
+
+
+def fit_metrics(pkg, top_k=0, loss=""):
+    """common/fit.py's _eval_metrics (fit.py:140-151) in either package:
+    accuracy, top-k accuracy with --top-k, and the --loss list's ce / nll
+    ("nll" names nll_loss)."""
+    metrics = [pkg.metric.create("accuracy")]
+    if top_k > 0:
+        metrics.append(pkg.metric.create("top_k_accuracy", top_k=top_k))
+    for loss_type in filter(None, (s.strip() for s in loss.split(","))):
+        if loss_type == "nll":
+            loss_type = "nll_loss"
+        if loss_type in ("ce", "nll_loss"):
+            metrics.append(pkg.metric.create(loss_type))
+        else:
+            logging.warning("%s is not a valid loss type", loss_type)
+    return metrics
+
+
 def fit_call(pkg, network, train, val, kv, num_epoch, lr, lr_scheduler,
              mom, wd, batch_size, disp_batches, context=None,
              arg_params=None, aux_params=None, batch_end_callback=None,
-             eval_end_callback=None):
+             eval_end_callback=None, optimizer="sgd", initializer=None,
+             eval_metric=None):
     """common/fit.py's Module.fit call (fit.py:200-232) in either package,
     for a run from epoch 0 with no checkpoint prefix and no monitor: Module
     on ``context`` (fit.py hard-codes cpu(); the card runs pass gpu(0)),
-    SGD with ``lr`` / ``mom`` / ``wd``, multi_precision and the scheduler,
-    accuracy, Xavier(gaussian, in, 2), Speedometer(batch, disp_batches)
-    and allow_missing, from given weights ({name: numpy}) if any. The
-    callbacks after Speedometer observe the run; fit.py passes none.
-    Returns the module."""
+    ``optimizer`` (SGD by default) with ``lr`` / ``wd``, ``mom`` where
+    fit.py passes it (sgd, dcasgd, nag), multi_precision and the
+    scheduler, ``eval_metric`` (accuracy by default), ``initializer``
+    (fit.py's default, Xavier(gaussian, in, 2), if None),
+    Speedometer(batch, disp_batches) and allow_missing, from given weights
+    ({name: numpy}) if any. The callbacks after Speedometer observe the
+    run; fit.py passes none. Returns the module."""
     model = pkg.mod.Module(context=context or pkg.context.current_context(),
                            symbol=network)
     optimizer_params = {"learning_rate": lr, "wd": wd,
                         "lr_scheduler": lr_scheduler,
-                        "multi_precision": True, "momentum": mom}
+                        "multi_precision": True}
+    if optimizer in ("sgd", "dcasgd", "nag"):
+        optimizer_params["momentum"] = mom
     callbacks = [pkg.callback.Speedometer(batch_size, disp_batches)]
     callbacks += list(batch_end_callback or [])
     model.fit(train, begin_epoch=0, num_epoch=num_epoch, eval_data=val,
-              eval_metric=[pkg.metric.create("accuracy")], kvstore=kv,
-              optimizer="sgd", optimizer_params=optimizer_params,
-              initializer=pkg.init.Xavier(rnd_type="gaussian",
-                                          factor_type="in", magnitude=2),
+              eval_metric=eval_metric or [pkg.metric.create("accuracy")],
+              kvstore=kv, optimizer=optimizer,
+              optimizer_params=optimizer_params,
+              initializer=initializer or fit_initializer(pkg),
               arg_params=host_params(pkg, arg_params),
               aux_params=host_params(pkg, aux_params),
               batch_end_callback=callbacks, epoch_end_callback=None,
@@ -3837,14 +3913,17 @@ def fit_call(pkg, network, train, val, kv, num_epoch, lr, lr_scheduler,
 def imagenet_fit(pkg, network, batch_size, num_examples, num_epoch,
                  image_shape="3,224,224", num_classes=1000, context=None,
                  kvstore=None, arg_params=None, aux_params=None,
-                 batch_end_callback=None, data_ctx=None):
+                 batch_end_callback=None, data_ctx=None, optimizer="sgd",
+                 initializer="default", top_k=0, loss=""):
     """train_imagenet.py --benchmark 1's run of fit.py's fit() in either
     package: SyntheticDataIter's fixed batch, the kvstore object that
     fit.py creates from --kv-store "device" (or ``kvstore`` as given:
     "local" by name means no store on one device, so the fused step may
     engage), and fit_call with SGD lr 0.1 / momentum 0.9 / wd 1e-4 and the
     MultiFactorScheduler of lr_step_epochs "30,60", Speedometer(batch,
-    20). Returns (module, train iterator)."""
+    20); ``optimizer``, ``initializer``, ``top_k`` and ``loss`` are
+    fit.py's --optimizer, --initializer, --top-k and --loss. Returns
+    (module, train iterator)."""
     a = IMAGENET_ARGS
     kv = pkg.kvstore.create("device") if kvstore is None else kvstore
     shape = tuple(int(x) for x in image_shape.split(","))
@@ -3856,7 +3935,9 @@ def imagenet_fit(pkg, network, batch_size, num_examples, num_epoch,
     model = fit_call(pkg, network, train, None, kv, num_epoch, lr,
                      lr_scheduler, a["mom"], a["wd"], batch_size,
                      a["disp_batches"], context, arg_params, aux_params,
-                     batch_end_callback)
+                     batch_end_callback, optimizer=optimizer,
+                     initializer=fit_initializer(pkg, initializer),
+                     eval_metric=fit_metrics(pkg, top_k, loss))
     return model, train
 
 
@@ -5212,7 +5293,7 @@ CF_LAYERS = 110
 # timed turns of CF_TIMED_STEPS steps (eager, captured, the captured step
 # on a held batch twice, captured, eager); the busy share from
 # torch.profiler over CF_PROFILE_STEPS steps
-CF_TIMED_STEPS, CF_PROFILE_STEPS = 5, 4
+CF_TIMED_STEPS, CF_PROFILE_STEPS = 3, 4
 # the padded-batch check: records for 3 steps at batch 128, the last one
 # padded by 40 rows
 CF_PAD_RECORDS = 3 * 128 - 40
@@ -5802,9 +5883,9 @@ SSD300 = dict(
     steps=tuple(s / 300.0 for s in (8, 16, 32, 64, 100, 300)))
 SSD_CLASSES, SSD_PREFIX = 20, "ssd300_"
 SSD_HW, SSD_BATCH, SSD_ANCHORS = 300, 32, 8732
-SSD_RECORDS, SSD_EPOCHS = 768, 2             # 24 steps an epoch
+SSD_RECORDS, SSD_EPOCHS = 512, 2             # 16 steps an epoch
 SSD_LOSS_STEPS, SSD_LOSS_SHARE = 4, 0.7
-SSD_STEPS, SSD_PROFILE_STEPS = 10, 4
+SSD_STEPS, SSD_PROFILE_STEPS = 5, 4
 # MXNet SSD's train_net.py: SGD 0.004 / 0.9 / 5e-4, rescale_grad 1 (the
 # loss is normalized by the valid anchors already), Xavier(gaussian, out, 2)
 SSD_OPT = {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4}
@@ -6262,8 +6343,13 @@ def nms_kernel_phase(mt, vision, rng, card):
                                   limit)
         again = vision.multibox_nms(boxes, cls_id, SSD_NMS_THRESHOLD, force,
                                     limit)
-        want = vision.multibox_nms_plain(boxes, cls_id, SSD_NMS_THRESHOLD,
-                                         force, limit)
+        # the plain loop's one call, timed with events (its time for the
+        # JSON line, where the case is one of the batches)
+        box = []
+        plain_ms = cuda_ms(lambda: box.append(vision.multibox_nms_plain(
+            boxes, cls_id, SSD_NMS_THRESHOLD, force, limit)), iters=1,
+            warmup=0)
+        want = box[0]
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             fail("multibox_nms %s: two calls differ" % label)
@@ -6279,9 +6365,6 @@ def nms_kernel_phase(mt, vision, rng, card):
         if label.startswith("batch"):
             ms = cuda_ms(lambda: vision.multibox_nms(
                 boxes, cls_id, SSD_NMS_THRESHOLD, False, limit), iters=20)
-            plain_ms = cuda_ms(lambda: vision.multibox_nms_plain(
-                boxes, cls_id, SSD_NMS_THRESHOLD, False, limit), iters=1,
-                warmup=0)
             pairs = nms_pairs(vision, cls_id, boxes, False, limit)
             ops_ms = pairs * NMS_PAIR_OPS / PEAK_F32 * 1e3
             bytes_ms = batch * SSD_ANCHORS * (16 + 4 + 4) / PEAK_BYTES_S * 1e3
@@ -8452,16 +8535,19 @@ def ndsb2_main(pkg, ctx, root, num_cases=48, batch_size=8, num_epochs=12):
 
 def module_steps(pkg, ctx, sym, data_iter, arg_params, aux_params,
                  optimizer, optimizer_params, label_names=("softmax_label",),
-                 steps=FIT_STEPS, seed=0, data_names=("data",)):
-    """``steps`` eager Module steps (forward_backward, update) of ``sym``
-    from ``arg_params`` on ``ctx`` over ``data_iter``'s first batches:
-    {name: numpy} of the weights after them. Eager on either device, so
-    a Dropout draws from the executor's generator, seeded alike."""
-    if os.environ.get("MXTPU_MODULE_FUSED") != "0":
-        return with_fused(False, module_steps, pkg, ctx, sym, data_iter,
+                 steps=FIT_STEPS, seed=0, data_names=("data",), fused=False):
+    """``steps`` Module steps (forward_backward, update) of ``sym`` from
+    ``arg_params`` on ``ctx`` over ``data_iter``'s first batches: {name:
+    numpy} of the weights after them. Eager on either device, so a
+    Dropout draws from the executor's generator, seeded alike; with
+    ``fused``, the fused step (the CPU test's mxtpu side of a net without
+    Dropout: one compiled program a step)."""
+    want = "1" if fused else "0"
+    if os.environ.get("MXTPU_MODULE_FUSED") != want:
+        return with_fused(fused, module_steps, pkg, ctx, sym, data_iter,
                           arg_params, aux_params, optimizer,
                           optimizer_params, label_names, steps, seed,
-                          data_names)
+                          data_names, fused)
     pkg.random.seed(seed)
     np.random.seed(seed)
     data_iter.reset()
@@ -10087,6 +10173,849 @@ def wt_phase(mt, seed, card):
 
 
 
+# ---------------------------------------------------------------------------
+# The rest of Module and the optimizer library (ROADMAP A18 and A4): fit.py's
+# --optimizer / --initializer / --top-k / --loss at ResNet-50's width, every
+# optimizer of the registry through LeNet's Module.fit, eager and captured,
+# RNN checkpoints on the bucketed LSTM LM, and the examples SequentialModule,
+# PythonLossModule and Monitor open
+# ---------------------------------------------------------------------------
+
+# (a) fit.py's flags: train_imagenet.py --benchmark 1 --optimizer nag --mom
+# 0.9 --wd 1e-4 --initializer msra --top-k 5 --loss ce,nll
+FF_FLAGS = dict(optimizer="nag", initializer="msra", top_k=5, loss="ce,nll")
+FF_CHECK_STEPS = 3          # captured vs eager from the same weights
+FF_TIMED_STEPS = 10
+# MSRAPrelu draws N(0, s^2), s = sqrt(2 / (1 + 0.25^2) / ((fan_in +
+# fan_out) / 2)): over a weight of n entries the sample mean has a
+# standard error of s / sqrt(n) and the sample deviation one of s /
+# sqrt(2 n) (1.6% and 1.1% of s over ResNet-50's smallest, 4,096); each is
+# held within FF_SCALE_SE of its standard errors
+FF_SCALE_SE = 5.0
+# the host recompute of top-5 / CE / NLL: counts exact, float32 sums of
+# logs in another order within 1e-5 relative
+FF_METRIC_RTOL = 1e-5
+
+
+def msra_scale_check(args, slope=0.25):
+    """Fail unless every weight of {name: numpy} drawn by MSRAPrelu has
+    the deviation its formula gives and mean 0, each within FF_SCALE_SE
+    standard errors. Returns (weights checked, the worst reading in
+    standard errors)."""
+    magnitude = 2.0 / (1 + slope ** 2)
+    worst, n = 0.0, 0
+    for name, w in sorted(args.items()):
+        if not name.endswith("_weight") or w.ndim < 2:
+            continue
+        hw = float(np.prod(w.shape[2:])) if w.ndim > 2 else 1.0
+        factor = (w.shape[1] * hw + w.shape[0] * hw) / 2.0
+        scale = (magnitude / factor) ** 0.5
+        off = max(abs(float(w.std()) / scale - 1.0) * (2 * w.size) ** 0.5,
+                  abs(float(w.mean())) / scale * w.size ** 0.5)
+        if off > FF_SCALE_SE:
+            fail("MSRAPrelu: %s %s has deviation %.4g and mean %.3g, the "
+                 "formula's deviation %.4g (%.1f standard errors off, limit "
+                 "%g)" % (name, w.shape, w.std(), w.mean(), scale, off,
+                          FF_SCALE_SE))
+        worst, n = max(worst, off), n + 1
+    return n, worst
+
+
+def metric_recompute(probs, labels, top_k=5, eps=1e-12):
+    """fit.py's metrics over host arrays, as mxtpu's host updates compute
+    them: (hits, top-k hits, the sum of -log(p + eps), which CE and NLL
+    both average, rows)."""
+    hits = topk = 0
+    ce = 0.0
+    rows = 0
+    for p, y in zip(probs, labels):
+        y = y.astype(np.int64)
+        hits += int((p.argmax(1) == y).sum())
+        ranked = np.argsort(p.astype(np.float32), axis=-1)
+        topk += int((ranked[:, -top_k:] == y[:, None]).any(1).sum())
+        ce += float(-np.log(p[np.arange(len(y)), y] + eps).sum())
+        rows += len(y)
+    return hits, topk, ce, rows
+
+
+def fit_flags_phase(mt, seed, card, sgd_ms):
+    """(a) train_imagenet.py --benchmark 1 with fit.py's --optimizer nag
+    --initializer msra --top-k 5 --loss ce,nll at ResNet-50's width (224,
+    batch 128), TF32 off: MSRAPrelu's scale, FF_CHECK_STEPS captured steps
+    against eager ones from the same weights (deterministic cuDNN), the
+    captured step timed with update_metric's host ms (the composite metric
+    stays on the host), beside ``sgd_ms`` (phase 14's captured SGD step in
+    this run), and top-5 / CE / NLL against a host recompute of the same
+    outputs. Returns ms a step."""
+    import gc
+    import torch
+    gpu = mt.gpu(0)
+    t_phase = time.time()
+
+    def resnet50(pkg):
+        return resnet_symbol(pkg, 50, RN_SHAPE, RN_CLASSES)
+
+    def run(kv, steps, args=None, aux=None, callbacks=None):
+        np.random.seed(seed)
+        mt.random.seed(seed)
+        return imagenet_fit(mt, resnet50(mt), RN_BATCH, steps * RN_BATCH, 1,
+                            RN_SHAPE, RN_CLASSES, context=gpu, kvstore=kv,
+                            arg_params=args, aux_params=aux,
+                            batch_end_callback=callbacks, **FF_FLAGS)
+
+    # the weights fit's initializer draws (fit.py's table: MSRAPrelu)
+    mt.random.seed(seed)
+    dims = tuple(int(x) for x in RN_SHAPE.split(","))
+    init_mod = mt.mod.Module(resnet50(mt), context=mt.cpu())
+    init_mod.bind([("data", (RN_CHECK_BATCH,) + dims)],
+                  [("softmax_label", (RN_CHECK_BATCH,))])
+    init_mod.init_params(fit_initializer(mt, FF_FLAGS["initializer"]))
+    args0 = module_params(init_mod)
+    aux0 = module_aux(init_mod)
+    del init_mod
+    n_w, off = msra_scale_check(args0)
+    print("fit.py --initializer msra: %d weights drawn by %s with their "
+          "formula's deviation and mean 0 (worst %.2f standard errors off, "
+          "limit %g)" % (n_w, type(fit_initializer(mt, "msra")).__name__,
+                         off, FF_SCALE_SE), flush=True)
+
+    # captured against eager, deterministic cuDNN, from the same weights
+    got = {}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kv in (None, "local"):
+            mod, _ = run(kv, FF_CHECK_STEPS, args0, aux0)
+            if type(mod._optimizer).__name__ != "NAG":
+                fail("fit.py --optimizer nag made %s"
+                     % type(mod._optimizer).__name__)
+            if kv == "local":
+                text = capture_report(mod, FF_CHECK_STEPS,
+                                      "ResNet-50 NAG capture check")[0]
+            got[kv] = (module_params(mod), module_aux(mod))
+            del mod
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    for i, what in enumerate(("weights", "moving statistics")):
+        names = sorted(got[None][i])
+        check_close("ResNet-50 NAG: %d captured steps vs eager ones (batch "
+                    "%d, deterministic cuDNN), %s" % (FF_CHECK_STEPS,
+                                                      RN_BATCH, what),
+                    [torch.from_numpy(got["local"][i][k]) for k in names],
+                    [torch.from_numpy(got[None][i][k]) for k in names],
+                    CAPTURE_TOL)
+    print("ResNet-50 NAG + MSRAPrelu at batch %d, captured vs eager: %s; "
+          "max |diff| weights %.3g, moving statistics %.3g (tolerance %s)"
+          % (RN_BATCH, text,
+             max(float(np.abs(got["local"][0][k] - got[None][0][k]).max())
+                 for k in got[None][0]),
+             max(float(np.abs(got["local"][1][k] - got[None][1][k]).max())
+                 for k in got[None][1]), CAPTURE_TOL), flush=True)
+    del got
+    gc.collect()
+
+    # the captured step timed, fit.py's metric list on the host
+    mod, it = run("local", 1)
+    metric = mt.metric.create(fit_metrics(mt, FF_FLAGS["top_k"],
+                                          FF_FLAGS["loss"]))
+    it.max_iter = FF_TIMED_STEPS
+    clock = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = fit_epoch(mod, it, metric, clock)
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / steps * 1e3
+    capture_report(mod, 1 + steps, "ResNet-50 NAG")
+    host = "; ".join("%s %.3f" % (p, v / steps * 1e3)
+                     for p, v in clock.items())
+    # the metrics against a host recompute of the same steps' outputs
+    metric.reset()
+    it.reset()
+    probs, labels = [], []
+    batch = None
+    for _ in range(FF_CHECK_STEPS):
+        batch, _n = fit_steps(mod, it, metric, steps=1, batch=batch)
+        probs.append(mod.get_outputs()[0].asnumpy())
+        labels.append(it._label.asnumpy())
+    hits, topk, ce, rows = metric_recompute(probs, labels,
+                                            FF_FLAGS["top_k"])
+    got = dict(metric.get_name_value())
+    want = {"accuracy": hits / rows, "top_k_accuracy_5": topk / rows,
+            "cross-entropy": ce / rows, "nll-loss": ce / rows}
+    if sorted(got) != sorted(want):
+        fail("fit.py's metrics are %s, want %s" % (sorted(got),
+                                                   sorted(want)))
+    for k, w in want.items():
+        exact = k in ("accuracy", "top_k_accuracy_5")
+        if (got[k] != w) if exact else \
+                not abs(got[k] - w) <= FF_METRIC_RTOL * abs(w):
+            fail("ResNet-50 NAG: %s %.8g, the host recompute %.8g" % (
+                k, got[k], w))
+    print("ResNet-50 --optimizer nag --initializer msra --top-k 5 --loss "
+          "ce,nll (captured, TF32 off): %.3f ms a step over %d steps (%.1f "
+          "images/s) beside the SGD step's %s ms in this run; host ms a "
+          "step by phase: %s; metrics over %d steps %s equal a host "
+          "recompute (counts exactly, CE/NLL within %g); phase %.1f s | %s"
+          % (step, steps, RN_BATCH / step * 1e3,
+             "%.3f" % sgd_ms if sgd_ms is not None else "not measured",
+             host, FF_CHECK_STEPS, ", ".join(
+                 "%s %.6f" % kv for kv in sorted(got.items())),
+             FF_METRIC_RTOL, time.time() - t_phase, card), flush=True)
+    del mod, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return step
+
+
+# (b) every optimizer mxtpu registers through LeNet's Module.fit (BASELINE
+# config 1), with the momentum, weight decay and clipping each takes (the
+# Module sets rescale_grad to 1 / batch): OPT_STEPS eager and OPT_STEPS
+# captured steps from the same weights and batches. A captured fit runs
+# its first two steps for real (the bare step, then the step with the
+# metric), captures at the third and replays after, so every t-dependent
+# factor moves over 5 replays past the capture.
+OPT_STEPS = 8
+_MOM = dict(momentum=0.9, wd=1e-4, clip_gradient=5.0)
+_DECAY = dict(wd=1e-4, clip_gradient=5.0)
+OPT_SWEEP = {
+    "sgd": dict(learning_rate=0.05, **_MOM),
+    "ccsgd": dict(learning_rate=0.05, **_MOM),
+    "nag": dict(learning_rate=0.05, **_MOM),
+    "dcasgd": dict(learning_rate=0.05, **_MOM),
+    # the warmup multiplier moves every step (t / 8 of the way to 2)
+    "lbsgd": dict(learning_rate=0.05, warmup_strategy="linear",
+                  warmup_epochs=1, updates_per_epoch=OPT_STEPS,
+                  batch_scale=2, **_MOM),
+    "signum": dict(learning_rate=1e-3, wd_lh=1e-4, **_MOM),
+    "ftml": dict(learning_rate=1e-3, **_DECAY),
+    "sgld": dict(learning_rate=1e-4, **_DECAY),
+    "adam": dict(learning_rate=1e-3, **_DECAY),
+    "adagrad": dict(learning_rate=0.01, **_DECAY),
+    "rmsprop": dict(learning_rate=1e-3, centered=True, **_DECAY),
+    "adadelta": dict(**_DECAY),
+    "ftrl": dict(learning_rate=0.1, **_DECAY),
+    "adamax": dict(learning_rate=2e-3, **_DECAY),
+    "nadam": dict(learning_rate=1e-3, **_DECAY),
+    "test": {},
+}
+# Captured against eager (deterministic cuDNN, f32): the same kernels on
+# the same inputs, only lr a float32 device scalar and the t-derived
+# factors float64 device scalars, so the weights part by an ulp at the
+# first step. Each array within OPT_SHARE of the largest distance a
+# weight of it moved in the eager run, but for at most OPT_BEYOND of all
+# entries: rules that divide by a running magnitude plus a small epsilon
+# turn an ulp into a whole step where the gradient is near 0 (Adamax's
+# 1e-12: 32 of LeNet's 431,080 weights on the H100; Signum's sign of a
+# momentum near 0). A factor frozen at the capture moves every entry
+# (Adamax's bias correction from t = 3 to 8: 2.71 to 1.75).
+OPT_SHARE = 1e-3
+OPT_BEYOND = 1e-3
+# SGLD adds N(0, lr) noise a step, from different generators on each
+# path: (w_captured - w_eager) / sqrt(2 * OPT_STEPS * lr) over LeNet's
+# 431,080 weights has mean within 0.01 of 0 and deviation within 0.02 of
+# 1 (10 and 20 standard errors; noise frozen at the capture would replay
+# one draw 6 times: deviation sqrt(46 / 16) = 1.7)
+SGLD_MEAN_BAND, SGLD_STD_BAND = 0.01, 0.02
+
+
+def opt_sweep_run(mt, name, ctx, fused, steps, w0):
+    """LeNet's Module (local store: the module's Updater) from ``w0``
+    trained ``steps`` steps of fit's loop body with ``name``: ({name:
+    numpy} weights, module)."""
+    def go():
+        np.random.seed(0)
+        mt.random.seed(0)
+        tr_x, tr_y, _vx, _vy = lenet_data()
+        it = mt.io.NDArrayIter(tr_x, tr_y, LENET_BATCH, shuffle=False)
+        mod = mt.mod.Module(lenet_symbol(mt), context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        mod.init_params(arg_params=host_params(mt, w0))
+        mod.init_optimizer(kvstore="local", optimizer=name,
+                           optimizer_params=OPT_SWEEP[name])
+        fit_steps(mod, it, mt.metric.create("acc"), steps=steps)
+        return module_params(mod), mod
+    return with_fused(fused, go)
+
+
+def share_apart(got, want, start):
+    """(the share of entries past OPT_SHARE of their array's largest
+    move, the worst |got - want| as a share of it)."""
+    past, total, worst = 0, 0, 0.0
+    for k in want:
+        step = float(np.abs(want[k] - start[k]).max())
+        d = np.abs(got[k] - want[k])
+        limit = OPT_SHARE * step + 1e-7
+        past += int((d > limit).sum())
+        total += d.size
+        worst = max(worst, float(d.max()) / max(step, 1e-30))
+    return past / total, worst
+
+
+def sgld_band(got, want, lr, steps):
+    """Mean and deviation of (got - want) / sqrt(2 steps lr) over every
+    weight."""
+    z = np.concatenate([(got[k] - want[k]).ravel() for k in sorted(want)]) \
+        / np.sqrt(2 * steps * lr)
+    return float(z.mean()), float(z.std())
+
+
+def optimizer_sweep_phase(mt, seed, card):
+    """(b) every optimizer of the registry through LeNet's Module.fit on
+    gpu(0): OPT_STEPS captured steps against OPT_STEPS eager ones, and the
+    first eager step against the CPU's, with deterministic cuDNN; one line
+    an optimizer, "captured" or "eager: <reason>". Returns {name:
+    "captured" or the reason}."""
+    import torch
+    gpu = mt.gpu(0)
+    names = sorted(mt.optimizer.Optimizer.opt_registry)
+    if sorted(OPT_SWEEP) != names:
+        fail("the optimizer sweep covers %s, the registry holds %s"
+             % (sorted(OPT_SWEEP), names))
+    w0 = lenet_init_params(mt, seed)
+    routes = {}
+    t_phase = time.time()
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in names:
+            eager, _ = opt_sweep_run(mt, name, gpu, False, OPT_STEPS, w0)
+            fused, mod = opt_sweep_run(mt, name, gpu, True, OPT_STEPS, w0)
+            if mod._fused is None:
+                route = "eager: %s" % getattr(mod, "_fused_fallback_logged",
+                                              "disabled")
+            else:
+                captured_steps(mod, "optimizer sweep, %s" % name, OPT_STEPS)
+                route = "captured"
+            routes[name] = route
+            del mod
+            card1, _ = opt_sweep_run(mt, name, gpu, False, 1, w0)
+            cpu1, _ = opt_sweep_run(mt, name, mt.cpu(), False, 1, w0)
+            lr = OPT_SWEEP[name].get("learning_rate", 0.0)
+            past1, worst1 = share_apart(card1, cpu1, w0)
+            if name == "sgld":
+                # the eager steps on both devices draw from the thread's
+                # CPU generator, seeded alike: the same noise
+                mean, std = sgld_band(fused, eager, lr, OPT_STEPS)
+                if not (abs(mean) <= SGLD_MEAN_BAND and
+                        abs(std - 1) <= SGLD_STD_BAND) or \
+                        past1 > OPT_BEYOND:
+                    fail("SGLD: captured vs eager, the noise's difference "
+                         "has mean %.4f and deviation %.4f of its expected "
+                         "(bands %g, %g); the first step card vs CPU has "
+                         "%.3g of its entries beyond %g of the move"
+                         % (mean, std, SGLD_MEAN_BAND, SGLD_STD_BAND, past1,
+                            OPT_SHARE))
+                text = ("noise difference captured vs eager: mean %.4f, "
+                        "deviation %.4f of sqrt(2 x %d x lr) (bands %g, %g); "
+                        "first step card vs CPU (the same draws): %.3g of "
+                        "the entries past, worst %.3g"
+                        % (mean, std, OPT_STEPS, SGLD_MEAN_BAND,
+                           SGLD_STD_BAND, past1, worst1))
+            else:
+                past, worst = share_apart(fused, eager, w0)
+                if past > OPT_BEYOND or past1 > OPT_BEYOND:
+                    fail("%s: %.3g of the entries captured vs eager after %d "
+                         "steps and %.3g card vs CPU after 1 step lie beyond "
+                         "%g of their array's move (limit %g of them)"
+                         % (name, past, OPT_STEPS, past1, OPT_SHARE,
+                            OPT_BEYOND))
+                text = ("captured vs eager after %d steps: %.3g of the "
+                        "entries past %g of the move, worst %.3g of it; "
+                        "first step card vs CPU: %.3g past, worst %.3g"
+                        % (OPT_STEPS, past, OPT_SHARE, worst, past1,
+                           worst1))
+            print("optimizer %-9s %s; %s" % (name + ":", route, text),
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    print("optimizer sweep: %d optimizers through LeNet's Module.fit, %d "
+          "captured; %.1f s | %s"
+          % (len(names), sum(r == "captured" for r in routes.values()),
+             time.time() - t_phase, card), flush=True)
+    return routes
+
+
+# (c) RNN checkpoints on the bucketed LSTM LM at PTB's widths (config 4),
+# as upstream MXNet's example/rnn/bucketing/cudnn_lstm_bucketing.py uses
+# them: trained fused with do_rnn_checkpoint (and the optimizer's states
+# each epoch), scored unfused through load_rnn_checkpoint, and resumed
+RC_VOCAB, RC_SENTENCES = 10000, 600
+RC_EPOCHS, RC_RESUME = 3, 1
+# cudnn_lstm_bucketing.py's optimizer and initializer
+RC_OPT = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-5}
+# the fused kernel and the LSTMCells' ops score in float32 with another
+# order of sums: perplexities within 1e-4 relative
+RC_PPL_RTOL = 1e-4
+# resumed vs never stopped: the same steps on the same batches, but the
+# embedding's gradient sums by atomics on the card, so each array within
+# RC_SHARE of the largest distance it moved over the resumed epochs
+RC_SHARE = 1e-3
+
+
+class EpochSeededIter:
+    """A data iterator whose every reset (one an epoch end) first seeds
+    Python's and numpy's generators from (seed, epochs reset so far): a
+    run resumed at epoch k, after k resets, serves the batches the run
+    never stopped serves from its epoch k on."""
+
+    def __init__(self, inner, seed, begin_epoch=0):
+        self.inner, self.seed, self.epoch = inner, seed, 0
+        self.batch_size = inner.batch_size
+        self.provide_data = inner.provide_data
+        self.provide_label = inner.provide_label
+        self.default_bucket_key = inner.default_bucket_key
+        for _ in range(begin_epoch):
+            self.reset()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.inner.next()
+
+    next = __next__
+
+    def reset(self):
+        self.epoch += 1
+        random.seed(self.seed * 1000 + self.epoch)
+        np.random.seed(self.seed * 1000 + self.epoch)
+        self.inner.reset()
+
+
+class FixedBatches:
+    """The given DataBatches of ``source`` as an iterator, the same ones
+    each pass; its shapes are ``source``'s (a bucketing iterator's: its
+    default bucket's)."""
+
+    def __init__(self, source):
+        self.batches, self.i = list(source), 0
+        self.provide_data = source.provide_data
+        self.provide_label = source.provide_label
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.i == len(self.batches):
+            raise StopIteration
+        self.i += 1
+        return self.batches[self.i - 1]
+
+    next = __next__
+
+    def reset(self):
+        self.i = 0
+
+
+def rnn_ckpt_fit(mt, sentences, prefix, begin_epoch=0, arg_params=None,
+                 aux_params=None, states=None, seed=0, ctx=None):
+    """cudnn_lstm_bucketing.py's fit on gpu(0) (FusedRNNCell; SGD,
+    Xavier(in, 2.34), Perplexity) from ``begin_epoch`` to RC_EPOCHS, each
+    epoch's end saving an RNN checkpoint (do_rnn_checkpoint) and the
+    optimizer's states under ``prefix``; a resumed run is bound and given
+    ``arg_params`` and the ``states`` file before fit. On ``ctx``, gpu(0)
+    unless given. Returns (module, iterator)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    mt.random.seed(seed)
+    train = EpochSeededIter(mt.rnn.BucketSentenceIter(
+        sentences, BL_BATCH, buckets=list(BL_BUCKETS), invalid_label=0),
+        seed, begin_epoch)
+    cell = lstm_rnn_cell(mt, True)
+    mod = mt.mod.BucketingModule(
+        lstm_sym_gen(mt, RC_VOCAB, True),
+        default_bucket_key=train.default_bucket_key,
+        context=ctx or mt.gpu(0))
+    init = mt.init.Xavier(factor_type="in", magnitude=2.34)
+    if states is not None:
+        mod.bind(train.provide_data, train.provide_label)
+        mod.init_params(init, arg_params=arg_params, aux_params=aux_params)
+        mod.init_optimizer(optimizer="sgd", optimizer_params=RC_OPT)
+        mod.load_optimizer_states(states)
+
+    def save_states(epoch, *_):
+        mod.save_optimizer_states("%s-%04d.states" % (prefix, epoch + 1))
+    mod.fit(train, eval_metric=mt.metric.Perplexity(ignore_label=0),
+            optimizer="sgd", optimizer_params=RC_OPT, initializer=init,
+            arg_params=arg_params, aux_params=aux_params,
+            begin_epoch=begin_epoch, num_epoch=RC_EPOCHS,
+            batch_end_callback=mt.callback.Speedometer(BL_BATCH, 20,
+                                                       auto_reset=False),
+            epoch_end_callback=[mt.rnn.do_rnn_checkpoint(cell, prefix, 1),
+                                save_states])
+    return mod, train
+
+
+def rnn_ckpt_scores(mt, mod, sentences, prefix, ctx=None, seed=0,
+                    rnn_scan=None):
+    """(i) The last checkpoint loaded into the example's unfused stack of
+    LSTMCells (load_rnn_checkpoint) and the fused module ``mod`` score the
+    same batches: (fused perplexity, unfused perplexity, batches, lstm_scan
+    launches fused and unfused, counted from 0 before each when
+    ``rnn_scan`` is given)."""
+    ctx = ctx or mt.gpu(0)
+    random.seed(seed + 1)
+    np.random.seed(seed + 1)
+    with ctx:
+        score_it = mt.rnn.BucketSentenceIter(sentences, BL_BATCH,
+                                             buckets=list(BL_BUCKETS),
+                                             invalid_label=0)
+    batches = FixedBatches(score_it)
+    launches = []
+
+    def score(module):
+        if rnn_scan is not None:
+            rnn_scan.reset_launches()
+        ppl = dict(module.score(batches, mt.metric.Perplexity(
+            ignore_label=0)))["perplexity"]
+        if rnn_scan is not None:
+            sync(ctx)
+            launches.append(rnn_scan.LAUNCHES["lstm_scan"])
+        return ppl
+    fused_ppl = score(mod)
+    stack = lstm_rnn_cell(mt, False)
+    _sym, arg, aux = mt.rnn.load_rnn_checkpoint(stack, prefix, RC_EPOCHS)
+    unfused = mt.mod.BucketingModule(
+        lstm_sym_gen(mt, RC_VOCAB, False),
+        default_bucket_key=score_it.default_bucket_key, context=ctx)
+    unfused.bind(batches.provide_data, batches.provide_label,
+                 for_training=False)
+    unfused.init_params(arg_params=arg, aux_params=aux)
+    return fused_ppl, score(unfused), len(batches.batches), launches
+
+
+def rnn_ckpt_resume(mt, sentences, prefix, ctx=None, seed=0):
+    """(ii) A run resumed at RC_RESUME from its RNN checkpoint and its
+    optimizer's states, trained to RC_EPOCHS: ({name: numpy} at the
+    checkpoint, {name: numpy} at the end)."""
+    _sym, arg, aux = mt.rnn.load_rnn_checkpoint(lstm_rnn_cell(mt, True),
+                                                prefix, RC_RESUME)
+    start = {k: v.asnumpy() for k, v in arg.items()}
+    resumed, _it = rnn_ckpt_fit(
+        mt, sentences, prefix + "_resumed", begin_epoch=RC_RESUME,
+        arg_params=arg, aux_params=aux,
+        states="%s-%04d.states" % (prefix, RC_RESUME), seed=seed, ctx=ctx)
+    return start, module_params(resumed)
+
+
+def sync(ctx):
+    """Wait for ``ctx``'s device (nothing on the CPU)."""
+    import torch
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+
+
+def rnn_checkpoint_phase(mt, rnn_scan, seed, card, workdir):
+    """(c) The bucketed LM at PTB's widths trained fused with RNN
+    checkpoints: lstm_scan counted from 0 just before the fit (warm-up
+    launches + graph nodes x replays = one a layer a step); the last
+    checkpoint loaded into the example's unfused LSTMCells scores the
+    same batches as the fused module (one launch a layer a batch there,
+    none unfused); a run resumed at epoch RC_RESUME from its checkpoint
+    and optimizer states ends at the weights of the run never stopped.
+    Returns {"lstm_scan": launches in the fit}."""
+    t_phase = time.time()
+    gpu = mt.gpu(0)
+    sentences, _ = synthetic_corpus(RC_SENTENCES, RC_VOCAB, seed)
+    prefix = os.path.join(workdir, "rnn_ckpt")
+    rnn_scan.reset_launches()
+    mod, train = rnn_ckpt_fit(mt, sentences, prefix, seed=seed)
+    sync(gpu)
+    launched = rnn_scan.LAUNCHES["lstm_scan"]
+    report = bucket_graph_report(mt, mod)
+    steps = RC_EPOCHS * len(train.inner.idx)
+    launches = launched + sum(r[2]["lstm"] * r[3] for r in report.values())
+    nodes = {k: r[2]["lstm"] for k, r in report.items()}
+    if any(n != BL_LAYERS for n in nodes.values()) or \
+            launches != BL_LAYERS * steps:
+        fail("RNN checkpoint fit: lstm_scan nodes a bucket graph %s, %d "
+             "launches in %d steps (want %d a graph, one a layer a step)"
+             % (nodes, launches, steps, BL_LAYERS))
+    final = module_params(mod)
+    for epoch in range(1, RC_EPOCHS + 1):
+        for ext in ("params", "states"):
+            if not os.path.exists("%s-%04d.%s" % (prefix, epoch, ext)):
+                fail("no %s-%04d.%s after the fit" % (prefix, epoch, ext))
+    fused_ppl, unfused_ppl, n_batches, (fused_n, unfused_n) = \
+        rnn_ckpt_scores(mt, mod, sentences, prefix, gpu, seed, rnn_scan)
+    del mod
+    if fused_n != BL_LAYERS * n_batches or unfused_n != 0:
+        fail("scoring launched lstm_scan %d times fused, %d unfused, for %d "
+             "batches (want %d, 0)" % (fused_n, unfused_n, n_batches,
+                                       BL_LAYERS * n_batches))
+    if not abs(unfused_ppl - fused_ppl) <= RC_PPL_RTOL * fused_ppl:
+        fail("the checkpoint scores perplexity %.6f unfused, %.6f fused "
+             "(limit %g relative)" % (unfused_ppl, fused_ppl, RC_PPL_RTOL))
+    start, again = rnn_ckpt_resume(mt, sentences, prefix, gpu, seed)
+    worst = step_share_check("RNN checkpoint: resumed at epoch %d vs the "
+                             "run never stopped" % RC_RESUME, again, final,
+                             start, RC_SHARE, 1e-7)
+    print("RNN checkpoints (PTB widths: vocabulary %d, embed and hidden %d, "
+          "%d layers, buckets %s, batch %d; FusedRNNCell, SGD): %d epochs of "
+          "%d steps, do_rnn_checkpoint and the optimizer's states each "
+          "epoch; lstm_scan %d launches (%d at warm-up + %s nodes x "
+          "replays); the last checkpoint scores perplexity %.6f through the "
+          "unfused LSTMCells, %.6f fused (%d launches for %d batches; limit "
+          "%g relative); resumed at epoch %d to %d: within %.3g of the "
+          "limit (%g of each array's move); %.1f s | %s"
+          % (RC_VOCAB, BL_HIDDEN, BL_LAYERS, list(BL_BUCKETS), BL_BATCH,
+             RC_EPOCHS, len(train.inner.idx), launches, launched, nodes,
+             unfused_ppl, fused_ppl, fused_n, n_batches, RC_PPL_RTOL,
+             RC_RESUME, RC_EPOCHS, worst, RC_SHARE, time.time() - t_phase,
+             card), flush=True)
+    return {"lstm_scan": launches}
+
+
+# (d) the examples: example/module/sequential_module.py,
+# example/module/python_loss.py, example/python-howto/monitor_weights.py
+# (each imports mxtpu: mirrored here line for line), and upstream MXNet's
+# python_loss.py chain, a Module and a PythonLossModule in a
+# SequentialModule
+
+def four_class_data(n=512, seed=3):
+    """The module examples' synthetic data: 32 features of noise below
+    0.1 with a block of +1 at the class's 8 columns, 4 classes."""
+    r = np.random.RandomState(seed)
+    y = (r.rand(n) * 4).astype("f")
+    x = r.rand(n, 32).astype("f") * 0.1
+    for i in range(n):
+        x[i, int(y[i]) * 8:int(y[i]) * 8 + 8] += 1.0
+    return x, y
+
+
+def sequential_main(pkg, ctx, arg_params=None, num_epoch=4):
+    """example/module/sequential_module.py's main on ``ctx``, from given
+    weights ({name: numpy}) if any: (score, the chain)."""
+    np.random.seed(0)
+    x, y = four_class_data(512, 3)
+    feat = pkg.sym.Activation(
+        pkg.sym.FullyConnected(pkg.sym.Variable("data"), num_hidden=32,
+                               name="feat_fc"), act_type="relu")
+    head = pkg.sym.SoftmaxOutput(
+        pkg.sym.FullyConnected(pkg.sym.Variable("feat"), num_hidden=4,
+                               name="head_fc"), name="softmax")
+    seq = pkg.mod.SequentialModule()
+    seq.add(pkg.mod.Module(feat, label_names=(), context=ctx))
+    seq.add(pkg.mod.Module(head, data_names=("feat",), context=ctx),
+            take_labels=True, auto_wiring=True)
+    it = pkg.io.NDArrayIter(x, y, batch_size=64, shuffle=True,
+                            label_name="softmax_label")
+    seq.fit(it, num_epoch=num_epoch, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.3},
+            initializer=pkg.init.Xavier(),
+            arg_params=host_params(pkg, arg_params))
+    score = seq.score(it, pkg.metric.Accuracy())
+    if not dict(score)["accuracy"] > 0.9:
+        fail("sequential_module.py: accuracy %s (the example asserts > 0.9)"
+             % score)
+    return score, seq
+
+
+def python_loss_main(pkg, ctx):
+    """example/module/python_loss.py's main on ``ctx``: MakeLoss over a
+    written-out weighted cross-entropy through Module, then a numpy
+    gradient through an executor's backward(out_grads). Returns (the
+    MakeLoss route's last epoch loss, the numpy route's first and last
+    losses)."""
+    np.random.seed(0)
+    x, y = four_class_data(512, 1)
+    data = pkg.sym.Variable("data")
+    label = pkg.sym.Variable("softmax_label")
+    fc = pkg.sym.FullyConnected(data, num_hidden=4, name="fc")
+    p = pkg.sym.softmax(fc)
+    onehot = pkg.sym.one_hot(label, depth=4)
+    ce = -pkg.sym.sum(onehot * pkg.sym.log(p + 1e-8), axis=1)
+    loss = pkg.sym.MakeLoss(ce * 0.5)
+    mod = pkg.mod.Module(loss, context=ctx, label_names=("softmax_label",))
+    it = pkg.io.NDArrayIter(x, y, batch_size=64, shuffle=True,
+                            label_name="softmax_label")
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(pkg.init.Xavier())
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.5})
+    for epoch in range(4):
+        it.reset()
+        total, n = 0.0, 0
+        for batch in it:
+            mod.forward(batch, is_train=True)
+            total += float(mod.get_outputs()[0].asnumpy().mean())
+            n += 1
+            mod.backward()
+            mod.update()
+    makeloss = total / n
+    if not makeloss < 0.4:
+        fail("python_loss.py: MakeLoss loss %.4f (the example asserts < "
+             "0.4)" % makeloss)
+    fc_only = pkg.sym.FullyConnected(pkg.sym.Variable("data"),
+                                     num_hidden=4, name="fc")
+    ex = fc_only.simple_bind(ctx, data=(64, 32))
+    r = np.random.RandomState(0)
+    for k, v in ex.arg_dict.items():
+        if k != "data":
+            v[:] = r.uniform(-0.1, 0.1, v.shape).astype("f")
+    losses = []
+    for step in range(80):
+        i = (step * 64) % (len(x) - 64)
+        xb, yb = x[i:i + 64], y[i:i + 64].astype(int)
+        ex.arg_dict["data"][:] = xb
+        logits = ex.forward(is_train=True)[0].asnumpy()
+        e = np.exp(logits - logits.max(1, keepdims=True))
+        prob = e / e.sum(1, keepdims=True)
+        losses.append(float(-np.log(prob[np.arange(64), yb] + 1e-8).mean()))
+        grad = prob.copy()
+        grad[np.arange(64), yb] -= 1.0
+        ex.backward([pkg.nd.array(grad / 64, ctx=ctx)])
+        for k in ex.arg_dict:
+            if k != "data":
+                ex.arg_dict[k][:] = ex.arg_dict[k] - 0.5 * ex.grad_dict[k]
+    if not losses[-1] < losses[0] * 0.5:
+        fail("python_loss.py: numpy-gradient loss %.4f -> %.4f (the example "
+             "asserts a halving)" % (losses[0], losses[-1]))
+    return makeloss, losses[0], losses[-1]
+
+
+def mc_hinge_grad(scores, labels):
+    """upstream python_loss.py's multi-class hinge gradient (written there
+    under numba.jit; here in numpy over the port's or mxtpu's arrays)."""
+    scores = scores.asnumpy()
+    labels = labels.asnumpy().astype(int)
+    n, _ = scores.shape
+    grad = np.zeros_like(scores)
+    for i in range(n):
+        score = 1 + scores[i] - scores[i, labels[i]]
+        score[labels[i]] = 0
+        ind_pred = score.argmax()
+        grad[i, labels[i]] -= 1
+        grad[i, ind_pred] += 1
+    return grad
+
+
+PL_SAMPLES, PL_BATCH, PL_EPOCHS = 6000, 100, 10
+
+
+def python_loss_chain(pkg, ctx, arg_params=None, num_epoch=PL_EPOCHS,
+                      steps=None):
+    """upstream MXNet's example/module/python_loss.py: an MLP (128, 64, 10
+    hidden units) Module and a PythonLossModule(grad_func=mc_hinge_grad)
+    in a SequentialModule, take_labels and auto_wiring on the loss, fit
+    with SGD lr 0.01 momentum 0.9 over synthetic digits (MNIST's shape;
+    the repository has no MNIST files). With ``steps``, that many
+    forward/backward/update steps instead of fit. Returns (the chain, the
+    train iterator)."""
+    np.random.seed(0)
+    x, y = synthetic_mnist(PL_SAMPLES, seed=2)
+    x = x.reshape(PL_SAMPLES, -1)
+    data = pkg.symbol.Variable("data")
+    fc1 = pkg.symbol.FullyConnected(data, name="fc1", num_hidden=128)
+    act1 = pkg.symbol.Activation(fc1, name="relu1", act_type="relu")
+    fc2 = pkg.symbol.FullyConnected(act1, name="fc2", num_hidden=64)
+    act2 = pkg.symbol.Activation(fc2, name="relu2", act_type="relu")
+    fc3 = pkg.symbol.FullyConnected(act2, name="fc3", num_hidden=10)
+    mlp = pkg.mod.Module(fc3, context=ctx)
+    loss = pkg.mod.PythonLossModule(grad_func=mc_hinge_grad)
+    mod = pkg.mod.SequentialModule().add(mlp).add(loss, take_labels=True,
+                                                  auto_wiring=True)
+    train = pkg.io.NDArrayIter(x, y, PL_BATCH, shuffle=True,
+                               label_name="softmax_label")
+    opt = {"learning_rate": 0.01, "momentum": 0.9}
+    if steps is None:
+        mod.fit(train, eval_data=None, optimizer_params=opt,
+                num_epoch=num_epoch, arg_params=host_params(pkg, arg_params))
+        return mod, train
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(pkg.init.Uniform(0.01),
+                    arg_params=host_params(pkg, arg_params))
+    mod.init_optimizer(optimizer_params=opt)
+    for _ in range(steps):
+        batch = train.next()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+    return mod, train
+
+
+def monitor_weights_main(pkg, ctx, arg_params=None):
+    """example/python-howto/monitor_weights.py's main on ``ctx`` (the
+    example names mx.monitor.Monitor), from given weights if any: the
+    (step, name, value) triples the Monitor returned."""
+    sym = pkg.sym.SoftmaxOutput(
+        pkg.sym.FullyConnected(pkg.sym.Variable("data"), num_hidden=4,
+                               name="fc"), name="softmax")
+    mon = pkg.monitor.Monitor(interval=1, stat_func=lambda a:
+                              pkg.nd.norm(a) / np.sqrt(a.size))
+    mod = pkg.mod.Module(sym, context=ctx)
+    r = np.random.RandomState(0)
+    x = r.rand(64, 8).astype("f")
+    y = (r.rand(64) * 4).astype("f")
+    it = pkg.io.NDArrayIter(x, y, batch_size=32,
+                            label_name="softmax_label")
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(pkg.init.Xavier(), arg_params=host_params(pkg,
+                                                              arg_params))
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1})
+    mod.install_monitor(mon)
+    seen = []
+    for batch in it:
+        mon.tic()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        seen.extend(mon.toc())
+    if not any("fc" in k for _, k, _v in seen):
+        fail("monitor_weights.py: no fc statistic among %s" % seen)
+    return seen
+
+
+def module_examples_phase(mt, card):
+    """(d) the three examples' mains on gpu(0) to their own asserts, and
+    upstream's python_loss.py chain trained there through fit (its
+    training accuracy, read by the chain's update_metric, above 0.9).
+    Returns {example: seconds}."""
+    gpu = mt.gpu(0)
+    secs = {}
+    with gpu:
+        t0 = time.time()
+        score, _seq = sequential_main(mt, gpu)
+        secs["sequential_module"] = time.time() - t0
+        print("sequential_module.py's main on gpu(0): accuracy %.4f, its "
+              "assert (> 0.9) holds; %.1f s | %s"
+              % (dict(score)["accuracy"], secs["sequential_module"], card),
+              flush=True)
+        t0 = time.time()
+        makeloss, first, last = python_loss_main(mt, gpu)
+        secs["python_loss"] = time.time() - t0
+        print("python_loss.py's main on gpu(0): MakeLoss loss %.4f (< 0.4), "
+              "numpy-gradient loss %.4f -> %.4f (halved); %.1f s | %s"
+              % (makeloss, first, last, secs["python_loss"], card),
+              flush=True)
+        t0 = time.time()
+        seen = monitor_weights_main(mt, gpu)
+        secs["monitor_weights"] = time.time() - t0
+        print("monitor_weights.py's main on gpu(0): %d statistics, e.g. %s; "
+              "%.1f s | %s" % (len(seen), seen[:3], secs["monitor_weights"],
+                               card), flush=True)
+        t0 = time.time()
+        chain, train = python_loss_chain(mt, gpu)
+        acc = dict(chain.score(train, mt.metric.Accuracy()))["accuracy"]
+        secs["python_loss chain"] = time.time() - t0
+        if not acc > 0.9:
+            fail("upstream python_loss.py's chain: accuracy %.4f after %d "
+                 "epochs (limit 0.9)" % (acc, PL_EPOCHS))
+        mlp = chain._modules[0]
+        if mlp._context != [gpu] or mlp.inputs_need_grad:
+            fail("the chain's MLP is bound on %s (inputs_need_grad %s)"
+                 % (mlp._context, mlp.inputs_need_grad))
+        print("upstream python_loss.py's chain (Module + PythonLossModule in "
+              "a SequentialModule, mc_hinge_grad) through fit on gpu(0): %d "
+              "epochs, accuracy %.4f (limit 0.9); %.1f s | %s"
+              % (PL_EPOCHS, acc, secs["python_loss chain"], card),
+              flush=True)
+    return secs
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -10519,7 +11448,27 @@ def main():
     # moe_ffn at Switch-Base-8's
     wt_phase(mt, args.seed, card)
 
-    # 26. timings at the main paths' shapes
+    # 26. fit.py's --optimizer nag --initializer msra --top-k 5 --loss
+    # ce,nll at ResNet-50's width, beside phase 14's captured SGD step
+    ff_ms = fit_flags_phase(mt, args.seed, card,
+                            resnet_ms.get(("captured", "TF32 off")))
+
+    # 27. every optimizer of the registry through LeNet's Module.fit,
+    # captured against eager
+    opt_routes = optimizer_sweep_phase(mt, args.seed, card)
+
+    # 28. RNN checkpoints on the bucketed LM at PTB's widths (lstm_scan
+    # counted from 0 just before its fit)
+    rc_launches = rnn_checkpoint_phase(mt, rnn_scan, args.seed, card,
+                                       workdir)
+
+    # 29. SequentialModule, PythonLossModule and Monitor: the examples
+    t_phase = time.time()
+    module_examples_phase(mt, card)
+    print("module examples phase: %.1f s" % (time.time() - t_phase),
+          flush=True)
+
+    # 30. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -10571,6 +11520,7 @@ def main():
             "source": "mxtpu_torch/csrc/rnn_scan.cu",
             "replaces": replaces, "launches": path_launches[name],
             "launches_gluon_lm": gl_launches.get(name, 0),
+            "launches_rnn_checkpoint": rc_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": med[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": med[2], "wall_ms": med[1], "pairs": PAIRS,
@@ -10869,6 +11819,12 @@ def main():
     print("FCN-8s at %dx%d, ms a step: %s | %s" % (
         FCN_HW, FCN_HW, ", ".join("%s %.3f" % kv for kv in fcn_ms.items()),
         card))
+    print("ResNet-50 captured step, TF32 off: NAG (fit.py's flags) %.3f ms, "
+          "SGD %.3f ms; optimizers captured %d of %d (%s) | %s"
+          % (ff_ms, resnet_ms[("captured", "TF32 off")],
+             sum(r == "captured" for r in opt_routes.values()),
+             len(opt_routes), ", ".join(
+                 "%s %s" % kv for kv in sorted(opt_routes.items())), card))
     nms_ms, nms_plain, nms_bound, nms_by = nms_timing[1]
     kernels.append({
         "name": "multibox_nms", "route": "cuda",
@@ -10882,7 +11838,7 @@ def main():
         "proposal_bound_ms": proposal_timing[2]})
     print("total %.1f s" % (time.time() - t_start))
 
-    # 27.-28. the result lines
+    # 31.-32. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 The same public names as ``mxtpu`` (``mx.nd``, ``mx.sym``, ``mx.mod``
 with ``Module.fit`` and ``BucketingModule``, ``mx.io``, ``mx.init``,
 ``mx.optimizer``, ``mx.metric``, ``mx.kv``, ``mx.callback``,
-``mx.lr_scheduler``, ``mx.random``, ``mx.recordio``, ``mx.image``
+``mx.monitor``, ``mx.lr_scheduler``, ``mx.random``, ``mx.recordio``, ``mx.image``
 (the record pipeline behind ``mx.io.ImageRecordIter``), ``mx.rnn`` (the cells and
 ``BucketSentenceIter``), ``mx.serving``, ``mx.parallel``,
 ``mx.autograd``, ``mx.engine``, ``mx.operator`` custom ops, ``mx.rtc``,
@@ -46,6 +46,7 @@ from . import executor
 from . import rnn
 from . import model
 from . import callback
+from . import monitor
 from . import module
 from . import module as mod
 from . import serving
@@ -60,5 +61,5 @@ __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "sym", "random", "lr_scheduler", "io", "recordio", "image",
            "initializer", "init",
            "optimizer", "metric", "kvstore", "kv", "executor", "rnn",
-           "model", "callback", "module", "mod", "serving", "parallel",
+           "model", "callback", "monitor", "module", "mod", "serving", "parallel",
            "engine", "autograd", "operator", "rtc", "gluon", "NDArray"]

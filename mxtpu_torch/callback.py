@@ -1,15 +1,17 @@
 """Training callbacks of the PyTorch port (``mxtpu/callback.py``'s
-``module_checkpoint``, ``do_checkpoint``, ``log_train_metric`` and
-``Speedometer``)."""
+``module_checkpoint``, ``do_checkpoint``, ``log_train_metric``,
+``Speedometer``, ``ProgressBar`` and ``LogValidationMetricsCallback``)."""
 from __future__ import annotations
 
 import logging
+import math
+import sys
 import time
 
 from .model import save_checkpoint
 
 __all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
-           "Speedometer"]
+           "Speedometer", "ProgressBar", "LogValidationMetricsCallback"]
 
 
 def _every(period):
@@ -87,3 +89,30 @@ class Speedometer:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, count, speed)
         self.tic = time.time()
+
+
+class ProgressBar:
+    """A batch-end callback drawing an ASCII bar of ``length`` characters
+    for the ``total`` batches of an epoch on standard output."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        sys.stdout.write("[%s] %s%s\r" % (prog_bar, percents, "%"))
+
+
+class LogValidationMetricsCallback:
+    """An eval-end callback logging each validation metric."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

@@ -269,7 +269,8 @@ class Executor:
                     [torch.ones_like(o) for o in heads], allow_unused=True)
                 for i, g in zip(wrt, found):
                     grads[i] = g
-            with torch.no_grad():
+            # the update draws (SGLD's noise) from the step's generator
+            with torch.no_grad(), rng_scope(generator):
                 for n, a in zip(aux_names, aux_vals):
                     if n in aux_updates and aux_updates[n] is not a:
                         a.copy_(aux_updates[n])

@@ -5,9 +5,13 @@ Counterpart of ``mxtpu/initializer.py``: ``InitDesc``, an
 ``*bias``, ``*gamma``, ``*beta``, running statistics, or a variable's
 ``__init__`` attribute), its registry and ``create``, and Zero, One,
 Constant, Uniform, Normal, Xavier (with ``mxtpu``'s fan and
-``hw_scale`` rule for convolution weights), Bilinear (the upsampling
-kernel of a Deconvolution) and FusedRNN (a fused RNN's flat blob, drawn
-block by block in ``mxtpu``'s order).
+``hw_scale`` rule for convolution weights), MSRAPrelu (Xavier, Gaussian,
+magnitude 2 / (1 + slope^2)), Orthogonal (a singular-vector factor of a
+drawn matrix, scaled), Bilinear (the upsampling kernel of a
+Deconvolution), LSTMBias (the forget gate's bias), Load (from a dict of
+arrays, the rest by a default initializer), Mixed (an initializer by the
+first pattern a name matches) and FusedRNN (a fused RNN's flat blob,
+drawn block by block in ``mxtpu``'s order).
 
 Draws come from :func:`mxtpu_torch.ops.registry.next_generator`, a CPU
 generator (``mx.random.seed`` seeds it), and are then moved to the
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import json
 import logging
+import re
 
 import numpy as _np
 import torch
@@ -26,8 +31,8 @@ import torch
 from .ops.registry import next_generator
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Constant", "Uniform", "Normal", "Xavier", "Bilinear",
-           "FusedRNN"]
+           "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "LSTMBias", "Load", "Mixed", "FusedRNN"]
 
 _INIT_REGISTRY = {}
 
@@ -256,6 +261,42 @@ class Xavier(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """``scale`` times an orthonormal (nout, prod(shape[1:])) factor: the
+    left singular vectors of a matrix drawn from U(-1, 1) (``rand_type``
+    "uniform") or N(0, 1) where they have that shape, else the right ones
+    (Saxe et al., 2013)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(_np.prod(arr.shape[1:])) if len(arr.shape) > 1 else 1
+        if self.rand_type == "uniform":
+            tmp = torch.empty(nout, nin).uniform_(-1.0, 1.0,
+                                                  generator=next_generator())
+        else:
+            tmp = torch.randn(nout, nin, generator=next_generator())
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        _set(arr, self.scale * q)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU nets: Xavier, Gaussian, of
+    magnitude 2 / (1 + slope^2) over the ``factor_type`` fan."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
 class Bilinear(Initializer):
     """A bilinear upsampling kernel in every (in, out) channel pair of a
     (C_in, C_out, kh, kw) Deconvolution weight: (1 - |x / f - c|) (1 -
@@ -271,6 +312,86 @@ class Bilinear(Initializer):
         kernel = (y[:, None] * x[None, :]).astype("float32")
         _set(arr, torch.from_numpy(_np.ascontiguousarray(
             _np.broadcast_to(kernel, shape))))
+
+
+@register
+class LSTMBias(Initializer):
+    """An LSTM's bias: zero but the forget gate's quarter (rows H to 2H
+    of 4H), ``forget_bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(tuple(arr.shape))
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        _set(arr, b)
+
+
+def _host_tensor(src):
+    """A CPU tensor of an array of either package or of numpy."""
+    if isinstance(src, torch.Tensor):
+        return src.detach().cpu()
+    data = getattr(src, "data", None)
+    if isinstance(data, torch.Tensor):
+        return data.detach().cpu()
+    return torch.as_tensor(_np.asarray(
+        src.asnumpy() if hasattr(src, "asnumpy") else src))
+
+
+@register
+class Load:
+    """The arrays of ``param`` (keys with an ``arg:`` / ``aux:`` prefix
+    are taken without it) by name, of the same shape; any other name by
+    ``default_init``, else ValueError."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {k[4:] if k.startswith(("arg:", "aux:")) else k: v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise ValueError("Parameter %s cannot be initialized from "
+                                 "loading. Shape mismatch, target %s vs "
+                                 "loaded %s" % (name, arr.shape, src.shape))
+            _set(arr, _host_tensor(src))
+            if self.verbose:
+                logging.info("Initialized %s by loading", name)
+        else:
+            if self.default_init is None:
+                raise ValueError(
+                    "Cannot Initialize parameter %s. Not found in loaded "
+                    "param and no default initializer provided." % name)
+            self.default_init(name, arr)
+            if self.verbose:
+                logging.info("Initialized %s by default", name)
+
+
+@register
+class Mixed:
+    """The initializer of the first pattern (``re.match``) a name
+    matches; ValueError if none does."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("one initializer a pattern")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError(
+            "Parameter name %s did not match any pattern. Consider adding a "
+            '".*" pattern at the and with default Initializer.' % name)
 
 
 @register

@@ -4,9 +4,13 @@ Counterpart of ``mxtpu/metric.py``'s ``EvalMetric`` (``update``,
 ``get``, ``get_name_value``, ``reset``, and the device-side
 accumulation: ``device_batch``, ``supports_device_update``,
 ``update_async`` / ``detach_async`` / ``_drain_async``),
-``CompositeEvalMetric``, ``Accuracy``, ``CrossEntropy``, ``Perplexity``,
-``CustomMetric`` and ``np`` (a metric from a numpy function of the label
-and the prediction, read back to the host each batch) and ``create``.
+``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``, ``F1``, ``MCC``,
+``Perplexity``, ``MAE``, ``MSE``, ``RMSE``, ``CrossEntropy``,
+``NegativeLogLikelihood``, ``PearsonCorrelation``, ``Loss`` (and its
+``Torch`` and ``Caffe`` names), ``CustomMetric`` and ``np`` (a metric from
+a numpy function of the label and the prediction, read back to the host
+each batch) and ``create`` (of a name, an alias, a list, a callable or an
+instance).
 
 ``Accuracy`` and ``CrossEntropy`` accumulate on the predictions' device:
 ``update`` adds the batch's sum to a tensor there (labels are moved to
@@ -20,17 +24,27 @@ tensor that the trainer owns (``update_async``); ``get`` reads it.
 label probability and masks the ignored labels on the predictions'
 device, then reads the picked values back, one host read of a value a
 row, and finishes the batch on the host as ``mxtpu`` does.
+
+The metrics ``mxtpu`` computes in numpy on the host with a device rule
+beside (``TopKAccuracy``, whose ranking is numpy's ``argsort`` on the host
+and a stable one on the device, as ``jnp.argsort`` is), or with none
+(``F1``, ``MCC``, ``PearsonCorrelation``), read each batch back and run
+the same numpy; ``MAE`` / ``MSE`` / ``RMSE``, the probability NLLs and
+``Loss`` accumulate on the device.
 """
 from __future__ import annotations
+
+import math
 
 import numpy
 import torch
 
 from . import ndarray
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy",
-           "CrossEntropy", "Perplexity", "CustomMetric", "np", "create",
-           "register", "get"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "F1", "MCC", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe", "CustomMetric", "np", "create", "register", "get"]
 
 
 def check_label_shapes(labels, preds, wrap=False, shape=False):
@@ -60,6 +74,16 @@ def _tensor(arr, device=None):
     return t
 
 
+def _host(arr, dtype=None):
+    """An array of the batch as host numpy (halves as float32), cast to
+    ``dtype`` if given."""
+    t = _tensor(arr)
+    if t.dtype in (torch.float16, torch.bfloat16):
+        t = t.float()
+    out = t.detach().cpu().numpy()
+    return out if dtype is None else out.astype(dtype, copy=False)
+
+
 def _listed(x):
     return x if isinstance(x, list) else [x]
 
@@ -77,6 +101,12 @@ class EvalMetric:
 
     def __str__(self):
         return "EvalMetric: {}".format(dict(self.get_name_value()))
+
+    def get_config(self):
+        """The metric's constructor arguments, with its class and name."""
+        return dict(self._kwargs, metric=self.__class__.__name__,
+                    name=self.name, output_names=self.output_names,
+                    label_names=self.label_names)
 
     def update(self, labels, preds):
         """Accumulate a batch. Metrics with :meth:`device_batch` add its
@@ -243,11 +273,170 @@ class Accuracy(EvalMetric):
         return hits, count
 
 
-@alias("ce")
-class CrossEntropy(EvalMetric):
-    """Mean of -log(p + eps) of each row's probability for its label."""
+@alias("top_k_accuracy", "top_k_acc")
+class TopKAccuracy(EvalMetric):
+    """Share of rows whose label is among the ``top_k`` largest scores,
+    ranked by an ascending argsort (ties fall as numpy's ``argsort``
+    leaves them on the host, as a stable sort does on the device)."""
 
-    def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, top_k=top_k, output_names=output_names,
+                         label_names=label_names)
+        self.top_k = top_k
+        if self.top_k <= 1:
+            raise ValueError("Please use Accuracy if top_k is no more "
+                             "than 1")
+        self.name += "_%d" % self.top_k
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for truth, scores in zip(labels, preds):
+            if scores.ndim > 2:
+                raise ValueError("Predictions should be no more than 2 "
+                                 "dims")
+            ranked = numpy.argsort(_host(scores, "float32"), axis=-1)
+            expected = _host(truth, "int32")
+            check_label_shapes(expected, ranked)
+            if ranked.ndim == 1:
+                hits = int((ranked.ravel() == expected.ravel()).sum())
+            else:
+                k = min(ranked.shape[1], self.top_k)
+                best = ranked[:, ranked.shape[1] - k:]
+                hits = int((best == expected.reshape(-1, 1)).any(1).sum())
+            self._accum(hits, ranked.shape[0])
+
+    def device_batch(self, labels, preds):
+        hits, count = 0, 0
+        for truth, scores in zip(labels, preds):
+            scores = _tensor(scores)
+            ranked = torch.argsort(scores.float(), dim=-1, stable=True)
+            expected = _tensor(truth, scores.device).to(torch.int32)
+            if ranked.ndim == 1:
+                hit = ranked.reshape(-1) == expected.reshape(-1)
+            else:
+                k = min(ranked.shape[1], self.top_k)
+                best = ranked[:, ranked.shape[1] - k:]
+                hit = (best == expected.reshape(-1, 1)).any(1)
+            hits = hits + hit.sum(dtype=torch.float32)
+            count += ranked.shape[0]
+        return hits, count
+
+
+@alias("f1_score")
+class F1(EvalMetric):
+    """Binary F1 of each batch's argmax decisions, averaged over
+    batches (on the host)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for truth, scores in zip(labels, preds):
+            scores_np = _host(scores)
+            expected = _host(truth, "int32")
+            decided = numpy.argmax(scores_np, axis=1)
+            check_label_shapes(expected, scores_np)
+            if numpy.unique(expected).size > 2:
+                raise ValueError("F1 currently only supports binary "
+                                 "classification.")
+            tp = float(((decided == 1) & (expected == 1)).sum())
+            fp = float(((decided == 1) & (expected == 0)).sum())
+            fn = float(((decided == 0) & (expected == 1)).sum())
+            precision = tp / (tp + fp) if tp + fp else 0.0
+            recall = tp / (tp + fn) if tp + fn else 0.0
+            pr = precision + recall
+            self._accum(2 * precision * recall / pr if pr else 0.0, 1)
+
+
+@register
+class MCC(EvalMetric):
+    """Matthews correlation coefficient of each batch's binary argmax
+    decisions, averaged over batches (on the host)."""
+
+    def __init__(self, name="mcc", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for truth, scores in zip(labels, preds):
+            expected = _host(truth, "int32")
+            decided = numpy.argmax(_host(scores), axis=1)
+            tp, tn, fp, fn = (float(((decided == p) & (expected == t)).sum())
+                              for p, t in ((1, 1), (0, 0), (1, 0), (0, 1)))
+            denom = math.sqrt((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn))
+            self._accum((tp * tn - fp * fn) / denom if denom else 0.0, 1)
+
+
+def _column(x):
+    """A 1-d batch as a (n, 1) column, so errors broadcast as ``mxtpu``'s
+    do; float32 before any reduction."""
+    if x.is_floating_point():
+        x = x.float()
+    return x.reshape(x.shape[0], 1) if x.dim() == 1 else x
+
+
+class _PairwiseError(EvalMetric):
+    """The regression metrics: the mean of ``_measure(truth, pred)`` a
+    batch, averaged over batches, summed on the device."""
+
+    def device_batch(self, labels, preds):
+        total, count = 0, 0
+        for truth, scores in zip(labels, preds):
+            scores = _column(_tensor(scores))
+            truth = _column(_tensor(truth, scores.device))
+            total = total + self._measure(truth, scores)
+            count += 1
+        return total, count
+
+
+@register
+class MAE(_PairwiseError):
+    """Mean absolute error."""
+
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _measure(truth, scores):
+        return (truth - scores).abs().mean()
+
+
+@register
+class MSE(_PairwiseError):
+    """Mean squared error."""
+
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _measure(truth, scores):
+        return (truth - scores).square().mean()
+
+
+@register
+class RMSE(_PairwiseError):
+    """Root mean squared error."""
+
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _measure(truth, scores):
+        return (truth - scores).square().mean().sqrt()
+
+
+class _ProbNLL(EvalMetric):
+    """CrossEntropy and NegativeLogLikelihood: the sum of -log(p + eps)
+    of each row's probability for its label, over the rows."""
+
+    def __init__(self, name, eps=1e-12, output_names=None,
                  label_names=None):
         super().__init__(name, eps=eps, output_names=output_names,
                          label_names=label_names)
@@ -267,6 +456,83 @@ class CrossEntropy(EvalMetric):
             total = total - torch.log(chosen + self.eps).sum()
             count += rows
         return total, count
+
+
+@alias("ce")
+class CrossEntropy(_ProbNLL):
+    """Mean of -log(p + eps) of each row's probability for its label."""
+
+    def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
+                 label_names=None):
+        super().__init__(name, eps=eps, output_names=output_names,
+                         label_names=label_names)
+
+
+@alias("nll_loss")
+class NegativeLogLikelihood(_ProbNLL):
+    """CrossEntropy's rule under the name ``nll-loss``."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(name, eps=eps, output_names=output_names,
+                         label_names=label_names)
+
+
+@alias("pearsonr")
+class PearsonCorrelation(EvalMetric):
+    """Pearson's r of each batch's predictions and labels, averaged over
+    batches (numpy's ``corrcoef`` on the host)."""
+
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for truth, scores in zip(labels, preds):
+            check_label_shapes(truth, scores, False, True)
+            r = numpy.corrcoef(_host(scores).ravel(),
+                               _host(truth).ravel())[0, 1]
+            self._accum(float(r), 1)
+
+
+@register
+class Loss(EvalMetric):
+    """The mean of every output entry (a loss head's output), summed on
+    the device in float32."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, _, preds):
+        if isinstance(preds, ndarray.NDArray):
+            preds = [preds]
+        self._accum_device(*self.device_batch(None, preds))
+
+    def device_batch(self, labels, preds):
+        total, count = 0, 0
+        for scores in preds:
+            scores = _tensor(scores)
+            total = total + scores.float().sum()
+            count += scores.numel()
+        return total, count
+
+
+@register
+class Torch(Loss):
+    """Loss under the name ``torch``."""
+
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    """Loss under the name ``caffe``."""
+
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
 
 
 @register
@@ -318,6 +584,7 @@ class Perplexity(EvalMetric):
             numpy.exp(neg_log / count) if count > 0 else float("nan"), 1)
 
 
+@register
 class CustomMetric(EvalMetric):
     """A metric from ``feval(label, pred)`` of numpy arrays, returning a
     value (counted once) or a (sum, count) pair. It has no device rule:

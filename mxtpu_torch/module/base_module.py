@@ -1,9 +1,13 @@
 """BaseModule of the PyTorch port: the high-level training interface.
 
 Counterpart of ``mxtpu/module/base_module.py``: ``fit`` (its loop stages
-the next batch on the device while the current step runs), ``score``,
-``iter_predict`` / ``predict``, ``forward_backward``, and
-``save_params`` / ``load_params``.
+the next batch on the device while the current step runs; a ``monitor``
+is installed and opened and closed around each batch), ``score``,
+``iter_predict`` / ``predict``, ``forward_backward``, ``save_params`` /
+``load_params``, ``get_states`` / ``set_states``, and the interface a
+module implements (``data_names``, ``output_names``, ``data_shapes``,
+``label_shapes``, ``output_shapes``, ``get_input_grads``,
+``install_monitor``).
 """
 from __future__ import annotations
 
@@ -99,8 +103,7 @@ class BaseModule:
     def _eval_batches(self, eval_data, num_batch, reset):
         """Yield (index, batch) after an inference forward of each batch,
         up to ``num_batch`` batches."""
-        if not (self.binded and self.params_initialized):
-            raise RuntimeError("bind and initialize the parameters first")
+        self._require_bound_params()
         if reset:
             eval_data.reset()
         for idx, batch in enumerate(eval_data):
@@ -166,11 +169,11 @@ class BaseModule:
         """Train for ``num_epoch`` epochs; score ``eval_data`` after each."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        if monitor is not None:
-            raise NotImplementedError("Monitor is not ported")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -191,12 +194,16 @@ class BaseModule:
             batch = next(feed, None)
             nbatch = 0
             while batch is not None:
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(batch)
                 self.update()
                 upcoming = next(feed, None)
                 if upcoming is not None:
                     self.prepare(upcoming)
                 self.update_metric(eval_metric, batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if upcoming is None:
                     eval_name_vals = eval_metric.get_name_value()
                 _fire(batch_end_callback, epoch=epoch, nbatch=nbatch,
@@ -258,6 +265,23 @@ class BaseModule:
             groups[kind][name] = value
         self.set_params(groups["arg"], groups["aux"])
 
+    def get_states(self, merge_multi_context=True):
+        """The states of a module with state inputs (none here)."""
+        self._require_bound_params()
+        return []
+
+    def set_states(self, states=None, value=None):
+        self._require_bound_params()
+        if states or value:
+            raise ValueError("this module has no states")
+
+    def _require_bound_params(self):
+        if not (self.binded and self.params_initialized):
+            raise RuntimeError("bind and initialize the parameters first")
+
+    def install_monitor(self, mon):
+        raise NotImplementedError()
+
     def prepare(self, data_batch, sparse_row_id_fn=None):
         """Ready a batch before its step."""
 
@@ -269,6 +293,9 @@ class BaseModule:
         raise NotImplementedError()
 
     def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
         raise NotImplementedError()
 
     def update(self):
@@ -285,4 +312,25 @@ class BaseModule:
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
+        raise NotImplementedError()
+
+    # -- properties --------------------------------------------------------
+    @property
+    def data_names(self):
+        raise NotImplementedError()
+
+    @property
+    def output_names(self):
+        raise NotImplementedError()
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def output_shapes(self):
         raise NotImplementedError()

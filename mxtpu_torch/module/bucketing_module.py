@@ -267,6 +267,23 @@ class BucketingModule(BaseModule):
                                   sparse_row_id_fn=sparse_row_id_fn)
         self.switch_bucket(original, None, None)
 
+    def save_optimizer_states(self, fname):
+        """The buckets' one Updater's states (the current module's)."""
+        self._require(optimizer=True)
+        self._curr_module.save_optimizer_states(fname)
+
+    def load_optimizer_states(self, fname):
+        self._require(optimizer=True)
+        self._curr_module.load_optimizer_states(fname)
+
+    def get_states(self, merge_multi_context=True):
+        self._require(params=True)
+        return self._curr_module.get_states(merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        self._require(params=True)
+        self._curr_module.set_states(states, value)
+
     def install_monitor(self, mon):
         self._require()
         self._monitor = mon

@@ -236,6 +236,7 @@ class DataParallelExecutorGroup:
         self.input_grad_arrays = [per_exec(n, "grad_dict")
                                   for n in self.data_names] \
             if self.inputs_need_grad else None
+        self.state_arrays = [per_exec(n) for n in self.state_names]
 
     # -- params ------------------------------------------------------------
     def set_params(self, arg_params, aux_params, allow_extra=False):
@@ -313,6 +314,30 @@ class DataParallelExecutorGroup:
             return _merge_multi_context(self.input_grad_arrays,
                                         self.data_layouts)
         return self.input_grad_arrays
+
+    def get_states(self, merge_multi_context=True):
+        """The state inputs' arrays, one list (a array a context) a
+        state."""
+        if merge_multi_context:
+            raise ValueError("merge_multi_context=True is not supported "
+                             "for get_states yet.")
+        return self.state_arrays
+
+    def set_states(self, states=None, value=None):
+        """Copy ``states`` (as :meth:`get_states` gives them) into the
+        state arrays, or fill them with ``value``; one of the two."""
+        if (states is None) == (value is None):
+            raise ValueError("give one of states and value")
+        with torch.no_grad():
+            for i, d_dst in enumerate(self.state_arrays):
+                for k, dst in enumerate(d_dst):
+                    if states is None:
+                        dst.data.fill_(value)
+                    else:
+                        src = states[i][k] if isinstance(
+                            states[i], (list, tuple)) else states[i]
+                        dst.data.copy_(src.data if isinstance(src, NDArray)
+                                       else torch.as_tensor(src))
 
     def install_monitor(self, mon):
         for exe in self.execs:

@@ -5,7 +5,8 @@ Counterpart of ``mxtpu/module/module.py``'s eager step: ``bind``,
 copied to the context), ``init_optimizer`` (``rescale_grad`` = 1/batch;
 the optimizer runs at the kvstore when one updates there, else in the
 module's Updater), ``forward`` / ``backward`` / ``update`` /
-``update_metric``, ``get_params`` / ``set_params``, ``reshape``,
+``update_metric``, ``get_params`` / ``set_params``, ``get_states`` /
+``set_states`` (the ``state_names`` inputs), ``reshape``,
 ``bind(shared_module=)`` and ``borrow_optimizer`` (a bucketing module's
 buckets: one set of parameter arrays, one optimizer) and the checkpoint
 pair ``save_checkpoint`` / ``load``. The context defaults to the current
@@ -449,6 +450,19 @@ class Module(BaseModule):
         self._require(params=True)
         return self._exec_group.get_input_grads(
             merge_multi_context=merge_multi_context)
+
+    def get_states(self, merge_multi_context=True):
+        """The state inputs' arrays (``state_names``), a list of one array
+        a context for each state."""
+        self._require(params=True)
+        return self._exec_group.get_states(
+            merge_multi_context=merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        """Load ``states`` (as :meth:`get_states` gives them) into the
+        state inputs, or fill each with ``value``."""
+        self._require(params=True)
+        self._exec_group.set_states(states, value)
 
     def update_metric(self, eval_metric, labels):
         if self._fused is not None and self._fused.note_metric(eval_metric):

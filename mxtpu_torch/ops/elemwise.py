@@ -204,10 +204,22 @@ _UNARY = {
 _STEP = ("sign", "round", "rint", "ceil", "floor", "trunc", "fix",
          "logical_not")
 
+
+
+def _one_input(fn):
+    """``fn`` as a function of one named input, ``data``: the symbol
+    frontend reads an op's inputs from its signature, which torch's
+    builtins do not have."""
+    def op(data):
+        return fn(data)
+    op.__name__ = getattr(fn, "__name__", "unary")
+    return op
+
+
 for _n, _f in _UNARY.items():
     register(_n, differentiable=_n not in _STEP,
              aliases={"negative": ("_neg",),
-                      "abs": ("_abs",)}.get(_n, ()))(_f)
+                      "abs": ("_abs",)}.get(_n, ()))(_one_input(_f))
 
 
 @register("where")

@@ -5,9 +5,11 @@ Counterpart of ``mxtpu/optimizer.py``'s ``Optimizer`` (registry and
 ``set_wd_mult``, the symbol's ``__lr_mult__`` / ``__wd_mult__`` and
 ``param_dict``, ``rescale_grad``, ``clip_gradient``, ``lr_scheduler``,
 ``multi_precision``'s float32 master weights for float16 ones, update
-counts),
-``SGD`` (momentum and weight decay, the dense path), ``Adam``, and the
-``Updater`` with ``get_states`` / ``set_states``.
+counts), its 16 registered optimizers (``SGD`` on the dense path,
+``Signum``, ``FTML``, ``LBSGD``, ``DCASGD``, ``NAG``, ``SGLD``, ``ccSGD``,
+``Adam``, ``AdaGrad``, ``RMSProp``, ``AdaDelta``, ``Ftrl``, ``Adamax``,
+``Nadam``, ``Test``), and the ``Updater`` with ``get_states`` /
+``set_states``.
 
 An update runs in place on the weight's and the state's tensors under
 ``torch.no_grad()``, in ``mxtpu``'s order of operations (rescale, clip,
@@ -19,10 +21,21 @@ count ``t`` and the learning rate read from 0-dim tensors on the
 weight's device (``mxtpu``'s traced scalars), so that a step captured in
 a CUDA graph sees the schedule and Adam's bias correction move between
 replays; ``state_to_tree`` / ``tree_to_state`` convert a state slot
-between NDArrays and tensors.
+between NDArrays and tensors. Every factor an update derives from ``t``
+(``beta ** t``, Nadam's ``0.96 ** (t * decay)``, LBSGD's warmup) is then a
+float64 tensor computed from it, never a Python float, which a capture
+would freeze into the graph. State that ``mxtpu`` keeps on the optimizer
+stays on the device there too: Nadam's running ``m_schedule`` becomes a
+float64 0-dim tensor multiplied in place, once a parameter an update, in
+update order, as the Python float is in eager steps. LBSGD's ``lars``
+norms are sums on the device in both modes, and SGLD draws its noise
+from :func:`~mxtpu_torch.ops.registry.next_generator`, which inside the
+captured step is the step's registered generator.
 """
 from __future__ import annotations
 
+import logging
+import math
 import pickle
 import warnings
 
@@ -32,8 +45,11 @@ import torch
 from . import ndarray as nd
 from .context import cpu
 from .ndarray import NDArray
+from .ops.registry import next_generator
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "register",
+__all__ = ["Optimizer", "SGD", "Signum", "FTML", "LBSGD", "DCASGD", "NAG",
+           "SGLD", "ccSGD", "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "Test", "Updater", "create", "register",
            "get_updater", "functional_optimizer_step", "state_to_tree",
            "tree_to_state"]
 
@@ -225,6 +241,33 @@ register = Optimizer.register
 create = Optimizer.create_optimizer
 
 
+def _clip(g, bound):
+    """``g`` (a new tensor) clipped to +-bound in place wherever a bound
+    is given (``mxtpu``'s ``_clip``: any bound but None)."""
+    if bound is not None:
+        g.clamp_(-bound, bound)
+    return g
+
+
+def _float_count(t):
+    """The step count as the factors take it: a host int as it is, a
+    device count as a float64 tensor."""
+    return t.to(torch.float64) if isinstance(t, torch.Tensor) else t
+
+
+def _pow(base, exponent):
+    """``base ** exponent``: a Python float for a host exponent, a
+    float64 tensor for a device one."""
+    if isinstance(exponent, torch.Tensor):
+        return torch.pow(base, exponent)
+    return base ** exponent
+
+
+def _zeros_like(weight, dtype=None):
+    return nd.zeros(weight.shape, ctx=weight.context,
+                    dtype=weight.dtype if dtype is None else dtype)
+
+
 @register
 class SGD(Optimizer):
     """SGD, with momentum when ``momentum`` > 0:
@@ -241,6 +284,9 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         lr, wd = self._begin_update(index)
+        self._sgd_step(weight, grad, state, lr, wd)
+
+    def _sgd_step(self, weight, grad, state, lr, wd):
         with torch.no_grad():
             w = weight.data
             g = self._rescale_clip(grad.data, w, wd)
@@ -287,6 +333,440 @@ class Adam(Optimizer):
             mean.mul_(self.beta1).add_((1.0 - self.beta1) * g)
             var.mul_(self.beta2).add_((1.0 - self.beta2) * g.square())
             w.sub_(lr * mean / (var.sqrt() + self.epsilon))
+
+
+@register
+class Signum(Optimizer):
+    """signSGD without momentum, Signum with it: mom = momentum * mom -
+    (1 - momentum) * (g + wd * w); w = (1 - lr * wd_lh) * w + lr *
+    sign(mom)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.wd_lh = momentum, wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        clip = self.clip_gradient
+        with torch.no_grad():
+            w = weight.data
+            g = grad.data * self.rescale_grad
+            if clip is not None and clip >= 0:
+                g.clamp_(-clip, clip)
+            if state is not None:
+                mom = state.data
+                mom.mul_(self.momentum).sub_((1 - self.momentum)
+                                             * (g + wd * w))
+                w.copy_((1 - lr * self.wd_lh) * w + lr * torch.sign(mom))
+            else:
+                w.sub_(lr * (torch.sign(g) + wd * w))
+
+
+@register
+class FTML(Optimizer):
+    """FTML (Zheng and Kwok, 2017), state (d, v, z), with ``mxtpu``'s
+    ``ftml_update`` rule; its bias corrections come from ``t``."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight),
+                _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        t = _float_count(self._step_count(index))
+        clip = self.clip_gradient
+        with torch.no_grad():
+            w = weight.data
+            d, v, z = (s.data for s in state)
+            g = grad.data * self.rescale_grad
+            if clip is not None and clip >= 0:
+                g.clamp_(-clip, clip)
+            v.mul_(self.beta2).add_((1 - self.beta2) * g.square())
+            d_t = (1 - _pow(self.beta1, t)) / lr * (
+                (v / (1 - _pow(self.beta2, t))).sqrt() + self.epsilon)
+            sigma_t = d_t - self.beta1 * d
+            z.mul_(self.beta1).add_((1 - self.beta1) * g).sub_(sigma_t * w)
+            w.copy_(-z / d_t - lr * wd * w)
+            d.copy_(d_t)
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD: SGD whose rate is scaled by a warmup multiplier
+    (``linear``, ``power2``, ``sqrt``) of the update count, or by the
+    layer's LARS ratio (``lars``: sqrt(|w|^2 / (|g|^2 + wd |w|^2)),
+    clipped to [0.01, 100]). The count is ``num_update`` in eager steps
+    and the device's ``t`` in the captured one; the LARS sums stay on the
+    device in both."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(**kwargs)
+        logging.info("Running Large-Batch SGD Algorithm")
+        logging.info("(Batch_scale=%f, warmup_epochs=%d, warmup_strategy=%s, "
+                     "updates_per_epoch=%d)", batch_scale, warmup_epochs,
+                     warmup_strategy, updates_per_epoch)
+        self.momentum, self.multi_precision = momentum, multi_precision
+        self.warmup_strategy, self.warmup_epochs = (warmup_strategy,
+                                                    warmup_epochs)
+        self.batch_scale, self.updates_per_epoch = (batch_scale,
+                                                    updates_per_epoch)
+        self.init_updates = begin_epoch * updates_per_epoch
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def _get_lbmult(self, nup):
+        """The warmup multiplier at update ``nup`` (an int, or a float64
+        tensor: then every branch is a tensor expression)."""
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        strategy = self.warmup_strategy
+        maxmult = float(self.batch_scale)
+        if nwup <= 1:
+            ramp = 1.0
+        elif strategy == "linear":
+            ramp = 1.0 + (maxmult - 1) * nup / nwup
+        elif strategy == "power2":
+            ramp = 1.0 + (maxmult - 1) * (nup * nup) / (nwup * nwup)
+        elif strategy == "sqrt":
+            root = nup.div(nwup).sqrt() if isinstance(nup, torch.Tensor) \
+                else math.sqrt(float(nup) / nwup)
+            ramp = 1.0 + (maxmult - 1) * root
+        else:
+            ramp = 1.0
+        if isinstance(nup, torch.Tensor):
+            # filled on the device: a tensor made from a Python value
+            # would be a copy from the host, which a capture refuses
+            if not isinstance(ramp, torch.Tensor):
+                ramp = torch.full_like(nup, ramp)
+            return torch.where(nup >= nwup, torch.full_like(nup, maxmult),
+                               ramp)
+        return maxmult if nup >= nwup else ramp
+
+    @staticmethod
+    def _get_lars(weight, grad, wd):
+        w2 = (weight * weight).sum().to(torch.float64)
+        g2 = (grad * grad).sum().to(torch.float64)
+        return torch.sqrt(w2 / (g2 + wd * w2 + 1e-18)).clamp(0.01, 100)
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        if self.warmup_strategy == "lars":
+            with torch.no_grad():
+                lbmult = self._get_lars(weight.data, grad.data, wd)
+        else:
+            t = self._step_count(index)
+            nup = _float_count(t) + self.init_updates \
+                if isinstance(t, torch.Tensor) \
+                else self.num_update + self.init_updates
+            lbmult = self._get_lbmult(nup)
+        self._sgd_step(weight, grad, state, lr * lbmult, wd)
+
+    _sgd_step = SGD._sgd_step
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated SGD: the state holds the momentum (or None) and
+    the previous weight, both written in place."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum, self.lamda = momentum, lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else _zeros_like(weight)
+        return (mom, weight.copy())
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        with torch.no_grad():
+            w = weight.data
+            mom, previous = state
+            prev = previous.data
+            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            comp = g + wd * w + self.lamda * g * g * (w - prev)
+            if mom is not None:
+                mom.data.mul_(self.momentum).sub_(lr * comp)
+                delta = mom.data
+            else:
+                delta = -lr * comp
+            prev.copy_(w)
+            w.add_(delta)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov's accelerated SGD: mom = momentum * mom + g; w -= lr *
+    (momentum * mom + g), with g = rescaled, clipped grad + wd * w."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = float(momentum)
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        with torch.no_grad():
+            w = weight.data
+            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            g = g + wd * w
+            if state is not None:
+                mom = state.data
+                mom.mul_(self.momentum).add_(g)
+                g = self.momentum * mom + g
+            w.sub_(lr * g)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: w -= lr / 2 * (g + wd *
+    w), plus N(0, lr) noise drawn from ``next_generator()`` (the step's
+    generator inside the captured step, so each replay draws anew)."""
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        with torch.no_grad():
+            w = weight.data
+            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            gen = next_generator()
+            noise = torch.randn(w.shape, generator=gen, device=gen.device,
+                                dtype=w.dtype).to(w.device)
+            scale = lr.sqrt() if isinstance(lr, torch.Tensor) \
+                else math.sqrt(lr)
+            w.sub_(lr / 2 * (g + wd * w)).add_(noise * scale)
+
+
+@register
+class ccSGD(SGD):
+    """The deprecated name of SGD."""
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: history += g^2; w -= lr * (g / sqrt(history + eps) + wd *
+    w)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        with torch.no_grad():
+            w = weight.data
+            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            history = state.data
+            history.add_(g * g)
+            w.sub_(lr * (g / torch.sqrt(history + self.float_stable_eps)
+                         + wd * w))
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (Tieleman and Hinton), or with ``centered`` Graves's
+    variant with state (n, g, delta); ``clip_weights`` clips the new
+    weight."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.centered, self.epsilon = centered, epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        count = 3 if self.centered else 1
+        return tuple(_zeros_like(weight) for _ in range(count))
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        cw = self.clip_weights
+        with torch.no_grad():
+            w = weight.data
+            g = self._rescale_clip(grad.data, w, wd)
+            n = state[0].data
+            n.mul_(self.gamma1).add_((1 - self.gamma1) * g.square())
+            if not self.centered:
+                w.sub_(lr * g / torch.sqrt(n + self.epsilon))
+            else:
+                g_avg, delta = state[1].data, state[2].data
+                g_avg.mul_(self.gamma1).add_((1 - self.gamma1) * g)
+                delta.mul_(self.gamma2).sub_(
+                    lr * g / torch.sqrt(n - g_avg.square() + self.epsilon))
+                w.add_(delta)
+            if cw is not None and cw > 0:
+                w.clamp_(-cw, cw)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (Zeiler, 2012), state (acc_g, acc_delta); no learning
+    rate."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight, _np.float32),
+                _zeros_like(weight, _np.float32))
+
+    def update(self, index, weight, grad, state):
+        if self._step_scalars is None:
+            self._update_count(index)
+        wd = self._get_wd(index)
+        with torch.no_grad():
+            w = weight.data
+            acc_g, acc_delta = (s.data for s in state)
+            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            acc_g.mul_(self.rho).add_((1.0 - self.rho) * g * g)
+            current = torch.sqrt(acc_delta + self.epsilon) \
+                / torch.sqrt(acc_g + self.epsilon) * g
+            acc_delta.mul_(self.rho).add_((1.0 - self.rho) * current
+                                          * current)
+            w.copy_(w - current - wd * w)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-Proximal (McMahan et al., 2013), state (z, n), with
+    ``mxtpu``'s ``ftrl_update`` rule."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        clip = self.clip_gradient
+        with torch.no_grad():
+            w = weight.data
+            z, n = (s.data for s in state)
+            g = grad.data * self.rescale_grad
+            if clip is not None and clip >= 0:
+                g.clamp_(-clip, clip)
+            sqrt_n = n.sqrt()
+            n.add_(g.square())
+            sigma = (n.sqrt() - sqrt_n) / lr
+            z.add_(g).sub_(sigma * w)
+            w.copy_(torch.where(
+                z.abs() > self.lamda1,
+                -(z - torch.sign(z) * self.lamda1)
+                / ((self.beta + n.sqrt()) / lr + wd),
+                torch.zeros_like(w)))
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax (Kingma and Ba, section 7): the infinity norm in place of
+    Adam's second moment; the rate corrected by 1 - beta1 ** t."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        t = _float_count(self._step_count(index))
+        lr = lr / (1.0 - _pow(self.beta1, t))
+        with torch.no_grad():
+            w = weight.data
+            m_t, u_t = (s.data for s in state)
+            g = _clip(grad.data * self.rescale_grad + wd * w,
+                      self.clip_gradient)
+            m_t.mul_(self.beta1).add_((1.0 - self.beta1) * g)
+            torch.maximum(self.beta2 * u_t, g.abs(), out=u_t)
+            w.sub_(lr * m_t / (u_t + 1e-12))
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov-accelerated Adam (Dozat, 2016). ``m_schedule`` is the
+    product of every momentum_t so far, taken once a parameter an update
+    in update order, as ``mxtpu`` takes it: a Python float in eager
+    steps, and from the first step on the device a float64 0-dim tensor
+    multiplied in place (a captured step then carries it across
+    replays)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def _advance_schedule(self, momentum_t, t):
+        """m_schedule *= momentum_t; the new product."""
+        ms = self.m_schedule
+        if isinstance(t, torch.Tensor) and not isinstance(ms, torch.Tensor):
+            ms = self.m_schedule = torch.tensor(
+                float(ms), dtype=torch.float64, device=t.device)
+        if isinstance(ms, torch.Tensor):
+            return ms.mul_(momentum_t)
+        self.m_schedule = ms * momentum_t
+        return self.m_schedule
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._begin_update(index)
+        t = _float_count(self._step_count(index))
+        decay = self.schedule_decay
+        momentum_t = self.beta1 * (1.0 - 0.5 * _pow(0.96, t * decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * _pow(0.96, (t + 1) * decay))
+        with torch.no_grad():
+            m_schedule = self._advance_schedule(momentum_t, t)
+            m_schedule_next = m_schedule * momentum_t_1
+            w = weight.data
+            m_t, v_t = (s.data for s in state)
+            g = _clip(grad.data * self.rescale_grad + wd * w,
+                      self.clip_gradient)
+            m_t.mul_(self.beta1).add_((1.0 - self.beta1) * g)
+            v_t.mul_(self.beta2).add_((1.0 - self.beta2) * g * g)
+            grad_prime = g / (1.0 - m_schedule)
+            m_t_prime = m_t / (1.0 - m_schedule_next)
+            v_t_prime = v_t / (1.0 - _pow(self.beta2, t))
+            m_t_bar = (1.0 - momentum_t) * grad_prime \
+                + momentum_t_1 * m_t_prime
+            w.sub_(lr * m_t_bar / (torch.sqrt(v_t_prime) + self.epsilon))
+
+
+@register
+class Test(Optimizer):
+    """The test optimizer: w += rescale_grad * grad; the state takes the
+    new weight. It counts no update, as in ``mxtpu``."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight, _np.float32)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            weight.data.add_(grad.data * self.rescale_grad)
+            state.data.copy_(weight.data)
 
 
 def state_to_tree(state):

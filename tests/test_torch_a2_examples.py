@@ -9,9 +9,12 @@ Each mirror's main runs on the port's CPU to the example's own asserts.
 Each one's first steps run in both packages from the same weights (drawn
 by the port, carried to ``mxtpu``) and the same batches: the weights
 after FIT_STEPS steps (the losses and image for the two Gluon loops)
-within ``TOL``. ``train_ndsb2``'s net has a training-mode Dropout, whose
-masks the two packages draw from different generators, so it is held on
-an inference forward instead.
+within ``TOL``; ``mxtpu``'s Module steps take its fused step (one
+compiled program a step), the port's its eager one, as the card phase's.
+``train_ndsb2``'s net has a training-mode Dropout, whose masks the two
+packages draw from different generators, so it is held on an inference
+forward instead. Under pytest-xdist the file shares the cores among the
+workers (``torch_threads``).
 """
 import importlib.util
 import pathlib
@@ -21,6 +24,7 @@ import pytest
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -69,7 +73,7 @@ def _module_first_steps(build, it_fn, init, opt, opt_params,
     with mx.name.NameManager():
         sym_j = build(mx)
     want = cs.module_steps(mx, mx.cpu(), sym_j, it_fn(mx), args, auxs, opt,
-                           opt_params, label_names=label_names)
+                           opt_params, label_names=label_names, fused=True)
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)

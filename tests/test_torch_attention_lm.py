@@ -9,6 +9,11 @@ once); here it runs on the CPU, where flash attention runs its plain
 versions, against jax.value_and_grad of the example's loss_fn over a
 one-device mesh (ring attention with one step).
 
+mxtpu's side runs under one ``jax.jit`` a case (its Pallas flash kernels
+in interpret mode then compile once instead of dispatching each op), and
+under pytest-xdist the file shares the cores among the workers
+(``torch_threads``).
+
 Tolerances: attention values 2e-5 and gradients 3e-5, as
 tests/test_pallas_attention.py; the LM's loss 1e-5 relative and its
 gradients 1e-5 absolute (|g| <= 0.1, f32 sums of 2,048 positions in
@@ -16,6 +21,7 @@ another order); Adam's weights 3e-5, because an update of size lr
 whatever the gradient turns a last-bit difference in a near-zero
 gradient into a visible one.
 """
+import functools
 import importlib
 import importlib.util
 import pathlib
@@ -28,6 +34,7 @@ import torch
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 from mxtpu.parallel import MeshContext
 
 jra = importlib.import_module("mxtpu.parallel.ring_attention")
@@ -74,8 +81,8 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("causal", [False, True])
 def test_local_attention_matches_mxtpu(impl, causal):
     a = _qkv((1, 2, 128, 32), 41)
-    want = jra.local_attention(*map(jnp.asarray, a), causal=causal,
-                               impl=impl)
+    want = jax.jit(functools.partial(jra.local_attention, causal=causal,
+                                     impl=impl))(*map(jnp.asarray, a))
     got = tra.local_attention(*map(torch.from_numpy, a), causal=causal,
                               impl=impl)
     _close(got, want, F32_TOL)
@@ -86,8 +93,8 @@ def test_local_attention_offsets_and_gradients():
     kw = dict(causal=True, q_offset=128, k_offset=64)
 
     def jloss(impl):
-        return jax.grad(lambda q, k, v: jnp.sum(jra.local_attention(
-            q, k, v, impl=impl, **kw) ** 2), argnums=(0, 1, 2))(
+        return jax.jit(jax.grad(lambda q, k, v: jnp.sum(jra.local_attention(
+            q, k, v, impl=impl, **kw) ** 2), argnums=(0, 1, 2)))(
                 *map(jnp.asarray, a))
     for impl in ("flash", "xla"):
         t = [torch.from_numpy(x).requires_grad_() for x in a]
@@ -98,8 +105,9 @@ def test_local_attention_offsets_and_gradients():
 
 def test_local_attention_alibi_forces_the_dense_path():
     a = _qkv((1, 4, 128, 16), 45)
-    want = jra.local_attention(*map(jnp.asarray, a), causal=True,
-                               impl="flash", alibi=True)
+    want = jax.jit(functools.partial(
+        jra.local_attention, causal=True, impl="flash", alibi=True))(
+            *map(jnp.asarray, a))
     got = tra.local_attention(*map(torch.from_numpy, a), causal=True,
                               impl="flash", alibi=True)
     _close(got, want, F32_TOL)
@@ -164,16 +172,17 @@ def test_sym_flash_attention_matches_mxtpu():
 def lm_case(example):
     """The example's weights (its init_params from PRNGKey(0)) as numpy,
     one batch of its copy task as numpy tokens, and JAX's loss and
-    gradients over a one-device mesh."""
+    gradients over a one-device mesh (one jitted program)."""
     params = {k: np.array(v) for k, v in
               example.init_params(jax.random.PRNGKey(0)).items()}
     rng = np.random.RandomState(7)
     head = rng.randint(0, example.VOCAB, (8, example.PERIOD))
     tokens = np.tile(head, (1, 17))[:, :example.SEQ + 1].astype(np.int32)
     mesh = MeshContext(jax.devices()[:1], seq=1)
-    loss, grads = jax.value_and_grad(example.loss_fn)(
-        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(tokens),
-        mesh)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, t: example.loss_fn(p, t, mesh)))(
+            {k: jnp.asarray(v) for k, v in params.items()},
+            jnp.asarray(tokens))
     return params, tokens, mesh, float(loss), \
         {k: np.array(g) for k, g in grads.items()}
 

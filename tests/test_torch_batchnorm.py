@@ -24,6 +24,7 @@ import mxtpu as mx
 import mxtpu_torch as mt
 from mxtpu.ops.registry import get_op as jax_op
 from mxtpu_torch.ops.registry import get_op as torch_op
+from torch_threads import torch_threads_shared  # noqa: F401
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)

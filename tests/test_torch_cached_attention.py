@@ -27,6 +27,7 @@ import mxtpu.ops.nn as jnn
 import mxtpu_torch as mt
 import mxtpu_torch.ops.nn as tnn
 from mxtpu_torch.parallel.moe import moe_capacity, moe_dispatch
+from torch_threads import torch_threads_shared  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = 1e-5

@@ -23,6 +23,7 @@ import pytest
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))

@@ -13,6 +13,7 @@ import torch
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)

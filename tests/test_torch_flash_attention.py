@@ -28,6 +28,7 @@ import torch
 
 from mxtpu.ops import pallas_attention as jfa
 from mxtpu_torch.ops import flash_attention as fa
+from torch_threads import torch_threads_shared  # noqa: F401
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=3e-5, rtol=3e-5)

@@ -23,6 +23,7 @@ import mxtpu as mx
 import mxtpu_torch as mt
 from mxtpu_torch import fault
 from mxtpu_torch.serving import GenerateScheduler, InferenceEngine
+from torch_threads import torch_threads_shared  # noqa: F401
 
 V, D, S = 17, 8, 16
 

@@ -14,6 +14,7 @@ import torch
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -26,6 +26,7 @@ import pytest
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 STEP_SHARE = 0.5

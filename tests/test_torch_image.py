@@ -28,6 +28,7 @@ import mxtpu as mx
 import mxtpu_torch as mt
 from mxtpu import _image_worker as mx_worker
 from mxtpu_torch import _image_worker as mt_worker
+from torch_threads import torch_threads_shared  # noqa: F401
 
 RTOL = 1e-5
 SEEDS = 64

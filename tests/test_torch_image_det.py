@@ -21,6 +21,7 @@ import mxtpu as mx
 import mxtpu_torch as mt
 from mxtpu import image_detection as mx_det
 from mxtpu_torch import image_detection as mt_det
+from torch_threads import torch_threads_shared  # noqa: F401
 
 IMG_ATOL = 255 * 1e-5
 

@@ -26,6 +26,7 @@ import pytest
 import mxtpu as mx
 import mxtpu_torch as mt
 from mxtpu_torch import image as mt_image
+from torch_threads import torch_threads_shared  # noqa: F401
 
 N_RECORDS, BATCH = 37, 8
 LEVEL2 = dict(data_shape=(3, 28, 28), batch_size=BATCH,

@@ -11,6 +11,7 @@ import pathlib
 import pytest
 
 from test_torch_resnet import check_fit
+from torch_threads import torch_threads_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

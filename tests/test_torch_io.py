@@ -16,6 +16,7 @@ import pytest
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 N, BATCH = 23, 5
 

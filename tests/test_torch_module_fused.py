@@ -34,6 +34,7 @@ import mxtpu as mx
 import mxtpu_torch as mt
 from mxtpu_torch.base import CaptureRefused
 from mxtpu_torch.module import fused as mt_fused
+from torch_threads import torch_threads_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIT_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -30,6 +30,7 @@ import mxtpu_torch as mt
 from mxtpu.module.fused import _fused_eligible as mx_eligible
 from mxtpu.ops.registry import get_op as jax_op
 from mxtpu_torch.module.fused import _fused_eligible as mt_eligible
+from torch_threads import torch_threads_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 OP_TOL = dict(rtol=1e-6, atol=1e-6)

@@ -39,6 +39,7 @@ import mxtpu as mx
 import mxtpu_torch as mt
 from mxtpu.ops.registry import get_op as jax_op
 from mxtpu_torch.ops.registry import get_op as torch_op
+from torch_threads import torch_threads_shared  # noqa: F401
 
 TOL = 1e-5
 

@@ -25,6 +25,7 @@ import torch
 
 from mxtpu.ops import registry as jax_registry
 from mxtpu_torch.ops import registry as torch_registry
+from torch_threads import torch_threads_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # gradients in float32: the two packages order their sums differently

@@ -11,10 +11,19 @@ for weights and states of magnitude about 1. The constructor keywords
 that fit.py passes (``multi_precision``) or that Gluon's Trainer passes
 (``param_dict``) are held the same way, and SGD's weight decay, which
 skips gamma and beta (their ``wd_mult`` is 0), eagerly and through the
-functional step that the captured train step runs.
+functional step that the captured train step runs. Every optimizer of
+``mxtpu``'s registry has a case; through ``functional_optimizer_step``
+each runs with no host read of ``t`` or ``lr``, no tensor made from
+Python values after its first step (a copy from the host, which a capture
+refuses) and no Python state on the optimizer that changes from step to
+step (what a captured graph would freeze), and gives the eager update's
+weights and states. SGLD's noise
+is held by its band (mean and deviation of (w' - rule) / sqrt(lr)) in
+both packages, and its noise-free part by value.
 """
 import types
 
+from torch.overrides import TorchFunctionMode
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -22,6 +31,7 @@ import pytest
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 SHAPES = {"fc_weight": (6, 5), "fc_bias": (6,), "bn_gamma": (6,)}
@@ -49,6 +59,48 @@ CASES = {
     "adam_param_dict": ("adam", dict(learning_rate=0.01, wd=1e-2,
                                      param_dict={1: (2.0, 1.0)})),
 }
+# the other optimizers of mxtpu's registry, each with the momentum, wd,
+# clip and rescale it takes (SGLD draws noise: test_sgld_* below)
+COMMON = dict(wd=1e-2, clip_gradient=0.8, rescale_grad=0.5)
+CASES.update({
+    "signum": ("signum", dict(learning_rate=0.01, momentum=0.9, wd_lh=1e-3,
+                              **COMMON)),
+    "signsgd": ("signum", dict(learning_rate=0.01, momentum=0.0, **COMMON)),
+    "ftml": ("ftml", dict(learning_rate=0.01, **COMMON)),
+    "lbsgd_linear": ("lbsgd", dict(learning_rate=0.1, momentum=0.9,
+                                   warmup_epochs=1, updates_per_epoch=4,
+                                   batch_scale=4, **COMMON)),
+    "lbsgd_power2": ("lbsgd", dict(learning_rate=0.1, warmup_epochs=1,
+                                   updates_per_epoch=3,
+                                   warmup_strategy="power2", batch_scale=3,
+                                   **COMMON)),
+    "lbsgd_sqrt": ("lbsgd", dict(learning_rate=0.1, momentum=0.5,
+                                 warmup_epochs=2, updates_per_epoch=2,
+                                 warmup_strategy="sqrt", batch_scale=2,
+                                 begin_epoch=1, **COMMON)),
+    "lbsgd_lars": ("lbsgd", dict(learning_rate=0.1, momentum=0.9,
+                                 warmup_strategy="lars", **COMMON)),
+    "dcasgd": ("dcasgd", dict(learning_rate=0.1, momentum=0.9, **COMMON)),
+    "dcasgd_no_momentum": ("dcasgd", dict(learning_rate=0.1, lamda=0.1,
+                                          **COMMON)),
+    "nag": ("nag", dict(learning_rate=0.1, momentum=0.9, **COMMON)),
+    "nag_factor_scheduler": ("nag", dict(learning_rate=0.2, momentum=0.5,
+                                         scheduler=(1, 0.5))),
+    "ccsgd": ("ccsgd", dict(learning_rate=0.1, momentum=0.9, **COMMON)),
+    "adagrad": ("adagrad", dict(learning_rate=0.1, eps=1e-6, **COMMON)),
+    "rmsprop": ("rmsprop", dict(learning_rate=0.01, clip_weights=1.5,
+                                **COMMON)),
+    "rmsprop_centered": ("rmsprop", dict(learning_rate=0.01, centered=True,
+                                         **COMMON)),
+    "adadelta": ("adadelta", dict(rho=0.9, epsilon=1e-4, **COMMON)),
+    "ftrl": ("ftrl", dict(learning_rate=0.1, lamda1=0.05, beta=1.5,
+                          **COMMON)),
+    "adamax": ("adamax", dict(learning_rate=0.01, **COMMON)),
+    "nadam": ("nadam", dict(learning_rate=0.01, **COMMON)),
+    "nadam_fit_keywords": ("nadam", dict(learning_rate=0.01, wd=1e-4,
+                                         multi_precision=True)),
+    "test": ("test", dict(rescale_grad=0.5)),
+})
 
 
 def _sym(pkg):
@@ -146,8 +198,13 @@ def test_updater_matches_mxtpu(case):
             assert len(gs[i]) == len(ws[i])
             for a, b in zip(gs[i], ws[i]):
                 np.testing.assert_allclose(a, b, **TOL)
-    assert got_opt.num_update == want_opt.num_update == 3
+    # Test counts no update
+    assert got_opt.num_update == want_opt.num_update == \
+        (0 if name == "test" else 3)
     assert got_opt.learning_rate == pytest.approx(want_opt.learning_rate)
+    if name == "nadam":     # one product a parameter an update
+        assert got_opt.m_schedule == pytest.approx(want_opt.m_schedule,
+                                                   rel=1e-12)
 
 
 @pytest.mark.parametrize("case", ["sgd_momentum_wd_rescale",
@@ -315,3 +372,167 @@ def test_sgd_weight_decay_skips_gamma_and_beta(path):
         rule = w0[n] - 0.1 * (g0[n] + wd * w0[n])
         np.testing.assert_allclose(got[n], want[n], **TOL, err_msg=n)
         np.testing.assert_allclose(got[n], rule, **TOL, err_msg=n)
+
+
+class NoHostRead(TorchFunctionMode):
+    """Raise on any read of a tensor's value into Python (inside a
+    captured step such a value would be frozen into the graph) and, with
+    ``strict``, on any tensor made from Python values (a copy from the
+    host, which a capture refuses: only a first, uncaptured step may make
+    the state it keeps)."""
+
+    BANNED = {torch.Tensor.item, torch.Tensor.__bool__,
+              torch.Tensor.__float__, torch.Tensor.__int__,
+              torch.Tensor.__index__, torch.Tensor.tolist,
+              torch.Tensor.numpy}
+    FROM_HOST = {torch.tensor, torch.as_tensor, torch.Tensor.new_tensor}
+
+    def __init__(self, strict=False):
+        super().__init__()
+        self.strict = strict
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.BANNED or (self.strict and func in self.FROM_HOST):
+            raise AssertionError("host read or copy: %s" % func)
+        return func(*args, **(kwargs or {}))
+
+
+def _host_state(opt):
+    """The optimizer's Python scalars, and which tensor each tensor
+    attribute is: a captured step replays on the tensors it saw, so
+    neither may change from step to step."""
+    return {k: v if isinstance(v, (bool, int, float)) else id(v)
+            for k, v in vars(opt).items()
+            if isinstance(v, (bool, int, float, torch.Tensor))}
+
+
+def _run_functional(name, kw, steps, generator=None):
+    """The port's weights and states after each step through
+    functional_optimizer_step, as the fused step drives it: t advanced
+    on the device before the step's updates, lr written when the schedule
+    moves."""
+    w0, grads = _data(steps)
+    opt = _make(mt, name, kw, dict(enumerate(NAMES)))
+    weights = {n: torch.tensor(w0[n]) for n in NAMES}
+    states = [mt.optimizer.state_to_tree(opt.create_state_multi_precision(
+        i, mt.nd.array(w0[n], ctx=mt.cpu()))) for i, n in enumerate(NAMES)]
+    t = torch.tensor(0, dtype=torch.int32)
+    lr = torch.tensor(0.0)
+    trace, frozen = [], None
+    for step, g in enumerate(grads, 1):
+        sched = opt.lr_scheduler
+        lr.fill_(sched(step) if sched is not None else opt.lr)
+        t.add_(1)
+        scope = mt.ops.registry.rng_scope(generator) \
+            if generator is not None else NoHostRead()
+        grads = {n: torch.tensor(g[n]) for n in NAMES}
+        with scope, NoHostRead(strict=step > 1):
+            for i, n in enumerate(NAMES):
+                mt.optimizer.functional_optimizer_step(
+                    opt, i, weights[n], grads[n], states[i], t, lr)
+        if frozen is None:
+            frozen = _host_state(opt)
+        assert _host_state(opt) == frozen, "host state moved"
+        trace.append(({n: weights[n].numpy().copy() for n in NAMES},
+                      {i: [x.numpy().copy() for x in
+                           mt.module.fused._leaves(
+                               mt.optimizer.tree_to_state(states[i]))]
+                       for i in range(len(NAMES))}))
+    return trace, opt
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_functional_step_matches_eager(case):
+    """The captured step's update against the port's eager Updater,
+    within TOL after 1 and 3 steps; Nadam's m_schedule a device scalar
+    equal to the eager product."""
+    name, kw = CASES[case]
+    want, want_opt = _run_updater(mt, name, kw, 3)
+    got, got_opt = _run_functional(name, kw, 3)
+    for step in (0, 2):
+        (gw, gs), (ww, ws) = got[step], want[step]
+        for n in NAMES:
+            np.testing.assert_allclose(gw[n], ww[n], **TOL,
+                                       err_msg="%s %s" % (case, n))
+        for i in ws:
+            assert len(gs[i]) == len(ws[i])
+            for a, b in zip(gs[i], ws[i]):
+                np.testing.assert_allclose(a, b, **TOL)
+    if name == "nadam":
+        assert isinstance(got_opt.m_schedule, torch.Tensor)
+        assert float(got_opt.m_schedule) == pytest.approx(
+            want_opt.m_schedule, rel=1e-12)
+
+
+SGLD_KW = dict(learning_rate=0.01, wd=1e-2, clip_gradient=0.8,
+               rescale_grad=0.5)
+SGLD_SHAPES = {"fc_weight": (100, 100), "fc_bias": (100,)}
+
+
+def _sgld_rule(w, g):
+    """SGLD's step without its noise, in float32 as both compute it."""
+    lr, wd = np.float32(SGLD_KW["learning_rate"]), np.float32(SGLD_KW["wd"])
+    g = np.clip(g * np.float32(SGLD_KW["rescale_grad"]), -0.8, 0.8)
+    return w - lr / np.float32(2) * (g + wd * w)
+
+
+def test_sgld_noise_free_part_and_band():
+    """Three SGLD steps of two parameters in both packages: each step's
+    noise, (w' - rule(w)) / sqrt(lr), has mean within 0.05 of 0 and
+    deviation within 0.05 of 1 over the 10,100 entries (5 and 7 standard
+    errors); the port's noise is the generator's own draw, so its
+    noise-free part equals the rule within TOL."""
+    rng = np.random.RandomState(3)
+    names = sorted(SGLD_SHAPES)
+    w0 = {n: rng.standard_normal(s).astype(np.float32)
+          for n, s in SGLD_SHAPES.items()}
+    grads = [{n: rng.standard_normal(s).astype(np.float32)
+              for n, s in SGLD_SHAPES.items()} for _ in range(3)]
+    scale = np.sqrt(SGLD_KW["learning_rate"])
+    for pkg in (mt, mx):
+        opt = pkg.optimizer.create("sgld", **SGLD_KW)
+        updater = pkg.optimizer.get_updater(opt)
+        weights = {n: pkg.nd.array(w0[n], ctx=pkg.cpu()) for n in names}
+        gen = torch.Generator().manual_seed(7)
+        for g in grads:
+            before = {n: weights[n].asnumpy() for n in names}
+            noise = []
+            for i, n in enumerate(names):
+                draw = torch.Generator().set_state(gen.get_state())
+                if pkg is mt:
+                    with mt.ops.registry.rng_scope(gen):
+                        updater(i, pkg.nd.array(g[n], ctx=pkg.cpu()),
+                                weights[n])
+                else:
+                    updater(i, pkg.nd.array(g[n]), weights[n])
+                rest = weights[n].asnumpy() - _sgld_rule(before[n], g[n])
+                if pkg is mt:
+                    mine = torch.randn(SGLD_SHAPES[n], generator=draw)
+                    np.testing.assert_allclose(
+                        rest, mine.numpy() * np.float32(scale), **TOL)
+                noise.append(rest.ravel() / scale)
+            noise = np.concatenate(noise)
+            assert abs(noise.mean()) < 0.05, (pkg.__name__, noise.mean())
+            assert abs(noise.std() - 1.0) < 0.05, (pkg.__name__,
+                                                   noise.std())
+
+
+def test_sgld_functional_draws_the_step_generator():
+    """Through functional_optimizer_step SGLD draws from the generator
+    in scope (the captured step's), the numbers the eager update draws
+    from a generator in the same state."""
+    eager = {}
+    w0, grads = _data(3)
+    opt = _make(mt, "sgld", SGLD_KW, dict(enumerate(NAMES)))
+    updater = mt.optimizer.get_updater(opt)
+    gen = torch.Generator().manual_seed(5)
+    weights = {n: mt.nd.array(w0[n], ctx=mt.cpu()) for n in NAMES}
+    with mt.ops.registry.rng_scope(gen):
+        for g in grads:
+            for i, n in enumerate(NAMES):
+                updater(i, mt.nd.array(g[n], ctx=mt.cpu()), weights[n])
+    eager = {n: weights[n].asnumpy() for n in NAMES}
+    got, _ = _run_functional("sgld", SGLD_KW, 3,
+                             generator=torch.Generator().manual_seed(5))
+    for n in NAMES:
+        np.testing.assert_allclose(got[2][0][n], eager[n], **TOL)

@@ -14,6 +14,7 @@ import pytest
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 PKGS = {"mxtpu": mx, "port": mt}
 CROSS = [("mxtpu", "port"), ("port", "mxtpu")]

@@ -20,6 +20,7 @@ import pytest
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 T, N, C, H = 5, 8, 16, 32

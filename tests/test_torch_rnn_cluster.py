@@ -16,6 +16,7 @@ import torch
 
 from mxtpu.ops import pallas_rnn
 from mxtpu_torch.ops import rnn_scan
+from torch_threads import torch_threads_shared  # noqa: F401
 
 # the decomposition against the plain loop, both in f32: the same
 # products summed in another order over at most 200 terms a step

@@ -29,6 +29,7 @@ from mxtpu.ops import pallas_rnn
 from mxtpu.ops import rnn as jrnn
 from mxtpu_torch.ops import rnn as trnn
 from mxtpu_torch.ops import rnn_scan
+from torch_threads import torch_threads_shared  # noqa: F401
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -7)

@@ -8,6 +8,7 @@ import torch
 import mxtpu as mx
 from mxtpu.ops import rnn as jrnn
 from mxtpu_torch.ops import rnn as trnn
+from torch_threads import torch_threads_shared  # noqa: F401
 
 # f32 over at most 2 layers x 5 steps of width 4-6: summation order only
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -13,6 +13,7 @@ import torch
 
 from mxtpu.ops import pallas_rnn
 from mxtpu_torch.ops import rnn_scan
+from torch_threads import torch_threads_shared  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

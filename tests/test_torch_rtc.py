@@ -20,6 +20,7 @@ import mxtpu as mx
 import mxtpu.rtc as jrtc
 import mxtpu_torch as mt
 import mxtpu_torch.rtc as trtc
+from torch_threads import torch_threads_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-6, atol=1e-6)

@@ -9,6 +9,7 @@ import mxtpu as mx
 import mxtpu.serving
 import mxtpu_torch as mt
 import mxtpu_torch.serving
+from torch_threads import torch_threads_shared  # noqa: F401
 
 V, E, H, L, T = 50, 16, 16, 2, 8
 BUCKETS = (1, 4, 8)

@@ -8,6 +8,7 @@ import pytest
 
 import mxtpu as mx
 import mxtpu_torch as mt
+from torch_threads import torch_threads_shared  # noqa: F401
 
 V, E, H, L, T = 50, 16, 16, 2, 8
 

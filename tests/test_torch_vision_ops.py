@@ -30,6 +30,7 @@ import mxtpu_torch as mt
 from mxtpu.ops.registry import get_op as jax_op
 from mxtpu_torch.ops import vision
 from mxtpu_torch.ops.registry import get_op as torch_op
+from torch_threads import torch_threads_shared  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOL = 1e-5
