@@ -218,8 +218,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    host's wait for a batch, the card's busy share, launches a step, the
    bound from FlopCounterMode), with the captured step also repeated on
    one batch already on the card: whether the decoders or the card set
-   the captured step's pace; the same timings with TF32 off; a captured
-   fit whose last batch is padded replays it;
+   the captured step's pace; the same timings with TF32 off (a captured
+   fit of one epoch; the eager module of TF32 on times the eager step); a
+   captured fit whose last batch is padded replays it; every fit reads
+   one pair of decode pools;
 17. the SSD slice (BASELINE.json config 5): multibox_nms (csrc/vision.cu,
    MultiBoxDetection's greedy NMS, one block an image) against its plain
    loop at SSD-300's 8,732 anchors and 21 classes, batch 1 and 8, on tied
@@ -316,7 +318,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    GenerateScheduler: tokens/s, TTFT and decode-step percentiles beside
    the step's bound, the step's busy share, captures before and after;
    TF32 off, and the first 16 tokens of 2 sequences against the CPU's);
-   the first forward/backward at 2 layers and T=64 against the CPU
+   the first forward/backward at 2 layers and T=32 against the CPU
    (WT_TOL); 10 captured Module.fit steps at batch 8 x 512 with Adam and
    TF32 on beside the FLOPs bound, peak memory; moe_ffn at Switch-Base-8
    (d_model 768, d_ff 3,072, 8 experts, top-1, capacity factor 1.25, 4,096
@@ -344,7 +346,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    example/python-howto/monitor_weights.py (mirrored) on gpu(0) to their
    asserts, and upstream MXNet's python_loss.py chain (a Module and a
    PythonLossModule in a SequentialModule) through fit;
-30. timings: each kernel, its plain version and the PyTorch library call
+30. example/ctc/ctc_toy.py (a FusedRNNCell LSTM and ctc_loss through
+   Module.fit) and example/speech_recognition/deepspeech_toy.py (a
+   bidirectional FusedRNNCell GRU and ctc_loss through BucketingModule),
+   mirrored: their first 3 steps on gpu(0) against the CPU's (EX_SHARE),
+   then each main on gpu(0) to its own asserts, lstm_scan / gru_scan
+   counted from 0 just before each;
+31. DeepSpeech 2 at its published widths (arch_deepspeech.py: 161 bins,
+   two 32-channel convolutions, 3 bidirectional GRU layers of 1,760, 29
+   symbols, batch 12, buckets 200 / 300 frames; 145M weights, f32, TF32
+   off) through BucketingModule.fit with Adam: gru_scan at (T=100, N=12,
+   H=1760), streamed, against its plain loop, its bound and cuDNN's GRU
+   (one direction, and both);
+   ctc_loss beside F.ctc_loss; the first step at batch 2 against the CPU;
+   3 captured steps against eager ones; a captured fit (6 gru_scan
+   launches a step, 6 nodes a bucket's graph, the loss falling below
+   DS2_FALL of its start) and an eager one, each bucket's step timed
+   beside its bound, the busy share (profiler, one replay of each
+   bucket's graph), the graphs and the peak memory;
+32. the Gluon cells at the word LM's PTB widths: a hybridized
+   SequentialRNNCell of two LSTMCells (GRUCells) given the fused layer's
+   weights against the layer (lstm_scan / gru_scan): outputs, loss and
+   gradients, 3 SGD steps each way, ms a step; a Conv2DLSTMCell learning
+   and an LSTMPCell against the CPU;
+33. remat: resnet18_v1 (224, batch 128, TF32 off) with its four residual
+   stages hybridized with and without remat=True: the same gradients,
+   weights and moving statistics, ms a step and the peak memory (lower
+   with remat); MXNET_BACKWARD_DO_MIRROR=1 on LeNet's Module.fit, eager
+   and captured, against without;
+34. example/gluon's lstm_crf.py, super_resolution.py, actor_critic.py,
+   kaggle_k_fold_cross_validation.py and learning_rate_manipulation.py,
+   mirrored: their first 3 steps on gpu(0) against the CPU's (under Adam,
+   step 1's gradients, and the weights but for GLUON_ADAM_APART entries
+   each within 2 lr), then each main on gpu(0) to its own asserts;
+35. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -361,14 +396,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-31. one JSON line naming every kernel with its launches (the head
+36. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
    launches_gluon_lm, lstm_scan's in the checkpointed fit as
-   launches_rnn_checkpoint; multibox_nms's: in the SSD slice's decodes,
+   launches_rnn_checkpoint, in phases 30, 32 and 34 as
+   launches_ctc_examples, launches_gluon_cells and launches_gluon_examples,
+   gru_scan's in DeepSpeech 2's captured fit as launches_deepspeech2 with
+   its time at that shape (ds2_*) and ctc_loss's; multibox_nms's: in the
+   SSD slice's decodes,
    and in the R-CNN toy as launches_rcnn_toy, with its time at Proposal's
    shape) and error;
-32. the last line: {"ok": true, "device": {...}}.
+37. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -478,11 +517,12 @@ LM_TOL = dict(atol=3e-5, rtol=1e-5)
 # f32: the weight slice does not fit shared memory; clusters of 16, 4 rows,
 # N=33 leaves the last cluster one row), ragged rows at the resident mode
 # (N=50: 13 clusters of 4 rows, the last with 2), the plan's 3 rows (N=33)
-# and one step (T=1)
+# and one step (T=1); DeepSpeech 2's GRU launch (T=100, N=12, H=1760 f32,
+# streamed)
 RNN_EXTRA_SHAPES = ((SEQ, 32, 37, "float32"), (SEQ, 33, 37, "bfloat16"),
                     (SEQ, 33, 512, "float32"), (SEQ, 33, HIDDEN, "float32"),
                     (SEQ, 50, HIDDEN, "float32"), (1, 32, HIDDEN, "float32"),
-                    (1, 1, HIDDEN, "bfloat16"))
+                    (1, 1, HIDDEN, "bfloat16"), (100, 12, 1760, "float32"))
 # interleaved (kernel, library call) timings where the two are close: the
 # head kernels against torch.softmax, the f32 flash backward (dQ + dK/dV)
 # at the training slice's shape against SDPA's backward
@@ -979,11 +1019,10 @@ def attention_route_phase(fa, rng, dev):
                  {n: fa.LAUNCHES[n] for n in kernels}, err, tols[dtype]))
 
 
-def bound(kind, N, itemsize=4):
-    """Least time (ms) for one call at (T=SEQ, N, H=HIDDEN): each input
-    read once and each output written once at the HBM rate, against the
-    h.Wh products and the gate math at the float32 rate."""
-    T, H = SEQ, HIDDEN
+def bound(kind, N, itemsize=4, T=SEQ, H=HIDDEN):
+    """Least time (ms) for one call at (T, N, H): each input read once and
+    each output written once at the HBM rate, against the h.Wh products
+    and the gate math at the float32 rate."""
     if kind == "lstm":
         elems = T * N * 4 * H + H * 4 * H + 2 * N * H + T * N * H + 2 * N * H
         flops = T * (2 * N * H * 4 * H + 10 * N * H)
@@ -3954,7 +3993,7 @@ def module_aux(mod):
 # TF32 off each path trains one epoch of RN_OFF_STEPS steps (its times
 # only), and every timed turn is RN_TIMED_STEPS steps.
 RN_BATCH, RN_SHAPE, RN_CLASSES = 128, "3,224,224", 1000
-RN_STEPS, RN_EPOCHS, RN_OFF_STEPS, RN_TIMED_STEPS = 30, 2, 10, 10
+RN_STEPS, RN_EPOCHS, RN_OFF_STEPS, RN_TIMED_STEPS = 20, 2, 5, 5
 # The first steps card vs CPU, at a batch the CPU takes in seconds.
 RN_CHECK_BATCH = 16
 # The float32 gradient of these networks is discontinuous in the forward's
@@ -3993,10 +4032,10 @@ RN_CAPTURE_STEPS = 6
 # first epoch's (ln 1000 = 6.9 at the start).
 RN_CE_SHARE = 0.5
 # Inception-BN's short captured epoch at the full batch
-INCEPTION_STEPS = 10
+INCEPTION_STEPS = 5
 # Steps under torch.profiler for a full-width path's busy share (a whole
 # epoch's trace took most of a minute to gather)
-RN_PROFILE_STEPS = 10
+RN_PROFILE_STEPS = 4
 # Peak rates of one H100 SXM (dense, at 700 W): float32 outside the tensor
 # cores, TF32 on them, and HBM bandwidth.
 PEAK_F32, PEAK_TF32 = 67e12, 495e12
@@ -4091,17 +4130,28 @@ def imagenet_first_steps(mt, label, build, image_shape, seed):
         label, RN_CHECK_BATCH)
 
     def run(ctx, steps, args):
+        """The weights, moving statistics and losses after ``steps``
+        steps, and the weights and statistics after the first."""
         np.random.seed(seed)
         losses = StepLosses()
+        first = []
+
+        def after_first(param):
+            if param.nbatch == 0:
+                m = param.locals["self"]
+                first.append((module_params(m), module_aux(m)))
         mod, _ = imagenet_fit(mt, build(mt), RN_CHECK_BATCH,
                               RN_CHECK_BATCH * steps, 1, image_shape,
                               RN_CLASSES, context=ctx, arg_params=args,
                               aux_params=aux0, data_ctx=ctx,
-                              batch_end_callback=[losses])
-        return module_params(mod), module_aux(mod), losses.values()
+                              batch_end_callback=[losses, after_first])
+        return (module_params(mod), module_aux(mod), losses.values()) + \
+            first[0]
 
-    g_args, g_aux, _ = run(gpu, 1, args0)
-    c_args, c_aux, _ = run(mt.cpu(), 1, args0)
+    # the first step's check reads the FIT_STEPS runs after their first step
+    card = run(gpu, FIT_STEPS, args0)
+    cpu = run(mt.cpu(), FIT_STEPS, args0)
+    (g_args, g_aux), (c_args, c_aux) = card[3:], cpu[3:]
     w = step_share_check(where + ", 1 step", g_args, c_args, args0,
                          RN_STEP_SHARE, RN_ATOL)
     aux_err = max(float(np.abs(g_aux[k] - c_aux[k]).max()
@@ -4114,8 +4164,6 @@ def imagenet_first_steps(mt, label, build, image_shape, seed):
           "layer's largest (limit %g)" % (where, w, RN_STEP_SHARE, RN_ATOL,
                                           aux_err, RN_AUX_TOL), flush=True)
 
-    card = run(gpu, FIT_STEPS, args0)
-    cpu = run(mt.cpu(), FIT_STEPS, args0)
     ulp = run(mt.cpu(), FIT_STEPS, ulp_apart(args0, seed))
     readings = []
     for i, (what, start) in enumerate((("weights", args0),
@@ -4565,7 +4613,7 @@ GL_LM_EXAMPLE = (40, 32, 64, 1, 8, 16)
 GL_LM_PTB = (10000, 200, 200, 2, 32, 32)
 GL_LM_LR, GL_LM_CLIP = 0.005, 5.0
 GL_LM_EPOCHS, GL_LM_TOKENS = 4, 8000          # the example's own run
-GL_LM_STEPS = 10                               # the timed PTB-width run
+GL_LM_STEPS = 5                                # the timed PTB-width run
 # the example's own assertions on its perplexities
 GL_LM_PPL_DROP, GL_LM_PPL_VOCAB = 0.8, 0.7
 # B4 and B5 held against their plain loops at the Gluon LM's shapes (the
@@ -4615,6 +4663,12 @@ def gluon_load(pkg, net, weights, ctx):
 def gluon_values(net):
     """{name: numpy} of every parameter, moving statistics included."""
     return {k: v.data().asnumpy() for k, v in net.collect_params().items()}
+
+
+def gluon_grads(net):
+    """{name: numpy} of every trained parameter's gradient."""
+    return {k: v.grad().asnumpy() for k, v in net.collect_params().items()
+            if v.grad_req != "null"}
 
 
 def gluon_images(seed, n, shape=GL_SHAPE, classes=GL_CLASSES):
@@ -4729,15 +4783,22 @@ def gluon_first_steps(mt, seed):
         % RN_CHECK_BATCH
     aux = [k for k in w0 if k.endswith(("running_mean", "running_var"))]
 
-    def run(ctx, steps, weights):
-        r = gluon_resnet_run(mt, weights, data, ctx, RN_CHECK_BATCH, False,
-                             steps)
-        vals = gluon_values(r.net)
+    def split(vals):
         return ({k: v for k, v in vals.items() if k not in aux},
-                {k: vals[k] for k in aux}, r.loss_values())
+                {k: vals[k] for k in aux})
 
-    g_w, g_aux, _ = run(gpu, 1, w0)
-    c_w, c_aux, _ = run(cpu, 1, w0)
+    def run(ctx, weights):
+        """The weights, moving statistics and losses after FIT_STEPS
+        steps, and the weights and statistics after the first."""
+        r = gluon_resnet_run(mt, weights, data, ctx, RN_CHECK_BATCH, False,
+                             1)
+        first = split(gluon_values(r.net))
+        r.steps(FIT_STEPS - 1)
+        return split(gluon_values(r.net)) + (r.loss_values(),) + first
+
+    card = run(gpu, w0)
+    host = run(cpu, w0)
+    (g_w, g_aux), (c_w, c_aux) = card[3:], host[3:]
     args0 = {k: v for k, v in w0.items() if k not in aux}
     w = step_share_check(where + ", 1 step", g_w, c_w, args0, RN_STEP_SHARE,
                          RN_ATOL)
@@ -4746,9 +4807,7 @@ def gluon_first_steps(mt, seed):
     if aux_err > RN_AUX_TOL:
         fail("%s: moving statistics after 1 step differ by %.3g of a layer's "
              "largest (limit %g)" % (where, aux_err, RN_AUX_TOL))
-    card = run(gpu, FIT_STEPS, w0)
-    host = run(cpu, FIT_STEPS, w0)
-    ulp = run(cpu, FIT_STEPS, ulp_apart(w0, seed))
+    ulp = run(cpu, ulp_apart(w0, seed))
     readings = []
     for i, (what, start) in enumerate((("weights", args0), (
             "moving statistics", {k: w0[k] for k in aux}))):
@@ -5293,7 +5352,7 @@ CF_LAYERS = 110
 # timed turns of CF_TIMED_STEPS steps (eager, captured, the captured step
 # on a held batch twice, captured, eager); the busy share from
 # torch.profiler over CF_PROFILE_STEPS steps
-CF_TIMED_STEPS, CF_PROFILE_STEPS = 3, 4
+CF_TIMED_STEPS, CF_PROFILE_STEPS = 3, 2
 # the padded-batch check: records for 3 steps at batch 128, the last one
 # padded by 40 rows
 CF_PAD_RECORDS = 3 * 128 - 40
@@ -5428,15 +5487,23 @@ def run_test_io(args, train):
 
 def cifar_fit(pkg, args, network, context=None, kvstore=None,
               arg_params=None, aux_params=None, batch_end_callback=None,
-              eval_end_callback=None):
+              eval_end_callback=None, iters=None):
     """train_cifar10.py's call of fit.py's fit() in either package: the
     kvstore object of --kv-store (or ``kvstore`` as given: "local" by name
     keeps no store, so the fused step engages), get_rec_iter's iterators
-    (test_io: the iterator alone, no training), and fit_call with the
-    schedule of lr_step_epochs, validation data scored each epoch.
-    Returns (module or None, train, validation)."""
+    (or ``iters``, a (train, validation) pair of them shared between
+    fits, reset here: their decode pools start once), test_io: the
+    iterator alone, no training; then fit_call with the schedule of
+    lr_step_epochs, validation data scored each epoch. Returns (module or
+    None, train, validation)."""
     kv = pkg.kvstore.create(args.kv_store) if kvstore is None else kvstore
-    train, val = get_rec_iter(pkg, args, None if isinstance(kv, str) else kv)
+    if iters is None:
+        train, val = get_rec_iter(pkg, args,
+                                  None if isinstance(kv, str) else kv)
+    else:
+        train, val = iters
+        train.reset()
+        val.reset()
     if args.test_io:
         run_test_io(args, train)
         return None, train, val
@@ -5515,35 +5582,30 @@ def cifar_staging(mt, train, card, batches=8):
           % (host.nbytes / 1e6, batches, "; ".join(text), card), flush=True)
 
 
-def cifar_io(mt, args, card):
+def cifar_io(mt, args, card, iters):
     """The iterator alone: fit.py's test-io loop over CF_IO_EPOCHS epochs
-    after the first batch (which waits out the pools' start-up), timed:
-    images/s beside the host's cores; then the batch's copy up. Returns
-    images/s."""
-    train, val = get_rec_iter(mt, args)
-    try:
-        train.next()
-        batches, secs = 0, 0.0
-        for epoch in range(CF_IO_EPOCHS):
-            if epoch:
-                train.reset()
-            n, dt = run_test_io(args, train)
-            batches, secs = batches + n, secs + dt
-        rate = batches * args.batch_size / secs
-        cifar_staging(mt, train, card)
-        from mxtpu_torch import _image_worker
-        decoder = "cv2" if _image_worker._cv2 is not None else "PIL"
-        print("CIFAR ImageRecordIter alone (%d %s decode processes, the "
-              "pool path; pools' start-up to the first batch: %s): %d "
-              "batches of %d in %.3f s, %.1f images/s | os.cpu_count() %d, "
-              "sched_getaffinity %d | %s"
-              % (args.data_nthreads, decoder, pool_iters("test-io", train,
-                                                         val),
-                 batches, args.batch_size, secs, rate, os.cpu_count(),
-                 len(os.sched_getaffinity(0)), card), flush=True)
-    finally:
-        train.close()
-        val.close()
+    of ``iters``' training iterator after its first batch (which waits
+    out the pools' start-up), timed: images/s beside the host's cores;
+    then the batch's copy up. Returns images/s."""
+    train, val = iters
+    train.next()
+    batches, secs = 0, 0.0
+    for epoch in range(CF_IO_EPOCHS):
+        if epoch:
+            train.reset()
+        n, dt = run_test_io(args, train)
+        batches, secs = batches + n, secs + dt
+    rate = batches * args.batch_size / secs
+    cifar_staging(mt, train, card)
+    from mxtpu_torch import _image_worker
+    decoder = "cv2" if _image_worker._cv2 is not None else "PIL"
+    print("CIFAR ImageRecordIter alone (%d %s decode processes, the "
+          "pool path; pools' start-up to the first batch: %s): %d "
+          "batches of %d in %.3f s, %.1f images/s | os.cpu_count() %d, "
+          "sched_getaffinity %d | %s"
+          % (args.data_nthreads, decoder, pool_iters("test-io", train, val),
+             batches, args.batch_size, secs, rate, os.cpu_count(),
+             len(os.sched_getaffinity(0)), card), flush=True)
     return rate
 
 
@@ -5600,12 +5662,14 @@ def cifar_val_check(mt, mod, val, train, network, path):
                own, float((fitted[0].argmax(1) - fitted[1]).mean())))
 
 
-def cifar_run(mt, args, network, seed, path, card, learn):
+def cifar_run(mt, args, network, seed, path, card, learn, iters=None):
     """One cifar_fit on gpu(0) (eager: the kvstore object; captured:
-    kvstore="local"), its pools checked, each step's cross-entropy and
-    each epoch's validation accuracy read, its validation outputs held to
-    an eager copy's (cifar_val_check); ``learn``: the learning check.
-    Returns (module, train, validation)."""
+    kvstore="local") over the phase's shared ``iters`` (or its own), its
+    pools
+    checked, each step's cross-entropy and each epoch's validation
+    accuracy read, its validation outputs held to an eager copy's
+    (cifar_val_check); ``learn``: the learning check. Returns (module,
+    train, validation)."""
     import torch
     ce, val_acc = StepLosses(), []
     np.random.seed(seed)
@@ -5616,7 +5680,7 @@ def cifar_run(mt, args, network, seed, path, card, learn):
         mt, args, network, context=mt.gpu(0),
         kvstore=None if path == "eager" else "local",
         batch_end_callback=[ce], eval_end_callback=lambda p: val_acc.append(
-            dict(p.eval_metric.get_name_value())["accuracy"]))
+            dict(p.eval_metric.get_name_value())["accuracy"]), iters=iters)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     startup = pool_iters("CIFAR %s fit" % path, train, val)
@@ -5769,8 +5833,9 @@ def cifar_phase(mt, seed, card):
     """train_cifar10.py --synthetic CF_RECORDS's fit call on gpu(0) through
     the port's ImageRecordIter decode pool: the records written under a
     temporary directory, the iterator alone, ResNet-110 eager and captured
-    under torch's default TF32 (CF_EPOCHS epochs, the data learnt) and with
-    TF32 off (one epoch), the steps timed in turns beside the bound, and
+    under torch's default TF32 (CF_EPOCHS epochs, the data learnt) and
+    captured with TF32 off (one epoch), the steps timed in turns beside the
+    bound, and
     the padded last batch replayed. Returns {(path, setting): ms a
     step}."""
     import gc
@@ -5786,62 +5851,17 @@ def cifar_phase(mt, seed, card):
                           num_epochs=CF_EPOCHS)
         args.data_train, args.data_val = cifar_synthetic(mt, args, root)
         clock.append(("records", time.perf_counter()))
-        io_rate = cifar_io(mt, args, card)
-        clock.append(("iterator alone", time.perf_counter()))
-        bound = None
-        for tf32, setting in ((True, "TF32 on"), (False, "TF32 off")):
-            run_args = cifar_args(**vars(args))
-            run_args.num_epochs = CF_EPOCHS if tf32 else 1
-            runs = {}
-            with tf32_mode(tf32):
-                try:
-                    for path in ("eager", "captured"):
-                        runs[path] = cifar_run(mt, run_args, resnet110(mt),
-                                               seed, path, card, tf32)
-                    if bound is None:
-                        mod, it, _ = runs["eager"]
-                        conv, matmul, nbytes = step_bound(
-                            mt, mod, fit_steps(mod, it, None, 0)[0], 10)
-                        bound = ((conv, matmul), nbytes)
-                        print("CIFAR ResNet-%d step at batch %d: %.4g conv "
-                              "FLOPs + %.4g matmul FLOPs (FlopCounterMode "
-                              "over one eager step; %.4g GMAC an image "
-                              "forward), %.4g bytes to move at least; bound "
-                              "%.4f ms with cuDNN TF32, %.4f ms in float32 | "
-                              "%s" % (CF_LAYERS, args.batch_size, conv,
-                                      matmul, (conv + matmul) / 6
-                                      / args.batch_size / 1e9, nbytes,
-                                      bound_ms(*bound, True)[0],
-                                      bound_ms(*bound, False)[0], card),
-                              flush=True)
-                    if tf32:
-                        no_sync_epoch(runs["captured"][0],
-                                      runs["captured"][1], mt.metric.create(
-                                          [mt.metric.create("accuracy")]))
-                    times = cifar_times(mt, runs, setting, card, bound,
-                                        args.batch_size)
-                finally:
-                    for mod, train, val in runs.values():
-                        train.close()
-                        val.close()
-            for path, (ms, busy) in times.items():
-                out[path, setting] = ms
-            step, busy = times["captured"]
-            fixed = times["fixed"][0]
-            pace = "the decoders" if step > CF_PACE * fixed else "the card"
-            print("CIFAR pace, %s: the captured step %.1f images/s fed by the "
-                  "decoders, %.1f on one held batch; the decoders alone %.1f "
-                  "images/s; the card busy %s ms a step: set by %s (the "
-                  "decoders if the fed step is beyond %.2f of the held "
-                  "one's) | %s"
-                  % (setting, args.batch_size / step * 1e3,
-                     args.batch_size / fixed * 1e3, io_rate,
-                     "not measured" if busy is None else "%.3f" % busy,
-                     pace, CF_PACE, card), flush=True)
-            del runs
-            gc.collect()
-            torch.cuda.empty_cache()
-            clock.append(("fits and times, " + setting, time.perf_counter()))
+        # one (train, validation) pair of decode pools for every fit of the
+        # phase: each pool's start-up took 10-12 s, and the phase started 9
+        shared = get_rec_iter(mt, args)
+        try:
+            io_rate = cifar_io(mt, args, card, shared)
+            clock.append(("iterator alone", time.perf_counter()))
+            cifar_settings(mt, args, resnet110, seed, card, shared, io_rate,
+                           out, clock)
+        finally:
+            for it in shared:
+                it.close()
         cifar_pad_check(mt, resnet110(mt), seed, root, card)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5851,6 +5871,69 @@ def cifar_phase(mt, seed, card):
             "%s %.1f" % (name, t - clock[i][1])
             for i, (name, t) in enumerate(clock[1:]))))
     return out
+
+
+def cifar_settings(mt, args, resnet110, seed, card, shared, io_rate, out,
+                   clock):
+    """cifar_phase's fits over the ``shared`` iterators: eager and
+    captured under torch's default TF32 (CF_EPOCHS epochs, the data
+    learnt), then captured with TF32 off (one epoch: a capture keeps the
+    kernels it was captured with; the eager step picks them a call, so
+    the TF32-on eager module times the TF32-off eager step), each
+    setting's steps timed in turns beside the bound; ``out`` gathers
+    {(path, setting): ms a step}."""
+    import gc
+    import torch
+    bound = None
+    eager = None
+    for tf32, setting in ((True, "TF32 on"), (False, "TF32 off")):
+        run_args = cifar_args(**vars(args))
+        run_args.num_epochs = CF_EPOCHS if tf32 else 1
+        runs = {} if eager is None else {"eager": eager}
+        with tf32_mode(tf32):
+            for path in ("eager", "captured"):
+                if path not in runs:
+                    runs[path] = cifar_run(mt, run_args, resnet110(mt), seed,
+                                           path, card, tf32, shared)
+            eager = runs["eager"]
+            if bound is None:
+                mod, it, _ = runs["eager"]
+                conv, matmul, nbytes = step_bound(
+                    mt, mod, fit_steps(mod, it, None, 0)[0], 10)
+                bound = ((conv, matmul), nbytes)
+                print("CIFAR ResNet-%d step at batch %d: %.4g conv FLOPs + "
+                      "%.4g matmul FLOPs (FlopCounterMode over one eager "
+                      "step; %.4g GMAC an image forward), %.4g bytes to "
+                      "move at least; bound %.4f ms with cuDNN TF32, %.4f "
+                      "ms in float32 | %s"
+                      % (CF_LAYERS, args.batch_size, conv, matmul,
+                         (conv + matmul) / 6 / args.batch_size / 1e9,
+                         nbytes, bound_ms(*bound, True)[0],
+                         bound_ms(*bound, False)[0], card), flush=True)
+            if tf32:
+                no_sync_epoch(runs["captured"][0], runs["captured"][1],
+                              mt.metric.create([mt.metric.create(
+                                  "accuracy")]))
+            times = cifar_times(mt, runs, setting, card, bound,
+                                args.batch_size)
+        for path, (ms, busy) in times.items():
+            out[path, setting] = ms
+        step, busy = times["captured"]
+        fixed = times["fixed"][0]
+        pace = "the decoders" if step > CF_PACE * fixed else "the card"
+        print("CIFAR pace, %s: the captured step %.1f images/s fed by the "
+              "decoders, %.1f on one held batch; the decoders alone %.1f "
+              "images/s; the card busy %s ms a step: set by %s (the "
+              "decoders if the fed step is beyond %.2f of the held one's) | "
+              "%s" % (setting, args.batch_size / step * 1e3,
+                      args.batch_size / fixed * 1e3, io_rate,
+                      "not measured" if busy is None else "%.3f" % busy,
+                      pace, CF_PACE, card), flush=True)
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock.append(("fits and times, " + setting, time.perf_counter()))
+    del eager
 
 
 # ---------------------------------------------------------------------------
@@ -5883,7 +5966,7 @@ SSD300 = dict(
     steps=tuple(s / 300.0 for s in (8, 16, 32, 64, 100, 300)))
 SSD_CLASSES, SSD_PREFIX = 20, "ssd300_"
 SSD_HW, SSD_BATCH, SSD_ANCHORS = 300, 32, 8732
-SSD_RECORDS, SSD_EPOCHS = 512, 2             # 16 steps an epoch
+SSD_RECORDS, SSD_EPOCHS = 384, 2             # 12 steps an epoch
 SSD_LOSS_STEPS, SSD_LOSS_SHARE = 4, 0.7
 SSD_STEPS, SSD_PROFILE_STEPS = 5, 4
 # MXNet SSD's train_net.py: SGD 0.004 / 0.9 / 5e-4, rescale_grad 1 (the
@@ -7401,7 +7484,7 @@ MN_SERIAL_BATCHES = 100
 # the Gluon MLP's fed run and the loader alone: this many batches (of an
 # epoch's 937)
 MN_GLUON_STEPS = 200
-MN_TIMED_STEPS, MN_PROFILE_STEPS = 50, 10
+MN_TIMED_STEPS, MN_PROFILE_STEPS = 25, 4
 # the fed step against the held one: the iterator sets the pace beyond this
 MN_PACE = 1.05
 CIFAR_TEST, CIFAR_BATCH = 10000, 128
@@ -7958,6 +8041,10 @@ CARD_SWEEP.update({
                              _su(r, 5, 4)],
                   {"input_dim": 5, "output_dim": 4}),
     "Dropout": (lambda r: [_su(r, 3, 4)], {"p": 0.5}),
+    # a repeated symbol (no skip) and a 0-padded label, blank "first"
+    "ctc_loss": (lambda r: [_su(r, 6, 2, 5),
+                            np.array([[1, 2, 0], [3, 3, 1]], np.float32)],
+                 {}),
     "UpSampling": (lambda r: [_su(r, 1, 2, 3, 3), _su(r, 1, 2, 3, 3)],
                    {"scale": 2, "num_args": 2, "multi_input_mode": "sum"}),
     "Crop": (lambda r: [_su(r, 1, 2, 7, 6), _su(r, 1, 1, 4, 3)],
@@ -8691,7 +8778,7 @@ def examples_phase(mt, card):
 # ---------------------------------------------------------------------------
 
 FCN_CLASSES, FCN_IGNORE = 21, 255
-FCN_HW, FCN_IMAGES, FCN_EPOCHS = 500, 16, 4   # batch 1, f32
+FCN_HW, FCN_IMAGES, FCN_EPOCHS = 500, 16, 3   # batch 1, f32
 FCN_CHECK_HW = 64                   # the CPU check's image: every crop fits
 FCN_CROPS = {"score_pool4c": 5, "score_pool3c": 9, "upscore": 31}
 # fcn_xs.py's optimizer: SGD on the unnormalized (summed) pixel loss
@@ -9629,7 +9716,7 @@ WT_SLOTS, WT_BUCKETS = 32, "32,128,512"
 WT_SEQS, WT_NEW, WT_PLEN = 64, 128, (16, 512)
 WT_CHECK_TOKENS = 8
 WT_TRAIN_BATCH, WT_TRAIN_STEPS = 8, 10
-WT_CHECK_LAYERS, WT_CHECK_T, WT_CHECK_BATCH, WT_TOL = 2, 64, 2, 1e-4
+WT_CHECK_LAYERS, WT_CHECK_T, WT_CHECK_BATCH, WT_TOL = 2, 32, 2, 1e-4
 WT_PROFILE_STEPS = 20
 SWITCH = dict(dim=768, ff=3072, experts=8, top=1, cf=1.25, tokens=4096)
 SWITCH_TOL = 1e-4
@@ -11016,6 +11103,1856 @@ def module_examples_phase(mt, card):
     return secs
 
 
+# ---------------------------------------------------------------------------
+# Phase 30 (ROADMAP A8): the two examples that train with CTC through the
+# fused RNN op, example/ctc/ctc_toy.py (lstm_scan) and
+# example/speech_recognition/deepspeech_toy.py (gru_scan). Both import
+# mxtpu, so they are mirrored here, line for line, for either package; the
+# context is a parameter where the example leaves it to the default (ctc)
+# or hard-codes cpu() (deepspeech_toy).
+# ---------------------------------------------------------------------------
+
+CTC_ALPHABET, CTC_LABEL_LEN, CTC_FRAMES_PER = 5, 4, 3
+CTC_T = CTC_LABEL_LEN * CTC_FRAMES_PER
+CTC_FEAT, CTC_HIDDEN, CTC_EPOCHS = 8, 24, 25
+DST_ALPHABET, DST_LABEL_LEN, DST_FEAT, DST_HIDDEN = 4, 3, 10, 32
+DST_BUCKETS, DST_EPOCHS = (9, 12), 10
+
+
+def ctc_toy_data(n, seed):
+    """ctc_toy.py's make_data: label sequences of 4 over symbols 1..5,
+    each symbol a noisy prototype repeated 3 frames."""
+    protos = np.random.RandomState(0).uniform(
+        -1, 1, (CTC_ALPHABET + 1, CTC_FEAT)).astype(np.float32)
+    r = np.random.RandomState(seed)
+    labels = r.randint(1, CTC_ALPHABET + 1, (n, CTC_LABEL_LEN))
+    frames = protos[np.repeat(labels, CTC_FRAMES_PER, axis=1)]
+    frames = frames + 0.25 * r.randn(n, CTC_T, CTC_FEAT).astype(np.float32)
+    return frames.astype(np.float32), labels.astype(np.float32)
+
+
+def ctc_toy_symbol(pkg):
+    """ctc_toy.py's build: a FusedRNNCell LSTM, a per-frame
+    FullyConnected, mean ctc_loss under MakeLoss, the logits blocked."""
+    S = pkg.sym
+    data, label = S.var("data"), S.var("label")
+    lstm = pkg.rnn.FusedRNNCell(CTC_HIDDEN, mode="lstm", prefix="lstm_")
+    out, _ = lstm.unroll(CTC_T, inputs=data, layout="NTC",
+                         merge_outputs=True)
+    pred = S.Reshape(out, shape=(-1, CTC_HIDDEN))
+    pred = S.FullyConnected(pred, num_hidden=CTC_ALPHABET + 1, name="fc")
+    pred = S.Reshape(pred, shape=(-1, CTC_T, CTC_ALPHABET + 1))
+    ctc_in = S.transpose(pred, axes=(1, 0, 2))
+    loss = S.MakeLoss(S.mean(S.ctc_loss(ctc_in, label)))
+    return S.Group([loss, S.BlockGrad(pred)])
+
+
+def greedy_decode(logits):
+    """Both examples' best path: argmax a frame, repeats collapsed, blanks
+    dropped."""
+    out = []
+    for row in logits.argmax(axis=-1):
+        seq, prev = [], -1
+        for s in row:
+            if s != prev and s != 0:
+                seq.append(int(s))
+            prev = s
+        out.append(seq)
+    return out
+
+
+def ctc_loss_metric(pkg):
+    """ctc_toy.py's CTCLossMetric for ``pkg``: the mean of output 0 (the
+    MakeLoss scalar) a batch; ``values`` keeps each batch's."""
+    class CTCLossMetric(pkg.metric.EvalMetric):
+        def __init__(self):
+            super(CTCLossMetric, self).__init__("ctc-loss")
+            self.values = []
+
+        def update(self, labels, preds):
+            v = float(preds[0].asnumpy().mean())
+            self.values.append(v)
+            self.sum_metric += v
+            self.num_inst += 1
+    return CTCLossMetric()
+
+
+def ctc_toy_main(pkg, ctx, num_epoch=CTC_EPOCHS):
+    """ctc_toy.py's main on ``ctx``: Module.fit with Adam for 25 epochs,
+    then greedy decoding of 256 held-out sequences. Fails unless the
+    exact-sequence accuracy is above 0.9, as the example asserts. Returns
+    (accuracy, the module)."""
+    pkg.random.seed(41)
+    np.random.seed(41)
+    xtr, ytr = ctc_toy_data(1024, 1)
+    xte, yte = ctc_toy_data(256, 2)
+    batch = 64
+    train = pkg.io.NDArrayIter(xtr, ytr, batch, shuffle=True,
+                               label_name="label")
+    mod = pkg.mod.Module(ctc_toy_symbol(pkg), data_names=("data",),
+                         label_names=("label",), context=ctx)
+    mod.fit(train, optimizer="adam",
+            optimizer_params={"learning_rate": 5e-3},
+            eval_metric=ctc_loss_metric(pkg), num_epoch=num_epoch)
+    val = pkg.io.NDArrayIter(xte, yte, batch, label_name="label")
+    exact = total = 0
+    for b in val:
+        mod.forward(b, is_train=False)
+        logits = mod.get_outputs()[1].asnumpy()
+        labs = b.label[0].asnumpy()
+        k = batch - (b.pad or 0)
+        for d, t in zip(greedy_decode(logits[:k]), labs[:k]):
+            exact += d == list(map(int, t))
+            total += 1
+    acc = exact / total
+    if not acc > 0.9:
+        fail("ctc_toy on %s: exact-sequence accuracy %.3f (the example "
+             "asserts above 0.9)" % (ctx, acc))
+    return acc, mod
+
+
+def dst_utterances(n, seed):
+    """deepspeech_toy.py's make_utterances: token i emits 2-4 noisy frames
+    of its prototype."""
+    protos = np.random.RandomState(7).uniform(-1, 1,
+                                              (DST_ALPHABET + 1, DST_FEAT))
+    rng = np.random.RandomState(seed)
+    feats, labels = [], []
+    for _ in range(n):
+        lab = rng.randint(1, DST_ALPHABET + 1, (DST_LABEL_LEN,))
+        frames = []
+        for tok in lab:
+            frames += [protos[tok]] * rng.randint(2, 5)
+        arr = np.asarray(frames, np.float32)
+        arr = arr + 0.2 * rng.randn(*arr.shape)
+        feats.append(arr.astype(np.float32))
+        labels.append(lab.astype(np.float32))
+    return feats, labels
+
+
+def speech_iter(pkg, feats, labels, batch_size, buckets, feat_dim,
+                label_len):
+    """deepspeech_toy.py's BucketSpeechIter for ``pkg`` (the reference's
+    STTIter): each utterance zero-padded to the first bucket it fits,
+    whole batches a bucket, their order shuffled by numpy's global RNG at
+    each reset; labels padded with 0 (blank) to ``label_len``."""
+    io = pkg.io
+
+    class BucketSpeechIter(io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size)
+            self.buckets = sorted(buckets)
+            self.data = {b: [] for b in self.buckets}
+            for f, lab in zip(feats, labels):
+                for b in self.buckets:
+                    if len(f) <= b:
+                        pad = np.zeros((b, feat_dim), np.float32)
+                        pad[:len(f)] = f
+                        padded = np.zeros(label_len, np.float32)
+                        padded[:len(lab)] = lab
+                        self.data[b].append((pad, padded))
+                        break
+            self.default_bucket_key = self.buckets[-1]
+            self.reset()
+
+        @property
+        def provide_data(self):
+            return [io.DataDesc("data", (self.batch_size,
+                                         self.default_bucket_key, feat_dim))]
+
+        @property
+        def provide_label(self):
+            return [io.DataDesc("label", (self.batch_size, label_len))]
+
+        def reset(self):
+            self._plan = []
+            for b in self.buckets:
+                for i in range(0, len(self.data[b]) - self.batch_size + 1,
+                               self.batch_size):
+                    self._plan.append((b, i))
+            np.random.shuffle(self._plan)
+            self._cursor = 0
+
+        def next(self):
+            if self._cursor >= len(self._plan):
+                raise StopIteration
+            b, i = self._plan[self._cursor]
+            self._cursor += 1
+            chunk = self.data[b][i:i + self.batch_size]
+            x = np.stack([c[0] for c in chunk])
+            y = np.stack([c[1] for c in chunk])
+            return io.DataBatch(
+                data=[pkg.nd.array(x)], label=[pkg.nd.array(y)],
+                bucket_key=b, provide_data=[io.DataDesc("data", x.shape)],
+                provide_label=[io.DataDesc("label", y.shape)])
+    return BucketSpeechIter()
+
+
+def dst_sym_gen(pkg):
+    """deepspeech_toy.py's sym_gen: a 3x3 convolution over the
+    time-frequency plane, a bidirectional FusedRNNCell GRU, a per-frame
+    FullyConnected, mean ctc_loss under MakeLoss, the logits blocked."""
+    S = pkg.sym
+
+    def sym_gen(seq_len):
+        data, label = S.var("data"), S.var("label")
+        body = S.Reshape(data, shape=(0, 1, seq_len, DST_FEAT))
+        body = S.Convolution(body, num_filter=8, kernel=(3, 3), pad=(1, 1),
+                             name="conv1")
+        body = S.Activation(body, act_type="relu")
+        body = S.Reshape(S.transpose(body, axes=(0, 2, 1, 3)),
+                         shape=(0, seq_len, -1))
+        rnn = pkg.rnn.FusedRNNCell(DST_HIDDEN, mode="gru",
+                                   bidirectional=True, prefix="bgru_")
+        out, _ = rnn.unroll(seq_len, inputs=body, layout="NTC",
+                            merge_outputs=True)
+        pred = S.Reshape(out, shape=(-1, 2 * DST_HIDDEN))
+        pred = S.FullyConnected(pred, num_hidden=DST_ALPHABET + 1, name="fc")
+        pred = S.Reshape(pred, shape=(-1, seq_len, DST_ALPHABET + 1))
+        ctc_in = S.transpose(pred, axes=(1, 0, 2))
+        loss = S.MakeLoss(S.mean(S.ctc_loss(ctc_in, label)))
+        return S.Group([loss, S.BlockGrad(pred)]), ("data",), ("label",)
+    return sym_gen
+
+
+def dst_module(pkg, ctx, train):
+    mod = pkg.mod.BucketingModule(dst_sym_gen(pkg),
+                                  default_bucket_key=train.default_bucket_key,
+                                  context=ctx)
+    mod.bind(train.provide_data, train.provide_label)
+    return mod
+
+
+def dst_main(pkg, ctx, epochs=DST_EPOCHS, arg_params=None, steps=None):
+    """deepspeech_toy.py's main on ``ctx``: a BucketingModule over two
+    buckets, Xavier (or ``arg_params``), Adam, ``epochs`` epochs of
+    forward / backward / update, then greedy decoding of one batch a
+    bucket. Fails unless the last epoch's CTC loss is below 0.35 of the
+    first's and the exact-transcript match above 0.75, as the example
+    asserts. With ``steps``, the first ``steps`` steps only: their losses
+    and the weights after them."""
+    pkg.random.seed(3)
+    np.random.seed(3)
+    feats, labels = dst_utterances(512, 1)
+    batch = 32
+    train = speech_iter(pkg, feats, labels, batch, DST_BUCKETS, DST_FEAT,
+                        DST_LABEL_LEN)
+    mod = dst_module(pkg, ctx, train)
+    mod.init_params(pkg.init.Xavier(),
+                    arg_params=host_params(pkg, arg_params),
+                    allow_missing=arg_params is None)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 0.01})
+    first = last = None
+    losses = []
+    for epoch in range(epochs):
+        train.reset()
+        total, count = 0.0, 0
+        for b in train:
+            mod.forward(b)
+            mod.backward()
+            mod.update()
+            losses.append(float(mod.get_outputs()[0].asnumpy().mean()))
+            total += losses[-1]
+            count += 1
+            if steps is not None and len(losses) == steps:
+                return losses, module_params(mod)
+        avg = total / count
+        first = avg if first is None else first
+        last = avg
+    if not last < first * 0.35:
+        fail("deepspeech_toy on %s: CTC loss %.4f -> %.4f (the example "
+             "asserts below 0.35 of the first epoch's)" % (ctx, first, last))
+    train.reset()
+    hits = total = 0
+    seen = set()
+    for b in train:
+        if b.bucket_key in seen:
+            continue
+        seen.add(b.bucket_key)
+        mod.forward(b, is_train=False)
+        decoded = greedy_decode(mod.get_outputs()[1].asnumpy())
+        want = b.label[0].asnumpy().astype(int).tolist()
+        for d, w in zip(decoded, want):
+            hits += int(d == w)
+            total += 1
+    rate = hits / total
+    if not rate > 0.75:
+        fail("deepspeech_toy on %s: exact transcript match %.3f (the "
+             "example asserts above 0.75)" % (ctx, rate))
+    return first, last, rate
+
+
+def dst_init(pkg):
+    """The toy's Xavier weights drawn on the CPU from seed 0: {name:
+    numpy}, the weights both devices' first steps start from."""
+    pkg.random.seed(0)
+    np.random.seed(3)
+    feats, labels = dst_utterances(64, 1)
+    with pkg.cpu():
+        train = speech_iter(pkg, feats, labels, 32, DST_BUCKETS, DST_FEAT,
+                            DST_LABEL_LEN)
+        mod = dst_module(pkg, pkg.cpu(), train)
+        mod.init_params(pkg.init.Xavier())
+    return module_params(mod)
+
+
+def scan_launches(mt, rnn_scan, graphs):
+    """{kernel: launches} since the counts were set to 0: the eager
+    launches, plus each captured graph's time-loop nodes times its replays
+    (``graphs``: (CUDA graph, replays) pairs)."""
+    out = dict(rnn_scan.LAUNCHES)
+    names = {}
+    for graph, replays in graphs:
+        funcs, _others = mt._nvrtc.graph_kernel_functions(
+            graph.raw_cuda_graph())
+        for f in funcs:
+            if f not in names:
+                names[f] = mt._nvrtc.function_name(f)
+            label = rnn_kernel_label(names[f])
+            if label:
+                out[label.split()[0] + "_scan"] += replays
+    return out
+
+
+def ctc_examples_phase(mt, rnn_scan, card):
+    """Phase 30: both CTC examples' first steps on gpu(0) against the CPU
+    from weights drawn on the CPU (each array within EX_SHARE of its
+    largest value, or EX_FLOOR of the example's largest), then each main
+    on gpu(0) to its own asserts, lstm_scan and gru_scan counted from 0
+    just before each. Returns {kernel: launches} over both mains."""
+    gpu = mt.gpu(0)
+    t0 = time.time()
+    firsts = {}
+    np.random.seed(41)
+    x, y = ctc_toy_data(256, 1)
+    with mt.cpu():
+        it = mt.io.NDArrayIter(x, y, 64, shuffle=True, label_name="label")
+        with mt.name.NameManager():
+            sym = ctc_toy_symbol(mt)
+        args, auxs = module_init(mt, sym, it, mt.init.Xavier(),
+                                 label_names=("label",))
+        dargs = dst_init(mt)
+    for label, ctx in (("gpu", gpu), ("cpu", mt.cpu())):
+        with ctx:
+            firsts[label] = {
+                "ctc_toy": module_delta(module_steps(
+                    mt, ctx, sym, it, args, auxs, "adam",
+                    {"learning_rate": 5e-3}, label_names=("label",)), args),
+                "deepspeech_toy": (lambda r: dict(
+                    module_delta(r[1], dargs), losses=np.array(r[0])))(
+                    dst_main(mt, ctx, arg_params=dargs, steps=FIT_STEPS))}
+    for ex, got in firsts["gpu"].items():
+        want = firsts["cpu"][ex]
+        top = max(float(np.abs(w).max()) for w in want.values())
+        worst = 0.0
+        for k, w in want.items():
+            w = np.asarray(w, np.float64)
+            err = float(np.abs(np.asarray(got[k], np.float64) - w).max()) \
+                / max(float(np.abs(w).max()), EX_FLOOR * top, 1e-30)
+            worst = max(worst, err)
+            if not err <= EX_SHARE:
+                fail("%s: %s after %d steps on gpu(0) differs from the CPU's "
+                     "by %.3g of its largest value (limit %g)"
+                     % (ex, k, FIT_STEPS, err, EX_SHARE))
+        print("%s: first %d steps on gpu(0) against the CPU: %d arrays within "
+              "%.3g of their largest values (limit %g)"
+              % (ex, FIT_STEPS, len(want), worst, EX_SHARE), flush=True)
+    first_s = time.time() - t0
+    launches = {"lstm_scan": 0, "gru_scan": 0}
+    with gpu:
+        t0 = time.time()
+        rnn_scan.reset_launches()
+        acc, mod = ctc_toy_main(mt, gpu)
+        entries = [e for e in mod._fused._cache.entries()
+                   if e.graph is not None] if mod._fused else []
+        got = scan_launches(mt, rnn_scan, [(e.graph, e.replays)
+                                           for e in entries])
+        steps = CTC_EPOCHS * (1024 // 64)
+        if got["lstm_scan"] < steps or got["gru_scan"]:
+            fail("ctc_toy: launches %s in %d training steps (want at least "
+                 "one lstm_scan a step, no gru_scan)" % (got, steps))
+        print("ctc_toy's main on gpu(0) (Module.fit, %s): exact-sequence "
+              "accuracy %.3f, its assert holds; launches %s (%d steps and "
+              "the held-out forwards); %.1f s | %s"
+              % ("captured: %d graph(s), %d replays" % (
+                  len(entries), sum(e.replays for e in entries))
+                 if entries else "eager", acc, got, steps,
+                 time.time() - t0, card), flush=True)
+        for k in launches:
+            launches[k] += got[k]
+        t0 = time.time()
+        rnn_scan.reset_launches()
+        first, last, rate = dst_main(mt, gpu)
+        got = dict(rnn_scan.LAUNCHES)
+        if got["gru_scan"] < 1 or got["lstm_scan"]:
+            fail("deepspeech_toy: launches %s (want gru_scan, no lstm_scan)"
+                 % got)
+        print("deepspeech_toy's main on gpu(0) (BucketingModule, eager "
+              "forward / backward / update): CTC loss %.4f -> %.4f (limit "
+              "0.35 x), exact transcript match %.3f (limit 0.75), its "
+              "asserts hold; launches %s; %.1f s | %s"
+              % (first, last, rate, got, time.time() - t0, card), flush=True)
+        for k in launches:
+            launches[k] += got[k]
+    print("CTC examples phase: first steps %.1f s" % first_s, flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 31: DeepSpeech 2 at its published widths (Amodei et al., Deep
+# Speech 2, arXiv:1512.02595), as MXNet v1.x example/speech_recognition
+# builds it (arch_deepspeech.py, deepspeech.cfg [arch]): 161 spectrogram
+# bins, two convolutions of 32 channels (11x41 at stride (2, 2), 11x21 at
+# stride (1, 2), each with BatchNorm and ReLU), 3 bidirectional GRU layers
+# of 1,760 units a direction (a FusedRNNCell, gru_scan at H=1760 in its
+# streamed mode), a per-frame FullyConnected to 29 symbols (blank, 26
+# letters, space, apostrophe) and ctc_loss; batch 12, buckets of 200 and
+# 300 frames. About 145M weights in float32. Random weights from a seed
+# and synthetic utterances (each character a few noisy frames of its own
+# 161-bin prototype): no LibriSpeech in the repository.
+# ---------------------------------------------------------------------------
+
+DS2 = dict(bins=161, hidden=1760, layers=3, classes=29, batch=12,
+           buckets=(200, 300))
+# (channels, kernel, stride, pad) of the two convolutions; the pads keep
+# T / 2 frames and 41 frequency rows: GRU layer 1 reads 32 x 41 = 1,312
+DS2_CONV = ((32, (11, 41), (2, 2), (5, 20)), (32, (11, 21), (1, 2), (5, 10)))
+DS2_LABEL = 36                  # labels padded with blanks to this
+DS2_UTTERANCES = 60             # a bucket: 5 batches of 12
+DS2_EAGER_UTTERANCES = 36       # the eager fit's: 3 batches a bucket
+DS2_LR, DS2_CLIP = 3e-4, 100.0  # Adam; deepspeech.cfg's clip_gradient
+DS2_CAPTURED_EPOCHS = 2
+# the first step at batch 2 and bucket 200 on the card against the CPU
+# (TF32 off): the loss within DS2_LOSS_RTOL, each gradient within
+# DS2_GRAD_SHARE of its largest entry (float32 sums in another order over
+# 100 recurrent steps and 3 layers)
+DS2_CHECK_BATCH, DS2_LOSS_RTOL, DS2_GRAD_SHARE = 2, 1e-4, 1e-3
+# the first captured steps against eager ones from the same weights: each
+# step's CTC loss within this (relative)
+DS2_STEP_RTOL = 1e-4
+# the loss falls: the mean of the captured fit's last 4 steps below
+# DS2_FALL of its first 4's
+DS2_FALL = 0.7
+
+
+def ds2_frames(seq_len):
+    """Frames after the convolutions: the first's stride 2, the second's
+    stride 1 (both padded by 5 in time)."""
+    return (seq_len - 1) // 2 + 1
+
+
+def ds2_widths(bins=None, hidden=None, layers=None, classes=None):
+    """The widths given, DS2's where not."""
+    return (DS2["bins"] if bins is None else bins,
+            DS2["hidden"] if hidden is None else hidden,
+            DS2["layers"] if layers is None else layers,
+            DS2["classes"] if classes is None else classes)
+
+
+def ds2_symbol(pkg, seq_len, bins=None, hidden=None, layers=None,
+               classes=None):
+    """arch_deepspeech.py's acoustic model for a bucket of ``seq_len``
+    frames (DS2's widths where none are given), with ctc_loss's mean
+    under MakeLoss and the per-frame logits blocked (as the toy's
+    sym_gen)."""
+    bins, hidden, layers, classes = ds2_widths(bins, hidden, layers, classes)
+    S = pkg.sym
+    data, label = S.var("data"), S.var("label")
+    body = S.Reshape(data, shape=(0, 1, seq_len, bins))
+    for i, (channels, kernel, stride, pad) in enumerate(DS2_CONV):
+        body = S.Convolution(body, num_filter=channels, kernel=kernel,
+                             stride=stride, pad=pad, no_bias=True,
+                             name="conv%d" % (i + 1))
+        body = S.BatchNorm(body, fix_gamma=False, name="conv%d_bn" % (i + 1))
+        body = S.Activation(body, act_type="relu")
+    steps = ds2_frames(seq_len)
+    body = S.Reshape(S.transpose(body, axes=(0, 2, 1, 3)),
+                     shape=(0, steps, -1))
+    rnn = pkg.rnn.FusedRNNCell(hidden, num_layers=layers, mode="gru",
+                               bidirectional=True, prefix="bgru_")
+    out, _ = rnn.unroll(steps, inputs=body, layout="NTC",
+                        merge_outputs=True)
+    pred = S.Reshape(out, shape=(-1, 2 * hidden))
+    pred = S.FullyConnected(pred, num_hidden=classes, name="fc")
+    pred = S.Reshape(pred, shape=(-1, steps, classes))
+    loss = S.MakeLoss(S.mean(S.ctc_loss(S.transpose(pred, axes=(1, 0, 2)),
+                                        label)))
+    return S.Group([loss, S.BlockGrad(pred)])
+
+
+def ds2_sym_gen(pkg):
+    def sym_gen(seq_len):
+        return ds2_symbol(pkg, seq_len), ("data",), ("label",)
+    return sym_gen
+
+
+def ds2_utterances(n, seed, bucket, bins=None):
+    """``n`` utterances for the bucket of ``bucket`` frames: a label of
+    bucket / 10 to bucket / 8.5 characters over symbols 1..classes-1, each
+    character 7 or 8 noisy frames of its own prototype (at 200 frames
+    140-184, at 300 210-280: each bucket's utterances fall in it)."""
+    bins, _, _, classes = ds2_widths(bins=bins)
+    protos = np.random.RandomState(7).uniform(-1, 1, (classes, bins))
+    rng = np.random.RandomState(seed)
+    feats, labels = [], []
+    for _ in range(n):
+        lab = rng.randint(1, classes, rng.randint(bucket // 10,
+                                                  bucket * 2 // 17 + 1))
+        frames = np.concatenate([np.repeat(protos[t][None], rng.randint(7, 9),
+                                           axis=0) for t in lab])
+        frames = frames + 0.3 * rng.randn(*frames.shape)
+        feats.append(frames.astype(np.float32))
+        labels.append(lab.astype(np.float32))
+    return feats, labels
+
+
+def ds2_data(seed, per_bucket):
+    """(features, labels) over DS2's buckets, ``per_bucket`` each."""
+    feats, labels = [], []
+    for i, b in enumerate(DS2["buckets"]):
+        f, lab = ds2_utterances(per_bucket, seed + i, b)
+        feats += f
+        labels += lab
+    return feats, labels
+
+
+def ds2_init(shapes, seed):
+    """Weights from ``seed``: each weight uniform in +-sqrt(6 / (fan in +
+    fan out)) (the GRU's flat blob at its recurrent scale, 1 /
+    sqrt(hidden)), BatchNorm's gamma 1 and beta 0; {name: numpy}."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, shape in sorted(shapes.items()):
+        if name in ("data", "label"):
+            continue
+        if name.endswith("gamma"):
+            out[name] = np.ones(shape, np.float32)
+        elif name.endswith("beta") or name.endswith("bias"):
+            out[name] = np.zeros(shape, np.float32)
+        else:
+            if len(shape) == 1:
+                a = 1.0 / np.sqrt(DS2["hidden"])
+            else:
+                fan_in = int(np.prod(shape[1:]))
+                a = np.sqrt(6.0 / (fan_in + shape[0]))
+            out[name] = rng.uniform(-a, a, shape).astype(np.float32)
+    return out
+
+
+def ds2_shapes(pkg, bucket, batch, **widths):
+    """{argument or aux name: shape} of the bucket's symbol at ``batch``."""
+    sym = ds2_symbol(pkg, bucket, **widths)
+    arg, _, aux = sym.infer_shape(data=(batch, bucket, ds2_widths(
+        widths.get("bins"))[0]), label=(batch, DS2_LABEL))
+    return dict(zip(sym.list_arguments(), arg)), \
+        dict(zip(sym.list_auxiliary_states(), aux))
+
+
+def ds2_fit(pkg, train, ctx, arg_params, aux_params, num_epoch, metric,
+            seed=0, batch_end_callback=None):
+    """BucketingModule.fit of the model over ``train`` on ``ctx`` (the
+    fused step, one graph a bucket, unless MXTPU_MODULE_FUSED=0): Adam at
+    DS2_LR with deepspeech.cfg's gradient clip, from the given weights
+    ({name: numpy})."""
+    np.random.seed(seed)
+    pkg.random.seed(seed)
+    train.reset()                   # its batch order from the seed
+    mod = pkg.mod.BucketingModule(ds2_sym_gen(pkg),
+                                  default_bucket_key=train.default_bucket_key,
+                                  context=ctx)
+    mod.fit(train, eval_metric=metric, optimizer="adam",
+            optimizer_params={"learning_rate": DS2_LR,
+                              "clip_gradient": DS2_CLIP},
+            num_epoch=num_epoch, arg_params=host_params(pkg, arg_params),
+            aux_params=host_params(pkg, aux_params),
+            batch_end_callback=batch_end_callback)
+    return mod
+
+
+class StepClock:
+    """A fit's batch_end_callback: each step's host ms (fit's loop body,
+    from one step's end to the next's, the card synchronized at each) by
+    bucket, those of each bucket's first ``skip`` steps (its real step
+    and, fused, its capture) apart from the rest. The fit's first step
+    has no start to time from."""
+
+    def __init__(self, skip):
+        self.skip = skip
+        self.last = None
+        self.seen = {}
+        self.first = {}             # bucket: [ms of its first steps]
+        self.ms = {}                # bucket: [ms of its later steps]
+
+    def __call__(self, param):
+        import torch
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        key = param.locals["batch"].bucket_key
+        seen = self.seen[key] = self.seen.get(key, 0) + 1
+        if self.last is not None:
+            into = self.ms if seen > self.skip else self.first
+            into.setdefault(key, []).append((now - self.last) * 1e3)
+        self.last = now
+
+
+def ds2_step_work(batch, bucket):
+    """(FLOPs, bytes) a training step must do at least: forward and the
+    backward's two products a multiply-add (3 x 2 x MACs) of the
+    convolutions, the GRU's input and recurrent products and the output
+    layer; each weight read, its gradient written and read and Adam's
+    two states read and written, and the weight written, in float32. The
+    backward's recompute of the time loop is not counted."""
+    bins, hidden, layers, classes = ds2_widths()
+    macs, weights = 0, 0
+    c_in, t, f = 1, bucket, bins
+    for channels, (kt, kf), (st, sf), (pt, pf) in DS2_CONV:
+        t = (t + 2 * pt - kt) // st + 1
+        f = (f + 2 * pf - kf) // sf + 1
+        w = channels * c_in * kt * kf
+        macs += batch * t * f * w
+        weights += w
+        c_in = channels
+    feat, tokens = c_in * f, batch * t
+    for layer in range(layers):
+        w = 2 * 3 * hidden * (feat + hidden)
+        macs += tokens * w
+        weights += w
+        feat = 2 * hidden
+    macs += tokens * feat * classes
+    weights += feat * classes
+    return 6.0 * macs, 8.0 * 4 * weights
+
+
+def ds2_cpu_check(mt, w, card):
+    """The first step at DS2_CHECK_BATCH, bucket 200, on the card and on
+    the CPU from the weights ``w`` (TF32 off): the loss within
+    DS2_LOSS_RTOL and every gradient within DS2_GRAD_SHARE of its largest
+    entry. Returns the text."""
+    import torch
+    bucket, batch = DS2["buckets"][0], DS2_CHECK_BATCH
+    feats, labels = ds2_utterances(batch, 11, bucket)
+    it = speech_iter(mt, feats, labels, batch, (bucket,), DS2["bins"],
+                     DS2_LABEL)
+    b = it.next()
+    _, auxs = ds2_shapes(mt, bucket, batch)
+    got = []
+    for ctx in (mt.gpu(0), mt.cpu()):
+        with ctx:
+            ex = ds2_symbol(mt, bucket).simple_bind(
+                ctx=ctx, grad_req="write", data=(batch, bucket, DS2["bins"]),
+                label=(batch, DS2_LABEL))
+            for k, v in w.items():
+                ex.arg_dict[k][:] = v
+            for k in auxs:
+                ex.aux_dict[k][:] = np.ones(auxs[k], np.float32) \
+                    if k.endswith("var") else np.zeros(auxs[k], np.float32)
+            loss = ex.forward(is_train=True, data=b.data[0],
+                              label=b.label[0])[0].asnumpy()
+            ex.backward()
+            got.append((float(loss.mean()), {
+                k: g.asnumpy() for k, g in ex.grad_dict.items()
+                if k in w}))
+            del ex
+    torch.cuda.empty_cache()
+    (lg, gg), (lc, gc_) = got
+    if not abs(lg - lc) <= DS2_LOSS_RTOL * abs(lc):
+        fail("DeepSpeech 2 first step: loss %.6f on the card, %.6f on the "
+             "CPU (limit %g relative)" % (lg, lc, DS2_LOSS_RTOL))
+    worst, at = 0.0, None
+    for k, want in gc_.items():
+        err = float(np.abs(gg[k] - want).max()) / max(
+            float(np.abs(want).max()), 1e-30)
+        if err > worst:
+            worst, at = err, k
+        if not err <= DS2_GRAD_SHARE:
+            fail("DeepSpeech 2 first step: %s's gradient on the card lies "
+                 "%.3g of its largest entry from the CPU's (limit %g)"
+                 % (k, err, DS2_GRAD_SHARE))
+    return ("first step at batch %d, bucket %d on the card against the CPU "
+            "(TF32 off): loss %.6f / %.6f; %d gradients, the worst %s at "
+            "%.3g of its largest entry (limits %g relative, %g) | %s"
+            % (batch, bucket, lg, lc, len(gc_), at, worst, DS2_LOSS_RTOL,
+               DS2_GRAD_SHARE, card))
+
+
+def ds2_first_steps(mt, w, auxs, card):
+    """FIT_STEPS steps in bucket 200 from the same weights, captured and
+    eager on the card: each step's CTC loss within DS2_STEP_RTOL."""
+    bucket = DS2["buckets"][0]
+    feats, labels = ds2_utterances(FIT_STEPS * DS2["batch"], 21, bucket)
+    losses = {}
+    for fused in (True, False):
+        it = speech_iter(mt, feats, labels, DS2["batch"], (bucket,),
+                         DS2["bins"], DS2_LABEL)
+        metric = ctc_loss_metric(mt)
+        mod = with_fused(fused, ds2_fit, mt, it, mt.gpu(0), w, auxs, 1,
+                         metric)
+        if fused:
+            report = bucket_graph_report(mt, mod)
+            if [r[3] for r in report.values()] != [FIT_STEPS - 1]:
+                fail("DeepSpeech 2 first steps: %s (want one graph, %d "
+                     "replays)" % (report, FIT_STEPS - 1))
+        losses[fused] = metric.values
+        del mod
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                      losses[False]))
+    if len(losses[True]) != FIT_STEPS or not worst <= DS2_STEP_RTOL:
+        fail("DeepSpeech 2 first %d steps captured %s against eager %s "
+             "(limit %g relative)" % (FIT_STEPS, losses[True], losses[False],
+                                      DS2_STEP_RTOL))
+    return ("first %d steps in bucket %d, captured against eager from the "
+            "same weights: CTC losses %s / %s, worst %.3g relative (limit "
+            "%g) | %s" % (FIT_STEPS, bucket, ", ".join(
+                "%.4f" % v for v in losses[True]), ", ".join(
+                "%.4f" % v for v in losses[False]), worst, DS2_STEP_RTOL,
+                card))
+
+
+def ctc_times(dev, card):
+    """ctc_loss forward + backward at DeepSpeech 2's bucket-200 shape (T =
+    100, N = 12, C = 29) beside torch.nn.functional.ctc_loss on the same
+    inputs (log_softmax applied first: the port's op takes activations)
+    as a yardstick. Returns (ms, F.ctc_loss ms, max |loss difference|)."""
+    import torch
+    import torch.nn.functional as F
+    from mxtpu_torch.ops.nn import ctc_loss
+    T, N, C = ds2_frames(DS2["buckets"][0]), DS2["batch"], DS2["classes"]
+    rng = np.random.RandomState(5)
+    x = torch.tensor(rng.randn(T, N, C).astype(np.float32), device=dev,
+                     requires_grad=True)
+    lens = np.minimum(rng.randint(T // 6, T // 4 + 1, N), DS2_LABEL)
+    lab = np.zeros((N, DS2_LABEL), np.float32)
+    for i, n in enumerate(lens):
+        lab[i, :n] = rng.randint(1, C, n)
+    label = torch.tensor(lab, device=dev)
+    tgt = torch.tensor(lab, device=dev).long()
+    tl = torch.tensor(lens, device=dev)
+    il = torch.full((N,), T, dtype=torch.long, device=dev)
+
+    def ours():
+        ctc_loss(x, label).sum().backward()
+
+    def library():
+        F.ctc_loss(torch.log_softmax(x, 2), tgt, il, tl,
+                   reduction="sum").backward()
+    with torch.no_grad():
+        diff = float((ctc_loss(x, label) - F.ctc_loss(
+            torch.log_softmax(x, 2), tgt, il, tl,
+            reduction="none")).abs().max())
+    ms, lib_ms = cuda_ms(ours, iters=10, warmup=2), cuda_ms(library,
+                                                            iters=10)
+    print("ctc_loss forward + backward at (T=%d, N=%d, C=%d) on the card: "
+          "%.3f ms (events over 10 calls; about %d small launches a call: "
+          "torch ops on (N, S) tensors a step, S = %d); F.ctc_loss %.3f ms "
+          "(a yardstick: it takes log-probabilities and returns inf for an "
+          "impossible alignment); max |loss difference| %.3g | %s"
+          % (T, N, C, ms, 30 * T, 2 * DS2_LABEL + 1, lib_ms, diff, card),
+          flush=True)
+    return ms, lib_ms, diff
+
+
+def ds2_kernel_times(rnn_scan, rng, dev, card):
+    """gru_scan at (T=100, N=12, H=1760) (the bucket-200 launch) against
+    gru_scan_reference, its plan, card ms, bound and plain ms, and cuDNN
+    torch.nn.GRU's ms on the same shape, one direction and both. Returns
+    {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms" (one
+    direction), "library_bidir_ms", "max_abs_err", "plan"}."""
+    import torch
+    T, N, H = ds2_frames(DS2["buckets"][0]), DS2["batch"], DS2["hidden"]
+    a = gru_args(rng, N, torch.float32, dev, T=T, H=H)
+    got = rnn_scan.gru_scan(*a)
+    want = rnn_scan.gru_scan_reference(*a)
+    check_close("gru_scan T=%d N=%d H=%d f32" % (T, N, H), got, want,
+                F32_TOL)
+    err = max_err(got, want)
+    plan = rnn_scan.scan_plan("gru", T, N, H, torch.float32, torch.float32)
+    ms = cuda_ms(lambda: rnn_scan.gru_scan(*a), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: rnn_scan.gru_scan_reference(*a), iters=3,
+                       warmup=1)
+    bound_ms, bound_by = bound("gru", N, T=T, H=H)
+    xs = torch.randn(T, N, H, device=dev)
+    lib = {}
+    for bidirectional in (False, True):
+        gru = torch.nn.GRU(H, H, bidirectional=bidirectional).to(dev)
+        with torch.no_grad():
+            lib[bidirectional] = cuda_ms(lambda: gru(xs), iters=10,
+                                         warmup=2)
+    print("gru_scan at DeepSpeech 2's width T=%d N=%d H=%d f32 (%s mode, "
+          "clusters of %d x %d rows): max |kernel - plain| %.3g (tolerance "
+          "%s); kernel %.3f ms a launch (events over 10), plain %.3f ms, "
+          "bound %.4f ms (%s; Wh alone, 3 x H^2 x 4 B = %.1f MB, read from "
+          "HBM at every step would take %.3f ms), %.1f%% of the bound; "
+          "cuDNN torch.nn.GRU (its input product included) one direction "
+          "%.3f ms, bidirectional %.3f ms | %s"
+          % (T, N, H, plan.mode, plan.cluster, plan.rows, err, F32_TOL, ms,
+             plain_ms, bound_ms, bound_by, 3 * H * H * 4 / 1e6,
+             T * 3 * H * H * 4 / PEAK_BYTES_S * 1e3, 100 * bound_ms / ms,
+             lib[False], lib[True], card), flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib[False],
+            "library_bidir_ms": lib[True], "max_abs_err": err,
+            "plan": "%s, clusters of %d x %d rows" % (plan.mode, plan.cluster,
+                                                     plan.rows)}
+
+
+def ds2_phase(mt, rnn_scan, rng, dev, card):
+    """Phase 31: DeepSpeech 2 at its published widths through
+    BucketingModule.fit on gpu(0), TF32 off: the first step against the
+    CPU, the first captured steps against eager ones, then a captured fit
+    (gru_scan counted from 0 just before it: 6 launches a forward, 6
+    nodes in each bucket's graph) and an eager one, each bucket's steps
+    timed beside the step's bound, the card's busy share, the graphs and
+    the peak memory; ctc_loss and gru_scan at the model's shapes. Returns
+    (the fit's gru_scan launches, the kernel's timing)."""
+    import torch
+    clock = [("start", time.perf_counter())]
+    kernel = ds2_kernel_times(rnn_scan, rng, dev, card)
+    ctc = ctc_times(dev, card)
+    clock.append(("kernels", time.perf_counter()))
+    args, auxs = ds2_shapes(mt, DS2["buckets"][-1], DS2["batch"])
+    w = ds2_init(args, 0)
+    print("DeepSpeech 2 %s" % ds2_cpu_check(mt, w, card), flush=True)
+    clock.append(("CPU check", time.perf_counter()))
+    aux0 = {k: (np.ones if k.endswith("var") else np.zeros)(
+        s, np.float32) for k, s in auxs.items()}
+    print("DeepSpeech 2: %.1fM weights (float32), %s" % (
+        sum(v.size for v in w.values()) / 1e6,
+        ds2_first_steps(mt, w, aux0, card)), flush=True)
+    clock.append(("first steps", time.perf_counter()))
+    launches, out = {}, {}
+    for path in ("captured", "eager"):
+        feats, labels = ds2_data(31, DS2_UTTERANCES if path == "captured"
+                                 else DS2_EAGER_UTTERANCES)
+        it = speech_iter(mt, feats, labels, DS2["batch"], DS2["buckets"],
+                         DS2["bins"], DS2_LABEL)
+        metric = ctc_loss_metric(mt)
+        clock_ = StepClock(2 if path == "captured" else 1)
+        torch.cuda.reset_peak_memory_stats()
+        rnn_scan.reset_launches()
+        t0 = time.perf_counter()
+        epochs = DS2_CAPTURED_EPOCHS if path == "captured" else 1
+        mod = with_fused(path == "captured", ds2_fit, mt, it, mt.gpu(0), w,
+                         aux0, epochs, metric, batch_end_callback=clock_)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = epochs * len(it._plan)
+        text = "eager"
+        if path == "captured":
+            report = bucket_graph_report(mt, mod)
+            got = dict(rnn_scan.LAUNCHES)
+            got["gru_scan"] += sum(r[2]["gru"] * r[3]
+                                   for r in report.values())
+            if any(r[2]["gru"] != 2 * DS2["layers"] for r in
+                   report.values()) or \
+                    got["gru_scan"] != 2 * DS2["layers"] * steps:
+                fail("DeepSpeech 2 captured fit: graphs by bucket %s, "
+                     "gru_scan launches %d in %d steps (want %d nodes a "
+                     "graph, %d a step)" % (report, got["gru_scan"], steps,
+                                            2 * DS2["layers"],
+                                            2 * DS2["layers"]))
+            text = ("captured: graphs by bucket (kernel nodes, other nodes, "
+                    "time-loop nodes, replays, pool bytes) %s; ms of each "
+                    "bucket's timed first steps (the real step where timed, "
+                    "then the capture's) %s" % (report, ", ".join(
+                        "%d: %s" % (b, " / ".join("%.1f" % v for v in ms))
+                        for b, ms in sorted(clock_.first.items()))))
+            launches = got
+            losses = metric.values
+            first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+            if not (np.isfinite(losses).all() and last < DS2_FALL * first):
+                fail("DeepSpeech 2 captured fit: CTC loss of the first 4 "
+                     "steps %.4f, the last 4 %.4f (want below %.2f of it)"
+                     % (first, last, DS2_FALL))
+            text += "; CTC loss first 4 steps %.4f, last 4 %.4f (limit " \
+                "%.2f x)" % (first, last, DS2_FALL)
+        elif rnn_scan.LAUNCHES["gru_scan"] != 2 * DS2["layers"] * steps:
+            fail("DeepSpeech 2 eager fit: %d gru_scan launches in %d steps"
+                 % (rnn_scan.LAUNCHES["gru_scan"], steps))
+        print("DeepSpeech 2 BucketingModule.fit %s on gpu(0): %d epoch(s), "
+              "%d steps in %.2f s (a bucket's first steps included: its "
+              "real step and, captured, its capture); %s; peak memory "
+              "%.2f GB | %s" % (path, epochs, steps, secs, text,
+                                torch.cuda.max_memory_allocated() / 1e9,
+                                card), flush=True)
+        clock.append(("%s fit" % path, time.perf_counter()))
+        # ms a step by bucket: the fit's own steps past each bucket's first
+        # two, beside the step's bound
+        for b, v in sorted(clock_.ms.items()):
+            flops, nbytes = ds2_step_work(DS2["batch"], b)
+            bound_at = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S) \
+                * 1e3
+            out[path, b] = float(np.median(v))
+            print("DeepSpeech 2 %s step, bucket %d (%d frames after the "
+                  "convolutions): %.3f ms (median of %d steps of the fit, "
+                  "host clock: %s); bound %.3f ms (%.4g FLOPs at the "
+                  "float32 rate, %.4g bytes), %.1f%% of it | %s"
+                  % (path, b, ds2_frames(b), out[path, b], len(v), ", ".join(
+                      "%.2f" % x for x in v), bound_at, flops, nbytes,
+                     100 * bound_at / out[path, b], card), flush=True)
+        if path == "captured":
+            # the card's busy share: the kernel time of one replay of each
+            # bucket's graph (torch.profiler) against that replay's span
+            # (events), beside the fit's unprofiled step
+            marks = [torch.cuda.Event(enable_timing=True), \
+                     torch.cuda.Event(enable_timing=True)]
+            for b in sorted(report):
+                graph = mod._buckets[b]._fused._cache.entries()[0].graph
+
+                def replay():
+                    marks[0].record()
+                    graph.replay()
+                    marks[1].record()
+                busy, top = device_time(replay, 1)
+                span = marks[0].elapsed_time(marks[1])
+                print("DeepSpeech 2 captured step, bucket %d, on the card "
+                      "(profiler, one replay of its graph): %s; the "
+                      "unprofiled step %.3f ms; per step: %s | %s"
+                      % (b, busy_of(busy, span), out[path, b], top, card),
+                      flush=True)
+            clock.append(("profile", time.perf_counter()))
+        del mod
+    torch.cuda.empty_cache()
+    print("DeepSpeech 2 phase: %.1f s (%s)" % (
+        clock[-1][1] - clock[0][1], ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))), flush=True)
+    return launches.get("gru_scan", 0), dict(kernel, ctc_ms=ctc[0],
+                                             ctc_library_ms=ctc[1])
+
+
+# ---------------------------------------------------------------------------
+# Phase 32: the Gluon cells (gluon.rnn's LSTMCell / GRUCell stacks) against
+# the fused layers at the word LM's PTB widths (GL_LM_PTB), and
+# gluon.contrib's cells on the card
+# ---------------------------------------------------------------------------
+
+# the cell stack against the fused layer on the card (TF32 off): outputs,
+# the loss and every gradient within GL_CELL_SHARE of the array's largest
+# entry (the kernel and the cells' FullyConnected products sum in another
+# order); then GL_CELL_STEPS SGD steps each way from the same weights,
+# each step's loss within GL_CELL_SHARE relative and the weights within it
+# of their largest; GL_CELL_TIMED steps each timed
+GL_CELL_SHARE, GL_CELL_STEPS, GL_CELL_TIMED = 1e-4, 3, 5
+GL_CELL_LR = 0.5
+CONV_LSTM_STEPS = 30
+
+
+def gl_cell_model(pkg, mode, fused, vocab, embed, hidden, layers):
+    """The word LM's model (embedding, a recurrent stack, a Dense decoder)
+    whose stack is the fused layer or a SequentialRNNCell of ``layers``
+    cells, the i-th cell under the prefix "l<i>_" of the stack's "rnn_":
+    their weights have the fused layer's names."""
+    gluon = pkg.gluon
+    r = gluon.rnn
+
+    class CellLM(gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embedding = gluon.nn.Embedding(vocab, embed)
+                if fused:
+                    self.rnn = (r.LSTM if mode == "lstm" else r.GRU)(
+                        hidden, num_layers=layers, input_size=embed,
+                        prefix="rnn_")
+                else:
+                    self.rnn = r.SequentialRNNCell(prefix="rnn_")
+                    with self.rnn.name_scope():
+                        for i in range(layers):
+                            self.rnn.add((r.LSTMCell if mode == "lstm"
+                                          else r.GRUCell)(
+                                hidden, input_size=embed if i == 0
+                                else hidden, prefix="l%d_" % i))
+                self.decoder = gluon.nn.Dense(vocab, flatten=False,
+                                              in_units=hidden)
+
+        def forward(self, x):
+            e = self.embedding(x)
+            if fused:
+                h = self.rnn(e)
+            else:
+                h, _ = self.rnn.unroll(x.shape[0], e, layout="TNC",
+                                       merge_outputs=True)
+            return self.decoder(h)
+    return CellLM(prefix="celllm0_")
+
+
+def gl_cell_runs(mt, rnn_scan, mode, w0, data, card):
+    """The fused model and the hybridized cell stack from ``w0`` on
+    gpu(0): one forward / backward held against each other, then
+    GL_CELL_STEPS SGD steps each and GL_CELL_TIMED timed. Returns
+    (text, the fused model's time-loop launches)."""
+    import torch
+    vocab, embed, hidden, layers, bptt, batch = GL_LM_PTB
+    gpu = mt.gpu(0)
+    x = mt.nd.array(data[:bptt].astype("f"), ctx=gpu)
+    t = mt.nd.array(data[1:bptt + 1].astype("f"), ctx=gpu)
+    ce = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    got, steps, ms, models = {}, {}, {}, {}
+    launches = 0
+    for fused in (True, False):
+        model = gluon_load(mt, gl_cell_model(mt, mode, fused, vocab, embed,
+                                             hidden, layers), w0, gpu)
+        if not fused:
+            model.rnn.hybridize()
+        models[fused] = model
+        rnn_scan.reset_launches()
+        with mt.autograd.record():
+            out = model(x)
+            loss = ce(out.reshape((-3, 0)), t.reshape((-1,))).sum()
+        loss.backward()
+        got[fused] = dict({"loss": loss.asnumpy(), "out": out.asnumpy()},
+                          **{k: p.grad().asnumpy() for k, p in
+                             model.collect_params().items()})
+        trainer = mt.gluon.Trainer(model.collect_params(), "sgd",
+                                   {"learning_rate": GL_CELL_LR})
+        losses = []
+        for i in range(GL_CELL_STEPS + GL_CELL_TIMED):
+            if i == GL_CELL_STEPS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            with mt.autograd.record():
+                loss = ce(model(x).reshape((-3, 0)), t.reshape((-1,))).mean()
+            loss.backward()
+            trainer.step(1)
+            if i < GL_CELL_STEPS:
+                losses.append(float(loss.asscalar()))
+        torch.cuda.synchronize()
+        ms[fused] = (time.perf_counter() - t0) / GL_CELL_TIMED * 1e3
+        steps[fused] = (losses, gluon_values(model))
+        if fused:
+            launches = rnn_scan.LAUNCHES[mode + "_scan"]
+            want = layers * (1 + GL_CELL_STEPS + GL_CELL_TIMED)
+            if launches != want:
+                fail("Gluon %s layer: %d %s_scan launches in %d forwards "
+                     "(want %d)" % (mode, launches, mode,
+                                    1 + GL_CELL_STEPS + GL_CELL_TIMED, want))
+    worst = {}
+    for what, (a, b) in (("forward and gradients", (got[True], got[False])),
+                         ("weights after the steps", (steps[True][1],
+                                                      steps[False][1]))):
+        if sorted(a) != sorted(b):
+            fail("Gluon %s cells: names %s against the layer's %s"
+                 % (mode, sorted(b), sorted(a)))
+        worst[what] = max(
+            float(np.abs(a[k] - b[k]).max()) / max(float(np.abs(a[k]).max()),
+                                                   1e-30) for k in a)
+        if not worst[what] <= GL_CELL_SHARE:
+            fail("Gluon %s cell stack against the fused layer on the card: "
+                 "%s apart by %.3g of the largest entry (limit %g)"
+                 % (mode, what, worst[what], GL_CELL_SHARE))
+    apart = max(abs(a - b) / abs(a) for a, b in zip(steps[True][0],
+                                                      steps[False][0]))
+    if not apart <= GL_CELL_SHARE:
+        fail("Gluon %s cells: step losses %s against the layer's %s"
+             % (mode, steps[False][0], steps[True][0]))
+    stats = list(models[False].rnn._children.values())[0].cache_stats()
+    return ("Gluon %s at PTB's widths (vocab %d, embed %d, hidden %d, %d "
+            "layers, bptt %d, batch %d) on gpu(0): a hybridized "
+            "SequentialRNNCell of %d %sCells given the fused layer's weights "
+            "against the layer: %s within %.3g, weights after %d SGD steps "
+            "within %.3g of their largest, step losses within %.3g (limit "
+            "%g); ms a step: the fused layer %.3f (%s_scan %d launches, one "
+            "a layer a forward), the cell stack %.3f (its first cell's "
+            "programs: %s) | %s"
+            % (mode.upper(), vocab, embed, hidden, layers, bptt, batch, layers,
+               mode.upper(), "outputs, loss and gradients",
+               worst["forward and gradients"], GL_CELL_STEPS,
+               worst["weights after the steps"], apart, GL_CELL_SHARE,
+               ms[True], mode, launches, ms[False], stats, card)), launches
+
+
+def conv_lstm_learns(pkg, ctx, steps=CONV_LSTM_STEPS):
+    """tests/test_gluon_contrib.py's ConvLSTM check on ``ctx``: a
+    Conv2DLSTMCell and a 1x1 head learn to predict a frame, Adam, the
+    loss of the last step below the first's. Returns the losses."""
+    pkg.random.seed(0)
+    cr, nn = pkg.gluon.contrib.rnn, pkg.gluon.nn
+    cell = cr.Conv2DLSTMCell(input_shape=(1, 6, 6), hidden_channels=4,
+                             i2h_kernel=3, h2h_kernel=3, i2h_pad=1)
+    head = nn.Conv2D(1, 1)
+    cell.initialize(pkg.init.Xavier(), ctx=ctx)
+    head.initialize(pkg.init.Xavier(), ctx=ctx)
+    params = dict(cell.collect_params())
+    params.update(head.collect_params())
+    trainer = pkg.gluon.Trainer(params, "adam", {"learning_rate": 1e-2})
+    rng = np.random.RandomState(0)
+    seq = [pkg.nd.array(rng.rand(2, 1, 6, 6).astype(np.float32), ctx=ctx)
+           for _ in range(4)]
+    loss_fn = pkg.gluon.loss.L2Loss()
+    losses = []
+    for _ in range(steps):
+        with pkg.autograd.record():
+            outs, _ = cell.unroll(4, seq, merge_outputs=False)
+            loss = loss_fn(head(outs[-2]), seq[-1])
+        loss.backward()
+        trainer.step(2)
+        losses.append(float(loss.mean().asscalar()))
+    if not losses[-1] < losses[0]:
+        fail("Conv2DLSTMCell on %s: loss %.5f -> %.5f, not falling"
+             % (ctx, losses[0], losses[-1]))
+    return losses
+
+
+def lstmp_unroll(mt, ctx, w):
+    """LSTMPCell(hidden 16, projection 8) unrolled 5 steps on ``ctx`` from
+    weights ``w`` (None: drawn, then returned): (outputs and states as
+    numpy, weights)."""
+    cell = mt.gluon.contrib.rnn.LSTMPCell(16, 8, input_size=12,
+                                          prefix="lstmp0_")
+    cell.initialize(mt.init.Xavier(), ctx=ctx)
+    if w is not None:
+        cell.collect_params().load_dict(w, ctx=ctx)
+    x = mt.nd.array(np.random.RandomState(3).randn(4, 5, 12).astype("f"),
+                    ctx=ctx)
+    outs, states = cell.unroll(5, x, layout="NTC", merge_outputs=True)
+    return [outs.asnumpy()] + [s.asnumpy() for s in states], \
+        {k: p.data().asnumpy() for k, p in cell.collect_params().items()}
+
+
+def gluon_cells_phase(mt, rnn_scan, seed, card):
+    """Phase 32: the LSTM and GRU cell stacks against the fused layers at
+    PTB's widths (B4 and B5 in the layers), a Conv2DLSTMCell learning and
+    an LSTMPCell unrolled on gpu(0) against the CPU. Returns {kernel:
+    launches} of the fused layers."""
+    t0 = time.time()
+    vocab, embed, hidden, layers, bptt, batch = GL_LM_PTB
+    rng = np.random.RandomState(seed + 5)
+    data = lm_batchify(markov_corpus(bptt * batch * 2, vocab, rng), batch)
+    launches = {}
+    for mode in ("lstm", "gru"):
+        w0 = gluon_weights(mt, gl_cell_model(mt, mode, True, vocab, embed,
+                                             hidden, layers), seed,
+                           data[:bptt].astype("f"), init=mt.init.Xavier())
+        text, launches[mode + "_scan"] = gl_cell_runs(mt, rnn_scan, mode, w0,
+                                                      data, card)
+        print(text, flush=True)
+    losses = conv_lstm_learns(mt, mt.gpu(0))
+    card_out, w = lstmp_unroll(mt, mt.gpu(0), None)
+    cpu_out, _ = lstmp_unroll(mt, mt.cpu(), w)
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(card_out,
+                                                            cpu_out))
+    if not worst <= F32_TOL["atol"]:
+        fail("LSTMPCell on gpu(0): %.3g from the CPU's (limit %g)"
+             % (worst, F32_TOL["atol"]))
+    print("gluon.contrib on gpu(0): Conv2DLSTMCell's loss %.5f -> %.5f over "
+          "%d Adam steps (falling, as tests/test_gluon_contrib.py asserts); "
+          "LSTMPCell(16, projection 8) unrolled 5 steps: max |card - CPU| "
+          "%.3g (limit %g); phase %.1f s | %s"
+          % (losses[0], losses[-1], len(losses), worst, F32_TOL["atol"],
+             time.time() - t0, card), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 33: rematerialization. hybridize(remat=True) on the four residual
+# stages of resnet18_v1 (BASELINE.json config 3: 224^2, batch 128, TF32
+# off), the net around them not hybridized; MXNET_BACKWARD_DO_MIRROR=1 on
+# LeNet's Module.fit (config 1), eager and captured
+# ---------------------------------------------------------------------------
+
+# REMAT_CHECKED steps each way under cuDNN's deterministic algorithms (the
+# first runs for real, the second captures, the third replays): every
+# gradient within REMAT_SHARE of its largest entry, the moving statistics
+# and weights alike; then REMAT_TIMED steps each way for ms a step and the
+# peak memory
+REMAT_CHECKED, REMAT_TIMED, REMAT_SHARE = 3, 5, 1e-5
+
+
+def remat_stages(net):
+    """resnet18_v1's four residual stages (its features' HybridSequential
+    children)."""
+    stages = [c for c in net.features._children.values()
+              if type(c).__name__ == "HybridSequential"]
+    if len(stages) != 4:
+        fail("resnet18_v1 has %d residual stages, want 4" % len(stages))
+    return stages
+
+
+def remat_run(mt, w0, x, y, remat, card):
+    """resnet18_v1 from ``w0`` on gpu(0), its stages hybridized with
+    ``remat``: REMAT_CHECKED steps (deterministic cuDNN) keeping every
+    gradient, then REMAT_TIMED timed. Returns (gradients by step, the
+    values after the checked steps, ms a step, the peak bytes allocated
+    above what the card held at the start over the checked steps and over
+    the timed ones, the bytes reserved, the stages' counts)."""
+    import torch
+    gpu = mt.gpu(0)
+    net = gluon_load(mt, gluon_resnet18(mt), w0, gpu)
+    for s in remat_stages(net):
+        s.hybridize(remat=remat)
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", dict(GL_OPT))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    xs, ys = mt.nd.array(x, ctx=gpu), mt.nd.array(y, ctx=gpu)
+    params = net.collect_params()
+    grads = []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        with mt.autograd.record():
+            loss = loss_fn(net(xs), ys)
+        loss.backward()
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(REMAT_CHECKED):
+            step()
+            grads.append({k: p.grad().asnumpy() for k, p in params.items()
+                          if p.grad_req != "null"})
+            trainer.step(x.shape[0])
+    finally:
+        torch.backends.cudnn.deterministic = old
+    values = gluon_values(net)
+    torch.cuda.synchronize()
+    peak_checked = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(REMAT_TIMED):
+        step()
+        trainer.step(x.shape[0])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / REMAT_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.memory_reserved()
+    stats = [s.cache_stats() for s in remat_stages(net)]
+    captures = int(gpu.device_type == "gpu")
+    if any(st["captures"] != captures or st["fallbacks"] or st["uncaptured"]
+           for st in stats) or \
+            any(p.remat != remat for s in remat_stages(net)
+                for p in s.programs()):
+        fail("resnet18_v1 stages (remat=%s): %s" % (remat, stats))
+    del net, trainer
+    return grads, values, ms, peak_checked, peak, reserved, stats
+
+
+def lenet_mirror_fits(mt, card):
+    """LeNet's Module.fit (one epoch, deterministic cuDNN) eager and
+    captured, each with and without MXNET_BACKWARD_DO_MIRROR=1, from the
+    same weights: the mirrored fit's weights equal the plain one's within
+    CAPTURE_TOL (the captured fit's fused step ignores the mirror, which
+    saves nothing inside one function). Returns the text."""
+    import torch
+    data = lenet_data()
+    p0 = lenet_init_params(mt, 0)
+    out = {}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path, kv in (("eager", None), ("captured", "local")):
+            for mirror in ("0", "1"):
+                np.random.seed(0)
+                with env_set(MXNET_BACKWARD_DO_MIRROR=mirror):
+                    mod = lenet_fit(mt, data, context=mt.gpu(0),
+                                    arg_params=p0, num_epoch=1,
+                                    validate=False, kvstore=kv)[0]
+                execs = mod._exec_group.execs
+                if any(e._mirror != (mirror == "1") for e in execs) or \
+                        (path == "captured") != (mod._fused is not None):
+                    fail("LeNet %s fit: mirror %s at bind, fused %s"
+                         % (path, [e._mirror for e in execs], mod._fused))
+                out[path, mirror] = module_params(mod)
+    finally:
+        torch.backends.cudnn.deterministic = old
+    text = []
+    for path in ("eager", "captured"):
+        a, b = out[path, "0"], out[path, "1"]
+        worst = max(float(np.abs(a[k] - b[k]).max()) for k in a)
+        if not worst <= CAPTURE_TOL["atol"]:
+            fail("LeNet %s fit with MXNET_BACKWARD_DO_MIRROR=1: weights %.3g "
+                 "from the plain fit's (limit %g)"
+                 % (path, worst, CAPTURE_TOL["atol"]))
+        text.append("%s %.3g" % (path, worst))
+    return ("LeNet Module.fit, one epoch from the same weights with "
+            "MXNET_BACKWARD_DO_MIRROR=1 against without (deterministic "
+            "cuDNN): max |weight difference| %s (limit %g) | %s"
+            % (", ".join(text), CAPTURE_TOL["atol"], card))
+
+
+def remat_phase(mt, seed, card):
+    """Phase 33: resnet18_v1's stages with and without remat on gpu(0),
+    TF32 off: the same gradients, moving statistics and weights, then ms
+    a step and the peak memory both ways; the executor's mirror on
+    LeNet."""
+    import gc
+    import torch
+    t0 = time.time()
+    x, y = gluon_images(seed + 7, GL_BATCH)
+    w0 = gluon_weights(mt, gluon_resnet18(mt), seed, x[:2])
+    runs = {}
+    for remat in (False, True):
+        gc.collect()                # what earlier phases left, freed
+        torch.cuda.empty_cache()
+        runs[remat] = remat_run(mt, w0, x, y, remat, card)
+    (g0, v0, ms0, pc0, p0, r0, s0), (g1, v1, ms1, pc1, p1, r1, s1) = \
+        runs[False], runs[True]
+    worst = 0.0
+    for step, (a, b) in enumerate(zip(g0 + [v0], g1 + [v1])):
+        for k in a:
+            err = float(np.abs(a[k] - b[k]).max()) / max(
+                float(np.abs(a[k]).max()), 1e-30)
+            worst = max(worst, err)
+            if not err <= REMAT_SHARE:
+                fail("resnet18_v1 with remat: %s %s %.3g of its largest entry "
+                     "from the plain run's (limit %g)"
+                     % ("after the steps" if step == len(g0) else
+                        "step %d gradient" % (step + 1), k, err, REMAT_SHARE))
+    print("resnet18_v1 (224^2, batch %d, TF32 off) with its 4 residual stages "
+          "hybridized, remat=True against remat=False: %d steps' gradients, "
+          "then the weights and moving statistics (blended once a step), "
+          "within %.3g of their largest entries (limit %g, deterministic "
+          "cuDNN); ms a step %.3f / %.3f (remat / plain, %d steps, host "
+          "clock); peak memory allocated above the run's start %.3f / %.3f "
+          "GB in the steady state, %.3f / %.3f GB over the first steps (the "
+          "captures among them); reserved %.3f / %.3f GB; stages' programs "
+          "(remat): %s | %s"
+          % (GL_BATCH, REMAT_CHECKED, worst, REMAT_SHARE, ms1, ms0,
+             REMAT_TIMED, p1 / 1e9, p0 / 1e9, pc1 / 1e9, pc0 / 1e9,
+             r1 / 1e9, r0 / 1e9, s1[0], card), flush=True)
+    if not p1 < p0:
+        fail("resnet18_v1 with remat: peak memory %.3f GB, not below the "
+             "plain run's %.3f GB" % (p1 / 1e9, p0 / 1e9))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(lenet_mirror_fits(mt, card), flush=True)
+    print("remat phase: %.1f s" % (time.time() - t0), flush=True)
+    return {"remat": ms1, "plain": ms0}
+
+
+# ---------------------------------------------------------------------------
+# Phase 34: the Gluon examples no phase ran: lstm_crf.py, super_resolution.py,
+# actor_critic.py, kaggle_k_fold_cross_validation.py and
+# learning_rate_manipulation.py, each mirrored for either package with the
+# context a parameter (the examples import mxtpu and use the default)
+# ---------------------------------------------------------------------------
+
+def lstm_crf_model(pkg):
+    """lstm_crf.py's CRF and BiLSTMCRF for ``pkg``: vocabulary 6, embed 8,
+    hidden 8, 3 tags."""
+    gluon, nn, rnn = pkg.gluon, pkg.gluon.nn, pkg.gluon.rnn
+
+    def log_sum_exp(v, axis=-1):
+        m = v.max(axis=axis, keepdims=True)
+        return (m + (v - m.broadcast_like(v)).exp()
+                .sum(axis=axis, keepdims=True).log()).squeeze(axis=axis)
+
+    class CRF(gluon.Block):
+        def __init__(self, num_tags, **kw):
+            super().__init__(**kw)
+            self.n = num_tags
+            with self.name_scope():
+                self.trans = self.params.get(
+                    "trans", shape=(num_tags + 2, num_tags + 2),
+                    init=pkg.init.Uniform(0.1))
+
+        def _partition(self, feats):
+            trans = self.trans.data()
+            alpha = feats[0] + trans.slice_axis(
+                axis=0, begin=self.n, end=self.n + 1).reshape(
+                (self.n + 2,))[:self.n]
+            for t in range(1, feats.shape[0]):
+                mat = alpha.reshape((self.n, 1)) + \
+                    trans.slice(begin=(0, 0), end=(self.n, self.n))
+                alpha = log_sum_exp(mat, axis=0) + feats[t]
+            stop = trans.slice(begin=(0, self.n + 1),
+                               end=(self.n, self.n + 2)).reshape((self.n,))
+            return log_sum_exp(alpha + stop, axis=0)
+
+        def neg_log_likelihood(self, feats, tags):
+            trans = self.trans.data()
+            gold = trans[self.n, tags[0]]
+            for t in range(feats.shape[0]):
+                gold = gold + feats[t, tags[t]]
+                if t + 1 < feats.shape[0]:
+                    gold = gold + trans[tags[t], tags[t + 1]]
+            gold = gold + trans[tags[-1], self.n + 1]
+            return self._partition(feats) - gold
+
+        def viterbi(self, feats):
+            trans = self.trans.data().asnumpy()
+            f = feats.asnumpy()
+            n = self.n
+            delta = f[0] + trans[n, :n]
+            back = []
+            for t in range(1, f.shape[0]):
+                mat = delta[:, None] + trans[:n, :n]
+                back.append(mat.argmax(axis=0))
+                delta = mat.max(axis=0) + f[t]
+            delta = delta + trans[:n, n + 1]
+            best = int(delta.argmax())
+            path = [best]
+            for bp in reversed(back):
+                best = int(bp[best])
+                path.append(best)
+            return list(reversed(path))
+
+    class BiLSTMCRF(gluon.Block):
+        def __init__(self, vocab, embed, hidden, num_tags, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embedding = nn.Embedding(vocab, embed)
+                self.lstm = rnn.LSTM(hidden // 2, bidirectional=True)
+                self.fc = nn.Dense(num_tags, flatten=False)
+                self.crf = CRF(num_tags)
+
+        def feats(self, sent):
+            e = self.embedding(sent).expand_dims(1)
+            h = self.lstm(e)
+            return self.fc(h).reshape((sent.shape[0], -1))
+
+        def neg_log_likelihood(self, sent, tags):
+            return self.crf.neg_log_likelihood(self.feats(sent), tags)
+
+        def predict(self, sent):
+            return self.crf.viterbi(self.feats(sent))
+    return BiLSTMCRF(6, 8, 8, 3, prefix="bilstmcrf0_")
+
+
+def example_init(pkg, net, ctx, weights, sample):
+    """``net`` on ``ctx``: Xavier as the example, its deferred shapes
+    resolved by a call of ``sample``, then ``weights`` ({name: numpy})
+    where given."""
+    net.initialize(pkg.init.Xavier(), ctx=ctx)
+    sample()
+    if weights is not None:
+        gluon_load(pkg, net, weights, ctx)
+    return net
+
+
+def lstm_crf_main(pkg, ctx, weights=None, steps=None):
+    """lstm_crf.py's main on ``ctx``: 60 epochs of SGD over 4 tagged
+    sentences, then Viterbi tagging; fails unless the tag accuracy is at
+    least 0.9. With ``steps``: (the first steps' losses, the weights,
+    the last step's gradients)."""
+    vocab = {"the": 0, "a": 1, "dog": 2, "cat": 3, "runs": 4, "sat": 5}
+    tagset = {"DET": 0, "NOUN": 1, "VERB": 2}
+    data = [("the dog runs", "DET NOUN VERB"), ("a cat sat", "DET NOUN VERB"),
+            ("the cat runs", "DET NOUN VERB"), ("a dog sat", "DET NOUN VERB")]
+
+    def sentence(s):
+        return pkg.nd.array([vocab[w] for w in s.split()], ctx=ctx)
+    model = lstm_crf_model(pkg)
+    example_init(pkg, model, ctx, weights, lambda: model.neg_log_likelihood(
+        sentence(data[0][0]), [0, 1, 2]))
+    trainer = pkg.gluon.Trainer(model.collect_params(), "sgd",
+                                {"learning_rate": 0.05, "momentum": 0.9})
+    losses = []
+    if steps == 0:
+        return losses, gluon_values(model)
+    for epoch in range(60):
+        for sent, tags in data:
+            t = [tagset[x] for x in tags.split()]
+            with pkg.autograd.record():
+                loss = model.neg_log_likelihood(sentence(sent), t)
+            loss.backward()
+            trainer.step(1)
+            losses.append(float(loss.asnumpy()))
+            if steps is not None and len(losses) == steps:
+                return losses, gluon_values(model), gluon_grads(model)
+    correct = total = 0
+    for sent, tags in data:
+        want = [tagset[x] for x in tags.split()]
+        got = model.predict(sentence(sent))
+        correct += sum(a == b for a, b in zip(got, want))
+        total += len(want)
+    if not correct / total >= 0.9:
+        fail("lstm_crf on %s: tag accuracy %.2f (the example asserts at "
+             "least 0.9)" % (ctx, correct / total))
+    return "tag accuracy %.2f, nll %.4f -> %.4f" % (
+        correct / total, np.mean(losses[:4]), np.mean(losses[-4:]))
+
+
+def super_resolution_model(pkg, upscale=2):
+    gluon, nn = pkg.gluon, pkg.gluon.nn
+
+    class SuperRes(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.upscale = upscale
+            with self.name_scope():
+                self.conv1 = nn.Conv2D(16, 5, padding=2, activation="relu")
+                self.conv2 = nn.Conv2D(16, 3, padding=1, activation="relu")
+                self.conv3 = nn.Conv2D(upscale ** 2, 3, padding=1)
+
+        def hybrid_forward(self, F, x):
+            h = self.conv3(self.conv2(self.conv1(x)))
+            h = F.reshape(h, shape=(0, -4, self.upscale, self.upscale, 0, 0))
+            h = F.transpose(h, axes=(0, 3, 1, 4, 2))
+            h = F.reshape(h, shape=(0, -3, -3))
+            return F.expand_dims(h, axis=1)
+    return SuperRes(prefix="superres0_")
+
+
+def super_resolution_images(n, hw, rng):
+    """super_resolution.py's make_images: sums of low-frequency waves."""
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32) / hw
+    imgs = np.zeros((n, 1, hw, hw), np.float32)
+    for i in range(n):
+        for _ in range(4):
+            fx, fy = rng.uniform(1, 4, 2)
+            ph = rng.uniform(0, 2 * np.pi)
+            imgs[i, 0] += np.sin(2 * np.pi * (fx * xx + fy * yy) + ph)
+        imgs[i] = (imgs[i] - imgs[i].min()) / np.ptp(imgs[i])
+    return imgs
+
+
+def psnr(a, b):
+    return 10 * np.log10(1.0 / max(float(np.mean((a - b) ** 2)), 1e-12))
+
+
+def super_resolution_main(pkg, ctx, weights=None, steps=None):
+    """super_resolution.py's main on ``ctx``: ESPCN, hybridized, 30 epochs
+    of Adam under L2 over 64 synthetic images; fails unless the model's
+    PSNR beats nearest-neighbour upscaling. With ``steps``: (the first
+    steps' losses, the weights, the last step's gradients)."""
+    np.random.seed(0)
+    rng = np.random.RandomState(0)
+    hi = super_resolution_images(64, 32, rng)
+    lo = hi[:, :, ::2, ::2]
+    net = super_resolution_model(pkg)
+    example_init(pkg, net, ctx, weights,
+                 lambda: net(pkg.nd.array(lo[:1], ctx=ctx)))
+    net.hybridize()
+    trainer = pkg.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 0.005})
+    l2 = pkg.gluon.loss.L2Loss()
+    it = pkg.io.NDArrayIter(lo, hi, batch_size=16, shuffle=True)
+    losses = []
+    if steps == 0:
+        return losses, gluon_values(net)
+    for epoch in range(30):
+        it.reset()
+        for b in it:
+            x, y = b.data[0].as_in_context(ctx), b.label[0].as_in_context(ctx)
+            with pkg.autograd.record():
+                loss = l2(net(x), y)
+            loss.backward()
+            trainer.step(x.shape[0])
+            losses.append(float(loss.mean().asnumpy()))
+            if steps is not None and len(losses) == steps:
+                return losses, gluon_values(net), gluon_grads(net)
+    out = net(pkg.nd.array(lo[:8], ctx=ctx)).asnumpy()
+    model_psnr = psnr(out, hi[:8])
+    base_psnr = psnr(np.repeat(np.repeat(lo[:8], 2, 2), 2, 3), hi[:8])
+    if not model_psnr > base_psnr:
+        fail("super_resolution on %s: PSNR %.2f dB, nearest %.2f dB (the "
+             "example asserts above)" % (ctx, model_psnr, base_psnr))
+    return "PSNR %.2f dB against nearest %.2f dB" % (model_psnr, base_psnr)
+
+
+def actor_critic_model(pkg):
+    gluon, nn = pkg.gluon, pkg.gluon.nn
+
+    class Net(gluon.Block):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.dense = nn.Dense(16, activation="relu")
+                self.action = nn.Dense(2)
+                self.value = nn.Dense(1)
+
+        def forward(self, x):
+            h = self.dense(x)
+            return self.action(h), self.value(h)
+    return Net(prefix="net0_")
+
+
+def actor_critic_main(pkg, ctx, weights=None, steps=None, n_states=8,
+                      gamma=0.95):
+    """actor_critic.py's main on ``ctx``: 150 episodes of the 8-state
+    chain walk, Adam on the advantage-weighted log-probabilities plus the
+    value's squared error; fails unless the late episodes are no longer
+    than the early ones and shorter than 12 moves. With ``steps``: (the
+    first episodes' losses, the weights, the last episode's gradients)."""
+    def one_hot(s):
+        v = np.zeros((1, n_states), np.float32)
+        v[0, s] = 1
+        return pkg.nd.array(v, ctx=ctx)
+    net = actor_critic_model(pkg)
+    example_init(pkg, net, ctx, weights, lambda: net(one_hot(0)))
+    trainer = pkg.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 0.02})
+    rng = np.random.RandomState(0)
+    lengths, losses = [], []
+    if steps == 0:
+        return losses, gluon_values(net)
+    for episode in range(150):
+        with pkg.autograd.record():
+            s, rewards, logps, values = 0, [], [], []
+            for _ in range(40):
+                logits, val = net(one_hot(s))
+                p = np.asarray(pkg.nd.softmax(logits).asnumpy()).ravel()
+                a = int(rng.rand() < p[1])
+                logps.append(pkg.nd.log_softmax(logits)[0, a])
+                s = max(0, s - 1) if a == 0 else min(n_states - 1, s + 1)
+                rewards.append(1.0 if s == n_states - 1 else -0.01)
+                values.append(val[0, 0])
+                if s == n_states - 1:
+                    break
+            R, loss = 0.0, None
+            for r, logp, v in zip(reversed(rewards), reversed(logps),
+                                  reversed(values)):
+                R = r + gamma * R
+                adv = R - float(v.asnumpy())
+                term = -logp * adv + (v - R) ** 2
+                loss = term if loss is None else loss + term
+        loss.backward()
+        trainer.step(1)
+        lengths.append(len(rewards))
+        losses.append(float(loss.asnumpy()))
+        if steps is not None and len(losses) == steps:
+            return losses, gluon_values(net), gluon_grads(net)
+    early, late = np.mean(lengths[:30]), np.mean(lengths[-30:])
+    if not (late <= early and late < 12):
+        fail("actor_critic on %s: episode length %.1f -> %.1f (the example "
+             "asserts no longer, and below 12)" % (ctx, early, late))
+    return "episode length %.1f -> %.1f moves" % (early, late)
+
+
+def kfold_main(pkg, ctx, weights=None, steps=None, k_folds=5, epochs=25):
+    """kaggle_k_fold_cross_validation.py's main on ``ctx``: 5 folds of an
+    MLP under L2 with Adam (wd 0.1), 25 epochs each; fails unless the
+    mean log-RMSE beats the constant prediction's. With ``steps``: fold
+    0's first steps' losses, the weights and the last step's gradients."""
+    np.random.seed(0)
+    r = np.random.RandomState(7)
+    n, d = 500, 16
+    X = r.standard_normal((n, d)).astype("f")
+    w = r.uniform(0.5, 2.0, d).astype("f")
+    y = np.exp(0.2 * (X @ w)) * 100
+    folds = np.array_split(np.arange(n), k_folds)
+    scores, losses = [], []
+    for k in range(k_folds):
+        va = folds[k]
+        tr = np.concatenate([folds[i] for i in range(k_folds) if i != k])
+        net = pkg.gluon.nn.HybridSequential(prefix="kfold%d_" % k)
+        with net.name_scope():
+            net.add(pkg.gluon.nn.Dense(32, activation="relu"),
+                    pkg.gluon.nn.Dense(1))
+        net.initialize(pkg.init.Xavier(), force_reinit=True, ctx=ctx)
+        if weights is not None or steps == 0:
+            net(pkg.nd.array(X[:1], ctx=ctx))
+        if weights is not None:
+            gluon_load(pkg, net, weights, ctx)
+        if steps == 0:
+            return losses, gluon_values(net)
+        loss_fn = pkg.gluon.loss.L2Loss()
+        trainer = pkg.gluon.Trainer(net.collect_params(), "adam",
+                                    {"learning_rate": 0.01, "wd": 0.1})
+        it = pkg.io.NDArrayIter(X[tr].astype("f"), y[tr].astype("f"),
+                                batch_size=64, shuffle=True)
+        for _ in range(epochs):
+            it.reset()
+            for b in it:
+                x, t = b.data[0].as_in_context(ctx), \
+                    b.label[0].as_in_context(ctx)
+                with pkg.autograd.record():
+                    loss = loss_fn(net(x).reshape((-1,)), t)
+                loss.backward()
+                trainer.step(x.shape[0])
+                if steps is not None:
+                    losses.append(float(loss.mean().asnumpy()))
+                    if len(losses) == steps:
+                        return losses, gluon_values(net), \
+                            gluon_grads(net)
+        preds = np.clip(net(pkg.nd.array(X[va], ctx=ctx)).asnumpy().ravel(),
+                        1, None)
+        scores.append(float(np.sqrt(np.mean((np.log(preds)
+                                             - np.log(y[va])) ** 2))))
+    baseline = float(np.sqrt(np.mean((np.log(y) - np.log(y.mean())) ** 2)))
+    if not np.mean(scores) < baseline:
+        fail("kaggle_k_fold on %s: log-RMSE %.4f, the constant's %.4f (the "
+             "example asserts below)" % (ctx, np.mean(scores), baseline))
+    return "mean log-RMSE %.4f over %d folds (the constant %.4f)" % (
+        np.mean(scores), k_folds, baseline)
+
+
+def lr_manipulation_main(pkg, ctx, weights=None, steps=None):
+    """learning_rate_manipulation.py's main on ``ctx``: set_learning_rate
+    between epochs, then a FactorScheduler; fails unless the rates are the
+    example's. With ``steps``: the first steps' losses, the weights and
+    the last step's gradients."""
+    np.random.seed(0)
+    r = np.random.RandomState(0)
+    X = r.standard_normal((256, 8)).astype("f")
+    y = (X @ r.standard_normal(8).astype("f")).astype("f")
+    net = pkg.gluon.nn.Dense(1, prefix="dense0_")
+    example_init(pkg, net, ctx, weights,
+                 lambda: net(pkg.nd.array(X[:1], ctx=ctx)))
+    trainer = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1})
+    l2 = pkg.gluon.loss.L2Loss()
+    seen, losses = [], []
+    if steps == 0:
+        return losses, gluon_values(net)
+    for epoch in range(6):
+        if epoch == 3:
+            trainer.set_learning_rate(trainer.learning_rate * 0.1)
+        seen.append(trainer.learning_rate)
+        for b in pkg.io.NDArrayIter(X, y, batch_size=32, shuffle=True):
+            x, t = b.data[0].as_in_context(ctx), b.label[0].as_in_context(ctx)
+            with pkg.autograd.record():
+                loss = l2(net(x).reshape((-1,)), t)
+            loss.backward()
+            trainer.step(x.shape[0])
+            losses.append(float(loss.mean().asnumpy()))
+            if steps is not None and len(losses) == steps:
+                return losses, gluon_values(net), gluon_grads(net)
+    net2 = pkg.gluon.nn.Dense(1, prefix="dense1_")
+    net2.initialize(pkg.init.Xavier(), ctx=ctx)
+    trainer2 = pkg.gluon.Trainer(net2.collect_params(), "sgd", {
+        "learning_rate": 0.2,
+        "lr_scheduler": pkg.lr_scheduler.FactorScheduler(step=3,
+                                                         factor=0.5)})
+    lrs = []
+    for b in pkg.io.NDArrayIter(X, y, batch_size=32):
+        x, t = b.data[0].as_in_context(ctx), b.label[0].as_in_context(ctx)
+        with pkg.autograd.record():
+            loss = l2(net2(x).reshape((-1,)), t)
+        loss.backward()
+        trainer2.step(x.shape[0])
+        lrs.append(trainer2.learning_rate)
+    if not (seen[0] == 0.1 and abs(seen[-1] - 0.01) < 1e-9 and
+            lrs[-1] < lrs[0]):
+        fail("learning_rate_manipulation on %s: rates %s, scheduled %s"
+             % (ctx, seen, lrs))
+    return "rates by epoch %s, scheduled %.3f -> %.3f, loss %.5f -> %.5f" % (
+        ", ".join("%g" % v for v in seen), lrs[0], lrs[-1], losses[0],
+        losses[-1])
+
+
+GLUON_EXAMPLES = (("lstm_crf", lstm_crf_main),
+                  ("super_resolution", super_resolution_main),
+                  ("actor_critic", actor_critic_main),
+                  ("kaggle_k_fold_cross_validation", kfold_main),
+                  ("learning_rate_manipulation", lr_manipulation_main))
+# the examples trained with Adam, and their rates. Adam moves a weight by
+# about lr whatever its gradient's size, so where a gradient is near 0 (a
+# dead ReLU's input weights) a last-bit difference in it (cuDNN's sums
+# against the CPU's) moves the weight by up to 2 lr either way:
+# super_resolution's first conv weights ended 3 steps 0.0131 of their
+# largest apart on the H100. So their step-1 gradients, taken before Adam,
+# are held to the CPU's within EX_SHARE, and after FIT_STEPS steps every
+# weight within EX_SHARE of its array's largest value but for at most
+# GLUON_ADAM_APART entries of the example, each within 2 lr: three times
+# the largest reading on the H100 (super_resolution 4 of 3,316 entries,
+# the largest 0.246-0.395 lr apart; the other two none)
+GLUON_ADAM_LR = {"super_resolution": 0.005, "actor_critic": 0.02,
+                 "kaggle_k_fold_cross_validation": 0.01}
+GLUON_ADAM_APART = 12
+
+
+def gluon_examples_first(pkg, ctx, weights):
+    """Each example's first FIT_STEPS steps on ``ctx`` from ``weights``
+    ({example: {name: numpy}}): {example: (losses, weights after, the
+    last step's gradients, step 1's gradients)}."""
+    out = {}
+    for ex, main in GLUON_EXAMPLES:
+        pkg.random.seed(0)
+        first = None
+        if ex in GLUON_ADAM_LR:
+            first = main(pkg, ctx, weights[ex], steps=1)[2]
+            pkg.random.seed(0)
+        out[ex] = main(pkg, ctx, weights[ex], steps=FIT_STEPS) + (first,)
+    return out
+
+
+def largest_share_apart(got, want):
+    """The largest difference of any array of ``got`` from ``want`` as a
+    share of that array's largest value in ``want``."""
+    return max(float(np.abs(np.asarray(got[k]) - w).max()) /
+               max(float(np.abs(w).max()), 1e-30) for k, w in want.items())
+
+
+def gluon_examples_first_steps(mt):
+    """The five examples' first steps on gpu(0) against the CPU from the
+    same weights: the losses and the weights within EX_SHARE of their
+    largest values; under Adam, step 1's gradients within EX_SHARE and
+    the weights after FIT_STEPS steps but for GLUON_ADAM_APART entries,
+    each within 2 lr. Prints one line an example."""
+    gpu = mt.gpu(0)
+    # the weights every example starts from: its own Xavier draw on the
+    # CPU, read before its first step
+    starts = {}
+    with mt.cpu():
+        for ex, main in GLUON_EXAMPLES:
+            mt.random.seed(0)
+            starts[ex] = main(mt, mt.cpu(), steps=0)[1]
+    firsts = {}
+    for label, ctx in (("gpu", gpu), ("cpu", mt.cpu())):
+        with ctx:
+            firsts[label] = gluon_examples_first(mt, ctx, starts)
+    for ex, (losses, values, _g, first) in firsts["gpu"].items():
+        want_l, want_v, _wg, want_first = firsts["cpu"][ex]
+        lr = GLUON_ADAM_LR.get(ex)
+        checks = [("losses", {"losses": np.array(losses)},
+                   {"losses": np.array(want_l)})]
+        if lr is None:
+            checks.append(("weights", values, want_v))
+        else:
+            checks.append(("step 1's gradients", first, want_first))
+        text = []
+        for what, got, want in checks:
+            err = largest_share_apart(got, want)
+            if not err <= EX_SHARE:
+                fail("%s: %s on gpu(0) (first %d steps) differ from the "
+                     "CPU's by %.3g of their largest value (limit %g)"
+                     % (ex, what, FIT_STEPS, err, EX_SHARE))
+            text.append("%s (%d arrays) within %.3g" % (what, len(want),
+                                                         err))
+        if lr is not None:
+            apart, worst, entries = 0, 0.0, 0
+            for k, w in want_v.items():
+                d = np.abs(values[k] - w)
+                apart += int((d > EX_SHARE * float(np.abs(w).max())).sum())
+                worst = max(worst, float(d.max()))
+                entries += w.size
+            text.append("the weights (Adam, lr %g): %d of %d entries past "
+                        "%g of their array's largest value, the largest "
+                        "difference %.3g = %.3f lr (limits %d entries, 2 "
+                        "lr)" % (lr, apart, entries, EX_SHARE, worst,
+                                 worst / lr, GLUON_ADAM_APART))
+        print("%s: first %d steps on gpu(0) against the CPU: %s (limit %g)"
+              % (ex, FIT_STEPS, "; ".join(text), EX_SHARE), flush=True)
+        if lr is not None and (apart > GLUON_ADAM_APART or worst > 2 * lr):
+            fail("%s: weights after %d Adam steps on gpu(0): %d of %d "
+                 "entries past %g of their array's largest value, the "
+                 "largest difference %.3g (limits %d entries, 2 lr = %g)"
+                 % (ex, FIT_STEPS, apart, entries, EX_SHARE, worst,
+                    GLUON_ADAM_APART, 2 * lr))
+
+
+def gluon_examples_phase(mt, rnn_scan, card):
+    """Phase 34: the five examples' first steps on gpu(0) against the CPU
+    (gluon_examples_first_steps), then each main on gpu(0) to its own
+    asserts; lstm_crf's bidirectional LSTM launches lstm_scan, counted
+    from 0 just before its main. Returns {kernel: launches}."""
+    gpu = mt.gpu(0)
+    t0 = time.time()
+    gluon_examples_first_steps(mt)
+    print("Gluon examples: first steps %.1f s" % (time.time() - t0))
+    launches = {}
+    with gpu:
+        for ex, main in GLUON_EXAMPLES:
+            t0 = time.time()
+            mt.random.seed(0)
+            rnn_scan.reset_launches()
+            text = main(mt, gpu)
+            got = dict(rnn_scan.LAUNCHES)
+            if ex == "lstm_crf":
+                if got["lstm_scan"] < 2 * 60 * 4:
+                    fail("lstm_crf: %d lstm_scan launches (want one a "
+                         "direction a forward: at least %d)"
+                         % (got["lstm_scan"], 2 * 60 * 4))
+                launches = got
+            print("%s's main on gpu(0): %s, its asserts hold; launches %s; "
+                  "%.1f s | %s" % (ex, text, got, time.time() - t0, card),
+                  flush=True)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -11468,7 +13405,33 @@ def main():
     print("module examples phase: %.1f s" % (time.time() - t_phase),
           flush=True)
 
-    # 30. timings at the main paths' shapes
+    # 30. the CTC examples: ctc_toy (lstm_scan) and deepspeech_toy
+    # (gru_scan), counted from 0 just before each main
+    t_phase = time.time()
+    ctc_launches = ctc_examples_phase(mt, rnn_scan, card)
+    print("CTC examples phase: %.1f s" % (time.time() - t_phase), flush=True)
+
+    # 31. DeepSpeech 2 at its published widths through BucketingModule.fit
+    # (gru_scan streamed at H=1760, counted from 0 just before the fit)
+    ds2_launches, ds2_timing = ds2_phase(mt, rnn_scan, rng, dev, card)
+
+    # 32. the Gluon cell stacks against the fused layers at PTB's widths
+    # (B4 / B5 in the layers, counted from 0 just before each), contrib
+    t_phase = time.time()
+    cell_launches = gluon_cells_phase(mt, rnn_scan, args.seed, card)
+    print("Gluon cells phase: %.1f s" % (time.time() - t_phase), flush=True)
+
+    # 33. remat: resnet18_v1's stages, and the executor's mirror on LeNet
+    remat_phase(mt, args.seed, card)
+
+    # 34. the five Gluon examples no earlier phase ran (lstm_crf's
+    # bidirectional LSTM: lstm_scan, counted from 0 just before its main)
+    t_phase = time.time()
+    gx_launches = gluon_examples_phase(mt, rnn_scan, card)
+    print("Gluon examples phase: %.1f s" % (time.time() - t_phase),
+          flush=True)
+
+    # 35. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -11521,12 +13484,30 @@ def main():
             "replaces": replaces, "launches": path_launches[name],
             "launches_gluon_lm": gl_launches.get(name, 0),
             "launches_rnn_checkpoint": rc_launches.get(name, 0),
+            "launches_ctc_examples": ctc_launches.get(name, 0),
+            "launches_gluon_cells": cell_launches.get(name, 0),
+            "launches_gluon_examples": gx_launches.get(name, 0),
             "max_abs_err": errs[name], "ms": med[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": med[2], "wall_ms": med[1], "pairs": PAIRS,
             "library_wins": wins, "us_per_step": med[0] * 1e3 / SEQ,
             "ms_n1": med1[0], "wall_ms_n1": med1[1],
             "library_ms_n1": med1[2], "library_wins_n1": wins1})
+        if name == "gru_scan":
+            kernels[-1].update({
+                "launches_deepspeech2": ds2_launches,
+                "ds2_shape": "T=%d N=%d H=%d f32" % (
+                    ds2_frames(DS2["buckets"][0]), DS2["batch"],
+                    DS2["hidden"]),
+                "ds2_plan": ds2_timing["plan"], "ds2_ms": ds2_timing["ms"],
+                "ds2_plain_ms": ds2_timing["plain_ms"],
+                "ds2_bound_ms": ds2_timing["bound_ms"],
+                "ds2_bound_by": ds2_timing["bound_by"],
+                "ds2_library_ms": ds2_timing["library_ms"],
+                "ds2_library_bidir_ms": ds2_timing["library_bidir_ms"],
+                "ds2_max_abs_err": ds2_timing["max_abs_err"],
+                "ctc_loss_ms": ds2_timing["ctc_ms"],
+                "ctc_loss_library_ms": ds2_timing["ctc_library_ms"]})
 
     # the time loops under autograd: forward + backward beside cuDNN's
     rnn_train_times(rnn_scan, rng, dev, card)
@@ -11838,7 +13819,7 @@ def main():
         "proposal_bound_ms": proposal_timing[2]})
     print("total %.1f s" % (time.time() - t_start))
 
-    # 31.-32. the result lines
+    # 36.-37. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,22 @@ live here.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 __all__ = ["MXNetError", "MXTPUError", "CaptureRefused", "canonical_dtype",
-           "dtype_name", "is_capture_refusal", "numpy_dtype"]
+           "dtype_name", "is_capture_refusal", "numpy_dtype",
+           "backward_mirror_enabled"]
+
+
+def backward_mirror_enabled():
+    """MXNet's ``MXNET_BACKWARD_DO_MIRROR`` (``mxtpu``'s reading, ``==
+    "1"``): recompute the forward in the backward rather than keep its
+    activations. Read at bind (an Executor) or at a program's build (a
+    hybridized block without ``remat``)."""
+    return os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") == "1"
 
 
 class MXTPUError(RuntimeError):

@@ -19,16 +19,27 @@ tensors be captured once in a CUDA graph and replayed on every batch.
 :meth:`Executor.adopt_arrays` aliases the parameter and aux slots to
 another executor's arrays, so that executors of several input shapes
 work on one set of parameter tensors.
+
+``MXNET_BACKWARD_DO_MIRROR=1`` at bind (``_mirror``, ``mxtpu``'s
+rematerialization): a training forward records no autograd graph and
+keeps only its random draws, and :meth:`Executor.backward` evaluates the
+graph again with autograd (the draws replayed, the aux states not
+written twice). The fused step (:meth:`Executor.make_fused_train_step`) ignores
+``_mirror``: its forward and backward are one function, with no point
+between them at which the activations could be freed, so a recompute
+there would add a forward and save nothing.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as _np
 import torch
 
 from . import ndarray as nd
-from .base import canonical_dtype
+from .base import backward_mirror_enabled, canonical_dtype
 from .ndarray import NDArray
-from .ops.registry import rng_scope
+from .ops.registry import draw_tape, rng_scope
 from .symbol import eval_graph
 
 __all__ = ["Executor"]
@@ -78,6 +89,9 @@ class Executor:
         self._outputs = None
         self._out_shapes = None
         self._tape = None           # (outputs, leaves) of a training forward
+        self._draws = None          # a mirrored training forward's draws
+        # MXNET_BACKWARD_DO_MIRROR, read at bind as mxtpu reads it
+        self._mirror = backward_mirror_enabled()
         self._monitor_callback = None
         # stateful ops (Dropout) draw from the executor's own generator,
         # seeded from numpy's global RNG: one draw an executor, as mxtpu
@@ -137,10 +151,11 @@ class Executor:
         return Executor(sym, ctx, arg_dict, grad_dict, req_dict, aux_dict)
 
     # -- execution ---------------------------------------------------------
-    def _run(self, training, record):
+    def _run(self, training, record, draws=None):
         """Evaluate the graph on the bound arrays. With ``record``, the
         floating grad arguments enter as autograd leaves (views of the
-        bound tensors). Returns (outputs, aux updates, leaves)."""
+        bound tensors); ``draws`` keeps or replays the random draws.
+        Returns (outputs, aux updates, leaves)."""
         feed = {n: self.arg_dict[n].data for n in self._arg_names}
         feed.update((n, self.aux_dict[n].data) for n in self._aux_names)
         leaves = {}
@@ -149,7 +164,8 @@ class Executor:
                       for n in self._grad_args
                       if feed[n].is_floating_point()}
             feed.update(leaves)
-        with torch.set_grad_enabled(record), rng_scope(self._generator):
+        with torch.set_grad_enabled(record), rng_scope(self._generator), \
+                draws or contextlib.nullcontext():
             outs, aux_updates = eval_graph(
                 self._symbol._outputs, feed, training,
                 device=self._ctx.torch_device())
@@ -162,8 +178,10 @@ class Executor:
         for k, v in kwargs.items():
             _copy_into(self.arg_dict[k], v)
         record = bool(is_train) and bool(self._grad_args)
-        outs, aux_updates, leaves = self._run(bool(is_train), record)
-        self._tape = (outs, leaves) if record else None
+        self._draws = draw_tape() if record and self._mirror else None
+        outs, aux_updates, leaves = self._run(
+            bool(is_train), record and not self._mirror, self._draws)
+        self._tape = (outs, leaves) if record and not self._mirror else None
         if is_train:
             # an update that is the aux tensor itself (BatchNorm with
             # use_global_stats) is not copied: the copy would bump the
@@ -186,8 +204,11 @@ class Executor:
         if self._outputs is None:
             raise RuntimeError("backward called before forward")
         tape, self._tape = self._tape, None
+        draws, self._draws = self._draws, None
         if tape is None:
-            outs, _aux, leaves = self._run(True, True)
+            # a mirrored forward, or an inference one: the training
+            # forward again (its aux updates dropped)
+            outs, _aux, leaves = self._run(True, True, draws)
         else:
             outs, leaves = tape
         if out_grads is None:

@@ -34,7 +34,19 @@ gradient. A program
 A new signature builds a new program, as ``mxtpu``'s ``_call_cached_op``
 does for a new shape; ``set_data``, ``cast``, ``reset_ctx`` or a new
 ``grad_req`` on a parameter drops the block's programs, and
-``hybridize(active=False)`` makes the block eager. Nothing falls back
+``hybridize(active=False)`` makes the block eager.
+
+``hybridize(remat=True)`` (or, without ``remat``, ``MXNET_BACKWARD_DO_
+MIRROR=1`` when a program is built) is ``mxtpu``'s checkpointed body: the
+forward runs without autograd and keeps only the call's inputs, and the
+backward evaluates the body again with autograd and differentiates it.
+The recompute applies the dropout masks the forward drew (a
+:class:`~mxtpu_torch.ops.registry.draw_tape`; no generator state is read,
+which a capture would refuse) and does not write the moving statistics
+again. On the card the forward graph holds no activations; the backward
+graph recomputes them.
+
+Nothing falls back
 quietly: an error inside a capture ends the capture and raises. The one
 exception is the fused Module step's (``module/fused.py``): a custom op
 whose Python body reads the card refuses the capture
@@ -60,13 +72,13 @@ from collections import OrderedDict
 
 import torch
 
-from ..base import CaptureRefused
+from ..base import CaptureRefused, backward_mirror_enabled
 from .. import autograd as _ag
 from .. import ndarray as nd
 from .. import symbol as _sym
 from ..module.fused import ProgramCache, _end_failed_capture
 from ..ndarray import NDArray
-from ..ops.registry import next_generator, rng_scope
+from ..ops.registry import draw_tape, next_generator, rng_scope
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
@@ -330,8 +342,6 @@ class HybridBlock(Block):
         self._refusals = {"warned": False}
 
     def hybridize(self, active=True, **kwargs):
-        if kwargs.get("remat"):
-            raise NotImplementedError("hybridize(remat=True) is not ported")
         self._active = active
         self._flags = kwargs
         self._drop_programs()
@@ -510,6 +520,9 @@ class _Program:
         self.by_name = {p.name: p for p in self.params}
         self.n_in = len(flat)
         self.training, self.grad = training, grad
+        remat = block._flags.get("remat")
+        self.remat = grad and bool(backward_mirror_enabled() if remat is None
+                                   else remat)
         self.need = tuple(need_in) + tuple(
             grad and p.grad_req != "null" for p in self.params)
         self.ctx = flat[0].context if flat else self.params[0].list_ctx()[0]
@@ -535,21 +548,37 @@ class _Program:
         return rng_scope(self.generator) if self.generator is not None \
             else contextlib.nullcontext()
 
-    def _evaluate(self, tensors):
+    def _evaluate(self, tensors, grad=None, write_aux=True):
         """Evaluate the graph on ``tensors`` (inputs, then parameters) as
-        leaves of a graph of its own; write the aux outputs into their
-        parameters. Returns (outputs, leaves)."""
+        leaves of a graph of its own (with autograd when ``grad``, by
+        default the program's); write the aux outputs into their
+        parameters unless it is a recompute. Returns (outputs, leaves)."""
         leaves = [t.detach().requires_grad_(True) if n else t.detach()
                   for t, n in zip(tensors, self.need)]
         feed = dict(zip(self.names, leaves))
-        with torch.set_grad_enabled(self.grad), self._rng():
+        with torch.set_grad_enabled(self.grad if grad is None else grad), \
+                self._rng():
             outs, aux = _sym.eval_graph(self.graph._outputs, feed,
                                         self.training, self.device)
-        with torch.no_grad():
-            for name, new in aux.items():
-                if new is not feed[name]:
-                    self.by_name[name].data().data.copy_(new)
+        if write_aux:
+            with torch.no_grad():
+                for name, new in aux.items():
+                    if new is not feed[name]:
+                        self.by_name[name].data().data.copy_(new)
         return outs, leaves
+
+    def _remat_forward(self, tensors, draws):
+        """The rematerialized forward: outputs only, no autograd graph;
+        ``draws`` keeps its random draws for the recompute."""
+        with draws:
+            return self._evaluate(tensors, grad=False)[0]
+
+    def _remat_grads(self, tensors, draws, gos):
+        """The rematerialized backward: the body again, with autograd and
+        the forward's draws, and its gradients."""
+        with draws:
+            outs, leaves = self._evaluate(tensors, write_aux=False)
+        return self._grads(outs, leaves, gos)
 
     def _grads(self, outs, leaves, gos):
         """Gradients of every leaf that wants one (None elsewhere); the
@@ -644,14 +673,27 @@ class _Program:
             graph.instantiate()
             return graph, out
 
-        self.fwd, (outs, leaves) = captured(lambda: self._evaluate(
-            self.static_in + list(tensors[self.n_in:])))
+        statics = self.static_in + list(tensors[self.n_in:])
+        if self.remat:
+            draws = draw_tape()
+            self.fwd, outs = captured(lambda: self._remat_forward(statics,
+                                                                  draws))
+            wanted = [o.is_floating_point() for o in outs]
+
+            def backward():
+                return self._remat_grads(statics, draws, self.static_gout)
+        else:
+            self.fwd, (outs, leaves) = captured(lambda: self._evaluate(
+                statics))
+            wanted = [o.requires_grad for o in outs]
+
+            def backward():
+                return self._grads(outs, leaves, self.static_gout)
         self.static_out = outs
         if self.grad:
-            self.static_gout = [torch.zeros_like(o) if o.requires_grad
-                                else None for o in outs]
-            self.bwd = captured(lambda: self._grads(outs, leaves,
-                                                    self.static_gout))
+            self.static_gout = [torch.zeros_like(o) if w else None
+                                for o, w in zip(outs, wanted)]
+            self.bwd = captured(backward)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.captures += 1
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -696,8 +738,9 @@ class _ProgramFunction(torch.autograd.Function):
     The entry saves what its backward reads with ``save_for_backward``:
     a replayed call a marker (its activations are the graph's), an
     uncaptured call the traced graph's outputs (whose autograd graph
-    holds its activations). So torch frees them after a backward without
-    ``retain_graph``, and refuses a second backward, as for any op."""
+    holds its activations), or under ``remat`` its inputs alone. So
+    torch frees them after a backward without ``retain_graph``, and
+    refuses a second backward, as for any op."""
 
     @staticmethod
     def forward(ctx, prog, *tensors):
@@ -711,6 +754,11 @@ class _ProgramFunction(torch.autograd.Function):
             return tuple(prog._replay_forward(tensors[:prog.n_in]))
         if prog.fwd is not None:
             prog.uncaptured += 1
+        if prog.remat:
+            ctx.draws = draw_tape()
+            outs = prog._remat_forward(tensors, ctx.draws)
+            ctx.save_for_backward(*tensors)
+            return tuple(outs)
         outs, ctx.leaves = prog._evaluate(tensors)
         ctx.save_for_backward(*outs)
         return tuple(o.detach() for o in outs)
@@ -721,6 +769,8 @@ class _ProgramFunction(torch.autograd.Function):
         saved = ctx.saved_tensors
         if ctx.replayed:
             grads = prog._replay_backward(gos)
+        elif prog.remat:
+            grads = prog._remat_grads(list(saved), ctx.draws, gos)
         else:
             # the outer graph's release frees this inner graph
             grads = prog._grads(saved, ctx.leaves, gos)

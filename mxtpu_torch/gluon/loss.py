@@ -2,7 +2,8 @@
 
 Counterpart of ``mxtpu/gluon/loss.py``: the same loss blocks, each a
 HybridBlock written through the op registry, so a loss runs on the nd
-and the sym frontends alike. (``CTCLoss`` waits for ``ctc_loss``.)
+and the sym frontends alike. ``CTCLoss`` runs the port's ``ctc_loss``
+op, a log-space DP over time in torch ops.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
-           "KLDivLoss", "HuberLoss", "HingeLoss",
+           "KLDivLoss", "CTCLoss", "HuberLoss", "HingeLoss",
            "SquaredHingeLoss", "LogisticLoss", "TripletLoss"]
 
 
@@ -144,6 +145,29 @@ class KLDivLoss(Loss):
         loss = label * (F.log(label + 1e-12) - pred)
         loss = _apply_weighting(F, loss, self._weight, sample_weight)
         return self._batch_mean(F, loss)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification (reference loss.py:354;
+    ``mxtpu``'s ``gluon/loss.py:150``): ``pred`` in ``layout`` (NTC or
+    TNC), ``label`` in ``label_layout`` (NT or TN), the optional lengths
+    and ``sample_weight`` a sample. Returns the loss a sample."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        batch_axis = label_layout.find("N")
+        super().__init__(weight, batch_axis, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.ctc_loss(pred, label, pred_lengths, label_lengths)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -2,16 +2,15 @@
 
 Counterpart of ``mxtpu/gluon/nn/basic_layers.py``: the
 Sequential/HybridSequential containers, Dense, Dropout, BatchNorm,
-Embedding, Flatten and Lambda/HybridLambda, each a thin shell over the
-port's registered ops (``mxtpu_torch/ops``). (``InstanceNorm`` and
-``LayerNorm`` wait for their ops.)
+InstanceNorm, LayerNorm, Embedding, Flatten and Lambda/HybridLambda, each
+a thin shell over the port's registered ops (``mxtpu_torch/ops``).
 """
 from __future__ import annotations
 
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
-           "Embedding", "Flatten", "Lambda", "HybridLambda"]
+           "InstanceNorm", "LayerNorm", "Embedding", "Flatten", "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
@@ -168,6 +167,52 @@ class BatchNorm(HybridBlock):
     def __repr__(self):
         return "BatchNorm(axis=%s, in_channels=%s)" % (
             self._kwargs["axis"], self.in_channels)
+
+
+class InstanceNorm(HybridBlock):
+    """(reference basic_layers.py:374; op: ops/nn.py InstanceNorm, over
+    axis 1 as in ``mxtpu``, whose layer passes no axis either)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._eps = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._eps)
+
+
+class LayerNorm(HybridBlock):
+    """(``mxtpu``'s gluon LayerNorm; op: ops/nn.py LayerNorm)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._eps = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._eps)
 
 
 class Embedding(HybridBlock):

@@ -1,15 +1,18 @@
 """Gluon convolution and pooling layers of the PyTorch port.
 
 Counterpart of ``mxtpu/gluon/nn/conv_layers.py``: Conv1D/2D/3D over the
-port's ``Convolution`` (cuDNN on the card) and the Max/Avg pooling
-layers with their Global variants over ``Pooling``, NC(D)(H)W. (The
-``*Transpose`` layers wait for ``Deconvolution``.)
+port's ``Convolution`` (cuDNN on the card), Conv1D/2D/3DTranspose over
+its ``Deconvolution`` (``output_padding`` is MXNet's ``adj``; the weight
+is (in, out / groups, *kernel), as ``mxtpu`` gives it) and the Max/Avg
+pooling layers with their Global variants over ``Pooling``,
+NC(D)(H)W.
 """
 from __future__ import annotations
 
 from ..block import HybridBlock
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+           "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
            "AvgPool1D", "AvgPool2D", "AvgPool3D", "GlobalMaxPool1D",
            "GlobalMaxPool2D", "GlobalMaxPool3D", "GlobalAvgPool1D",
            "GlobalAvgPool2D", "GlobalAvgPool3D"]
@@ -99,6 +102,47 @@ class Conv3D(_Conv):
                          _tuple(padding, 3), _tuple(dilation, 3), groups,
                          layout, in_channels, activation, use_bias,
                          weight_initializer, bias_initializer, **kwargs)
+
+
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tuple(kernel_size, 1), _tuple(strides, 1),
+                         _tuple(padding, 1), _tuple(dilation, 1), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tuple(output_padding, 1), **kwargs)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super().__init__(channels, _tuple(kernel_size, 2), _tuple(strides, 2),
+                         _tuple(padding, 2), _tuple(dilation, 2), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tuple(output_padding, 2), **kwargs)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super().__init__(channels, _tuple(kernel_size, 3), _tuple(strides, 3),
+                         _tuple(padding, 3), _tuple(dilation, 3), groups,
+                         layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution",
+                         adj=_tuple(output_padding, 3), **kwargs)
 
 
 class _Pooling(HybridBlock):

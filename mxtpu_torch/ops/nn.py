@@ -25,7 +25,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from .registry import next_generator, register
+from .registry import draw, register
 
 
 @register("FullyConnected", aliases=("fully_connected",))
@@ -233,9 +233,9 @@ def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
         return torch.where(data >= 0, data, g * data)
     if act_type == "rrelu":
         if _training:
-            gen = next_generator()
-            u = torch.empty(data.shape, device=gen.device).uniform_(
-                lower_bound, upper_bound, generator=gen)
+            u = draw(lambda gen: torch.empty(
+                data.shape, device=gen.device).uniform_(
+                    lower_bound, upper_bound, generator=gen))
             return torch.where(data >= 0, data,
                                u.to(device=data.device, dtype=data.dtype)
                                * data)
@@ -376,9 +376,8 @@ def dropout(data, p=0.5, mode="training", axes=(), _training=False):
     for ax in axes:
         shape[ax] = 1
     keep = 1.0 - p
-    gen = next_generator()
-    mask = torch.rand(shape, generator=gen, device=gen.device) \
-        .to(data.device) < keep
+    mask = draw(lambda gen: torch.rand(
+        shape, generator=gen, device=gen.device)).to(data.device) < keep
     return torch.where(mask, data / keep, torch.zeros_like(data))
 
 
@@ -823,3 +822,81 @@ def moe_ffn(data, gate_weight, w1, b1, w2, b2, capacity_factor=1.25,
                       capacity_factor=float(capacity_factor),
                       num_selected=int(num_selected))
     return y.reshape(shape).to(data.dtype), aux.reshape(1)
+
+
+@register("ctc_loss", aliases=("CTCLoss", "_contrib_ctc_loss",
+                               "_contrib_CTCLoss"))
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """CTC negative log-likelihood a sample, ``(N,)`` in the data's dtype
+    (``mxtpu``'s op, ``mxtpu/ops/nn.py:789``): ``data (T, N, C)``
+    unnormalised (log_softmax applied here, in float32), ``label (N,
+    L)`` padded with 0 (blank "first") or -1 (blank "last"). The lengths
+    are read whenever given, whatever the ``use_*`` flags say.
+
+    The log-space forward DP over the extended label (blanks between
+    and around the symbols; S = 2L + 1 states) runs as plain torch ops on
+    ``(N, S)`` tensors a time step, so a captured step records the loop
+    and autograd gives the backward. As in ``mxtpu``: impossible paths
+    hold -1e30, not -inf (a label too long for its frames gives a large
+    finite loss), ``lse3`` floors its maximum at -1e30, a negative
+    index wraps (-1 is the last class or step) and an empty label
+    counts its one all-blank path once."""
+    T, N, C = data.shape
+    L = label.shape[1]
+    S = 2 * L + 1
+    dev = data.device
+    logp = torch.log_softmax(data.float(), dim=2)
+    lab = label.to(torch.int64)
+    blank = 0 if blank_label == "first" else C - 1
+    lab_valid = lab > 0 if blank == 0 else lab >= 0
+    lab_len = label_lengths.to(torch.int64) if label_lengths is not None \
+        else lab_valid.to(torch.int64).sum(1)
+    t_len = data_lengths.to(torch.int64) if data_lengths is not None \
+        else torch.full((N,), T, dtype=torch.int64, device=dev)
+
+    # made on the device: a copy from the host would be refused inside a
+    # CUDA graph capture
+    neg_inf = torch.full((), -1e30, dtype=torch.float32, device=dev)
+    s_idx = torch.arange(S, device=dev)
+    lab_pos = torch.clamp(torch.div(s_idx - 1, 2, rounding_mode="floor"),
+                          min=0)
+    ext = torch.where(s_idx[None, :] % 2 == 0,
+                      torch.full((), blank, dtype=torch.int64, device=dev),
+                      lab[:, lab_pos])                         # (N, S)
+    ext = torch.where(ext < 0, ext + C, ext)
+    ext_m2 = torch.cat([torch.full((N, 2), -1, dtype=torch.int64,
+                                   device=dev), ext[:, :-2]], dim=1)
+    allow_skip = (s_idx[None, :] % 2 == 1) & (ext != ext_m2)
+    fill1 = neg_inf.expand(N, 1)
+    fill2 = neg_inf.expand(N, 2)
+
+    def lse3(a, b, c):
+        m = torch.maximum(torch.maximum(a, b), c)
+        m = torch.maximum(m, neg_inf)
+        return m + torch.log(torch.exp(a - m) + torch.exp(b - m)
+                             + torch.exp(c - m))
+
+    # the virtual pre-start state: all mass at s = 0, nothing emitted
+    alpha = torch.where(s_idx[None, :] == 0, torch.zeros((), device=dev),
+                        neg_inf).expand(N, S)
+    emits = torch.gather(logp, 2, ext[None].expand(T, N, S))   # (T, N, S)
+    alphas = []
+    for t in range(T):
+        a2 = torch.cat([fill1, alpha[:, :-1]], dim=1)
+        a3 = torch.where(allow_skip,
+                         torch.cat([fill2, alpha[:, :-2]], dim=1), neg_inf)
+        alpha = emits[t] + lse3(alpha, a2, a3)
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)                               # (T, N, S)
+
+    t_end = t_len - 1
+    t_end = torch.where(t_end < 0, t_end + T, t_end)
+    last = alphas.gather(0, t_end[None, :, None].expand(1, N, S))[0]
+    end1 = last.gather(1, (2 * lab_len)[:, None])[:, 0]
+    end2 = last.gather(1, torch.clamp(2 * lab_len - 1, min=0)[:, None])[:, 0]
+    end2 = torch.where(lab_len > 0, end2, neg_inf)
+    m = torch.maximum(end1, end2)
+    ll = m + torch.log(torch.exp(end1 - m) + torch.exp(end2 - m))
+    return (-ll).to(data.dtype)

@@ -19,7 +19,8 @@ import threading
 import torch
 
 __all__ = ["OpDef", "register", "alias", "get_op", "ContribNamespace",
-           "next_generator", "rng_scope", "set_global_seed"]
+           "next_generator", "rng_scope", "set_global_seed", "draw",
+           "draw_tape"]
 
 _REGISTRY = {}
 
@@ -108,6 +109,7 @@ class _RngState(threading.local):
     def __init__(self):
         self.generator = torch.Generator().manual_seed(0)
         self.stack = []
+        self.tape = None
 
 
 _RNG = _RngState()
@@ -136,3 +138,43 @@ def next_generator():
 def set_global_seed(seed):
     """Reseed this thread's default generator (``mx.random.seed``)."""
     _RNG.generator.manual_seed(int(seed))
+
+
+def draw(make):
+    """A stateful op's random tensor: ``make(generator)`` on
+    :func:`next_generator`, or, inside a replaying :class:`draw_tape`,
+    the tensor the recorded call drew at the same position."""
+    tape = _RNG.tape
+    if tape is not None and tape.replaying:
+        return tape.draws[next(tape.position)]
+    out = make(next_generator())
+    if tape is not None:
+        tape.draws.append(out)
+    return out
+
+
+class draw_tape:
+    """Context manager over one evaluation's random draws: the first
+    ``with`` keeps every tensor :func:`draw` makes, each later one hands
+    them back in the same order. A rematerialized forward (``remat``,
+    ``MXNET_BACKWARD_DO_MIRROR``) so applies the dropout masks of the
+    forward it recomputes, as ``mxtpu``'s ``jax.checkpoint`` replays the
+    same key; no generator state is read, which a CUDA graph capture
+    would refuse, and the kept masks live in the capture's pool."""
+
+    def __init__(self):
+        self.draws = []
+        self.replaying = False
+        self.position = None
+        self._outer = None
+
+    def __enter__(self):
+        self._outer = _RNG.tape
+        if self.replaying:
+            self.position = iter(range(len(self.draws)))
+        _RNG.tape = self
+        return self
+
+    def __exit__(self, *a):
+        _RNG.tape = self._outer
+        self.replaying = True

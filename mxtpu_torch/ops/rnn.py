@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .registry import register, next_generator
+from .registry import draw, register
 from .rnn_scan import gru_scan, lstm_scan
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
@@ -139,8 +139,8 @@ def rnn(data, parameters, state, state_cell=None, state_size=0,
             c_finals.append(cT)
         x = outs[0] if D == 1 else torch.cat(outs, dim=-1)
         if p > 0.0 and _training and layer != L - 1:
-            gen = next_generator()
-            keep = torch.rand(x.shape, generator=gen, device=gen.device) \
+            keep = draw(lambda gen: torch.rand(
+                x.shape, generator=gen, device=gen.device)) \
                 .to(x.device) < 1.0 - p
             x = torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
     h_out = torch.stack(h_finals, dim=0)

@@ -297,10 +297,10 @@ class Symbol:
 # Optional (default=None) fn parameters that denote *array* inputs; any
 # other default-None parameter is a static param (as in mxtpu)
 _OPTIONAL_ARRAY_PARAMS = {"bias", "state", "state_cell", "parameters",
-                          "crop_like"}
+                          "crop_like", "data_lengths", "label_lengths"}
 
 # optional array inputs with no implicit variable: absent unless given
-_OPTIONAL_NO_AUTO = {"crop_like"}
+_OPTIONAL_NO_AUTO = {"crop_like", "data_lengths", "label_lengths"}
 
 # loss heads whose implicit label variable is ``<name>_label``
 _LABELLED_HEADS = ("SoftmaxOutput", "LinearRegressionOutput",

@@ -738,8 +738,13 @@ def test_hybridize_shape_change_and_invalidation():
         net.cast("float64")
         out = net(mt.nd.ones((2, 3), dtype="float64"))
         assert out.dtype == net.weight.data().dtype
-        with pytest.raises(NotImplementedError):
-            net.hybridize(remat=True)
+        # remat is ported: hybridize(remat=True) drops the programs too,
+        # and the rebuilt one under record() rematerializes
+        net.hybridize(remat=True)
+        assert net.cache_stats()["programs"] == 0
+        with mt.autograd.record():
+            net(mt.nd.ones((2, 3), dtype="float64"))
+        assert [p.remat for p in net.programs()] == [True]
 
 
 def test_refused_capture_runs_uncaptured_and_warns_once():

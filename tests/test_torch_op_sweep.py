@@ -64,7 +64,6 @@ PORT_SKIP = {
 # every canonical mxtpu op the port does not register yet, with the
 # ROADMAP item that ports it
 NOT_PORTED = {
-    "ctc_loss": "A8",
     "_contrib_gc_quantize_2bit": "A11", "_contrib_gc_dequantize_2bit": "A11",
 }
 NOT_PORTED.update({n: "A9" for n in (
@@ -147,9 +146,9 @@ def test_registry_partition():
             if t is None or t.name != op.name:
                 wrong.append((n, op.name, t and t.name))
     assert not wrong, "aliases resolving elsewhere in the port: %s" % wrong
-    # what the ROADMAP counts: A7 ported, these wait for A8, A9 and A11
-    assert len(NOT_PORTED) == 59, len(NOT_PORTED)
-    assert len(ported) == 185, len(ported)
+    # what the ROADMAP counts: A7 and A8 ported, these wait for A9 and A11
+    assert len(NOT_PORTED) == 58, len(NOT_PORTED)
+    assert len(ported) == 186, len(ported)
 
 
 @pytest.mark.parametrize("name", ported_specs())
