@@ -225,7 +225,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 17. the SSD slice (BASELINE.json config 5): multibox_nms (csrc/vision.cu,
    MultiBoxDetection's greedy NMS, one block an image) against its plain
    loop at SSD-300's 8,732 anchors and 21 classes, batch 1 and 8, on tied
-   scores, with force_suppress and with nms_topk=400, each call twice for
+   scores and with force_suppress (at its first NMS_CUT_ROWS anchors) and
+   with nms_topk=400, each call twice for
    the same bits (class ids equal), and timed beside its bound; the
    MultiBox ops on cuda:0 against the CPU at batch 32 (cls_target equal);
    then, with the kernel's count from 0, example/ssd/train_ssd_toy.py's
@@ -280,7 +281,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    through mt.nd on gpu(0) against cpu() with TF32 off, its outputs and,
    where it is differentiable, its inputs' gradients within SWEEP_TOL;
    the count that passed and the names that failed are printed, and any
-   failure fails the run;
+   failure fails the run (the random ops compare exactly: their draws
+   are on the CPU generator either way). Then nd.contrib.box_nms, whose
+   NMS on the card is the multibox_nms kernel, against the CPU's (the
+   kernel's plain loop) at BOX_NMS_ROWS rows, plain, with topk and with
+   force_suppress, its launches counted from 0 there, and its time at
+   SSD-300's 8,732 rows;
 22. the examples the sweep's ops open, each main mirrored (the examples
    import mxtpu) and run on gpu(0) to its own asserts: example/fcn-xs/
    fcn_toy.py (Deconvolution, Crop), svm_mnist.py (SVMOutput),
@@ -379,7 +385,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    mirrored: their first 3 steps on gpu(0) against the CPU's (under Adam,
    step 1's gradients, and the weights but for GLUON_ADAM_APART entries
    each within 2 lr), then each main on gpu(0) to its own asserts;
-35. timings: each kernel, its plain version and the PyTorch library call
+35. what nd.random_normal opens (ROADMAP A1, A9): example/vae/
+   vae_mnist.py's VAE at Kingma & Welling's MNIST widths (784-500-20,
+   batch 100; arXiv:1312.6114 section 5), eager Gluon with
+   nd.random_normal every step: its first 3 steps on gpu(0) against the
+   CPU from the same weights and draws, then one epoch over phase 20's
+   60,000 digits loaded once onto the card, the -ELBO falling, its ms a
+   step and the draw's share of it; example/bayesian-methods/bbb_toy.py
+   mirrored at its own sizes, its first steps against the CPU and its
+   main to its asserts; a hybridized block drawing normal, gamma and
+   negative binomial numbers, captured: two replays draw differently and
+   each holds its mean and deviation within 5 standard errors over 10^6
+   draws;
+   _contrib_DeformableConvolution at R-FCN's res5 shape (Dai et al.,
+   arXiv:1703.06211; data 1x512x38x63, dilate 2) held once against the
+   CPU, forward and forward + backward timed beside Convolution;
+36. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -396,7 +417,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-36. one JSON line naming every kernel with its launches (the head
+37. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
    launches_gluon_lm, lstm_scan's in the checkpointed fit as
@@ -405,9 +426,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    gru_scan's in DeepSpeech 2's captured fit as launches_deepspeech2 with
    its time at that shape (ds2_*) and ctc_loss's; multibox_nms's: in the
    SSD slice's decodes,
-   and in the R-CNN toy as launches_rcnn_toy, with its time at Proposal's
-   shape) and error;
-37. the last line: {"ok": true, "device": {...}}.
+   in the R-CNN toy as launches_rcnn_toy and in phase 21's box_nms
+   checks as launches_box_nms, with its time at Proposal's shape and
+   box_nms's at SSD-300's) and error;
+38. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -1655,7 +1677,7 @@ def rtc_phase(mt):
     out64 = nd.zeros((4,), ctx=ctx, dtype="float64")
     k["dbl"].launch((out64, x64, 4), ctx, (1, 1, 1), (4, 1, 1))
     held("dbl into float64", out64.data, rtc_dbl_plain(x64.data).double())
-    if out64.dtype != torch.float64:
+    if out64.dtype != np.float64:
         fail("a float64 output came back as %s" % out64.dtype)
     # half scalars and arrays through the toolkit's cuda_fp16.h; 64 KB
     # of dynamic shared memory
@@ -5987,6 +6009,9 @@ TARGET_TOL = dict(atol=1e-5, rtol=1e-5)
 # operations a tested pair costs the kernel (IoU: 4 min/max, 5 subtractions,
 # 4 clamps, 3 products, a sum, a quotient, 2 comparisons, the class test)
 NMS_PAIR_OPS = 21
+# the tied-score and force_suppress cases at SSD-300's first 2,048 anchors:
+# the plain loop they are held to costs a launch a row
+NMS_CUT_ROWS = 2048
 
 
 def synthetic_detection_set(n=64, hw=32, seed=0):
@@ -6404,8 +6429,9 @@ def nms_pairs(vision, cls_id, boxes, force, limit,
 
 def nms_kernel_phase(mt, vision, rng, card):
     """multibox_nms against its plain version on the card at SSD-300's
-    shape (8,732 anchors, 21 classes): batch 1 and 8, tied scores,
-    force_suppress, nms_topk=400; each kernel call twice for the same
+    shape (8,732 anchors, 21 classes): batch 1 and 8, tied scores and
+    force_suppress (at the first NMS_CUT_ROWS anchors), nms_topk=400;
+    each kernel call twice for the same
     bits, class ids equal to the plain loop's. Then the kernel's and the
     plain loop's times at batch 1 and 8 beside the bound. Returns
     (largest error, {batch: (ms, plain ms, bound ms, bound by)})."""
@@ -6415,13 +6441,15 @@ def nms_kernel_phase(mt, vision, rng, card):
         fail("SSD-300 has %d anchors, not %d" % (anchors.shape[1],
                                                  SSD_ANCHORS))
     worst, timing = 0.0, {}
-    for label, batch, tied, force, topk in (
-            ("batch 1", 1, False, False, -1), ("batch 8", 8, False, False, -1),
-            ("tied scores", 8, True, False, -1),
-            ("force_suppress", 8, False, True, -1),
-            ("nms_topk 400", 8, False, False, 400)):
-        cls_id, score, boxes = nms_inputs(vision, anchors, rng, batch, tied)
-        limit = SSD_ANCHORS if topk <= 0 else topk
+    for label, batch, rows, tied, force, topk in (
+            ("batch 1", 1, SSD_ANCHORS, False, False, -1),
+            ("batch 8", 8, SSD_ANCHORS, False, False, -1),
+            ("tied scores", 8, NMS_CUT_ROWS, True, False, -1),
+            ("force_suppress", 8, NMS_CUT_ROWS, False, True, -1),
+            ("nms_topk 400", 8, SSD_ANCHORS, False, False, 400)):
+        cls_id, score, boxes = nms_inputs(vision, anchors[:, :rows], rng,
+                                          batch, tied)
+        limit = rows if topk <= 0 else topk
         got = vision.multibox_nms(boxes, cls_id, SSD_NMS_THRESHOLD, force,
                                   limit)
         again = vision.multibox_nms(boxes, cls_id, SSD_NMS_THRESHOLD, force,
@@ -6443,7 +6471,7 @@ def nms_kernel_phase(mt, vision, rng, card):
         kept = int((got >= 0).sum())
         print("multibox_nms %s (%d x %d rows, %d with a class): %d kept, "
               "equal to the plain loop, bitwise repeatable"
-              % (label, batch, SSD_ANCHORS, int((cls_id >= 0).sum()), kept),
+              % (label, batch, rows, int((cls_id >= 0).sum()), kept),
               flush=True)
         if label.startswith("batch"):
             ms = cuda_ms(lambda: vision.multibox_nms(
@@ -7483,7 +7511,7 @@ MN_WORKERS = 2                     # the DataLoader's threads, as phase 15's
 MN_SERIAL_BATCHES = 100
 # the Gluon MLP's fed run and the loader alone: this many batches (of an
 # epoch's 937)
-MN_GLUON_STEPS = 200
+MN_GLUON_STEPS = 100
 MN_TIMED_STEPS, MN_PROFILE_STEPS = 25, 4
 # the fed step against the held one: the iterator sets the pace beyond this
 MN_PACE = 1.05
@@ -7816,12 +7844,13 @@ def data_files_phase(mt, seed, card):
     CIFAR-10's test pickle, written from ``seed``; LeNet fed by MNISTIter,
     the Gluon MLP fed by vision.MNIST, CIFAR10 through a DataLoader, and
     CSVIter / LibSVMIter. Returns ({(path, feed): ms a step}, {model:
-    pace})."""
+    pace}, the 60,000 training images as read back, for phase 35)."""
     import tempfile
     clock = [("start", time.perf_counter())]
     with tempfile.TemporaryDirectory(prefix="data_files_") as root:
         paths = mnist_files(root, seed, MN_TRAIN, MN_TEST)
         cifar_pickles(root, seed, CIFAR_TEST)
+        train_images = mt.io.read_idx(paths["train"][0], 2051)
         clock.append(("files written", time.perf_counter()))
         lenet_ms, lenet_pace = lenet_files(mt, paths, card)
         clock.append(("LeNet", time.perf_counter()))
@@ -7837,7 +7866,7 @@ def data_files_phase(mt, seed, card):
             for i, (name, t) in enumerate(clock[1:]))), flush=True)
     ms = {("LeNet", k): v for k, v in lenet_ms.items()}
     ms.update({("Gluon MLP", k): v for k, v in gluon_ms.items()})
-    return ms, {"LeNet": lenet_pace, "Gluon MLP": gluon_pace}
+    return ms, {"LeNet": lenet_pace, "Gluon MLP": gluon_pace}, train_images
 
 
 
@@ -8128,6 +8157,140 @@ CARD_SWEEP.update({
 })
 
 
+def _spd(r, n):
+    """A symmetric positive-definite n x n matrix."""
+    b = r.uniform(-1, 1, (n, n))
+    return (b @ b.T + n * np.eye(n)).astype(np.float32)
+
+
+def _lower(r, n):
+    return (np.tril(r.uniform(0.5, 1.5, (n, n))) + np.eye(n)) \
+        .astype(np.float32)
+
+
+def _box_rows(r, n=12):
+    """n box_nms rows (id, score, x1, y1, x2, y2): three ids, boxes of a
+    few clusters so that some overlap."""
+    ctr = r.uniform(0.2, 0.8, (3, 2))[r.randint(0, 3, n)] \
+        + r.uniform(-0.05, 0.05, (n, 2))
+    half = r.uniform(0.08, 0.15, (n, 2))
+    return np.concatenate([r.randint(0, 3, (n, 1)), r.uniform(0, 1, (n, 1)),
+                           ctr - half, ctr + half], 1)[None].astype("f")
+
+
+_SHAPE = {"shape": (3, 4)}
+for _n, _p in (("random_uniform", {"low": -1.0, "high": 3.0}),
+               ("random_normal", {"loc": 2.0, "scale": 3.0}),
+               ("random_gamma", {"alpha": 3.0, "beta": 2.0}),
+               ("random_exponential", {"lam": 2.0}),
+               ("random_poisson", {"lam": 4.0}),
+               ("random_negative_binomial", {"k": 3, "p": 0.5}),
+               ("random_generalized_negative_binomial", {"mu": 2.0,
+                                                         "alpha": 0.5}),
+               ("random_randint", {"low": 2, "high": 8})):
+    CARD_SWEEP[_n] = (lambda r: [], dict(_p, **_SHAPE))
+for _n in ("sample_uniform", "sample_normal", "sample_gamma",
+           "sample_negative_binomial", "sample_generalized_negative_binomial"):
+    CARD_SWEEP[_n] = (lambda r: [_su(r, 2, lo=0.5, hi=2.0),
+                                 _su(r, 2, lo=0.3, hi=0.7)], {"shape": (5,)})
+for _n in ("sample_exponential", "sample_poisson"):
+    CARD_SWEEP[_n] = (lambda r: [_su(r, 2, lo=0.5, hi=4.0)], {"shape": (5,)})
+_W = (lambda r: _su(r, 3, 4))
+CARD_SWEEP.update({
+    "sample_multinomial": (
+        lambda r: [np.array([[0.7, 0.2, 0.1], [0.05, 0.05, 0.9]], "f")],
+        {"shape": (5,), "get_prob": True}),
+    "shuffle": (lambda r: [_su(r, 6, 3)], {}),
+    "khatri_rao": (lambda r: [_su(r, 2, 4), _su(r, 3, 4)], {}),
+    "linalg_gemm": (lambda r: [_su(r, 2, 3, 4), _su(r, 2, 4, 5),
+                               _su(r, 2, 3, 5)],
+                    {"alpha": 2.0, "beta": 0.5}),
+    "linalg_gemm2": (lambda r: [_su(r, 3, 4), _su(r, 5, 4)],
+                     {"alpha": 1.5, "transpose_b": True}),
+    "linalg_syrk": (lambda r: [_su(r, 3, 4)], {"alpha": 0.5}),
+    "linalg_trmm": (lambda r: [_lower(r, 3), _su(r, 3, 4)], {}),
+    "linalg_trsm": (lambda r: [_lower(r, 3), _su(r, 4, 3)],
+                    {"rightside": True}),
+    "linalg_sumlogdiag": (lambda r: [_spd(r, 3)], {}),
+    "linalg_potrf": (lambda r: [_spd(r, 3)], {}),
+    "linalg_potri": (lambda r: [np.linalg.cholesky(_spd(r, 3))
+                                .astype(np.float32)], {}),
+    "linalg_gelqf": (lambda r: [_su(r, 3, 5)], {}),
+    "linalg_syevd": (lambda r: [_spd(r, 3)], {}),
+    "sgd_update": (lambda r: [_W(r), _W(r)], {"lr": 0.1, "wd": 0.01}),
+    "sgd_mom_update": (lambda r: [_W(r), _W(r), _W(r)],
+                       {"lr": 0.1, "momentum": 0.9, "wd": 0.01}),
+    "mp_sgd_update": (lambda r: [_W(r).astype(np.float16),
+                                 _W(r).astype(np.float16), _W(r)],
+                      {"lr": 0.1, "wd": 0.01}),
+    "mp_sgd_mom_update": (lambda r: [_W(r).astype(np.float16),
+                                     _W(r).astype(np.float16), _W(r),
+                                     _W(r)], {"lr": 0.1, "momentum": 0.9}),
+    "adam_update": (lambda r: [_W(r), _W(r), _W(r),
+                               _su(r, 3, 4, lo=0.3, hi=2.0)],
+                    {"lr": 0.01, "wd": 0.01}),
+    "rmsprop_update": (lambda r: [_W(r), _W(r), _su(r, 3, 4, lo=0.3,
+                                                    hi=2.0)], {"lr": 0.01}),
+    "rmspropalex_update": (lambda r: [_W(r), _W(r),
+                                      _su(r, 3, 4, lo=1.0, hi=2.0),
+                                      _su(r, 3, 4, lo=-0.3, hi=0.3), _W(r)],
+                           {"lr": 0.01}),
+    "ftml_update": (lambda r: [_W(r), _W(r), _su(r, 3, 4, lo=0.3, hi=2.0),
+                               _su(r, 3, 4, lo=0.3, hi=2.0), _W(r)],
+                    {"lr": 0.01, "t": 2}),
+    "signsgd_update": (lambda r: [_W(r), _sa(r, 3, 4)], {"lr": 0.1}),
+    "signum_update": (lambda r: [_W(r), _sa(r, 3, 4), _W(r)],
+                      {"lr": 0.1, "momentum": 0.9}),
+    "ftrl_update": (lambda r: [_W(r), _W(r), _W(r),
+                               _su(r, 3, 4, lo=0.3, hi=2.0)], {"lr": 0.1}),
+    "adagrad_update": (lambda r: [_W(r), _W(r), _su(r, 3, 4, lo=0.3,
+                                                    hi=2.0)], {"lr": 0.1}),
+    "_contrib_box_iou": (lambda r: [_box_rows(r)[0, :, 2:],
+                                    _box_rows(r, 5)[0, :, 2:]], {}),
+    "_contrib_box_nms": (lambda r: [np.concatenate([_box_rows(r),
+                                                    _box_rows(r)])],
+        {"overlap_thresh": 0.3, "valid_thresh": 0.1, "topk": 10,
+         "id_index": 0}),
+    "_contrib_bipartite_matching": (lambda r: [_sd(r, 2, 4, 3)],
+                                    {"threshold": -0.3}),
+    "_contrib_DeformableConvolution": (
+        lambda r: [_su(r, 2, 4, 6, 6), _su(r, 2, 36, 6, 6, lo=-1.5, hi=1.5),
+                   _su(r, 4, 2, 3, 3), _su(r, 4)],
+        {"kernel": (3, 3), "num_filter": 4, "pad": (2, 2),
+         "dilate": (2, 2), "num_group": 2, "num_deformable_group": 2}),
+    "_contrib_DeformablePSROIPooling": (
+        lambda r: [_su(r, 1, 8, 6, 6),
+                   np.array([[0, 0.5, 0.5, 4.5, 4.0]], np.float32),
+                   _su(r, 1, 8, lo=-0.5, hi=0.5)],
+        {"output_dim": 2, "pooled_size": 2, "group_size": 2, "part_size": 2,
+         "trans_std": 0.1, "spatial_scale": 1.0}),
+    "reshape_like": (lambda r: [_su(r, 2, 6), _su(r, 3, 4)], {}),
+    "softmax_cross_entropy": (lambda r: [_su(r, 3, 4),
+                                         _si(r, 3, high=4).astype("f")], {}),
+    "_contrib_quadratic": (lambda r: [_su(r, 3, 4)],
+                           {"a": 2.0, "b": -1.0, "c": 0.5}),
+    "IdentityAttachKLSparseReg": (lambda r: [_su(r, 3, 4)],
+                                  {"penalty": 0.1}),
+    "_image_to_tensor": (lambda r: [r.randint(0, 256, (2, 5, 4, 3))
+                                    .astype(np.uint8)], {}),
+    "_image_normalize": (lambda r: [_su(r, 3, 4, 5, lo=0, hi=1)],
+                         {"mean": (0.5, 0.4, 0.3), "std": (0.2, 0.25, 0.3)}),
+    "_contrib_quantize": (lambda r: [_su(r, 3, 4, lo=-0.9, hi=0.9),
+                                     np.array([-1.0], "f"),
+                                     np.array([1.0], "f")],
+                          {"out_type": "int8"}),
+    "_contrib_dequantize": (lambda r: [r.randint(0, 256, (3, 4))
+                                       .astype(np.uint8),
+                                       np.array([-1.0], "f"),
+                                       np.array([1.0], "f")], {}),
+    "_contrib_fft": (lambda r: [_su(r, 2, 8)], {}),
+    "_contrib_ifft": (lambda r: [_su(r, 2, 16)], {}),
+    "_contrib_count_sketch": (
+        lambda r: [_su(r, 2, 5), np.array([0, 2, 1, 0, 3], "f"),
+                   np.array([1, -1, 1, -1, 1], "f")], {"out_dim": 4}),
+})
+
+
 def sweep_register(mt):
     """The custom op the sweep's ``Custom`` row calls: x^2 with its
     gradient, written in the NDArray API (so it runs on either device)."""
@@ -8248,7 +8411,73 @@ def op_sweep_phase(mt, card):
              card), flush=True)
     if failed:
         fail("the op sweep failed on the card for %s" % sorted(failed))
-    return len(names)
+    return len(names), box_nms_check(mt, card)
+
+
+# box_nms held at a cut row count (the CPU's plain loop is a launch a row),
+# timed at SSD-300's
+BOX_NMS_ROWS, BOX_NMS_BATCH = 1024, 2
+BOX_NMS = dict(overlap_thresh=SSD_NMS_THRESHOLD, valid_thresh=0.01,
+               coord_start=2, score_index=1, id_index=0)
+
+
+def box_nms_rows(mt, rng, batch, rows):
+    """box_nms's rows (id, score, x1, y1, x2, y2) on gpu(0): SSD-300's
+    decoded detections before their NMS (nms_inputs) over its first
+    ``rows`` anchors, the class id -1 where no class passes."""
+    import torch
+    from mxtpu_torch.ops import vision
+    anchors = ssd300_anchors(mt, mt.gpu(0)).data[:, :rows]
+    cls_id, score, boxes = nms_inputs(vision, anchors, rng, batch)
+    return torch.cat([cls_id[..., None], score[..., None], boxes], -1)
+
+
+def box_nms_check(mt, card):
+    """nd.contrib.box_nms on gpu(0), whose NMS is the multibox_nms kernel,
+    against the CPU's box_nms (its NMS the kernel's plain loop,
+    multibox_nms_plain) at BOX_NMS_ROWS rows, plain and with topk 100 and
+    force_suppress: equal, and bitwise repeatable; the kernel's launches
+    counted from 0 over those calls. Then box_nms and the kernel alone
+    timed at SSD-300's 8,732 rows. Returns (launches, box_nms ms, the
+    kernel's ms)."""
+    import torch
+    from mxtpu_torch.ops import vision
+    rng = np.random.RandomState(11)
+    data = mt.nd.NDArray(box_nms_rows(mt, rng, BOX_NMS_BATCH, BOX_NMS_ROWS))
+    host = data.as_in_context(mt.cpu())
+    vision.LAUNCHES["multibox_nms"] = 0
+    kept = []
+    for extra in ({}, {"topk": 100}, {"force_suppress": True}):
+        params = dict(BOX_NMS, **extra)
+        got = mt.nd.contrib.box_nms(data, **params)
+        again = mt.nd.contrib.box_nms(data, **params)
+        want = mt.nd.contrib.box_nms(host, **params)
+        if not torch.equal(got.data, again.data):
+            fail("box_nms %s on gpu(0): two calls differ" % extra)
+        if not np.array_equal(got.asnumpy(), want.asnumpy()):
+            fail("box_nms %s on gpu(0) differs from the CPU's plain loop"
+                 % extra)
+        kept.append(int((got.asnumpy()[..., 1] >= 0).sum()))
+    launches = vision.LAUNCHES["multibox_nms"]
+    if launches != 6:
+        fail("box_nms launched multibox_nms %d times for 6 calls"
+             % launches)
+    big = mt.nd.NDArray(box_nms_rows(mt, rng, 1, SSD_ANCHORS))
+    ms = cuda_ms(lambda: mt.nd.contrib.box_nms(big, **BOX_NMS), iters=20)
+    out = mt.nd.contrib.box_nms(big, **BOX_NMS).data
+    boxes = out[..., 2:6].contiguous()
+    cls = torch.where(out[..., 1] > BOX_NMS["valid_thresh"], out[..., 0],
+                      -1.0).contiguous()
+    kernel_ms = cuda_ms(lambda: vision.multibox_nms(
+        boxes, cls, SSD_NMS_THRESHOLD, False, SSD_ANCHORS), iters=20)
+    print("box_nms on gpu(0) (multibox_nms after a sort by valid score, ids "
+          "as class indices) at %d x %d rows: equal to the CPU's plain loop "
+          "and bitwise repeatable, plain / topk 100 / force_suppress keep "
+          "%s; %d launches in 6 calls; at SSD-300's %d rows %.3f ms a call, "
+          "the kernel alone %.3f ms (CUDA events, 20 calls) | %s"
+          % (BOX_NMS_BATCH, BOX_NMS_ROWS, kept, launches, SSD_ANCHORS, ms,
+             kernel_ms, card), flush=True)
+    return launches, ms, kernel_ms
 
 
 
@@ -12866,6 +13095,63 @@ def largest_share_apart(got, want):
                max(float(np.abs(w).max()), 1e-30) for k, w in want.items())
 
 
+def hold_shares(label, checks):
+    """``checks``: (what, got, want), ``got`` on the card and ``want`` on
+    the CPU ({name: numpy} each), each within EX_SHARE of its arrays'
+    largest values. Returns a text for each."""
+    text = []
+    for what, got, want in checks:
+        err = largest_share_apart(got, want)
+        if not err <= EX_SHARE:
+            fail("%s: %s on gpu(0) (first %d steps) differ from the CPU's "
+                 "by %.3g of their largest value (limit %g)"
+                 % (label, what, FIT_STEPS, err, EX_SHARE))
+        text.append("%s (%d arrays) within %.3g" % (what, len(want), err))
+    return text
+
+
+def adam_weights_apart(values, want):
+    """Weights after Adam steps on two devices ({name: numpy} each): (the
+    entries past EX_SHARE of their array's largest value, the largest
+    difference, the entries). Adam's step is near lr for a tiny
+    gradient whatever its size, so rounding can move such an entry by up
+    to 2 lr: each model's limits come from its own reading."""
+    apart, worst, entries = 0, 0.0, 0
+    for k, w in want.items():
+        d = np.abs(values[k] - w)
+        apart += int((d > EX_SHARE * float(np.abs(w).max())).sum())
+        worst = max(worst, float(d.max()))
+        entries += w.size
+    return apart, worst, entries
+
+
+def hold_adam_steps(label, got, want, lr, max_apart, max_lr):
+    """``got`` and ``want``: (losses, weights after FIT_STEPS Adam steps,
+    step 1's gradients), on the card and on the CPU from the same weights
+    and draws. The losses and step 1's gradients within EX_SHARE of their
+    largest values; the weights apart at most ``max_apart`` entries, and
+    none by more than ``max_lr`` lr. Returns the line's text."""
+    losses, values, first = got
+    want_l, want_v, want_first = want
+    text = hold_shares(label, (
+        ("losses", {"losses": np.array(losses)},
+         {"losses": np.array(want_l)}),
+        ("step 1's gradients", first, want_first)))
+    apart, worst, entries = adam_weights_apart(values, want_v)
+    if apart > max_apart or worst > max_lr * lr:
+        fail("%s: weights after %d Adam steps on gpu(0): %d of %d entries "
+             "past %g of their array's largest value, the largest "
+             "difference %.3g = %.3g lr (limits %d entries, %g lr)"
+             % (label, FIT_STEPS, apart, entries, EX_SHARE, worst,
+                worst / lr, max_apart, max_lr))
+    text.append("the weights (Adam, lr %g): %d of %d entries past %g of "
+                "their array's largest value, the largest difference %.3g "
+                "= %.3g lr (limits %d entries, %g lr)"
+                % (lr, apart, entries, EX_SHARE, worst, worst / lr,
+                   max_apart, max_lr))
+    return "; ".join(text)
+
+
 def gluon_examples_first_steps(mt):
     """The five examples' first steps on gpu(0) against the CPU from the
     same weights: the losses and the weights within EX_SHARE of their
@@ -12887,41 +13173,17 @@ def gluon_examples_first_steps(mt):
     for ex, (losses, values, _g, first) in firsts["gpu"].items():
         want_l, want_v, _wg, want_first = firsts["cpu"][ex]
         lr = GLUON_ADAM_LR.get(ex)
-        checks = [("losses", {"losses": np.array(losses)},
-                   {"losses": np.array(want_l)})]
         if lr is None:
-            checks.append(("weights", values, want_v))
+            text = "; ".join(hold_shares(ex, (
+                ("losses", {"losses": np.array(losses)},
+                 {"losses": np.array(want_l)}),
+                ("weights", values, want_v))))
         else:
-            checks.append(("step 1's gradients", first, want_first))
-        text = []
-        for what, got, want in checks:
-            err = largest_share_apart(got, want)
-            if not err <= EX_SHARE:
-                fail("%s: %s on gpu(0) (first %d steps) differ from the "
-                     "CPU's by %.3g of their largest value (limit %g)"
-                     % (ex, what, FIT_STEPS, err, EX_SHARE))
-            text.append("%s (%d arrays) within %.3g" % (what, len(want),
-                                                         err))
-        if lr is not None:
-            apart, worst, entries = 0, 0.0, 0
-            for k, w in want_v.items():
-                d = np.abs(values[k] - w)
-                apart += int((d > EX_SHARE * float(np.abs(w).max())).sum())
-                worst = max(worst, float(d.max()))
-                entries += w.size
-            text.append("the weights (Adam, lr %g): %d of %d entries past "
-                        "%g of their array's largest value, the largest "
-                        "difference %.3g = %.3f lr (limits %d entries, 2 "
-                        "lr)" % (lr, apart, entries, EX_SHARE, worst,
-                                 worst / lr, GLUON_ADAM_APART))
+            text = hold_adam_steps(ex, (losses, values, first),
+                                   (want_l, want_v, want_first), lr,
+                                   GLUON_ADAM_APART, 2.0)
         print("%s: first %d steps on gpu(0) against the CPU: %s (limit %g)"
-              % (ex, FIT_STEPS, "; ".join(text), EX_SHARE), flush=True)
-        if lr is not None and (apart > GLUON_ADAM_APART or worst > 2 * lr):
-            fail("%s: weights after %d Adam steps on gpu(0): %d of %d "
-                 "entries past %g of their array's largest value, the "
-                 "largest difference %.3g (limits %d entries, 2 lr = %g)"
-                 % (ex, FIT_STEPS, apart, entries, EX_SHARE, worst,
-                    GLUON_ADAM_APART, 2 * lr))
+              % (ex, FIT_STEPS, text, EX_SHARE), flush=True)
 
 
 def gluon_examples_phase(mt, rnn_scan, card):
@@ -12951,6 +13213,472 @@ def gluon_examples_phase(mt, rnn_scan, card):
                   "%.1f s | %s" % (ex, text, got, time.time() - t0, card),
                   flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 35: what nd.random_normal opens (A1, A9): the VAE at Kingma &
+# Welling's MNIST widths, Bayes by Backprop, draws in a captured program;
+# deformable convolution at R-FCN's res5 shape
+# ---------------------------------------------------------------------------
+
+# example/vae/vae_mnist.py's VAE at arXiv:1312.6114 section 5's MNIST
+# widths and minibatch (500 hidden units, M = 100, 20 latents)
+VAE_LATENT, VAE_HIDDEN, VAE_BATCH, VAE_LR, VAE_SEED = 20, 500, 100, 1e-3, 3
+VAE_WINDOW = 50        # the ELBO's last 50 steps' mean below its first 50's
+# the weights after FIT_STEPS Adam steps, card against CPU: no entry past
+# EX_SHARE and none more than VAE_ADAM_LR_APART lr apart, three times the
+# H100's reading (0 of 815,824 entries, the largest 8.03e-6 = 0.008 lr)
+VAE_ADAM_LR_APART = 0.025
+
+
+def vae_class(pkg):
+    """vae_mnist.py's VAE in ``pkg``; ``eps`` is the reparameterization's
+    draw (a test subclass gives both packages the same)."""
+    nn = pkg.gluon.nn
+
+    class VAE(pkg.gluon.Block):
+        def __init__(self, n_latent=8, n_hidden=256, n_out=784, **kwargs):
+            super().__init__(**kwargs)
+            self.n_latent = n_latent
+            with self.name_scope():
+                self.enc = nn.HybridSequential()
+                self.enc.add(nn.Dense(n_hidden, activation="tanh"))
+                self.enc.add(nn.Dense(n_latent * 2))
+                self.dec = nn.HybridSequential()
+                self.dec.add(nn.Dense(n_hidden, activation="tanh"))
+                self.dec.add(nn.Dense(n_out, activation="sigmoid"))
+
+        def eps(self, x):
+            return pkg.nd.random_normal(0, 1, shape=(x.shape[0],
+                                                     self.n_latent))
+
+        def forward(self, x):
+            h = self.enc(x)
+            mu = pkg.nd.slice_axis(h, axis=1, begin=0, end=self.n_latent)
+            log_var = pkg.nd.slice_axis(h, axis=1, begin=self.n_latent,
+                                        end=2 * self.n_latent)
+            z = mu + pkg.nd.exp(0.5 * log_var) * self.eps(x)
+            y = self.dec(z)
+            kl = -0.5 * pkg.nd.sum(1 + log_var - mu * mu
+                                   - pkg.nd.exp(log_var), axis=1)
+            return y, kl
+    return VAE
+
+
+def vae_step(pkg, net, trainer, x):
+    """One step of vae_mnist.py's loop: the -ELBO a row (Bernoulli
+    reconstruction + KL) under record(), backward, trainer.step. Returns
+    the rows' -ELBO (not read back)."""
+    with pkg.autograd.record():
+        yhat, kl = net(x)
+        logloss = -pkg.nd.sum(x * pkg.nd.log(yhat + 1e-10)
+                              + (1 - x) * pkg.nd.log(1 - yhat + 1e-10),
+                              axis=1)
+        elbo_loss = logloss + kl
+    elbo_loss.backward()
+    trainer.step(x.shape[0])
+    return elbo_loss
+
+
+def vae_weights(pkg):
+    """The VAE's weights ({name: numpy}): the example's Xavier drawn on
+    the CPU from VAE_SEED."""
+    net = vae_class(pkg)(n_latent=VAE_LATENT, n_hidden=VAE_HIDDEN,
+                         prefix="vae_")
+    return gluon_weights(pkg, net, VAE_SEED, np.zeros((2, 784), np.float32),
+                         pkg.init.Xavier())
+
+
+def vae_net(pkg, ctx, weights, net_class=None):
+    """The VAE at the published widths on ``ctx`` with ``weights``, and
+    the example's Adam trainer."""
+    net = (net_class or vae_class(pkg))(n_latent=VAE_LATENT,
+                                        n_hidden=VAE_HIDDEN, prefix="vae_")
+    net.initialize(pkg.init.Xavier(), ctx=ctx)
+    net(pkg.nd.zeros((2, 784), ctx=ctx))
+    gluon_load(pkg, net, weights, ctx)
+    return net, pkg.gluon.Trainer(net.collect_params(), "adam",
+                                  {"learning_rate": VAE_LR})
+
+
+def vae_first(pkg, ctx, x, weights, steps=FIT_STEPS, net_class=None):
+    """FIT_STEPS steps of the VAE on ``ctx`` from ``weights`` and the
+    draws of VAE_SEED: (mean -ELBO a step, the weights after, step 1's
+    gradients)."""
+    net, trainer = vae_net(pkg, ctx, weights, net_class)
+    params = net.collect_params()
+    pkg.random.seed(VAE_SEED)
+    losses, first = [], None
+    for i in range(steps):
+        xb = pkg.nd.array(x[i * VAE_BATCH:(i + 1) * VAE_BATCH], ctx=ctx)
+        losses.append(float(vae_step(pkg, net, trainer, xb).mean()
+                            .asnumpy()))
+        if first is None:
+            first = {k: p.grad().asnumpy() for k, p in params.items()}
+    return losses, {k: p.data().asnumpy() for k, p in params.items()}, first
+
+
+def vae_phase(mt, images, card):
+    """The VAE of example/vae/vae_mnist.py at Kingma & Welling's MNIST
+    widths (784-500-20 encoder, 20-500-784 decoder, batch 100, Adam 1e-3),
+    eager Gluon with nd.random_normal every step: its first FIT_STEPS
+    steps on gpu(0) against the CPU from the same weights and draws, then
+    one epoch over ``images`` (phase 20's 60,000 MNIST digits, loaded once
+    onto the card as [0, 1] floats and sliced there, as the example slices
+    its array). The -ELBO must fall (the last VAE_WINDOW steps' mean below
+    the first's); prints the ms a step and the share of it the draw's
+    copy up from the CPU generator takes."""
+    import torch
+    t0 = time.time()
+    gpu = mt.gpu(0)
+    x_host = (images.reshape(len(images), -1) / 255.0).astype(np.float32)
+    with mt.cpu():
+        weights = vae_weights(mt)
+        want = vae_first(mt, mt.cpu(), x_host, weights)
+    with gpu:
+        got = vae_first(mt, gpu, x_host, weights)
+    print("VAE (784-%d-%d, batch %d): first %d steps on gpu(0) against the "
+          "CPU: %s (limit %g) | %s"
+          % (VAE_HIDDEN, VAE_LATENT, VAE_BATCH, FIT_STEPS,
+             hold_adam_steps("the VAE", got, want, VAE_LR, 0,
+                             VAE_ADAM_LR_APART), EX_SHARE, card),
+          flush=True)
+    with gpu:
+        net, trainer = vae_net(mt, gpu, weights)
+        x_all = mt.nd.array(x_host, ctx=gpu)
+        mt.random.seed(VAE_SEED)
+        losses = []
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter()
+        for i in range(0, len(x_host), VAE_BATCH):
+            losses.append(vae_step(mt, net, trainer,
+                                   x_all[i:i + VAE_BATCH]).mean().data)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t_fit) * 1e3 / len(losses)
+        elbo = torch.stack(losses).cpu().numpy()
+        # the draw alone, as a step makes it: on the CPU generator, then
+        # copied up
+        torch.cuda.synchronize()
+        t_draw = time.perf_counter()
+        for _ in range(len(losses)):
+            mt.nd.random_normal(0, 1, shape=(VAE_BATCH, VAE_LATENT))
+        torch.cuda.synchronize()
+        draw_ms = (time.perf_counter() - t_draw) * 1e3 / len(losses)
+        z = mt.nd.random_normal(0, 1, shape=(4, VAE_LATENT))
+        samples = net.dec(z).asnumpy()
+    head, tail = elbo[:VAE_WINDOW].mean(), elbo[-VAE_WINDOW:].mean()
+    if not (np.isfinite(elbo).all() and tail < head):
+        fail("the VAE's -ELBO did not fall over its epoch: first %d steps "
+             "%.2f, last %d %.2f" % (VAE_WINDOW, head, VAE_WINDOW, tail))
+    if samples.shape != (4, 784) or not np.isfinite(samples).all():
+        fail("the VAE's decoder gave %s from the prior" % (samples.shape,))
+    print("VAE one epoch on gpu(0): %d steps of %d over %d images in %.2f s, "
+          "%.3f ms a step; -ELBO first %d steps %.2f -> last %d %.2f; "
+          "nd.random_normal (%d x %d, drawn on the CPU, copied up) %.3f ms "
+          "a step alone, %.1f%% of the step; phase %.1f s | %s"
+          % (len(losses), VAE_BATCH, len(x_host), step_ms * len(losses)
+             / 1e3, step_ms, VAE_WINDOW, head, VAE_WINDOW, tail, VAE_BATCH,
+             VAE_LATENT, draw_ms, 100 * draw_ms / step_ms, time.time() - t0,
+             card), flush=True)
+    return step_ms
+
+
+# example/bayesian-methods/bbb_toy.py at its own sizes
+BBB_DIM, BBB_HIDDEN, BBB_CLASSES, BBB_PRIOR_SIGMA = 16, 32, 3, 1.0
+BBB_LR, BBB_BATCH, BBB_EPOCHS, BBB_SEED = 5e-3, 128, 30, 51
+# as VAE_ADAM_LR_APART: three times the H100's reading (0 of 1,286
+# entries, the largest 2.38e-7 = 4.8e-5 lr)
+BBB_ADAM_LR_APART = 1.5e-4
+
+
+def bbb_data(n, seed):
+    """bbb_toy.py's make_data: three prototypes in 16 dimensions plus
+    noise."""
+    protos = np.random.RandomState(0).uniform(
+        -1, 1, (BBB_CLASSES, BBB_DIM)).astype(np.float32)
+    r = np.random.RandomState(seed)
+    y = r.randint(0, BBB_CLASSES, n)
+    x = protos[y] + 0.2 * r.randn(n, BBB_DIM).astype(np.float32)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def bbb_class(pkg):
+    """bbb_toy.py's BayesMLP in ``pkg``: each weight a diagonal Gaussian
+    (mu, rho -> softplus sigma) as two Parameters; ``eps`` is the
+    reparameterization's draw."""
+    class BayesMLP:
+        def __init__(self):
+            r = np.random.RandomState(1)
+            self.params = {}
+            for name, shape in [("w1", (BBB_DIM, BBB_HIDDEN)),
+                                ("b1", (BBB_HIDDEN,)),
+                                ("w2", (BBB_HIDDEN, BBB_CLASSES)),
+                                ("b2", (BBB_CLASSES,))]:
+                mu = pkg.gluon.Parameter(name + "_mu", shape=shape)
+                mu.initialize(pkg.init.Constant(pkg.nd.array(
+                    0.1 * r.randn(*shape).astype(np.float32))))
+                rho = pkg.gluon.Parameter(name + "_rho", shape=shape)
+                rho.initialize(pkg.init.Constant(pkg.nd.array(
+                    np.full(shape, -3.0, np.float32))))
+                self.params[name] = (mu, rho)
+
+        def all_params(self):
+            return [p for pair in self.params.values() for p in pair]
+
+        def eps(self, shape):
+            return pkg.nd.random_normal(0, 1, shape=shape)
+
+        def sample(self, name):
+            mu, rho = self.params[name]
+            sigma = pkg.nd.log(1 + pkg.nd.exp(rho.data()))
+            return mu.data() + sigma * self.eps(mu.shape), mu.data(), sigma
+
+        def forward_sample(self, x):
+            kl = 0.0
+            acts = x
+            for i, (w_name, b_name) in enumerate([("w1", "b1"),
+                                                  ("w2", "b2")]):
+                w, w_mu, w_sigma = self.sample(w_name)
+                b, b_mu, b_sigma = self.sample(b_name)
+                acts = pkg.nd.dot(acts, w) + b
+                if i == 0:
+                    acts = pkg.nd.relu(acts)
+                for mu, sigma in ((w_mu, w_sigma), (b_mu, b_sigma)):
+                    kl = kl + pkg.nd.sum(
+                        pkg.nd.log(BBB_PRIOR_SIGMA / sigma)
+                        + (sigma ** 2 + mu ** 2) / (2 * BBB_PRIOR_SIGMA ** 2)
+                        - 0.5)
+            return acts, kl
+    return BayesMLP
+
+
+def bbb_run(pkg, ctx, steps=None, model_class=None):
+    """bbb_toy.py's main on ``ctx`` up to ``steps`` steps (None: its 30
+    epochs, then its two asserts). Returns (losses, weights after, step
+    1's gradients, the text of the asserts or None)."""
+    pkg.random.seed(BBB_SEED)
+    xtr, ytr = bbb_data(1024, 2)
+    with ctx:
+        model = (model_class or bbb_class(pkg))()
+        loss_fn = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = pkg.gluon.Trainer(model.all_params(), "adam",
+                                    {"learning_rate": BBB_LR})
+        n_batches = len(xtr) // BBB_BATCH
+        losses, first, done = [], None, 0
+        for _epoch in range(BBB_EPOCHS):
+            for i in range(0, len(xtr), BBB_BATCH):
+                if steps is not None and done == steps:
+                    break
+                x = pkg.nd.array(xtr[i:i + BBB_BATCH], ctx=ctx)
+                y = pkg.nd.array(ytr[i:i + BBB_BATCH], ctx=ctx)
+                with pkg.autograd.record():
+                    logits, kl = model.forward_sample(x)
+                    nll = pkg.nd.sum(loss_fn(logits, y))
+                    elbo_loss = nll + kl / n_batches
+                elbo_loss.backward()
+                trainer.step(BBB_BATCH)
+                losses.append(elbo_loss.data.detach() if steps is None
+                              else float(elbo_loss.asnumpy()))
+                if first is None:
+                    first = {p.name: p.grad().asnumpy()
+                             for p in model.all_params()}
+                done += 1
+        weights = {p.name: p.data().asnumpy() for p in model.all_params()}
+        text = None if steps is not None else bbb_asserts(pkg, ctx, model)
+    return losses, weights, first, text
+
+
+def bbb_asserts(pkg, ctx, model, n_samples=16):
+    """bbb_toy.py's two asserts: Monte-Carlo predictive accuracy on its
+    test set above 0.9, and a higher predictive entropy off the training
+    manifold than on it."""
+    def mc_probs(x):
+        probs = 0.0
+        for _ in range(n_samples):
+            logits, _ = model.forward_sample(pkg.nd.array(x, ctx=ctx))
+            probs = probs + pkg.nd.softmax(logits, axis=-1).asnumpy()
+        return probs / n_samples
+    xte, yte = bbb_data(256, 3)
+    probs_te = mc_probs(xte)
+    acc = float((probs_te.argmax(1) == yte).mean())
+    ent_in = -(probs_te * np.log(probs_te + 1e-10)).sum(axis=1).mean()
+    x_ood = 6.0 * np.random.RandomState(9).randn(256, BBB_DIM).astype(
+        np.float32)
+    p_ood = mc_probs(x_ood)
+    ent_out = -(p_ood * np.log(p_ood + 1e-10)).sum(axis=1).mean()
+    if not (acc > 0.9 and ent_out > ent_in):
+        fail("bbb_toy on %s: MC accuracy %.3f (limit 0.9), entropy in %.3f, "
+             "off the manifold %.3f (must be higher)"
+             % (ctx, acc, ent_in, ent_out))
+    return "MC predictive accuracy %.3f (> 0.9), entropy %.3f in the data " \
+        "against %.3f off it" % (acc, ent_in, ent_out)
+
+
+def bbb_phase(mt, card):
+    """bbb_toy.py mirrored at its own sizes: its first FIT_STEPS steps on
+    gpu(0) against the CPU (the same weights and draws), then its main on
+    gpu(0) to its asserts."""
+    import torch
+    t0 = time.time()
+    got = bbb_run(mt, mt.gpu(0), steps=FIT_STEPS)[:3]
+    want = bbb_run(mt, mt.cpu(), steps=FIT_STEPS)[:3]
+    print("bbb_toy: first %d steps on gpu(0) against the CPU: %s (limit %g)"
+          % (FIT_STEPS, hold_adam_steps("bbb_toy", got, want, BBB_LR, 0,
+                                        BBB_ADAM_LR_APART),
+             EX_SHARE), flush=True)
+    losses, _w, _f, text = bbb_run(mt, mt.gpu(0))
+    elbo = torch.stack(losses).cpu().numpy()
+    print("bbb_toy's main on gpu(0): %d steps, ELBO loss %.1f -> %.1f; %s; "
+          "%.1f s | %s" % (len(elbo), elbo[0], elbo[-1], text,
+                           time.time() - t0, card), flush=True)
+
+
+# a hybridized block's draws, captured on the card: (op, params, mean,
+# deviation, excess kurtosis). Over n draws the sample mean's standard
+# error is sd / sqrt(n) and the sample deviation's sd * sqrt((kurtosis +
+# 2) / 4n); each is held within RB_SE standard errors (near 0.5% at 10^6)
+RB_SHAPE = (1000, 1000)
+RB_DRAWS = (("random_normal", {"loc": 2.0, "scale": 3.0}, 2.0, 3.0, 0.0),
+            ("random_gamma", {"alpha": 3.0, "beta": 2.0}, 6.0, 12.0 ** 0.5,
+             6.0 / 3.0),
+            # k = 3, p = 0.5: 6 / k + p^2 / (k (1 - p))
+            ("random_negative_binomial", {"k": 3, "p": 0.5}, 3.0,
+             6.0 ** 0.5, 6.0 / 3.0 + 0.25 / 1.5))
+RB_SE = 5.0
+
+
+def random_block(pkg):
+    """A HybridBlock adding a draw of each of RB_DRAWS to its input."""
+    class Draws(pkg.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return [x + getattr(F, name)(shape=RB_SHAPE, **params)
+                    for name, params, _m, _s, _t in RB_DRAWS]
+    return Draws()
+
+
+def hybrid_random_phase(mt, card):
+    """A hybridized block that draws with F.random_normal, F.random_gamma
+    and F.random_negative_binomial (a gamma and a Poisson draw) on the
+    card: its second call captured, the third and fourth replayed; the
+    replays' draws differ, and each replay's 10^6 draws hold the
+    distribution's mean and deviation within RB_SE standard errors."""
+    import torch
+    gpu = mt.gpu(0)
+    with gpu:
+        mt.random.seed(0)
+        block = random_block(mt)
+        block.hybridize()
+        x = mt.nd.zeros(RB_SHAPE, ctx=gpu)
+        outs = [[o.data.clone() for o in block(x)] for _ in range(4)]
+    torch.cuda.synchronize()
+    stats = block.cache_stats()
+    if stats.get("captures") != 1 or stats.get("replays", 0) < 2:
+        fail("the random block was not captured and replayed: %s" % stats)
+    text = []
+    for i, (name, _p, mean, std, kurt) in enumerate(RB_DRAWS):
+        if torch.equal(outs[2][i], outs[3][i]):
+            fail("%s: two replays of the captured block drew the same "
+                 "numbers" % name)
+        n = outs[2][i].numel()
+        se_m, se_s = std / n ** 0.5, std * ((kurt + 2) / (4 * n)) ** 0.5
+        for call in (2, 3):
+            v = outs[call][i].double()
+            m, s = float(v.mean()), float(v.std())
+            zm, zs = abs(m - mean) / se_m, abs(s - std) / se_s
+            if not (zm <= RB_SE and zs <= RB_SE):
+                fail("%s in the captured block, replay %d: mean %.5f, "
+                     "deviation %.5f (want %.5f, %.5f; %.2f and %.2f "
+                     "standard errors, limit %g)"
+                     % (name, call - 1, m, s, mean, std, zm, zs, RB_SE))
+            text.append("%s replay %d mean %.5f (%.5f, %.2f se), deviation "
+                        "%.5f (%.5f, %.2f se)"
+                        % (name, call - 1, m, mean, zm, s, std, zs))
+    print("hybridized random block on gpu(0): %s; two replays differ; %s "
+          "over %d draws a replay (limit %g standard errors) | %s"
+          % (stats, "; ".join(text), RB_SHAPE[0] * RB_SHAPE[1], RB_SE,
+             card), flush=True)
+
+
+# _contrib_DeformableConvolution at Deformable ConvNets' res5 (Dai et al.,
+# arXiv:1703.06211: R-FCN on ResNet-101 at 600 x 1000, stride 16, the
+# dilated 3 x 3 of res5)
+DEFORM_SHAPE = dict(data=(1, 512, 38, 63), offset=(1, 18, 38, 63),
+                    weight=(512, 512, 3, 3))
+DEFORM_PARAMS = {"kernel": (3, 3), "num_filter": 512, "pad": (2, 2),
+                 "dilate": (2, 2), "no_bias": True}
+DEFORM_SHARE = 1e-4    # card against CPU, of each array's largest value
+
+
+def deformable_phase(mt, card):
+    """_contrib_DeformableConvolution at R-FCN's res5 shape on gpu(0):
+    forward + backward held once against the CPU (output and the three
+    gradients within DEFORM_SHARE of their largest values, TF32 off), then
+    timed (CUDA events, 10 calls) beside Convolution at the same shape."""
+    import torch
+    from mxtpu_torch.ops.registry import get_op
+    rng = np.random.RandomState(5)
+    host = {"data": rng.standard_normal(DEFORM_SHAPE["data"]),
+            "offset": rng.uniform(-2, 2, DEFORM_SHAPE["offset"]),
+            "weight": rng.standard_normal(DEFORM_SHAPE["weight"]) * 0.02}
+    host = {k: v.astype(np.float32) for k, v in host.items()}
+    d = DEFORM_SHAPE["data"]
+    cot = rng.standard_normal((d[0], DEFORM_PARAMS["num_filter"])
+                              + d[2:]).astype(np.float32)
+    deform = get_op("_contrib_DeformableConvolution").fn
+    conv = get_op("Convolution").fn
+
+    def run(dev):
+        t = {k: torch.from_numpy(v).to(dev).requires_grad_()
+             for k, v in host.items()}
+        out = deform(t["data"], t["offset"], t["weight"], **DEFORM_PARAMS)
+        out.backward(torch.from_numpy(cot).to(dev))
+        return {"out": out.detach().cpu().numpy(),
+                **{"d" + k: v.grad.cpu().numpy() for k, v in t.items()}}
+    dev = mt.gpu(0).torch_device()
+    got = run(dev)
+    want = run(torch.device("cpu"))
+    err = largest_share_apart(got, want)
+    if not err <= DEFORM_SHARE:
+        fail("DeformableConvolution at res5 on gpu(0) differs from the CPU "
+             "by %.3g of the largest value (limit %g)" % (err, DEFORM_SHARE))
+    t = {k: torch.from_numpy(v).to(dev).requires_grad_()
+         for k, v in host.items()}
+    g = torch.from_numpy(cot).to(dev)
+    forwards = {
+        "deformable": lambda: deform(t["data"], t["offset"], t["weight"],
+                                     **DEFORM_PARAMS),
+        "convolution": lambda: conv(t["data"], t["weight"], None,
+                                    **DEFORM_PARAMS)}
+    ms = {label: (cuda_ms(fwd, iters=10, warmup=2),
+                  cuda_ms(lambda: fwd().backward(g), iters=10, warmup=2))
+          for label, fwd in forwards.items()}
+    flops = 2 * np.prod(DEFORM_SHAPE["weight"]) * np.prod(d[2:])
+    print("DeformableConvolution at R-FCN's res5 (data %s, offsets %s, "
+          "weight %s, dilate 2, pad 2; f32, TF32 off): forward %.3f ms, "
+          "forward + backward %.3f ms; Convolution at the same shape %.3f / "
+          "%.3f ms (%.1fx / %.1fx); %.2f GFLOP a forward's product; card "
+          "against the CPU within %.3g of the largest value | %s"
+          % (DEFORM_SHAPE["data"], DEFORM_SHAPE["offset"],
+             DEFORM_SHAPE["weight"], ms["deformable"][0],
+             ms["deformable"][1], ms["convolution"][0],
+             ms["convolution"][1], ms["deformable"][0] /
+             ms["convolution"][0], ms["deformable"][1] /
+             ms["convolution"][1], flops / 1e9, err, card), flush=True)
+    return ms
+
+
+def dense_ops_phase(mt, images, card):
+    """Phase 35: the VAE (vae_phase), bbb_toy (bbb_phase), the captured
+    random block (hybrid_random_phase) and the deformable convolution
+    (deformable_phase). Returns (the VAE's ms a step, the deformable
+    timings)."""
+    t0 = time.time()
+    vae_ms = vae_phase(mt, images, card)
+    bbb_phase(mt, card)
+    hybrid_random_phase(mt, card)
+    deform_ms = deformable_phase(mt, card)
+    print("dense ops phase: %.1f s" % (time.time() - t0), flush=True)
+    return vae_ms, deform_ms
 
 
 def main():
@@ -13363,10 +14091,11 @@ def main():
     print("multi-output phase: %.1f s" % (time.time() - t_phase), flush=True)
 
     # 20. the data files at MNIST's published size
-    files_ms, paces = data_files_phase(mt, args.seed, card)
+    files_ms, paces, mnist_images = data_files_phase(mt, args.seed, card)
 
-    # 21. every registered op on the card against the CPU
-    op_sweep_phase(mt, card)
+    # 21. every registered op on the card against the CPU; box_nms on the
+    # NMS kernel (its launches counted from 0 over its checks)
+    _n_ops, box_nms_timing = op_sweep_phase(mt, card)
 
     # 22. the examples the op sweep's ops open, each main on gpu(0)
     t_phase = time.time()
@@ -13431,7 +14160,11 @@ def main():
     print("Gluon examples phase: %.1f s" % (time.time() - t_phase),
           flush=True)
 
-    # 35. timings at the main paths' shapes
+    # 35. what nd.random_normal opens: the VAE over phase 20's digits,
+    # bbb_toy, draws in a captured block; deformable convolution at res5
+    dense_ops_phase(mt, mnist_images, card)
+
+    # 36. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -13812,6 +14545,8 @@ def main():
         "source": "mxtpu_torch/csrc/vision.cu",
         "replaces": "mxtpu/ops/vision.py:311",
         "launches": nms_launches, "launches_rcnn_toy": rcnn_launches,
+        "launches_box_nms": box_nms_timing[0],
+        "box_nms_ms": box_nms_timing[1],
         "max_abs_err": nms_err, "ms": nms_ms,
         "plain_ms": nms_plain, "bound_ms": nms_bound, "bound_by": nms_by,
         "library_ms": None, "proposal_ms": proposal_timing[0],
@@ -13819,7 +14554,7 @@ def main():
         "proposal_bound_ms": proposal_timing[2]})
     print("total %.1f s" % (time.time() - t_start))
 
-    # 36.-37. the result lines
+    # 37.-38. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

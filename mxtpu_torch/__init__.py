@@ -55,6 +55,9 @@ from . import operator
 from . import rtc
 from . import gluon
 from .ndarray import NDArray
+from .attribute import AttrScope
+from .symbol import Symbol
+from .executor import Executor
 
 __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "ops", "ndarray", "nd", "symbol",
@@ -62,4 +65,5 @@ __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "initializer", "init",
            "optimizer", "metric", "kvstore", "kv", "executor", "rnn",
            "model", "callback", "monitor", "module", "mod", "serving", "parallel",
-           "engine", "autograd", "operator", "rtc", "gluon", "NDArray"]
+           "engine", "autograd", "operator", "rtc", "gluon", "NDArray",
+           "AttrScope", "Symbol", "Executor"]

@@ -11,7 +11,14 @@ every input lands on ``mxtpu``'s tape. ``backward`` writes the gradients
 of the marked variables into their ``grad`` arrays by their ``grad_req``,
 as ``mxtpu`` does: ``add`` accumulates, ``write`` and ``null`` overwrite.
 
-``Function`` and ``get_symbol`` are not ported yet.
+:class:`Function` is a user's differentiable function: its ``forward``
+runs under :func:`pause`, and a ``torch.autograd.Function`` hands its
+output gradients to the user's ``backward``. :func:`get_symbol` turns the
+registered op calls that made an array under ``record()`` into a Symbol:
+each such call is kept as a :class:`_Call` (op, params, and for each
+input the call that made it, a weak reference to an array no recorded
+call made, or a number) on the arrays it returned, and only while
+recording, so nothing of it touches a path that does not record.
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad"]
+           "backward", "grad", "Function", "get_symbol"]
 
 
 class _State(threading.local):
@@ -155,7 +162,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         if g is None:
             continue
         tgt = v._grad
-        g = g.detach().to(tgt.dtype)
+        g = g.detach().to(tgt.data.dtype)
         tgt._data = tgt._data + g if v._grad_req == "add" else g
 
 
@@ -182,3 +189,160 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                                          v.context)
            for v, g in zip(variables, got)]
     return out[0] if single else out
+
+
+# ---------------------------------------------------------------------------
+# The record of op calls behind get_symbol
+# ---------------------------------------------------------------------------
+
+class _Call:
+    """One registered op call made under ``record()``: the op, its static
+    params, and its inputs in order, each ``("call", _Call, index)`` (an
+    output of an earlier recorded call), ``("var", weakref)`` (an array
+    no recorded call made) or ``("scalar", value)``. ``op`` is None for a
+    :class:`Function`."""
+
+    __slots__ = ("op", "params", "inputs")
+
+    def __init__(self, op, params, inputs):
+        self.op, self.params, self.inputs = op, params, inputs
+
+
+def _input_ref(v):
+    from .ndarray import NDArray
+    if not isinstance(v, NDArray):
+        return ("scalar", v)
+    if v._entry is not None:
+        return ("call",) + v._entry
+    return ("var", weakref.ref(v))
+
+
+def record_call(op, args, kwargs, outputs):
+    """Keep op ``op``'s call on ``outputs`` (called by the NDArray op
+    dispatch under ``record()``): its array inputs in the op's signature
+    order (positional ones first, then those given by name), its other
+    keyword arguments as params."""
+    import inspect
+    from .ndarray import NDArray
+    named = {k: v for k, v in kwargs.items() if isinstance(v, NDArray)}
+    inputs = list(args)
+    if named:
+        inputs += [named[n] for n in inspect.signature(op.fn).parameters
+                   if n in named]
+    params = {k: v for k, v in kwargs.items() if k not in named}
+    call = _Call(op, params, [_input_ref(v) for v in inputs])
+    for i, arr in enumerate(outputs):
+        arr._entry = (call, i)
+
+
+def get_symbol(x):
+    """The recorded computation that made ``x``, as a Symbol
+    (``mxtpu.autograd.get_symbol``): each recorded op call a node, each
+    array no recorded call made a free variable named var0, var1, ... in
+    the order they are met, each number a constant."""
+    from .ndarray import NDArray
+    from .symbol import Symbol, _Node, _apply_op, _array_input_names, var
+    if not isinstance(x, NDArray):
+        raise TypeError("get_symbol expects an NDArray, got %r" % (x,))
+    free, built = {}, {}
+
+    def leaf(ref):
+        kind, value = ref[0], ref[1]
+        if kind == "scalar":
+            node = _Node(None, "_scalar_%r" % value)
+            node.attrs["__scalar__"] = value
+            return Symbol([(node, 0)])
+        if kind == "var":
+            if id(value) not in free:
+                free[id(value)] = var("var%d" % len(free))
+            return free[id(value)]
+        return output(ref[1], ref[2])
+
+    def output(call, index):
+        if call.op is None:
+            raise ValueError(
+                "get_symbol: the computation holds an autograd.Function, "
+                "which has no symbolic counterpart")
+        if id(call) not in built:
+            inputs = [leaf(r) for r in call.inputs]
+            names = _array_input_names(call.op, call.params) or ()
+            built[id(call)] = _apply_op(call.op, None, inputs,
+                                        dict(call.params),
+                                        input_names=names[:len(inputs)])
+        sym = built[id(call)]
+        return sym[index] if len(sym._outputs) > 1 else sym
+
+    if x._entry is None:
+        return leaf(("var", weakref.ref(x)))
+    return output(*x._entry)
+
+
+class _FunctionBridge(torch.autograd.Function):
+    """The graph node of a :class:`Function` call: its outputs are the
+    user's forward's; its backward is the user's."""
+
+    @staticmethod
+    def forward(ctx, fn, outs, *inputs):
+        ctx.fn, ctx.inputs = fn, inputs
+        ctx.out_ctx = [o.context for o in outs]
+        return tuple(o.data.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray import NDArray
+        gs = [NDArray(g, c) for g, c in zip(grads, ctx.out_ctx)]
+        with pause():
+            in_grads = ctx.fn.backward(*gs)
+        if not isinstance(in_grads, (list, tuple)):
+            in_grads = [in_grads]
+        return (None, None) + tuple(
+            g.data.to(t.dtype) if g is not None and (
+                t.is_floating_point() or t.is_complex()) else None
+            for g, t in zip(in_grads, ctx.inputs))
+
+
+class Function:
+    """A user-defined differentiable function (``mxtpu.autograd.Function``,
+    MXNet's): subclass it with ``forward(self, *inputs)`` and
+    ``backward(self, *output_grads)`` on NDArrays; ``forward`` runs
+    under :func:`pause` and may :meth:`save_for_backward`; under
+    ``record()`` the outputs' gradients reach ``backward``, whose returned
+    arrays are the inputs' gradients."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray import NDArray
+        with pause():
+            outputs = self.forward(*inputs)
+        if not is_recording():
+            return outputs
+        single = not isinstance(outputs, (list, tuple))
+        outs = [outputs] if single else list(outputs)
+        arrays = [i for i in inputs if isinstance(i, NDArray)]
+        for a in arrays:
+            if not a.data.requires_grad:
+                a._data = _leaf(a.data)
+        with torch.enable_grad():
+            ts = _FunctionBridge.apply(self, outs, *[a.data for a in arrays])
+        call = _Call(None, {}, [_input_ref(a) for a in arrays])
+        wrapped = []
+        for i, (o, t) in enumerate(zip(outs, ts)):
+            w = NDArray(t, o.context)
+            w._entry = (call, i)
+            wrapped.append(w)
+        return wrapped[0] if single else wrapped

@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["MXNetError", "MXTPUError", "CaptureRefused", "canonical_dtype",
            "dtype_name", "is_capture_refusal", "numpy_dtype",
-           "backward_mirror_enabled"]
+           "numpy_type", "backward_mirror_enabled"]
 
 
 def backward_mirror_enabled():
@@ -105,6 +105,19 @@ def numpy_dtype(dtype):
     if name == "bfloat16":
         raise TypeError("numpy has no bfloat16; cast to float32 first")
     return np.dtype(name)
+
+
+def numpy_type(dtype):
+    """The numpy scalar type of a torch dtype (``np.float32``, ...), what
+    ``NDArray.dtype`` gives; ``torch.bfloat16`` stays itself, since numpy
+    has no bfloat16."""
+    if dtype == torch.bfloat16:
+        return dtype
+    return _NUMPY_TYPES[dtype]
+
+
+_NUMPY_TYPES = {t: np.dtype(n).type for n, t in _NAME_TO_DTYPE.items()
+                if n != "bfloat16"}
 
 
 def _as_list(obj):

@@ -333,6 +333,10 @@ class Executor:
         this executor again draws what ``mxtpu``'s fresh executor draws."""
         self._generator.manual_seed(int(_np.random.randint(0, 2 ** 31 - 1)))
 
+    def debug_str(self):
+        """The bound graph, as its JSON (what ``mxtpu`` prints)."""
+        return self._symbol.tojson()
+
     def set_monitor_callback(self, callback):
         """Call ``callback(name, NDArray)`` on each output after every
         forward (``Monitor.install``)."""

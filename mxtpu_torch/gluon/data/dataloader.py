@@ -44,7 +44,7 @@ def default_batchify_fn(data):
     ctx = current_context()
     on_card = ctx.device_type == "gpu"
     if isinstance(data[0], NDArray):
-        host = torch.empty((len(data),) + data[0].shape, dtype=data[0].dtype,
+        host = torch.empty((len(data),) + data[0].shape, dtype=data[0].data.dtype,
                            pin_memory=on_card)
         torch.stack([d.data for d in data], out=host)
     else:

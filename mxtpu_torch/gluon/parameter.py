@@ -237,7 +237,7 @@ class Parameter:
             self._set_array(NDArray(t, data.context), data.context)
             return
         self._data._set_data(data.data.detach().to(
-            device=self._data.data.device, dtype=self._data.dtype,
+            device=self._data.data.device, dtype=self._data.data.dtype,
             copy=True))
         self._version += 1
 

@@ -262,7 +262,8 @@ class DataParallelExecutorGroup:
                                       self.aux_arrays)):
             for name, block in zip(names, blocks):
                 value = self._device_mean(block).detach()
-                dtype = table[name].dtype if name in table else value.dtype
+                dtype = table[name].data.dtype if name in table \
+                    else value.dtype
                 table[name] = NDArray(value.to("cpu", dtype, copy=True),
                                       cpu())
 

@@ -6,10 +6,12 @@ use: :class:`NDArray`, a wrapper over a ``torch.Tensor`` that knows its
 the registry's ops, copies between contexts and the autograd hooks
 (``attach_grad``, ``grad``, ``backward``, ``detach``); the creation
 functions (:func:`array`, :func:`zeros`, :func:`ones`, :func:`full`,
-:func:`empty`, :func:`arange`, :func:`concatenate`) and :func:`waitall`;
-every registered op as ``nd.<OpName>``; and the ``.npz`` container of
-``.params`` files (:func:`save` / :func:`load`), dense entries only,
-which ``mxtpu.ndarray.load`` reads and writes too.
+:func:`empty`, :func:`eye`, :func:`arange`, :func:`concatenate`) and
+:func:`waitall`; every registered op as ``nd.<OpName>`` (and
+:func:`invoke`, :func:`list_ops`), each taking ``out=`` as MXNet's do;
+and the ``.npz`` container of ``.params`` files (:func:`save` /
+:func:`load`, :func:`load_from_bytes`), dense entries only, which
+``mxtpu.ndarray.load`` reads and writes too.
 
 The dtype rules are ``mxtpu``'s: float32 by default, lists as float32,
 numpy float64/int64 narrowed to float32/int32 by :func:`array`, a Python
@@ -26,18 +28,20 @@ import torch
 
 from .. import autograd as _ag
 from .. import engine as _engine
-from ..base import canonical_dtype, numpy_dtype
+from ..base import canonical_dtype, numpy_dtype, numpy_type
 from ..context import Context, cpu, current_context
-from ..ops.registry import ContribNamespace, get_op
+from ..ops.registry import ContribNamespace, get_op, list_ops
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "concatenate", "waitall", "save", "load", "contrib"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "eye",
+           "arange", "concatenate", "waitall", "save", "load",
+           "load_from_bytes", "invoke", "list_ops", "contrib"]
 
 
 class NDArray:
     """A tensor on a context (``mxtpu.ndarray.NDArray``'s surface)."""
 
-    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "_entry",
+                 "__weakref__")
 
     def __init__(self, data, ctx=None):
         if not isinstance(data, torch.Tensor):
@@ -50,6 +54,7 @@ class NDArray:
         self._ctx = ctx
         self._grad = None
         self._grad_req = "write"
+        self._entry = None      # (recorded op call, output index)
 
     @property
     def data(self):
@@ -70,8 +75,11 @@ class NDArray:
 
     @property
     def dtype(self):
-        """The ``torch.dtype`` of the array."""
-        return self._data.dtype
+        """The numpy type of the array (``np.float32``, ...), as in
+        ``mxtpu`` and MXNet; a bfloat16 array, which numpy cannot name,
+        gives ``torch.bfloat16``. The tensor's own dtype is
+        ``a.data.dtype``."""
+        return numpy_type(self._data.dtype)
 
     @property
     def context(self):
@@ -90,8 +98,10 @@ class NDArray:
         return self._grad
 
     def _set_data(self, t):
-        """Rebind to tensor ``t``; a marked variable stays a graph leaf."""
+        """Rebind to tensor ``t``; a marked variable stays a graph leaf.
+        The array is no longer the output of a recorded op call."""
         self._data = _ag._leaf(t) if self._grad is not None else t
+        self._entry = None
 
     # -- host transfer and waiting -----------------------------------------
     def wait_to_read(self):
@@ -114,6 +124,24 @@ class NDArray:
         if self.size != 1:
             raise ValueError("The current array is not a scalar")
         return self.asnumpy().reshape(())[()]
+
+    def item(self):
+        """The value of a one-element array as a numpy scalar."""
+        return self.asscalar()
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __iter__(self):
+        for i in range(self.shape[0]):
+            yield self[i]
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a.astype(dtype) if dtype is not None else a
 
     def __repr__(self):
         return "\n%s\n<NDArray %s @%s>" % (
@@ -244,6 +272,10 @@ class NDArray:
         shape = kwargs.get("shape", shape)
         return _invoke(get_op("reshape"), [self], {"shape": tuple(shape)})
 
+    def reshape_like(self, other):
+        """This array in ``other``'s shape."""
+        return self.reshape(other.shape)
+
     def __getattr__(self, name):
         # x.sum(axis=1), x.exp(), ...: ops taking the array first
         op = get_op(name)
@@ -251,7 +283,7 @@ class NDArray:
             raise AttributeError(name)
 
         def method(*args, **kwargs):
-            return _invoke(op, (self,) + args, kwargs)
+            return _call(op, (self,) + args, kwargs)
         method.__name__ = name
         return method
 
@@ -308,9 +340,36 @@ def _invoke(op, args, kwargs):
         else op.user_outputs
     if shown is not None:
         outs = outs[:shown]
-    if len(outs) == 1:
-        return NDArray(outs[0], ctx)
-    return [NDArray(o, ctx) for o in outs]
+    arrays = [NDArray(o, ctx) for o in outs]
+    if recording:
+        _ag.record_call(op, args, kwargs, arrays)
+    return arrays[0] if len(arrays) == 1 else arrays
+
+
+def invoke(op, inputs, params):
+    """Run registered op ``op`` (an ``OpDef``) on ``inputs`` (NDArrays or
+    scalars) with the static ``params`` (``mxtpu.ndarray.invoke``)."""
+    return _invoke(op, list(inputs), dict(params))
+
+
+def _call(op, args, kwargs):
+    """``nd.<op>(*args, **kwargs)``: MXNet's ``out=`` (the first output
+    written into that array, in its dtype and context, and the array
+    returned) and, for an op that creates its arrays, ``ctx=`` (where
+    they go)."""
+    out = kwargs.pop("out", None)
+    ctx = kwargs.pop("ctx", None) if op.needs_device else None
+    if ctx is not None:
+        with ctx:
+            res = _invoke(op, args, kwargs)
+    else:
+        res = _invoke(op, args, kwargs)
+    if out is None:
+        return res
+    first = res if isinstance(res, NDArray) else res[0]
+    out._set_data(first.data.to(device=out.data.device,
+                                dtype=out.data.dtype))
+    return out
 
 
 def array(source, ctx=None, dtype=None):
@@ -370,6 +429,18 @@ def empty(shape, ctx=None, dtype=None):
                                device=ctx.torch_device()), ctx)
 
 
+def eye(N, M=0, k=0, ctx=None, dtype=None):
+    """An N x M (M = 0: N x N) array of ones on the diagonal offset by
+    ``k`` (MXNet's ``_eye``), zeros elsewhere."""
+    ctx = ctx or current_context()
+    n, m, k = int(N), int(M) or int(N), int(k)
+    out = torch.zeros((n, m), dtype=canonical_dtype(dtype),
+                      device=ctx.torch_device())
+    if -n < k < m:
+        out.diagonal(k).fill_(1)
+    return NDArray(out, ctx)
+
+
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
     ctx = ctx or current_context()
     if stop is None:
@@ -409,23 +480,35 @@ def save(fname, data):
         _np.savez(f, **payload)
 
 
-def load(fname, ctx=None):
-    """Load a ``.params``/``.npz`` file written by either package; dense
-    entries only. Arrays go to ``ctx`` (default: the current context)."""
-    with _np.load(fname, allow_pickle=False) as z:
+def _unpack(source, what, ctx):
+    with _np.load(source, allow_pickle=False) as z:
         if any("::" in k for k in z.files):
             raise ValueError("%s holds sparse entries, which the port does "
-                             "not load yet" % fname)
+                             "not load yet" % what)
         out = {k: array(z[k], ctx=ctx) for k in z.files}
     if out and all(k.startswith("__arr_") for k in out):
         return [out[k] for k in sorted(out, key=lambda k: int(k[6:]))]
     return out
 
 
+def load(fname, ctx=None):
+    """Load a ``.params``/``.npz`` file written by either package; dense
+    entries only. Arrays go to ``ctx`` (default: the current context)."""
+    return _unpack(fname, fname, ctx)
+
+
+def load_from_bytes(buf, ctx=None):
+    """:func:`load` of the bytes of such a file (MXNet's
+    ``MXNDArrayLoadFromBuffer``); the reference's legacy binary format is
+    not read here."""
+    import io
+    return _unpack(io.BytesIO(bytes(buf)), "the buffer", ctx)
+
+
 def _op_function(op, name):
     """``nd.<name>``: op ``op`` run eagerly on its arguments."""
     def fn(*args, **kwargs):
-        return _invoke(op, args, kwargs)
+        return _call(op, args, kwargs)
     fn.__name__ = name
     fn.__doc__ = op.doc
     return fn

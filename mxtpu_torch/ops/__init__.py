@@ -2,8 +2,11 @@
 ``sym.*``, as in ``mxtpu.ops``. Importing the modules below registers
 their ops; the LSTM/GRU time loops live in :mod:`.rnn_scan`, flash
 attention in :mod:`.flash_attention`, the detection ops and their NMS
-kernel in :mod:`.vision`; ``dot`` and ``batch_dot`` in
-:mod:`.linalg_ops`, ``Crop`` in :mod:`.extra_ops`.
+kernel in :mod:`.vision`; ``dot``, ``batch_dot`` and the LAPACK family
+in :mod:`.linalg_ops`; the bounding-box, deformable, image and small ops
+in :mod:`.extra_ops`; the samplers in :mod:`.random_ops`, the optimizer
+updates in :mod:`.optim_ops`, quantization, FFT and count sketch in
+:mod:`.contrib_ops`.
 """
 from .registry import (OpDef, register, get_op, next_generator, rng_scope,
                        set_global_seed)
@@ -16,6 +19,9 @@ from . import rnn            # noqa: F401
 from . import vision         # noqa: F401
 from . import linalg_ops     # noqa: F401
 from . import extra_ops      # noqa: F401
+from . import random_ops     # noqa: F401
+from . import optim_ops      # noqa: F401
+from . import contrib_ops    # noqa: F401
 
 
 @register("_contrib_flash_attention", aliases=("flash_attention",))

@@ -18,7 +18,8 @@ import threading
 
 import torch
 
-__all__ = ["OpDef", "register", "alias", "get_op", "ContribNamespace",
+__all__ = ["OpDef", "register", "alias", "get_op", "list_ops",
+           "ContribNamespace",
            "next_generator", "rng_scope", "set_global_seed", "draw",
            "draw_tape"]
 
@@ -82,6 +83,11 @@ def alias(existing, *names):
 
 def get_op(name):
     return _REGISTRY.get(name)
+
+
+def list_ops():
+    """Every registered name, aliases included, sorted."""
+    return sorted(_REGISTRY)
 
 
 class ContribNamespace:

@@ -114,7 +114,7 @@ class Optimizer:
         raise NotImplementedError()
 
     def _uses_master_weights(self, weight):
-        return self.multi_precision and weight.dtype == torch.float16
+        return self.multi_precision and weight.dtype == _np.float16
 
     def create_state_multi_precision(self, index, weight):
         """The state of ``index``: under ``multi_precision`` a float16
@@ -123,7 +123,7 @@ class Optimizer:
         if self._uses_master_weights(weight):
             master = weight.astype(_np.float32)
             return (master, self.create_state(index, master))
-        if weight.dtype == torch.float16:
+        if weight.dtype == _np.float16:
             warnings.warn(
                 "Accumulating with float16 in optimizer can lead to poor "
                 "accuracy or slow convergence. Consider using "

@@ -1,5 +1,9 @@
-"""Random numbers of the PyTorch port (``mxtpu/random.py``'s ``seed``,
-``uniform`` and ``normal``).
+"""Random numbers of the PyTorch port (``mxtpu/random.py``): ``seed`` and
+the samplers ``uniform``, ``normal``, ``gamma``, ``exponential``,
+``poisson``, ``negative_binomial``, ``generalized_negative_binomial``,
+``multinomial``, ``shuffle`` and ``randint``, over the registry's
+``random_*`` / ``sample_multinomial`` / ``shuffle`` ops
+(:mod:`.ops.random_ops`).
 
 Every draw comes from the generator of :mod:`.ops.registry`
 (:func:`~mxtpu_torch.ops.registry.next_generator`: the innermost
@@ -7,18 +11,18 @@ Every draw comes from the generator of :mod:`.ops.registry`
 and is then moved to the context. So one seed gives the same numbers on
 the card and on the CPU, and a card run can start where a CPU run does.
 The numbers differ from ``jax.random``'s: the packages share the rule of
-each draw, not its bits.
+each draw, not its bits. A sampler's ``ctx`` is where its array goes
+(the current context by default); ``out`` takes the draw in its own
+dtype and context.
 """
 from __future__ import annotations
 
-import torch
+from .ops.registry import set_global_seed
+from . import ndarray as nd
 
-from .base import canonical_dtype
-from .context import current_context
-from .ndarray import NDArray
-from .ops.registry import next_generator, set_global_seed
-
-__all__ = ["seed", "uniform", "normal"]
+__all__ = ["seed", "uniform", "normal", "gamma", "exponential", "poisson",
+           "negative_binomial", "generalized_negative_binomial",
+           "multinomial", "shuffle", "randint"]
 
 
 def seed(seed_state):
@@ -26,33 +30,66 @@ def seed(seed_state):
     set_global_seed(int(seed_state))
 
 
-def _shape(shape):
-    if shape is None:
-        return (1,)
-    return (shape,) if isinstance(shape, int) else tuple(shape)
-
-
-def _place(t, dtype, ctx, out):
-    """``t`` (f32 on the CPU) as ``dtype`` on ``ctx``, or written into
-    ``out`` (which keeps its context)."""
-    if out is not None:
-        out._set_data(t.to(device=out.data.device, dtype=out.dtype))
-        return out
-    ctx = ctx or current_context()
-    return NDArray(t.to(device=ctx.torch_device(),
-                        dtype=canonical_dtype(dtype)), ctx)
-
-
 def uniform(low=0.0, high=1.0, shape=None, dtype="float32", ctx=None,
             out=None):
     """Samples of U[low, high)."""
-    t = torch.empty(_shape(shape)).uniform_(low, high,
-                                            generator=next_generator())
-    return _place(t, dtype, ctx, out)
+    return nd.random_uniform(low=low, high=high, shape=shape or (1,),
+                             dtype=dtype, ctx=ctx, out=out)
 
 
 def normal(loc=0.0, scale=1.0, shape=None, dtype="float32", ctx=None,
            out=None):
     """Samples of N(loc, scale^2)."""
-    t = torch.randn(_shape(shape), generator=next_generator()) * scale + loc
-    return _place(t, dtype, ctx, out)
+    return nd.random_normal(loc=loc, scale=scale, shape=shape or (1,),
+                            dtype=dtype, ctx=ctx, out=out)
+
+
+def gamma(alpha=1.0, beta=1.0, shape=None, dtype="float32", ctx=None,
+          out=None):
+    """Samples of Gamma(alpha) scaled by beta."""
+    return nd.random_gamma(alpha=alpha, beta=beta, shape=shape or (1,),
+                           dtype=dtype, ctx=ctx, out=out)
+
+
+def exponential(scale=1.0, shape=None, dtype="float32", ctx=None, out=None):
+    """Samples of the exponential distribution of mean ``scale``."""
+    return nd.random_exponential(lam=1.0 / scale, shape=shape or (1,),
+                                 dtype=dtype, ctx=ctx, out=out)
+
+
+def poisson(lam=1.0, shape=None, dtype="float32", ctx=None, out=None):
+    """Samples of Poisson(lam)."""
+    return nd.random_poisson(lam=lam, shape=shape or (1,), dtype=dtype,
+                             ctx=ctx, out=out)
+
+
+def negative_binomial(k=1, p=1.0, shape=None, dtype="float32", ctx=None,
+                      out=None):
+    """Failures before the k-th success at success rate p."""
+    return nd.random_negative_binomial(k=k, p=p, shape=shape or (1,),
+                                       dtype=dtype, ctx=ctx, out=out)
+
+
+def generalized_negative_binomial(mu=1.0, alpha=1.0, shape=None,
+                                  dtype="float32", ctx=None, out=None):
+    """Samples of mean mu and dispersion alpha."""
+    return nd.random_generalized_negative_binomial(
+        mu=mu, alpha=alpha, shape=shape or (1,), dtype=dtype, ctx=ctx,
+        out=out)
+
+
+def multinomial(data, shape=None, get_prob=False, dtype="int32", out=None):
+    """Category draws from the probabilities of ``data``'s last axis."""
+    return nd.sample_multinomial(data, shape=shape, get_prob=get_prob,
+                                 dtype=dtype, out=out)
+
+
+def shuffle(data, out=None):
+    """``data``'s rows in a random order."""
+    return nd.shuffle(data, out=out)
+
+
+def randint(low, high, shape=None, dtype="int32", ctx=None, out=None):
+    """Integers drawn uniformly from [low, high)."""
+    return nd.random_randint(low=low, high=high, shape=shape or (1,),
+                             dtype=dtype, ctx=ctx, out=out)

@@ -22,7 +22,7 @@ from ..ops.registry import ContribNamespace, get_op
 from .. import name as _name_mgr
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
-           "eval_graph", "contrib"]
+           "eval_graph", "zeros", "ones", "contrib"]
 
 
 class _Node:
@@ -180,7 +180,24 @@ class Symbol:
     def list_auxiliary_states(self):
         return [n.name for n in self._classify_vars()[1]]
 
+    def list_inputs(self):
+        """The arguments, then the aux states."""
+        return self.list_arguments() + self.list_auxiliary_states()
+
+    def get_children(self):
+        """The inputs of this symbol's (first) output node, grouped, or
+        None for a variable."""
+        node = self._outputs[0][0]
+        return Symbol(list(node.inputs)) if node.inputs else None
+
     # -- attributes --------------------------------------------------------
+    def list_attr(self, recursive=False):
+        """The attributes of this symbol's (first) output node; with
+        ``recursive``, :meth:`attr_dict` of the whole graph."""
+        if recursive:
+            return self.attr_dict()
+        return dict(self._outputs[0][0].attrs)
+
     def attr(self, key):
         """Attribute ``key`` of this symbol's (first) output node."""
         return self._outputs[0][0].attrs.get(key)
@@ -255,6 +272,16 @@ class Symbol:
         from ..executor import Executor
         return Executor._bind(self, ctx, args, args_grad, grad_req,
                               aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        """The outputs on ``ctx`` (default: the current context) for the
+        argument arrays given by name: a bind and a forward."""
+        from ..context import current_context
+        return self.bind(ctx or current_context(), kwargs).forward()
+
+    def grad(self, wrt):
+        """Not provided, as in ``mxtpu``: bind and run backward."""
+        raise NotImplementedError("use simple_bind + backward")
 
     # -- serialization -----------------------------------------------------
     def tojson(self):
@@ -766,6 +793,37 @@ def _rnn_hint(params, in_shapes, input_names):
     return out
 
 
+_UNKNOWN_EXTENTS = (1 << 20, (1 << 20) + 7)
+
+
+def _meta_outputs(op, in_vals, params):
+    """``op``'s outputs on meta tensors ``in_vals``, as a tuple. A 0 extent
+    past the batch axis is MXNet's "unknown": where the op refuses it (a
+    convolution's window does not fit), the op runs twice with those
+    extents set to two large sizes, and an output extent that differs
+    between the runs is unknown, 0, as ``mxtpu``'s shape inference gives
+    it. A 0 batch is an extent like any other."""
+    def run(vals):
+        r = op.fn(*vals, **params)
+        return r if isinstance(r, tuple) else (r,)
+    try:
+        return run(in_vals)
+    except RuntimeError:
+        unknown = [isinstance(v, torch.Tensor) and 0 in tuple(v.shape[1:])
+                   for v in in_vals]
+        if not any(unknown):
+            raise
+    runs = []
+    for size in _UNKNOWN_EXTENTS:
+        vals = [torch.empty(tuple(v.shape[:1]) + tuple(
+            d or size for d in v.shape[1:]), dtype=v.dtype, device=v.device)
+            if u else v for v, u in zip(in_vals, unknown)]
+        runs.append(run(vals))
+    return tuple(torch.empty(tuple(d if d == e else 0 for d, e in zip(
+        a.shape, b.shape)), dtype=a.dtype, device=a.device)
+        for a, b in zip(*runs))
+
+
 def _infer_graph_shapes(sym, known, partial=False):
     """Fill variable shapes via hints, then run each node on meta
     tensors. Returns ``(var_shapes, out_shapes)``."""
@@ -825,14 +883,23 @@ def _infer_graph_shapes(sym, known, partial=False):
         if node.op.needs_device:
             params["_device"] = meta
         _resolve_creation_shape(node, params, consumer_map, in_shape, known)
-        r = node.op.fn(*in_vals, **params)
-        outs[id(node)] = r if isinstance(r, tuple) else (r,)
+        outs[id(node)] = _meta_outputs(node.op, in_vals, params)
 
     out_shapes = []
     for ref in sym._outputs:
         s = in_shape(ref)
         out_shapes.append(s)
     return shapes, out_shapes
+
+
+def zeros(shape, dtype="float32", **kwargs):
+    """Not provided, as in ``mxtpu``: a variable fed with zeros serves."""
+    raise NotImplementedError("use a variable + executor feed instead")
+
+
+def ones(shape, dtype="float32", **kwargs):
+    """Not provided, as in ``mxtpu``: a variable fed with ones serves."""
+    raise NotImplementedError("use a variable + executor feed instead")
 
 
 def _op_function(op, name):

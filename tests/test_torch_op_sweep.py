@@ -66,32 +66,6 @@ PORT_SKIP = {
 NOT_PORTED = {
     "_contrib_gc_quantize_2bit": "A11", "_contrib_gc_dequantize_2bit": "A11",
 }
-NOT_PORTED.update({n: "A9" for n in (
-    # linalg_ops.py beyond dot / batch_dot
-    "khatri_rao", "linalg_gelqf", "linalg_gemm", "linalg_gemm2",
-    "linalg_potrf", "linalg_potri", "linalg_sumlogdiag", "linalg_syevd",
-    "linalg_syrk", "linalg_trmm", "linalg_trsm",
-    # extra_ops.py beyond Crop
-    "IdentityAttachKLSparseReg", "_contrib_DeformableConvolution",
-    "_contrib_DeformablePSROIPooling", "_contrib_bipartite_matching",
-    "_contrib_box_iou", "_contrib_box_nms", "_contrib_quadratic",
-    "_image_normalize", "_image_to_tensor", "adagrad_update",
-    "reshape_like", "softmax_cross_entropy",
-    # contrib_ops.py
-    "_contrib_count_sketch", "_contrib_dequantize", "_contrib_fft",
-    "_contrib_ifft", "_contrib_quantize",
-    # optim_ops.py
-    "adam_update", "ftml_update", "ftrl_update", "mp_sgd_mom_update",
-    "mp_sgd_update", "rmsprop_update", "rmspropalex_update",
-    "sgd_mom_update", "sgd_update", "signsgd_update", "signum_update",
-    # random_ops.py
-    "random_exponential", "random_gamma",
-    "random_generalized_negative_binomial", "random_negative_binomial",
-    "random_normal", "random_poisson", "random_randint", "random_uniform",
-    "sample_exponential", "sample_gamma",
-    "sample_generalized_negative_binomial", "sample_multinomial",
-    "sample_negative_binomial", "sample_normal", "sample_poisson",
-    "sample_uniform", "shuffle")})
 
 
 def canonical_ops():
@@ -146,15 +120,40 @@ def test_registry_partition():
             if t is None or t.name != op.name:
                 wrong.append((n, op.name, t and t.name))
     assert not wrong, "aliases resolving elsewhere in the port: %s" % wrong
-    # what the ROADMAP counts: A7 and A8 ported, these wait for A9 and A11
-    assert len(NOT_PORTED) == 58, len(NOT_PORTED)
-    assert len(ported) == 186, len(ported)
+    # what the ROADMAP counts: A9's dense ops ported, A11's two wait
+    assert len(NOT_PORTED) == 2, len(NOT_PORTED)
+    assert len(ported) == 242, len(ported)
+
+
+# {op: output} whose rows are held to mxtpu's up to each row's sign: an
+# eigenvector's sign is the solver's (syevd's U differs from
+# jnp.linalg.eigh's by a sign on some inputs)
+SIGN_FREE = {"linalg_syevd": 0}
+
+
+def draws(name):
+    """Whether the op's outputs are random draws, held by the spec's
+    moments and not by value: the two packages' generators differ.
+    LeakyReLU and Dropout are stateful too (rrelu, training mode), but
+    their specs are deterministic and are held by value."""
+    return name.startswith(("random_", "sample_")) or name == "shuffle"
+
+
+def test_draws_are_the_random_ops():
+    """Exactly the 17 random ops skip the comparison by value."""
+    names = [n for n in ported_specs() if draws(n)]
+    assert len(names) == 17, names
+    assert all(torch_registry.get_op(n).stateful for n in names)
+    assert not draws("LeakyReLU") and not draws("Dropout")
+    assert {"LeakyReLU", "Dropout"} <= set(ported_specs())
 
 
 @pytest.mark.parametrize("name", ported_specs())
 def test_forward(name):
     """The port's forward equals mxtpu's on the spec's inputs (and passes
-    the spec's structural check)."""
+    the spec's structural check). A random op's draws are held by the
+    spec's moments alone (`draws`), so only their shapes and dtypes are
+    compared with mxtpu's."""
     spec = SPECS[name]
     args = spec.args(np.random.RandomState(_seed(name)))
     got = port_run(name, args, spec.params)
@@ -162,9 +161,14 @@ def test_forward(name):
         spec.check(got, args)
     want = SWEEP._run(name, args, spec.params)
     assert len(got) == len(want), (len(got), len(want))
+    by_value = not draws(name)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape, (name, i, g.shape, w.shape)
         assert g.dtype.kind == w.dtype.kind, (name, i, g.dtype, w.dtype)
+        if not by_value:
+            continue
+        if SIGN_FREE.get(name) == i:
+            g = g * np.sign((g * w).sum(-1, keepdims=True))
         np.testing.assert_allclose(
             g.astype(np.float64), w.astype(np.float64), rtol=spec.rtol,
             atol=spec.atol, err_msg="%s output %d" % (name, i))

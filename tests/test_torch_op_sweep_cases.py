@@ -229,6 +229,97 @@ CASES = [
      (0, 1, 2, 3)),
     ("hypot_broadcast", "broadcast_hypot",
      lambda r: [u(r, 3, 1), u(r, 1, 4)], dict(), (0, 1)),
+    # A9's dense ops: the options their specs leave out
+    ("deform_groups_dilate_bias", "_contrib_DeformableConvolution",
+     lambda r: [u(r, 2, 4, 7, 6), 1.5 * u(r, 2, 36, 7, 4), u(r, 6, 2, 3, 3),
+                u(r, 6)],
+     dict(kernel=(3, 3), num_filter=6, pad=(2, 1), dilate=(2, 2),
+          stride=(1, 1), num_group=2, num_deformable_group=2), (0, 1, 2, 3)),
+    ("deform_stride", "_contrib_DeformableConvolution",
+     lambda r: [u(r, 1, 3, 8, 8), 2.5 * u(r, 1, 8, 4, 4), u(r, 2, 3, 2, 2)],
+     dict(kernel=(2, 2), num_filter=2, stride=(2, 2), no_bias=True),
+     (0, 1, 2)),
+    ("deform_psroi_trans", "_contrib_DeformablePSROIPooling",
+     lambda r: [u(r, 2, 8, 7, 7),
+                np.array([[0, 0.5, 1.0, 5.5, 6.0], [1, 2.0, 0.0, 6.5, 4.5],
+                          [1, -1.0, 3.0, 3.0, 9.0]], np.float32),
+                u(r, 3, 8)],
+     dict(output_dim=2, pooled_size=2, group_size=2, part_size=2,
+          sample_per_part=3, trans_std=0.2, spatial_scale=0.9), (0, 2)),
+    ("box_iou_center", "_contrib_box_iou",
+     lambda r: [np.abs(u(r, 2, 5, 4)) + 0.1, np.abs(u(r, 2, 3, 4)) + 0.1],
+     dict(format="center"), ()),
+    ("box_nms_topk_force", "_contrib_box_nms",
+     lambda r: [CS._box_rows(r, 30)], dict(overlap_thresh=0.2, topk=8,
+                                           valid_thresh=0.2, id_index=0,
+                                           force_suppress=True), ()),
+    ("box_nms_no_ids_center", "_contrib_box_nms",
+     lambda r: [np.stack([CS._box_rows(r, 20)[0][:, 1:],
+                          CS._box_rows(r, 20)[0][:, 1:]])[None]],
+     dict(overlap_thresh=0.3, coord_start=1, score_index=0,
+          in_format="center", out_format="corner"), ()),
+    ("box_nms_out_center", "_contrib_box_nms",
+     lambda r: [CS._box_rows(r, 16)],
+     dict(overlap_thresh=0.4, id_index=0, out_format="center"), ()),
+    ("bipartite_ascend_topk", "_contrib_bipartite_matching",
+     lambda r: [u(r, 3, 5, 4)], dict(threshold=0.5, is_ascend=True,
+                                      topk=3), ()),
+    ("linalg_trsm_right_upper_t", "linalg_trsm",
+     lambda r: [CS._lower(r, 3).T.copy(), u(r, 2, 3)],
+     dict(transpose=True, rightside=True, lower=False, alpha=2.0), (0, 1)),
+    ("linalg_trmm_right_t_batch", "linalg_trmm",
+     lambda r: [np.stack([CS._lower(r, 3)] * 2), u(r, 2, 4, 3)],
+     dict(transpose=True, rightside=True, alpha=0.5), (0, 1)),
+    ("linalg_gemm_t_batch", "linalg_gemm",
+     lambda r: [u(r, 2, 4, 3), u(r, 2, 5, 4), u(r, 2, 3, 5)],
+     dict(transpose_a=True, transpose_b=True, alpha=0.5, beta=2.0),
+     (0, 1, 2)),
+    ("linalg_syrk_t", "linalg_syrk", lambda r: [u(r, 3, 4)],
+     dict(transpose=True, alpha=3.0), (0,)),
+    ("linalg_potri_batch", "linalg_potri",
+     lambda r: [np.stack([np.linalg.cholesky(CS._spd(r, 3))] * 2)
+                .astype(np.float32)], dict(), (0,)),
+    ("linalg_sumlogdiag_batch", "linalg_sumlogdiag",
+     lambda r: [np.stack([CS._spd(r, 3), CS._spd(r, 3)])], dict(), (0,)),
+    ("khatri_rao_three", "khatri_rao",
+     lambda r: [u(r, 2, 3), u(r, 4, 3), u(r, 2, 3)], dict(), (0, 1, 2)),
+    ("quantize_int8", "_contrib_quantize",
+     lambda r: [u(r, 3, 4), np.array([-0.8, -1.2], np.float32),
+                np.array([0.9, 0.7], np.float32)], dict(out_type="int8"),
+     ()),
+    ("dequantize_int8", "_contrib_dequantize",
+     lambda r: [r.randint(-127, 128, (3, 4)).astype(np.int8),
+                np.array([-2.0], np.float32), np.array([1.5], np.float32)],
+     dict(), ()),
+    ("fft_batch", "_contrib_fft", lambda r: [u(r, 2, 3, 6)], dict(), (0,)),
+    ("ifft_batch", "_contrib_ifft", lambda r: [u(r, 3, 12)], dict(), (0,)),
+    ("softmax_ce_3d", "softmax_cross_entropy",
+     lambda r: [u(r, 2, 3, 4), r.randint(0, 4, (2, 3)).astype(np.float32)],
+     dict(), (0,)),
+    ("image_to_tensor_batch", "_image_to_tensor",
+     lambda r: [r.randint(0, 256, (2, 4, 5, 3)).astype(np.uint8)], dict(),
+     ()),
+    ("image_normalize_batch", "_image_normalize",
+     lambda r: [u(r, 2, 3, 4, 5)],
+     dict(mean=(0.1, 0.2, 0.3), std=(0.5, 0.6, 0.7)), (0,)),
+    ("kl_sparse_reg", "IdentityAttachKLSparseReg",
+     lambda r: [u(r, 4, 5)], dict(sparseness_target=0.2, penalty=0.5),
+     (0,)),
+    ("adagrad_clip_wd", "adagrad_update",
+     lambda r: [u(r, 3, 4), 5 * u(r, 3, 4), np.abs(u(r, 3, 4))],
+     dict(lr=0.1, wd=0.1, rescale_grad=0.5, clip_gradient=1.0), ()),
+    ("adam_clip_rescale", "adam_update",
+     lambda r: [u(r, 3, 4), 5 * u(r, 3, 4), u(r, 3, 4), np.abs(u(r, 3, 4))],
+     dict(lr=0.1, wd=0.1, rescale_grad=0.5, clip_gradient=0.8), ()),
+    ("rmsprop_clip_weights", "rmsprop_update",
+     lambda r: [2 * u(r, 3, 4), u(r, 3, 4), np.abs(u(r, 3, 4))],
+     dict(lr=0.5, clip_weights=0.6, clip_gradient=0.3), ()),
+    ("signum_wd_lh", "signum_update",
+     lambda r: [u(r, 3, 4), u(r, 3, 4), u(r, 3, 4)],
+     dict(lr=0.1, momentum=0.5, wd=0.1, wd_lh=0.2), ()),
+    ("ftrl_wd", "ftrl_update",
+     lambda r: [u(r, 3, 4), u(r, 3, 4), u(r, 3, 4), np.abs(u(r, 3, 4))],
+     dict(lr=0.2, lamda1=0.3, beta=0.5, wd=0.1), ()),
 ]
 
 

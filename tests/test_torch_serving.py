@@ -107,7 +107,7 @@ def test_params_from_numpy_keep_the_blob(checkpoint):
         {k: v.asnumpy() for k, v in jargs.items()}, {}, ctx=mt.cpu())
     assert aux == {}
     for k, v in params.items():
-        assert args[k].dtype == torch.float32
+        assert args[k].dtype == np.float32
         np.testing.assert_array_equal(args[k].asnumpy(), v)
 
 
