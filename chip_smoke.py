@@ -271,11 +271,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    mnist.py's hybridized MLP fed by gluon.data.vision.MNIST with
    ToTensor and Normalize through a DataLoader (worker threads, samples
    on the host, one copy up a batch) for MN_GLUON_STEPS batches, test
-   accuracy above MN_GLUON_MIN_ACC; for both, the iterator alone, the step fed against
+   accuracy above MN_GLUON_MIN_ACC; for both, the iterator alone (the
+   MLP's loader over MN_LOADER_BATCHES), the step fed against
    the step on a held batch, the host's wait for a batch, the card's
    busy share, and which side sets the pace; vision.CIFAR10 with
    RandomFlipLeftRight through a DataLoader alone; one epoch of CSVIter
-   and LibSVMIter (dense) staged on gpu(0), equal to the CPU's batches;
+   and LibSVMIter (CSR batches) staged on gpu(0), equal to the CPU's
+   batches;
 21. the op sweep on the card: every op the port registers (CARD_SWEEP,
    one row of inputs each; a CPU test holds the table to the registry)
    through mt.nd on gpu(0) against cpu() with TF32 off, its outputs and,
@@ -368,7 +370,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    3 captured steps against eager ones; a captured fit (6 gru_scan
    launches a step, 6 nodes a bucket's graph, the loss falling below
    DS2_FALL of its start) and an eager one, each bucket's step timed
-   beside its bound, the busy share (profiler, one replay of each
+   beside its bound, the busy share (profiler, one replay of the first
    bucket's graph), the graphs and the peak memory;
 32. the Gluon cells at the word LM's PTB widths: a hybridized
    SequentialRNNCell of two LSTMCells (GRUCells) given the fused layer's
@@ -400,7 +402,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    _contrib_DeformableConvolution at R-FCN's res5 shape (Dai et al.,
    arXiv:1703.06211; data 1x512x38x63, dilate 2) held once against the
    CPU, forward and forward + backward timed beside Convolution;
-36. timings: each kernel, its plain version and the PyTorch library call
+36. sparse arrays (ROADMAP A9's sparse half), no kernel of their own:
+   example/sparse/linear_classification.py's model (CSR data, a
+   row_sparse weight, SoftmaxOutput(dot)) at Avazu-app's width (MXNet's
+   run of that example on LIBSVM avazu-app: 1,000,001 features, batch
+   8,192) through Module.fit with Adam on gpu(0), fed CSR batches by
+   LibSVMIter from synthetic rows (22 fields, skewed columns, labels from
+   a planted weight; 24 batches, 2 epochs, 4 held out): its first 3
+   steps against the CPU, held-out accuracy above AV_ACC, the fit's rise
+   in allocated memory under 1 GiB (a dense batch would be 32.8 GB),
+   each step's stored gradient rows, ms a step by part beside the step's
+   bound; the example's own main on gpu(0), its first steps against the
+   CPU and its asserts; gluon.contrib.nn.SparseEmbedding at LM1B's
+   vocabulary and width (793,471 x 512) through one lazy SGD Trainer
+   step: the compact gradient's rows, the backward's memory under 100 MB,
+   the touched rows against the CPU and every other row unchanged;
+37. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -417,7 +434,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-37. one JSON line naming every kernel with its launches (the head
+38. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
    launches_gluon_lm, lstm_scan's in the checkpointed fit as
@@ -429,7 +446,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    in the R-CNN toy as launches_rcnn_toy and in phase 21's box_nms
    checks as launches_box_nms, with its time at Proposal's shape and
    box_nms's at SSD-300's) and error;
-38. the last line: {"ok": true, "device": {...}}.
+39. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -7508,10 +7525,11 @@ MN_GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9}
 MN_WORKERS = 2                     # the DataLoader's threads, as phase 15's
 # the loader alone in the caller's thread (no workers), over this many
 # batches: whether the worker threads help a host-bound loader
-MN_SERIAL_BATCHES = 100
-# the Gluon MLP's fed run and the loader alone: this many batches (of an
-# epoch's 937)
+MN_SERIAL_BATCHES = 40
+# the Gluon MLP's fed run: this many batches (of an epoch's 937); the
+# loader alone, with its threads and in the caller's: MN_LOADER_BATCHES
 MN_GLUON_STEPS = 100
+MN_LOADER_BATCHES = 40
 MN_TIMED_STEPS, MN_PROFILE_STEPS = 25, 4
 # the fed step against the held one: the iterator sets the pace beyond this
 MN_PACE = 1.05
@@ -7729,13 +7747,13 @@ def gluon_files(mt, root, card):
           % (MN_WORKERS, MN_BATCH, steps, secs, np.mean(losses[:10]),
              np.mean(losses[-10:]), MN_TEST, acc, MN_GLUON_MIN_ACC,
              net.cache_stats(), card), flush=True)
-    alone = loader_rate(gpu, run.loader, MN_GLUON_STEPS)
+    alone = loader_rate(gpu, run.loader, MN_LOADER_BATCHES)
     serial = loader_rate(gpu, mt.gluon.data.DataLoader(
         train, batch_size=MN_BATCH, shuffle=True), MN_SERIAL_BATCHES)
     print("vision.MNIST DataLoader alone (%d threads, transforms on the "
           "host, one pinned copy up a batch): %.1f images/s over %d "
           "batches; in the caller's thread (no workers): %.1f images/s over "
-          "%d batches | %s" % (MN_WORKERS, alone, MN_GLUON_STEPS, serial,
+          "%d batches | %s" % (MN_WORKERS, alone, MN_LOADER_BATCHES, serial,
                               MN_SERIAL_BATCHES, card), flush=True)
     ms = {"fed": [], "held": []}
     clocks = {k: {} for k in ms}
@@ -12220,12 +12238,13 @@ def ds2_phase(mt, rnn_scan, rng, dev, card):
                       "%.2f" % x for x in v), bound_at, flops, nbytes,
                      100 * bound_at / out[path, b], card), flush=True)
         if path == "captured":
-            # the card's busy share: the kernel time of one replay of each
-            # bucket's graph (torch.profiler) against that replay's span
-            # (events), beside the fit's unprofiled step
+            # the card's busy share: the kernel time of one replay of the
+            # first bucket's graph (torch.profiler; tracing the larger
+            # bucket's too cost about 6 s of host time) against that
+            # replay's span (events), beside the fit's unprofiled step
             marks = [torch.cuda.Event(enable_timing=True), \
                      torch.cuda.Event(enable_timing=True)]
-            for b in sorted(report):
+            for b in sorted(report)[:1]:
                 graph = mod._buckets[b]._fused._cache.entries()[0].graph
 
                 def replay():
@@ -13681,6 +13700,474 @@ def dense_ops_phase(mt, images, card):
     return vae_ms, deform_ms
 
 
+# -- phase 36: sparse arrays (ROADMAP A9's sparse half) -----------------------
+
+# upstream MXNet's example/sparse/linear_classification on LIBSVM's
+# avazu-app: 1,000,001 features (LIBSVM's ids from 1; column 0 unused),
+# batch 8,192. The rows are synthetic, made from --seed
+AV_FEATURES = 1_000_001
+AV_BATCH = 8192
+AV_FIELDS = 22               # Avazu's categorical fields: one stored 1 each
+AV_TRAIN_BATCHES = 24        # the cut: 196,608 rows, 2 epochs
+AV_TEST_BATCHES = 4          # held out: 32,768 rows
+AV_EPOCHS = 2
+AV_LR = 0.1                  # the example's Adam
+AV_ACC = 0.70                # held-out accuracy the fit must pass
+AV_PEAK_BYTES = 1 << 30      # the fit's rise in allocated memory (1 GiB)
+AV_STEPS = 3                 # first steps held against the CPU
+# the weights after each first step, card against CPU (the gradients'
+# sums run in another order on the card: index_add_'s atomics): at most
+# AV_APART entries past AV_ENTRY_TOL, AV_FAR past AV_FAR_LR lr (an Adam
+# step that turns on a gradient's rounding), none past AV_APART_LR lr
+AV_APART = 2000              # of the weight's 2,000,002 entries
+AV_ENTRY_TOL = 1e-6
+AV_FAR = 16
+AV_FAR_LR = 0.01
+AV_APART_LR = 2.0
+AV_GRAD_SHARE = 1e-5         # step gradients: of their largest value
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM's memory rate (the bound's)
+
+# gluon.contrib.nn.SparseEmbedding at LM1B's vocabulary and width
+# (Jozefowicz et al. 2016, arXiv:1602.02410: 793,471 words, 512-wide
+# embeddings): one Trainer step of lazy SGD over ids of (20, 128)
+SE_VOCAB = 793_471
+SE_DIM = 512
+SE_IDS = (20, 128)
+SE_LR = 0.5
+SE_BACKWARD_BYTES = 100 << 20   # the backward's rise in allocated memory
+SE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def avazu_layout():
+    """The columns of the 22 fields: sizes growing 1.6x a field (tens of
+    columns for the smallest, as Avazu's C1 or banner_pos, hundreds of
+    thousands for the largest, as device_ip or device_id), in order over
+    columns 1 .. 1,000,000. Returns (sizes, first columns)."""
+    r = 1.6 ** np.arange(AV_FIELDS)
+    sizes = np.floor((AV_FEATURES - 1) * r / r.sum()).astype(np.int64)
+    sizes[-1] += AV_FEATURES - 1 - sizes.sum()
+    return sizes, 1 + np.concatenate([[0], np.cumsum(sizes)[:-1]])
+
+
+def avazu_rows(rng, rows, w_true):
+    """``rows`` click rows: one column a field, skewed within the field's
+    range as click logs are (a column at u^4 of the range, u uniform: the
+    first 1% of a field's columns take 32% of its rows), so a batch's
+    rows repeat columns; the label is 1 where the planted weights of the
+    row's columns sum above 0. Returns (columns (rows, 22), labels)."""
+    sizes, first = avazu_layout()
+    u = rng.random_sample((rows, AV_FIELDS))
+    cols = first + np.floor(sizes * u ** 4).astype(np.int64)
+    return cols, (w_true[cols].sum(1) > 0).astype(np.int64)
+
+
+def write_libsvm_rows(path, cols, labels):
+    """One LibSVM line a row: its label and each column with value 1
+    (formatted a block of rows at a time)."""
+    line = "%d" + " %d:1" * cols.shape[1] + "\n"
+    with open(path, "w") as f:
+        for i in range(0, len(cols), AV_BATCH):
+            block = np.column_stack([labels[i:i + AV_BATCH],
+                                     cols[i:i + AV_BATCH]])
+            f.write((line * len(block)) % tuple(block.ravel().tolist()))
+
+
+def avazu_files(seed, workdir):
+    """The training and held-out LibSVM files from ``seed``: a planted
+    weight on a fifth of the columns (N(0, 1)), AV_TRAIN_BATCHES and
+    AV_TEST_BATCHES batches of rows."""
+    rng = np.random.RandomState(seed + 36)
+    w_true = np.where(rng.random_sample(AV_FEATURES) < 0.2,
+                      rng.standard_normal(AV_FEATURES), 0.0)
+    paths = []
+    for name, batches in (("train", AV_TRAIN_BATCHES),
+                          ("test", AV_TEST_BATCHES)):
+        cols, labels = avazu_rows(rng, batches * AV_BATCH, w_true)
+        paths.append(os.path.join(workdir, "avazu-%s.libsvm" % name))
+        write_libsvm_rows(paths[-1], cols, labels)
+    return paths
+
+
+def sparse_lr_symbol(mt, features):
+    """example/sparse/linear_classification.py's model: CSR data, a
+    row_sparse (features, 2) weight, SoftmaxOutput over their dot."""
+    data = mt.sym.var("data", stype="csr")
+    label = mt.sym.var("softmax_label")
+    w = mt.sym.var("weight", stype="row_sparse", shape=(features, 2))
+    return mt.sym.SoftmaxOutput(mt.sym.dot(data, w), label, name="softmax")
+
+
+class FirstBatches:
+    """The first ``n`` batches of a data iterator, as an iterator."""
+
+    def __init__(self, it, n):
+        self.it, self.n = it, n
+        self.provide_data, self.provide_label = it.provide_data, \
+            it.provide_label
+        self.batch_size = it.batch_size
+        self.seen = 0
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self.it.reset()
+        self.seen = 0
+
+    def __next__(self):
+        if self.seen == self.n:
+            raise StopIteration
+        self.seen += 1
+        return self.it.next()
+
+    next = __next__
+
+
+def sparse_lr_fit(mt, ctx, train, seed, epochs, record=0, clock=None):
+    """The example's Module.fit (Adam lr AV_LR, Normal(0.01) drawn after
+    mt.random.seed(seed)) on ``ctx``. Records each step's stored gradient
+    rows and, for the first ``record`` steps, the weight (host tensors);
+    with ``clock``, the host seconds of next (and the next batch's
+    staging), forward_backward, update (with the rows' recovery) and
+    update_metric, each ending in a synchronize. Returns (module, rows a
+    step, weights)."""
+    import torch
+    mod = mt.mod.Module(sparse_lr_symbol(mt, train.provide_data[0].shape[1]),
+                        context=ctx, data_names=["data"],
+                        label_names=["softmax_label"])
+    rows, weights = [], []
+
+    def step_end(param):
+        ex = param.locals["self"]._exec_group.execs[0]
+        rows.append(ex.grad_dict["weight"].nnz)
+        if len(weights) < record:
+            weights.append(ex.arg_dict["weight"]._data.detach().to(
+                "cpu", copy=True))
+    if clock is not None:
+        sync = torch.cuda.synchronize if ctx.device_type == "gpu" \
+            else (lambda: None)
+
+        def timed(name, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                sync()
+                clock[name] = clock.get(name, 0.0) + time.perf_counter() - t0
+                return out
+            return run
+        train.next = timed("next", train.next)
+        for name in ("forward_backward", "update", "update_metric"):
+            setattr(mod, name, timed(name, getattr(mod, name)))
+        mod.prepare = timed("next", mod.prepare)
+    mt.random.seed(seed)
+    mod.fit(train, num_epoch=epochs, optimizer="adam",
+            optimizer_params={"learning_rate": AV_LR},
+            initializer=mt.init.Normal(0.01), batch_end_callback=step_end)
+    if clock is not None:
+        del train.next
+    return mod, rows, weights
+
+
+def hold_sparse_steps(label, got, want, lr):
+    """Weights after each of the first steps on the card (``got``) against
+    the CPU's (``want``): at most AV_APART entries past AV_ENTRY_TOL and
+    AV_FAR past AV_FAR_LR lr, none past AV_APART_LR lr (a weight whose
+    Adam step turns on a gradient's rounding moves by about lr either
+    way). Returns the line's text."""
+    worst, apart, far = 0.0, 0, 0
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        worst = max(worst, float(d.max()))
+        apart = max(apart, int((d > AV_ENTRY_TOL).sum()))
+        far = max(far, int((d > AV_FAR_LR * lr).sum()))
+    text = ("weights after each of the first %d steps: at most %d entries "
+            "past %g, %d past %g lr, the largest difference %.3g = %.3g lr "
+            "(limits %d, %d, %g lr)" % (len(got), apart, AV_ENTRY_TOL, far,
+                                        AV_FAR_LR, worst, worst / lr,
+                                        AV_APART, AV_FAR, AV_APART_LR))
+    if apart > AV_APART or far > AV_FAR or worst > AV_APART_LR * lr:
+        fail("%s against the CPU: %s" % (label, text))
+    return text
+
+
+def avazu_phase(mt, seed, workdir, card):
+    """Phase 36a: the example's sparse logistic regression at Avazu-app's
+    width through Module.fit on gpu(0), fed CSR batches by LibSVMIter
+    (no dense batch: the fit's rise in allocated memory must stay under
+    AV_PEAK_BYTES; a dense one would be 32.8 GB); its first AV_STEPS
+    steps against the CPU from the same weights and batches (stored rows
+    equal, weights by hold_sparse_steps); every step's stored rows at most
+    a batch's 8,192 x 22; held-out accuracy above AV_ACC; ms a step by
+    phase beside the step's bound."""
+    import torch
+    t0 = time.time()
+    gpu = mt.gpu(0)
+    train_path, test_path = avazu_files(seed, workdir)
+    t_files = time.time() - t0
+    t_parse = time.time()
+    train = mt.io.LibSVMIter(data_libsvm=train_path,
+                             data_shape=(AV_FEATURES,), batch_size=AV_BATCH)
+    test = mt.io.LibSVMIter(data_libsvm=test_path, data_shape=(AV_FEATURES,),
+                            batch_size=AV_BATCH)
+    t_parse = time.time() - t_parse
+    with mt.cpu():
+        _m, cpu_rows, cpu_w = sparse_lr_fit(
+            mt, mt.cpu(), FirstBatches(train, AV_STEPS), seed, 1,
+            record=AV_STEPS)
+    train.reset()
+    clock = {}
+    with gpu:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_fit = time.perf_counter()
+        mod, rows, gpu_w = sparse_lr_fit(mt, gpu, train, seed, AV_EPOCHS,
+                                         record=AV_STEPS, clock=clock)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        peak = torch.cuda.max_memory_allocated() - base
+        ex = mod._exec_group.execs[0]
+        kinds = (type(ex.arg_dict["data"]).__name__,
+                 type(ex.arg_dict["weight"]).__name__,
+                 type(ex.grad_dict["weight"]).__name__)
+        acc = dict(mod.score(test, mt.metric.Accuracy()))["accuracy"]
+    steps = len(rows)
+    if kinds != ("CSRNDArray", "RowSparseNDArray", "RowSparseNDArray"):
+        fail("Avazu fit: the executor's data, weight and gradient are %s"
+             % (kinds,))
+    if steps != AV_EPOCHS * AV_TRAIN_BATCHES:
+        fail("Avazu fit took %d steps, want %d" % (
+            steps, AV_EPOCHS * AV_TRAIN_BATCHES))
+    if rows[:AV_STEPS] != cpu_rows:
+        fail("Avazu fit: stored gradient rows of the first %d steps %s on "
+             "the card, %s on the CPU" % (AV_STEPS, rows[:AV_STEPS],
+                                          cpu_rows))
+    if max(rows) > AV_BATCH * AV_FIELDS:
+        fail("Avazu fit: a step stored %d gradient rows, more than a "
+             "batch's %d" % (max(rows), AV_BATCH * AV_FIELDS))
+    held = hold_sparse_steps("Avazu fit", gpu_w, cpu_w, AV_LR)
+    if peak >= AV_PEAK_BYTES:
+        fail("Avazu fit: allocated memory rose %.1f MB over the fit (limit "
+             "%.0f MB): something densified" % (peak / 2 ** 20,
+                                                AV_PEAK_BYTES / 2 ** 20))
+    if not acc > AV_ACC:
+        fail("Avazu fit: held-out accuracy %.4f (limit %.2f)" % (acc, AV_ACC))
+    nnz = AV_BATCH * AV_FIELDS
+    mean_rows = float(np.mean(rows))
+    # a step's least bytes: the touched rows of the weight and of Adam's
+    # mean and variance, each read and written (2 floats a row), and the
+    # batch's CSR read once (float32 values, int64 columns and pointers)
+    bound_bytes = mean_rows * 2 * 4 * 6 + nnz * (4 + 8) + (AV_BATCH + 1) * 8
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    step_ms = fit_s * 1e3 / steps
+    split = ", ".join("%s %.3f" % (k, v * 1e3 / steps)
+                      for k, v in sorted(clock.items()))
+    print("Avazu sparse LR (%s features, batch %d, %d fields a row; %d "
+          "train + %d held-out batches, %d epochs): first %d steps on gpu(0) "
+          "against the CPU: stored gradient rows %s both, %s; held-out "
+          "accuracy %.4f (limit %.2f); %d steps, %.3f ms a step (host clock, "
+          "the parts each ending in a synchronize: %s ms); stored gradient "
+          "rows a step mean %.0f, max %d (limit %d); the step's bound %.5f "
+          "ms (%.0f bytes at 3.35 TB/s), %.2f%% of the step; allocated "
+          "memory's rise over the fit %.1f MB (limit %.0f; a dense batch "
+          "alone: %.1f GB); files written in %.1f s, parsed in %.1f s; "
+          "phase %.1f s | %s"
+          % (format(AV_FEATURES, ","), AV_BATCH, AV_FIELDS, AV_TRAIN_BATCHES,
+             AV_TEST_BATCHES, AV_EPOCHS, AV_STEPS, cpu_rows, held, acc,
+             AV_ACC, steps, step_ms, split, mean_rows, max(rows), nnz,
+             bound_ms, bound_bytes, 100 * bound_ms / step_ms,
+             peak / 2 ** 20, AV_PEAK_BYTES / 2 ** 20,
+             AV_BATCH * AV_FEATURES * 4 / 1e9, t_files, t_parse,
+             time.time() - t0, card), flush=True)
+    return {"ms": step_ms, "bound_ms": bound_ms, "peak_mb": peak / 2 ** 20,
+            "acc": acc, "rows": mean_rows}
+
+
+def sparse_lc_main(mt, ctx, steps=AV_STEPS, w0=None):
+    """example/sparse/linear_classification.py's main, line for line, on
+    ``ctx`` (``mt`` the port or mxtpu; ``w0`` the starting weight in place
+    of the example's Normal(0.01) draw). Returns (its train accuracy,
+    [(stored gradient rows, their values, the weight)] after each of the
+    first ``steps`` steps); the example's own asserts raise."""
+    import tempfile
+    import logging as _logging
+    mt.random.seed(0)
+    rng = np.random.RandomState(0)
+    n, d = 512, 64
+    w_true = np.zeros(d, np.float32)
+    w_true[rng.choice(d, 8, replace=False)] = rng.randn(8)
+    X = (rng.rand(n, d) < 0.1) * rng.randn(n, d).astype(np.float32)
+    y = (X @ w_true > 0).astype(np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.libsvm")
+        with open(path, "w") as f:
+            for row, lab in zip(X, y):
+                idx = np.nonzero(row)[0]
+                f.write("%d %s\n" % (lab, " ".join(
+                    "%d:%.4f" % (i, row[i]) for i in idx)))
+        it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(d,),
+                              batch_size=64)
+    out = sparse_lr_symbol(mt, d)
+    _logging.disable(_logging.INFO)
+    mod = mt.mod.Module(out, context=ctx, data_names=["data"],
+                        label_names=["softmax_label"])
+    first = []
+
+    def grab(param):
+        if len(first) < steps:
+            ex = param.locals["self"]._exec_group.execs[0]
+            g = ex.grad_dict["weight"]
+            first.append((g.indices.asnumpy(), g.data.asnumpy(),
+                          ex.arg_dict["weight"].asnumpy()))
+    try:
+        mod.fit(it, num_epoch=10, optimizer="adam",
+                optimizer_params={"learning_rate": 0.1},
+                initializer=mt.init.Normal(0.01), batch_end_callback=grab,
+                arg_params=None if w0 is None else {
+                    "weight": mt.nd.array(w0, ctx=ctx)})
+    finally:
+        _logging.disable(_logging.NOTSET)
+    it.reset()
+    acc = dict(mod.score(it, mt.metric.Accuracy()))["accuracy"]
+    assert acc > 0.8, acc
+    ex = mod._exec_group.execs[0]
+    assert type(ex.arg_dict["data"]).__name__ == "CSRNDArray"
+    assert type(ex.arg_dict["weight"]).__name__ == "RowSparseNDArray"
+    assert type(ex.grad_dict["weight"]).__name__ == "RowSparseNDArray"
+    arg_st, _, _ = out.infer_storage_type()
+    assert dict(zip(out.list_arguments(), arg_st)) == {
+        "data": "csr", "weight": "row_sparse", "softmax_label": "default"}
+    return acc, first
+
+
+def sparse_example_phase(mt, card):
+    """Phase 36b: the example's main on gpu(0), its first AV_STEPS steps'
+    stored gradient rows (equal), gradients (within AV_GRAD_SHARE of their
+    largest value) and weights (hold_sparse_steps) against the CPU's,
+    then its own asserts."""
+    import torch
+    gpu = mt.gpu(0)
+    with mt.cpu():
+        _acc, want = sparse_lc_main(mt, mt.cpu())
+    with gpu:
+        acc, got = sparse_lc_main(mt, gpu)
+    worst = 0.0
+    for (gi, gv, _), (wi, wv, _) in zip(got, want):
+        if not np.array_equal(gi, wi):
+            fail("linear_classification: stored gradient rows %s on the "
+                 "card, %s on the CPU" % (gi.tolist(), wi.tolist()))
+        worst = max(worst, float(np.abs(gv - wv).max()))
+    scale = max(float(np.abs(wv).max()) for _i, wv, _w in want)
+    if worst > AV_GRAD_SHARE * scale:
+        fail("linear_classification: step gradients on the card differ "
+             "from the CPU's by %.3g (limit %.3g of %.3g)"
+             % (worst, AV_GRAD_SHARE, scale))
+    held = hold_sparse_steps("linear_classification",
+                             [torch.from_numpy(w) for _i, _g, w in got],
+                             [torch.from_numpy(w) for _i, _g, w in want], 0.1)
+    print("example/sparse/linear_classification.py on gpu(0): first %d "
+          "steps against the CPU: stored gradient rows equal (%s), "
+          "gradients within %.3g (limit %g of %.3g), %s; its asserts hold, "
+          "train accuracy %.4f (> 0.8) | %s"
+          % (AV_STEPS, [len(i) for i, _g, _w in got], worst, AV_GRAD_SHARE,
+             scale, held, acc, card), flush=True)
+
+
+def sparse_embedding_phase(mt, seed, card):
+    """Phase 36c: gluon.contrib.nn.SparseEmbedding at LM1B's vocabulary
+    and width (793,471 x 512 f32, 1.63 GB on the card): one Trainer step
+    of lazy SGD over ids of SE_IDS under autograd.record(), a random head
+    as the loss's gradient. The compact gradient stores at most the ids'
+    2,560 rows; the backward's rise in allocated memory stays under
+    SE_BACKWARD_BYTES (no (vocab, dim) tensor); the touched rows after the
+    step equal a CPU computation over those rows alone (SE_TOL), and
+    every other row keeps its bits."""
+    import torch
+    gpu = mt.gpu(0)
+    dev = gpu.torch_device()
+    rng = np.random.RandomState(seed + 362)
+    ids = rng.randint(0, SE_VOCAB, SE_IDS)
+    ids[0, :16] = ids[1, :16]            # repeated ids: their rows sum
+    head = rng.standard_normal(SE_IDS + (SE_DIM,)).astype(np.float32)
+    slots = int(np.prod(SE_IDS))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with gpu:
+        emb = mt.gluon.contrib.nn.SparseEmbedding(SE_VOCAB, SE_DIM,
+                                                  nnz_max=slots)
+        emb.weight.set_data(mt.nd.NDArray(torch.randn(
+            (SE_VOCAB, SE_DIM), generator=gen, device=dev), gpu))
+        trainer = mt.gluon.Trainer(emb.collect_params(), "sgd",
+                                   {"learning_rate": SE_LR})
+        w = emb.weight.data()._data
+        before = w.detach().clone()
+        x = mt.nd.array(ids.astype(np.float32), ctx=gpu)
+        y = mt.nd.array(head, ctx=gpu)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        with mt.autograd.record():
+            loss = mt.nd.sum(emb(x) * y)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss.backward()
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        grad = emb.weight.grad()
+        stored, cap = grad.nnz, grad.nnz_max
+        trainer.step(SE_IDS[0])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t_step) * 1e3
+        changed = torch.nonzero((w.detach() != before).any(1)).reshape(-1)
+        touched = np.unique(ids)
+        got = w.detach()[torch.from_numpy(touched).to(dev)].cpu().numpy()
+        start = before[torch.from_numpy(touched).to(dev)].cpu().numpy()
+    # the CPU's step over the touched rows alone: each row's gradient the
+    # head's rows of its ids summed, SGD at lr / batch
+    g = np.zeros((touched.size, SE_DIM), np.float32)
+    np.add.at(g, np.searchsorted(touched, ids.reshape(-1)),
+              head.reshape(-1, SE_DIM))
+    want = start - SE_LR * (g / SE_IDS[0])
+    err = float(np.abs(got - want).max())
+    moved = set(changed.cpu().numpy().tolist())
+    if stored != touched.size or cap != slots:
+        fail("SparseEmbedding: the gradient stores %d rows in %d slots; the "
+             "ids touch %d, the slots are %d" % (stored, cap, touched.size,
+                                                 slots))
+    if rise >= SE_BACKWARD_BYTES:
+        fail("SparseEmbedding: allocated memory rose %.1f MB over the "
+             "backward (limit %.0f MB): a (vocab, dim) tensor was made"
+             % (rise / 2 ** 20, SE_BACKWARD_BYTES / 2 ** 20))
+    if not np.allclose(got, want, **SE_TOL):
+        fail("SparseEmbedding: touched rows after the step differ from the "
+             "CPU's by %.3g (%s)" % (err, SE_TOL))
+    if not moved <= set(touched.tolist()):
+        fail("SparseEmbedding: %d rows the ids do not touch changed"
+             % len(moved - set(touched.tolist())))
+    print("SparseEmbedding %s x %d f32 (%.2f GB) on gpu(0): one lazy SGD "
+          "Trainer step over ids %s: gradient stores %d rows in %d slots; "
+          "allocated memory's rise over the backward %.2f MB (limit %.0f; a "
+          "dense gradient: %.0f MB); touched rows against the CPU within "
+          "%.3g (%s); %d rows changed, every other row's bits kept; record + "
+          "backward + step %.1f ms (host clock) | %s"
+          % (format(SE_VOCAB, ","), SE_DIM, SE_VOCAB * SE_DIM * 4 / 1e9,
+             SE_IDS, stored, cap, rise / 2 ** 20, SE_BACKWARD_BYTES / 2 ** 20,
+             SE_VOCAB * SE_DIM * 4 / 2 ** 20, err, SE_TOL, len(moved),
+             step_ms, card), flush=True)
+    return {"backward_mb": rise / 2 ** 20, "ms": step_ms}
+
+
+def sparse_phase(mt, seed, workdir, card):
+    """Phase 36: the sparse arrays on the card (avazu_phase,
+    sparse_example_phase, sparse_embedding_phase). Returns (the Avazu
+    fit's numbers, the SparseEmbedding step's)."""
+    t0 = time.time()
+    av = avazu_phase(mt, seed, workdir, card)
+    sparse_example_phase(mt, card)
+    se = sparse_embedding_phase(mt, seed, card)
+    print("sparse phase: %.1f s" % (time.time() - t0), flush=True)
+    return av, se
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -14164,7 +14651,13 @@ def main():
     # bbb_toy, draws in a captured block; deformable convolution at res5
     dense_ops_phase(mt, mnist_images, card)
 
-    # 36. timings at the main paths' shapes
+    # 36. sparse arrays: the example's sparse logistic regression at
+    # Avazu-app's width through Module.fit (CSR batches, a row-sparse
+    # weight, lazy Adam), the example itself, SparseEmbedding at LM1B's
+    # vocabulary
+    sparse_av, sparse_se = sparse_phase(mt, args.seed, workdir, card)
+
+    # 37. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -14552,9 +15045,17 @@ def main():
         "library_ms": None, "proposal_ms": proposal_timing[0],
         "proposal_plain_ms": proposal_timing[1],
         "proposal_bound_ms": proposal_timing[2]})
+
+    print("sparse slice: Avazu sparse LR %.3f ms a step (bound %.5f ms), "
+          "the fit's memory rise %.1f MB, held-out accuracy %.4f; "
+          "SparseEmbedding 793,471 x 512 step %.1f ms, the backward's "
+          "memory rise %.2f MB | %s"
+          % (sparse_av["ms"], sparse_av["bound_ms"], sparse_av["peak_mb"],
+             sparse_av["acc"], sparse_se["ms"], sparse_se["backward_mb"],
+             card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 37.-38. the result lines
+    # 38.-39. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

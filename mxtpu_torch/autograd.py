@@ -10,6 +10,10 @@ every floating input of an op run under ``record()`` joins the graph, as
 every input lands on ``mxtpu``'s tape. ``backward`` writes the gradients
 of the marked variables into their ``grad`` arrays by their ``grad_req``,
 as ``mxtpu`` does: ``add`` accumulates, ``write`` and ``null`` overwrite.
+A gradient may reach a variable as a sparse COO tensor
+(``SparseEmbedding``'s backward); contributions within one backward are
+summed by torch, and a compact row-sparse gradient array takes the rows
+compactly (:func:`_write_grad`, ``mxtpu``'s compact gradient slot).
 
 :class:`Function` is a user's differentiable function: its ``forward``
 runs under :func:`pause`, and a ``torch.autograd.Function`` hands its
@@ -153,17 +157,49 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     outs, gos = _heads(heads, head_grads)
     with _VAR_LOCK:
         variables = [v for v in _VARIABLES
-                     if v._grad is not None and v.data.requires_grad]
+                     if v._grad is not None and v._data.requires_grad]
     if not outs or not variables:
         return
-    grads = torch.autograd.grad(outs, [v.data for v in variables], gos,
+    grads = torch.autograd.grad(outs, [v._data for v in variables], gos,
                                 retain_graph=retain_graph, allow_unused=True)
     for v, g in zip(variables, grads):
-        if g is None:
-            continue
-        tgt = v._grad
-        g = g.detach().to(tgt.data.dtype)
-        tgt._data = tgt._data + g if v._grad_req == "add" else g
+        if g is not None:
+            _write_grad(v, g.detach())
+
+
+def _write_grad(v, g):
+    """Write gradient ``g`` (dense, or sparse COO) into variable ``v``'s
+    gradient array by its ``grad_req``. A compact row-sparse array takes
+    the gradient's rows (a sparse gradient's stored rows, a dense one's
+    nonzero rows) in its slots, merged with those it holds under
+    ``add``, its slots grown if the rows do not fit; a row-sparse array
+    finds its stored rows anew from the value it takes."""
+    from .ndarray import sparse as _sp
+    tgt, add = v._grad, v._grad_req == "add"
+    if isinstance(tgt, _sp.CompactRowSparseNDArray):
+        if g.layout == torch.sparse_coo:
+            g = g.coalesce()
+            ids, rows = g.indices()[0], g.values()
+        else:
+            ids = torch.nonzero(g.reshape(g.shape[0], -1).ne(0).any(1)) \
+                .reshape(-1)
+            rows = g.index_select(0, ids)
+        rows = rows.to(tgt._data.dtype)
+        if add and tgt.nnz:
+            merged = _sp.compact_merge([tgt, _sp.compact_row_sparse_array(
+                (rows, ids), shape=tgt.shape, ctx=tgt.context)])
+            ids, rows = merged.indices._data, merged.data._data
+        if ids.numel() > tgt.nnz_max:
+            tgt._assign_value(_sp.CompactRowSparseNDArray._empty(
+                ids.numel(), tgt.shape, tgt._data.dtype, tgt.context))
+        tgt._set_rows(ids, rows)
+        return
+    if g.layout != torch.strided:
+        g = g.to_dense()
+    g = g.to(tgt._data.dtype)
+    tgt._data = tgt._data + g if add else g
+    if isinstance(tgt, _sp.RowSparseNDArray):
+        tgt._aux = None
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -175,17 +211,19 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if single:
         variables = [variables]
     outs, gos = _heads(heads, head_grads)
-    live = [i for i, v in enumerate(variables) if v.data.requires_grad]
+    live = [i for i, v in enumerate(variables) if v._data.requires_grad]
     got = [None] * len(variables)
     if outs and live:
         res = torch.autograd.grad(
-            outs, [variables[i].data for i in live], gos,
+            outs, [variables[i]._data for i in live], gos,
             retain_graph=bool(retain_graph) or create_graph,
             create_graph=create_graph, allow_unused=True)
         for i, g in zip(live, res):
             got[i] = g
-    out = [NDArray(g if create_graph else g.detach(), v.context)
-           if g is not None else NDArray(torch.zeros_like(v.data.detach()),
+    out = [NDArray((g if create_graph else g.detach()).to_dense()
+                   if g.layout == torch.sparse_coo else
+                   (g if create_graph else g.detach()), v.context)
+           if g is not None else NDArray(torch.zeros_like(v._data.detach()),
                                          v.context)
            for v, g in zip(variables, got)]
     return out[0] if single else out

@@ -55,17 +55,35 @@ def _normalize_grad_req(grad_req, arg_names):
     return out
 
 
+def _zeros(stype, shape, ctx, dtype):
+    if stype == "default":
+        return nd.zeros(shape, ctx=ctx, dtype=dtype)
+    from .ndarray import sparse
+    return sparse.zeros(stype, shape, ctx=ctx, dtype=dtype)
+
+
 def _copy_into(dst, src):
     """Copy ``src`` (NDArray, tensor or array-like) into NDArray ``dst``'s
-    own tensor, converting device and dtype."""
+    own tensor, converting device and dtype. A CSR slot takes ``src``'s
+    compressed tensors (a dense ``src`` compressed); a row-sparse one
+    finds its stored rows anew."""
+    from .ndarray.sparse import CSRNDArray, RowSparseNDArray
+    if isinstance(dst, CSRNDArray):
+        if not isinstance(src, CSRNDArray):
+            src = nd.sparse.csr_matrix(src, ctx=dst.context)
+        dst._set_data(src._data.to(dst._data.device))
+        return
     if isinstance(src, NDArray):
-        src = src.data
+        src = src.todense() if src.stype != "default" else src
+        src = src._data
     elif not isinstance(src, torch.Tensor):
         src = torch.as_tensor(_np.asarray(src))
     with torch.no_grad():
         # a copy to the card from pageable memory is staged before the
         # call returns, so it need not wait for the card
-        dst.data.copy_(src.detach(), non_blocking=dst.data.is_cuda)
+        dst._data.copy_(src.detach(), non_blocking=dst._data.is_cuda)
+    if isinstance(dst, RowSparseNDArray):
+        dst._aux = None
 
 
 class Executor:
@@ -101,10 +119,14 @@ class Executor:
 
     # -- binding constructors ---------------------------------------------
     @staticmethod
-    def _simple_bind(sym, ctx, grad_req, type_dict, shape_kwargs):
+    def _simple_bind(sym, ctx, grad_req, type_dict, shape_kwargs,
+                     stype_dict=None):
         arg_names = sym.list_arguments()
         arg_shapes, out_shapes, aux_shapes = sym.infer_shape(**shape_kwargs)
         type_dict = type_dict or {}
+        # storage types: the declared ones, overridden by stype_dict
+        arg_stypes, _out, _aux = sym.infer_storage_type(**(stype_dict or {}))
+        stype_of = dict(zip(arg_names, arg_stypes))
         req_dict = _normalize_grad_req(grad_req, arg_names)
         arg_dict, grad_dict = {}, {}
         for name, shape in zip(arg_names, arg_shapes):
@@ -112,9 +134,12 @@ class Executor:
                 raise ValueError("could not infer shape for argument %r"
                                  % name)
             dt = canonical_dtype(type_dict.get(name, _np.float32))
-            arg_dict[name] = nd.zeros(shape, ctx=ctx, dtype=dt)
+            st = stype_of.get(name, "default")
+            arg_dict[name] = _zeros(st, shape, ctx, dt)
             if req_dict.get(name, "null") != "null":
-                grad_dict[name] = nd.zeros(shape, ctx=ctx, dtype=dt)
+                grad_dict[name] = _zeros(
+                    "row_sparse" if st == "row_sparse" else "default",
+                    shape, ctx, dt)
         aux_dict = {}
         for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
             if shape is None:
@@ -156,8 +181,8 @@ class Executor:
         floating grad arguments enter as autograd leaves (views of the
         bound tensors); ``draws`` keeps or replays the random draws.
         Returns (outputs, aux updates, leaves)."""
-        feed = {n: self.arg_dict[n].data for n in self._arg_names}
-        feed.update((n, self.aux_dict[n].data) for n in self._aux_names)
+        feed = {n: self.arg_dict[n]._data for n in self._arg_names}
+        feed.update((n, self.aux_dict[n]._data) for n in self._aux_names)
         leaves = {}
         if record:
             leaves = {n: feed[n].detach().requires_grad_()
@@ -187,7 +212,7 @@ class Executor:
             # use_global_stats) is not copied: the copy would bump the
             # version of a tensor the recorded backward may hold
             for n, v in aux_updates.items():
-                if n in self.aux_dict and v is not self.aux_dict[n].data:
+                if n in self.aux_dict and v is not self.aux_dict[n]._data:
                     _copy_into(self.aux_dict[n], v)
         self._outputs = [NDArray(o.detach(), self._ctx) for o in outs]
         if self._monitor_callback is not None:
@@ -229,7 +254,7 @@ class Executor:
             if pairs and names else [None] * len(names)
         with torch.no_grad():
             for n, g in zip(names, grads):
-                tgt = self.grad_dict[n].data
+                tgt = self.grad_dict[n]._data
                 if self._grad_req.get(n) == "add":
                     if g is not None:
                         tgt.add_(g)
@@ -237,6 +262,9 @@ class Executor:
                     tgt.zero_()
                 else:
                     tgt.copy_(g)
+                if self.grad_dict[n].stype == "row_sparse":
+                    # the stored rows: the gradient's nonzero rows
+                    self.grad_dict[n]._aux = None
 
     def make_fused_train_step(self, train_names, optimizer, opt_slots,
                               metric_fn=None):
@@ -387,13 +415,13 @@ class Executor:
         def keep_or_new(old, name, shape, dtype):
             if tuple(old.shape) == tuple(shape):
                 return old if share_ok(name) else old.copy()
-            return nd.zeros(shape, ctx=self._ctx, dtype=dtype)
+            return _zeros(old.stype, shape, self._ctx, dtype)
         arg_dict = {n: keep_or_new(self.arg_dict[n], n, s,
                                    self.arg_dict[n].dtype)
                     for n, s in zip(self._arg_names, arg_shapes)}
-        grad_dict = {n: nd.zeros(arg_dict[n].shape, ctx=self._ctx,
-                                 dtype=arg_dict[n].dtype)
-                     for n in self.grad_dict}
+        grad_dict = {n: _zeros(g.stype, arg_dict[n].shape, self._ctx,
+                               arg_dict[n].dtype)
+                     for n, g in self.grad_dict.items()}
         aux_dict = {n: keep_or_new(self.aux_dict[n], n, s, None)
                     for n, s in zip(self._aux_names, aux_shapes)}
         new_exe = Executor(self._symbol, self._ctx, arg_dict, grad_dict,

@@ -13,7 +13,10 @@ block's captured graph keeps reading and writing the right memory.
 What changes a weight's storage, dtype or device (``set_data`` on an
 initialized parameter, ``cast``, ``reset_ctx``, a new ``grad_req``)
 bumps the parameter's ``_version``, and a hybridized block builds a new
-program when it sees one. No row-sparse gradients.
+program when it sees one. ``grad_stype="row_sparse"`` gives a row-sparse
+gradient array, the compact one (``grad_nnz_max`` row slots) when
+``grad_nnz_max`` is given, as in ``mxtpu``; ``stype`` is kept and the
+weight stays dense, as there.
 
 :meth:`ParameterDict.load_dict` loads ``{name: numpy array}`` keyed by
 ``mxtpu``'s parameter names, which is how weights cross from ``mxtpu``
@@ -60,9 +63,7 @@ class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype=_np.float32,
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
-                 stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise NotImplementedError("the port's parameters are dense")
+                 stype="default", grad_stype="default", grad_nnz_max=None):
         self.name = name
         self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
@@ -74,6 +75,9 @@ class Parameter:
         self.init = init
         self._allow_deferred_init = allow_deferred_init
         self._differentiable = differentiable
+        self._stype = stype
+        self._grad_stype = grad_stype
+        self._grad_nnz_max = grad_nnz_max
         self._data = None           # NDArray
         self._grad = None           # NDArray or None
         self._deferred_init = None  # (init, ctx, explicit) pending shape
@@ -170,8 +174,13 @@ class Parameter:
             self._init_grad()
 
     def _init_grad(self):
-        self._grad = NDArray(torch.zeros_like(self._data.data.detach()),
-                             self._data.context)
+        if self._grad_stype == "row_sparse":
+            self._grad = nd.sparse.zeros(
+                "row_sparse", self._data.shape, ctx=self._data.context,
+                dtype=self._data.dtype, nnz_max=self._grad_nnz_max)
+        else:
+            self._grad = NDArray(torch.zeros_like(self._data.data.detach()),
+                                 self._data.context)
         _ag.mark_variables([self._data], [self._grad], [self._grad_req])
 
     def _finish_deferred_init(self):
@@ -243,9 +252,15 @@ class Parameter:
 
     def zero_grad(self):
         """Zero the gradient array in place."""
-        if self._grad is not None:
-            with torch.no_grad():
-                self._grad.data.zero_()
+        if self._grad is None:
+            return
+        if isinstance(self._grad, nd.sparse.CompactRowSparseNDArray):
+            self._grad._clear()
+            return
+        with torch.no_grad():
+            self._grad._data.zero_()
+        if self._grad.stype == "row_sparse":
+            self._grad._aux = None
 
     def var(self):
         """The Symbol variable of this parameter (its name, shape, dtype
@@ -262,7 +277,7 @@ class Parameter:
         if self._data is not None:
             self._data._set_data(self._data.data.detach().to(self.dtype))
             if self._grad is not None:
-                self._grad._data = self._grad.data.to(self.dtype)
+                self._grad._data = self._grad._data.to(self.dtype)
             self._version += 1
 
     def reset_ctx(self, ctx):
@@ -275,7 +290,9 @@ class Parameter:
         self._ctx = ctx
         self._version += 1
         if self._grad_req != "null":
-            grad = NDArray(self._grad.data.to(dev), ctx)
+            grad = self._grad.as_in_context(ctx) \
+                if self._grad.stype != "default" \
+                else NDArray(self._grad.data.to(dev), ctx)
             _ag.mark_variables([self._data], [grad], [self._grad_req])
             self._grad = grad
 

@@ -163,7 +163,7 @@ def create(name, **kwargs):
 def _set(arr, value):
     """Fill NDArray ``arr`` with ``value`` (a CPU f32 tensor drawn for
     it), moved to the array's device and dtype."""
-    arr._set_data(value.to(device=arr.data.device, dtype=arr.data.dtype)
+    arr._set_data(value.to(device=arr._data.device, dtype=arr._data.dtype)
                   .reshape(arr.shape))
 
 

@@ -24,6 +24,7 @@ import threading
 from collections import namedtuple
 
 import numpy as _np
+import torch
 
 from . import ndarray as nd
 from .context import cpu
@@ -46,8 +47,10 @@ def stage_batch(batch, ctx):
 
     def stage(arrs):
         for i, a in enumerate(arrs or []):
-            if isinstance(a, NDArray) and a.data.device != device:
-                arrs[i] = NDArray(a.data.to(device, non_blocking=True), ctx)
+            if not isinstance(a, NDArray) or a._data.device == device:
+                continue
+            arrs[i] = NDArray(a._data.to(device, non_blocking=True), ctx) \
+                if a.stype == "default" else a.as_in_context(ctx)
 
     stage(batch.data)
     stage(batch.label)
@@ -638,16 +641,41 @@ class MNISTIter(_InnerIter):
                                   last_batch_handle="discard")
 
 
+def _uint_tokens(buf, starts, ends):
+    """The tokens ``buf[starts[i]:ends[i]]`` as int64 if every one is a
+    plain non-negative integer (its digits summed by place, one numpy pass
+    a place), else None."""
+    lengths = ends - starts
+    if lengths.size == 0:
+        return _np.zeros(0, _np.int64)
+    if lengths.min() < 1 or lengths.max() > 18:
+        return None
+    out = _np.zeros(lengths.size, _np.int64)
+    for k in range(int(lengths.max())):
+        live = lengths > k
+        digit = buf[_np.maximum(ends - 1 - k, 0)].astype(_np.int64) - 48
+        digit[~live] = 0
+        if digit.min() < 0 or digit.max() > 9:
+            return None
+        out += digit * 10 ** k
+    return out
+
+
 class LibSVMIter(DataIter):
     """Batches of a LibSVM text file (``label idx:val idx:val ...`` a
-    line), as dense rows of ``data_shape``. Labels come from the lines,
-    or from the rows of ``label_libsvm`` (densified to ``label_shape``'s
-    width, else to its largest index + 1), which must have as many rows.
-    With ``round_batch`` the last batch wraps to the first rows (its
-    ``pad`` counts them); without it the last partial batch is dropped.
-
-    ``mxtpu`` serves 1-d rows as CSR arrays; the port has no sparse
-    arrays yet and serves the same values dense."""
+    line). Rows of a 1-d ``data_shape`` come as CSR arrays (MXNet's and
+    ``mxtpu``'s batch type), built from the parsed rows: each batch's
+    ``indptr`` / ``indices`` / ``data`` are gathered from the file's
+    compressed rows, so no dense batch is ever made (at Avazu's 1,000,001
+    features a dense batch of 8,192 rows would be 32.8 GB). A row's
+    columns are sorted, a repeated column keeps its last value and zeros
+    are not stored: the CSR of the dense rows ``mxtpu`` fills. A
+    multi-dimensional ``data_shape`` gives dense rows, as in ``mxtpu``.
+    Labels come from the lines, or from the rows of ``label_libsvm``
+    (densified to ``label_shape``'s width, else to its largest index +
+    1), which must have as many rows. With ``round_batch`` the last batch
+    wraps to the first rows (its ``pad`` counts them); without it the
+    last partial batch is dropped."""
 
     def __init__(self, data_libsvm, data_shape, label_libsvm=None,
                  label_shape=None, batch_size=1, round_batch=True,
@@ -657,40 +685,70 @@ class LibSVMIter(DataIter):
         self._data_shape = tuple(data_shape) \
             if hasattr(data_shape, "__len__") else (int(data_shape),)
         self._width = int(_np.prod(self._data_shape))
-        rows, labels = self._parse(data_libsvm)
-        self._rows = rows
+        self._ptr, self._cols, self._vals, labels = self._parse(data_libsvm)
+        if self._cols.size and self._cols.max() >= self._width:
+            raise IndexError("column %d of %r is past the width %d"
+                             % (self._cols.max(), data_libsvm, self._width))
+        n = self._ptr.size - 1
         if label_libsvm is not None:
-            lab_rows, _ = self._parse(label_libsvm)
-            if len(lab_rows) != len(rows):
+            lptr, lcols, lvals, _ = self._parse(label_libsvm)
+            if lptr.size - 1 != n:
                 raise ValueError(
                     "label file %r has %d rows but data file %r has %d"
-                    % (label_libsvm, len(lab_rows), data_libsvm, len(rows)))
+                    % (label_libsvm, lptr.size - 1, data_libsvm, n))
             w = int(label_shape[-1]) if label_shape else \
-                1 + max((i for r in lab_rows for i, _ in r), default=0)
-            labels = [self._densify(r, w) for r in lab_rows]
+                1 + (int(lcols.max()) if lcols.size else 0)
+            labels = _np.zeros((n, w), _np.float32)
+            labels[_np.repeat(_np.arange(n), _np.diff(lptr)), lcols] = lvals
         self._labels = _np.asarray(labels, _np.float32)
         self._round_batch = round_batch
         self._cursor = 0
 
     @staticmethod
     def _parse(path):
-        rows, labels = [], []
-        with open(path) as f:
-            for line in f:
-                parts = line.split()
-                if not parts:
-                    continue
-                labels.append(float(parts[0]))
-                rows.append([(int(i), float(v)) for i, v in
-                             (t.split(":") for t in parts[1:])])
-        return rows, labels
-
-    @staticmethod
-    def _densify(row, width):
-        out = _np.zeros(width, _np.float32)
-        for idx, val in row:
-            out[idx] = val
-        return out
+        """``(indptr, indices, values, labels)`` of a LibSVM file: its rows
+        compressed (columns sorted, a repeated column's last value, float32
+        zeros dropped). The ``idx:val`` pairs are found in the bytes by
+        numpy in a few passes, integers read from their digits (summed by
+        place); a value that is not a plain integer goes through numpy's
+        float parser."""
+        with open(path, "rb") as f:
+            raw = f.read()
+        labels, counts = [], []
+        for ln in raw.splitlines():
+            head = ln.split(None, 1)
+            if head:
+                labels.append(float(head[0]))
+                counts.append(ln.count(b":"))
+        counts = _np.asarray(counts, _np.int64)
+        buf = _np.frombuffer(raw, _np.uint8)
+        colon = _np.flatnonzero(buf == ord(":"))
+        space = _np.flatnonzero(buf <= 32)      # whitespace, line ends
+        space = _np.concatenate([[-1], space, [buf.size]])
+        after = _np.searchsorted(space, colon)
+        cols = _uint_tokens(buf, space[after - 1] + 1, colon)
+        vals = _uint_tokens(buf, colon + 1, space[after])
+        if cols is None:
+            raise ValueError("%r holds a column that is not a non-negative "
+                             "integer" % (path,))
+        if vals is None:
+            vals = _np.array([raw[a:b] for a, b in zip(colon + 1,
+                                                       space[after])],
+                             dtype=_np.float64)
+        vals = vals.astype(_np.float32)
+        rows = _np.repeat(_np.arange(counts.size), counts)
+        if not ((rows[1:] != rows[:-1]) | (cols[1:] > cols[:-1])).all():
+            # a row's columns out of order or repeated: sort them (stable,
+            # so a repeated column's last value is last)
+            order = _np.argsort(rows * (int(cols.max()) + 1) + cols,
+                                kind="stable")
+            rows, cols, vals = rows[order], cols[order], vals[order]
+        last = _np.ones(cols.size, bool)
+        last[:-1] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        keep = last & (vals != 0)
+        ptr = _np.zeros(counts.size + 1, _np.int64)
+        ptr[1:] = _np.cumsum(_np.bincount(rows[keep], minlength=counts.size))
+        return ptr, cols[keep], vals[keep], _np.asarray(labels)
 
     @property
     def provide_data(self):
@@ -706,16 +764,30 @@ class LibSVMIter(DataIter):
         self._cursor = 0
 
     def next(self):
-        n = len(self._rows)
+        n = self._ptr.size - 1
         if self._cursor >= n or (not self._round_batch
                                  and n - self._cursor < self.batch_size):
             raise StopIteration
         idx = _np.arange(self._cursor, self._cursor + self.batch_size) % n
         self._cursor += self.batch_size
-        data = _np.stack([self._densify(self._rows[i], self._width)
-                          for i in idx]).reshape((self.batch_size,)
-                                                 + self._data_shape)
-        return DataBatch(data=[nd.array(data, ctx=cpu())],
+        lo = self._ptr[idx]
+        counts = self._ptr[idx + 1] - lo
+        indptr = _np.zeros(idx.size + 1, _np.int64)
+        indptr[1:] = _np.cumsum(counts)
+        pos = _np.repeat(lo - indptr[:-1], counts) + _np.arange(indptr[-1])
+        cols, vals = self._cols[pos], self._vals[pos]
+        if len(self._data_shape) == 1:
+            from .ndarray import sparse
+            data = sparse.csr_matrix(
+                (torch.from_numpy(vals), torch.from_numpy(cols),
+                 torch.from_numpy(indptr)),
+                shape=(self.batch_size, self._width), ctx=cpu())
+        else:
+            dense = _np.zeros((self.batch_size, self._width), _np.float32)
+            dense[_np.repeat(_np.arange(idx.size), counts), cols] = vals
+            data = nd.array(dense.reshape((self.batch_size,)
+                                          + self._data_shape), ctx=cpu())
+        return DataBatch(data=[data],
                          label=[nd.array(self._labels[idx], ctx=cpu())],
                          pad=max(0, self._cursor - n))
 

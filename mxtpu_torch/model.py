@@ -142,11 +142,23 @@ def params_from_numpy(arg_params, aux_params, ctx=None):
     ``mxtpu``'s ``Module.get_params()`` or ``model.load_params`` return,
     ready for the port's ``Module.init_params`` / ``set_params``. Arrays
     keep their layout: a fused RNN's flat ``parameters`` blob stays in the
-    cuDNN layout of ``rnn_blob_blocks``."""
-    def convert(table):
-        return {k: nd.array(v.asnumpy() if hasattr(v, "asnumpy") else v,
-                            ctx=ctx) for k, v in (table or {}).items()}
-    return convert(arg_params), convert(aux_params)
+    cuDNN layout of ``rnn_blob_blocks``, and a row-sparse or CSR array
+    (``mxtpu``'s ``.params`` entries with ``::stype``) its storage type
+    and stored rows."""
+    def convert(v):
+        stype = getattr(v, "stype", "default")
+        if stype == "row_sparse":
+            return nd.sparse.row_sparse_array(
+                (v.data.asnumpy(), v.indices.asnumpy()), shape=v.shape,
+                ctx=ctx)
+        if stype == "csr":
+            return nd.sparse.csr_matrix(
+                (v.data.asnumpy(), v.indices.asnumpy(), v.indptr.asnumpy()),
+                shape=v.shape, ctx=ctx)
+        return nd.array(v.asnumpy() if hasattr(v, "asnumpy") else v,
+                        ctx=ctx)
+    return ({k: convert(v) for k, v in (arg_params or {}).items()},
+            {k: convert(v) for k, v in (aux_params or {}).items()})
 
 
 class FeedForward:

@@ -100,7 +100,8 @@ class BaseModule:
         self.forward(data_batch, is_train=True)
         self.backward()
 
-    def _eval_batches(self, eval_data, num_batch, reset):
+    def _eval_batches(self, eval_data, num_batch, reset,
+                      sparse_row_id_fn=None):
         """Yield (index, batch) after an inference forward of each batch,
         up to ``num_batch`` batches."""
         self._require_bound_params()
@@ -109,7 +110,7 @@ class BaseModule:
         for idx, batch in enumerate(eval_data):
             if idx == num_batch:
                 return
-            self.prepare(batch)
+            self.prepare(batch, sparse_row_id_fn=sparse_row_id_fn)
             self.forward(batch, is_train=False)
             yield idx, batch
 
@@ -121,7 +122,8 @@ class BaseModule:
             eval_metric = metric_mod.create(eval_metric)
         eval_metric.reset()
         seen = 0
-        for idx, batch in self._eval_batches(eval_data, num_batch, reset):
+        for idx, batch in self._eval_batches(eval_data, num_batch, reset,
+                                             sparse_row_id_fn):
             self.update_metric(eval_metric, batch.label)
             _fire(batch_end_callback, epoch=epoch, nbatch=idx,
                   eval_metric=eval_metric, locals=locals())
@@ -133,7 +135,8 @@ class BaseModule:
     def iter_predict(self, eval_data, num_batch=None, reset=True,
                      sparse_row_id_fn=None):
         """Yield (outputs without the padding rows, index, batch)."""
-        for idx, batch in self._eval_batches(eval_data, num_batch, reset):
+        for idx, batch in self._eval_batches(eval_data, num_batch, reset,
+                                             sparse_row_id_fn):
             trimmed = [out[0:out.shape[0] - batch.pad]
                        for out in self.get_outputs()]
             yield (trimmed, idx, batch)
@@ -143,7 +146,8 @@ class BaseModule:
         """The outputs over ``eval_data``, padding rows dropped, merged
         across batches."""
         collected = []
-        for _, batch in self._eval_batches(eval_data, num_batch, reset):
+        for _, batch in self._eval_batches(eval_data, num_batch, reset,
+                                             sparse_row_id_fn):
             collected.append([out[0:out.shape[0] - batch.pad].copy()
                               for out in self.get_outputs()])
         if not (collected and merge_batches):
@@ -200,7 +204,8 @@ class BaseModule:
                 self.update()
                 upcoming = next(feed, None)
                 if upcoming is not None:
-                    self.prepare(upcoming)
+                    self.prepare(upcoming,
+                                 sparse_row_id_fn=sparse_row_id_fn)
                 self.update_metric(eval_metric, batch.label)
                 if monitor is not None:
                     monitor.toc_print()

@@ -22,7 +22,9 @@ import torch
 from .. import ndarray as nd
 from ..context import cpu
 from ..io import DataDesc
+from ..executor import _copy_into
 from ..ndarray import NDArray
+from ..ndarray.sparse import row_sparse_array
 
 __all__ = ["DataParallelExecutorGroup"]
 
@@ -49,10 +51,16 @@ def _rows(arr, islice):
 
 
 def _load_general(data, targets):
-    """Copy each batch array (or its slice) into the executors' arrays."""
+    """Copy each batch array (or its slice) into the executors' arrays; a
+    sparse batch array (a CSR batch of ``LibSVMIter``) hands its slice's
+    compressed tensors to the executor's slot."""
     with torch.no_grad():
         for d_src, d_targets in zip(data, targets):
             for islice, d_dst in d_targets:
+                if d_src.stype != "default" or d_dst.stype != "default":
+                    _copy_into(d_dst, d_src if d_src.shape[0]
+                               == d_dst.shape[0] else d_src[islice])
+                    continue
                 src = d_src.data if d_src.shape[0] == d_dst.shape[0] \
                     else _rows(d_src, islice)
                 d_dst.data.copy_(src, non_blocking=d_dst.data.is_cuda)
@@ -248,24 +256,28 @@ class DataParallelExecutorGroup:
     def _device_mean(block):
         """The mean of a parameter's copies on the devices, on the
         first one's device."""
-        acc = block[0].data
+        acc = block[0]._data
         if len(block) > 1:
-            acc = sum(b.data.to(acc.device) for b in block) / len(block)
+            acc = sum(b._data.to(acc.device) for b in block) / len(block)
         return acc
 
     def get_params(self, arg_params, aux_params):
         """Put host copies of the devices' parameters (their mean over
-        devices) into the dicts, as new arrays of the entries' dtypes."""
+        devices) into the dicts, as new arrays of the entries' dtypes; a
+        row-sparse parameter's copy is row-sparse (its nonzero rows
+        stored), as ``mxtpu``'s is."""
         for table, names, blocks in ((arg_params, self.param_names,
                                       self.param_arrays),
                                      (aux_params, self.aux_names,
                                       self.aux_arrays)):
             for name, block in zip(names, blocks):
                 value = self._device_mean(block).detach()
-                dtype = table[name].data.dtype if name in table \
+                dtype = table[name]._data.dtype if name in table \
                     else value.dtype
-                table[name] = NDArray(value.to("cpu", dtype, copy=True),
-                                      cpu())
+                host = NDArray(value.to("cpu", dtype, copy=True), cpu())
+                if block[0].stype == "row_sparse":
+                    host = row_sparse_array(host, ctx=cpu())
+                table[name] = host
 
     # -- execution ---------------------------------------------------------
     def load_batch(self, data_batch):

@@ -628,12 +628,22 @@ def _leaves(state):
     return [state.data]
 
 
+def _sparse_param_names(exec_):
+    """Names bound with sparse storage (the argument or its gradient):
+    a CSR input, a row-sparse weight or gradient."""
+    return [name for name, arr in exec_.arg_dict.items()
+            if arr.stype != "default" or
+            getattr(exec_.grad_dict.get(name), "stype", "default")
+            != "default"]
+
+
 def _fused_eligible(module):
     """``mxtpu``'s eligibility predicate, case for case, for the modes
     the port has: returns ``('local', None)``, or ``(None, reason)``
     with ``mxtpu``'s words for the reason. Any kvstore object keeps the
     eager path: the port's stores, like ``mxtpu``'s, have no async push
-    path."""
+    path. Sparse storage keeps it too: its lazy updates gather and
+    scatter a batch's rows, which a captured step cannot follow."""
     if not _module_fused_enabled():
         return None, "MXTPU_MODULE_FUSED=0"
     if len(module._context) != 1 or len(module._exec_group.execs) != 1:
@@ -651,6 +661,8 @@ def _fused_eligible(module):
         return None, "kvstore %r has no async push path" \
             % (getattr(module._kvstore, "type",
                        type(module._kvstore).__name__),)
+    if _sparse_param_names(module._exec_group.execs[0]):
+        return None, "sparse parameters (lazy-update path)"
     if not isinstance(module._updater, opt_mod.Updater):
         return None, "custom updater"
     return "local", None

@@ -50,15 +50,18 @@ _ALREADY_INIT = ("%s already initialized and force_init=False. "
 
 
 def _fill_from(dst, src):
-    """Copy a given parameter (an NDArray of either package, or an array)
-    into host array ``dst``."""
+    """Copy a given parameter (an NDArray of either package, dense or
+    sparse, or an array) into host array ``dst``."""
     if isinstance(src, NDArray):
-        value = src.data
+        value = src.todense()._data if src.stype != "default" \
+            else src._data
     else:
         value = torch.as_tensor(_np.asarray(
             src.asnumpy() if hasattr(src, "asnumpy") else src))
     with torch.no_grad():
-        dst.data.copy_(value)
+        dst._data.copy_(value)
+    if dst.stype == "row_sparse":
+        dst._aux = None
 
 
 class Module(BaseModule):
@@ -503,7 +506,23 @@ class Module(BaseModule):
         self._exec_group.install_monitor(mon)
 
     def prepare(self, data_batch, sparse_row_id_fn=None):
-        """Queue the batch's copy to the (one) context ahead of its step."""
+        """Queue the batch's copy to the (one) context ahead of its step.
+        With ``sparse_row_id_fn`` (``{parameter name: row ids}`` of a
+        batch), pull those rows of each named parameter from the kvstore
+        that updates them (``row_sparse_pull``), as ``mxtpu`` does; with
+        no such store that is a warning and nothing else."""
         self._require()
         if len(self._context) == 1:
             stage_batch(data_batch, self._context[0])
+        if sparse_row_id_fn is None:
+            return
+        if not (self._kvstore and self._update_on_kvstore):
+            warnings.warn(UserWarning(
+                "Parameters are not updated in the KVStore. No need to "
+                "call sparse_row_id_fn."))
+            return
+        for param_name, row_id in sparse_row_id_fn(data_batch).items():
+            param_idx = self._exec_group.param_names.index(param_name)
+            self._kvstore.row_sparse_pull(
+                param_name, self._exec_group.param_arrays[param_idx],
+                row_ids=row_id, priority=-param_idx)

@@ -10,8 +10,11 @@ functions (:func:`array`, :func:`zeros`, :func:`ones`, :func:`full`,
 :func:`waitall`; every registered op as ``nd.<OpName>`` (and
 :func:`invoke`, :func:`list_ops`), each taking ``out=`` as MXNet's do;
 and the ``.npz`` container of ``.params`` files (:func:`save` /
-:func:`load`, :func:`load_from_bytes`), dense entries only, which
-``mxtpu.ndarray.load`` reads and writes too.
+:func:`load`, :func:`load_from_bytes`), sparse entries under their
+``::stype`` / ``::data`` / ``::indices`` / ``::indptr`` / ``::shape``
+keys, which ``mxtpu.ndarray.load`` reads and writes too. The sparse
+arrays are in :mod:`.sparse` (``nd.sparse``): an array's ``stype``
+names its storage and ``tostype`` converts it.
 
 The dtype rules are ``mxtpu``'s: float32 by default, lists as float32,
 numpy float64/int64 narrowed to float32/int32 by :func:`array`, a Python
@@ -30,7 +33,8 @@ from .. import autograd as _ag
 from .. import engine as _engine
 from ..base import canonical_dtype, numpy_dtype, numpy_type
 from ..context import Context, cpu, current_context
-from ..ops.registry import ContribNamespace, get_op, list_ops
+from ..ops.registry import (ContribNamespace, get_op, list_ops,
+                            storage_fallback)
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "eye",
            "arange", "concatenate", "waitall", "save", "load",
@@ -84,6 +88,19 @@ class NDArray:
     @property
     def context(self):
         return self._ctx
+
+    @property
+    def stype(self):
+        """The storage type: ``default`` (``csr`` and ``row_sparse`` for
+        the arrays of :mod:`.sparse`)."""
+        return "default"
+
+    def tostype(self, stype):
+        """This array in storage ``stype`` (itself for ``default``)."""
+        if stype == "default":
+            return self
+        from . import sparse as _sp
+        return _sp.cast_storage(self, stype)
 
     @property
     def T(self):
@@ -178,7 +195,8 @@ class NDArray:
 
     # -- autograd ----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        """Make this array a variable with a zero gradient array."""
+        """Make this array a variable with a zero gradient array (dense
+        whatever ``stype`` says, as in ``mxtpu``)."""
         g = NDArray(torch.zeros_like(self._data.detach()), self._ctx)
         _ag.mark_variables([self], [g], grad_req)
 
@@ -316,6 +334,11 @@ def _invoke(op, args, kwargs):
     def tensor(pos, v):
         if not isinstance(v, NDArray):
             return v
+        if v.stype != "default":
+            # a CSR tensor where the op takes one, else the dense value
+            # (a compact row-sparse array refuses to make one)
+            return storage_fallback(op, v._data) \
+                if v.stype == "csr" else v.todense()._data
         if recording and op.differentiable and pos not in op.aux_update \
                 and not v._data.requires_grad:
             v._data = _ag._leaf(v._data)
@@ -461,9 +484,30 @@ def waitall():
     _engine.waitall()
 
 
+def _save_entry(payload, k, v):
+    """Entry ``k``: a dense array's values, or a sparse array's
+    compressed arrays and shape under ``k::<name>`` (``mxtpu``'s keys,
+    after the stype-tagged chunks of MXNet's ``ndarray.cc``)."""
+    if not isinstance(v, NDArray):
+        payload[k] = _np.asarray(v)
+        return
+    stype = v.stype
+    if stype == "default":
+        payload[k] = v.asnumpy()
+        return
+    payload[k + "::stype"] = _np.asarray(stype)
+    names = ("data", "indices", "indptr") if stype == "csr" \
+        else ("indices", "data")
+    for name in names:
+        aux = getattr(v, name).asnumpy()
+        payload[k + "::" + name] = aux.astype(_np.int64) \
+            if name != "data" else aux
+    payload[k + "::shape"] = _np.asarray(v.shape, _np.int64)
+
+
 def save(fname, data):
-    """Save NDArrays (dict, list or one) to the ``.npz`` container that
-    ``mxtpu.ndarray.save`` writes, at exactly ``fname``."""
+    """Save NDArrays (dict, list or one; dense or sparse) to the ``.npz``
+    container that ``mxtpu.ndarray.save`` writes, at exactly ``fname``."""
     if isinstance(data, NDArray):
         data = {"__arr_0": data}
     elif isinstance(data, (list, tuple)):
@@ -474,27 +518,38 @@ def save(fname, data):
     for k, v in data.items():
         if "::" in k:
             raise ValueError("'::' is reserved in save keys: %r" % (k,))
-        payload[k] = v.asnumpy() if isinstance(v, NDArray) \
-            else _np.asarray(v)
+        _save_entry(payload, k, v)
     with open(fname, "wb") as f:
         _np.savez(f, **payload)
 
 
-def _unpack(source, what, ctx):
+def _unpack(source, ctx):
+    from . import sparse as _sp
     with _np.load(source, allow_pickle=False) as z:
-        if any("::" in k for k in z.files):
-            raise ValueError("%s holds sparse entries, which the port does "
-                             "not load yet" % what)
-        out = {k: array(z[k], ctx=ctx) for k in z.files}
+        out = {k: array(z[k], ctx=ctx) for k in z.files if "::" not in k}
+        for key in z.files:
+            if not key.endswith("::stype"):
+                continue
+            k = key[:-len("::stype")]
+            shape = tuple(z[k + "::shape"].tolist())
+            if str(z[key][()]) == "csr":
+                out[k] = _sp.csr_matrix(
+                    (z[k + "::data"], z[k + "::indices"], z[k + "::indptr"]),
+                    shape=shape, ctx=ctx)
+            else:
+                out[k] = _sp.row_sparse_array(
+                    (z[k + "::data"], z[k + "::indices"]), shape=shape,
+                    ctx=ctx)
     if out and all(k.startswith("__arr_") for k in out):
         return [out[k] for k in sorted(out, key=lambda k: int(k[6:]))]
     return out
 
 
 def load(fname, ctx=None):
-    """Load a ``.params``/``.npz`` file written by either package; dense
-    entries only. Arrays go to ``ctx`` (default: the current context)."""
-    return _unpack(fname, fname, ctx)
+    """Load a ``.params``/``.npz`` file written by either package, dense
+    and sparse entries. Arrays go to ``ctx`` (default: the current
+    context)."""
+    return _unpack(fname, ctx)
 
 
 def load_from_bytes(buf, ctx=None):
@@ -502,7 +557,7 @@ def load_from_bytes(buf, ctx=None):
     ``MXNDArrayLoadFromBuffer``); the reference's legacy binary format is
     not read here."""
     import io
-    return _unpack(io.BytesIO(bytes(buf)), "the buffer", ctx)
+    return _unpack(io.BytesIO(bytes(buf)), ctx)
 
 
 def _op_function(op, name):
@@ -515,6 +570,14 @@ def _op_function(op, name):
 
 
 contrib = ContribNamespace(_op_function)
+
+# the sparse arrays subclass NDArray: imported last (MXNet's layout,
+# python/mxnet/ndarray/sparse.py)
+from . import sparse  # noqa: E402
+from .sparse import (CSRNDArray, RowSparseNDArray,  # noqa: E402,F401
+                     csr_matrix, row_sparse_array)
+__all__ += ["sparse", "CSRNDArray", "RowSparseNDArray", "csr_matrix",
+            "row_sparse_array"]
 
 
 def __getattr__(name):

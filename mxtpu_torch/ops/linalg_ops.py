@@ -13,6 +13,13 @@ same signs), and ``syevd`` gives the eigenvectors as rows, eigenvalues
 ascending, each row turned so that its largest entry is positive (so the
 card and the CPU agree; ``jnp.linalg.eigh``'s sign is the solver's, so a
 row of ``mxtpu``'s may be the port's negated).
+
+``dot`` with a CSR left operand (a ``torch.sparse_csr`` tensor, what a
+CSR array feeds a graph) computes from the compressed tensors under
+:class:`CsrDot`: a gather of the right operand's rows by the stored
+columns and an ``index_add_`` by row, forward and backward, so no dense
+(rows, columns) operand is made. ``mxtpu`` computes the same product as
+one dense ``jnp.matmul`` (its CSR arrays are dense-backed).
 """
 from __future__ import annotations
 
@@ -26,11 +33,64 @@ def _t(x):
     return x.transpose(-1, -2) if x.dim() >= 2 else x
 
 
+def csr_row_ids(crow, nnz):
+    """The row of each stored entry of a CSR matrix with row pointers
+    ``crow`` and ``nnz`` entries (the output size given, so no host
+    read)."""
+    counts = crow[1:] - crow[:-1]
+    return torch.repeat_interleave(
+        torch.arange(counts.numel(), device=crow.device), counts,
+        output_size=nnz)
+
+
+class CsrDot(torch.autograd.Function):
+    """``csr @ rhs`` (or ``csr.T @ rhs`` with ``transpose_a``) from the
+    CSR matrix's ``values``, ``rows`` (each entry's row, from
+    :func:`csr_row_ids`) and ``cols``: each stored entry scales the
+    ``rhs`` row it names, and the products are summed into their output
+    rows by ``index_add_``. The backward for ``rhs`` is the same sum the
+    other way round; the CSR values take no gradient, as in MXNet."""
+
+    @staticmethod
+    def forward(ctx, values, rows, cols, rhs, out_rows, transpose_a):
+        src, dst = (rows, cols) if transpose_a else (cols, rows)
+        flat = rhs.reshape(rhs.shape[0], -1)
+        scale = values.to(flat.dtype).unsqueeze(1)
+        out = flat.new_zeros((out_rows, flat.shape[1]))
+        out.index_add_(0, dst, flat.index_select(0, src) * scale)
+        ctx.save_for_backward(scale, src, dst)
+        ctx.rhs_shape = rhs.shape
+        return out.reshape((out_rows,) + tuple(rhs.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        scale, src, dst = ctx.saved_tensors
+        if not ctx.needs_input_grad[3]:
+            return None, None, None, None, None, None
+        g = grad.reshape(grad.shape[0], -1)
+        d_rhs = g.new_zeros((ctx.rhs_shape[0], g.shape[1]))
+        d_rhs.index_add_(0, src, g.index_select(0, dst) * scale)
+        return None, None, None, d_rhs.reshape(ctx.rhs_shape), None, None
+
+
+def csr_dot(csr, rhs, transpose_a=False):
+    """``csr @ rhs`` (``csr.T @ rhs`` with ``transpose_a``) for a
+    ``torch.sparse_csr`` matrix ``csr`` and a dense ``rhs`` whose first
+    axis the product contracts, through :class:`CsrDot`."""
+    values, cols = csr.values(), csr.col_indices()
+    rows = csr_row_ids(csr.crow_indices(), cols.numel())
+    out_rows = csr.shape[1] if transpose_a else csr.shape[0]
+    return CsrDot.apply(values, rows, cols, rhs, out_rows, transpose_a)
+
+
 @register("dot")
 def dot(lhs, rhs, transpose_a=False, transpose_b=False):
     """MXNet's dot: the last axis of ``lhs`` contracted with the first of
     ``rhs`` (``tensordot``), after swapping each one's last two axes
-    where asked; two vectors give their inner product."""
+    where asked; two vectors give their inner product. A CSR ``lhs``
+    (``torch.sparse_csr``) goes through :func:`csr_dot`."""
+    if lhs.layout == torch.sparse_csr:
+        return csr_dot(lhs, _t(rhs) if transpose_b else rhs, transpose_a)
     a = _t(lhs) if transpose_a else lhs
     b = _t(rhs) if transpose_b else rhs
     if a.dim() == 1 and b.dim() == 1:

@@ -19,7 +19,7 @@ import threading
 import torch
 
 __all__ = ["OpDef", "register", "alias", "get_op", "list_ops",
-           "ContribNamespace",
+           "ContribNamespace", "storage_fallback",
            "next_generator", "rng_scope", "set_global_seed", "draw",
            "draw_tape"]
 
@@ -88,6 +88,21 @@ def get_op(name):
 def list_ops():
     """Every registered name, aliases included, sorted."""
     return sorted(_REGISTRY)
+
+
+# ops that take a CSR operand (a ``torch.sparse_csr`` tensor) as it is
+_CSR_OPS = frozenset(["dot"])
+
+
+def storage_fallback(op, value):
+    """``value`` as op ``op`` takes it: a CSR tensor reaching an op
+    without a CSR path becomes its dense value (MXNet's storage
+    fallback; ``mxtpu``'s CSR arrays are dense-backed, so its ops always
+    see that value)."""
+    if isinstance(value, torch.Tensor) and \
+            value.layout == torch.sparse_csr and op.name not in _CSR_OPS:
+        return value.to_dense()
+    return value
 
 
 class ContribNamespace:

@@ -5,12 +5,15 @@ Counterpart of ``mxtpu/optimizer.py``'s ``Optimizer`` (registry and
 ``set_wd_mult``, the symbol's ``__lr_mult__`` / ``__wd_mult__`` and
 ``param_dict``, ``rescale_grad``, ``clip_gradient``, ``lr_scheduler``,
 ``multi_precision``'s float32 master weights for float16 ones, update
-counts), its 16 registered optimizers (``SGD`` on the dense path,
+counts), its 16 registered optimizers (``SGD``,
 ``Signum``, ``FTML``, ``LBSGD``, ``DCASGD``, ``NAG``, ``SGLD``, ``ccSGD``,
 ``Adam``, ``AdaGrad``, ``RMSProp``, ``AdaDelta``, ``Ftrl``, ``Adamax``,
 ``Nadam``, ``Test``), and the ``Updater`` with ``get_states`` /
 ``set_states``.
 
+A row-sparse gradient takes the lazy update in SGD and Adam (unless
+``lazy_update=False``), AdaGrad and Ftrl, as in ``mxtpu``
+(:func:`_lazy_rsp_update`: the stored rows only); the others densify it.
 An update runs in place on the weight's and the state's tensors under
 ``torch.no_grad()``, in ``mxtpu``'s order of operations (rescale, clip,
 add ``wd * weight``, then the rule), so the tensors bound to an executor
@@ -140,7 +143,7 @@ class Optimizer:
         master, inner = state
         self.update(index, master, grad.astype(_np.float32), inner)
         with torch.no_grad():
-            weight.data.copy_(master.data)
+            weight._data.copy_(master._data)
 
     @property
     def learning_rate(self):
@@ -263,6 +266,73 @@ def _pow(base, exponent):
     return base ** exponent
 
 
+def _is_rsp(x):
+    return getattr(x, "stype", "default") == "row_sparse"
+
+
+def _state_leaves(s):
+    if s is None:
+        return []
+    if isinstance(s, (tuple, list)):
+        return [x for e in s for x in _state_leaves(e)]
+    return [s]
+
+
+def _lazy_rsp_update(opt, index, weight, grad, state):
+    """The lazy update of a row-sparse gradient (``mxtpu``'s, MXNet's
+    ``sgd_update`` FComputeEx on row_sparse): the optimizer's dense rule
+    on the gradient's STORED rows only, which are gathered from the
+    weight and the state, updated by ``opt.update`` as dense arrays and
+    written back in place; every other row keeps its weight and its
+    (stale) state. A compact weight takes the rows at the slots of their
+    ids, which must be resident (``row_sparse_pull`` them first), and
+    refuses a stateful optimizer: its state would follow the slots, not
+    the rows."""
+    from .ndarray.sparse import CompactRowSparseNDArray
+    rows = grad.indices._data.to(weight._data.device)
+    if rows.numel() == 0:
+        opt._update_count(index)
+        return
+    g_rows = NDArray(grad.data._data.to(weight._data.device),
+                     weight.context)
+    if isinstance(weight, CompactRowSparseNDArray):
+        if _state_leaves(state):
+            raise NotImplementedError(
+                "stateful optimizers on compact row_sparse weights are "
+                "not supported on the worker side: keep the optimizer "
+                "where the full table lives (kv.set_optimizer on a "
+                "dense-backed store) or use sgd with momentum=0")
+        held = weight._idx[:weight._nnz].to(torch.int64)
+        slots = torch.searchsorted(held, rows).clamp_(
+            max=max(held.numel() - 1, 0))
+        found = held[slots] == rows if held.numel() \
+            else torch.zeros_like(rows, dtype=torch.bool)
+        if not bool(found.all()):
+            missing = sorted(set(rows[~found].tolist()))[:5]
+            raise KeyError(
+                "gradient rows %s... not resident in compact weight "
+                "(row_sparse_pull them first)" % missing)
+        rows = slots
+
+    def take(s):
+        if s is None:
+            return None
+        if isinstance(s, (tuple, list)):
+            return tuple(take(x) for x in s)
+        return NDArray(s._data.index_select(0, rows), s.context)
+
+    w_rows = NDArray(weight._data.detach().index_select(0, rows),
+                     weight.context)
+    s_rows = take(state)
+    opt.update(index, w_rows, g_rows, s_rows)
+    with torch.no_grad():
+        weight._data.index_copy_(0, rows, w_rows._data)
+        for s, sr in zip(_state_leaves(state), _state_leaves(s_rows)):
+            s._data.index_copy_(0, rows, sr._data)
+    if _is_rsp(weight) and not isinstance(weight, CompactRowSparseNDArray):
+        weight._aux = None      # an assignment: stored rows found anew
+
+
 def _zeros_like(weight, dtype=None):
     return nd.zeros(weight.shape, ctx=weight.context,
                     dtype=weight.dtype if dtype is None else dtype)
@@ -273,9 +343,9 @@ class SGD(Optimizer):
     """SGD, with momentum when ``momentum`` > 0:
     mom = momentum * mom - lr * g; weight += mom."""
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
-        self.momentum = momentum
+        self.momentum, self.lazy_update = momentum, lazy_update
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -283,15 +353,17 @@ class SGD(Optimizer):
         return nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
 
     def update(self, index, weight, grad, state):
+        if _is_rsp(grad) and self.lazy_update:
+            return _lazy_rsp_update(self, index, weight, grad, state)
         lr, wd = self._begin_update(index)
         self._sgd_step(weight, grad, state, lr, wd)
 
     def _sgd_step(self, weight, grad, state, lr, wd):
         with torch.no_grad():
-            w = weight.data
-            g = self._rescale_clip(grad.data, w, wd)
+            w = weight._data
+            g = self._rescale_clip(grad._data, w, wd)
             if state is not None:
-                mom = state.data
+                mom = state._data
                 mom.mul_(self.momentum).sub_(lr * g)
                 w.add_(mom)
             else:
@@ -303,15 +375,18 @@ class Adam(Optimizer):
     """Adam with ``mxtpu``'s bias correction folded into the rate."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
         return (nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
                 nd.zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
 
     def update(self, index, weight, grad, state):
+        if _is_rsp(grad) and self.lazy_update:
+            return _lazy_rsp_update(self, index, weight, grad, state)
         lr, wd = self._begin_update(index)
         t = self._step_count(index)
         if isinstance(t, torch.Tensor):
@@ -327,9 +402,9 @@ class Adam(Optimizer):
             f32 = _np.float32
             lr = float(f32(f32(lr) * _np.sqrt(f32(coef2))) / f32(coef1))
         with torch.no_grad():
-            w = weight.data
-            mean, var = state[0].data, state[1].data
-            g = self._rescale_clip(grad.data, w, wd)
+            w = weight._data
+            mean, var = state[0]._data, state[1]._data
+            g = self._rescale_clip(grad._data, w, wd)
             mean.mul_(self.beta1).add_((1.0 - self.beta1) * g)
             var.mul_(self.beta2).add_((1.0 - self.beta2) * g.square())
             w.sub_(lr * mean / (var.sqrt() + self.epsilon))
@@ -353,12 +428,12 @@ class Signum(Optimizer):
         lr, wd = self._begin_update(index)
         clip = self.clip_gradient
         with torch.no_grad():
-            w = weight.data
-            g = grad.data * self.rescale_grad
+            w = weight._data
+            g = grad._data * self.rescale_grad
             if clip is not None and clip >= 0:
                 g.clamp_(-clip, clip)
             if state is not None:
-                mom = state.data
+                mom = state._data
                 mom.mul_(self.momentum).sub_((1 - self.momentum)
                                              * (g + wd * w))
                 w.copy_((1 - lr * self.wd_lh) * w + lr * torch.sign(mom))
@@ -384,9 +459,9 @@ class FTML(Optimizer):
         t = _float_count(self._step_count(index))
         clip = self.clip_gradient
         with torch.no_grad():
-            w = weight.data
-            d, v, z = (s.data for s in state)
-            g = grad.data * self.rescale_grad
+            w = weight._data
+            d, v, z = (s._data for s in state)
+            g = grad._data * self.rescale_grad
             if clip is not None and clip >= 0:
                 g.clamp_(-clip, clip)
             v.mul_(self.beta2).add_((1 - self.beta2) * g.square())
@@ -463,7 +538,7 @@ class LBSGD(Optimizer):
         lr, wd = self._begin_update(index)
         if self.warmup_strategy == "lars":
             with torch.no_grad():
-                lbmult = self._get_lars(weight.data, grad.data, wd)
+                lbmult = self._get_lars(weight._data, grad._data, wd)
         else:
             t = self._step_count(index)
             nup = _float_count(t) + self.init_updates \
@@ -491,14 +566,14 @@ class DCASGD(Optimizer):
     def update(self, index, weight, grad, state):
         lr, wd = self._begin_update(index)
         with torch.no_grad():
-            w = weight.data
+            w = weight._data
             mom, previous = state
-            prev = previous.data
-            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            prev = previous._data
+            g = _clip(grad._data * self.rescale_grad, self.clip_gradient)
             comp = g + wd * w + self.lamda * g * g * (w - prev)
             if mom is not None:
-                mom.data.mul_(self.momentum).sub_(lr * comp)
-                delta = mom.data
+                mom._data.mul_(self.momentum).sub_(lr * comp)
+                delta = mom._data
             else:
                 delta = -lr * comp
             prev.copy_(w)
@@ -520,11 +595,11 @@ class NAG(Optimizer):
     def update(self, index, weight, grad, state):
         lr, wd = self._begin_update(index)
         with torch.no_grad():
-            w = weight.data
-            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            w = weight._data
+            g = _clip(grad._data * self.rescale_grad, self.clip_gradient)
             g = g + wd * w
             if state is not None:
-                mom = state.data
+                mom = state._data
                 mom.mul_(self.momentum).add_(g)
                 g = self.momentum * mom + g
             w.sub_(lr * g)
@@ -539,8 +614,8 @@ class SGLD(Optimizer):
     def update(self, index, weight, grad, state):
         lr, wd = self._begin_update(index)
         with torch.no_grad():
-            w = weight.data
-            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            w = weight._data
+            g = _clip(grad._data * self.rescale_grad, self.clip_gradient)
             gen = next_generator()
             noise = torch.randn(w.shape, generator=gen, device=gen.device,
                                 dtype=w.dtype).to(w.device)
@@ -567,11 +642,13 @@ class AdaGrad(Optimizer):
         return _zeros_like(weight)
 
     def update(self, index, weight, grad, state):
+        if _is_rsp(grad):
+            return _lazy_rsp_update(self, index, weight, grad, state)
         lr, wd = self._begin_update(index)
         with torch.no_grad():
-            w = weight.data
-            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
-            history = state.data
+            w = weight._data
+            g = _clip(grad._data * self.rescale_grad, self.clip_gradient)
+            history = state._data
             history.add_(g * g)
             w.sub_(lr * (g / torch.sqrt(history + self.float_stable_eps)
                          + wd * w))
@@ -598,14 +675,14 @@ class RMSProp(Optimizer):
         lr, wd = self._begin_update(index)
         cw = self.clip_weights
         with torch.no_grad():
-            w = weight.data
-            g = self._rescale_clip(grad.data, w, wd)
-            n = state[0].data
+            w = weight._data
+            g = self._rescale_clip(grad._data, w, wd)
+            n = state[0]._data
             n.mul_(self.gamma1).add_((1 - self.gamma1) * g.square())
             if not self.centered:
                 w.sub_(lr * g / torch.sqrt(n + self.epsilon))
             else:
-                g_avg, delta = state[1].data, state[2].data
+                g_avg, delta = state[1]._data, state[2]._data
                 g_avg.mul_(self.gamma1).add_((1 - self.gamma1) * g)
                 delta.mul_(self.gamma2).sub_(
                     lr * g / torch.sqrt(n - g_avg.square() + self.epsilon))
@@ -632,9 +709,9 @@ class AdaDelta(Optimizer):
             self._update_count(index)
         wd = self._get_wd(index)
         with torch.no_grad():
-            w = weight.data
-            acc_g, acc_delta = (s.data for s in state)
-            g = _clip(grad.data * self.rescale_grad, self.clip_gradient)
+            w = weight._data
+            acc_g, acc_delta = (s._data for s in state)
+            g = _clip(grad._data * self.rescale_grad, self.clip_gradient)
             acc_g.mul_(self.rho).add_((1.0 - self.rho) * g * g)
             current = torch.sqrt(acc_delta + self.epsilon) \
                 / torch.sqrt(acc_g + self.epsilon) * g
@@ -656,12 +733,14 @@ class Ftrl(Optimizer):
         return (_zeros_like(weight), _zeros_like(weight))
 
     def update(self, index, weight, grad, state):
+        if _is_rsp(grad):
+            return _lazy_rsp_update(self, index, weight, grad, state)
         lr, wd = self._begin_update(index)
         clip = self.clip_gradient
         with torch.no_grad():
-            w = weight.data
-            z, n = (s.data for s in state)
-            g = grad.data * self.rescale_grad
+            w = weight._data
+            z, n = (s._data for s in state)
+            g = grad._data * self.rescale_grad
             if clip is not None and clip >= 0:
                 g.clamp_(-clip, clip)
             sqrt_n = n.sqrt()
@@ -693,9 +772,9 @@ class Adamax(Optimizer):
         t = _float_count(self._step_count(index))
         lr = lr / (1.0 - _pow(self.beta1, t))
         with torch.no_grad():
-            w = weight.data
-            m_t, u_t = (s.data for s in state)
-            g = _clip(grad.data * self.rescale_grad + wd * w,
+            w = weight._data
+            m_t, u_t = (s._data for s in state)
+            g = _clip(grad._data * self.rescale_grad + wd * w,
                       self.clip_gradient)
             m_t.mul_(self.beta1).add_((1.0 - self.beta1) * g)
             torch.maximum(self.beta2 * u_t, g.abs(), out=u_t)
@@ -741,9 +820,9 @@ class Nadam(Optimizer):
         with torch.no_grad():
             m_schedule = self._advance_schedule(momentum_t, t)
             m_schedule_next = m_schedule * momentum_t_1
-            w = weight.data
-            m_t, v_t = (s.data for s in state)
-            g = _clip(grad.data * self.rescale_grad + wd * w,
+            w = weight._data
+            m_t, v_t = (s._data for s in state)
+            g = _clip(grad._data * self.rescale_grad + wd * w,
                       self.clip_gradient)
             m_t.mul_(self.beta1).add_((1.0 - self.beta1) * g)
             v_t.mul_(self.beta2).add_((1.0 - self.beta2) * g * g)
@@ -765,8 +844,8 @@ class Test(Optimizer):
 
     def update(self, index, weight, grad, state):
         with torch.no_grad():
-            weight.data.add_(grad.data * self.rescale_grad)
-            state.data.copy_(weight.data)
+            weight._data.add_(grad._data * self.rescale_grad)
+            state._data.copy_(weight._data)
 
 
 def state_to_tree(state):
@@ -774,7 +853,7 @@ def state_to_tree(state):
     if state is None:
         return None
     if isinstance(state, NDArray):
-        return state.data
+        return state._data
     if isinstance(state, (tuple, list)):
         return tuple(state_to_tree(s) for s in state)
     return state

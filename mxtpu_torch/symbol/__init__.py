@@ -18,7 +18,7 @@ import torch
 
 from ..attribute import current as _attr_scope_current
 from ..base import canonical_dtype, dtype_name
-from ..ops.registry import ContribNamespace, get_op
+from ..ops.registry import ContribNamespace, get_op, storage_fallback
 from .. import name as _name_mgr
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json",
@@ -252,18 +252,36 @@ class Symbol:
         return (arg_types, [default] * len(self._outputs),
                 [default] * len(self.list_auxiliary_states()))
 
+    def infer_storage_type(self, *args, **kwargs):
+        """``(arg_stypes, out_stypes, aux_stypes)``: "default", "csr" or
+        "row_sparse" for every argument, output and aux state, from the
+        variables' ``stype`` declarations overridden by the storage types
+        given here (positional in ``list_arguments()`` order, or by name),
+        through the rules of :mod:`.storage_type`; an op without a rule
+        gives "default" (MXNet's InferStorageType pass)."""
+        from .storage_type import infer_graph_storage_types
+        arg_names = self.list_arguments()
+        known = {n: st for n, st in zip(arg_names, args) if st is not None}
+        known.update({k: v for k, v in kwargs.items() if v is not None})
+        var_stypes, out_stypes = infer_graph_storage_types(self, known)
+        return ([var_stypes.get(n, "default") for n in arg_names],
+                out_stypes,
+                [var_stypes.get(n, "default")
+                 for n in self.list_auxiliary_states()])
+
     # -- binding -----------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     stype_dict=None, **kwargs):
         """An :class:`~mxtpu_torch.executor.Executor` with zeroed argument,
         gradient and aux arrays of the shapes inferred from ``kwargs``,
-        on ``ctx`` (default: the current context)."""
+        on ``ctx`` (default: the current context); the arguments of a
+        sparse storage type (declared, or given in ``stype_dict``) are
+        sparse arrays, and so are a row-sparse argument's gradients."""
         from ..context import current_context
         from ..executor import Executor
-        if stype_dict and any(v != "default" for v in stype_dict.values()):
-            raise NotImplementedError("the port binds dense arrays only")
         return Executor._simple_bind(self, ctx or current_context(),
-                                     grad_req, type_dict, kwargs)
+                                     grad_req, type_dict, kwargs,
+                                     stype_dict=stype_dict)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
@@ -451,10 +469,11 @@ def _node_num_outputs(op, params):
 
 
 def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
-        dtype=None, init=None, **kwargs):
+        dtype=None, init=None, stype=None, **kwargs):
     """Create a free variable (``sym.var``); ``lr_mult`` / ``wd_mult``
     scale the optimizer's rates for it, ``init`` (an Initializer or its
-    ``dumps()``) overrides the module's initializer."""
+    ``dumps()``) overrides the module's initializer, ``stype`` declares
+    its storage type (``__stype__``, kept through JSON)."""
     node = _Node(None, name)
     attr = _attr_scope_current().get(attr)
     if attr:
@@ -470,6 +489,8 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
     if init is not None:
         node.attrs["__init__"] = init if isinstance(init, str) \
             else init.dumps()
+    if stype is not None:
+        node.attrs["__stype__"] = stype
     node.attrs.update(kwargs)
     return Symbol([(node, 0)])
 
@@ -592,7 +613,8 @@ class _GraphEval:
                 raise KeyError("no value bound for variable %r" % node.name)
             vals = (self.feed[node.name],)
         else:
-            in_vals = [self.node(inp)[oi] for (inp, oi) in node.inputs]
+            in_vals = [storage_fallback(node.op, self.node(inp)[oi])
+                       for (inp, oi) in node.inputs]
             params = dict(node.params)
             if node.op.needs_train_flag:
                 params["_training"] = self.training

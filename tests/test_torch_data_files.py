@@ -1,7 +1,7 @@
 """The data files on the CPU, the port against mxtpu: the CSV, MNIST and
-LibSVM cases of tests/test_io.py run in both packages (LibSVM's dense
-values against mxtpu's CSR batches; their CSR type waits for sparse
-arrays), MNISTIter's label name, ``DataDesc.get_list`` and
+LibSVM cases of tests/test_io.py run in both packages (LibSVM's batches
+CSR in both for 1-d rows, their stored columns equal), MNISTIter's label
+name, ``DataDesc.get_list`` and
 ``hard_reset``; ``gluon.data.RecordFileDataset``; the five
 ``gluon.data.vision`` datasets over files written here; the nine
 transforms with numpy's and Python's generators seeded alike; and a
@@ -196,15 +196,18 @@ LIBSVM_CASES = {
                     dict(data_shape=(2,), batch_size=1, label_shape=(4,))),
     "2-d rows": ("1 0:1.5 3:2.0\n0 1:0.5\n", None,
                  dict(data_shape=(2, 2), batch_size=2)),
+    "unsorted, repeated, zero": ("1 3:2.0 0:1.5 3:4.0\n0 1:0.0 2:0.5\n",
+                                 None, dict(data_shape=(4,), batch_size=2)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(LIBSVM_CASES))
 def test_libsvm_iter_matches_mxtpu(tmp_path, case):
     """tests/test_io.py's LibSVM cases (the label file, the round-batch
-    wrap with its pad) and the 2-d rows, in both packages: the port's
-    dense batches hold the values of mxtpu's (CSR for 1-d rows), the
-    labels and pads equal, and the epoch ends where mxtpu's does."""
+    wrap with its pad) and the 2-d rows, in both packages: the batches'
+    values, storage types (CSR for 1-d rows, dense for 2-d) and stored
+    columns, the labels and pads equal, and the epoch ends where mxtpu's
+    does."""
     data, label, kw = LIBSVM_CASES[case]
     (tmp_path / "d.libsvm").write_text(data)
     if label is not None:
@@ -220,6 +223,16 @@ def test_libsvm_iter_matches_mxtpu(tmp_path, case):
         _same_batches(_batches(its[mt]), _batches(its[mx]))
         for it in its.values():
             it.reset()
+    for b_mt, b_mx in zip(its[mt], its[mx]):
+        d_mt, d_mx = b_mt.data[0], b_mx.data[0]
+        assert d_mt.stype == d_mx.stype
+        if d_mx.stype == "csr":
+            for name in ("indices", "indptr"):
+                np.testing.assert_array_equal(
+                    getattr(d_mt, name).asnumpy(),
+                    getattr(d_mx, name).asnumpy())
+    for it in its.values():
+        it.reset()
     if case == "wrap":
         b = its[mt].next()
         b = its[mt].next()
