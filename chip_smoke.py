@@ -322,7 +322,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 25. full width: char_lm's build_lm at the ALiBi paper's WikiText-103
    widths (16 layers, d 1024, 8 heads, vocabulary 267,735, f32; cache
    1,024) served on gpu(0) (K = 32 slots, prefill buckets 32/128/512, 64
-   sequences of prompts 16-512 tokens and 128 new tokens through
+   sequences of prompts 16-512 tokens and WT_NEW new tokens through
    GenerateScheduler: tokens/s, TTFT and decode-step percentiles beside
    the step's bound, the step's busy share, captures before and after;
    TF32 off, and the first 16 tokens of 2 sequences against the CPU's);
@@ -417,7 +417,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    vocabulary and width (793,471 x 512) through one lazy SGD Trainer
    step: the compact gradient's rows, the backward's memory under 100 MB,
    the touched rows against the CPU and every other row unchanged;
-37. timings: each kernel, its plain version and the PyTorch library call
+37. durability and precision (ROADMAP A10), no kernel of its own:
+   MXTPU_AMP=bf16 in the captured Module step on ResNet-50 (224, batch
+   128, train_imagenet.py's fit call from phase 26's weights): its first
+   3 steps' losses against the float32 captured step within AMP_LOSS_ULPS
+   units of bfloat16's roundoff, the first step's size within
+   AMP_MOVE_TOL of float32's and its direction within AMP_DIR_SPREAD of
+   the float32 step's own spread from weights bfloat16's rounding apart
+   (this run's and the drill's), float32 masters, momenta and BatchNorm
+   statistics in the store, one capture, ms a step in turns with float32
+   (TF32 off and on) beside the bf16 bound, one replay profiled, the
+   peak memory; the overflow drill (MXTPU_AMP_LOSS_SCALE=1024,
+   kind=nan_grad at module.step on the third step: every written tensor
+   bitwise unchanged, amp_overflow_skips() 1, the fourth step finite);
+   the bucketed LM at PTB's widths under AMP over phase 28's sentences
+   and epochs (lstm_scan's nodes in each bucket's graph a bfloat16 x_proj
+   instantiation by cuFuncGetName, launches counted from 0, the kernel at
+   bucket 32 in those dtypes against its plain loop, timed in interleaved
+   pairs with cuDNN's bf16 LSTM (itself held to the plain loop), the log
+   perplexity within AMP_PPL_SPREAD times the fit's own spread at
+   bfloat16's scale, an AMP fit at half the learning rate outside that
+   band, ms a step by bucket); CheckpointManager on Gluon's resnet18_v1 (saved at step 5
+   with its Trainer, restored into a fresh net: 3 more steps bitwise
+   equal to the run never stopped, the file's weight_digest equal to the
+   card's parameters', the host ms save blocks, the write's seconds, the
+   step's MB); ResNet-50's weights in MXNet's binary .params through
+   Module.load, the forward bitwise equal to the .npz checkpoint's;
+   train_imagenet.py --dtype float16 at ResNet-50's width, 5 captured
+   steps, each float16 weight its float32 master rounded;
+38. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -434,11 +462,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-38. one JSON line naming every kernel with its launches (the head
+39. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
    launches_gluon_lm, lstm_scan's in the checkpointed fit as
-   launches_rnn_checkpoint, in phases 30, 32 and 34 as
+   launches_rnn_checkpoint, in phase 37's AMP LM as launches_amp with its
+   bfloat16 time at bucket 32 (amp_*), in phases 30, 32 and 34 as
    launches_ctc_examples, launches_gluon_cells and launches_gluon_examples,
    gru_scan's in DeepSpeech 2's captured fit as launches_deepspeech2 with
    its time at that shape (ds2_*) and ctc_loss's; multibox_nms's: in the
@@ -446,7 +475,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    in the R-CNN toy as launches_rcnn_toy and in phase 21's box_nms
    checks as launches_box_nms, with its time at Proposal's shape and
    box_nms's at SSD-300's) and error;
-39. the last line: {"ok": true, "device": {...}}.
+40. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -759,7 +788,7 @@ def cudnn_lstm(xp, h0, c0, wh_t):
     identity input weights feed x_proj straight into the gates."""
     import torch
     G, H = xp.shape[-1], h0.shape[-1]
-    m = torch.nn.LSTM(G, H).to(xp.device)
+    m = torch.nn.LSTM(G, H).to(xp.device, xp.dtype)
     with torch.no_grad():
         m.weight_ih_l0.copy_(torch.eye(G, device=xp.device))
         m.weight_hh_l0.copy_(wh_t.t())
@@ -3076,11 +3105,12 @@ def mostly_close(got, want, names, tol, beyond, limit):
     return past, worst, past <= beyond and worst <= limit
 
 
-def bucket_graph_report(mt, mod):
+def bucket_graph_report(mt, mod, labels=None):
     """Each bucket's captured step: {bucket: (kernel nodes, other nodes,
     {"lstm"/"gru": time-loop kernel nodes}, replays, pool bytes)};
     fails unless each bucket holds one program, captured, replayed at
-    every hit."""
+    every hit. ``labels``, where given, gets {bucket: {rnn_kernel_label:
+    nodes}}."""
     names = {}
     out = {}
     for key, sub in sorted(mod._buckets.items()):
@@ -3109,6 +3139,9 @@ def bucket_graph_report(mt, mod):
             label = rnn_kernel_label(names[f])
             if label:
                 scans[label.split()[0]] += 1
+                if labels is not None:
+                    found = labels.setdefault(key, {})
+                    found[label] = found.get(label, 0) + 1
         out[key] = (len(funcs), others, scans, entry.replays,
                     entry.pool_bytes)
     return out
@@ -3714,14 +3747,16 @@ def resnet_plan(num_layers, image_h):
 
 
 def resnet_symbol(pkg, num_layers=50, image_shape="3,224,224",
-                  num_classes=1000):
-    """symbols/resnet.py's get_symbol (float32; its float16 variant adds
-    Cast, which this slice does not run) in either package, in a fresh
-    name scope."""
+                  num_classes=1000, dtype="float32"):
+    """symbols/resnet.py's get_symbol in either package, in a fresh name
+    scope; its float16 variant (train_imagenet.py --dtype float16) casts
+    the data to float16 and the last FullyConnected's output back."""
     c, h, w = (int(x) for x in image_shape.split(","))
     units, filters, bottleneck = resnet_plan(num_layers, h)
     with pkg.name.NameManager():
         data = pkg.sym.var("data")
+        if dtype == "float16":
+            data = pkg.sym.Cast(data, dtype="float16")
         body = _resnet_bn(pkg, data, "bn_data")
         if h <= 64:
             body = pkg.sym.Convolution(
@@ -3750,6 +3785,8 @@ def resnet_symbol(pkg, num_layers=50, image_shape="3,224,224",
                                kernel=(7, 7), name="pool1")
         flat = pkg.sym.Flatten(pool)
         fc = pkg.sym.FullyConnected(flat, num_hidden=num_classes, name="fc1")
+        if dtype == "float16":
+            fc = pkg.sym.Cast(fc, dtype="float32")
         return pkg.sym.SoftmaxOutput(fc, name="softmax")
 
 
@@ -4070,11 +4107,15 @@ RN_CAPTURE_STEPS = 6
 # epoch's mean training cross-entropy must fall below this share of the
 # first epoch's (ln 1000 = 6.9 at the start).
 RN_CE_SHARE = 0.5
+# imagenet_first_steps' runs: card, CPU and the CPU from weights one ulp
+# apart, each this many steps (the later steps' check is against the same
+# steps' ulp spread, so it holds at any count)
+RN_FIRST_STEPS = 2
 # Inception-BN's short captured epoch at the full batch
 INCEPTION_STEPS = 5
 # Steps under torch.profiler for a full-width path's busy share (a whole
 # epoch's trace took most of a minute to gather)
-RN_PROFILE_STEPS = 4
+RN_PROFILE_STEPS = 2
 # Peak rates of one H100 SXM (dense, at 700 W): float32 outside the tensor
 # cores, TF32 on them, and HBM bandwidth.
 PEAK_F32, PEAK_TF32 = 67e12, 495e12
@@ -4091,7 +4132,7 @@ class StepLosses:
     def __call__(self, param):
         import torch
         mod, batch = param.locals["self"], param.locals["batch"]
-        prob = mod.get_outputs()[0].data
+        prob = mod.get_outputs()[0].data.float()
         label = batch.label[0].data.to(prob.device).long()
         self.steps.append((param.epoch, -torch.log(
             prob.gather(1, label[:, None]).clamp_min(1e-12)).mean()))
@@ -4156,12 +4197,12 @@ def imagenet_first_steps(mt, label, build, image_shape, seed):
     card (gpu(0), the kvstore object's eager path) against the port's CPU
     Module. After 1 step: each weight within RN_STEP_SHARE of its
     parameter's step (plus RN_ATOL), the moving statistics within
-    RN_AUX_TOL. After FIT_STEPS steps, where float32 rounding alone sends
-    runs apart: the weights' and the moving statistics' distance from the
-    CPU's, as a share of their move (``norm_share``), and each step's
-    loss, within RN_SPREAD times what the CPU itself gives from weights
-    one ulp apart (plus RN_AUX_TOL of the loss, the forward's rounding at
-    the first step). Each reading printed."""
+    RN_AUX_TOL. After RN_FIRST_STEPS steps, where float32 rounding alone
+    sends runs apart: the weights' and the moving statistics' distance
+    from the CPU's, as a share of their move (``norm_share``), and each
+    step's loss, within RN_SPREAD times what the CPU itself gives from
+    weights one ulp apart (plus RN_AUX_TOL of the loss, the forward's
+    rounding at the first step). Each reading printed."""
     gpu = mt.gpu(0)
     args0, aux0 = imagenet_init_params(mt, build(mt), RN_CHECK_BATCH,
                                        image_shape, seed)
@@ -4187,9 +4228,10 @@ def imagenet_first_steps(mt, label, build, image_shape, seed):
         return (module_params(mod), module_aux(mod), losses.values()) + \
             first[0]
 
-    # the first step's check reads the FIT_STEPS runs after their first step
-    card = run(gpu, FIT_STEPS, args0)
-    cpu = run(mt.cpu(), FIT_STEPS, args0)
+    # the first step's check reads the RN_FIRST_STEPS runs after their
+    # first step
+    card = run(gpu, RN_FIRST_STEPS, args0)
+    cpu = run(mt.cpu(), RN_FIRST_STEPS, args0)
     (g_args, g_aux), (c_args, c_aux) = card[3:], cpu[3:]
     w = step_share_check(where + ", 1 step", g_args, c_args, args0,
                          RN_STEP_SHARE, RN_ATOL)
@@ -4203,7 +4245,7 @@ def imagenet_first_steps(mt, label, build, image_shape, seed):
           "layer's largest (limit %g)" % (where, w, RN_STEP_SHARE, RN_ATOL,
                                           aux_err, RN_AUX_TOL), flush=True)
 
-    ulp = run(mt.cpu(), FIT_STEPS, ulp_apart(args0, seed))
+    ulp = run(mt.cpu(), RN_FIRST_STEPS, ulp_apart(args0, seed))
     readings = []
     for i, (what, start) in enumerate((("weights", args0),
                                        ("moving statistics", aux0))):
@@ -4212,7 +4254,7 @@ def imagenet_first_steps(mt, label, build, image_shape, seed):
         if not got <= RN_SPREAD * spread + RN_AUX_TOL:
             fail("%s: %s after %d steps apart by %.3g of their move; the "
                  "CPU from weights one ulp apart: %.3g (limit %g times it)"
-                 % (where, what, FIT_STEPS, got, spread, RN_SPREAD))
+                 % (where, what, RN_FIRST_STEPS, got, spread, RN_SPREAD))
         readings.append("%s %.3g (the CPU one ulp apart: %.3g)"
                         % (what, got, spread))
     for k, (g, c, u) in enumerate(zip(card[2], cpu[2], ulp[2])):
@@ -4222,7 +4264,7 @@ def imagenet_first_steps(mt, label, build, image_shape, seed):
                  % (where, k + 1, g, c, u))
     print("%s: %d steps: apart by a share of their move: %s (limit %g "
           "times the CPU's own); losses card %s, CPU %s, one ulp apart %s"
-          % (where, FIT_STEPS, "; ".join(readings), RN_SPREAD,
+          % (where, RN_FIRST_STEPS, "; ".join(readings), RN_SPREAD,
              ", ".join("%.5f" % x for x in card[2]),
              ", ".join("%.5f" % x for x in cpu[2]),
              ", ".join("%.5f" % x for x in ulp[2])), flush=True)
@@ -4433,7 +4475,8 @@ def resnet_phase(mt, seed, card):
     CPU, captured steps against eager ones, the full-width run (ResNet-50
     at 224, batch 128) eager and captured under torch's default TF32 and
     with TF32 off, its checkpoint on the CPU, and Inception-BN. Returns
-    {(path, setting): ms a step}."""
+    ({(path, setting): ms a step}, the step's ((conv, matmul) FLOPs,
+    bytes))."""
     import gc
     import torch
     gpu = mt.gpu(0)
@@ -4536,7 +4579,7 @@ def resnet_phase(mt, seed, card):
         clock[-1][1] - clock[0][1], ", ".join(
             "%s %.1f" % (name, t - clock[i][1])
             for i, (name, t) in enumerate(clock[1:]))))
-    return out
+    return out, bound
 
 
 def resnet_checkpoint(mt, mod, it):
@@ -4634,7 +4677,7 @@ GL_PREFIX = "resnetv10_"
 # takes GL_LEARN_STEPS steps, and its last GL_CE_STEPS steps' mean
 # cross-entropy must fall below GL_CE_SHARE of its first GL_CE_STEPS'
 GL_DATA_BATCHES, GL_WORKERS = 2, 2
-GL_LEARN_STEPS, GL_CE_STEPS, GL_CE_SHARE = 40, 4, 0.5
+GL_LEARN_STEPS, GL_CE_STEPS, GL_CE_SHARE = 24, 4, 0.5
 # steps a timed run (eager, hybridized, hybridized, eager), and the steps
 # under torch.profiler for the busy share
 GL_STEPS, GL_PROFILE_STEPS = 10, 4
@@ -5380,11 +5423,12 @@ def gluon_phase(mt, rnn_scan, seed, card):
 
 # The run at the example's own widths: ResNet-110 at 3x28x28, 10 classes,
 # batch 128, f32; --synthetic 5120 (40 steps an epoch; 1,024 validation
-# records, as ensure_synthetic makes them). Under torch's default TF32
-# each path trains CF_EPOCHS epochs and must learn the data: the mean
-# cross-entropy of its last 4 steps below CF_CE_SHARE of its first 4's;
-# with TF32 off each trains one epoch for its times. The iterator alone
-# reads CF_IO_EPOCHS epochs.
+# records, as ensure_synthetic makes them; at 4,480 the eager fit's
+# cross-entropy fell only to 0.508 of its start in one H100 run). Under
+# torch's default TF32 each path trains CF_EPOCHS epochs and must learn
+# the data: the mean cross-entropy of its last 4 steps below CF_CE_SHARE
+# of its first 4's; with TF32 off each trains one epoch for its times.
+# The iterator alone reads CF_IO_EPOCHS epochs.
 CF_RECORDS, CF_EPOCHS, CF_IO_EPOCHS = 5120, 3, 1
 CF_CE_SHARE = 0.5
 CF_LAYERS = 110
@@ -6007,7 +6051,7 @@ SSD_CLASSES, SSD_PREFIX = 20, "ssd300_"
 SSD_HW, SSD_BATCH, SSD_ANCHORS = 300, 32, 8732
 SSD_RECORDS, SSD_EPOCHS = 384, 2             # 12 steps an epoch
 SSD_LOSS_STEPS, SSD_LOSS_SHARE = 4, 0.7
-SSD_STEPS, SSD_PROFILE_STEPS = 5, 4
+SSD_STEPS, SSD_PROFILE_STEPS = 3, 2
 # MXNet SSD's train_net.py: SGD 0.004 / 0.9 / 5e-4, rescale_grad 1 (the
 # loss is normalized by the valid anchors already), Xavier(gaussian, out, 2)
 SSD_OPT = {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4}
@@ -7528,7 +7572,7 @@ MN_WORKERS = 2                     # the DataLoader's threads, as phase 15's
 MN_SERIAL_BATCHES = 40
 # the Gluon MLP's fed run: this many batches (of an epoch's 937); the
 # loader alone, with its threads and in the caller's: MN_LOADER_BATCHES
-MN_GLUON_STEPS = 100
+MN_GLUON_STEPS = 60
 MN_LOADER_BATCHES = 40
 MN_TIMED_STEPS, MN_PROFILE_STEPS = 25, 4
 # the fed step against the held one: the iterator sets the pace beyond this
@@ -9025,12 +9069,12 @@ def examples_phase(mt, card):
 # ---------------------------------------------------------------------------
 
 FCN_CLASSES, FCN_IGNORE = 21, 255
-FCN_HW, FCN_IMAGES, FCN_EPOCHS = 500, 16, 3   # batch 1, f32
+FCN_HW, FCN_IMAGES, FCN_EPOCHS = 500, 16, 2   # batch 1, f32
 FCN_CHECK_HW = 64                   # the CPU check's image: every crop fits
 FCN_CROPS = {"score_pool4c": 5, "score_pool3c": 9, "upscore": 31}
 # fcn_xs.py's optimizer: SGD on the unnormalized (summed) pixel loss
 FCN_OPT = {"learning_rate": 1e-10, "momentum": 0.99, "wd": 0.0005}
-FCN_CAPTURE_STEPS = 3
+FCN_CAPTURE_STEPS = 2
 # the first forward/backward on the card against the CPU (TF32 off), each
 # output and gradient within FCN_TOL of its largest value
 FCN_TOL = 1e-4
@@ -9960,7 +10004,7 @@ def a7_phase(mt, card):
 WT = dict(layers=16, dim=1024, heads=8, train_len=512, cache_len=1024,
           vocab=267735)
 WT_SLOTS, WT_BUCKETS = 32, "32,128,512"
-WT_SEQS, WT_NEW, WT_PLEN = 64, 128, (16, 512)
+WT_SEQS, WT_NEW, WT_PLEN = 64, 64, (16, 512)
 WT_CHECK_TOKENS = 8
 WT_TRAIN_BATCH, WT_TRAIN_STEPS = 8, 10
 WT_CHECK_LAYERS, WT_CHECK_T, WT_CHECK_BATCH, WT_TOL = 2, 32, 2, 1e-4
@@ -10580,7 +10624,8 @@ def fit_flags_phase(mt, seed, card, sgd_ms):
     captured step timed with update_metric's host ms (the composite metric
     stays on the host), beside ``sgd_ms`` (phase 14's captured SGD step in
     this run), and top-5 / CE / NLL against a host recompute of the same
-    outputs. Returns ms a step."""
+    outputs. Returns (ms a step, the MSRAPrelu weights ({name: numpy}
+    args, aux) it drew)."""
     import gc
     import torch
     gpu = mt.gpu(0)
@@ -10700,7 +10745,7 @@ def fit_flags_phase(mt, seed, card, sgd_ms):
     del mod, it
     gc.collect()
     torch.cuda.empty_cache()
-    return step
+    return step, (args0, aux0)
 
 
 # (b) every optimizer mxtpu registers through LeNet's Module.fit (BASELINE
@@ -11049,7 +11094,7 @@ def rnn_checkpoint_phase(mt, rnn_scan, seed, card, workdir):
     same batches as the fused module (one launch a layer a batch there,
     none unfused); a run resumed at epoch RC_RESUME from its checkpoint
     and optimizer states ends at the weights of the run never stopped.
-    Returns {"lstm_scan": launches in the fit}."""
+    Returns ({"lstm_scan": launches in the fit}, the sentences)."""
     t_phase = time.time()
     gpu = mt.gpu(0)
     sentences, _ = synthetic_corpus(RC_SENTENCES, RC_VOCAB, seed)
@@ -11099,7 +11144,7 @@ def rnn_checkpoint_phase(mt, rnn_scan, seed, card, workdir):
              unfused_ppl, fused_ppl, fused_n, n_batches, RC_PPL_RTOL,
              RC_RESUME, RC_EPOCHS, worst, RC_SHARE, time.time() - t_phase,
              card), flush=True)
-    return {"lstm_scan": launches}
+    return {"lstm_scan": launches}, sentences
 
 
 # (d) the examples: example/module/sequential_module.py,
@@ -14168,6 +14213,758 @@ def sparse_phase(mt, seed, workdir, card):
     return av, se
 
 
+# ---------------------------------------------------------------------------
+# Phase 37: durability and precision (ROADMAP A10). MXTPU_AMP=bf16 in the
+# captured Module step (ResNet-50, config 2, and the PTB-width bucketed LM,
+# config 4, whose lstm_scan then runs in bfloat16), CheckpointManager in its
+# Gluon form, MXNet's binary .params through Module.load, and
+# train_imagenet.py --dtype float16
+# ---------------------------------------------------------------------------
+
+AMP_U = 2.0 ** -8            # bfloat16's unit roundoff (8 significant bits)
+AMP_STEPS = 3                # first AMP steps held against float32's
+AMP_TIMED_STEPS, AMP_TURNS = 5, 2
+# The AMP step against the float32 one from the same weights and batch: a
+# bfloat16 forward rounds every activation to AMP_U, and BatchNorm (in
+# float32) keeps each of the 50 layers near unit scale, so the loss of
+# each of the first steps (cross-entropy ~ln(1000)) is held within
+# AMP_LOSS_ULPS units of AMP_U relative (readings on the H100: 0.06 U at
+# the first step, 0.6 U at the third; a run whose weights never moved
+# would score the first step's 6.99 at the third, 10.6% above float32's
+# 6.32, and fails it). The weights are held at the first step, where both
+# runs start from the same weights and batch: the norm of the AMP step
+# over the float32 step's within 1 +- AMP_MOVE_TOL (rounding noise nearly
+# orthogonal to the step changes its norm little: 1.0003 on the H100; a
+# skipped step reads 0, a half-size step 0.5). Its direction: at random
+# initialisation much of the step is noise at bfloat16's scale, in mxtpu
+# as in the port (cosine 0.40 with float32's on the H100), so it is held
+# against the float32 step's own spread at that scale, read in this run:
+# the float32 step from weights each moved by AMP_U / 2 (random sign; the
+# largest rounding of a weight to bfloat16). The AMP step's part across
+# float32's for each part along it must stay within AMP_DIR_SPREAD times
+# that step's (H100: 2.28 against 1.46, 1.56 times;
+# tests/test_torch_module_amp.py holds both packages' first ResNet step
+# to these bands). Steps 2-3 are held by their losses: at
+# lr 0.1 the float32 run alone, started one float32 ulp apart, ends 0.677
+# of its move apart after 3 steps (RN_SPREAD's note)
+AMP_LOSS_ULPS = 8
+AMP_MOVE_TOL, AMP_DIR_SPREAD = 0.1, 2.0
+AMP_SCALE = 1024.0           # the overflow drill's loss scale
+AMP_FAULT = "kind=nan_grad,point=module.step,nth=3"
+# The bucketed LM under AMP against float32 over phase 28's sentences and
+# depth (3 epochs of Adam from one Xavier draw): the log of the perplexity
+# after the fit (its cross-entropy, ~8.5 nats there), relative, apart by
+# at most AMP_PPL_SPREAD times the fit's own spread. Adam (eps 1e-8) moves
+# a weight by about lr whatever the size of its gradient, so the fit's end
+# amplifies any difference in the first steps. Its spread is read in this
+# run at bfloat16's scale: the float32 fit from weights each moved by
+# AMP_U / 2 (random sign), and the AMP fit from masters one float32 ulp
+# apart (which flips the bfloat16 rounding of the masters that lie near a
+# rounding boundary); the float32 fit from weights one ulp apart is
+# printed beside them (it reads far less: an ulp is 2^-16 of AMP_U). The
+# band is AMP_PPL_SPREAD times the largest of three such spreads (the
+# float32 fit from two draws of U/2 apart, the AMP fit from one ulp
+# apart). Readings on the H100: AMP 2.55 and 2.45 times it (0.78%, 0.73%
+# against 0.30%); an AMP fit at half the learning rate, run as the
+# band's control, 12 times it (3.6%), and it must fall outside the band
+AMP_PPL_SPREAD = 4.0
+AMP_BUCKET_STEPS = 5         # timed steps a bucket
+# CheckpointManager: resnet18_v1 saved at CK_SAVE, then CK_MORE steps
+CK_SAVE, CK_MORE = 5, 3
+F16_STEPS = 5                # --dtype float16's captured steps
+
+
+def bf16_apart(params, seed):
+    """{name: numpy} with every value moved by AMP_U / 2 relative up or
+    down (bfloat16's rounding at its largest), the sign drawn from
+    RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    return {k: (v * (1 + AMP_U / 2 * rng.choice([-1, 1], v.shape)))
+            .astype(v.dtype) for k, v in sorted(params.items())}
+
+
+class FirstStepWeights:
+    """A fit's batch_end_callback: the module's weights ({name: numpy})
+    after its first step."""
+
+    def __init__(self):
+        self.w = None
+
+    def __call__(self, param):
+        if self.w is None:
+            self.w = module_params(param.locals["self"])
+
+
+def step_size_and_cosine(got, want, start, got_start=None):
+    """(||got - got_start|| / ||want - start||, the cosine between the
+    two moves) over every array of the dicts; ``got_start`` is
+    ``start`` unless given."""
+    keys = sorted(want)
+    got_start = start if got_start is None else got_start
+    a = np.concatenate([(got[k] - got_start[k]).ravel() for k in keys])
+    b = np.concatenate([(want[k] - start[k]).ravel() for k in keys])
+    na, nb = float(np.linalg.norm(a)), float(np.linalg.norm(b))
+    return na / nb, float(a @ b) / (na * nb) if na and nb else 0.0
+
+
+def noise_to_signal(cos):
+    """tan of the angle between two moves: the part of one move across
+    the other over the part along it (infinite at a right angle or
+    beyond)."""
+    return (1 - cos * cos) ** 0.5 / cos if cos > 0 else float("inf")
+
+
+def hold_first_step(label, got, want, start, ref_cos):
+    """Fail unless the AMP run's first step ``got`` is float32's ``want``
+    in size (within AMP_MOVE_TOL) and no more than AMP_DIR_SPREAD times
+    as far off its direction as the float32 step taken from weights
+    AMP_U / 2 apart is (``ref_cos``: that step's cosine with ``want``).
+    Returns (size ratio, cosine)."""
+    ratio, cos = step_size_and_cosine(got, want, start)
+    if not abs(ratio - 1) <= AMP_MOVE_TOL or \
+            not noise_to_signal(cos) <= \
+            AMP_DIR_SPREAD * noise_to_signal(ref_cos):
+        fail("ResNet-50 %s: the first step is %.4f of float32's in size "
+             "(limit 1 +- %g) at cosine %.4f, %.3f across for each along "
+             "(limit %g x the float32 step's from weights U/2 apart: "
+             "cosine %.4f, %.3f)"
+             % (label, ratio, AMP_MOVE_TOL, cos, noise_to_signal(cos),
+                AMP_DIR_SPREAD, ref_cos, noise_to_signal(ref_cos)))
+    return ratio, cos
+
+
+def resnet_amp_fit(mt, seed, steps, args, aux, amp, scale=0.0,
+                   callbacks=None, tf32=False):
+    """train_imagenet.py --benchmark 1's fit call on gpu(0), captured
+    (kvstore "local"), ``steps`` steps of ResNet-50 at batch RN_BATCH from
+    the given weights, with MXTPU_AMP=bf16 when ``amp`` (and
+    MXTPU_AMP_LOSS_SCALE=``scale``). Returns (module, iterator)."""
+    with env_set(MXTPU_AMP="bf16" if amp else "",
+                 MXTPU_AMP_LOSS_SCALE=scale), tf32_mode(tf32):
+        np.random.seed(seed)
+        mt.random.seed(seed)
+        mod, it = imagenet_fit(mt, resnet_symbol(mt, 50, RN_SHAPE,
+                                                 RN_CLASSES),
+                               RN_BATCH, steps * RN_BATCH, 1, RN_SHAPE,
+                               RN_CLASSES, context=mt.gpu(0),
+                               kvstore="local", arg_params=args,
+                               aux_params=aux, batch_end_callback=callbacks)
+    group = mod._fused._group if mod._fused is not None else None
+    if group is None or group.amp != ("bf16" if amp else None):
+        fail("ResNet-50 (MXTPU_AMP=%s): the captured step's AMP mode is %s"
+             % ("bf16" if amp else "", group and group.amp))
+    return mod, it
+
+
+def fused_store_dtypes(group):
+    """{"masters"/"states"/"aux": the dtypes found} of a fused group."""
+    import torch
+    from mxtpu_torch.module.fused import _leaves
+    return {
+        "masters": {a._data.dtype for a in group.param_store.values()},
+        "states": {t.dtype for st in group.states.values()
+                   for t in _leaves(st) if isinstance(t, torch.Tensor)},
+        "aux": {a._data.dtype for a in group.aux_store.values()}}
+
+
+def written_tensors(group):
+    """Clones of every tensor a fused step writes: the weights, the
+    optimizer states, the aux states, t and the metric accumulator."""
+    from mxtpu_torch.module.fused import _leaves
+    out = {"w:" + k: a._data.clone() for k, a in group.param_store.items()}
+    out.update(("a:" + k, a._data.clone())
+               for k, a in group.aux_store.items())
+    for slot, st in group.states.items():
+        out.update(("s:%d:%d" % (slot, i), t.clone())
+                   for i, t in enumerate(_leaves(st)))
+    out["t"] = group.t_dev.clone()
+    if group.metric_acc is not None:
+        out["metric"] = group.metric_acc.clone()
+    return out
+
+
+def timed_steps(mod, it, metric, steps, tf32=False):
+    """Host ms a step of ``steps`` fit_steps, the card waited for."""
+    import torch
+    with tf32_mode(tf32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_steps(mod, it, metric, steps=steps)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def resnet_amp_phase(mt, seed, card, w0, bound):
+    """(a) ResNet-50 under MXTPU_AMP=bf16 at 224, batch 128, captured:
+    its first AMP_STEPS steps against float32's (TF32 off) from phase 26's
+    weights ``w0``, the store's dtypes, one capture, ms a step in turns
+    with float32 TF32 off and then with float32 TF32 on (two ResNet-50
+    graphs alive at a time: three would not fit beside what earlier
+    phases keep) beside the bf16 bound (``bound``: phase 14's FLOPs and
+    bytes), the profiler's top kernels of one replay and the peak
+    memory. (b) the overflow drill. Returns {label: ms a step}."""
+    import gc
+    import torch
+    from mxtpu_torch import fault
+    args0, aux0 = w0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the float32 step's own spread at bfloat16's scale: one step from
+    # weights AMP_U / 2 apart (a first batch runs for real: no capture)
+    ref_w, ref_first = bf16_apart(args0, seed), FirstStepWeights()
+    ref_mod, _it = resnet_amp_fit(mt, seed, 1, ref_w, aux0, False,
+                                  callbacks=[ref_first])
+    del ref_mod, _it
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = {"AMP bf16": StepLosses(), "float32, TF32 off": StepLosses()}
+    firsts = {k: FirstStepWeights() for k in losses}
+    amp_mod, amp_it = resnet_amp_fit(mt, seed, AMP_STEPS, args0, aux0,
+                                     True, callbacks=[losses["AMP bf16"],
+                                                      firsts["AMP bf16"]])
+    amp_text = capture_report(amp_mod, AMP_STEPS, "ResNet-50 AMP")[0]
+    torch.cuda.synchronize()
+    amp_peak = torch.cuda.max_memory_allocated() - base
+    f32_mod, f32_it = resnet_amp_fit(
+        mt, seed, AMP_STEPS, args0, aux0, False,
+        callbacks=[losses["float32, TF32 off"], firsts["float32, TF32 off"]])
+    capture_report(f32_mod, AMP_STEPS, "ResNet-50 float32")
+    group = amp_mod._fused._group
+    dtypes = fused_store_dtypes(group)
+    if any(d != {torch.float32} for d in dtypes.values()):
+        fail("ResNet-50 AMP: the store holds %s (want float32 masters, "
+             "momenta and BatchNorm statistics)" % dtypes)
+    share = norm_share(module_params(amp_mod), module_params(f32_mod),
+                       args0)
+    f32_first = firsts["float32, TF32 off"].w
+    ref_ratio, ref_cos = step_size_and_cosine(ref_first.w, f32_first, args0,
+                                              got_start=ref_w)
+    ratio, cos = hold_first_step("AMP", firsts["AMP bf16"].w, f32_first,
+                                 args0, ref_cos)
+    half = {k: (args0[k] + v) / 2 for k, v in firsts["AMP bf16"].w.items()}
+    half_ratio = step_size_and_cosine(half, f32_first, args0)[0]
+    got_l = losses["AMP bf16"].values()
+    want_l = losses["float32, TF32 off"].values()
+    loss_off = max(abs(g - w) / abs(w) for g, w in zip(got_l, want_l))
+    if not all(np.isfinite(got_l)) or \
+            not loss_off <= AMP_LOSS_ULPS * AMP_U:
+        fail("ResNet-50 AMP against float32 over %d steps: losses %s "
+             "against %s (%.3g relative, limit %d x 2^-8)"
+             % (AMP_STEPS, got_l, want_l, loss_off, AMP_LOSS_ULPS))
+    print("ResNet-50 MXTPU_AMP=bf16 (224^2, batch %d, captured; fit.py's "
+          "SGD from phase 26's MSRAPrelu weights): %s; store dtypes %s; "
+          "first %d steps' losses %s against float32's %s (largest %.3g "
+          "relative, limit %d x 2^-8 = %.4g); the first step %.4f of "
+          "float32's in size (limit 1 +- %g; the AMP step halved would "
+          "read %.4f), cosine %.4f, %.3f across for each along (limit %g "
+          "x the float32 step's from weights U/2 apart: size %.4f, cosine "
+          "%.4f, %.3f); after %d steps the "
+          "weights %.4f of the float32 run's move apart (not held: the "
+          "float32 run alone ends 0.677 apart from weights one ulp apart); "
+          "peak memory %.2f GB above the phase's start | %s"
+          % (RN_BATCH, amp_text, {k: sorted(str(d) for d in v)
+                                  for k, v in dtypes.items()}, AMP_STEPS,
+             ", ".join("%.5f" % v for v in got_l),
+             ", ".join("%.5f" % v for v in want_l), loss_off, AMP_LOSS_ULPS,
+             AMP_LOSS_ULPS * AMP_U, ratio, AMP_MOVE_TOL, half_ratio, cos,
+             noise_to_signal(cos), AMP_DIR_SPREAD, ref_ratio, ref_cos,
+             noise_to_signal(ref_cos), AMP_STEPS, share, amp_peak / 1e9,
+             card),
+          flush=True)
+    # ms a captured step in turns: AMP against float32 TF32 off, then
+    # against float32 TF32 on (its graph captured under TF32)
+    metric = mt.metric.create([mt.metric.create("accuracy")])
+    times = {"AMP bf16": [], "float32, TF32 off": [], "float32, TF32 on": []}
+    for label, tf32 in (("float32, TF32 off", False),
+                        ("float32, TF32 on", True)):
+        if tf32:
+            del f32_mod, f32_it
+            gc.collect()
+            torch.cuda.empty_cache()
+            f32_mod, f32_it = resnet_amp_fit(mt, seed, AMP_STEPS, args0,
+                                             aux0, False, tf32=True)
+            capture_report(f32_mod, AMP_STEPS, "ResNet-50 TF32")
+        for _ in range(AMP_TURNS):
+            times["AMP bf16"].append(timed_steps(amp_mod, amp_it, metric,
+                                                 AMP_TIMED_STEPS))
+            times[label].append(timed_steps(f32_mod, f32_it, metric,
+                                            AMP_TIMED_STEPS, tf32=tf32))
+    del f32_mod, f32_it
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    conv_mm, nbytes = bound
+    ops = sum(conv_mm) / PEAK_BF16_FLOPS * 1e3
+    mem = nbytes / PEAK_BYTES_S * 1e3
+    amp_bound, amp_by = (ops, "operations") if ops >= mem else (mem, "bytes")
+    busy, top = device_time(
+        lambda: fit_steps(amp_mod, amp_it, metric, steps=1), 1)
+    print("ResNet-50 captured ms a step in turns of %d steps (median): %s; "
+          "the bf16 bound %.3f ms (%s: %.4g FLOPs at 989 TFLOP/s, %.4g "
+          "bytes at 3.35 TB/s), AMP at %.1f%% of it; float32's bounds %.3f "
+          "(TF32 off) / %.3f (on); one AMP replay: %s; %s | %s"
+          % (AMP_TIMED_STEPS, ", ".join(
+              "%s %.3f (%s)" % (k, ms[k], " ".join("%.3f" % t for t in v))
+              for k, v in times.items()), amp_bound, amp_by, sum(conv_mm),
+             nbytes, 100 * amp_bound / ms["AMP bf16"],
+             bound_ms(*bound, False)[0], bound_ms(*bound, True)[0],
+             busy_of(busy, ms["AMP bf16"]), top, card), flush=True)
+    del amp_mod, amp_it, group
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the overflow drill: a poisoned third step under a loss scale
+    drill_first = FirstStepWeights()
+    with fault.inject(AMP_FAULT) as inj:
+        mod, it = resnet_amp_fit(mt, seed, 2, args0, aux0, True,
+                                 scale=AMP_SCALE, callbacks=[drill_first])
+        drill_step = hold_first_step("AMP under loss scale %g" % AMP_SCALE,
+                                     drill_first.w, f32_first, args0,
+                                     ref_cos)
+        group = mod._fused._group
+        if group.loss_scale != AMP_SCALE:
+            fail("ResNet-50 AMP: loss scale %s, want %g"
+                 % (group.loss_scale, AMP_SCALE))
+        before = written_tensors(group)
+        fit_steps(mod, it, metric, steps=1)
+        torch.cuda.synchronize()
+        fired = inj.stats()[0][4]
+    after = written_tensors(group)
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    skips = group.amp_overflow_skips()
+    if fired != 1 or changed or skips != 1:
+        fail("ResNet-50 AMP overflow drill (%s, loss scale %g): fired %d, "
+             "%d of %d written tensors changed by the poisoned step (%s), "
+             "amp_overflow_skips() %d (want 1, none, 1)"
+             % (AMP_FAULT, AMP_SCALE, fired, len(changed), len(before),
+                changed[:4], skips))
+    fit_steps(mod, it, metric, steps=1)
+    final = written_tensors(group)
+    moved = [k for k in before if k.startswith("w:")
+             and not torch.equal(final[k], after[k])]
+    finite = all(bool(torch.isfinite(final[k]).all()) for k in final
+                 if k.startswith("w:"))
+    if not moved or not finite:
+        fail("ResNet-50 AMP overflow drill: the fourth step moved %d "
+             "weights, finite %s" % (len(moved), finite))
+    print("ResNet-50 AMP overflow drill (MXTPU_AMP_LOSS_SCALE=%g, %s): its "
+          "first step %.4f of float32's in size at cosine %.4f (the limits "
+          "above); the poisoned step left all %d written tensors (weights, "
+          "momenta, BatchNorm statistics, t, the metric) bitwise as they "
+          "were, amp_overflow_skips() = %d; the next step moved %d of %d "
+          "weights, all finite; %s | %s"
+          % (AMP_SCALE, AMP_FAULT, drill_step[0], drill_step[1],
+             len(before), skips, len(moved), len(group.param_store),
+             capture_report(mod, 4, "AMP drill")[0], card), flush=True)
+    del mod, it, group, before, after, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
+
+
+def bucket_times(mod, train, steps):
+    """Host ms a captured step by bucket: ``steps`` steps on one batch of
+    each bucket, the card waited for."""
+    import torch
+    train.reset()
+    first = {}
+    for batch in train:
+        first.setdefault(batch.bucket_key, batch)
+    out = {}
+    for key, batch in sorted(first.items()):
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t0) / steps * 1e3
+    return out
+
+
+def log_ppl_apart(got, want):
+    """|log(got / want)| / log(want): two perplexities' cross-entropies
+    apart, relative."""
+    return abs(np.log(got / want)) / np.log(want)
+
+
+def amp_lm_phase(mt, rnn_scan, sentences, rng, seed, card):
+    """(c) The bucketed LM at PTB's widths through lstm_bucketing.py's
+    BucketingModule.fit on phase 28's sentences and epochs from one Xavier
+    draw, with MXTPU_AMP=bf16 and without: lstm_scan's nodes in each
+    bucket's graph (their instantiation by name), its launches, the
+    perplexity against float32's within AMP_PPL_SPREAD times the fit's
+    spread (and the half-lr control outside it), ms a step by bucket, the
+    kernel at the bucket-32 shape in the AMP graph's dtypes against its
+    plain loop, timed in PAIRS interleaved pairs with cuDNN's bf16 LSTM.
+    Returns (launches, {"amp"/"f32": {bucket: ms}}, the kernel's (ms,
+    plain ms, cuDNN bf16 wall ms, max err, bound ms, wall ms, pairs the
+    kernel won), labels)."""
+    import gc
+    import torch
+    gpu = mt.gpu(0)
+    with gpu:
+        init, _it, _p = lstm_bucketing_fit(mt, sentences, RC_VOCAB, True,
+                                           num_epoch=0)
+    w0 = module_params(init)
+    del init, _it
+    # (label, weights, AMP, learning rate)
+    runs = (("amp", w0, True, BL_LR), ("f32", w0, False, BL_LR),
+            ("f32 ulp", ulp_apart(w0, seed), False, BL_LR),
+            ("f32 U/2", bf16_apart(w0, seed), False, BL_LR),
+            ("f32 U/2 b", bf16_apart(w0, seed + 1), False, BL_LR),
+            ("amp ulp", ulp_apart(w0, seed), True, BL_LR),
+            ("amp half lr", w0, True, BL_LR / 2))
+    out, ppl, by_epoch, launches, labels = {}, {}, {}, None, {}
+    for key, weights, amp, lr in runs:
+        with env_set(MXTPU_AMP="bf16" if amp else "",
+                     MXTPU_AMP_LOSS_SCALE=0):
+            rnn_scan.reset_launches()
+            with gpu:
+                mod, train, ppls = lstm_bucketing_fit(
+                    mt, sentences, RC_VOCAB, True, num_epoch=RC_EPOCHS,
+                    arg_params=weights, lr=lr)
+            torch.cuda.synchronize()
+        ppl[key], by_epoch[key] = ppls[-1], ppls
+        group = mod._buckets[mod._default_bucket_key]._fused._group
+        if group.amp != ("bf16" if amp else None):
+            fail("the bucketed LM (MXTPU_AMP=%s): AMP mode %s"
+                 % ("bf16" if amp else "", group.amp))
+        if key == "amp":
+            report = bucket_graph_report(mt, mod, labels)
+            launches = rnn_scan.LAUNCHES["lstm_scan"] + sum(
+                r[2]["lstm"] * r[3] for r in report.values())
+            bad = {k: v for k, v in labels.items()
+                   if sum(v.values()) != BL_LAYERS or
+                   any(" bf16/" not in " " + name for name in v)}
+            if bad or len(labels) != len(report):
+                fail("the AMP LM's graphs hold lstm_scan nodes %s (want %d "
+                     "a bucket, of a bfloat16 x_proj)" % (labels, BL_LAYERS))
+            dtypes = fused_store_dtypes(group)
+            if any(d != {torch.float32} for d in dtypes.values()
+                   if d):
+                fail("the AMP LM's store holds %s" % dtypes)
+        if key in ("amp", "f32"):
+            out[key] = bucket_times(mod, train, AMP_BUCKET_STEPS)
+        del mod, train, group
+        gc.collect()
+        torch.cuda.empty_cache()
+    apart = {k: log_ppl_apart(ppl[k], ppl["f32"]) for k in ppl
+             if k != "f32"}
+    apart["amp ulp"] = log_ppl_apart(ppl["amp ulp"], ppl["amp"])
+    spread = max(apart["f32 U/2"], apart["f32 U/2 b"], apart["amp ulp"])
+    limit = AMP_PPL_SPREAD * spread
+    print("bucketed LM at PTB's widths under AMP and in float32 from one "
+          "Xavier draw (%d epochs over phase 28's %d sentences): "
+          "perplexity by epoch %s; log perplexity relative apart from "
+          "float32's %s (amp ulp: from amp's); the fit's spread at "
+          "bfloat16's scale %.4g (the largest of f32 U/2, f32 U/2 b and amp "
+          "ulp), AMP held within %g x it = %.4g, the half-lr control "
+          "outside it | %s"
+          % (RC_EPOCHS, len(sentences), "; ".join(
+              "%s %s" % (k, ", ".join("%.3f" % v for v in by_epoch[k]))
+              for k in by_epoch), ", ".join(
+              "%s %.4g" % kv for kv in apart.items()), spread,
+             AMP_PPL_SPREAD, limit, card), flush=True)
+    if not apart["amp"] <= limit:
+        fail("the bucketed LM: perplexity %.3f under AMP, %.3f in float32 "
+             "(log perplexity %.3g relative apart, limit %g x the fit's "
+             "spread %.3g)" % (ppl["amp"], ppl["f32"], apart["amp"],
+                               AMP_PPL_SPREAD, spread))
+    if not apart["amp half lr"] > limit:
+        fail("the bucketed LM: the AMP fit at half the learning rate "
+             "(perplexity %.3f, log perplexity %.3g relative apart) lies "
+             "within the band %.3g, which therefore tells nothing"
+             % (ppl["amp half lr"], apart["amp half lr"], limit))
+    # the kernel at the bucket-32 shape in the AMP graph's dtypes
+    x_dt, s_dt = (getattr(torch, {"bf16": "bfloat16", "f32": "float32"}[t])
+                  for t in next(iter(labels[max(labels)])).split()[1]
+                  .split("/"))
+    T, N, H = max(BL_BUCKETS), BL_BATCH, BL_HIDDEN
+    a = lstm_args(rng, N, torch.float32, gpu.torch_device(), T=T, H=H)
+    a = [a[0].to(x_dt), a[1].to(s_dt), a[2].to(s_dt), a[3].to(x_dt)]
+    got = rnn_scan.lstm_scan(*a)
+    want = rnn_scan.lstm_scan_reference(*a)
+    check_close("lstm_scan T=%d N=%d H=%d x %s, state %s (the AMP LM's)"
+                % (T, N, H, x_dt, s_dt), got, want, BF16_TOL)
+    err = max_err(got, want)
+    plain_ms = cuda_ms(lambda: rnn_scan.lstm_scan_reference(*a), iters=5)
+    # cuDNN's bf16 LSTM as phase 38 holds its f32 pair: held to the plain
+    # loop on its own (bf16) inputs, then timed in PAIRS interleaved pairs
+    # (the kernel's card time held, its wall time and cuDNN's wall time:
+    # cuDNN blocks the host inside each call)
+    b16 = [t.to(torch.bfloat16) for t in a]
+    lib = cudnn_lstm(*b16)
+    check_close("cuDNN's bf16 LSTM T=%d N=%d H=%d" % (T, N, H), list(lib()),
+                list(rnn_scan.lstm_scan_reference(*b16)), BF16_TOL)
+    lib_err = max_err(lib(), rnn_scan.lstm_scan_reference(*b16))
+    pairs = [(held_ms(lambda: rnn_scan.lstm_scan(*a), iters=20),
+              cuda_ms(lambda: rnn_scan.lstm_scan(*a), iters=20),
+              cuda_ms(lib, iters=20)) for _ in range(PAIRS)]
+    med = [float(np.median([p[i] for p in pairs])) for i in range(3)]
+    wins = sum(p[1] < p[2] for p in pairs)
+    k_bound = bound("lstm", N, itemsize=2, T=T, H=H)[0]
+    plans = {b: rnn_scan.scan_plan("lstm", b, N, H, x_dt, s_dt)
+             for b in BL_BUCKETS}
+    print("bucketed LM at PTB's widths (vocabulary %d, %d x %d LSTM, batch "
+          "%d, buckets %s), lstm_bucketing.py's fit, captured, under AMP: "
+          "lstm_scan nodes a bucket graph "
+          "%s, their plans (clusters of C CTAs x R rows, mode) %s; %d "
+          "launches under AMP (warm-up + nodes x replays); ms a step "
+          "by bucket AMP %s, float32 %s | %s"
+          % (RC_VOCAB, BL_LAYERS, BL_HIDDEN, BL_BATCH, list(BL_BUCKETS),
+             labels,
+             {b: "%d x %d, %s" % (p.cluster, p.rows, p.mode)
+              for b, p in plans.items()}, launches,
+             {k: round(v, 3) for k, v in out["amp"].items()},
+             {k: round(v, 3) for k, v in out["f32"].items()}, card),
+          flush=True)
+    print("time lstm_scan T=%d N=%d H=%d x %s state %s (the AMP LM's) pairs "
+          "(kernel card ms held, kernel wall ms, cuDNN bf16 wall ms), in "
+          "order: %s; medians: kernel %.5f ms card, %.5f wall (bound %.5f, "
+          "plain loop %.4f), max err %.3g (BF16_TOL); cuDNN's bf16 LSTM "
+          "%.5f wall (max |cuDNN - plain| %.3g, BF16_TOL); kernel faster "
+          "in %d of %d | %s"
+          % (T, N, H, x_dt, s_dt, " ".join("(%.5f, %.5f, %.5f)" % p
+                                           for p in pairs),
+             med[0], med[1], k_bound, plain_ms, err, med[2], lib_err, wins,
+             PAIRS, card), flush=True)
+    return launches, out, (med[0], plain_ms, med[2], err, k_bound, med[1],
+                           wins), labels
+
+
+def checkpoint_gluon_phase(mt, seed, workdir, card):
+    """(d) CheckpointManager as documented, on Gluon's resnet18_v1 (224,
+    batch 128, hybridized, SGD as phase 15's): two runs never stopped
+    (CK_SAVE + CK_MORE steps), the first saving at CK_SAVE; a fresh net and
+    Trainer restored from that step and stepped CK_MORE more. Returns the
+    save's (host ms blocked, background write s, MB)."""
+    import gc
+    import torch
+    from mxtpu_torch.checkpoint import CheckpointManager, weight_digest
+    gpu = mt.gpu(0)
+    x, y = gluon_images(seed + 7, GL_BATCH)
+    w0 = gluon_weights(mt, gluon_resnet18(mt), seed, x[:2])
+    xs, ys = mt.nd.array(x, ctx=gpu), mt.nd.array(y, ctx=gpu)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    ckpt = CheckpointManager(os.path.join(workdir, "ckpt_gluon"),
+                             max_to_keep=2)
+
+    def build():
+        net = gluon_load(mt, gluon_resnet18(mt), w0, gpu)
+        net.hybridize()
+        return net, mt.gluon.Trainer(net.collect_params(), "sgd",
+                                     dict(GL_OPT))
+
+    def steps(net, trainer, n):
+        for _ in range(n):
+            with mt.autograd.record():
+                loss = loss_fn(net(xs), ys)
+            loss.backward()
+            trainer.step(GL_BATCH)
+
+    saved = {}
+    ends = []
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for run in range(2):
+            net, trainer = build()
+            steps(net, trainer, CK_SAVE)
+            if run == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save(CK_SAVE, net.collect_params(), trainer=trainer,
+                          metadata={"step": CK_SAVE})
+                t1 = time.perf_counter()
+                ckpt.wait_until_finished()
+                t2 = time.perf_counter()
+                saved = {"values": gluon_values(net),
+                         "blocked": (t1 - t0) * 1e3, "write": t2 - t1}
+            steps(net, trainer, CK_MORE)
+            ends.append(gluon_values(net))
+            del net, trainer
+            gc.collect()
+        net, trainer = build()
+        tree = ckpt.restore(CK_SAVE, net.collect_params(), trainer=trainer)
+        restored_at = gluon_values(net)
+        steps(net, trainer, CK_MORE)
+        resumed = gluon_values(net)
+        del net, trainer
+    finally:
+        torch.backends.cudnn.deterministic = old
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_dir = os.path.join(ckpt.directory, "step_%d" % CK_SAVE)
+    mb = sum(os.path.getsize(os.path.join(step_dir, f))
+             for f in os.listdir(step_dir)) / 1e6
+    card_digest = weight_digest(saved["values"])
+    if ckpt.digest(CK_SAVE) != card_digest or \
+            tree["metadata"] != {"step": CK_SAVE}:
+        fail("CheckpointManager: the step's digest %s, the card's "
+             "parameters' %s; metadata %s"
+             % (ckpt.digest(CK_SAVE), card_digest, tree["metadata"]))
+    if any(not np.array_equal(restored_at[k], saved["values"][k])
+           for k in restored_at):
+        fail("CheckpointManager: the restored net differs from the saved "
+             "values")
+    twin = all(np.array_equal(ends[0][k], ends[1][k]) for k in ends[0])
+    if twin:
+        apart = [k for k in resumed if not np.array_equal(resumed[k],
+                                                           ends[0][k])]
+        if apart:
+            fail("CheckpointManager: %d arrays of the resumed run differ "
+                 "from the runs never stopped, which agree bitwise (%s)"
+                 % (len(apart), apart[:3]))
+        how = "bitwise equal to them (the two never-stopped runs agree " \
+              "bitwise)"
+    else:
+        worst = 0.0
+        for k in resumed:
+            spread = float(np.abs(ends[0][k] - ends[1][k]).max())
+            d = max(float(np.abs(resumed[k] - e[k]).max()) for e in ends)
+            if d > spread:
+                fail("CheckpointManager: resumed %s %.3g from the runs never "
+                     "stopped, which differ by %.3g" % (k, d, spread))
+            worst = max(worst, d)
+        how = "within the spread of the two never-stopped runs (largest " \
+              "%.3g)" % worst
+    print("CheckpointManager (resnet18_v1, 224^2, batch %d, hybridized, "
+          "SGD): saved at step %d with its Trainer, the file's weight_digest "
+          "equals the card's parameters' read back; restored into a fresh "
+          "net and Trainer, %d more steps %s; save blocked the loop %.1f ms "
+          "(the copy to the host), the background write took %.3f s, the "
+          "step holds %.1f MB | %s"
+          % (GL_BATCH, CK_SAVE, CK_MORE, how, saved["blocked"],
+             saved["write"], mb, card), flush=True)
+    return saved["blocked"], saved["write"], mb
+
+
+def legacy_params_phase(mt, seed, w0, workdir, card):
+    """(e) ResNet-50's arguments and aux states (phase 26's MSRAPrelu
+    draws from ``seed``) written in MXNet's binary .params format and as
+    the port's .npz checkpoint, each loaded through Module.load: the
+    forward on the card from the two is bitwise equal."""
+    import torch
+    from mxtpu_torch import legacy_params
+    args0, aux0 = w0
+    sym = resnet_symbol(mt, 50, RN_SHAPE, RN_CLASSES)
+    legacy, npz = (os.path.join(workdir, n) for n in ("legacy", "npz"))
+    sym.save("%s-symbol.json" % legacy)
+    entries = {"arg:" + k: v for k, v in args0.items()}
+    entries.update(("aux:" + k, v) for k, v in aux0.items())
+    legacy_params.save_legacy_params("%s-0000.params" % legacy, entries)
+    with open("%s-0000.params" % legacy, "rb") as f:
+        if not legacy_params.is_legacy_params(f.read(8)):
+            fail("save_legacy_params wrote no 0x112 magic")
+    mt.model.save_checkpoint(npz, 0, sym, mt.model.params_from_numpy(
+        args0, aux0, mt.cpu())[0], mt.model.params_from_numpy(
+            args0, aux0, mt.cpu())[1])
+    dims = tuple(int(v) for v in RN_SHAPE.split(","))
+    x = np.random.RandomState(seed).uniform(
+        -1, 1, (RN_CHECK_BATCH,) + dims).astype(np.float32)
+    outs = []
+    for prefix in (legacy, npz):
+        mod = mt.mod.Module.load(prefix, 0, context=mt.gpu(0))
+        mod.bind([("data", x.shape)], [("softmax_label", (len(x),))],
+                 for_training=False)
+        mod.forward(mt.io.DataBatch([mt.nd.array(x)], []), is_train=False)
+        outs.append(mod.get_outputs()[0].data.clone())
+        del mod
+    if not torch.equal(*outs):
+        fail("ResNet-50 from MXNet's .params and from .npz: forwards differ "
+             "by %.3g" % max_err(outs[0], outs[1]))
+    print("MXNet's binary .params at ResNet-50's width (%d arrays, %.1f MB, "
+          "uint32 dims) through Module.load: the forward of %d images on "
+          "the card bitwise equal to the .npz checkpoint's | %s"
+          % (len(entries), os.path.getsize("%s-0000.params" % legacy) / 1e6,
+             len(x), card), flush=True)
+
+
+def float16_phase(mt, seed, card):
+    """(f) train_imagenet.py --dtype float16: symbols/resnet.py's float16
+    ResNet-50 (Cast in, Cast out), SyntheticDataIter's float16 batch, fit's
+    multi_precision SGD, F16_STEPS captured steps: the float16 weights the
+    graph's types give, each equal to its float32 master rounded, and ms a
+    step. Returns ms a step."""
+    import gc
+    import torch
+    gpu = mt.gpu(0)
+    np.random.seed(seed)
+    mt.random.seed(seed)
+    sym = resnet_symbol(mt, 50, RN_SHAPE, RN_CLASSES, dtype="float16")
+    shape = (RN_BATCH,) + tuple(int(v) for v in RN_SHAPE.split(","))
+    train = synthetic_data_iter(mt, RN_CLASSES, shape, F16_STEPS,
+                                dtype="float16")
+    a = IMAGENET_ARGS
+    mod = fit_call(mt, sym, train, None, "local", 1, a["lr"], None, a["mom"],
+                   a["wd"], RN_BATCH, a["disp_batches"], context=gpu)
+    text = capture_report(mod, F16_STEPS, "ResNet-50 float16")[0]
+    group = mod._fused._group
+    exec_ = mod._exec_group.execs[0]
+    kinds = {}
+    halves = 0
+    for slot, name in zip(mod._fused._opt_slots, mod._fused._train_names):
+        w = exec_.arg_dict[name]._data
+        kinds.setdefault(str(w.dtype), []).append(name)
+        if w.dtype == torch.float16:
+            master = group.states[slot][0].data
+            if master.dtype != torch.float32 or \
+                    not torch.equal(master.half(), w):
+                fail("--dtype float16: %s is not its float32 master "
+                     "rounded (master %s)" % (name, master.dtype))
+            halves += 1
+    if not halves:
+        fail("--dtype float16 bound no float16 weight: %s"
+             % {k: len(v) for k, v in kinds.items()})
+    metric = mt.metric.create([mt.metric.create("accuracy")])
+    ms = timed_steps(mod, train, metric, F16_STEPS)
+    print("train_imagenet.py --dtype float16 (ResNet-50, 224^2, batch %d, "
+          "multi_precision SGD, captured): %s; weights by dtype %s, each "
+          "float16 one equal to its float32 master rounded; %.3f ms a step "
+          "(%d steps) | %s"
+          % (RN_BATCH, text, {k: len(v) for k, v in kinds.items()}, ms,
+             F16_STEPS, card), flush=True)
+    del mod, train, group, exec_
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
+
+
+def durability_phase(mt, rnn_scan, seed, w0, bound, sentences, rng,
+                     workdir, card):
+    """Phase 37 (ROADMAP A10): (a)-(f) above. Returns what the result
+    lines print."""
+    import gc
+    import torch
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("durability and precision phase: the card holds %.2f GB "
+          "allocated, %.2f GB reserved at its start"
+          % (torch.cuda.memory_allocated() / 1e9,
+             torch.cuda.memory_reserved() / 1e9), flush=True)
+    clock = [("start", time.perf_counter())]
+    out = {"resnet": resnet_amp_phase(mt, seed, card, w0, bound)}
+    clock.append(("ResNet-50 AMP and drill", time.perf_counter()))
+    out["lm"] = amp_lm_phase(mt, rnn_scan, sentences, rng, seed, card)
+    clock.append(("LM", time.perf_counter()))
+    out["ckpt"] = checkpoint_gluon_phase(mt, seed, workdir, card)
+    clock.append(("CheckpointManager", time.perf_counter()))
+    legacy_params_phase(mt, seed, w0, workdir, card)
+    clock.append(("legacy .params", time.perf_counter()))
+    out["f16"] = float16_phase(mt, seed, card)
+    clock.append(("float16", time.perf_counter()))
+    print("durability and precision phase: %.1f s (%s)" % (
+        time.time() - t_phase, ", ".join(
+            "%s %.1f" % (name, t - clock[i][1])
+            for i, (name, t) in enumerate(clock[1:]))), flush=True)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -14545,7 +15342,7 @@ def main():
     # 14. the ResNet slice: train_imagenet.py --benchmark 1's fit call,
     # ResNet-50 at full width eager and captured (BatchNorm's moving
     # statistics inside the captured step), then Inception-BN
-    resnet_ms = resnet_phase(mt, args.seed, card)
+    resnet_ms, resnet_bound = resnet_phase(mt, args.seed, card)
 
     # 15. the Gluon slice: ResNet-18 v1 through autograd.record / backward /
     # Trainer.step, eager and hybridized (one captured forward and backward
@@ -14603,8 +15400,8 @@ def main():
 
     # 26. fit.py's --optimizer nag --initializer msra --top-k 5 --loss
     # ce,nll at ResNet-50's width, beside phase 14's captured SGD step
-    ff_ms = fit_flags_phase(mt, args.seed, card,
-                            resnet_ms.get(("captured", "TF32 off")))
+    ff_ms, resnet_w0 = fit_flags_phase(
+        mt, args.seed, card, resnet_ms.get(("captured", "TF32 off")))
 
     # 27. every optimizer of the registry through LeNet's Module.fit,
     # captured against eager
@@ -14612,7 +15409,8 @@ def main():
 
     # 28. RNN checkpoints on the bucketed LM at PTB's widths (lstm_scan
     # counted from 0 just before its fit)
-    rc_launches = rnn_checkpoint_phase(mt, rnn_scan, args.seed, card,
+    rc_launches, rc_sentences = rnn_checkpoint_phase(mt, rnn_scan,
+                                                     args.seed, card,
                                        workdir)
 
     # 29. SequentialModule, PythonLossModule and Monitor: the examples
@@ -14657,7 +15455,16 @@ def main():
     # vocabulary
     sparse_av, sparse_se = sparse_phase(mt, args.seed, workdir, card)
 
-    # 37. timings at the main paths' shapes
+    # 37. durability and precision: MXTPU_AMP=bf16 in the captured step on
+    # ResNet-50 (phase 26's weights) with its overflow drill, and on the
+    # bucketed LM over phase 28's sentences (lstm_scan in bfloat16,
+    # counted from 0 just before its fit); CheckpointManager on Gluon's
+    # resnet18_v1; MXNet's .params through Module.load; --dtype float16
+    durable = durability_phase(mt, rnn_scan, args.seed, resnet_w0,
+                               resnet_bound, rc_sentences, rng, workdir,
+                               card)
+
+    # 38. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -14713,12 +15520,24 @@ def main():
             "launches_ctc_examples": ctc_launches.get(name, 0),
             "launches_gluon_cells": cell_launches.get(name, 0),
             "launches_gluon_examples": gx_launches.get(name, 0),
+            "launches_amp": durable["lm"][0] if name == "lstm_scan" else 0,
             "max_abs_err": errs[name], "ms": med[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": med[2], "wall_ms": med[1], "pairs": PAIRS,
             "library_wins": wins, "us_per_step": med[0] * 1e3 / SEQ,
             "ms_n1": med1[0], "wall_ms_n1": med1[1],
             "library_ms_n1": med1[2], "library_wins_n1": wins1})
+        if name == "lstm_scan":
+            (k_ms, k_plain, k_lib, k_err, k_bound, k_wall,
+             k_wins) = durable["lm"][2]
+            kernels[-1].update({
+                "amp_shape": "T=%d N=%d H=%d bf16 x_proj, %s" % (
+                    max(BL_BUCKETS), BL_BATCH, BL_HIDDEN, sorted(
+                        {n for v in durable["lm"][3].values() for n in v})),
+                "amp_ms": k_ms, "amp_plain_ms": k_plain,
+                "amp_bound_ms": k_bound, "amp_library_ms": k_lib,
+                "amp_wall_ms": k_wall, "amp_kernel_wins": k_wins,
+                "amp_max_abs_err": k_err})
         if name == "gru_scan":
             kernels[-1].update({
                 "launches_deepspeech2": ds2_launches,
@@ -15053,9 +15872,19 @@ def main():
           % (sparse_av["ms"], sparse_av["bound_ms"], sparse_av["peak_mb"],
              sparse_av["acc"], sparse_se["ms"], sparse_se["backward_mb"],
              card))
+    amp_ms = durable["resnet"]
+    print("durability and precision: ResNet-50 captured ms a step %s; the "
+          "AMP LM ms a step by bucket %s (float32 %s); CheckpointManager's "
+          "save blocked %.1f ms, wrote %.3f s, %.1f MB; --dtype float16 "
+          "%.3f ms a step | %s"
+          % (", ".join("%s %.3f" % kv for kv in amp_ms.items()),
+             {k: round(v, 3) for k, v in durable["lm"][1]["amp"].items()},
+             {k: round(v, 3) for k, v in durable["lm"][1]["f32"].items()},
+             durable["ckpt"][0], durable["ckpt"][1], durable["ckpt"][2],
+             durable["f16"], card))
     print("total %.1f s" % (time.time() - t_start))
 
-    # 38.-39. the result lines
+    # 39.-40. the result lines
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

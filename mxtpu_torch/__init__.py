@@ -54,6 +54,7 @@ from . import parallel
 from . import operator
 from . import rtc
 from . import gluon
+from . import checkpoint
 from .ndarray import NDArray
 from .attribute import AttrScope
 from .symbol import Symbol

@@ -39,6 +39,7 @@ import torch
 from . import ndarray as nd
 from .base import backward_mirror_enabled, canonical_dtype
 from .ndarray import NDArray
+from .ops import nn as nn_ops
 from .ops.registry import draw_tape, rng_scope
 from .symbol import eval_graph
 
@@ -86,6 +87,43 @@ def _copy_into(dst, src):
         dst._aux = None
 
 
+# the index inputs of the ops that look values up: (op name, input position)
+_INDEX_INPUTS = {"Embedding": 0, "one_hot": 0, "take": 1, "pick": 1}
+
+
+def _index_input_names(sym):
+    """The variables that feed an index input (token ids, classes): a
+    reduced-precision cast would round them (bfloat16 holds integers
+    exactly only up to 256)."""
+    out = set()
+    for node in sym._topo():
+        pos = _INDEX_INPUTS.get(getattr(node.op, "name", None))
+        if pos is not None and pos < len(node.inputs) and \
+                node.inputs[pos][0].is_variable:
+            out.add(node.inputs[pos][0].name)
+    return out
+
+
+def _tree_tensors(tree):
+    """The tensors of an optimizer state tree, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [x for s in tree for x in _tree_tensors(s)]
+    return []
+
+
+def _unscale_verdict(grads, scale):
+    """``mxtpu``'s ``_amp_verdict``: the loss-scaled gradients unscaled in
+    float32, and whether their square sum is finite (a 0-dim bool on the
+    card: NaN or Inf anywhere, or a norm whose square overflows, gives
+    False)."""
+    inv = 1.0 / scale           # applied as float32(1/S), as mxtpu does
+    out = [None if g is None else g.float() * inv for g in grads]
+    gsq = sum(torch.sum(torch.square(g)) for g in out if g is not None)
+    return out, torch.isfinite(gsq)
+
+
 class Executor:
     """A symbol bound to arrays on one context."""
 
@@ -123,7 +161,11 @@ class Executor:
                      stype_dict=None):
         arg_names = sym.list_arguments()
         arg_shapes, out_shapes, aux_shapes = sym.infer_shape(**shape_kwargs)
-        type_dict = type_dict or {}
+        # the given types, and those the graph gives through a Cast
+        type_dict = dict(type_dict or {})
+        inferred, _out, _aux = sym.infer_type(**type_dict)
+        for name, dt in zip(arg_names, inferred):
+            type_dict.setdefault(name, dt)
         # storage types: the declared ones, overridden by stype_dict
         arg_stypes, _out, _aux = sym.infer_storage_type(**(stype_dict or {}))
         stype_of = dict(zip(arg_names, arg_stypes))
@@ -267,7 +309,8 @@ class Executor:
                     self.grad_dict[n]._aux = None
 
     def make_fused_train_step(self, train_names, optimizer, opt_slots,
-                              metric_fn=None):
+                              metric_fn=None, compute_dtype=None,
+                              loss_scale=None, cast_exclude=()):
         """The whole train step as one function over the bound tensors
         (``mxtpu``'s ``make_fused_train_step``, its local form): forward,
         backward with ones as the head cotangents (the loss-head
@@ -288,7 +331,29 @@ class Executor:
         the outputs. Gradients stay inside it (``torch.autograd.grad``),
         and every tensor it writes keeps its storage, so one call can be
         captured in a CUDA graph and replayed on new values copied into
-        the same tensors."""
+        the same tensors.
+
+        Mixed precision (``MXTPU_AMP=bf16``, ``mxtpu``'s policy):
+        ``compute_dtype`` casts the floating weights and inputs, but the
+        names in ``cast_exclude`` (the labels), the inputs that feed an
+        op's index input (an Embedding's token ids, which ``mxtpu``
+        rounds) and the aux states, to that dtype inside the function, so
+        the forward and backward compute in it while the weights, the
+        optimizer states and the aux states stay float32; the gradients
+        come back float32 through the cast's backward, and the update
+        runs in float32.
+        ``loss_scale`` S scales the loss by S (the head cotangents, and
+        the gradient of each loss head that ignores its cotangent, such
+        as SoftmaxOutput: ``ops.nn.loss_scale``), unscales the
+        float32 gradients by 1/S and computes the finite verdict of
+        their square sum on the card; on a non-finite verdict every
+        tensor the step writes (weights, states, aux, ``t``,
+        ``metric_acc``) is left bitwise at its value before the step,
+        with no read on the host. The update runs in place, so the
+        step keeps a copy of the weights and states from before it and
+        selects (``torch.where``) between the two after it: under a
+        loss scale the step holds one more copy of the weights and
+        states."""
         from .optimizer import functional_optimizer_step
         outputs_ref = self._symbol._outputs
         aux_names = tuple(self._aux_names)
@@ -297,15 +362,25 @@ class Executor:
                             if n not in set(train_names))
         opt_slots = tuple(opt_slots)
         device = self._ctx.torch_device()
+        exclude = frozenset(cast_exclude or ()) | \
+            _index_input_names(self._symbol)
+        scale = float(loss_scale) if loss_scale else None
+
+        def cast(name, v):
+            if compute_dtype is None or name in exclude or \
+                    not v.is_floating_point():
+                return v
+            return v.to(compute_dtype)
 
         def fused(train_vals, state_trees, aux_vals, other_vals, generator,
                   t, lr, metric_acc):
-            feed = dict(zip(other_names, other_vals))
+            feed = {n: cast(n, v) for n, v in zip(other_names, other_vals)}
             feed.update(zip(aux_names, aux_vals))
             leaves = [w.detach().requires_grad_() if w.is_floating_point()
                       else w for w in train_vals]
-            feed.update(zip(train_names, leaves))
-            with torch.enable_grad(), rng_scope(generator):
+            feed.update((n, cast(n, w)) for n, w in zip(train_names, leaves))
+            with torch.enable_grad(), rng_scope(generator), \
+                    nn_ops.loss_scale(scale or 1.0):
                 outs, aux_updates = eval_graph(outputs_ref, feed, True,
                                                device=device)
             heads = [o for o in outs
@@ -315,26 +390,50 @@ class Executor:
             if heads and wrt:
                 found = torch.autograd.grad(
                     heads, [leaves[i] for i in wrt],
-                    [torch.ones_like(o) for o in heads], allow_unused=True)
+                    [torch.full_like(o, scale) if scale else
+                     torch.ones_like(o) for o in heads], allow_unused=True)
                 for i, g in zip(wrt, found):
                     grads[i] = g
+            ok = None
+            with torch.no_grad():
+                if scale:
+                    grads, ok = _unscale_verdict(grads, scale)
+                    # the pre-step values the skip selects (the update
+                    # runs in place)
+                    saved = [w.clone() for w in train_vals]
+                    saved_states = [[x.clone() for x in _tree_tensors(st)]
+                                    for st in state_trees]
             # the update draws (SGLD's noise) from the step's generator
             with torch.no_grad(), rng_scope(generator):
                 for n, a in zip(aux_names, aux_vals):
                     if n in aux_updates and aux_updates[n] is not a:
-                        a.copy_(aux_updates[n])
+                        a.copy_(aux_updates[n] if ok is None else
+                                torch.where(ok, aux_updates[n], a))
                 t.add_(1)
                 for slot, w, g, st in zip(opt_slots, train_vals, grads,
                                           state_trees):
                     functional_optimizer_step(
                         optimizer, slot, w,
                         torch.zeros_like(w) if g is None else g, st, t, lr)
+                if ok is not None:
+                    for w, old in zip(train_vals, saved):
+                        w.copy_(torch.where(ok, w, old))
+                    for st, olds in zip(state_trees, saved_states):
+                        for x, old in zip(_tree_tensors(st), olds):
+                            x.copy_(torch.where(ok, x, old))
+                    t.sub_((~ok).to(t.dtype))
                 outs = [o.detach() for o in outs]
                 if metric_fn is not None:
                     m_sum, m_cnt = metric_fn(dict(zip(other_names,
                                                       other_vals)), outs)
-                    metric_acc[0].add_(m_sum)
-                    metric_acc[1].add_(float(m_cnt))
+                    if ok is None:
+                        metric_acc[0].add_(m_sum)
+                        metric_acc[1].add_(float(m_cnt))
+                    else:
+                        # a skipped step adds nothing to the epoch's metric
+                        metric_acc[0].add_(torch.where(
+                            ok, m_sum, torch.zeros_like(m_sum)))
+                        metric_acc[1].add_(ok.float() * float(m_cnt))
             return outs
 
         return fused, other_names

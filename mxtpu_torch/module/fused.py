@@ -46,6 +46,28 @@ schedule moves) and the stats. After a fused step ``get_outputs()``
 returns the step's outputs, which the group's next step, of any bucket,
 overwrites (``mxtpu``'s donation contract).
 
+Mixed precision (``MXTPU_AMP=bf16``, :func:`amp_mode`) is a mode of the
+same step, as in ``mxtpu``: the store keeps float32 weights, optimizer
+states and aux states, and the step casts the floating weights and
+inputs (never the labels, the aux states or an index input such as an
+Embedding's token ids) to bfloat16 inside the captured function, so the
+forward and backward run in bfloat16 while the gradients return float32
+through the cast and the update runs in float32. It casts; it does not
+autocast, which would keep some ops in float32 where ``mxtpu`` rounds.
+``MXTPU_AMP_LOSS_SCALE=S`` (:func:`amp_loss_scale`) scales the loss by S
+(a loss head such as SoftmaxOutput, which ignores its head gradient,
+multiplies its own gradient by S, so the step keeps its size: ``mxtpu``
+scales only the head cotangent, which such a head drops, and its steps
+come out S times smaller), unscales the gradients,
+and skips a step whose gradients are not finite inside the graph, every
+tensor the step writes left bitwise as it was; :meth:`FusedGroupState.
+amp_overflow_skips` counts the skips with one read of ``t``. A module
+whose trained parameters are not float32 logs its reason once and keeps
+the float32 step; an unknown ``MXTPU_AMP`` raises. The eager path stays
+float32. The ``module.step`` fault point fires once a fused step,
+before the batch is copied into the step's inputs: ``nan_grad`` there
+poisons the batch (the overflow drill).
+
 The rest is ``mxtpu``'s escape hatch: a Monitor, a custom updater,
 several contexts, ``inputs_need_grad``, state inputs, ``grad_req`` other
 than ``write`` and any kvstore object keep the eager path
@@ -63,6 +85,7 @@ mode (:func:`_end_failed_capture`).
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import threading
@@ -71,15 +94,17 @@ import warnings
 import numpy as _np
 import torch
 
+from .. import fault as _fault
 from .. import optimizer as opt_mod
-from ..base import CaptureRefused
+from ..base import CaptureRefused, dtype_name
 from ..model import _module_fused_enabled
 from ..ndarray import NDArray
 from ..optimizer import state_to_tree
 
 __all__ = ["ProgramCache", "GraphProgram", "FusedGroupState",
            "FusedModuleTrainer", "maybe_create", "attach_borrowed",
-           "metric_readback_interval", "_fused_eligible"]
+           "metric_readback_interval", "_fused_eligible", "amp_mode",
+           "amp_loss_scale"]
 
 
 class ProgramCache:
@@ -126,6 +151,29 @@ class ProgramCache:
             return {"programs": len(self._programs),
                     "compiles": self.compiles, "hits": self.hits,
                     "imports": self.imports}
+
+
+def amp_mode():
+    """MXTPU_AMP: the mixed-precision mode of the fused step. Unset (or
+    ``0``/``off``/``none``/``false``) is off; ``bf16``/``bfloat16``
+    computes in bfloat16 with float32 masters. Anything else raises: a
+    mistyped dtype must not train in float32 unnoticed."""
+    v = os.environ.get("MXTPU_AMP", "").strip().lower()
+    if v in ("", "0", "off", "none", "false"):
+        return None
+    if v in ("bf16", "bfloat16"):
+        return "bf16"
+    raise ValueError("MXTPU_AMP must be unset/'bf16', got %r" % v)
+
+
+def amp_loss_scale():
+    """MXTPU_AMP_LOSS_SCALE: the static loss scale S of the AMP step (0
+    or unset: off; bfloat16 has float32's exponent range, so scaling is
+    optional)."""
+    try:
+        return float(os.environ.get("MXTPU_AMP_LOSS_SCALE", "0") or 0.0)
+    except ValueError:
+        return 0.0
 
 
 def metric_readback_interval():
@@ -194,6 +242,25 @@ class FusedGroupState:
         self.warned_fallback = False
         self.stats = {"steps": 0, "compiles": 0, "cache_hits": 0,
                       "metric_drains": 0, "fallbacks": 0}
+        # mixed precision (set_amp)
+        self.amp = None
+        self.compute_dtype = None
+        self.loss_scale = None
+
+    def set_amp(self, amp):
+        """Engage the group's mixed-precision mode (``maybe_create``)."""
+        self.amp = amp
+        if amp == "bf16":
+            self.compute_dtype = torch.bfloat16
+            self.loss_scale = amp_loss_scale() or None
+
+    def amp_overflow_skips(self):
+        """Loss-scale overflow steps skipped so far: the steps attempted
+        (the host's count) less the steps applied (one read of the
+        device's ``t``, made only when asked). 0 without loss scaling."""
+        if not self.loss_scale or self.t_dev is None:
+            return 0
+        return int(self.num_update) - int(self.t_dev.item())
 
     # -- device scalars ----------------------------------------------------
     def device_state(self):
@@ -374,7 +441,9 @@ class FusedModuleTrainer:
         fs = self._group
         fn, other_names = exec_.make_fused_train_step(
             self._train_names, fs.optimizer, self._opt_slots,
-            metric_fn=metric_fn)
+            metric_fn=metric_fn, compute_dtype=fs.compute_dtype,
+            loss_scale=fs.loss_scale,
+            cast_exclude=tuple(self._module._label_names))
         args = (tuple(exec_.arg_dict[n].data for n in self._train_names),
                 tuple(state_to_tree(s) for s in states),
                 tuple(exec_.aux_dict[n].data for n in exec_._aux_names),
@@ -440,6 +509,12 @@ class FusedModuleTrainer:
         fs = self._group
         if isinstance(data_batch, list):
             return False  # multi-module list batches: eager path
+        # the fused step's fault point (the loss-scale overflow drill
+        # poisons the batch here, before it is copied into the inputs)
+        if _fault.fire("module.step", op="step") == "nan_grad":
+            data_batch = copy.copy(data_batch)
+            data_batch.data = [NDArray(d._data * float("nan"), d.context)
+                               for d in data_batch.data]
         exec_group = mod._exec_group
         exec_ = exec_group.execs[0]
         if exec_._monitor_callback is not None:
@@ -678,15 +753,51 @@ def _log_fallback(module, reason):
                  reason)
 
 
+def _amp_eligible(module):
+    """``(amp, reason)``: the AMP mode ``MXTPU_AMP`` asks for, or None
+    with the reason it cannot engage (a trained parameter that is not
+    float32: AMP needs float32 masters), in ``mxtpu``'s words."""
+    amp = amp_mode()
+    if amp is None:
+        return None, None
+    exec_ = module._exec_group.execs[0]
+    for name, arr in exec_.arg_dict.items():
+        if exec_.grad_dict.get(name) is None:
+            continue
+        if arr._data.dtype != torch.float32:
+            return None, (
+                "MXTPU_AMP=bf16 requested but parameter %r is %s — AMP "
+                "needs fp32 master weights (fp64/fp16 params keep the "
+                "fp32 fused step)" % (name, dtype_name(arr._data.dtype)))
+    return amp, None
+
+
+def _log_amp_fallback(module, reason):
+    """One-shot debug log naming why AMP stayed off while the fused step
+    engaged."""
+    if getattr(module, "_amp_fallback_logged", None) == reason:
+        return
+    module._amp_fallback_logged = reason
+    logger = getattr(module, "logger", None) or logging
+    logger.debug("Module AMP mode not engaged: %s — fp32 fused step",
+                 reason)
+
+
 def maybe_create(module):
     """Called at the end of ``Module.init_optimizer``: the fused trainer
-    when the module is eligible, else None."""
+    when the module is eligible, else None. The group takes the AMP mode
+    that ``MXTPU_AMP`` asks for, where the module is eligible for it."""
     mode, reason = _fused_eligible(module)
     if mode is None:
         _log_fallback(module, reason)
         return None
     group = FusedGroupState(module._optimizer, module._updater,
                             module._context[0])
+    amp, amp_reason = _amp_eligible(module)
+    if amp is not None:
+        group.set_amp(amp)
+    elif amp_reason is not None:
+        _log_amp_fallback(module, amp_reason)
     trainer = FusedModuleTrainer(module, group)
     trainer.seed_store()
     return trainer

@@ -26,6 +26,8 @@ change. (Only an rtc kernel writes into an output array in place.)
 """
 from __future__ import annotations
 
+import os
+
 import numpy as _np
 import torch
 
@@ -545,19 +547,49 @@ def _unpack(source, ctx):
     return out
 
 
+def _from_legacy(arrays, names, ctx):
+    """The port's arrays of :func:`~mxtpu_torch.legacy_params.
+    load_legacy_params`'s entries: numpy arrays, or sparse triples."""
+    from . import sparse as _sp
+
+    def conv(entry):
+        if not isinstance(entry, dict):
+            return array(entry, ctx=ctx)
+        if entry["stype"] == "row_sparse":
+            return _sp.row_sparse_array(
+                (entry["data"], entry["aux"][0]), shape=entry["shape"],
+                ctx=ctx)
+        return _sp.csr_matrix(
+            (entry["data"], entry["aux"][1], entry["aux"][0]),
+            shape=entry["shape"], ctx=ctx)
+    vals = [conv(a) for a in arrays]
+    return dict(zip(names, vals)) if names else vals
+
+
 def load(fname, ctx=None):
     """Load a ``.params``/``.npz`` file written by either package, dense
-    and sparse entries. Arrays go to ``ctx`` (default: the current
-    context)."""
+    and sparse entries, or one in MXNet's own binary format (sniffed by
+    its ``0x112`` magic: a checkpoint MXNet wrote). Arrays go to ``ctx``
+    (default: the current context)."""
+    if not isinstance(fname, (str, os.PathLike)):
+        return _unpack(fname, ctx)          # an open file
+    from ..legacy_params import is_legacy_params, load_legacy_params
+    with open(fname, "rb") as f:
+        head = f.read(8)
+    if is_legacy_params(head):
+        return _from_legacy(*load_legacy_params(fname), ctx)
     return _unpack(fname, ctx)
 
 
 def load_from_bytes(buf, ctx=None):
-    """:func:`load` of the bytes of such a file (MXNet's
-    ``MXNDArrayLoadFromBuffer``); the reference's legacy binary format is
-    not read here."""
+    """:func:`load` of the bytes of such a file, MXNet's binary format
+    included (MXNet's ``MXNDArrayLoadFromBuffer``)."""
     import io
-    return _unpack(io.BytesIO(bytes(buf)), ctx)
+    from ..legacy_params import is_legacy_params, load_legacy_params
+    buf = bytes(buf)
+    if is_legacy_params(buf[:8]):
+        return _from_legacy(*load_legacy_params(buf), ctx)
+    return _unpack(io.BytesIO(buf), ctx)
 
 
 def _op_function(op, name):

@@ -477,6 +477,33 @@ def _one_hot(label, n, dtype):
         .to(dtype)
 
 
+# The loss scale of the step being traced (the fused step's
+# MXTPU_AMP_LOSS_SCALE). The loss heads below ignore their head gradient,
+# so a scale put into the heads' cotangent never reaches their inputs:
+# each multiplies its gradient by the scale in force at its forward
+# instead, while an output that honours its head gradient gets the scale
+# through the cotangent.
+_LOSS_SCALE = threading.local()
+
+
+class loss_scale:
+    """Within it, the loss heads' gradients are multiplied by ``scale``."""
+
+    def __init__(self, scale):
+        self.scale = float(scale)
+
+    def __enter__(self):
+        self.old = getattr(_LOSS_SCALE, "value", 1.0)
+        _LOSS_SCALE.value = self.scale
+
+    def __exit__(self, *exc):
+        _LOSS_SCALE.value = self.old
+
+
+def _head_scale():
+    return getattr(_LOSS_SCALE, "value", 1.0)
+
+
 def _softmax_output_grad(out, label, g, grad_scale, ignore_label,
                          multi_output, use_ignore, preserve_shape,
                          normalization, out_grad, smooth_alpha):
@@ -537,7 +564,9 @@ class _SoftmaxOutput(torch.autograd.Function):
             out = torch.softmax(data.reshape(data.shape[0], -1),
                                 dim=-1).reshape(data.shape)
         ctx.save_for_backward(out, label)
-        ctx.opts = opts
+        # under out_grad the head gradient carries the loss scale
+        ctx.opts = opts if opts["out_grad"] else dict(
+            opts, grad_scale=opts["grad_scale"] * _head_scale())
         return out
 
     @staticmethod
@@ -571,7 +600,7 @@ class _RegressionOutput(torch.autograd.Function):
     def forward(ctx, data, label, fwd, grad, grad_scale):
         out = fwd(data)
         ctx.save_for_backward(out, label)
-        ctx.grad, ctx.grad_scale = grad, grad_scale
+        ctx.grad, ctx.grad_scale = grad, grad_scale * _head_scale()
         return out
 
     @staticmethod
@@ -609,7 +638,7 @@ class _SVMOutput(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, label, margin, coef, use_linear):
         ctx.save_for_backward(data, label)
-        ctx.opts = (margin, coef, use_linear)
+        ctx.opts = (margin, coef * _head_scale(), use_linear)
         return data.view_as(data)
 
     @staticmethod
@@ -671,7 +700,8 @@ class _MakeLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, data, grad_scale, per_batch):
-        ctx.grad_scale, ctx.per_batch = grad_scale, per_batch
+        ctx.grad_scale = grad_scale * _head_scale()
+        ctx.per_batch = per_batch
         return data.view_as(data)
 
     @staticmethod

@@ -875,8 +875,14 @@ def functional_optimizer_step(optimizer, index, weight, grad, state_tree, t,
     count ``t`` (int32) and ``lr`` (float32) are 0-dim tensors on the
     weight's device, already advanced for this step; the slot's lr
     multiplier scales ``lr`` there. Nothing is counted on the host: the
-    caller keeps ``num_update`` and the slots' counts. Returns ``(weight,
-    state_tree)``."""
+    caller keeps ``num_update`` and the slots' counts. A gradient in
+    another floating dtype than the weight's (a bfloat16 one under
+    ``MXTPU_AMP=bf16``) is cast to the weight's first, so the update
+    always runs in the master weight's precision, as in ``mxtpu``.
+    Returns ``(weight, state_tree)``."""
+    if grad.dtype != weight.dtype and grad.is_floating_point() and \
+            weight.is_floating_point():
+        grad = grad.to(weight.dtype)
     saved = optimizer._step_scalars
     optimizer._step_scalars = (t, lr)
     try:
@@ -941,9 +947,12 @@ class Updater:
         return state
 
     def set_states(self, states):
-        """Restore states written by :meth:`get_states` (bytes this
-        program wrote: a pickle runs code when loaded)."""
-        states = pickle.loads(states)
+        """Restore states written by :meth:`get_states`, in either
+        package (``mxtpu``'s classes load as the port's:
+        :mod:`~mxtpu_torch._unpickle`; a pickle runs code when loaded,
+        so load only bytes of a program you trust)."""
+        from ._unpickle import loads
+        states = loads(states)
         if isinstance(states, tuple) and len(states) == 2:
             states, self.optimizer = states
         self.states = {k: _from_numpy(v) for k, v in states.items()}

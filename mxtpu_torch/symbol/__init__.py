@@ -239,18 +239,29 @@ class Symbol:
                 [shapes.get(n) for n in self.list_auxiliary_states()])
 
     def infer_type(self, *args, **kwargs):
-        """``(arg_types, out_types, aux_types)`` as numpy dtypes: the given
-        arguments' types, float32 for every other argument, output and aux
-        state (``mxtpu``'s rule)."""
+        """``(arg_types, out_types, aux_types)`` as numpy dtypes from the
+        types of some arguments, given by position or name. MXNet's
+        InferType, for the floating types a ``Cast`` brings in: an op
+        computes in the type of its first input whose type is known (a
+        ``Cast`` in its ``dtype``), and an argument of unknown type takes
+        the op's type where that is float16, bfloat16 or float64, but
+        for the parameters of the norm layers (their scale, shift and
+        statistics stay float32, as MXNet's BatchNorm keeps them for
+        float16 data). Every other argument, aux state and output is
+        float32. (``mxtpu`` gives float32 to every argument not given,
+        so its ``simple_bind`` of ``symbols/resnet.py``'s float16 network
+        fails: its convolution refuses float16 data with float32
+        weights.)"""
         arg_names = self.list_arguments()
         dtypes = {n: canonical_dtype(t) for n, t in zip(arg_names, args)
                   if t is not None}
         dtypes.update({k: canonical_dtype(v) for k, v in kwargs.items()})
-        default = _np.dtype(_np.float32)
-        arg_types = [_np.dtype(dtype_name(dtypes[n])) if n in dtypes
-                     else default for n in arg_names]
-        return (arg_types, [default] * len(self._outputs),
-                [default] * len(self.list_auxiliary_states()))
+        var_types, out_types = _infer_graph_types(self, dtypes)
+        name = lambda t: _np.dtype(dtype_name(t)) if t != torch.bfloat16 \
+            else t
+        return ([name(var_types.get(n, torch.float32)) for n in arg_names],
+                [name(t) for t in out_types],
+                [_np.dtype(_np.float32)] * len(self.list_auxiliary_states()))
 
     def infer_storage_type(self, *args, **kwargs):
         """``(arg_stypes, out_stypes, aux_stypes)``: "default", "csr" or
@@ -844,6 +855,38 @@ def _meta_outputs(op, in_vals, params):
     return tuple(torch.empty(tuple(d if d == e else 0 for d, e in zip(
         a.shape, b.shape)), dtype=a.dtype, device=a.device)
         for a, b in zip(*runs))
+
+
+_REDUCED = (torch.float16, torch.bfloat16, torch.float64)
+# ops whose parameters stay float32 for reduced-precision data
+_FLOAT32_PARAMS = ("BatchNorm", "BatchNorm_v1", "batch_norm", "LayerNorm",
+                   "InstanceNorm")
+
+
+def _infer_graph_types(sym, known):
+    """``({variable name: torch dtype}, [output dtypes])``: the types of
+    ``known`` propagated forward through the graph (see
+    :meth:`Symbol.infer_type`)."""
+    var_types = dict(known)
+    node_types = {}
+    for node in sym._topo():
+        if node.is_variable:
+            node_types[id(node)] = var_types.get(node.name)
+            continue
+        in_types = [node_types.get(id(inp)) for inp, _ in node.inputs]
+        data_t = next((t for t in in_types if t is not None), None)
+        if node.op.name in ("cast", "Cast"):
+            out_t = canonical_dtype(node.params.get("dtype", "float32"))
+        else:
+            out_t = data_t
+        if data_t in _REDUCED and node.op.name not in _FLOAT32_PARAMS:
+            for (inp, _), t in zip(node.inputs, in_types):
+                if t is None and inp.is_variable and not inp.is_scalar:
+                    var_types[inp.name] = data_t
+                    node_types[id(inp)] = data_t
+        node_types[id(node)] = out_t
+    outs = [node_types.get(id(n)) or torch.float32 for n, _ in sym._outputs]
+    return var_types, outs
 
 
 def _infer_graph_shapes(sym, known, partial=False):
