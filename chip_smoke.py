@@ -326,6 +326,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    GenerateScheduler: tokens/s, TTFT and decode-step percentiles beside
    the step's bound, the step's busy share, captures before and after;
    TF32 off, and the first 16 tokens of 2 sequences against the CPU's);
+   then the same engine behind a ModelServer on loopback TCP: 32 of the
+   prompts streamed through ServingClient.generate2 (the in-process
+   tokens, each frame's index once and in order; tokens/s and TTFT), and a
+   swap to v1 after 4 frames of a sequence decoding under a serve.step
+   delay, in before it ends (that sequence all v0, the next admission v1,
+   no program built or captured);
    the first forward/backward at 2 layers and T=32 against the CPU
    (WT_TOL); 10 captured Module.fit steps at batch 8 x 512 with Adam and
    TF32 on beside the FLOPs bound, peak memory; moe_ffn at Switch-Base-8
@@ -445,7 +451,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    Module.load, the forward bitwise equal to the .npz checkpoint's;
    train_imagenet.py --dtype float16 at ResNet-50's width, 5 captured
    steps, each float16 weight its float32 master rounded;
-38. timings: each kernel, its plain version and the PyTorch library call
+38. the serving replica over the wire (ROADMAP A12's first half): phase
+   4's LSTM LM served over loopback TCP by a replica process (python -m
+   mxtpu_torch.serving, a fresh interpreter started with subprocess) and
+   a ModelServer in this process (lstm_scan counted from 0 there just
+   before the drills: 2 launches a dispatch): concurrent 1-row and
+   multi-row requests coalesced into fewer dispatches, within SERVE_TOL of
+   the CPU; a request alone at its bucket bitwise equal on both replicas
+   and the in-process engine; 1-row and 32-row requests timed over the
+   wire beside the in-process predict, with the client, admission, rpc
+   and batch spans; SIGKILL of the process under 4 x 6 32-row requests
+   (each answered once, bitwise, the failover counters moving); v1
+   published into the snapshot directory both replicas follow (no
+   program built); the process respawned, caught up to v1 before it
+   admits; a canary at 0.25 by request id, promote, rollback to v0
+   (bitwise v0's answers); SIGTERM draining the process to exit 0 with a
+   request held in flight (answered) and a request sent after it
+   (refused with draining), clients steered to the peer;
+39. timings: each kernel, its plain version and the PyTorch library call
    computing the same function (cuDNN RNNs; scaled_dot_product_attention;
    torch.softmax), beside the least time the card could take (CUDA
    events; where a launch is shorter than its host cost, events around
@@ -462,20 +485,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    NVRTC's compile time and the host cost of one rtc launch; the
    custom-op model's requests/s at bucket 128; Module.fit's eager and
    captured steps beside cs_step's;
-39. one JSON line naming every kernel with its launches (the head
+40. one JSON line naming every kernel with its launches (the head
    kernels': in the MLP's captured Module.fit; lstm_scan's and gru_scan's:
    in the bucketed LM's captured fits, and in the Gluon LM's runs as
    launches_gluon_lm, lstm_scan's in the checkpointed fit as
    launches_rnn_checkpoint, in phase 37's AMP LM as launches_amp with its
    bfloat16 time at bucket 32 (amp_*), in phases 30, 32 and 34 as
    launches_ctc_examples, launches_gluon_cells and launches_gluon_examples,
+   in phase 38's in-process replica as launches_wire,
    gru_scan's in DeepSpeech 2's captured fit as launches_deepspeech2 with
    its time at that shape (ds2_*) and ctc_loss's; multibox_nms's: in the
    SSD slice's decodes,
    in the R-CNN toy as launches_rcnn_toy and in phase 21's box_nms
    checks as launches_box_nms, with its time at Proposal's shape and
    box_nms's at SSD-300's) and error;
-40. the last line: {"ok": true, "device": {...}}.
+41. the last line: {"ok": true, "device": {...}}.
 
 It needs one card and the repository around it; without either it
 exits non-zero and prints no result.
@@ -4069,7 +4093,7 @@ def module_aux(mod):
 # TF32 off each path trains one epoch of RN_OFF_STEPS steps (its times
 # only), and every timed turn is RN_TIMED_STEPS steps.
 RN_BATCH, RN_SHAPE, RN_CLASSES = 128, "3,224,224", 1000
-RN_STEPS, RN_EPOCHS, RN_OFF_STEPS, RN_TIMED_STEPS = 20, 2, 5, 5
+RN_STEPS, RN_EPOCHS, RN_OFF_STEPS, RN_TIMED_STEPS = 20, 2, 5, 3
 # The first steps card vs CPU, at a batch the CPU takes in seconds.
 RN_CHECK_BATCH = 16
 # The float32 gradient of these networks is discontinuous in the forward's
@@ -4680,7 +4704,7 @@ GL_DATA_BATCHES, GL_WORKERS = 2, 2
 GL_LEARN_STEPS, GL_CE_STEPS, GL_CE_SHARE = 24, 4, 0.5
 # steps a timed run (eager, hybridized, hybridized, eager), and the steps
 # under torch.profiler for the busy share
-GL_STEPS, GL_PROFILE_STEPS = 10, 4
+GL_STEPS, GL_PROFILE_STEPS = 5, 4
 # steps of the hybridized path held against the eager one on the card,
 # both under cuDNN's deterministic algorithms: the same kernels on the same
 # inputs, replayed from a graph
@@ -5881,21 +5905,29 @@ def cifar_times(mt, runs, setting, card, bound, batch):
         % (bound_at, by, 100 * bound_at / step))
 
 
-def cifar_pad_check(mt, network, seed, root, card):
-    """A captured fit over CF_PAD_RECORDS records (3 steps an epoch, the
-    last padded), 2 epochs, the same records as validation data: one
-    capture, a replay in every later step, the padded batches among
-    them."""
+def cifar_pad_iters(mt, root):
+    """The padded-batch check's records (CF_PAD_RECORDS) and its (train,
+    validation) iterators, whose decode pools start while the phase's
+    other pools start: (args, iterators)."""
     args = cifar_args(synthetic=CF_PAD_RECORDS, num_examples=CF_PAD_RECORDS,
                       num_epochs=2, data_nthreads=2)
     args.data_train = args.data_val = make_synthetic_recfile(
         mt, os.path.join(root, "cifar10_pad.rec"), CF_PAD_RECORDS,
         int(args.image_shape.split(",")[1]), args.num_classes)
+    return args, get_rec_iter(mt, args)
+
+
+def cifar_pad_check(mt, network, seed, args, iters, card):
+    """A captured fit over CF_PAD_RECORDS records (3 steps an epoch, the
+    last padded), 2 epochs, the same records as validation data, through
+    ``iters`` (cifar_pad_iters'): one capture, a replay in every later
+    step, the padded batches among them."""
     pads = []
     np.random.seed(seed)
     mod, train, val = cifar_fit(
         mt, args, network, context=mt.gpu(0), kvstore="local",
-        batch_end_callback=[lambda p: pads.append(p.locals["batch"].pad)])
+        batch_end_callback=[lambda p: pads.append(p.locals["batch"].pad)],
+        iters=iters)
     try:
         pool_iters("CIFAR padded batch", train, val)
         steps = -(-CF_PAD_RECORDS // args.batch_size) * args.num_epochs
@@ -5935,17 +5967,24 @@ def cifar_phase(mt, seed, card):
         args.data_train, args.data_val = cifar_synthetic(mt, args, root)
         clock.append(("records", time.perf_counter()))
         # one (train, validation) pair of decode pools for every fit of the
-        # phase: each pool's start-up took 10-12 s, and the phase started 9
+        # phase: each pool's start-up took 10-12 s, and the phase started 9;
+        # the padded-batch check's pools start beside them
         shared = get_rec_iter(mt, args)
+        pad_args, pad_iters = cifar_pad_iters(mt, root)
         try:
-            io_rate = cifar_io(mt, args, card, shared)
-            clock.append(("iterator alone", time.perf_counter()))
-            cifar_settings(mt, args, resnet110, seed, card, shared, io_rate,
-                           out, clock)
+            try:
+                io_rate = cifar_io(mt, args, card, shared)
+                clock.append(("iterator alone", time.perf_counter()))
+                cifar_settings(mt, args, resnet110, seed, card, shared,
+                               io_rate, out, clock)
+            finally:
+                for it in shared:
+                    it.close()
+            cifar_pad_check(mt, resnet110(mt), seed, pad_args, pad_iters,
+                            card)
         finally:
-            for it in shared:
+            for it in pad_iters:
                 it.close()
-        cifar_pad_check(mt, resnet110(mt), seed, root, card)
         gc.collect()
         torch.cuda.empty_cache()
         clock.append(("padded batch", time.perf_counter()))
@@ -9078,7 +9117,7 @@ FCN_CAPTURE_STEPS = 2
 # the first forward/backward on the card against the CPU (TF32 off), each
 # output and gradient within FCN_TOL of its largest value
 FCN_TOL = 1e-4
-FCN_TIMED_STEPS, FCN_PROFILE_STEPS = 16, 4
+FCN_TIMED_STEPS, FCN_PROFILE_STEPS = 8, 4
 VGG16_BLOCKS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512),
                 (512, 512, 512))
 
@@ -10009,6 +10048,13 @@ WT_CHECK_TOKENS = 8
 WT_TRAIN_BATCH, WT_TRAIN_STEPS = 8, 10
 WT_CHECK_LAYERS, WT_CHECK_T, WT_CHECK_BATCH, WT_TOL = 2, 32, 2, 1e-4
 WT_PROFILE_STEPS = 20
+# generation over the wire: the first WT_WIRE_SEQS prompts streamed through
+# ServingClient.generate2; a swap of v1 (every weight WT_WIRE_SCALE times
+# v0's) after WT_WIRE_SWAP_AFTER frames of one more sequence
+WT_WIRE_SEQS, WT_WIRE_SCALE, WT_WIRE_SWAP_AFTER = 32, 1.05, 4
+# the swap's sequence decodes under a serve.step delay (a fault schedule),
+# so that the swap (its copy of 682.9M weights included) lands mid-sequence
+WT_WIRE_STEP_DELAY = 0.02
 SWITCH = dict(dim=768, ff=3072, experts=8, top=1, cf=1.25, tokens=4096)
 SWITCH_TOL = 1e-4
 
@@ -10168,11 +10214,10 @@ def wt_serve(mt, seed, card):
         out["bound_bytes"], out["bound_flops"] = nbytes, flops
         # the decode step alone: its card time and busy share, on the
         # drained lane's state (its captured program)
-        params, aux, _v = engine._resolve_store(None)
         state = engine.gen_state_init(WT_SLOTS)
 
         def step():
-            engine.gen_step(state, params, aux)[0].cpu()
+            engine.gen_step(state)[0].cpu()
         step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -10186,13 +10231,19 @@ def wt_serve(mt, seed, card):
         out["graphs"] = gen_graphs(engine)
         engine.gen_state_release(state)
         clock.append(("card", time.perf_counter()))
+        # the same engine behind a ModelServer on loopback TCP (the
+        # in-process scheduler drained: one scheduler over an engine)
+        out["wire"] = wt_wire(mt, engine, weights, prompts, tokens)
+        clock.append(("wire", time.perf_counter()))
         host = {k: v.asnumpy() for k, v in weights.items()}
-        del engine, sched, weights, params, aux, state
+        del engine, sched, weights, state
         gc.collect()
         torch.cuda.empty_cache()
-    # the CPU from the same weights, a slot a checked prompt, float32
+    # the CPU from the same weights, a slot a checked prompt, float32, one
+    # lane (no swap there: one copy of the weights in a lane's buffers)
     with env_set(MXTPU_SERVE_GENERATE_SLOTS=len(checked),
-                 MXTPU_SERVE_GENERATE_PREFILL_BUCKETS=WT_BUCKETS), \
+                 MXTPU_SERVE_GENERATE_PREFILL_BUCKETS=WT_BUCKETS,
+                 MXTPU_SERVE_GENERATE_LANES=1), \
             mt.cpu():
         t0 = time.perf_counter()
         cpu_engine = InferenceEngine(gen_sym, host, {}, {"data": (1,)},
@@ -10218,6 +10269,115 @@ def wt_serve(mt, seed, card):
     gc.collect()
     out["clock"] = ", ".join("%s %.1f" % (name, t - clock[i][1])
                              for i, (name, t) in enumerate(clock[1:]))
+    return out
+
+
+def wt_wire(mt, engine, weights, prompts, tokens):
+    """WT_WIRE_SEQS of the in-process run's prompts streamed through
+    ServingClient.generate2 from a ModelServer over ``engine`` on loopback
+    TCP (f32, TF32 off): the in-process scheduler's tokens, each frame's
+    index once and in order, tokens/s and TTFT (to the first frame); then
+    a swap landing after WT_WIRE_SWAP_AFTER frames of a sequence: every
+    frame of it v0 and its tokens the in-process run's, no program built
+    or captured, the next admission v1. Returns a dict of numbers."""
+    import threading
+    import torch
+    from mxtpu_torch import fault
+    from mxtpu_torch import kvstore_async as ka
+    from mxtpu_torch.serving import ModelServer, ServingClient
+    saved = ka._LOCAL_ON
+    ka._LOCAL_ON = False
+    srv = ModelServer(engine, model_name="wt",
+                      queue_depth_=4 * WT_WIRE_SEQS).start()
+    out = {}
+    try:
+        compiles0, graphs0 = engine.cache.compiles, gen_graphs(engine)
+        binds0 = engine.stats()["lane_binds"]
+        frames = [[] for _ in range(WT_WIRE_SEQS)]
+
+        def one(i):
+            # a client (a connection) a sequence, as separate users have:
+            # one connection's window (MXTPU_PS_WINDOW, 8) would hold the
+            # sequences in flight to 8
+            c = ServingClient(addrs=[srv.address], budget_ms=600000)
+            t0 = time.perf_counter()
+            try:
+                return c.generate2(
+                    prompts[i], max_new=WT_NEW, model="wt",
+                    on_token=lambda k, t, v: frames[i].append(
+                        (k, t, v, time.perf_counter() - t0)))
+            finally:
+                c.close()
+        t0 = time.perf_counter()
+        res = wire_threads(one, WT_WIRE_SEQS)
+        wall = time.perf_counter() - t0
+        for i, (toks, info) in enumerate(res):
+            if toks != tokens[i]:
+                fail("wire generation: sequence %d's tokens differ from "
+                     "the in-process scheduler's" % i)
+            if [f[0] for f in frames[i]] != list(range(WT_NEW)) or \
+                    [f[1] for f in frames[i]] != tokens[i] or \
+                    {f[2] for f in frames[i]} != {0}:
+                fail("wire generation: sequence %d's frames are not each "
+                     "index once, in order, on v0" % i)
+        ttft = [f[0][3] * 1e3 for f in frames]
+        out.update(seqs=WT_WIRE_SEQS, tokens=WT_WIRE_SEQS * WT_NEW,
+                   wall_s=wall, ttft_p50=float(np.percentile(ttft, 50)),
+                   ttft_p99=float(np.percentile(ttft, 99)))
+        cli = ServingClient(addrs=[srv.address], budget_ms=600000)
+        # a swap mid-sequence: v1's weights on the card, every weight
+        # WT_WIRE_SCALE times v0's
+        v1 = {k: mt.nd.NDArray(v.data * WT_WIRE_SCALE, v.context)
+              for k, v in weights.items()}
+        j = WT_WIRE_SEQS - 1
+        seen, started = [], threading.Event()
+
+        def on_tok(k, t, v):
+            seen.append((k, t, v))
+            if k + 1 >= WT_WIRE_SWAP_AFTER:
+                started.set()
+        got = []
+        th = threading.Thread(target=lambda: got.append(cli.generate2(
+            prompts[j], max_new=WT_NEW, model="wt", on_token=on_tok)))
+        with fault.inject("kind=delay,point=serve.step,delay=%g,count=inf"
+                          % WT_WIRE_STEP_DELAY):
+            th.start()
+            if not started.wait(300):
+                fail("wire generation: no frame of the swap's sequence")
+            t0 = time.perf_counter()
+            if srv.swap_weights(v1, version=1) != 1:
+                fail("wire generation: the swap was refused")
+            out["swap_ms"] = (time.perf_counter() - t0) * 1e3
+            out["swap_at"] = len(seen)
+            th.join(timeout=600)
+        if out["swap_at"] >= WT_NEW:
+            fail("wire generation: the swap landed after its sequence "
+                 "ended (%d frames)" % out["swap_at"])
+        if not got:
+            fail("wire generation: the swap's sequence did not finish")
+        toks, info = got[0]
+        if toks != tokens[j] or {v for _k, _t, v in seen} != {0} or \
+                info["version"] != 0:
+            fail("wire generation: a swap tore the sequence in flight "
+                 "(versions %s)" % sorted({v for _k, _t, v in seen}))
+        toks1, info1 = cli.generate2(prompts[j], max_new=WT_CHECK_TOKENS,
+                                     model="wt")
+        if info1["version"] != 1:
+            fail("wire generation: the admission after the swap answered "
+                 "from v%s" % info1["version"])
+        if engine.cache.compiles != compiles0 or \
+                gen_graphs(engine) != graphs0:
+            fail("wire generation: the swap built programs (%d -> %d)"
+                 % (compiles0, engine.cache.compiles))
+        out.update(compiles=compiles0, graphs=graphs0,
+                   binds=engine.stats()["lane_binds"] - binds0,
+                   v1_differs=toks1 != tokens[j][:WT_CHECK_TOKENS])
+        cli.close()
+        del v1
+    finally:
+        srv.stop()
+        ka._LOCAL_ON = saved
+    torch.cuda.synchronize()
     return out
 
 
@@ -10500,6 +10660,23 @@ def wt_phase(mt, seed, card):
           "the CPU; serving %s s)"
           % (WT_CHECK_TOKENS, sv["checked"], WT_BUCKETS, sv["cpu_s"],
              sv["clock"]), flush=True)
+    wv = sv["wire"]
+    print("full-width ALiBi LM over the wire: a ModelServer on loopback TCP "
+          "over the same engine, %d sequences streamed through "
+          "ServingClient.generate2 (%d new tokens each): the in-process "
+          "scheduler's tokens, every frame's index once and in order; "
+          "%.1f tokens/s (in-process %.1f), TTFT to the first frame p50 "
+          "%.3f ms, p99 %.3f ms (in-process p50 %.3f ms); a swap to v1 "
+          "(%.1f ms, in by frame %d of a sequence decoding under a %g s "
+          "serve.step delay): that sequence all v0 "
+          "and the in-process tokens, the next admission v1 (tokens %s), "
+          "programs %d and CUDA graphs %d before and after, %d lane binds "
+          "(weight copies into a lane's buffers) | %s"
+          % (wv["seqs"], WT_NEW, wv["tokens"] / wv["wall_s"], tok_s,
+             wv["ttft_p50"], wv["ttft_p99"], sv["ttft_p50"], wv["swap_ms"],
+             wv["swap_at"], WT_WIRE_STEP_DELAY,
+             "changed" if wv["v1_differs"] else "unchanged",
+             wv["compiles"], wv["graphs"], wv["binds"], card), flush=True)
     with matmul_tf32(False):
         worst, n = wt_check_grads(mt, seed)
     clock.append(("gradient check", time.perf_counter()))
@@ -10563,7 +10740,7 @@ def wt_phase(mt, seed, card):
 # 0.9 --wd 1e-4 --initializer msra --top-k 5 --loss ce,nll
 FF_FLAGS = dict(optimizer="nag", initializer="msra", top_k=5, loss="ce,nll")
 FF_CHECK_STEPS = 3          # captured vs eager from the same weights
-FF_TIMED_STEPS = 10
+FF_TIMED_STEPS = 5
 # MSRAPrelu draws N(0, s^2), s = sqrt(2 / (1 + 0.25^2) / ((fan_in +
 # fan_out) / 2)): over a weight of n entries the sample mean has a
 # standard error of s / sqrt(n) and the sample deviation one of s /
@@ -11812,7 +11989,7 @@ DS2 = dict(bins=161, hidden=1760, layers=3, classes=29, batch=12,
 DS2_CONV = ((32, (11, 41), (2, 2), (5, 20)), (32, (11, 21), (1, 2), (5, 10)))
 DS2_LABEL = 36                  # labels padded with blanks to this
 DS2_UTTERANCES = 60             # a bucket: 5 batches of 12
-DS2_EAGER_UTTERANCES = 36       # the eager fit's: 3 batches a bucket
+DS2_EAGER_UTTERANCES = 24       # the eager fit's: 2 batches a bucket
 DS2_LR, DS2_CLIP = 3e-4, 100.0  # Adam; deepspeech.cfg's clip_gradient
 DS2_CAPTURED_EPOCHS = 2
 # the first step at batch 2 and bucket 200 on the card against the CPU
@@ -14223,7 +14400,7 @@ def sparse_phase(mt, seed, workdir, card):
 
 AMP_U = 2.0 ** -8            # bfloat16's unit roundoff (8 significant bits)
 AMP_STEPS = 3                # first AMP steps held against float32's
-AMP_TIMED_STEPS, AMP_TURNS = 5, 2
+AMP_TIMED_STEPS, AMP_TURNS = 3, 2
 # The AMP step against the float32 one from the same weights and batch: a
 # bfloat16 forward rounds every activation to AMP_U, and BatchNorm (in
 # float32) keeps each of the 50 layers near unit scale, so the loss of
@@ -14965,6 +15142,545 @@ def durability_phase(mt, rnn_scan, seed, w0, bound, sentences, rng,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The serving replica over the wire (ROADMAP A12's first half): the bucketed
+# LSTM LM of phase 4 (BASELINE.json config 4 at its published widths)
+# served by a replica process (python -m mxtpu_torch.serving, a fresh
+# interpreter) and by a ModelServer in this process, over loopback TCP;
+# the drills: coalescing, answers, kill -9, respawn, rollout, canary and
+# rollback, drain
+# ---------------------------------------------------------------------------
+
+WIRE_BATCH_MS = 20          # the in-process replica's batch window
+WIRE_COALESCE = (1, 1, 1, 2, 3, 5, 1, 8, 1, 4, 1, 1)   # concurrent rows
+WIRE_TIMED = 20             # sequential requests timed at 1 and 32 rows
+WIRE_KILL = (4, 6)          # threads x 32-row requests under the kill
+WIRE_CANARY, WIRE_CANARY_REQUESTS = 0.25, 40
+WIRE_DRAIN_THREADS = 6
+# the request held in the respawned process's flush when SIGTERM comes:
+# its rows (no other drill sends that many to the process) and the hold
+WIRE_DRAIN_ROWS, WIRE_DRAIN_HOLD = 7, 1.5
+WIRE_BOOT_S = 300           # a replica process's start-up, bounded
+WIRE_RECONNECT_S = 0.5      # the clients' reconnect window (MXTPU_PS_RECONNECT)
+WIRE_CTX = "gpu"            # the replica process's MXTPU_SERVE_CTX
+
+
+class ReplicaProcess:
+    """``python -m mxtpu_torch.serving`` as a fresh interpreter (never a
+    fork of this process, which holds a CUDA context); its output lines
+    are read by a thread into a queue, each with the host time it came."""
+
+    def __init__(self, env):
+        import queue
+        import threading
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "mxtpu_torch.serving"], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT, **env),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines = queue.Queue()
+        self.log = []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put((time.perf_counter(), line))
+        self.lines.put((time.perf_counter(), None))
+
+    def wait_for(self, text, timeout):
+        import queue
+        deadline = time.perf_counter() + timeout
+        while True:
+            try:
+                self.at, line = self.lines.get(
+                    timeout=max(0.01, deadline - time.perf_counter()))
+            except queue.Empty:
+                fail("replica process: no %r within %d s; its output: %s"
+                     % (text, timeout, "".join(self.log[-20:])))
+            if line is None:
+                fail("replica process exited (%s) before %r; its output: %s"
+                     % (self.proc.poll(), text, "".join(self.log[-20:])))
+            self.log.append(line)
+            if text in line:
+                return line
+
+    def address(self):
+        line = self.wait_for("listening on", WIRE_BOOT_S)
+        self.boot_s = self.at - self.t0      # start to admitting
+        return line.split("listening on ")[1].split()[0]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def wire_load(cli, xs, stop=None):
+    """Send the rows ``xs`` (a list, reused round robin until ``stop`` is
+    set when given) through ``cli`` from the calling thread; returns
+    [(index, info, host time of the answer)] and the errors."""
+    out, errs, i = [], [], 0
+    while (stop is None and i < len(xs)) or \
+            (stop is not None and not stop.is_set()):
+        j = i % len(xs)
+        try:
+            _o, info = cli.predict2(xs[j])
+            out.append((j, info, time.perf_counter()))
+        except Exception as e:     # collected: the main thread fails
+            errs.append("%s: %s" % (type(e).__name__, e))
+        i += 1
+    return out, errs
+
+
+def wire_threads(fn, n):
+    """Run ``fn(k)`` in ``n`` threads; returns their results in order."""
+    import threading
+    res = [None] * n
+
+    def run(k):
+        res[k] = fn(k)
+    ts = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in ts):
+        fail("wire phase: a client thread did not finish in 600 s")
+    return res
+
+
+def wire_span_ms(names):
+    """Median ms of each named trace span recorded in this process."""
+    from mxtpu_torch import profiler
+    by = {}
+    for e in profiler.snapshot_events():
+        if e.get("ph") == "X" and e["name"] in names:
+            by.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    return {n: (float(np.median(by[n])), len(by[n])) if n in by else None
+            for n in names}
+
+
+class WireSetup:
+    """Phase 38's checkpoint (phase 4's LM), its empty snapshot
+    directory, the replica processes' environment, and the first replica
+    process, started here so that it boots while the phase before runs."""
+
+    def __init__(self, mt, seed, workdir):
+        import shutil
+        self.prefix = os.path.join(workdir, "wire-lstm")
+        write_checkpoint(mt, "lstm", seed, self.prefix)
+        self.wdir = os.path.join(workdir, "wire-weights")
+        shutil.rmtree(self.wdir, ignore_errors=True)
+        os.makedirs(self.wdir)
+        self.env = {"MXTPU_SERVE_MODEL": self.prefix,
+                    "MXTPU_SERVE_DATA_SHAPES": "data=%d" % SEQ,
+                    "MXTPU_SERVE_BUCKETS": ",".join(str(b)
+                                                    for b in BUCKETS),
+                    "MXTPU_SERVE_CTX": WIRE_CTX,
+                    "MXTPU_SERVE_WEIGHT_DIR": self.wdir,
+                    "MXTPU_SERVE_WEIGHT_POLL": "0.1",
+                    "MXTPU_SERVE_BATCH_DEADLINE_MS": str(WIRE_BATCH_MS)}
+        self.children = [ReplicaProcess(self.env)]
+
+    def spawn(self, **env):
+        self.children.append(ReplicaProcess(dict(self.env, **env)))
+        return self.children[-1]
+
+    def stop(self):
+        """Kill and wait for every replica process started."""
+        for c in self.children:
+            c.stop()
+
+
+def wire_phase(mt, rnn_scan, seed, setup, card):
+    """Phase 38: the bucketed LSTM LM (phase 4's checkpoint, f32, TF32 off)
+    served over TCP by a replica process (``setup``'s, booted during the
+    phase before) and an in-process ModelServer (lstm_scan counted there:
+    2 launches a dispatch), with the drills of ROADMAP A12: coalescing,
+    answers against the CPU and bitwise across the replicas, kill -9
+    under load, a rollout publishing v1 with no program built, a respawn
+    catching up to v1 before it admits (booting while the in-process
+    replica is timed), a canary, a promote and a rollback answering
+    bitwise as v0 did, SIGTERM draining the process to exit 0. Returns
+    the numbers and lstm_scan's launches."""
+    import signal
+    import threading
+    import zlib
+    from mxtpu_torch import kvstore_async as ka
+    from mxtpu_torch import profiler
+    from mxtpu_torch.serving import (InferenceEngine, ModelServer,
+                                     Overloaded, RolloutController,
+                                     ServingClient, WeightPublisher,
+                                     WeightSync)
+    t_phase = time.time()
+    out = {}
+    prefix, wdir = setup.prefix, setup.wdir
+    kw = dict(data_shapes={"data": (SEQ,)}, buckets=BUCKETS)
+    saved = ka._LOCAL_ON, ka._RECONNECT_TIMEOUT
+    ka._LOCAL_ON = False          # real sockets to the in-process one too
+    # a client's reconnect window to a replica that died (default 5 s;
+    # MXTPU_PS_RECONNECT): a replica set's clients fail over past it
+    ka._RECONNECT_TIMEOUT = WIRE_RECONNECT_S
+    local, model = None, os.path.basename(prefix)
+    try:
+        ref = InferenceEngine.from_checkpoint(prefix, 0, ctx=mt.gpu(0),
+                                              **kw)
+        cpu = InferenceEngine.from_checkpoint(prefix, 0, ctx=mt.cpu(), **kw)
+        engine = InferenceEngine.from_checkpoint(prefix, 0, ctx=mt.gpu(0),
+                                                 warm=False, **kw)
+        local = ModelServer(engine, model_name=model,
+                            batch_deadline_ms_=WIRE_BATCH_MS,
+                            weight_dir=wdir).start()
+        compiles0 = engine.stats()["compiles"]
+        sync = WeightSync(local, weight_dir=wdir)
+        child = setup.children[0]
+        caddr = child.address()
+        out["boot_s"] = child.boot_s
+        lcli = ServingClient(addrs=[local.address], budget_ms=60000)
+        ccli = ServingClient(addrs=[caddr], budget_ms=60000)
+        rng = np.random.RandomState(seed + 7)
+
+        def rows(n):
+            return rng.randint(0, VOCAB, (n, SEQ)).astype(np.float32)
+        # the references, the in-process engine's answers at v0 (these
+        # launches are not the path's): each coalesced request alone at its
+        # own bucket; requests alone at buckets 32 and 1; the kill's
+        # requests; and the in-process predict timed at 1 and 32 rows
+        xs = [rows(r) for r in WIRE_COALESCE]
+        alone = [ref.predict([x])[0] for x in xs]
+        x32, x1 = rows(32), rows(1)
+        v0_answers = {32: ref.predict([x32])[0], 1: ref.predict([x1])[0]}
+        kx = [rows(32) for _ in range(WIRE_KILL[1])]
+        kwant = [ref.predict([x])[0] for x in kx]
+        hx = rows(WIRE_DRAIN_ROWS)
+        hwant = ref.predict([hx])[0]
+        timed = {n: rows(n) for n in (1, 32)}
+        inproc = {}
+        for n, x in timed.items():
+            inproc[n] = []
+            for _ in range(WIRE_TIMED):
+                t0 = time.perf_counter()
+                ref.predict([x])
+                inproc[n].append((time.perf_counter() - t0) * 1e3)
+
+        # the main path of the phase: lstm_scan counted from here, in the
+        # in-process replica's dispatches (2 launches each)
+        rnn_scan.reset_launches()
+        dispatch0 = local._batcher.stats()["batches"]
+
+        # (a) coalescing: concurrent 1-row and multi-row requests
+        b0 = local._batcher.stats()
+        res = wire_threads(lambda k: lcli.predict2(xs[k]), len(xs))
+        batches = local._batcher.stats()["batches"] - b0["batches"]
+        if not 0 < batches < len(xs):
+            fail("wire: %d concurrent requests took %d dispatches"
+                 % (len(xs), batches))
+        worst = apart = 0.0
+        for x, a, (o, info) in zip(xs, alone, res):
+            got, want = o[0], cpu.predict([x])[0]
+            if got.shape != (x.shape[0], SEQ, VOCAB) or \
+                    not np.isfinite(got).all():
+                fail("wire: answer of shape %s or not finite"
+                     % (got.shape,))
+            if not np.allclose(got, want, **SERVE_TOL):
+                fail("wire: a coalesced answer differs from the CPU's by %g"
+                     % float(np.abs(got - want).max()))
+            worst = max(worst, float(np.abs(got - want).max()))
+            apart = max(apart, float(np.abs(got - a).max()))
+        out["coalesce"] = (len(xs), batches, worst, apart)
+
+        # (b) bitwise: a request alone at bucket 32 and at bucket 1, on
+        # both replicas and on the in-process engine
+        for x in (x32, x1):
+            a_ref = v0_answers[x.shape[0]]
+            a_loc = lcli.predict(x)[0]
+            a_child = ccli.predict(x)[0]
+            if not (np.array_equal(a_loc, a_ref)
+                    and np.array_equal(a_child, a_ref)):
+                fail("wire: %d rows alone at their bucket: replica / "
+                     "process / engine not bitwise equal (%g, %g)"
+                     % (x.shape[0], float(np.abs(a_loc - a_ref).max()),
+                        float(np.abs(a_child - a_ref).max())))
+
+        # (c) kill -9 under load: WIRE_KILL[0] threads of 32-row requests
+        # through one client whose active replica is the process
+        kcli = ServingClient(addrs=[caddr, local.address], budget_ms=60000)
+        kcli.hello()
+        if kcli.stats()["active"] != caddr:
+            fail("wire: the kill drill's client is not on the process")
+        answered, kill_at = [], []
+
+        def killer():
+            deadline = time.perf_counter() + 120
+            while len(answered) < WIRE_KILL[0] and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.002)
+            kill_at.append(time.perf_counter())
+            os.kill(child.proc.pid, signal.SIGKILL)
+
+        def client(k):
+            got, errs = [], []
+            for j in range(WIRE_KILL[1]):
+                try:
+                    o, info = kcli.predict2(kx[j])
+                    got.append((j, np.array_equal(o[0], kwant[j]), info,
+                                time.perf_counter()))
+                    answered.append(1)
+                except Exception as e:    # collected: the main thread fails
+                    errs.append("%s: %s" % (type(e).__name__, e))
+            return got, errs
+        kt = threading.Thread(target=killer)
+        kt.start()
+        kres = wire_threads(client, WIRE_KILL[0])
+        kt.join(timeout=130)
+        if not kill_at:
+            fail("wire: the kill never happened")
+        errs = [e for _g, es in kres for e in es]
+        got = [g for gs, _e in kres for g in gs]
+        rids = {g[2]["rid"] for g in got}
+        total = WIRE_KILL[0] * WIRE_KILL[1]
+        if errs or len(got) != total or len(rids) != total:
+            fail("wire: under kill -9, %d of %d requests answered (%d "
+                 "distinct ids), errors %s"
+                 % (len(got), total, len(rids), errs[:3]))
+        if not all(same for _j, same, _i, _t in got):
+            fail("wire: %d answers under kill -9 are not bitwise the "
+                 "engine's" % sum(not g[1] for g in got))
+        st = kcli.stats()
+        if st["failovers"] < 1 or st["replays"] < 1:
+            fail("wire: the kill moved no failover counter: %s" % st)
+        after = sorted(t for _j, _s, _i, t in got if t > kill_at[0])
+        rc = child.proc.wait(timeout=60)
+        out["kill"] = (total, st["failovers"], st["replays"],
+                       (after[0] - kill_at[0]) * 1e3 if after else None, rc)
+
+        # (d) rollout: v1 published into the directory both follow; the
+        # in-process replica catches up (timed), builds no program
+        sym = lm_symbol(mt, "lstm")
+        shapes, _, _ = sym.infer_shape(data=(1, SEQ))
+        prng = np.random.RandomState(seed + 1)
+        v1 = {n: prng.uniform(-0.1, 0.1, s).astype(np.float32)
+              for n, s in zip(sym.list_arguments(), shapes) if n != "data"}
+        t0 = time.perf_counter()
+        pub = WeightPublisher(wdir).publish(v1)
+        publish_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if sync.catch_up() != 1:
+            fail("wire: the in-process replica did not catch up to v1")
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        o, info = lcli.predict2(x32)
+        if info["version"] != 1 or np.array_equal(o[0], v0_answers[32]):
+            fail("wire: after the rollout the answer is v%s's"
+                 % info["version"])
+        v1_answer = o[0]
+        if engine.stats()["compiles"] != compiles0:
+            fail("wire: the rollout built programs")
+        out["rollout"] = (publish_s, swap_ms, pub["digest"][:12])
+
+        # (e) the respawn boots (catching up to v1 before it admits) while
+        # the in-process replica is timed over the wire, traced
+        respawn = setup.spawn(MXTPU_FAULT_SPEC="kind=delay,point=serve.batch,"
+                              "key=rows=%d,delay=%g,count=inf"
+                              % (WIRE_DRAIN_ROWS, WIRE_DRAIN_HOLD))
+        os.environ["MXTPU_TRACE_SAMPLE"] = "1"
+        profiler.reset()
+        timing = {}
+        try:
+            for n, x in timed.items():
+                wire = []
+                for _ in range(WIRE_TIMED):
+                    t0 = time.perf_counter()
+                    lcli.predict(x)
+                    wire.append((time.perf_counter() - t0) * 1e3)
+                timing[n] = (wire, inproc[n], wire_span_ms(
+                    ("serve.client.request", "kv.client.rpc", "serve.admit",
+                     "serve.batch.dispatch")))
+                profiler.reset()
+        finally:
+            os.environ.pop("MXTPU_TRACE_SAMPLE", None)
+        out["timing"] = timing
+        caught = respawn.wait_for("caught up", WIRE_BOOT_S)
+        caddr = respawn.address()
+        if "version 1" not in caught:
+            fail("wire: the respawned process caught up to %r" % caught)
+        ccli = ServingClient(addrs=[caddr], budget_ms=60000)
+        hv = ccli.hello()["models"][model]["weights"]["version"]
+        if hv != 1:
+            fail("wire: the respawned process's hello shows v%s" % hv)
+        if not np.array_equal(ccli.predict(x32)[0], v1_answer):
+            fail("wire: the respawned process's v1 answer differs")
+        out["respawn_s"] = respawn.boot_s
+
+        # (f) canary at WIRE_CANARY by request id, promote, rollback to v0
+        addrs = [caddr, local.address]
+        ctl = RolloutController(addrs, model=model)
+        ctl.canary(0, WIRE_CANARY)
+        gcli = ServingClient(addrs=addrs, budget_ms=60000)
+        split = {0: 0, 1: 0}
+        for _ in range(WIRE_CANARY_REQUESTS):
+            o, info = gcli.predict2(x1)
+            want = 0 if zlib.crc32(info["rid"].encode()) % 10000 < \
+                WIRE_CANARY * 10000 else 1
+            if info["version"] != want:
+                fail("wire: canary routed %s to v%s, its hash says v%d"
+                     % (info["rid"], info["version"], want))
+            if want == 0 and not np.array_equal(o[0], v0_answers[1]):
+                fail("wire: a canary v0 answer is not v0's bits")
+            split[want] += 1
+        if not split[0] or not split[1]:
+            fail("wire: the canary split gave %s" % split)
+        ctl.promote(1)
+        if gcli.predict2(x1)[1]["version"] != 1:
+            fail("wire: promote did not route to v1")
+        ctl.rollback(0)
+        for c in (gcli, lcli, ccli):
+            o, info = c.predict2(x32)
+            if info["version"] != 0 or \
+                    not np.array_equal(o[0], v0_answers[32]):
+                fail("wire: after the rollback v%s answers, %g from v0's"
+                     % (info["version"],
+                        float(np.abs(o[0] - v0_answers[32]).max())))
+        ctl.close()
+        out["canary"] = split
+        if engine.stats()["compiles"] != compiles0:
+            fail("wire: canary, promote or rollback built programs")
+
+        # (g) SIGTERM drains the process to exit 0: a WIRE_DRAIN_ROWS-row
+        # request, held in the process's flush by its serve.batch delay for
+        # that batch size, is in flight when the signal comes and is
+        # answered; a request sent once the process says it drains gets
+        # the draining verdict; WIRE_DRAIN_THREADS clients of both
+        # replicas are steered to the in-process one
+        held = []
+        hcli = ServingClient(addrs=[caddr], budget_ms=60000)
+        ht = threading.Thread(target=lambda: held.append(hcli.predict2(hx)))
+        ht.start()
+        pconn = ka._ServerConn(caddr)
+
+        def ping(key, want):
+            deadline = time.perf_counter() + 60
+            while time.perf_counter() < deadline:
+                if pconn.request("ping", timeout=10.0)[1][key] >= want:
+                    return
+                time.sleep(0.01)
+            fail("wire: the process's ping never showed %s >= %s"
+                 % (key, want))
+        ping("pending", 1)
+        stop = threading.Event()
+        dx = [rows(32) for _ in range(4)]
+
+        def drain_client(k):
+            c = ServingClient(addrs=addrs, budget_ms=60000)
+            try:
+                return wire_load(c, dx, stop)
+            finally:
+                c.close()
+        holder = []
+        lt = threading.Thread(target=lambda: holder.append(
+            wire_threads(drain_client, WIRE_DRAIN_THREADS)))
+        lt.start()
+        t_term = time.perf_counter()
+        respawn.proc.send_signal(signal.SIGTERM)
+        ping("draining", True)
+        late = ServingClient(addrs=[caddr], budget_ms=60000)
+        try:
+            late.predict(x1)
+            fail("wire: a request to the draining process was answered")
+        except Overloaded as e:
+            if [v for _a, v, _i in e.verdicts] != ["draining"]:
+                fail("wire: the draining process gave %s" % e.verdicts)
+        pconn.close()
+        ht.join(timeout=120)
+        rc = respawn.proc.wait(timeout=120)
+        term_s = time.perf_counter() - t_term
+        stop.set()
+        lt.join(timeout=300)
+        line = respawn.wait_for("stopped", 30)
+        m = re.search(r"drained=(\w+), responses=(\d+), "
+                      r"shed_draining=(\d+)", line)
+        derrs = [e for _g, es in holder[0] for e in es] if holder else \
+            ["the load did not finish"]
+        served = sum(len(g) for g, _e in holder[0]) if holder else 0
+        if rc != 0 or not m or m.group(1) != "True" or derrs:
+            fail("wire: SIGTERM: exit %s, %r, errors %s"
+                 % (rc, line.strip(), derrs[:3]))
+        if not held or held[0][1]["version"] != 0 or \
+                not np.array_equal(held[0][0][0], hwant):
+            fail("wire: the request in flight at SIGTERM was not answered "
+                 "with v0's bits")
+        out["drain"] = (rc, term_s, int(m.group(2)), int(m.group(3)),
+                        served)
+
+        # the counts: lstm_scan in the in-process replica's dispatches
+        dispatches = local._batcher.stats()["batches"] - dispatch0
+        launches = rnn_scan.LAUNCHES["lstm_scan"]
+        if launches != LAYERS * dispatches:
+            fail("wire: lstm_scan launched %d times in %d dispatches of a "
+                 "%d-layer LM" % (launches, dispatches, LAYERS))
+        out["launches"], out["dispatches"] = launches, dispatches
+        if engine.stats()["compiles"] != compiles0:
+            fail("wire: programs built while serving (%d -> %d)"
+                 % (compiles0, engine.stats()["compiles"]))
+        out["compiles"] = compiles0
+        for c in (lcli, ccli, kcli, gcli, hcli, late):
+            c.close()
+    finally:
+        setup.stop()
+        if local is not None:
+            local.stop()
+        ka._LOCAL_ON, ka._RECONNECT_TIMEOUT = saved
+    out["s"] = time.time() - t_phase
+    return out
+
+
+def wire_report(w, card):
+    """Print phase 38's lines."""
+    n, batches, worst, apart = w["coalesce"]
+    print("wire (phase 38): the bucketed LSTM LM served over loopback TCP "
+          "by a replica process (python -m mxtpu_torch.serving, up in "
+          "%.1f s) and an in-process ModelServer (batch window %d ms): %d "
+          "concurrent requests of %s rows in %d dispatches, max |wire - "
+          "cpu| %.3g (SERVE_TOL %s), max |coalesced - "
+          "alone at its own bucket| %.3g; alone at their bucket the two "
+          "replicas and the engine bitwise equal; compiles %d, flat | %s"
+          % (w["boot_s"], WIRE_BATCH_MS, n, list(WIRE_COALESCE), batches,
+             worst, SERVE_TOL, apart, w["compiles"], card))
+    for rows, (wire, inproc, spans) in sorted(w["timing"].items()):
+        print("wire: %d-row requests, %d sequential: over the wire p50 %.3f "
+              "ms, p99 %.3f ms (%.1f requests/s); in-process predict p50 "
+              "%.3f ms, p99 %.3f ms; span medians (ms, count): %s | %s"
+              % (rows, WIRE_TIMED, np.percentile(wire, 50),
+                 np.percentile(wire, 99), 1e3 / np.mean(wire),
+                 np.percentile(inproc, 50), np.percentile(inproc, 99),
+                 ", ".join("%s %s" % (k, "none" if v is None else
+                                      "%.3f (%d)" % v)
+                           for k, v in spans.items()), card))
+    total, fo, rp, first_ms, rc = w["kill"]
+    publish_s, swap_ms, digest = w["rollout"]
+    rc2, term_s, resp, shed, served = w["drain"]
+    print("wire: kill -9 of the process under %d x %d 32-row requests: "
+          "%d answered once each, bitwise the engine's, failovers %d, "
+          "replays %d, kill to the next answer %s ms (reconnect window "
+          "%.1f s; exit %s); v1 "
+          "published in %.3f s (digest %s), caught up (restore + swap) in "
+          "%.1f ms, no program built; respawned process up in %.1f s on "
+          "v1; canary %.2f by request id %s, promote, rollback to v0 "
+          "bitwise; SIGTERM with a %d-row request held in flight (answered, "
+          "v0's bits) and %d clients' load: a request sent after it shed "
+          "draining, exit %d in %.2f s, %d answered, %d shed draining, %d "
+          "answered across the load; "
+          "lstm_scan %d launches in %d in-process dispatches; phase %.1f s "
+          "| %s"
+          % (WIRE_KILL[0], WIRE_KILL[1], total, fo, rp,
+             "%.1f" % first_ms if first_ms is not None else "none",
+             WIRE_RECONNECT_S, rc,
+             publish_s, digest, swap_ms, w["respawn_s"], WIRE_CANARY,
+             w["canary"], WIRE_DRAIN_ROWS, WIRE_DRAIN_THREADS, rc2, term_s,
+             resp, shed,
+             served, w["launches"], w["dispatches"], w["s"], card),
+          flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -15460,11 +16176,22 @@ def main():
     # bucketed LM over phase 28's sentences (lstm_scan in bfloat16,
     # counted from 0 just before its fit); CheckpointManager on Gluon's
     # resnet18_v1; MXNet's .params through Module.load; --dtype float16
-    durable = durability_phase(mt, rnn_scan, args.seed, resnet_w0,
-                               resnet_bound, rc_sentences, rng, workdir,
-                               card)
+    # (phase 38's first replica process boots while phase 37 runs)
+    wire_setup = WireSetup(mt, args.seed, workdir)
+    try:
+        durable = durability_phase(mt, rnn_scan, args.seed, resnet_w0,
+                                   resnet_bound, rc_sentences, rng, workdir,
+                                   card)
 
-    # 38. timings at the main paths' shapes
+        # 38. the serving replica over the wire: the bucketed LSTM LM from
+        # replica processes and an in-process ModelServer (lstm_scan
+        # counted from 0 just before the drills, in the in-process replica)
+        wire = wire_phase(mt, rnn_scan, args.seed, wire_setup, card)
+    finally:
+        wire_setup.stop()
+    wire_report(wire, card)
+
+    # 39. timings at the main paths' shapes
     N = BUCKETS[-1]
     kernels = []
     for name, make_args, plain, library, kind, replaces in (
@@ -15521,6 +16248,7 @@ def main():
             "launches_gluon_cells": cell_launches.get(name, 0),
             "launches_gluon_examples": gx_launches.get(name, 0),
             "launches_amp": durable["lm"][0] if name == "lstm_scan" else 0,
+            "launches_wire": wire["launches"] if name == "lstm_scan" else 0,
             "max_abs_err": errs[name], "ms": med[0], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": med[2], "wall_ms": med[1], "pairs": PAIRS,

@@ -55,6 +55,9 @@ from . import operator
 from . import rtc
 from . import gluon
 from . import checkpoint
+from . import fault
+from . import obs
+from . import profiler
 from .ndarray import NDArray
 from .attribute import AttrScope
 from .symbol import Symbol
@@ -66,5 +69,6 @@ __all__ = ["MXNetError", "MXTPUError", "Context", "cpu", "gpu",
            "initializer", "init",
            "optimizer", "metric", "kvstore", "kv", "executor", "rnn",
            "model", "callback", "monitor", "module", "mod", "serving", "parallel",
-           "engine", "autograd", "operator", "rtc", "gluon", "NDArray",
+           "engine", "autograd", "operator", "rtc", "gluon", "checkpoint",
+           "fault", "obs", "profiler", "NDArray",
            "AttrScope", "Symbol", "Executor"]

@@ -13,10 +13,18 @@ whose ``compiles``/``hits`` keep their meaning: ``compiles`` equals the
 number of programs built, and does not move while requests are answered.
 
 The engine runs on ``gpu(0)`` (``cuda:0``) unless the caller passes
-``ctx=cpu()``; on a host without CUDA, a GPU context raises. Weights live
-in per-version stores: :meth:`InferenceEngine.swap_weights` installs a
-new version with the same names and shapes, and a request's version is
-resolved once, so one batch is answered by one version.
+``ctx=cpu()``; on a host without CUDA, a GPU context raises.
+
+Versioned weights, as ``mxtpu``'s engine has them: the parameters live in
+per-version stores on the device. :meth:`InferenceEngine.swap_weights`
+installs a new version with the same names and shapes (a mismatch, a
+half table, a stale version or a wrong digest is refused); a request's
+version is resolved once, at admission (:meth:`route_version`: stable,
+or the canary split hashed on the request id), so one batch is answered
+by one version. Stores are kept for the stable, latest, canary and
+pinned versions and the last ``MXTPU_SERVE_VERSION_KEEP``; a pinned
+version freezes the stable route (the engine half of a rollback), and
+:meth:`load_store` brings a historical version back from a snapshot.
 
 A graph whose head is a ``Custom`` op (a classifier with a custom
 softmax-with-loss head, say) serves as any other: the prop's shape hint
@@ -34,33 +42,49 @@ decode (one step over the K slots). The packed state is a
 :class:`GenState` of static tensors that the decode program advances in
 place: ``cached_attention`` writes each step's row into the caches it is
 given (``ops.nn.static_cache``), where ``mxtpu`` donates the state and
-XLA aliases the write, so a step never copies the cache. On the card the
-prefill program of each bucket and the decode program of each state are
-captured as CUDA graphs (:class:`~mxtpu_torch.module.fused.GraphProgram`),
-over one weight version each: at
-:meth:`InferenceEngine.warm` for the stable version, else at their first
-call (run for real) and captured at the second; a failed capture raises.
-On the CPU the same programs run eagerly. Inactive slots compute garbage
-at constant cost; adoption overwrites their rows.
+XLA aliases the write, so a step never copies the cache. A lane's
+state also owns a copy of the weights its programs read: when a lane
+opens on a weight version, that version is copied into the state's
+weight buffers on the device (:meth:`InferenceEngine.gen_state_init`),
+so the state's prefill program of each bucket and its decode program are
+built once and serve every version. On the card they are captured as
+CUDA graphs (:class:`~mxtpu_torch.module.fused.GraphProgram`) over the
+state's buffers, for ``MXTPU_SERVE_GENERATE_LANES`` states at
+:meth:`InferenceEngine.warm`; a swap captures nothing, and a lane in
+flight keeps the version it opened on. On the CPU the same programs run
+eagerly. Inactive slots compute garbage at constant cost; adoption
+overwrites their rows.
 
-Sharded serving, canaries and program export wait for a later slice.
+Sharded serving and program export (``export_programs`` /
+``prewarm_from``) wait for a later slice.
 """
 from __future__ import annotations
 
 import os
 import threading
+import weakref
+import zlib
 
 import numpy as _np
 import torch
 
 from ..base import canonical_dtype, dtype_name
+from ..checkpoint import weight_digest
 from ..context import current_context
 from ..module.fused import GraphProgram, ProgramCache
 from ..ops.nn import static_cache
 from ..symbol import Symbol, eval_graph
 
-__all__ = ["InferenceEngine", "GenState", "parse_buckets", "gen_slots",
-           "gen_max_new", "gen_prefill_buckets"]
+__all__ = ["InferenceEngine", "GenState", "parse_buckets",
+           "parse_shape_spec", "version_keep", "gen_slots", "gen_max_new",
+           "gen_prefill_buckets", "gen_lanes_max"]
+
+
+def version_keep():
+    """MXTPU_SERVE_VERSION_KEEP: weight versions kept on the device beyond
+    the live set (stable, latest, canary, pinned), so that a request
+    admitted on version v is still answerable after the next swap."""
+    return max(1, int(os.environ.get("MXTPU_SERVE_VERSION_KEEP", "2")))
 
 
 def gen_slots():
@@ -84,6 +108,14 @@ def gen_prefill_buckets():
         "MXTPU_SERVE_GENERATE_PREFILL_BUCKETS", "8,16,32"))
 
 
+def gen_lanes_max():
+    """MXTPU_SERVE_GENERATE_LANES: concurrent decode lanes (one per weight
+    version in flight); 2 covers a swap: the old version drains while the
+    new one serves. :meth:`InferenceEngine.warm` builds this many lane
+    states."""
+    return max(1, int(os.environ.get("MXTPU_SERVE_GENERATE_LANES", "2")))
+
+
 def parse_buckets(spec):
     """``MXTPU_SERVE_BUCKETS`` grammar: comma-separated batch sizes,
     e.g. ``1,2,4,8,16,32`` — sorted, deduped, all positive."""
@@ -94,18 +126,48 @@ def parse_buckets(spec):
     return tuple(sizes)
 
 
+def parse_shape_spec(spec):
+    """``MXTPU_SERVE_DATA_SHAPES`` grammar: ``name=dims;name=dims`` with
+    dims a comma list of per-sample dimensions (no batch dimension), e.g.
+    ``data=3,32,32`` or ``data=64;mask=64``."""
+    shapes = {}
+    for item in str(spec).split(";"):
+        item = item.strip()
+        if not item:
+            continue
+        name, _, dims = item.partition("=")
+        if not dims:
+            raise ValueError("shape spec %r needs name=dims" % (item,))
+        shapes[name.strip()] = tuple(
+            int(d) for d in dims.split(",") if d.strip())
+    if not shapes:
+        raise ValueError("empty data shape spec %r" % (spec,))
+    return shapes
+
+
+class _Vals(list):
+    """A store's tensors, in the engine's name order: a sequence a lane
+    state can hold a weak reference to (a tuple cannot be), so that the
+    version its weight buffers hold is known without keeping that
+    version's store alive. Never mutated."""
+
+
 class GenState:
     """A decode lane's packed state, static tensors on the engine's
     device: the token feed ``tok (K, 1)``, the positions ``pos (K,)``
-    int32 and one cache ``(K,) + per-sample shape`` a state variable. The
-    decode program advances it in place; ``serial`` names it in the
-    program cache."""
+    int32, one cache ``(K,) + per-sample shape`` a state variable, and
+    ``weights``, the (params, aux) buffers the state's programs read. The
+    decode program advances it in place; ``serial`` names the state's
+    programs in the program cache, and ``bound`` weakly references the
+    store whose weights the buffers hold."""
 
-    __slots__ = ("tok", "pos", "states", "serial")
+    __slots__ = ("tok", "pos", "states", "weights", "serial", "bound")
 
-    def __init__(self, tok, pos, states, serial):
+    def __init__(self, tok, pos, states, weights, serial):
         self.tok, self.pos, self.states = tok, pos, states
+        self.weights = weights
         self.serial = serial
+        self.bound = None
 
     @property
     def slots(self):
@@ -116,11 +178,9 @@ class InferenceEngine:
     """Per-bucket predict programs, and the generation programs of a
     generative symbol, over one loaded model."""
 
-    _KEEP_VERSIONS = 2
-
     def __init__(self, symbol, arg_params, aux_params, data_shapes,
                  buckets=(1, 2, 4, 8, 16, 32), ctx=None, dtype="float32",
-                 warm=True):
+                 warm=True, version=0):
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else current_context()
         self._dev = self._ctx.torch_device()
@@ -146,14 +206,22 @@ class InferenceEngine:
                                   and n not in arg_params)
         self._aux_names = tuple(symbol.list_auxiliary_states())
         self._gen = self._detect_generate()
-        param_vals = tuple(self._put(arg_params[n])
+        param_vals = _Vals(self._put(arg_params[n])
                            for n in self._param_names)
-        aux_vals = tuple(self._put(aux_params[n]) for n in self._aux_names)
+        aux_vals = _Vals(self._put(aux_params[n]) for n in self._aux_names)
         self._param_specs = tuple((tuple(v.shape), v.dtype)
                                   for v in param_vals)
+        self._aux_specs = tuple((tuple(v.shape), v.dtype) for v in aux_vals)
         self._store_lock = threading.Lock()
-        self._stores = {0: (param_vals, aux_vals)}
-        self._stable = 0
+        v0 = int(version)
+        # version -> (params, aux, digest recorded at install or None)
+        self._stores = {v0: (param_vals, aux_vals, None)}
+        self._latest = v0          # the swap watermark (stream dedupe)
+        self._stable = v0          # the version requests default to
+        self._canary = None        # (version, fraction) under rollout
+        self._pinned = None        # a rollback anchor: stable is frozen
+        self._serve_epoch = 0      # bumps on every swap or route change
+        self._keep = version_keep()
         self.cache = ProgramCache()
         self._gen_lock = threading.Lock()
         self._gen_free = {}            # K -> [GenState] not in a lane
@@ -164,19 +232,23 @@ class InferenceEngine:
             if self._gen is not None and self._dev.type == "cuda" else None
         self._stats_lock = threading.Lock()
         self._stats = {"predicts": 0, "rows": 0, "pad_rows": 0, "swaps": 0,
-                       "gen_prefills": 0, "gen_steps": 0}
+                       "swaps_refused": 0, "version_rebinds": 0,
+                       "gen_prefills": 0, "gen_steps": 0, "lane_binds": 0}
         if warm:
             self.warm()
 
     def _put(self, v):
-        """One parameter on the engine's device: an NDArray or tensor
-        keeps its dtype, anything else goes through numpy."""
+        """A copy of one parameter on the engine's device (a store is a
+        snapshot: a caller's later writes to its tensor never reach it):
+        an NDArray or tensor keeps its dtype, anything else goes through
+        numpy."""
         if hasattr(v, "data") and isinstance(v.data, torch.Tensor):
             v = v.data
         if not isinstance(v, torch.Tensor):
             host = v.asnumpy() if hasattr(v, "asnumpy") else _np.asarray(v)
-            v = torch.from_numpy(_np.array(host, order="C"))
-        return v.to(self._dev).contiguous()
+            return torch.from_numpy(_np.array(host, order="C")).to(self._dev)
+        t = v.detach().to(self._dev).contiguous()
+        return t.clone() if t.data_ptr() == v.data_ptr() else t
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -206,6 +278,28 @@ class InferenceEngine:
     def device(self):
         return self._dev
 
+    def signature(self):
+        """The input contract a client learns at hello (``mxtpu``'s
+        keys)."""
+        sig = {"data_names": list(self._data_names),
+               "sample_shapes": {n: list(s) for n, s
+                                 in self._sample_shapes.items()},
+               "dtype": dtype_name(self._dtype),
+               "buckets": list(self._buckets)}
+        if self._gen is not None:
+            sig["generate"] = self.generate_spec()
+        return sig
+
+    def program_fingerprint(self):
+        """What makes two engines program-compatible: the signature, every
+        store's shapes and dtypes, and the torch version."""
+        return {"signature": self.signature(),
+                "params": [[list(s), dtype_name(d)]
+                           for s, d in self._param_specs],
+                "aux": [[list(s), dtype_name(d)]
+                        for s, d in self._aux_specs],
+                "torch": torch.__version__}
+
     def stats(self):
         with self._stats_lock:
             out = dict(self._stats)
@@ -219,57 +313,238 @@ class InferenceEngine:
 
     # -- versioned weights -------------------------------------------------
     def version_state(self):
-        """``{"version": the stable version, "versions": resident}``."""
+        """The version picture a client and an operator see: stable,
+        latest, the resident versions, the route epoch, canary, pin."""
         with self._store_lock:
             return {"version": self._stable,
-                    "versions": sorted(self._stores)}
+                    "latest": self._latest,
+                    "versions": sorted(self._stores),
+                    "serve_epoch": self._serve_epoch,
+                    "canary": list(self._canary) if self._canary
+                    else None,
+                    "pinned": self._pinned}
 
-    def swap_weights(self, arg_params):
-        """Install ``arg_params`` (every checkpoint parameter, same shapes)
-        as the next weight version and make it the one requests use; aux
-        states carry over. Predict programs take weights as arguments, so
-        a swap rebuilds none; a generation program reads one version's
-        weights, so the new version's are built at their first use, and
-        those of versions no longer resident are dropped. Returns the
-        version installed."""
+    def _host_params(self, vals):
+        return {n: _host(v) for n, v in zip(self._param_names, vals)}
+
+    def current_params(self, version=None):
+        """Host copies of a resident version's parameters (the stable one
+        by default), name -> numpy."""
+        with self._store_lock:
+            v = self._stable if version is None else int(version)
+            store = self._stores[v]
+        return self._host_params(store[0])
+
+    def store_digest(self, version=None):
+        """The digest recorded for a resident version's parameters at its
+        install, else computed from its bytes (the stable version by
+        default); None when not resident."""
+        with self._store_lock:
+            v = self._stable if version is None else int(version)
+            store = self._stores.get(v)
+        if store is None:
+            return None
+        if store[2] is not None:
+            return store[2]
+        return weight_digest(self._host_params(store[0]))
+
+    def _incoming(self, arg_params, aux_params, version):
+        """The device values of an incoming version, or None for a half
+        table; a shape mismatch raises (it would need new programs)."""
+        if any(n not in arg_params for n in self._param_names):
+            return None
         vals = []
         for name, (shape, dtype) in zip(self._param_names,
                                         self._param_specs):
-            if name not in arg_params:
-                raise ValueError("weight swap is missing param %r" % name)
-            v = self._put(arg_params[name]).to(dtype)
+            v = self._put(arg_params[name])
             if tuple(v.shape) != shape:
-                raise ValueError("weight swap: param %r has shape %r, the "
-                                 "engine serves %r"
-                                 % (name, tuple(v.shape), shape))
-            vals.append(v)
+                raise ValueError(
+                    "weight version %d: param %r has shape %r, the "
+                    "engine's programs take %r — a swap must never "
+                    "retrace" % (version, name, tuple(v.shape), shape))
+            vals.append(v.to(dtype))
+        aux = None
+        if aux_params:
+            aux = _Vals(self._put(aux_params[n]).to(dt)
+                        for n, (_s, dt) in zip(self._aux_names,
+                                               self._aux_specs))
+        return _Vals(vals), aux
+
+    def _verify(self, vals, digest, version):
+        if digest is not None and \
+                weight_digest(self._host_params(vals)) != digest:
+            raise ValueError(
+                "weight version %d failed digest verification — refusing "
+                "to serve corrupt params" % version)
+
+    def swap_weights(self, arg_params, aux_params=None, version=None,
+                     digest=None, activate=True):
+        """Install ``arg_params`` (name -> numpy, NDArray or tensor; every
+        checkpoint parameter, the engine's shapes) as a new weight version
+        and, unless pinned, make it the stable one. ``aux_params`` None
+        carries the latest store's aux states over. ``digest`` (the
+        publisher's ``weight_digest``) is checked against the incoming
+        bytes first. Returns the installed version, or None when refused:
+        a version at or below the watermark (a replayed record) or a half
+        table. Neither predict programs (weights are their arguments) nor
+        generation programs (they read a lane's own buffers) are built."""
         with self._store_lock:
-            v = max(self._stores) + 1
-            self._stores[v] = (tuple(vals), self._stores[self._stable][1])
-            self._stable = v
-            for old in sorted(self._stores)[:-self._KEEP_VERSIONS]:
-                del self._stores[old]
-            live = {id(p) for p, _a in self._stores.values()}
-        self.cache.discard(lambda _k, e: not isinstance(e, GraphProgram)
-                           or id(e.params) in live)
-        self._note("swaps")
-        return v
+            v = self._latest + 1 if version is None else int(version)
+            if v <= self._latest:
+                refused = True
+            else:
+                refused = False
+        if refused:
+            self._note("swaps_refused")
+            return None
+        got = self._incoming(arg_params, aux_params, v)
+        if got is None:
+            self._note("swaps_refused")
+            return None
+        params, aux = got
+        self._verify(params, digest, v)
+        with self._store_lock:
+            if v <= self._latest:          # raced with a newer swap
+                refused = True
+            else:
+                refused = False
+                if aux is None:
+                    aux = self._stores[self._latest][1]
+                self._stores[v] = (params, aux, digest)
+                self._latest = v
+                if activate and self._pinned is None:
+                    self._stable = v
+                self._serve_epoch += 1
+                self._gc_stores_locked()
+        self._note("swaps_refused" if refused else "swaps")
+        return None if refused else v
+
+    def _gc_stores_locked(self):
+        live = {self._stable, self._latest, self._pinned}
+        if self._canary is not None:
+            live.add(self._canary[0])
+        keep = sorted(self._stores)[-self._keep:]
+        for v in [v for v in self._stores
+                  if v not in live and v not in keep]:
+            del self._stores[v]
+
+    def set_canary(self, version, fraction):
+        """Route ``fraction`` of requests (by a hash of the request id) to
+        ``version``; the rest stay on stable. None ends the canary."""
+        fraction = float(fraction)
+        with self._store_lock:
+            if version is not None and int(version) not in self._stores:
+                raise ValueError("canary version %r is not resident (have "
+                                 "%r)" % (version, sorted(self._stores)))
+            self._canary = (int(version), fraction) \
+                if version is not None else None
+            self._serve_epoch += 1
+
+    def promote(self, version=None):
+        """Make ``version`` (default: the canary's, else the latest) the
+        stable route; ends the canary and the pin."""
+        with self._store_lock:
+            if version is None and self._canary is not None:
+                version = self._canary[0]
+            if version is None:
+                version = self._latest
+            version = int(version)
+            if version not in self._stores:
+                raise ValueError("cannot promote non-resident version %d"
+                                 % version)
+            self._stable = version
+            self._canary = None
+            self._pinned = None
+            self._serve_epoch += 1
+            return version
+
+    def abort_canary(self):
+        with self._store_lock:
+            self._canary = None
+            self._serve_epoch += 1
+
+    def pin(self, version):
+        """Freeze the stable route on ``version`` (resident): swaps keep
+        installing stores but stop becoming stable until :meth:`unpin`."""
+        with self._store_lock:
+            version = int(version)
+            if version not in self._stores:
+                raise ValueError("cannot pin non-resident version %d (have "
+                                 "%r)" % (version, sorted(self._stores)))
+            self._pinned = version
+            self._stable = version
+            self._canary = None
+            self._serve_epoch += 1
+
+    def unpin(self):
+        with self._store_lock:
+            self._pinned = None
+            self._serve_epoch += 1
+
+    def load_store(self, arg_params, version, digest=None,
+                   aux_params=None):
+        """Install a historical version as a resident store without
+        touching the routes (past the watermark's refusal: a canary or a
+        rollback serves older versions); pair it with :meth:`set_canary`,
+        :meth:`pin` or :meth:`promote`. A digest mismatch or a half table
+        raises; nothing is half installed."""
+        version = int(version)
+        got = self._incoming(arg_params, aux_params, version)
+        if got is None:
+            raise ValueError("weight version %d is missing params — "
+                             "refusing a half table" % version)
+        params, aux = got
+        self._verify(params, digest, version)
+        with self._store_lock:
+            if aux is None:
+                aux = self._stores[self._stable][1]
+            self._stores[version] = (params, aux, digest)
+            self._serve_epoch += 1
+        return version
+
+    def restore_version(self, arg_params, aux_params=None, version=0,
+                        digest=None):
+        """The rollback composite: :meth:`load_store`, then :meth:`pin`."""
+        version = self.load_store(arg_params, version, digest=digest,
+                                  aux_params=aux_params)
+        self.pin(version)
+        return version
+
+    def route_version(self, rid):
+        """The version that answers request ``rid``, resolved once at
+        admission: the canary's for the share of request ids whose crc32
+        falls under its fraction, else stable's. No clock, no randomness."""
+        with self._store_lock:
+            if self._canary is None:
+                return self._stable
+            version, fraction = self._canary
+            if zlib.crc32(str(rid).encode()) % 10000 < fraction * 10000:
+                return version
+            return self._stable
 
     def _resolve_store(self, version):
+        """``(params, aux, answered version)`` of ``version`` (None: the
+        stable one); a version dropped between admission and dispatch
+        rebinds to stable (counted), so a batch is still answered by one
+        version."""
         with self._store_lock:
             v = self._stable if version is None else int(version)
-            if v not in self._stores:
-                raise ValueError("weight version %d is not resident (have "
-                                 "%r)" % (v, sorted(self._stores)))
-            params, aux = self._stores[v]
-        return params, aux, v
+            store = self._stores.get(v)
+            rebind = store is None
+            if rebind:
+                v = self._stable
+                store = self._stores[v]
+        if rebind:
+            self._note("version_rebinds")
+        return store[0], store[1], v
 
     def store_exact(self, version):
         """``(params, aux)`` of exactly ``version``, or None: a replayed
         sequence that already streamed tokens must never rebind to
         another version."""
         with self._store_lock:
-            return self._stores.get(int(version))
+            store = self._stores.get(int(version))
+        return None if store is None else (store[0], store[1])
 
     # -- requests ----------------------------------------------------------
     def check_rows(self, arrays):
@@ -380,28 +655,28 @@ class InferenceEngine:
 
     def warm(self):
         """Prepare every bucket program now, and on a CUDA context build
-        the kernels, so that no request pays for either; a generative
-        model's prefill menu, decode and adopt programs too, over the
-        stable weights (on the card each captured). Returns the number of
-        programs."""
+        the kernels, so that no request pays for either; for a generative
+        model also ``gen_lanes_max()`` lane states, each with its prefill
+        menu and decode program (on the card each captured), and the
+        adopt program. Returns the number of programs in the cache."""
         if self._dev.type == "cuda":
             from .._build import build_all
             build_all()
         for b in self._buckets:
             self.program(b)
-        n = len(self._buckets)
         if self._gen is not None:
-            params, aux, _v = self._resolve_store(None)
-            for L in self.gen_prefill_menu():
-                self.gen_prefill_program(L, params, aux).prime()
-                n += 1
             K = gen_slots()
-            state = self.gen_state_init(K)
-            self.gen_decode_program(state, params, aux).prime()
+            with self._gen_lock:
+                have = len(self._gen_free.get(K, ()))
+            states = [self.gen_state_init(K)
+                      for _ in range(max(0, gen_lanes_max() - have))]
+            for state in states:
+                for L in self.gen_prefill_menu():
+                    self.gen_prefill_program(L, state).prime()
+                self.gen_decode_program(state).prime()
+                self.gen_state_release(state)
             self.gen_adopt_program(K)
-            self.gen_state_release(state)
-            n += 2
-        return n
+        return self.cache.stats()["programs"]
 
     # -- autoregressive generation -----------------------------------------
     # The generative symbol contract (mxtpu's): exactly one data input
@@ -513,11 +788,13 @@ class InferenceEngine:
         feed.update(zip(self._aux_names, aux))
         return feed
 
-    def _build_gen_prefill(self, L, params, aux):
+    def _build_gen_prefill(self, L, state):
         """Prompt in (padded to bucket ``L``, batch 1) -> (first greedy
-        token, the state rows). The first token comes from the true last
-        prompt row, ``length - 1``, so padding never leaks into it."""
+        token, the state rows), over ``state``'s weight buffers. The first
+        token comes from the true last prompt row, ``length - 1``, so
+        padding never leaks into it."""
         g, dev = self._gen, self._dev
+        params, aux = state.weights
         tokens = torch.zeros((1, L), dtype=self._dtype, device=dev)
         length = torch.ones((1,), dtype=torch.int32, device=dev)
         caches = tuple(torch.zeros((1,) + s, dtype=dt, device=dev)
@@ -537,16 +814,17 @@ class InferenceEngine:
             first = torch.argmax(last[:, 0, :], dim=-1).to(torch.int32)
             return first, (caches if new is None else new)
 
-        prog = GraphProgram("prefill L=%d" % L, prefill, dev, params,
-                             self._side)
+        prog = GraphProgram("prefill L=%d lane %d" % (L, state.serial),
+                            prefill, dev, params, self._side)
         prog.tokens, prog.length = tokens, length
         return prog
 
-    def _build_gen_decode(self, state, params, aux):
-        """One decode step over ``state``'s K slots: the next greedy token
-        of each slot; the token feed, the positions and the caches
-        advanced in place."""
+    def _build_gen_decode(self, state):
+        """One decode step over ``state``'s K slots and weight buffers: the
+        next greedy token of each slot; the token feed, the positions and
+        the caches advanced in place."""
         g = self._gen
+        params, aux = state.weights
         feed = self._store_feed(params, aux)
         feed[g["tok"]] = state.tok
         feed[g["pos"]] = state.pos
@@ -564,8 +842,9 @@ class InferenceEngine:
             state.pos.add_(1)
             return nxt
 
-        return GraphProgram("decode K=%d" % state.slots, decode, self._dev,
-                             params, self._side)
+        return GraphProgram("decode K=%d lane %d" % (state.slots,
+                                                    state.serial),
+                            decode, self._dev, params, self._side)
 
     def _build_gen_adopt(self, K):
         """Write one prefilled sequence into slot ``slot`` of a K-slot
@@ -582,29 +861,20 @@ class InferenceEngine:
 
         return adopt
 
-    def _store_args(self, params, aux):
-        if params is None:
-            params, aux, _v = self._resolve_store(None)
-        return params, aux
-
-    def gen_prefill_program(self, L, param_vals=None, aux_vals=None):
-        """The prefill program of bucket ``L`` over a store (the stable one
-        by default)."""
+    def gen_prefill_program(self, L, state):
+        """The prefill program of bucket ``L`` over ``state``'s weights."""
         self._require_gen()
-        params, aux = self._store_args(param_vals, aux_vals)
         program, _hit = self.cache.get(
-            ("gen_prefill", L, id(params)),
-            lambda: self._build_gen_prefill(L, params, aux))
+            ("gen_prefill", L, state.serial),
+            lambda: self._build_gen_prefill(L, state))
         return program
 
-    def gen_decode_program(self, state, param_vals=None, aux_vals=None):
-        """The decode program of ``state`` over a store (the stable one by
-        default)."""
+    def gen_decode_program(self, state):
+        """The decode program of ``state``."""
         self._require_gen()
-        params, aux = self._store_args(param_vals, aux_vals)
         program, _hit = self.cache.get(
-            ("gen_decode", state.slots, state.serial, id(params)),
-            lambda: self._build_gen_decode(state, params, aux))
+            ("gen_decode", state.slots, state.serial),
+            lambda: self._build_gen_decode(state))
         return program
 
     def gen_adopt_program(self, K):
@@ -613,25 +883,44 @@ class InferenceEngine:
             ("gen_adopt", K), lambda: self._build_gen_adopt(K))
         return program
 
-    def gen_state_init(self, K):
-        """A zeroed K-slot decode state for a lane: one released earlier
-        (whose programs are still cached) or a new one."""
+    def gen_state_init(self, K, store=None):
+        """A zeroed K-slot decode state for a lane whose weight buffers
+        hold ``store`` (``(params, aux)``; the stable one by default): a
+        released state (whose programs are built) that already holds it,
+        else another released one into which the store is copied on the
+        device, else a new state."""
         self._require_gen()
+        if store is None:
+            params, aux, _v = self._resolve_store(None)
+        else:
+            params, aux = store[0], store[1]
         with self._gen_lock:
-            free = self._gen_free.get(K)
-            state = free.pop() if free else None
-            if state is None:
+            free = self._gen_free.setdefault(K, [])
+            state = next((st for st in free if st.bound is not None
+                          and st.bound() is params), None)
+            if state is None and free:
+                state = free[-1]
+            if state is not None:
+                free.remove(state)
+            else:
                 self._gen_serial += 1
                 serial = self._gen_serial
         if state is None:
             dev = self._dev
-            return GenState(
+            state = GenState(
                 torch.zeros((K, 1), dtype=self._dtype, device=dev),
                 torch.zeros((K,), dtype=torch.int32, device=dev),
                 tuple(torch.zeros((K,) + s, dtype=dt, device=dev)
                       for _n, s, dt, _i in self._gen["states"]),
-                serial)
+                (tuple(torch.empty_like(p) for p in params),
+                 tuple(torch.empty_like(a) for a in aux)), serial)
         with torch.no_grad():
+            if state.bound is None or state.bound() is not params:
+                for dst, src in zip(state.weights[0] + state.weights[1],
+                                    tuple(params) + tuple(aux)):
+                    dst.copy_(src)
+                state.bound = weakref.ref(params)
+                self._note("lane_binds")
             for t in (state.tok, state.pos) + state.states:
                 t.zero_()
         return state
@@ -641,18 +930,18 @@ class InferenceEngine:
         with self._gen_lock:
             self._gen_free.setdefault(state.slots, []).append(state)
 
-    def gen_prefill(self, tokens, param_vals, aux_vals):
-        """Prefill one prompt against an explicit store. Returns
+    def gen_prefill(self, tokens, state):
+        """Prefill one prompt with ``state``'s weights. Returns
         ``(first_token (1,) int32 device tensor, state rows)``; the caller
         reads the token and adopts the rows into a slot before the next
-        prefill of the same bucket, which writes them again."""
+        prefill of the same bucket and state, which writes them again."""
         self._require_gen()
         arr = _np.asarray(tokens).reshape(-1)
         plen = int(arr.shape[0])
         if plen < 1:
             raise ValueError("empty prompt")
         L = self.gen_bucket_for(plen)
-        program = self.gen_prefill_program(L, param_vals, aux_vals)
+        program = self.gen_prefill_program(L, state)
         padded = _np.zeros((1, L), _np.float32)
         padded[0, :plen] = arr
         program.tokens.copy_(torch.from_numpy(padded))
@@ -661,11 +950,11 @@ class InferenceEngine:
         self._note("gen_prefills")
         return first, rows
 
-    def gen_step(self, state, param_vals, aux_vals):
+    def gen_step(self, state):
         """One decode step over a lane's state; returns ``(next tokens
         (K,) int32 on the device, state)``, the state advanced in place."""
         self._require_gen()
-        nxt = self.gen_decode_program(state, param_vals, aux_vals)()
+        nxt = self.gen_decode_program(state)()
         self._note("gen_steps")
         return nxt, state
 

@@ -79,14 +79,17 @@ def _engine(seed=7, alibi=False, cache_len=S, copy_next=False):
 
 def _oracle(eng, prompt, n):
     """Greedy continuation by full recompute: the growing prompt
-    prefilled again each step, no cache reused."""
-    params, aux, _v = eng._resolve_store(None)
+    prefilled again each step, no cache reused (a lane state of the
+    stable version lends its weights)."""
+    state = eng.gen_state_init(4)
     cur, out = list(prompt), []
-    for _ in range(n):
-        first, _rows = eng.gen_prefill(np.asarray(cur, np.int32), params,
-                                       aux)
-        out.append(int(first[0]))
-        cur.append(out[-1])
+    try:
+        for _ in range(n):
+            first, _rows = eng.gen_prefill(np.asarray(cur, np.int32), state)
+            out.append(int(first[0]))
+            cur.append(out[-1])
+    finally:
+        eng.gen_state_release(state)
     return out
 
 
@@ -140,8 +143,9 @@ def test_engine_detects_generate_contract():
     assert spec["prefill_buckets"] == [4, 8, 16]
     assert spec["slots"] == 4
     assert eng._gen["in_place"]
-    # predict 1 + prefill 3 + decode + adopt
-    assert eng.cache.compiles == 6
+    # predict 1, adopt 1, and for each of the 2 lane states (their own
+    # weight buffers, so a swap builds nothing) prefill 3 + decode
+    assert eng.cache.compiles == 1 + 1 + 2 * (3 + 1)
     plain = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=3,
                                   name="fc")
     eng2 = InferenceEngine(plain, {"fc_weight": np.zeros((3, 4), "f"),
@@ -173,14 +177,12 @@ def test_decode_writes_the_lane_state_in_place():
     """A decode step writes one row a slot into the state's own caches:
     the same storage before and after, every other row untouched."""
     eng = _engine()
-    params, aux, _v = eng._resolve_store(None)
     state = eng.gen_state_init(4)
-    first, rows = eng.gen_prefill(np.asarray([3, 1, 4], np.int32), params,
-                                  aux)
+    first, rows = eng.gen_prefill(np.asarray([3, 1, 4], np.int32), state)
     eng.gen_adopt(state, first, 3, rows, 2)
     ptrs = [c.data_ptr() for c in state.states]
     before = [c.clone() for c in state.states]
-    nxt, state2 = eng.gen_step(state, params, aux)
+    nxt, state2 = eng.gen_step(state)
     assert state2 is state
     assert [c.data_ptr() for c in state.states] == ptrs
     assert state.pos.tolist() == [1, 1, 4, 1]
@@ -219,7 +221,7 @@ def test_generate_against_oneshot_model_is_an_error(sched_of):
     verdict = sched_of(eng).submit("r", [1, 2], 4)
     assert verdict[0] == "err" and "not generative" in verdict[1]
     with pytest.raises(ValueError, match="not generative"):
-        eng.gen_prefill([1, 2], (), ())
+        eng.gen_prefill([1, 2], None)
 
 
 def test_continuous_batching_joins_and_leaves(sched_of):
@@ -272,6 +274,28 @@ def test_live_swap_never_tears_an_inflight_sequence(sched_of):
     assert toks1 == _oracle(eng, [3, 1, 4], 12)
     verdict = sched.submit("pin", [3, 1, 4], 4, version=99, pinned=True)
     assert verdict[0] == "err" and "no longer resident" in verdict[1]
+
+
+def test_swap_builds_no_program(sched_of):
+    """Three swaps, each followed by a generate, build no program: the
+    lane states' programs read their own weight buffers, into which a
+    lane copies its version when it opens, so ``compiles`` stays where
+    the first generate left it, as ``mxtpu``'s engine's does (each swap
+    is a program-cache hit there). Each generate answers from its new
+    version with that version's tokens."""
+    eng = _engine(seed=7, cache_len=32)
+    sched = sched_of(eng)
+    _generate(sched, [3, 1, 4], 6)
+    base = eng.stats()["compiles"]
+    got = []
+    for i in range(1, 4):
+        eng.swap_weights(_lm_params(7 + i))
+        toks, info = _generate(sched, [3, 1, 4], 6)
+        assert info["version"] == i
+        got.append(toks)
+    assert eng.stats()["compiles"] == base, "a swap built programs"
+    assert got[-1] == _oracle(eng, [3, 1, 4], 6)
+    assert got[0] != got[-1]
 
 
 def test_deadline_and_dropped_step(sched_of):

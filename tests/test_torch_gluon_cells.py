@@ -445,12 +445,14 @@ def test_concurrent_and_identity():
     x = np.random.RandomState(0).randn(4, 5).astype("f")
 
     def build(pkg):
+        # named prefixes: the packages' block counters need not agree when
+        # other files built blocks in the same process first
         cnn, nn = pkg.gluon.contrib.nn, pkg.gluon.nn
         net = cnn.HybridConcurrent(axis=1)
-        net.add(nn.Dense(3, in_units=5), cnn.Identity(),
-                nn.Dense(2, in_units=5))
+        net.add(nn.Dense(3, in_units=5, prefix="cat_a_"), cnn.Identity(),
+                nn.Dense(2, in_units=5, prefix="cat_b_"))
         net2 = cnn.Concurrent(axis=1)
-        net2.add(cnn.Identity(), nn.Dense(2, in_units=5))
+        net2.add(cnn.Identity(), nn.Dense(2, in_units=5, prefix="cat_c_"))
         return net, net2
     mnets = build(mx)
     for n in mnets:

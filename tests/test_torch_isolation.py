@@ -122,3 +122,65 @@ def test_imports_and_runs_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+SERVING_SLICE = ("mxtpu_torch/fault.py", "mxtpu_torch/profiler.py",
+                 "mxtpu_torch/kvstore_async.py", "mxtpu_torch/obs/metrics.py",
+                 "mxtpu_torch/obs/trace.py", "mxtpu_torch/serving/engine.py",
+                 "mxtpu_torch/serving/batcher.py",
+                 "mxtpu_torch/serving/server.py",
+                 "mxtpu_torch/serving/client.py",
+                 "mxtpu_torch/serving/rollout.py",
+                 "mxtpu_torch/serving/__main__.py",
+                 "mxtpu_torch/serving/__init__.py")
+
+
+def test_scan_covers_the_serving_wire_slice():
+    """The glob finds the modules of the serving replica over the wire:
+    the transport, faults, metrics and traces, the server, client,
+    rollout and the replica process."""
+    for rel in SERVING_SLICE:
+        assert ROOT / rel in PORT_FILES
+
+
+def test_serves_over_the_wire_without_jax():
+    """With JAX and mxtpu unimportable: a replica on the CPU, a client
+    over real sockets, a published weight version followed, a traced
+    request, and no JAX or mxtpu module loaded."""
+    code = (
+        "import sys, tempfile\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mxtpu'] = None\n"
+        "import numpy as np\n"
+        "before = set(sys.modules)\n"
+        "import mxtpu_torch as mt\n"
+        "from mxtpu_torch import kvstore_async as ka, obs, profiler\n"
+        "from mxtpu_torch.serving import (InferenceEngine, ModelServer,"
+        " ServingClient, WeightPublisher, WeightSync)\n"
+        "ka._LOCAL_ON = False\n"
+        "net = mt.sym.FullyConnected(mt.sym.var('data'), num_hidden=3,"
+        " name='fc')\n"
+        "p = {'fc_weight': np.ones((3, 4), 'f'),"
+        " 'fc_bias': np.zeros(3, 'f')}\n"
+        "eng = InferenceEngine(net, p, {}, {'data': (4,)}, buckets=(2,),"
+        " ctx=mt.cpu(), warm=False)\n"
+        "srv = ModelServer(eng, model_name='m').start()\n"
+        "d = tempfile.mkdtemp()\n"
+        "WeightPublisher(d).publish({k: v * 2 for k, v in p.items()})\n"
+        "assert WeightSync(srv, weight_dir=d).catch_up() == 1\n"
+        "cli = ServingClient(addrs=[srv.address])\n"
+        "tok = obs.start_trace()\n"
+        "out, info = cli.predict2(np.ones((1, 4), 'f'))\n"
+        "obs.end_trace(tok)\n"
+        "assert out[0].tolist() == [[8.0, 8.0, 8.0]], out\n"
+        "assert info['version'] == 1\n"
+        "assert any(e['name'] == 'serve.batch.dispatch'"
+        " for e in profiler.snapshot_events())\n"
+        "srv.stop()\n"
+        "assert not [m for m in set(sys.modules) - before\n"
+        "            if m.split('.')[0] in ('jax', 'jaxlib', 'mxtpu')]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
